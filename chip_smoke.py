@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path on one GPU and hold every
+"""Drive the PyTorch/CUDA port's serving paths on one GPU and hold every
 hand-written kernel against its plain PyTorch version.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
@@ -7,35 +7,59 @@ hand-written kernel against its plain PyTorch version.
 Phases, in order; a failure in any of them ends the run with a traceback
 and a nonzero exit code, and no result line:
 
-1. build    compile every kernel under protein_clip_tpu_torch/csrc/ with
-            nvcc for sm_90a; print the card's name and power limit.
-2. kernels  K1 (segment-masked attention forward) against
-            ops.attention.attention_reference at the serving shapes
-            (NH=20, dh=32, bf16), with padded rows (fully padded query rows
-            included) and packed rows (several segments, gap zeros).
-3. serve    ESM-2 t30_150M in bf16 with seeded random weights and CLIP
-            heads, written as npz; an index of 256 synthetic sequences built
-            with cli.embed; cli.serve's server on an ephemeral port answers
-            /healthz, single-sequence /embed at the 64/128/512/2048 buckets
-            on both sides, a 32-sequence /embed, the binary wire, /topk and
-            16 concurrent clients. The K1 launch count must be 30 per
-            backbone forward.
-4. e2e      the served embeddings against the same sequences encoded with
-            attention_impl="eager": cosine >= 0.999 per row.
-5. times    K1, its plain version and torch's scaled_dot_product_attention
-            at B=16, T=512, NH=20 beside K1's bound; /embed p50 for one
-            sequence, and the same encode called without HTTP; seqs/s at
-            batch 32.
+1. build        compile every kernel under protein_clip_tpu_torch/csrc/ with
+                nvcc for sm_90a, one nvcc per source, all at once; print the
+                card's name and power limit.
+2. kernels      K1 (segment-masked attention forward) against
+                ops.attention.attention_reference at the serving shapes
+                (NH=20, dh=32, bf16), with padded rows (fully padded query
+                rows included) and packed rows (several segments, gap
+                zeros). K4 (FILIP masked max-sim) against
+                ops.filip.maxsim_reference at the scorer's shapes (D=128,
+                f32), with padded masks, an all-masked a-row and b-row, and
+                token counts that are not multiples of 64.
+3. serve        ESM-2 t30_150M in bf16 with seeded random weights and CLIP
+                heads, written as npz; an index of 256 synthetic sequences
+                built with cli.embed; cli.serve's server on an ephemeral port
+                answers /healthz, single-sequence /embed at the
+                64/128/512/2048 buckets on both sides, a 32-sequence /embed,
+                the binary wire, /topk and 16 concurrent clients. The K1
+                launch count must be 30 per backbone forward.
+4. e2e          the served embeddings against the same sequences encoded
+                with attention_impl="eager": cosine >= 0.999 per row.
+5. filip serve  FILIP heads (seeded, written as npz) over the same backbone:
+                a ragged index of 256 sequences built with cli.embed --filip;
+                cli.serve --filip answers /healthz, JSON and binary /embed
+                (with its length prefix) and /topk, whose scores and order
+                are held against the plain max-sim on the card;
+                cli.retrieve --filip returns /topk's hits, and cli.retrieve
+                in CLIP mode runs against phase 3's index. K4 launches once
+                per (64-query, 1024-candidate) block of each scorer call; K1
+                30 times per backbone forward.
+6. filip e2e    the served token embeddings against the same sequences
+                encoded with attention_impl="eager": cosine >= 0.99 for
+                every valid token.
+7. times        K1, its plain version and torch's
+                scaled_dot_product_attention at B=16, T=512, NH=20 beside
+                K1's bound; K4 and its plain version at the /topk and full
+                scorer-block shapes beside K4's bound; /embed p50 for one
+                sequence, and the same encode called without HTTP; seqs/s
+                at batch 32; FILIP /topk p50 for one query, and its parts
+                called without HTTP.
 
-The last two lines of standard output are the kernels line (one JSON
-object per hand-written kernel) and {"ok": true, "device": {...}}.
+The last three lines of standard output are the card's name and power
+limit, the kernels line (one JSON object per hand-written kernel) and
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
 import dataclasses
 import itertools
 import json
+import math
 import shutil
 import statistics
 import subprocess
@@ -48,10 +72,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from protein_clip_tpu_torch.cli import common, embed, serve
+from protein_clip_tpu_torch.cli import common, embed, retrieve, serve
+from protein_clip_tpu_torch.eval import retrieval
 from protein_clip_tpu_torch.kernels import build
-from protein_clip_tpu_torch.models import clip, esm2
+from protein_clip_tpu_torch.models import clip, esm2, filip
 from protein_clip_tpu_torch.ops import attention
+from protein_clip_tpu_torch.ops import filip as maxsim
 from protein_clip_tpu_torch.train.checkpoint import export_npz
 
 ROOT = Path(__file__).resolve().parent
@@ -68,8 +94,18 @@ KERNEL_SHAPES = ((1, 64), (16, 128), (16, 512), (4, 2048))
 # rms(ref); a kernel that drops the last key tile needs 2.4 rms(ref) or more.
 ATOL_RMS, RTOL = 2 ** -5, 2e-2
 COSINE_MIN = 0.999
+# K4 against its plain version, both f32: the same products summed in
+# another order, in means of maxima of unit-vector dot products (|x| <= 1).
+K4_ATOL = 2e-5
+K4_SHAPES = ((1, 256, 128, 512), (4, 256, 320, 512), (16, 64, 32, 2048),
+             (64, 1024, 256, 192), (5, 300, 77, 333))    # (Ba, Bb, TA, TB)
+K4_TIME_SHAPES = ((4, 256, 128, 512), (64, 1024, 256, 256))
+FILIP_D = 128
+FILIP_COSINE_MIN = 0.99
 H100_BF16_FLOPS = 989e12              # dense tensor-core peak, SXM, 700 W
+H100_F32_FLOPS = 67e12                # f32 on the CUDA cores (no tensor cores), SXM
 H100_BYTES_PER_S = 3.35e12
+KERNELS = ("attention_fwd", "filip_maxsim")
 AAS = "LAGVSERTIDPKQNFYMHWC"
 
 
@@ -158,9 +194,71 @@ def check_attention(gen: torch.Generator) -> float:
     return worst
 
 
+def maxsim_inputs(Ba: int, Bb: int, TA: int, TB: int, gen: torch.Generator):
+    """Unit-norm f32 tokens and padded 0/1 masks (true lengths over
+    [T/4, T]); when Ba > 1 one a-row, and always one b-row, has no valid
+    token (the clamp path)."""
+    def tokens(B, T):
+        x = torch.randn(B, T, FILIP_D, device="cuda", generator=gen)
+        return torch.nn.functional.normalize(x, dim=-1)
+
+    def mask(B, T):
+        lengths = torch.randint(max(1, T // 4), T + 1, (B, 1), device="cuda", generator=gen)
+        return (torch.arange(T, device="cuda")[None, :] < lengths).to(torch.int32)
+
+    ma, mb = mask(Ba, TA), mask(Bb, TB)
+    if Ba > 1:
+        ma[Ba // 2] = 0
+    mb[Bb // 2] = 0
+    return tokens(Ba, TA), tokens(Bb, TB), ma, mb
+
+
+def check_maxsim(gen: torch.Generator) -> float:
+    worst = 0.0
+    for Ba, Bb, TA, TB in K4_SHAPES:
+        ha, hb, ma, mb = maxsim_inputs(Ba, Bb, TA, TB, gen)
+        got = maxsim.filip_similarity_fused(ha, hb, ma, mb, 1.0)
+        torch.cuda.synchronize()
+        want = maxsim.maxsim_reference(ha, hb, ma, mb)
+        errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
+        ok = all(bool(torch.isfinite(g).all()) for g in got) and max(errs) <= K4_ATOL
+        empty_ok = bool((got[1][:, Bb // 2] == 0).all()) and (
+            Ba == 1 or bool((got[0][Ba // 2] == 0).all()))
+        worst = max(worst, *errs)
+        log(f"[kernels] filip_maxsim (Ba, Bb, TA, TB)=({Ba}, {Bb}, {TA}, {TB}) D={FILIP_D}: "
+            f"max|err| oa {errs[0]:.6g}, ob {errs[1]:.6g} (tolerance {K4_ATOL:g}); "
+            f"empty rows score 0: {empty_ok} {'ok' if ok and empty_ok else 'FAIL'}")
+        if not (ok and empty_ok):
+            raise AssertionError(f"filip_maxsim disagrees with its plain version at "
+                                 f"({Ba}, {Bb}, {TA}, {TB})")
+    return worst
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: the serving path
 # ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def counted_forwards():
+    """Record the shape of every backbone forward while the block runs."""
+    forwards = []
+    plain_forward = esm2.forward
+
+    def counted_forward(params, ids, mask, c):
+        forwards.append(tuple(ids.shape))
+        return plain_forward(params, ids, mask, c)
+
+    esm2.forward = counted_forward
+    try:
+        yield forwards
+    finally:
+        esm2.forward = plain_forward
+
+
+def reset_counts() -> None:
+    attention.fused_attention.launches = 0
+    maxsim.filip_similarity_fused.launches = 0
+
 
 def synthetic_seqs(rng: np.random.Generator, lengths) -> list[str]:
     return ["".join(rng.choice(list(AAS), int(n))) for n in lengths]
@@ -234,84 +332,80 @@ def run_serve_phase(rng: np.random.Generator) -> dict:
     model_args = ["--checkpoint", str(WORK / "best_model.npz"),
                   "--esm-weights", str(WORK / "esm_t30_150M.npz"), "--batch-size", "32"]
 
-    # Count backbone forwards beside the kernel's launches.
-    forwards = []
-    plain_forward = esm2.forward
+    # Count backbone forwards beside the kernels' launches.
+    with counted_forwards() as forwards:
+        reset_counts()
+        embed.main(model_args + ["--fasta", str(fasta), "--side", "rec",
+                                 "--out", str(WORK / "index.npz")])
+        args = serve.build_argparser().parse_args(
+            model_args + ["--index", str(WORK / "index.npz"), "--port", "0"])
+        server = serve.make_server(args)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        out: dict = {"base": base, "server": server, "thread": thread, "mcfg": mcfg,
+                     "esm_params": esm_params, "heads": heads, "model_args": model_args}
 
-    def counted_forward(params, ids, mask, c):
-        forwards.append(tuple(ids.shape))
-        return plain_forward(params, ids, mask, c)
+        health = json.loads(call(base, "/healthz")[1])
+        if not (health["status"] == "ok" and health["index_size"] == 256
+                and health["filip"] is False):
+            raise AssertionError(f"/healthz {health}")
+        log(f"[serve] /healthz {health}")
 
-    esm2.forward = counted_forward
-    attention.fused_attention.launches = 0
-    embed.main(model_args + ["--fasta", str(fasta), "--side", "rec",
-                             "--out", str(WORK / "index.npz")])
-    args = serve.build_argparser().parse_args(
-        model_args + ["--index", str(WORK / "index.npz"), "--port", "0"])
-    server = serve.make_server(args)
-    thread = threading.Thread(target=server.serve_forever, daemon=True)
-    thread.start()
-    base = f"http://127.0.0.1:{server.server_address[1]}"
-    out: dict = {"base": base, "server": server, "thread": thread, "mcfg": mcfg,
-                 "esm_params": esm_params, "heads": heads}
+        singles = {}  # (side, bucket) -> (seq, embedding)
+        for bucket, n in ((64, 40), (128, 100), (512, 400), (2048, 1800)):
+            seq = synthetic_seqs(rng, [n])[0]
+            for side in ("pep", "rec"):
+                singles[(side, bucket)] = (seq, embed_json(base, [seq], side)[0])
+        log(f"[serve] single-sequence /embed at buckets 64/128/512/2048, both sides: ok")
 
-    health = json.loads(call(base, "/healthz")[1])
-    assert health["status"] == "ok" and health["index_size"] == 256, health
-    log(f"[serve] /healthz {health}")
+        batch32 = synthetic_seqs(rng, rng.integers(50, 300, 32))
+        emb32 = embed_json(base, batch32, "rec")
+        headers, body = call(base, "/embed", {"sequences": batch32, "side": "rec"},
+                             {"Accept": "application/octet-stream"})
+        shape = tuple(int(d) for d in headers["X-Shape"].split(","))
+        wire = np.frombuffer(body, "<f4").reshape(shape)
+        if shape != emb32.shape or not np.array_equal(wire, emb32):
+            raise AssertionError("binary /embed differs from the JSON path")
+        log(f"[serve] 32-sequence /embed {emb32.shape}, binary wire bit-equal to JSON")
 
-    singles = {}  # (side, bucket) -> (seq, embedding)
-    for bucket, n in ((64, 40), (128, 100), (512, 400), (2048, 1800)):
-        seq = synthetic_seqs(rng, [n])[0]
-        for side in ("pep", "rec"):
-            singles[(side, bucket)] = (seq, embed_json(base, [seq], side)[0])
-    log(f"[serve] single-sequence /embed at buckets 64/128/512/2048, both sides: ok")
+        queries = batch32[:4]
+        hits = post_json(base, "/topk", {"queries": queries, "side": "pep", "k": 10})["hits"]
+        qemb = embed_json(base, queries, "pep")
+        with np.load(WORK / "index.npz") as index:
+            ids, corpus = index["ids"], index["embeddings"]
+        want = np.argsort(-(qemb @ corpus.T), axis=1)[:, :10]
+        for q, row in enumerate(hits):
+            got_ids = [h["id"] for h in row]
+            if [h["rank"] for h in row] != list(range(1, 11)) or got_ids != [
+                    str(ids[i]) for i in want[q]]:
+                raise AssertionError(f"/topk order wrong for query {q}")
+            if not all(np.isfinite(h["score"]) for h in row):
+                raise AssertionError("/topk returned a non-finite score")
+        log(f"[serve] /topk k=10 over the 256-sequence index: order ok")
 
-    batch32 = synthetic_seqs(rng, rng.integers(50, 300, 32))
-    emb32 = embed_json(base, batch32, "rec")
-    headers, body = call(base, "/embed", {"sequences": batch32, "side": "rec"},
-                         {"Accept": "application/octet-stream"})
-    shape = tuple(int(d) for d in headers["X-Shape"].split(","))
-    wire = np.frombuffer(body, "<f4").reshape(shape)
-    if shape != emb32.shape or not np.array_equal(wire, emb32):
-        raise AssertionError("binary /embed differs from the JSON path")
-    log(f"[serve] 32-sequence /embed {emb32.shape}, binary wire bit-equal to JSON")
+        for attempt in range(3):
+            delta = concurrent_burst(base)
+            log(f"[serve] 16 concurrent clients x 4 requests: {delta}")
+            if delta["requests"] != 64 or delta["sequences"] != 64:
+                raise AssertionError(f"/metrics lost requests: {delta}")
+            if delta["device_batches"] < delta["requests"]:
+                break
+        else:
+            raise AssertionError("no coalescing in 3 bursts of 16 concurrent clients")
+        metrics = json.loads(call(base, "/metrics")[1])
+        log(f"[serve] /metrics {metrics}")
 
-    queries = batch32[:4]
-    hits = post_json(base, "/topk", {"queries": queries, "side": "pep", "k": 10})["hits"]
-    qemb = embed_json(base, queries, "pep")
-    with np.load(WORK / "index.npz") as index:
-        ids, corpus = index["ids"], index["embeddings"]
-    want = np.argsort(-(qemb @ corpus.T), axis=1)[:, :10]
-    for q, row in enumerate(hits):
-        got_ids = [h["id"] for h in row]
-        if [h["rank"] for h in row] != list(range(1, 11)) or got_ids != [
-                str(ids[i]) for i in want[q]]:
-            raise AssertionError(f"/topk order wrong for query {q}")
-        if not all(np.isfinite(h["score"]) for h in row):
-            raise AssertionError("/topk returned a non-finite score")
-    log(f"[serve] /topk k=10 over the 256-sequence index: order ok")
-
-    for attempt in range(3):
-        delta = concurrent_burst(base)
-        log(f"[serve] 16 concurrent clients x 4 requests: {delta}")
-        if delta["requests"] != 64 or delta["sequences"] != 64:
-            raise AssertionError(f"/metrics lost requests: {delta}")
-        if delta["device_batches"] < delta["requests"]:
-            break
-    else:
-        raise AssertionError("no coalescing in 3 bursts of 16 concurrent clients")
-    metrics = json.loads(call(base, "/metrics")[1])
-    log(f"[serve] /metrics {metrics}")
-
-    esm2.forward = plain_forward
-    launches = attention.fused_attention.launches
+        launches = attention.fused_attention.launches
+        k4_launches = maxsim.filip_similarity_fused.launches
     if not forwards or launches != cfg.num_layers * len(forwards):
         raise AssertionError(f"attention_fwd launched {launches} times for "
                              f"{len(forwards)} backbone forwards; want "
                              f"{cfg.num_layers} per forward")
     log(f"[serve] {len(forwards)} backbone forwards, attention_fwd launches {launches} "
-        f"= {cfg.num_layers} per forward")
-    out.update(launches=launches, singles=singles, batch32=batch32, emb32=emb32)
+        f"= {cfg.num_layers} per forward; filip_maxsim launches {k4_launches}")
+    out.update(launches={"attention_fwd": launches, "filip_maxsim": k4_launches},
+               singles=singles, batch32=batch32, emb32=emb32)
     return out
 
 
@@ -344,7 +438,206 @@ def check_end_to_end(ctx: dict) -> float:
 
 
 # ---------------------------------------------------------------------------
-# Phase 5: times
+# Phase 5: the FILIP serving path
+# ---------------------------------------------------------------------------
+
+def scorer_blocks(n_queries: int, n_index: int) -> int:
+    """Kernel launches of one ragged scorer call: one per (64-query,
+    1024-candidate) block."""
+    return math.ceil(n_queries / 64) * math.ceil(n_index / 1024)
+
+
+def plain_filip_scores(q_tokens: np.ndarray, q_lengths, index_path: Path,
+                       temperature) -> tuple[np.ndarray, np.ndarray]:
+    """(Q, N) direction-averaged scores of the queries against the whole
+    ragged index by the plain max-sim on the card, and the index ids."""
+    with np.load(index_path) as index:
+        ids, flat, lengths = index["ids"], index["tokens"], index["lengths"]
+    tb = 64 * math.ceil(int(lengths.max()) / 64)
+    hb = np.zeros((len(ids), tb, flat.shape[1]), np.float32)
+    for r, (start, n) in enumerate(zip(np.cumsum(lengths) - lengths, lengths)):
+        hb[r, :n] = flat[start:start + n]
+    mb = (np.arange(tb)[None, :] < lengths[:, None]).astype(np.int32)
+    qm = (np.arange(q_tokens.shape[1])[None, :] < np.asarray(q_lengths)[:, None]).astype(np.int32)
+    sa, sb = maxsim.maxsim_reference(*(torch.from_numpy(a).cuda()
+                                       for a in (q_tokens, hb, qm, mb)))
+    t = maxsim.clamped_temperature(temperature)
+    return ((sa + sb) / 2 / t).cpu().numpy(), ids
+
+
+def check_hits(name: str, got_ids: list[str], got_scores, plain_row: np.ndarray,
+               ids: np.ndarray) -> float:
+    """Each hit's plain score equals its returned score and the plain top-k
+    score at its rank, within K4_ATOL (near-ties may swap, nothing else);
+    returns the largest score difference."""
+    pos = {str(x): i for i, x in enumerate(ids)}
+    top = np.sort(plain_row)[::-1]
+    worst = 0.0
+    if len(set(got_ids)) != len(got_ids):
+        raise AssertionError(f"{name}: repeated ids {got_ids}")
+    for r, (hid, score) in enumerate(zip(got_ids, got_scores)):
+        plain = float(plain_row[pos[hid]])
+        worst = max(worst, abs(score - plain), abs(plain - float(top[r])))
+    if not worst <= K4_ATOL:
+        raise AssertionError(f"{name}: hits disagree with the plain scores by {worst:g}")
+    return worst
+
+
+def read_tsv(path: Path, k: int) -> list[list[tuple[str, float]]]:
+    lines = path.read_text().splitlines()
+    if lines[0] != "query_id\trank\thit_id\tscore":
+        raise AssertionError(f"{path.name}: header {lines[0]!r}")
+    rows = [ln.split("\t") for ln in lines[1:]]
+    return [[(h, float(sc)) for _, _, h, sc in rows[q * k:(q + 1) * k]]
+            for q in range(len(rows) // k)]
+
+
+def run_filip_phase(ctx: dict, rng: np.random.Generator) -> dict:
+    """FILIP heads over the same backbone: embed --filip, serve --filip,
+    retrieve (both modes)."""
+    cfg = ctx["mcfg"].esm
+    fcfg = filip.FILIPConfig(input_dim=cfg.hidden_size, embedding_dim=FILIP_D, esm=cfg)
+    fheads = filip.init_params(fcfg, torch.Generator().manual_seed(SEED + 1), device="cuda")
+    export_npz(WORK / "filip_heads.npz", fheads)
+    corpus = synthetic_seqs(rng, rng.integers(30, 500, 256))
+    (WORK / "filip_corpus.fasta").write_text(
+        "".join(f">f{i}\n{s}\n" for i, s in enumerate(corpus)))
+    queries = synthetic_seqs(rng, [24, 100, 300, 450])       # buckets 32 to 512
+    (WORK / "queries.fasta").write_text("".join(f">q{i}\n{s}\n" for i, s in enumerate(queries)))
+    model_args = ["--checkpoint", str(WORK / "filip_heads.npz"),
+                  "--esm-weights", str(WORK / "esm_t30_150M.npz"), "--batch-size", "32"]
+    index_path = WORK / "filip_index.npz"
+    k, n_index = 10, len(corpus)
+    blocks = scorer_blocks(len(queries), n_index)
+
+    def k4_calls(what: str, before: int) -> None:
+        got = maxsim.filip_similarity_fused.launches - before
+        if got != blocks:
+            raise AssertionError(f"{what}: filip_maxsim launched {got} times, want {blocks}")
+
+    with counted_forwards() as forwards:
+        reset_counts()
+        embed.main(model_args + ["--filip", "--fasta", str(WORK / "filip_corpus.fasta"),
+                                 "--side", "rec", "--out", str(index_path)])
+        with np.load(index_path) as index:
+            lengths = index["lengths"]
+            if index["tokens"].shape != (int(lengths.sum()), FILIP_D) or len(lengths) != 256:
+                raise AssertionError("embed --filip wrote a malformed index")
+        log(f"[filip] embed --filip: ragged index of {len(lengths)} sequences, "
+            f"{int(lengths.sum())} tokens, lengths {int(lengths.min())}-{int(lengths.max())}")
+        args = serve.build_argparser().parse_args(
+            model_args + ["--index", str(index_path), "--port", "0", "--filip"])
+        server = serve.make_server(args)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        out: dict = {"base": base, "server": server, "thread": thread, "fcfg": fcfg,
+                     "fheads": fheads, "queries": queries, "index_path": index_path,
+                     "corpus": corpus}
+        health = json.loads(call(base, "/healthz")[1])
+        if not (health["filip"] is True and health["index_size"] == 256):
+            raise AssertionError(f"/healthz {health}")
+        log(f"[filip] /healthz {health}")
+
+        js = post_json(base, "/embed", {"sequences": queries, "side": "pep"})
+        q_tokens = np.asarray(js["tokens"], np.float32)
+        headers, body = call(base, "/embed", {"sequences": queries, "side": "pep"},
+                             {"Accept": "application/octet-stream"})
+        n_pre = int(headers["X-Prefix-Len"])
+        prefix = np.frombuffer(body[:4 * n_pre], "<i4").tolist()
+        shape = tuple(int(d) for d in headers["X-Shape"].split(","))
+        wire = np.frombuffer(body[4 * n_pre:], "<f4").reshape(shape)
+        true_lengths = [len(q) + 2 for q in queries]
+        if not (np.isfinite(q_tokens).all() and q_tokens.shape == (4, 512, FILIP_D)):
+            raise AssertionError(f"/embed tokens {q_tokens.shape} or non-finite")
+        if not (np.array_equal(wire, q_tokens) and prefix == js["lengths"] == true_lengths):
+            raise AssertionError("binary /embed or its length prefix differs from JSON")
+        log(f"[filip] /embed JSON {q_tokens.shape}; binary bit-equal, prefix {prefix} "
+            f"= true lengths")
+
+        before = maxsim.filip_similarity_fused.launches
+        hits = post_json(base, "/topk", {"queries": queries, "side": "pep", "k": k})["hits"]
+        k4_calls("/topk", before)
+        plain, ids = plain_filip_scores(q_tokens, prefix, index_path, fheads["temperature"])
+        worst = 0.0
+        for q, row in enumerate(hits):
+            if [h["rank"] for h in row] != list(range(1, k + 1)):
+                raise AssertionError(f"/topk ranks {row}")
+            worst = max(worst, check_hits(f"/topk query {q}", [h["id"] for h in row],
+                                          [h["score"] for h in row], plain[q], ids))
+        log(f"[filip] /topk k={k}, {len(queries)} queries over {n_index}: {blocks} "
+            f"filip_maxsim launch(es); scores and order within {worst:.3g} of the plain "
+            f"max-sim")
+
+        before = maxsim.filip_similarity_fused.launches
+        retrieve.main(model_args + ["--filip", "--index", str(index_path), "--queries",
+                                    str(WORK / "queries.fasta"), "--side", "pep", "--k",
+                                    str(k), "--out", str(WORK / "filip_hits.tsv")])
+        k4_calls("retrieve --filip", before)
+        tsv = read_tsv(WORK / "filip_hits.tsv", k)
+        for q, row in enumerate(tsv):
+            check_hits(f"retrieve --filip query {q}", [h for h, _ in row],
+                       [sc for _, sc in row], plain[q], ids)
+        same = sum([h for h, _ in row] == [x["id"] for x in hits_row]
+                   for row, hits_row in zip(tsv, hits))
+        log(f"[filip] retrieve --filip: {len(tsv)} queries, {same} with /topk's ids in "
+            f"/topk's order, all within {K4_ATOL:g} of the plain scores at each rank")
+
+        retrieve.main(ctx["model_args"] + ["--index", str(WORK / "index.npz"), "--queries",
+                                           str(WORK / "queries.fasta"), "--side", "pep",
+                                           "--k", str(k), "--out", str(WORK / "clip_hits.tsv")])
+        qemb = embed.embed_sequences(ctx["heads"], ctx["esm_params"], queries, "pep",
+                                     ctx["mcfg"], common.make_tokenizer(),
+                                     torch.device("cuda"), batch_size=32)
+        with np.load(WORK / "index.npz") as index:
+            clip_ids, clip_emb = index["ids"], index["embeddings"]
+        clip_scores = qemb @ clip_emb.T
+        for q, row in enumerate(read_tsv(WORK / "clip_hits.tsv", k)):
+            check_hits(f"retrieve (CLIP) query {q}", [h for h, _ in row],
+                       [sc for _, sc in row], clip_scores[q], clip_ids)
+        log(f"[filip] retrieve (CLIP mode) against the 256-sequence CLIP index: ok")
+
+        k1 = attention.fused_attention.launches
+        k4 = maxsim.filip_similarity_fused.launches
+    if not forwards or k1 != cfg.num_layers * len(forwards):
+        raise AssertionError(f"attention_fwd launched {k1} times for {len(forwards)} "
+                             f"backbone forwards; want {cfg.num_layers} per forward")
+    if k4 != 2 * blocks:
+        raise AssertionError(f"filip_maxsim launched {k4} times; want {2 * blocks}")
+    log(f"[filip] {len(forwards)} backbone forwards, attention_fwd launches {k1} = "
+        f"{cfg.num_layers} per forward; filip_maxsim launches {k4}")
+    out.update(launches={"attention_fwd": k1, "filip_maxsim": k4}, q_tokens=q_tokens,
+               q_lengths=prefix)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: FILIP tokens end to end against the plain attention
+# ---------------------------------------------------------------------------
+
+def check_filip_end_to_end(ctx: dict, fctx: dict) -> float:
+    eager = dataclasses.replace(fctx["fcfg"], esm=dataclasses.replace(
+        fctx["fcfg"].esm, attention_impl="eager"))
+    toks, mask = embed.embed_sequences_tokens(fctx["fheads"], ctx["esm_params"],
+                                              fctx["queries"], "pep", eager,
+                                              common.make_tokenizer(), torch.device("cuda"),
+                                              batch_size=32, pad_batch=True)
+    served = fctx["q_tokens"]
+    valid = mask.astype(bool)
+    if toks.shape != served.shape or valid.sum(1).tolist() != fctx["q_lengths"]:
+        raise AssertionError(f"eager tokens {toks.shape} vs served {served.shape}")
+    a, b = served[valid], toks[valid]
+    cos = (a * b).sum(1) / (np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1))
+    log(f"[filip e2e] served (kernel) vs eager attention, {len(cos)} valid tokens: "
+        f"min cosine {cos.min():.6f}, median {np.median(cos):.6f} "
+        f"(need min >= {FILIP_COSINE_MIN})")
+    if not cos.min() >= FILIP_COSINE_MIN:
+        raise AssertionError(f"FILIP tokens drift from the eager path: cosine {cos.min()}")
+    return float(cos.min())
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: times
 # ---------------------------------------------------------------------------
 
 def time_attention(gen: torch.Generator, gpu: str) -> dict:
@@ -383,6 +676,35 @@ def time_attention(gen: torch.Generator, gpu: str) -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+def maxsim_bound(Ba: int, Bb: int, TA: int, TB: int, D: int) -> tuple[float, str, str]:
+    """(bound ms, what bounds it, the counts): 2*Ba*Bb*TA*TB*D f32 FLOP on
+    the CUDA cores against tokens, masks and outputs moved once."""
+    flops = 2 * Ba * Bb * TA * TB * D
+    nbytes = 4 * (Ba * TA * D + Bb * TB * D) + 4 * (Ba * TA + Bb * TB) + 8 * Ba * Bb
+    t_ops, t_bytes = flops / H100_F32_FLOPS, nbytes / H100_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes), "bytes" if t_bytes >= t_ops else "operations",
+            f"{flops / 1e9:.4f} GFLOP, {nbytes / 1e6:.4f} MB")
+
+
+def time_maxsim(gen: torch.Generator, gpu: str) -> list[dict]:
+    """K4 and its plain version at the /topk shape and one full block of the
+    ragged scorer. No single PyTorch call computes masked max-sim, so there
+    is no library time."""
+    rows = []
+    for (Ba, Bb, TA, TB), iters in zip(K4_TIME_SHAPES, (50, 5)):
+        ha, hb, ma, mb = maxsim_inputs(Ba, Bb, TA, TB, gen)
+        ms = cuda_ms(lambda: maxsim.filip_similarity_fused(ha, hb, ma, mb, 1.0), iters)
+        plain_ms = cuda_ms(lambda: maxsim.maxsim_reference(ha, hb, ma, mb), 3, warmup=1)
+        bound_ms, bound_by, counts = maxsim_bound(Ba, Bb, TA, TB, FILIP_D)
+        log(f"[time] filip_maxsim (Ba, Bb, TA, TB)=({Ba}, {Bb}, {TA}, {TB}) D={FILIP_D}: "
+            f"kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, library none, bound "
+            f"{bound_ms:.6f} ms ({bound_by}: {counts}; f32 peak {H100_F32_FLOPS / 1e12:g} "
+            f"TFLOP/s) = {100 * bound_ms / ms:.2f}% of the bound | {gpu}")
+        rows.append({"shape": [Ba, Bb, TA, TB, FILIP_D], "ms": ms, "plain_ms": plain_ms,
+                     "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by})
+    return rows
+
+
 def time_serving(ctx: dict, rng: np.random.Generator, gpu: str) -> None:
     base = ctx["base"]
     one = synthetic_seqs(rng, [100])
@@ -416,37 +738,127 @@ def time_serving(ctx: dict, rng: np.random.Generator, gpu: str) -> None:
         f"(median of 10 requests) | {gpu}")
 
 
+def time_filip_serving(ctx: dict, fctx: dict, rng: np.random.Generator, gpu: str) -> None:
+    """/topk --filip for one query, and its parts called without HTTP: the
+    token encode, the ragged scorer (host densify + copy + kernel), and the
+    kernel alone at the scorer's shape."""
+    base = fctx["base"]
+    one = synthetic_seqs(rng, [100])
+    before = maxsim.filip_similarity_fused.launches
+    for _ in range(3):
+        post_json(base, "/topk", {"queries": one, "side": "pep", "k": 10})
+    lat = []
+    for _ in range(30):
+        t0 = time.perf_counter()
+        post_json(base, "/topk", {"queries": one, "side": "pep", "k": 10})
+        lat.append(1e3 * (time.perf_counter() - t0))
+    launches = maxsim.filip_similarity_fused.launches - before
+    log(f"[time] /topk --filip 1 query (100 aa, bucket 128) over 256 sequences, k=10: p50 "
+        f"{statistics.median(lat):.4f} ms over 30 requests; {launches} filip_maxsim launches "
+        f"in 33 requests | {gpu}")
+
+    tok, dev = common.make_tokenizer(), torch.device("cuda")
+
+    def p50(fn, n=30):
+        dts = []
+        for _ in range(n + 3):
+            t0 = time.perf_counter()
+            fn()
+            dts.append(1e3 * (time.perf_counter() - t0))
+        return statistics.median(dts[3:])
+
+    q_t, q_m = embed.embed_sequences_tokens(fctx["fheads"], ctx["esm_params"], one, "pep",
+                                            fctx["fcfg"], tok, dev, batch_size=32,
+                                            pad_batch=True)
+    encode_ms = p50(lambda: embed.embed_sequences_tokens(
+        fctx["fheads"], ctx["esm_params"], one, "pep", fctx["fcfg"], tok, dev,
+        batch_size=32, pad_batch=True))
+    with np.load(fctx["index_path"]) as index:
+        flat, lengths = index["tokens"], index["lengths"]
+    t = fctx["fheads"]["temperature"]
+    scorer_ms = p50(lambda: retrieval.filip_score_matrix_ragged(q_t, q_m, flat, lengths, t,
+                                                                device=dev))
+    tb = 64 * math.ceil(int(lengths.max()) / 64)
+    hb = torch.zeros(len(lengths), tb, FILIP_D, device=dev)
+    mb = (torch.arange(tb, device=dev)[None, :]
+          < torch.from_numpy(lengths).to(dev)[:, None]).to(torch.int32)
+    qt, qm = torch.from_numpy(q_t).to(dev), torch.from_numpy(q_m).to(dev).to(torch.int32)
+    kernel_ms = cuda_ms(lambda: maxsim.filip_similarity_fused(qt, hb, qm, mb, t), 50)
+    log(f"[time] /topk --filip parts without HTTP, p50 of 30 calls: token encode "
+        f"{encode_ms:.4f} ms; ragged scorer {scorer_ms:.4f} ms, of which the kernel at "
+        f"(1, {len(lengths)}, {q_t.shape[1]}, {tb}) takes {kernel_ms:.6f} ms and the host "
+        f"densify, copies and sync {scorer_ms - kernel_ms:.4f} ms | {gpu}")
+    corpus = fctx["corpus"]
+    dts = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        embed.embed_sequences_tokens_ragged(fctx["fheads"], ctx["esm_params"], corpus, "rec",
+                                            fctx["fcfg"], tok, dev, batch_size=32)
+        dts.append(time.perf_counter() - t0)
+    log(f"[time] embed --filip encode of the 256-sequence corpus (30-499 aa, batch 32, "
+        f"ragged): {len(corpus) / statistics.median(dts):.4f} seqs/s (median of 3) | {gpu}")
+
+
+def stop(server_ctx: dict) -> None:
+    server_ctx["server"].shutdown()
+    server_ctx["server"].server_close()
+    server_ctx["thread"].join(timeout=60)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card; none is visible", file=sys.stderr)
         return 1
+    # the plain versions' f32 products run in full f32, not TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     gpu = gpu_line()
     log(f"[build] {gpu}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
-    report = build.build("attention_fwd")
-    log(f"[build] attention_fwd: {build.library_path('attention_fwd')}\n{report.strip()}")
+    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
+        reports = list(pool.map(build.build, KERNELS))
+    for name, report in zip(KERNELS, reports):
+        log(f"[build] {name}: {build.library_path(name)}\n{report.strip()}")
     log(f"[build] done in {time.perf_counter() - t0:.1f} s")
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     max_err = check_attention(gen)
+    k4_err = check_maxsim(gen)
     rng = np.random.default_rng(SEED)
     ctx = run_serve_phase(rng)
     try:
         check_end_to_end(ctx)
-        times = time_attention(gen, gpu)
-        time_serving(ctx, rng, gpu)
+        fctx = run_filip_phase(ctx, rng)
+        try:
+            check_filip_end_to_end(ctx, fctx)
+            times = time_attention(gen, gpu)
+            k4_times = time_maxsim(gen, gpu)
+            time_serving(ctx, rng, gpu)
+            time_filip_serving(ctx, fctx, rng, gpu)
+        finally:
+            stop(fctx)
     finally:
-        ctx["server"].shutdown()
-        ctx["server"].server_close()
-        ctx["thread"].join(timeout=60)
+        stop(ctx)
         shutil.rmtree(WORK, ignore_errors=True)
 
+    by_path = {name: {"serve": ctx["launches"][name], "filip_serve": fctx["launches"][name]}
+               for name in KERNELS}
     kernels = [{
         "name": "attention_fwd", "phase": "serve", "route": "cuda",
         "source": "protein_clip_tpu_torch/csrc/attention_fwd.cu",
         "replaces": "protein_clip_tpu/ops/attention_pallas.py:105",
-        "launches": ctx["launches"], "max_abs_err": max_err, **times,
+        "launches": ctx["launches"]["attention_fwd"],
+        "launches_by_path": by_path["attention_fwd"], "max_abs_err": max_err, **times,
+    }, {
+        "name": "filip_maxsim", "phase": "filip_serve", "route": "cuda",
+        "source": "protein_clip_tpu_torch/csrc/filip_maxsim.cu",
+        "replaces": "protein_clip_tpu/ops/filip_pallas.py:33",
+        "launches": fctx["launches"]["filip_maxsim"],
+        "launches_by_path": by_path["filip_maxsim"], "max_abs_err": k4_err,
+        **{key: k4_times[0][key] for key in ("shape", "ms", "plain_ms", "bound_ms",
+                                             "bound_by", "library_ms")},
+        "scorer_block": k4_times[1],
     }]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(gpu_line(), flush=True)

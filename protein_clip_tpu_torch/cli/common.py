@@ -1,6 +1,6 @@
 """Shared CLI wiring for the port's serving entry points (``embed``,
-``serve``): the argument subset they read, the device, the backbone and
-checkpoint loaders, and the tokenizer.
+``serve``, ``retrieve``): the argument subset they read, the device, the
+backbone, checkpoint and token-index loaders, and the tokenizer.
 
 Entry points run on ``cuda`` unless ``--device cpu`` is given; asking for
 CUDA where there is none raises, and nothing falls back to the CPU.
@@ -101,6 +101,28 @@ def load_clip_checkpoint(path, mcfg: clip.CLIPConfig, esm_params: dict,
               "own ESM weights")
         return tree["heads"], tree["esm"]
     return checkpoint.load_npz(path, head_like, device), esm_params
+
+
+def read_token_index(index, embedding_dim: int
+                     ) -> tuple[np.ndarray, np.ndarray | None, np.ndarray | None]:
+    """(tokens, lengths, mask) of an opened FILIP index npz: ``embed
+    --filip``'s ragged {tokens (sum_L, D), lengths (N,)}, or a legacy dense
+    {tokens (N, T, D), mask (N, T)}; the form it lacks is None. Raises on a
+    pooled or malformed index."""
+    if "tokens" not in index:
+        raise ValueError("--filip needs a token-level index from `embed --filip` "
+                         "({ids, tokens, lengths}); this index holds pooled embeddings")
+    tokens = np.asarray(index["tokens"], np.float32)
+    lengths = np.asarray(index["lengths"], np.int32) if "lengths" in index else None
+    mask = np.asarray(index["mask"], np.int32) if "mask" in index else None
+    if lengths is None and mask is None:
+        raise ValueError("malformed FILIP index: has 'tokens' but neither 'lengths' "
+                         "(ragged, what `embed --filip` writes) nor 'mask' (legacy dense); "
+                         "rebuild the index with `embed --filip`")
+    if tokens.shape[-1] != embedding_dim:
+        raise ValueError(f"index token dim {tokens.shape[-1]} != model "
+                         f"--embedding-dim {embedding_dim}")
+    return tokens, lengths, mask
 
 
 def make_tokenizer() -> EsmTokenizer:

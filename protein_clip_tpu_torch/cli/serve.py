@@ -1,11 +1,12 @@
 """Online serving: JSON-over-HTTP embeddings + top-k retrieval.
 
     python -m protein_clip_tpu_torch.cli.serve --checkpoint best_model.npz \\
-        --index index.npz --port 8080 [--device cpu]
+        --index index.npz --port 8080 [--filip] [--device cpu]
 
 Loads a trained checkpoint once, keeps the backbone on the device, and
 answers requests from memory. On CUDA every attention layer runs the
-hand-written kernel (``ops/attention.py``).
+hand-written kernel (``ops/attention.py``), and FILIP's /topk the max-sim
+kernel (``ops/filip.py``).
 
 API (all JSON):
   GET  /healthz  -> {"status": "ok", "model": ..., "index_size": N}
@@ -19,6 +20,13 @@ API (all JSON):
                  and ``X-Dtype: <f4``.
   POST /topk     {"queries": [...], "side": "pep", "k": 10}
                  -> {"hits": [[{"id", "score", "rank"}, ...], ...]}
+
+With ``--filip`` (a FILIP checkpoint and an ``embed --filip`` token index)
+/embed returns token-level embeddings: JSON {"tokens", "lengths"}, or the
+binary body (X-Shape N,T,D) after an int32 prefix of the per-row true
+lengths declared by X-Prefix-Len and X-Prefix-Dtype (pads are a row
+suffix). /topk ranks by direction-averaged late-interaction max-sim through
+the masked max-sim kernel (``ops/filip.py``).
 
 Requests batch two ways: within a request through ``embed_sequences``
 (length-sorted bucket batches, pow2-padded row counts), and ACROSS
@@ -43,9 +51,10 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
-from .embed import embed_sequences, load_model
+from .embed import embed_sequences, embed_sequences_tokens, filip_config, load_model
 from . import common
 from ..eval.embed import nearest_partners
+from ..eval.retrieval import filip_score_matrix, filip_score_matrix_ragged
 from ..utils import prng
 
 
@@ -55,9 +64,12 @@ def build_argparser() -> argparse.ArgumentParser:
     common.add_common_args(p)
     p.add_argument("--checkpoint", required=True, help="best_model.npz from a training run")
     p.add_argument("--index", default=None,
-                   help="npz from cli.embed ({ids, embeddings}); enables /topk")
+                   help="npz from cli.embed ({ids, embeddings}; with --filip a ragged "
+                        "token-level {ids, tokens, lengths} from `embed --filip`); "
+                        "enables /topk")
     p.add_argument("--filip", action="store_true",
-                   help="serve a FILIP checkpoint (not ported yet)")
+                   help="serve a FILIP checkpoint: /embed returns token-level "
+                        "embeddings, /topk ranks by late-interaction max-sim")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8080,
                    help="0 picks an ephemeral port (printed on startup)")
@@ -81,22 +93,26 @@ class ClipService:
     """Checkpoint + optional index, shared across requests."""
 
     def __init__(self, args):
-        if args.filip:
-            raise NotImplementedError("serve --filip is not ported yet "
-                                      "(ROADMAP queue 1: FILIP serving, kernel K4)")
         self.mcfg, self.params, self.esm_params, self.device = load_model(args)
+        self.filip = bool(args.filip)
+        self.fcfg = filip_config(self.mcfg) if self.filip else None
         self.tokenizer = common.make_tokenizer()
         self.model_name = args.esm_config
         self.batch_size = args.batch_size
         self.corpus_ids: list[str] = []
         self.corpus = None
+        self.corpus_tokens = self.corpus_lengths = self.corpus_mask = None
         if args.index:
             with np.load(args.index, allow_pickle=False) as index:
                 self.corpus_ids = [str(i) for i in index["ids"]]
-                self.corpus = np.asarray(index["embeddings"], np.float32)
-            if self.corpus.shape[1] != self.mcfg.embedding_dim:
-                raise ValueError(f"index embedding dim {self.corpus.shape[1]} != "
-                                 f"model --embedding-dim {self.mcfg.embedding_dim}")
+                if self.filip:
+                    self.corpus_tokens, self.corpus_lengths, self.corpus_mask = (
+                        common.read_token_index(index, self.mcfg.embedding_dim))
+                else:
+                    self.corpus = np.asarray(index["embeddings"], np.float32)
+                    if self.corpus.shape[1] != self.mcfg.embedding_dim:
+                        raise ValueError(f"index embedding dim {self.corpus.shape[1]} != "
+                                         f"model --embedding-dim {self.mcfg.embedding_dim}")
         self._queue: queue.SimpleQueue[_Work] = queue.SimpleQueue()
         self._last_nreq = 1
         self._encode_ema_s = 0.0
@@ -109,7 +125,9 @@ class ClipService:
         self._worker = threading.Thread(target=self._encode_loop, daemon=True)
         self._worker.start()
 
-    def embed(self, sequences: list[str], side: str) -> np.ndarray:
+    def embed(self, sequences: list[str], side: str):
+        """Pooled (N, D) embeddings, or with --filip (tokens (N, T, D), mask
+        (N, T) int8)."""
         if side not in ("pep", "rec"):
             raise ValueError(f"side must be 'pep' or 'rec', got {side!r}")
         work = _Work(sequences, side)
@@ -140,12 +158,19 @@ class ClipService:
             for side, works in by_side.items():
                 try:
                     flat = [s for w in works for s in w.seqs]
-                    emb = embed_sequences(self.params, self.esm_params, flat, side,
-                                          self.mcfg, self.tokenizer, self.device,
-                                          batch_size=self.batch_size, pad_batch=True)
+                    if self.filip:
+                        toks, mask = embed_sequences_tokens(
+                            self.params, self.esm_params, flat, side, self.fcfg,
+                            self.tokenizer, self.device, batch_size=self.batch_size,
+                            pad_batch=True)
+                    else:
+                        emb = embed_sequences(self.params, self.esm_params, flat, side,
+                                              self.mcfg, self.tokenizer, self.device,
+                                              batch_size=self.batch_size, pad_batch=True)
                     off = 0
                     for w in works:
-                        w.result = emb[off:off + len(w.seqs)]
+                        rows = slice(off, off + len(w.seqs))
+                        w.result = (toks[rows], mask[rows]) if self.filip else emb[rows]
                         off += len(w.seqs)
                 except Exception as e:  # noqa: BLE001 — fail the group,
                     for w in works:    # keep the worker alive
@@ -177,7 +202,19 @@ class ClipService:
         if not self.corpus_ids:
             raise ValueError("no --index loaded; /topk unavailable")
         k = max(1, min(k, len(self.corpus_ids)))
-        idx, scores = nearest_partners(self.embed(queries, side), self.corpus, k=k)
+        if self.filip:
+            q_t, q_m = self.embed(queries, side)
+            if self.corpus_lengths is not None:  # ragged index
+                sim = filip_score_matrix_ragged(q_t, q_m, self.corpus_tokens,
+                                                self.corpus_lengths,
+                                                self.params["temperature"], device=self.device)
+            else:  # legacy dense {tokens, mask} index
+                sim = filip_score_matrix(q_t, q_m, self.corpus_tokens, self.corpus_mask,
+                                         self.params["temperature"], device=self.device)
+            idx = np.argsort(-sim, axis=1)[:, :k]
+            scores = np.take_along_axis(sim, idx, axis=1)
+        else:
+            idx, scores = nearest_partners(self.embed(queries, side), self.corpus, k=k)
         return [[{"id": self.corpus_ids[idx[q, r]], "score": float(scores[q, r]),
                   "rank": r + 1} for r in range(k)]
                 for q in range(len(queries))]
@@ -205,15 +242,25 @@ def make_handler(service: ClipService):
             self.end_headers()
             self.wfile.write(body)
 
-        def _binary(self, arr: np.ndarray) -> None:
-            """Raw little-endian float32 body; the shape rides the headers."""
+        def _binary(self, arr: np.ndarray, prefix: np.ndarray | None = None) -> None:
+            """Raw little-endian float32 body; the shape rides the headers.
+
+            ``prefix``: an int32 vector (FILIP's per-row lengths) sent as a
+            ``<i4`` section before the floats and declared by X-Prefix-Len
+            and X-Prefix-Dtype; a header line would cap it at 64 KiB."""
             body = np.ascontiguousarray(arr, dtype="<f4").tobytes()
+            pre = b"" if prefix is None else np.ascontiguousarray(prefix, "<i4").tobytes()
             self.send_response(200)
             self.send_header("Content-Type", "application/octet-stream")
             self.send_header("X-Shape", ",".join(map(str, arr.shape)))
             self.send_header("X-Dtype", "<f4")
-            self.send_header("Content-Length", str(len(body)))
+            if prefix is not None:
+                self.send_header("X-Prefix-Len", str(int(prefix.size)))
+                self.send_header("X-Prefix-Dtype", "<i4")
+            self.send_header("Content-Length", str(len(pre) + len(body)))
             self.end_headers()
+            if pre:
+                self.wfile.write(pre)
             self.wfile.write(body)
 
         def do_GET(self):
@@ -225,7 +272,7 @@ def make_handler(service: ClipService):
                 "status": "ok", "model": service.model_name,
                 "embedding_dim": service.mcfg.embedding_dim,
                 "index_size": len(service.corpus_ids),
-                "filip": False,
+                "filip": service.filip,
                 "device": str(service.device),
             })
 
@@ -241,8 +288,17 @@ def make_handler(service: ClipService):
                                                      f"list of non-empty strings"})
                 side = req.get("side", "pep")
                 if self.path == "/embed":
+                    binary = "application/octet-stream" in (self.headers.get("Accept") or "")
+                    if service.filip:
+                        toks, mask = service.embed(seqs, side)
+                        # pads are a row suffix, so the true lengths give the mask
+                        lengths = mask.astype(np.int32).sum(axis=1)
+                        if binary:
+                            return self._binary(toks, prefix=lengths)
+                        return self._json(200, {"tokens": toks.tolist(),
+                                                "lengths": [int(n) for n in lengths]})
                     emb = service.embed(seqs, side)
-                    if "application/octet-stream" in (self.headers.get("Accept") or ""):
+                    if binary:
                         return self._binary(emb)
                     return self._json(200, {"embeddings": emb.tolist()})
                 if self.path == "/topk":

@@ -96,12 +96,18 @@ def masked_mean(h: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return s / cnt
 
 
+def encode_tokens(params: Params, hidden: torch.Tensor, activation: str = "relu") -> torch.Tensor:
+    """FILIP's per-token embeddings (B, T, D): projection then ``aa_ffn``,
+    with no pooling and no normalisation."""
+    proj = params["projection"]
+    x = torch.matmul(hidden, proj["w"]) + proj["b"]
+    return apply_ffn(params["aa_ffn"], x, activation)
+
+
 def encode_pooled(params: Params, hidden: torch.Tensor, mask: torch.Tensor,
                   temperature: torch.Tensor, activation: str = "relu") -> torch.Tensor:
     """Full head pipeline -> scaled pooled embedding (B, D)."""
-    proj = params["projection"]
-    x = torch.matmul(hidden, proj["w"]) + proj["b"]
-    x = apply_ffn(params["aa_ffn"], x, activation)
+    x = encode_tokens(params, hidden, activation)
     pooled = apply_ffn(params["emb_ffn"], masked_mean(x, mask), activation)
     sq = pooled.float().square().sum(-1, keepdim=True).to(pooled.dtype)
     normed = pooled * torch.rsqrt(sq + torch.finfo(torch.float32).tiny)

@@ -1,6 +1,6 @@
-"""The port's CUDA kernels on the card: K1 against its plain version at
-odd shapes, the wrapper's refusals, its launch count, and the ESM-2 forward
-through the kernel.
+"""The port's CUDA kernels on the card: K1 and K4 against their plain
+versions at odd shapes, the wrappers' refusals, their launch counts, the
+ESM-2 forward through K1 and the FILIP scorer through K4.
 
 These tests need an NVIDIA GPU and nvcc; elsewhere they skip. This file
 imports torch and the port only, so on a machine without JAX it runs as
@@ -10,11 +10,13 @@ imports torch and the port only, so on a machine without JAX it runs as
 
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
+from protein_clip_tpu_torch.eval import retrieval
 from protein_clip_tpu_torch.models import esm2
-from protein_clip_tpu_torch.ops import attention
+from protein_clip_tpu_torch.ops import attention, filip
 
 pytestmark = pytest.mark.cuda
 
@@ -129,3 +131,93 @@ def test_esm_forward_runs_the_kernel_in_every_layer(dev):
     cos = torch.nn.functional.cosine_similarity(fused[valid].float(), eager[valid].float(),
                                                 dim=-1)
     assert float(cos.min()) >= 0.999
+
+
+# K4: f32 scores on the CUDA cores; the kernel and the plain version sum the
+# same products in another order. Outputs are means of maxima of unit-vector
+# dot products, |x| <= 1.
+K4_ATOL = 2e-5
+
+
+def _tokens(Ba, Bb, TA, TB, dev, D=128, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ha = torch.nn.functional.normalize(torch.randn(Ba, TA, D, device=dev, generator=g), dim=-1)
+    hb = torch.nn.functional.normalize(torch.randn(Bb, TB, D, device=dev, generator=g), dim=-1)
+    ma = (torch.rand(Ba, TA, device=dev, generator=g) < 0.9).to(torch.int32)
+    mb = (torch.rand(Bb, TB, device=dev, generator=g) < 0.9).to(torch.int32)
+    ma[:, TA - TA // 3:] = 0          # padded suffixes
+    mb[:, TB - TB // 4:] = 0
+    ma[0] = 0                         # an a-row and a b-row with no valid token
+    mb[-1] = 0
+    return ha, hb, ma, mb
+
+
+@pytest.mark.parametrize("Ba,Bb,TA,TB,D", [(1, 1, 1, 1, 128), (2, 3, 33, 70, 128),
+                                           (3, 5, 64, 64, 128), (2, 7, 130, 257, 128),
+                                           (4, 9, 32, 2048, 128), (2, 3, 50, 90, 8),
+                                           (2, 2, 17, 40, 256)])
+def test_maxsim_kernel_matches_plain(dev, Ba, Bb, TA, TB, D):
+    ha, hb, ma, mb = _tokens(Ba, Bb, TA, TB, dev, D)
+    got = filip.filip_similarity_fused(ha, hb, ma, mb, 1.0)
+    torch.cuda.synchronize()
+    want = filip.maxsim_reference(ha, hb, ma, mb)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        assert float((g - w).abs().max()) <= K4_ATOL
+    if Ba > 1 and Bb > 1:   # the clamp: empty rows score 0
+        assert (got[0][0] == 0).all() and (got[1][:, -1] == 0).all()
+
+
+def test_maxsim_launch_count_and_temperature(dev):
+    ha, hb, ma, mb = _tokens(2, 3, 40, 70, dev)
+    before = filip.filip_similarity_fused.launches
+    raw = filip.filip_similarity_fused(ha, hb, ma, mb, 1.0)
+    scaled = filip.filip_similarity_fused(ha, hb, ma, mb, torch.tensor(1e-6, device=dev))
+    assert filip.filip_similarity_fused.launches == before + 2
+    for r, s in zip(raw, scaled):
+        torch.testing.assert_close(s, r / 1e-4)     # t floored at 1e-4
+
+
+def test_maxsim_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    ha, hb, ma, mb = _tokens(2, 3, 40, 70, dev)
+    with pytest.raises(TypeError, match="float32"):
+        filip.filip_similarity_fused(ha.bfloat16(), hb, ma, mb, 1.0)
+    with pytest.raises(TypeError, match="int32"):
+        filip.filip_similarity_fused(ha, hb, ma.long(), mb, 1.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        filip.filip_similarity_fused(ha.transpose(0, 1).contiguous().transpose(0, 1), hb,
+                                     ma, mb, 1.0)
+    with pytest.raises(ValueError, match="masks"):
+        filip.filip_similarity_fused(ha, hb, ma[:, :10], mb, 1.0)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        filip.filip_similarity_fused(ha[..., :6].contiguous(), hb[..., :6].contiguous(),
+                                     ma, mb, 1.0)
+    with pytest.raises(ValueError, match="shared memory"):
+        long = torch.zeros(1, 60000, 128, device=dev)
+        filip.filip_similarity_fused(ha, long, ma, torch.zeros(1, 60000, dtype=torch.int32,
+                                                               device=dev), 1.0)
+    with pytest.raises(NotImplementedError, match="backward"):
+        filip.filip_similarity_fused(ha.requires_grad_(), hb, ma, mb, 1.0)
+
+
+def test_ragged_scorer_launches_one_kernel_per_block(dev):
+    """filip_score_matrix_ragged on the card: one launch per (row block,
+    column block), and the plain version's scores."""
+    ha, hb, ma, mb = _tokens(5, 11, 40, 100, dev)
+    lengths = mb.sum(1).cpu().numpy()
+    mb_sorted = torch.zeros_like(mb)   # the ragged form keeps each row's valid tokens first
+    flat = []
+    for j in range(hb.shape[0]):
+        keep = mb[j].bool()
+        flat.append(hb[j][keep].cpu().numpy())
+        mb_sorted[j, :int(lengths[j])] = 1
+        hb[j, :int(lengths[j])] = hb[j][keep].clone()
+        hb[j, int(lengths[j]):] = 0
+    before = filip.filip_similarity_fused.launches
+    got = retrieval.filip_score_matrix_ragged(ha.cpu().numpy(), ma.cpu().numpy(),
+                                              np.concatenate(flat), lengths, 0.7, row_block=2,
+                                              col_block=4, device=dev)
+    assert filip.filip_similarity_fused.launches == before + 3 * 3
+    sa, sb = filip.maxsim_reference(ha, hb, ma, mb_sorted)
+    want = ((sa + sb) / 2 / 0.7).cpu().numpy()
+    assert np.abs(got - want).max() <= K4_ATOL
