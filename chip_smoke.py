@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving paths on one GPU and hold every
-hand-written kernel against its plain PyTorch version.
+"""Drive the PyTorch/CUDA port's serving and training paths on one GPU and
+hold every hand-written kernel against its plain PyTorch version.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
@@ -17,7 +17,11 @@ and a nonzero exit code, and no result line:
                 zeros). K4 (FILIP masked max-sim) against
                 ops.filip.maxsim_reference at the scorer's shapes (D=128,
                 f32), with padded masks, an all-masked a-row and b-row, and
-                token counts that are not multiples of 64.
+                token counts that are not multiples of 64. K2 and K3
+                (InfoNCE, forward and backward through autograd) against
+                ops.infonce.clip_infonce: unit rows scaled by exp(t/2) for
+                t in {1, 4}, K2 at B in {16, 100, 256, 512}, K3 at B in
+                {1000, 1024, 2048, 4096}, D=128, and each at D=64 once.
 3. serve        ESM-2 t30_150M in bf16 with seeded random weights and CLIP
                 heads, written as npz; an index of 256 synthetic sequences
                 built with cli.embed; cli.serve's server on an ephemeral port
@@ -39,13 +43,35 @@ and a nonzero exit code, and no result line:
 6. filip e2e    the served token embeddings against the same sequences
                 encoded with attention_impl="eager": cosine >= 0.99 for
                 every valid token.
-7. times        K1, its plain version and torch's
+7. train        cli.main twice on one synthetic fixture of 3000 families
+                (written and clustered once), t30_150M bf16 with seeded
+                random weights, one epoch: the defaults (16 x 16 = global
+                batch 256 in 4 length groups, 16 chunks: K2) and
+                --batch-size 64 (global batch 1024: K3). Each run must write
+                losses_per_epoch.txt (finite), metrics.jsonl and
+                best_model.npz; K1 launches 30 times per backbone forward
+                (32 forwards per step, 8 per eval batch); K2 and K3 once
+                forward and once backward per step and once forward per eval
+                batch, each on its own pools. cli.embed then embeds with run
+                1's best_model.npz.
+8. step check   one default train step with K2 and one with the plain loss
+                from the same heads and batch (dropout 0, Adam lr 1e-3), at
+                256 and, with K3, at 1024: loss within 1e-5 relative,
+                gradients within 1e-5 of each leaf's largest, parameters
+                within the bound Adam's first update puts on them.
+9. times        K1, its plain version and torch's
                 scaled_dot_product_attention at B=16, T=512, NH=20 beside
                 K1's bound; K4 and its plain version at the /topk and full
                 scorer-block shapes beside K4's bound; /embed p50 for one
                 sequence, and the same encode called without HTTP; seqs/s
                 at batch 32; FILIP /topk p50 for one query, and its parts
-                called without HTTP.
+                called without HTTP. K2 forward+backward at (256, 128), K3
+                at (1024, 128) and (4096, 128), and their plain versions,
+                beside the bound; K2 and K3 side by side at B in {16, 128,
+                256, 384, 512, 1024, 2048}, the readings behind the dispatch rule; the
+                train step in pairs/s at global batch 256 (median over the
+                steps after the first of run 1, by CUDA events recorded
+                after each step, with no sync inside the epoch).
 
 The last three lines of standard output are the card's name and power
 limit, the kernels line (one JSON object per hand-written kernel) and
@@ -72,12 +98,15 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from protein_clip_tpu_torch.cli import common, embed, retrieve, serve
+from protein_clip_tpu_torch.cli import common, embed, main as train_cli, retrieve, serve
+from protein_clip_tpu_torch.data import dataset
+from protein_clip_tpu_torch.data.fasta import sequences_only
 from protein_clip_tpu_torch.eval import retrieval
 from protein_clip_tpu_torch.kernels import build
 from protein_clip_tpu_torch.models import clip, esm2, filip
-from protein_clip_tpu_torch.ops import attention
+from protein_clip_tpu_torch.ops import attention, infonce
 from protein_clip_tpu_torch.ops import filip as maxsim
+from protein_clip_tpu_torch.train import clip_engine, optimizer
 from protein_clip_tpu_torch.train.checkpoint import export_npz
 
 ROOT = Path(__file__).resolve().parent
@@ -105,7 +134,15 @@ FILIP_COSINE_MIN = 0.99
 H100_BF16_FLOPS = 989e12              # dense tensor-core peak, SXM, 700 W
 H100_F32_FLOPS = 67e12                # f32 on the CUDA cores (no tensor cores), SXM
 H100_BYTES_PER_S = 3.35e12
-KERNELS = ("attention_fwd", "filip_maxsim")
+KERNELS = ("attention_fwd", "filip_maxsim", "infonce")
+# K2/K3 against their plain version, both f32 (FFMA against cuBLAS f32 and
+# logsumexp: the same sums in another order, over up to 4096 terms):
+# |loss - ref| <= 1e-5 max(1, |ref|), |grad - ref| <= 1e-5 max|ref|.
+INFONCE_RTOL = 1e-5
+K2_POOLS, K3_POOLS = (16, 100, 256, 512), (1000, 1024, 2048, 4096)
+DISPATCH_POOLS = (16, 128, 256, 384, 512, 1024, 2048)    # K2 and K3 timed side by side
+FIXTURE_FAMILIES = 3000
+TRAIN_LR = 1e-3
 AAS = "LAGVSERTIDPKQNFYMHWC"
 
 
@@ -234,6 +271,49 @@ def check_maxsim(gen: torch.Generator) -> float:
     return worst
 
 
+def unit_rows(B: int, D: int, t: float, gen: torch.Generator):
+    """(B, D) f32 x, y: unit rows scaled by exp(t/2), as the heads give them."""
+    def rows():
+        x = torch.randn(B, D, device="cuda", generator=gen)
+        return (torch.nn.functional.normalize(x, dim=-1) * math.exp(t / 2)).contiguous()
+    return rows(), rows()
+
+
+def value_and_grads(fn, x, y):
+    xr, yr = x.clone().requires_grad_(True), y.clone().requires_grad_(True)
+    loss = fn(xr, yr)
+    loss.backward()
+    torch.cuda.synchronize()
+    return loss.detach(), xr.grad, yr.grad
+
+
+def check_infonce(gen: torch.Generator) -> dict:
+    """K2 and K3, forward and backward, against the plain clip_infonce;
+    returns the largest absolute error of each (loss and gradients)."""
+    cases = [("infonce", B, 128, t) for B in K2_POOLS for t in (1.0, 4.0)]
+    cases += [("infonce_tiled", B, 128, t) for B in K3_POOLS for t in (1.0, 4.0)]
+    cases += [("infonce", 256, 64, 1.0), ("infonce_tiled", 1024, 64, 1.0)]
+    worst = {"infonce": 0.0, "infonce_tiled": 0.0}
+    for name, B, D, t in cases:
+        fn = infonce.fused_infonce if name == "infonce" else infonce.fused_infonce_tiled
+        x, y = unit_rows(B, D, t, gen)
+        got = value_and_grads(fn, x, y)
+        want = value_and_grads(infonce.clip_infonce, x, y)
+        loss_err = abs(float(got[0] - want[0]))
+        loss_tol = INFONCE_RTOL * max(1.0, abs(float(want[0])))
+        errs = [float((g - w).abs().max()) for g, w in zip(got[1:], want[1:])]
+        tols = [INFONCE_RTOL * float(w.abs().max()) for w in want[1:]]
+        ok = (all(bool(torch.isfinite(v).all()) for v in got) and loss_err <= loss_tol
+              and all(e <= tol for e, tol in zip(errs, tols)))
+        worst[name] = max(worst[name], loss_err, *errs)
+        log(f"[kernels] {name} B={B} D={D} t={t:g}: loss {float(got[0]):.6f}, |err| "
+            f"{loss_err:.3g} (tolerance {loss_tol:.3g}); max|err| dX {errs[0]:.3g}, dY "
+            f"{errs[1]:.3g} (tolerance {tols[0]:.3g}, {tols[1]:.3g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name} disagrees with its plain version at B={B} D={D} t={t}")
+    return worst
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: the serving path
 # ---------------------------------------------------------------------------
@@ -258,6 +338,13 @@ def counted_forwards():
 def reset_counts() -> None:
     attention.fused_attention.launches = 0
     maxsim.filip_similarity_fused.launches = 0
+    for fn in (infonce.fused_infonce, infonce.fused_infonce_tiled):
+        fn.launches = fn.bwd_launches = 0
+
+
+def infonce_counts() -> dict:
+    return {name: (fn.launches, fn.bwd_launches) for name, fn in
+            (("infonce", infonce.fused_infonce), ("infonce_tiled", infonce.fused_infonce_tiled))}
 
 
 def synthetic_seqs(rng: np.random.Generator, lengths) -> list[str]:
@@ -637,7 +724,187 @@ def check_filip_end_to_end(ctx: dict, fctx: dict) -> float:
 
 
 # ---------------------------------------------------------------------------
-# Phase 7: times
+# Phase 7: the training path
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def timed_steps():
+    """Record a CUDA event on the current stream after every train step
+    while the block runs. Nothing syncs: the steps overlap the host and the
+    card as train_gc runs them, and the events are read after the epoch."""
+    ends: list[torch.cuda.Event] = []
+    plain_make = clip_engine.make_train_step
+
+    def make(cfg, loss_fn=None):
+        step = plain_make(cfg, loss_fn)
+
+        def timed(*args):
+            out = step(*args)
+            ends.append(torch.cuda.Event(enable_timing=True))
+            ends[-1].record()
+            return out
+        return timed
+
+    clip_engine.make_train_step = make
+    try:
+        yield ends
+    finally:
+        clip_engine.make_train_step = plain_make
+
+
+def check_run_dir(runs: Path) -> Path:
+    (run,) = list(runs.iterdir())
+    names = sorted(p.name for p in run.iterdir())
+    if names != ["best_model.npz", "losses_per_epoch.txt", "metrics.jsonl"]:
+        raise AssertionError(f"{run}: artifacts {names}")
+    rows = (run / "losses_per_epoch.txt").read_text().splitlines()
+    if rows[0] != "Epoch,Train Loss,Validation Loss" or len(rows) != 2:
+        raise AssertionError(f"losses_per_epoch.txt: {rows}")
+    values = [float(v) for v in rows[1].split(",")[1:]]
+    if not all(math.isfinite(v) for v in values):
+        raise AssertionError(f"non-finite losses {rows[1]}")
+    return run
+
+
+def loss_kernel(pool: int) -> str:
+    """The InfoNCE kernel the train and eval steps run on a pool."""
+    return "infonce" if clip_engine.fused_infonce_fits(pool) else "infonce_tiled"
+
+
+def run_train(name: str, data_dir: Path, batch_size: int) -> dict:
+    """cli.main for one epoch at --batch-size batch_size x 16; checks the
+    artifacts and every kernel's launch count against the loaders."""
+    runs = WORK / f"runs_{name}"
+    t0 = time.perf_counter()
+    with counted_forwards() as forwards, timed_steps() as ends:
+        reset_counts()
+        train_cli.main(["--synthetic-fixture", "--data-dir", str(data_dir), "--fixture-families",
+                        str(FIXTURE_FAMILIES), "--epochs", "1", "--runs-dir", str(runs),
+                        "--batch-size", str(batch_size), "--accumulated-batches", "16"])
+        k1 = attention.fused_attention.launches
+        counts = infonce_counts()
+    wall = time.perf_counter() - t0
+    run = check_run_dir(runs)
+    train_ds, val_ds, test_ds = dataset.generate_datasets(data_dir, seed=42)
+    steps = len(train_ds) // batch_size // 16
+    evals = len(val_ds) // batch_size + len(test_ds) // batch_size
+    want_forwards = 32 * steps + 8 * evals     # 4 groups x 2 sides x (4 chunks | 1)
+    want = {"infonce": [0, 0], "infonce_tiled": [0, 0]}
+    want[loss_kernel(16 * batch_size)][0] += steps
+    want[loss_kernel(16 * batch_size)][1] += steps
+    want[loss_kernel(batch_size)][0] += evals
+    want = {k: tuple(v) for k, v in want.items()}
+    if len(ends) != steps or len(forwards) != want_forwards or k1 != 30 * want_forwards:
+        raise AssertionError(f"{name}: {len(ends)} steps (want {steps}), {len(forwards)} "
+                             f"forwards (want {want_forwards}), {k1} attention_fwd launches")
+    if counts != want:
+        raise AssertionError(f"{name}: InfoNCE (forward, backward) calls {counts}, want {want}")
+    metrics = json.loads((run / "metrics.jsonl").read_text().splitlines()[0])
+    log(f"[train] {name}: global batch {16 * batch_size}, {steps} steps, {evals} eval batches "
+        f"of {batch_size}; train loss {metrics['train_loss']:.6f}, val loss "
+        f"{metrics['val_loss']:.6f}; {len(forwards)} backbone forwards, attention_fwd "
+        f"{k1} = 30 per forward; InfoNCE (forward, backward) calls {counts}; epoch "
+        f"{metrics['seconds']:.2f} s, cli.main {wall:.2f} s")
+    return {"run": run, "steps": steps, "ends": ends, "launches": {
+        "attention_fwd": k1, "filip_maxsim": maxsim.filip_similarity_fused.launches,
+        **{k: v[0] for k, v in counts.items()}}, "bwd": {k: v[1] for k, v in counts.items()}}
+
+
+def run_train_phase() -> dict:
+    data_dir = WORK / "train_data"
+    out = {"k2": run_train("train_256", data_dir, 16),
+           "k3": run_train("train_1024", data_dir, 64)}
+    peps = sequences_only(data_dir / "peptide.fasta")
+    recs = sequences_only(data_dir / "receptor.fasta")
+    out["profile"] = (f"{len(recs)} pairs, receptors {min(map(len, recs))}-"
+                      f"{max(map(len, recs))} aa, peptides {min(map(len, peps))}-"
+                      f"{max(map(len, peps))} aa")
+    log(f"[train] fixture: {FIXTURE_FAMILIES} families, {out['profile']}")
+    fasta = WORK / "train_embed.fasta"
+    fasta.write_text("".join(f">r{i}\n{s}\n" for i, s in enumerate(recs[:8])))
+    embed.main(["--checkpoint", str(out["k2"]["run"] / "best_model.npz"), "--fasta", str(fasta),
+                "--side", "rec", "--out", str(WORK / "train_embed.npz")])
+    with np.load(WORK / "train_embed.npz") as index:
+        emb = index["embeddings"]
+    if emb.shape != (8, 128) or not np.isfinite(emb).all():
+        raise AssertionError(f"cli.embed with the trained heads gave {emb.shape}")
+    log(f"[train] cli.embed with run 1's best_model.npz: {emb.shape}, finite")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: one train step through K2 / K3 against the plain loss
+# ---------------------------------------------------------------------------
+
+class CapturingOptState(optimizer.OptState):
+    """OptState that keeps the gradients it applies."""
+
+    def apply(self):
+        self.grads = [t.grad.detach().clone() for t in self.leaves]
+        super().apply()
+
+
+def clone_tree(tree):
+    return {k: clone_tree(v) for k, v in tree.items()} if isinstance(tree, dict) else tree.clone()
+
+
+def check_step(pool: int) -> dict:
+    """The loss within 1e-5 relative and the gradients within 1e-5 of each
+    leaf's largest. Adam's first update is lr g / (|g| + eps): when g moves
+    by dg it moves by at most 2 lr |dg| / (max|g| + eps), which near g = 0
+    turns f32 noise into up to lr; each updated parameter is held to that
+    bound plus 1e-6, and the count beyond a flat 1e-5 is printed."""
+    cfg_esm = common.esm_config("t30_150M", "bfloat16")
+    mcfg = clip.CLIPConfig(input_dim=cfg_esm.hidden_size, dropout=0.0, esm=cfg_esm)
+    cfg = clip_engine.EngineConfig(model=mcfg, batch_size=pool // 16, accumulated_batches=16,
+                                   length_groups=4)
+    esm_params = esm2.init_params(cfg_esm, torch.Generator(device="cuda").manual_seed(0),
+                                  dtype=torch.bfloat16, device="cuda")
+    train_ds, _, _ = dataset.generate_datasets(WORK / "train_data", seed=42)
+    loader = dataset.PairLoader(train_ds, pool // 16, seed=SEED)
+    peps, recs = next(clip_engine._accumulate(loader, 16))
+    batch = tuple({k: v.cuda() for k, v in b.items()} for b in clip_engine.tokenize_grouped(
+        common.make_tokenizer(), peps, recs, 4))
+    heads0 = clip.init_params(mcfg, torch.Generator().manual_seed(SEED), device="cuda")
+    kernel = loss_kernel(pool)
+    kernel_fn = getattr(infonce, "fused_infonce" if kernel == "infonce"
+                        else "fused_infonce_tiled")
+    out = {}
+    for name, loss_fn in (("kernel", None), ("plain", infonce.clip_infonce)):
+        params = clone_tree(heads0)
+        state = CapturingOptState(optimizer.adam(TRAIN_LR), params)
+        before = (kernel_fn.launches, kernel_fn.bwd_launches)
+        _, _, loss = clip_engine.make_train_step(cfg, loss_fn)(params, state, esm_params, batch,
+                                                                None)
+        torch.cuda.synchronize()
+        calls = (kernel_fn.launches - before[0], kernel_fn.bwd_launches - before[1])
+        if calls != ((1, 1) if name == "kernel" else (0, 0)):
+            raise AssertionError(f"step check {pool}: {kernel} calls {calls} ({name})")
+        out[name] = (float(loss), state.grads, [t.detach() for t in state.leaves])
+    (lk, gk, pk), (lp, gp, pp) = out["kernel"], out["plain"]
+    loss_err = abs(lk - lp) / abs(lp)
+    grad_err = max(float((a - b).abs().max()) / float(b.abs().max()) for a, b in zip(gk, gp))
+    param_err, over_bound, over_flat, n = 0.0, 0, 0, 0
+    for a, b, ga, gb in zip(pk, pp, gk, gp):
+        d = (a - b).abs()
+        bound = 1e-6 + 2 * TRAIN_LR * (ga - gb).abs() / (torch.maximum(ga.abs(), gb.abs()) + 1e-8)
+        param_err = max(param_err, float(d.max()))
+        over_bound += int((d > bound).sum())
+        over_flat += int((d > 1e-5).sum())
+        n += d.numel()
+    ok = loss_err <= 1e-5 and grad_err <= 1e-5 and over_bound == 0
+    log(f"[step] global batch {pool} through {kernel} vs the plain loss (dropout 0, Adam "
+        f"lr {TRAIN_LR:g}): loss {lk:.6f} vs {lp:.6f}, relative |err| {loss_err:.3g} (tolerance "
+        f"1e-5); gradients max |err| / leaf max {grad_err:.3g} (tolerance 1e-5); updated "
+        f"params max |err| {param_err:.3g}, {over_bound} of {n} past Adam's bound, {over_flat} "
+        f"past a flat 1e-5 {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"the train step through {kernel} disagrees with the plain loss")
+    return {"loss_rel_err": loss_err, "grad_rel_err": grad_err, "param_max_abs_err": param_err}
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: times
 # ---------------------------------------------------------------------------
 
 def time_attention(gen: torch.Generator, gpu: str) -> dict:
@@ -799,6 +1066,104 @@ def time_filip_serving(ctx: dict, fctx: dict, rng: np.random.Generator, gpu: str
         f"ragged): {len(corpus) / statistics.median(dts):.4f} seqs/s (median of 3) | {gpu}")
 
 
+def device_ms(fn, iters: int, warmup: int = 3) -> float:
+    """Device time of fn() per call: the CUDA kernels' self time summed by
+    torch.profiler over iters calls. Host work between launches (autograd,
+    allocation, ctypes) is left out; cuda_ms includes it."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.self_device_time_total for e in prof.key_averages())
+    if total_us <= 0:
+        raise AssertionError("torch.profiler recorded no device time")
+    return total_us / 1e3 / iters
+
+
+def infonce_bound(B: int, D: int) -> tuple[float, str, str]:
+    """(bound ms, what bounds it, the counts) of forward plus backward: the
+    logits, dX and dY, 6 B^2 D f32 FLOP on the CUDA cores, against x, y read
+    and dX, dY, the loss written once."""
+    flops = 6 * B * B * D
+    nbytes = 16 * B * D + 4
+    t_ops, t_bytes = flops / H100_F32_FLOPS, nbytes / H100_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes), "bytes" if t_bytes >= t_ops else "operations",
+            f"{flops / 1e9:.4f} GFLOP, {nbytes / 1e6:.4f} MB")
+
+
+def time_infonce(gen: torch.Generator, gpu: str) -> dict:
+    """K2 at (256, 128), K3 at (1024, 128) and (4096, 128), forward plus
+    backward through autograd, and the plain clip_infonce the same way. No
+    single PyTorch call computes symmetric InfoNCE, so there is no library
+    time."""
+    rows = {}
+    for name, B in (("infonce", 256), ("infonce_tiled", 1024), ("infonce_tiled", 4096)):
+        fn = infonce.fused_infonce if name == "infonce" else infonce.fused_infonce_tiled
+        x, y = (t.requires_grad_(True) for t in unit_rows(B, 128, 1.0, gen))
+
+        def kernel():
+            torch.autograd.grad(fn(x, y), (x, y))
+
+        def plain():
+            torch.autograd.grad(infonce.clip_infonce(x, y), (x, y))
+
+        iters = 200 if B <= 1024 else 50
+        row = {"shape": [B, 128], "ms": device_ms(kernel, iters),
+               "wall_ms": cuda_ms(kernel, iters), "plain_ms": device_ms(plain, iters),
+               "plain_wall_ms": cuda_ms(plain, iters), "library_ms": None}
+        row["fwd_ms"] = device_ms(lambda: fn(x.detach(), y.detach()), iters)
+        row["bound_ms"], row["bound_by"], counts = infonce_bound(B, 128)
+        log(f"[time] {name} B={B} D=128 forward+backward: kernel {row['ms']:.6f} ms of device "
+            f"time ({row['wall_ms']:.6f} ms per call with the host), forward alone "
+            f"{row['fwd_ms']:.6f} ms; plain {row['plain_ms']:.6f} ms ({row['plain_wall_ms']:.6f} "
+            f"ms with the host); library none; bound {row['bound_ms']:.6f} ms ({row['bound_by']}: "
+            f"{counts}; f32 peak {H100_F32_FLOPS / 1e12:g} TFLOP/s) = "
+            f"{100 * row['bound_ms'] / row['ms']:.2f}% of the bound | {gpu}")
+        rows.setdefault(name, []).append(row)
+    return rows
+
+
+def time_dispatch(gen: torch.Generator, gpu: str) -> list[dict]:
+    """K2 and K3 forward+backward on the same inputs at each pool of
+    DISPATCH_POOLS: the readings that clip_engine.fused_infonce_fits' split
+    rests on (the faster by device time, and what the rule picks)."""
+    rows = []
+    for B in DISPATCH_POOLS:
+        x, y = (t.requires_grad_(True) for t in unit_rows(B, 128, 1.0, gen))
+        row = {"pool": B, "picked": loss_kernel(B)}
+        for name, fn in (("infonce", infonce.fused_infonce),
+                         ("infonce_tiled", infonce.fused_infonce_tiled)):
+            def run():
+                torch.autograd.grad(fn(x, y), (x, y))
+            row[name] = {"ms": device_ms(run, 100), "wall_ms": cuda_ms(run, 100)}
+        row["faster"] = min(("infonce", "infonce_tiled"), key=lambda k: row[k]["ms"])
+        log(f"[time] dispatch B={B} D=128 forward+backward: infonce {row['infonce']['ms']:.6f} "
+            f"ms of device time ({row['infonce']['wall_ms']:.6f} ms with the host), "
+            f"infonce_tiled {row['infonce_tiled']['ms']:.6f} ms "
+            f"({row['infonce_tiled']['wall_ms']:.6f} ms); faster by device time "
+            f"{row['faster']}, the rule picks {row['picked']} | {gpu}")
+        rows.append(row)
+    return rows
+
+
+def time_train_steps(tctx: dict, gpu: str) -> float:
+    """pairs/s of the global-batch-256 step over run 1's steps after the
+    first: the card's time between the events recorded after consecutive
+    steps, with no sync inside the epoch."""
+    torch.cuda.synchronize()
+    ends = tctx["k2"]["ends"]
+    dts = [a.elapsed_time(b) / 1e3 for a, b in zip(ends, ends[1:])]
+    rate = 256 / statistics.median(dts)
+    log(f"[time] train step at global batch 256 (t30_150M bf16, 4 length groups, 16 chunks): "
+        f"{rate:.4f} pairs/s, median of {len(dts)} steps after the first ({1e3 * min(dts):.2f}-"
+        f"{1e3 * max(dts):.2f} ms per step, by CUDA events, no sync per step); fixture "
+        f"{tctx['profile']} | {gpu}")
+    return rate
+
+
 def stop(server_ctx: dict) -> None:
     server_ctx["server"].shutdown()
     server_ctx["server"].server_close()
@@ -825,6 +1190,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     max_err = check_attention(gen)
     k4_err = check_maxsim(gen)
+    nce_err = check_infonce(gen)
     rng = np.random.default_rng(SEED)
     ctx = run_serve_phase(rng)
     try:
@@ -832,18 +1198,25 @@ def main() -> int:
         fctx = run_filip_phase(ctx, rng)
         try:
             check_filip_end_to_end(ctx, fctx)
+            tctx = run_train_phase()
+            steps = {"k2": check_step(256), "k3": check_step(1024)}
             times = time_attention(gen, gpu)
             k4_times = time_maxsim(gen, gpu)
+            nce_times = time_infonce(gen, gpu)
+            dispatch = time_dispatch(gen, gpu)
             time_serving(ctx, rng, gpu)
             time_filip_serving(ctx, fctx, rng, gpu)
+            pairs_per_s = time_train_steps(tctx, gpu)
         finally:
             stop(fctx)
     finally:
         stop(ctx)
         shutil.rmtree(WORK, ignore_errors=True)
 
-    by_path = {name: {"serve": ctx["launches"][name], "filip_serve": fctx["launches"][name]}
-               for name in KERNELS}
+    paths = {"serve": ctx["launches"], "filip_serve": fctx["launches"],
+             "train_256": tctx["k2"]["launches"], "train_1024": tctx["k3"]["launches"]}
+    by_path = {name: {path: counts.get(name, 0) for path, counts in paths.items()}
+               for name in ("attention_fwd", "filip_maxsim", "infonce", "infonce_tiled")}
     kernels = [{
         "name": "attention_fwd", "phase": "serve", "route": "cuda",
         "source": "protein_clip_tpu_torch/csrc/attention_fwd.cu",
@@ -859,6 +1232,24 @@ def main() -> int:
         **{key: k4_times[0][key] for key in ("shape", "ms", "plain_ms", "bound_ms",
                                              "bound_by", "library_ms")},
         "scorer_block": k4_times[1],
+    }, {
+        "name": "infonce", "phase": "train_256", "route": "cuda",
+        "source": "protein_clip_tpu_torch/csrc/infonce.cu",
+        "replaces": "protein_clip_tpu/ops/infonce_pallas.py:30",
+        "launches": tctx["k2"]["launches"]["infonce"],
+        "bwd_launches": tctx["k2"]["bwd"]["infonce"],
+        "launches_by_path": by_path["infonce"], "max_abs_err": nce_err["infonce"],
+        **nce_times["infonce"][0], "step_check": steps["k2"],
+        "train_pairs_per_s": pairs_per_s, "dispatch": dispatch,
+    }, {
+        "name": "infonce_tiled", "phase": "train_1024", "route": "cuda",
+        "source": "protein_clip_tpu_torch/csrc/infonce.cu",
+        "replaces": "protein_clip_tpu/ops/infonce_pallas.py:128",
+        "launches": tctx["k3"]["launches"]["infonce_tiled"],
+        "bwd_launches": tctx["k3"]["bwd"]["infonce_tiled"],
+        "launches_by_path": by_path["infonce_tiled"], "max_abs_err": nce_err["infonce_tiled"],
+        **nce_times["infonce_tiled"][0], "at_4096": nce_times["infonce_tiled"][1],
+        "step_check": steps["k3"],
     }]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(gpu_line(), flush=True)

@@ -1,6 +1,7 @@
-"""Shared CLI wiring for the port's serving entry points (``embed``,
-``serve``, ``retrieve``): the argument subset they read, the device, the
-backbone, checkpoint and token-index loaders, and the tokenizer.
+"""Shared CLI wiring for the port's entry points: the serving ones
+(``embed``, ``serve``, ``retrieve``) and the training ones (``main``,
+``main_2protein``). The argument sets they read, the device, the backbone,
+checkpoint and token-index loaders, the training data, and the tokenizer.
 
 Entry points run on ``cuda`` unless ``--device cpu`` is given; asking for
 CUDA where there is none raises, and nothing falls back to the CPU.
@@ -14,6 +15,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..data.synthetic import write_fixture
 from ..data.tokenizer import EsmTokenizer
 from ..models import clip, esm2
 from ..ops import attention
@@ -46,6 +48,86 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
                    help="backbone compute dtype (int8 is not ported yet)")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the plain versions of the kernels")
+
+
+def add_train_args(p: argparse.ArgumentParser) -> None:
+    """The training entry points' arguments beside ``add_common_args``."""
+    p.add_argument("--data-dir", default="data",
+                   help="directory with the paired FASTAs and the cluster TSV cache")
+    p.add_argument("--runs-dir", default="runs")
+    p.add_argument("--synthetic-fixture", action="store_true",
+                   help="write a synthetic corpus into --data-dir when the FASTAs are "
+                        "missing (no-network environments)")
+    p.add_argument("--fixture-families", type=int, default=160,
+                   help="synthetic corpus size; must be large enough that the 15%% val "
+                        "split fills at least one batch")
+    p.add_argument("--num-chunks", type=int, default=16,
+                   help="backbone microbatches per global step")
+    p.add_argument("--length-groups", type=int, default=4,
+                   help="length-sorted encode groups per global batch (1 = one pad bucket)")
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--weight-decay", type=float, default=0.0,
+                   help="decoupled (AdamW) weight decay; 0 = the reference's plain Adam")
+    p.add_argument("--warmup-steps", type=int, default=0,
+                   help="linear LR warmup over this many optimizer steps")
+    p.add_argument("--lr-schedule", choices=["constant", "cosine"], default="constant",
+                   help="cosine decays to 0 over the run's optimizer-step horizon")
+    p.add_argument("--grad-clip", type=float, default=0.0,
+                   help="> 0: clip gradients to this global L2 norm before Adam")
+    p.add_argument("--packed", action="store_true",
+                   help="sequence-packed encoding (not ported yet: raises)")
+    p.add_argument("--finetune", action="store_true",
+                   help="unfreeze the backbone (not ported yet: raises)")
+    p.add_argument("--lora-rank", type=int, default=0,
+                   help="> 0: LoRA adapters on the backbone (not ported yet: raises)")
+    p.add_argument("--resume-dir", default=None,
+                   help="continue a run from its state snapshot (not ported yet: raises)")
+
+
+def add_mesh_args(p: argparse.ArgumentParser) -> None:
+    """The multi-device mesh flags. The port trains on one device: any
+    value other than 1 raises (``check_train_args``)."""
+    p.add_argument("--dp", type=int, default=1, help="data-parallel axis (1 only)")
+    p.add_argument("--tp", type=int, default=1, help="tensor-parallel axis (1 only)")
+    p.add_argument("--pp", type=int, default=1, help="pipeline stages (1 only)")
+
+
+def check_train_args(args) -> None:
+    """Raise on the training options this port does not run yet, before
+    anything is loaded."""
+    refused = [
+        (args.packed, "--packed: the packed train step (ROADMAP queue 1: the packed "
+                      "CLIP train step)"),
+        (args.finetune, "--finetune: the unfrozen backbone (ROADMAP queue 1 item 2: "
+                        "the unfrozen modes, with K5)"),
+        (args.lora_rank, "--lora-rank: LoRA adapters (ROADMAP queue 1 item 2: the "
+                         "unfrozen modes, with K5)"),
+        (args.resume_dir is not None, "--resume-dir: train-state snapshots and resume "
+                                      "(ROADMAP queue 1)"),
+        ((args.dp, args.tp, args.pp) != (1, 1, 1), "--dp/--tp/--pp other than 1: "
+                                                   "multi-device training (ROADMAP queue 1: "
+                                                   "multi-device)"),
+    ]
+    for hit, what in refused:
+        if hit:
+            raise NotImplementedError(f"not ported yet: {what}")
+
+
+def ensure_data(args, prefix_a: str, prefix_b: str) -> Path:
+    """``--data-dir``, holding ``<prefix_a>.fasta`` and ``<prefix_b>.fasta``;
+    with ``--synthetic-fixture`` a missing pair is written from ``--seed``.
+    Downloading Propedia or PDB pairs needs the network and is not ported."""
+    data_dir = Path(args.data_dir)
+    fa, fb = data_dir / f"{prefix_a}.fasta", data_dir / f"{prefix_b}.fasta"
+    if not (fa.exists() and fb.exists()):
+        if not args.synthetic_fixture:
+            raise FileNotFoundError(
+                f"{fa} and {fb} are needed: pass --synthetic-fixture for a generated "
+                "corpus (downloads, data/fetch.py in the TPU package, are not ported)")
+        print(f"[data] writing synthetic fixture into {data_dir}")
+        write_fixture(data_dir, prefix1=prefix_a, prefix2=prefix_b,
+                      n_families=args.fixture_families, seed=args.seed)
+    return data_dir
 
 
 def esm_config(name: str, dtype_name: str, fast_gelu: bool = False,

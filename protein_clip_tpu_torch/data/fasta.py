@@ -1,5 +1,4 @@
-"""Minimal FASTA reader (the port's copy of the TPU package's
-``data/fasta.parse_fasta``)."""
+"""Minimal FASTA IO (the port's copy of the TPU package's ``data/fasta.py``)."""
 
 from __future__ import annotations
 
@@ -25,3 +24,20 @@ def parse_fasta(path: str | Path) -> list[tuple[str, str]]:
     if rid is not None:
         records.append((rid, "".join(chunks)))
     return records
+
+
+def sequences_only(path: str | Path) -> list[str]:
+    """All non-header lines, in file order: the reference's raw read, which
+    goes line by line, not record by record."""
+    seqs = []
+    with open(path) as f:
+        for line in f:
+            if not line.startswith(">") and line.strip():
+                seqs.append(line.strip())
+    return seqs
+
+
+def write_fasta(path: str | Path, records: list[tuple[str, str]]) -> None:
+    with open(path, "w") as f:
+        for rid, seq in records:
+            f.write(f">{rid}\n{seq}\n")

@@ -45,23 +45,29 @@ def library_path(name: str) -> Path:
     return BUILD_ROOT / h.hexdigest()[:16] / f"lib{name}.so"
 
 
-def build(name: str) -> str:
-    """Compile ``csrc/<name>.cu`` unless it is built already. Returns the
-    compiler's report (``-Xptxas -v``: registers, shared memory, spills),
-    empty when there was nothing to build."""
-    lib = library_path(name)
+def compile_library(cmd: list[str], src: Path, lib: Path) -> str:
+    """Compile ``src`` with ``cmd`` (a compiler and its flags) into the
+    shared library ``lib`` unless it exists already. Returns the compiler's
+    output, empty when there was nothing to build; a failed build raises."""
     if lib.exists():
         return ""
     lib.parent.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(tmp),
-                           str(CSRC_DIR / f"{name}.cu")],
+    proc = subprocess.run([*cmd, "-o", str(tmp), str(src)],
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"kernel build failed: {name} (nvcc exit "
+        raise RuntimeError(f"build failed: {src.name} ({Path(cmd[0]).name} exit "
                            f"{proc.returncode}):\n{proc.stdout}")
     os.replace(tmp, lib)  # atomic: concurrent builds agree
     return proc.stdout
+
+
+def build(name: str) -> str:
+    """Compile ``csrc/<name>.cu`` unless it is built already. Returns the
+    compiler's report (``-Xptxas -v``: registers, shared memory, spills),
+    empty when there was nothing to build."""
+    return compile_library([_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR)],
+                           CSRC_DIR / f"{name}.cu", library_path(name))
 
 
 @functools.cache

@@ -1,5 +1,5 @@
 """Dual-encoder CLIP heads over one shared frozen ESM-2 backbone: the port
-of ``protein_clip_tpu/models/clip.py`` (eval side).
+of ``protein_clip_tpu/models/clip.py``.
 
 Two head stacks (peptide ``pep`` / receptor ``rec``) plus a learnable scalar
 temperature (init 1.0), kept apart from the backbone parameters.
@@ -48,10 +48,30 @@ def abstract_params(cfg: CLIPConfig, dtype=torch.float32) -> Params:
 
 
 def encode_side(params: Params, side: str, hidden: torch.Tensor,
-                mask: torch.Tensor, cfg: CLIPConfig) -> torch.Tensor:
-    """Head pipeline for one side over precomputed backbone hidden states."""
+                mask: torch.Tensor, cfg: CLIPConfig, *, train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+    """Head pipeline for one side over precomputed backbone hidden states
+    (dropout at ``cfg.dropout`` in train mode)."""
     return heads.encode_pooled(params[side], hidden, mask, params["temperature"],
-                               activation=cfg.activation)
+                               activation=cfg.activation, dropout_rate=cfg.dropout,
+                               train=train, generator=generator)
+
+
+def forward(params: Params, esm_params: Params, batch: dict[str, torch.Tensor],
+            cfg: CLIPConfig, *, train: bool = False,
+            generator: torch.Generator | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """(pep_embedding, rec_embedding), both (B, D) scaled, from a batch of
+    ``{pep,rec}_{ids,mask}``. The backbone is frozen: it runs under
+    ``torch.no_grad`` (not ``inference_mode``, whose tensors the heads'
+    autograd could not save), and its hidden states enter the heads in f32."""
+    with torch.no_grad():
+        hp = esm2.forward(esm_params, batch["pep_ids"], batch["pep_mask"], cfg.esm).float()
+        hr = esm2.forward(esm_params, batch["rec_ids"], batch["rec_mask"], cfg.esm).float()
+    pep = encode_side(params, "pep", hp, batch["pep_mask"], cfg, train=train,
+                      generator=generator)
+    rec = encode_side(params, "rec", hr, batch["rec_mask"], cfg, train=train,
+                      generator=generator)
+    return pep, rec
 
 
 def cosine_similarity_matrix(pep: torch.Tensor, rec: torch.Tensor,

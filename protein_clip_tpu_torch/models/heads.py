@@ -1,4 +1,4 @@
-"""Projection heads over the ESM-2 backbone, in eval mode: the port of
+"""Projection heads over the ESM-2 backbone: the port of
 ``protein_clip_tpu/models/heads.py``.
 
     esm last_hidden_state (B, T, 640)
@@ -9,8 +9,13 @@
       -> L2 normalise * exp(temperature / 2)
 
 Parameters are the TPU package's head dict: ``projection {w, b}`` and two
-FFNs whose hidden blocks are stacked on a leading depth axis. Dropout is
-the identity in eval mode; training (and with it dropout) is a later slice.
+FFNs whose hidden blocks are stacked on a leading depth axis.
+
+Dropout acts in train mode only (``train=True``), after the LayerNorm of
+each hidden block, as ``where(keep, h / (1 - p), 0)`` with keep drawn from an
+explicit ``torch.Generator`` on the activations' device; eval mode (the
+default) is deterministic. The generator's bits are not JAX's, so the two
+packages agree with dropout off.
 """
 
 from __future__ import annotations
@@ -77,13 +82,22 @@ ACTIVATIONS = {
 }
 
 
-def apply_ffn(params: Params, x: torch.Tensor, activation: str = "relu") -> torch.Tensor:
-    """The hidden blocks in turn, then the output linear (eval mode)."""
+def apply_ffn(params: Params, x: torch.Tensor, activation: str = "relu", *,
+              dropout_rate: float = 0.0, train: bool = False,
+              generator: torch.Generator | None = None) -> torch.Tensor:
+    """The hidden blocks in turn, then the output linear."""
     blocks = params["blocks"]
     act = ACTIVATIONS[activation]
-    for i in range(blocks["w"].shape[0]):
+    n_blocks = blocks["w"].shape[0]
+    use_dropout = train and dropout_rate > 0.0 and n_blocks > 0
+    if use_dropout and generator is None:
+        raise ValueError("dropout requires a generator in train mode")
+    for i in range(n_blocks):
         x = torch.matmul(x, blocks["w"][i]) + blocks["b"][i]
         x = _layer_norm(act(x), blocks["ln_w"][i], blocks["ln_b"][i])
+        if use_dropout:
+            keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - dropout_rate
+            x = torch.where(keep, x / (1.0 - dropout_rate), 0.0)
     out = params["out"]
     return torch.matmul(x, out["w"]) + out["b"]
 
@@ -96,19 +110,24 @@ def masked_mean(h: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return s / cnt
 
 
-def encode_tokens(params: Params, hidden: torch.Tensor, activation: str = "relu") -> torch.Tensor:
-    """FILIP's per-token embeddings (B, T, D): projection then ``aa_ffn``,
-    with no pooling and no normalisation."""
+def encode_tokens(params: Params, hidden: torch.Tensor, activation: str = "relu",
+                  **dropout) -> torch.Tensor:
+    """Per-token embeddings (B, T, D): projection then ``aa_ffn``, with no
+    pooling and no normalisation (FILIP's tokens). ``dropout`` takes
+    ``apply_ffn``'s keywords."""
     proj = params["projection"]
     x = torch.matmul(hidden, proj["w"]) + proj["b"]
-    return apply_ffn(params["aa_ffn"], x, activation)
+    return apply_ffn(params["aa_ffn"], x, activation, **dropout)
 
 
 def encode_pooled(params: Params, hidden: torch.Tensor, mask: torch.Tensor,
-                  temperature: torch.Tensor, activation: str = "relu") -> torch.Tensor:
+                  temperature: torch.Tensor, activation: str = "relu", *,
+                  dropout_rate: float = 0.0, train: bool = False,
+                  generator: torch.Generator | None = None) -> torch.Tensor:
     """Full head pipeline -> scaled pooled embedding (B, D)."""
-    x = encode_tokens(params, hidden, activation)
-    pooled = apply_ffn(params["emb_ffn"], masked_mean(x, mask), activation)
+    drop = dict(dropout_rate=dropout_rate, train=train, generator=generator)
+    x = encode_tokens(params, hidden, activation, **drop)
+    pooled = apply_ffn(params["emb_ffn"], masked_mean(x, mask), activation, **drop)
     sq = pooled.float().square().sum(-1, keepdim=True).to(pooled.dtype)
     normed = pooled * torch.rsqrt(sq + torch.finfo(torch.float32).tiny)
     return normed * torch.exp(temperature.to(normed.dtype) / 2.0)

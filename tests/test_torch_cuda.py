@@ -1,6 +1,7 @@
-"""The port's CUDA kernels on the card: K1 and K4 against their plain
-versions at odd shapes, the wrappers' refusals, their launch counts, the
-ESM-2 forward through K1 and the FILIP scorer through K4.
+"""The port's CUDA kernels on the card: K1, K4 and the InfoNCE kernels K2
+and K3 (forward and backward) against their plain versions at odd shapes,
+the wrappers' refusals, their launch counts, the ESM-2 forward through K1,
+the FILIP scorer through K4 and a train step through K2 and K3.
 
 These tests need an NVIDIA GPU and nvcc; elsewhere they skip. This file
 imports torch and the port only, so on a machine without JAX it runs as
@@ -14,9 +15,11 @@ import numpy as np
 import pytest
 import torch
 
+from protein_clip_tpu_torch.data.tokenizer import EsmTokenizer
 from protein_clip_tpu_torch.eval import retrieval
-from protein_clip_tpu_torch.models import esm2
-from protein_clip_tpu_torch.ops import attention, filip
+from protein_clip_tpu_torch.models import clip, esm2
+from protein_clip_tpu_torch.ops import attention, filip, infonce
+from protein_clip_tpu_torch.train import clip_engine, optimizer
 
 pytestmark = pytest.mark.cuda
 
@@ -221,3 +224,143 @@ def test_ragged_scorer_launches_one_kernel_per_block(dev):
     sa, sb = filip.maxsim_reference(ha, hb, ma, mb_sorted)
     want = ((sa + sb) / 2 / 0.7).cpu().numpy()
     assert np.abs(got - want).max() <= K4_ATOL
+
+
+# K2 / K3: f32 FFMA against the plain version's f32 matmul and logsumexp,
+# the same sums in another order over up to B terms: |loss - ref| <=
+# 1e-5 max(1, |ref|), |grad - ref| <= 1e-5 max|ref|.
+INFONCE_RTOL = 1e-5
+
+
+def _unit_rows(B, D, t, dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x, y = (torch.nn.functional.normalize(torch.randn(B, D, device=dev, generator=g), dim=-1)
+            * float(np.exp(t / 2)) for _ in range(2))
+    return x.contiguous(), y.contiguous()
+
+
+def _value_and_grads(fn, x, y):
+    xr, yr = x.clone().requires_grad_(True), y.clone().requires_grad_(True)
+    loss = fn(xr, yr)
+    loss.backward()
+    torch.cuda.synchronize()
+    return loss.detach(), xr.grad, yr.grad
+
+
+@pytest.mark.parametrize("t", [1.0, 4.0])
+@pytest.mark.parametrize("tiled,B,D", [(False, 1, 128), (False, 5, 128), (False, 63, 64),
+                                       (False, 65, 128), (False, 100, 4), (False, 256, 132),
+                                       (False, 300, 256), (True, 1, 128), (True, 77, 64),
+                                       (True, 700, 128), (True, 1031, 36)])
+def test_infonce_kernels_match_plain(dev, tiled, B, D, t):
+    x, y = _unit_rows(B, D, t, dev)
+    fn = infonce.fused_infonce_tiled if tiled else infonce.fused_infonce
+    got = _value_and_grads(fn, x, y)
+    want = _value_and_grads(infonce.clip_infonce, x, y)
+    assert all(torch.isfinite(v).all() for v in got)
+    assert abs(float(got[0] - want[0])) <= INFONCE_RTOL * max(1.0, abs(float(want[0])))
+    for g, w in zip(got[1:], want[1:]):
+        assert float((g - w).abs().max()) <= INFONCE_RTOL * float(w.abs().max())
+
+
+@pytest.mark.parametrize("tiled", [False, True])
+def test_infonce_is_deterministic_and_counts_calls(dev, tiled):
+    fn = infonce.fused_infonce_tiled if tiled else infonce.fused_infonce
+    x, y = _unit_rows(300, 128, 2.0, dev)
+    before = (fn.launches, fn.bwd_launches)
+    a = _value_and_grads(fn, x, y)
+    b = _value_and_grads(fn, x, y)
+    assert (fn.launches, fn.bwd_launches) == (before[0] + 2, before[1] + 2)
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+    with torch.inference_mode():
+        fn(x, y)
+    assert (fn.launches, fn.bwd_launches) == (before[0] + 3, before[1] + 2)
+
+
+def test_infonce_backward_scales_by_the_cotangent(dev):
+    x, y = _unit_rows(40, 64, 1.0, dev)
+    _, gx, gy = _value_and_grads(infonce.fused_infonce, x, y)
+    _, sx, sy = _value_and_grads(lambda a, b: 2.5 * infonce.fused_infonce(a, b), x, y)
+    torch.testing.assert_close(sx, 2.5 * gx)
+    torch.testing.assert_close(sy, 2.5 * gy)
+
+
+def test_infonce_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    x, y = _unit_rows(16, 64, 1.0, dev)
+    for fn in (infonce.fused_infonce, infonce.fused_infonce_tiled):
+        with pytest.raises(TypeError, match="float32"):
+            fn(x.bfloat16(), y.bfloat16())
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(x.T, y.T)
+        with pytest.raises(ValueError, match="multiple of 4"):
+            fn(x[:, :6].contiguous(), y[:, :6].contiguous())
+        with pytest.raises(ValueError, match="aligned"):
+            off = torch.zeros(16 * 64 + 1, device=dev)[1:].view(16, 64)
+            fn(off, y)
+        with pytest.raises(ValueError, match="on cpu"):
+            fn(x, y.cpu())
+
+
+def _clone(tree):
+    return {k: _clone(v) for k, v in tree.items()} if isinstance(tree, dict) else tree.clone()
+
+
+def _tiny_t30_like(dev):
+    """Two layers at t30_150M's head_dim 32 in bf16, which K1 takes."""
+    esm_cfg = esm2.ESM2Config(hidden_size=128, num_layers=2, num_heads=4, intermediate_size=256,
+                              compute_dtype=torch.bfloat16)
+    mcfg = clip.CLIPConfig(input_dim=128, embedding_dim=64, dropout=0.0, esm=esm_cfg)
+    esm_params = esm2.init_params(esm_cfg, torch.Generator(device=dev).manual_seed(0),
+                                  dtype=torch.bfloat16, device=dev)
+    return mcfg, esm_params
+
+
+class _Capture(optimizer.OptState):
+    """OptState that keeps the gradients it applies."""
+
+    def apply(self):
+        self.grads = [t.grad.detach().clone() for t in self.leaves]
+        super().apply()
+
+
+@pytest.mark.parametrize("pool,tiled", [(64, False), (640, True)])
+def test_train_step_through_the_kernels_matches_the_plain_loss(dev, pool, tiled):
+    """One grouped train step with the default loss (K2 or K3) and one with
+    the plain loss, from the same heads and batch: the loss within 1e-5
+    relative, each gradient within 1e-5 of its leaf's largest, and each
+    updated head parameter within what Adam's first update allows for
+    those gradients. That update is lr g / (|g| + eps), which moves by at
+    most 2 lr |dg| / (max|g| + eps) when g moves by dg: near g = 0 it turns
+    f32 noise into up to lr, so a flat 1e-5 on the parameters would test
+    the noise, not the kernels."""
+    lr = 1e-3
+    mcfg, esm_params = _tiny_t30_like(dev)
+    cfg = clip_engine.EngineConfig(model=mcfg, batch_size=pool // 4, accumulated_batches=4,
+                                   num_chunks=4, length_groups=2)
+    rng = np.random.default_rng(0)
+    aas = list("LAGVSERTIDPKQNFYMHWC")
+    peps = ["".join(rng.choice(aas, int(n))) for n in rng.integers(8, 30, pool)]
+    recs = ["".join(rng.choice(aas, int(n))) for n in rng.integers(30, 90, pool)]
+    batch = clip_engine.tokenize_grouped(EsmTokenizer(), peps, recs, 2)
+    batch = tuple({k: v.to(dev) for k, v in b.items()} for b in batch)
+    heads0 = clip.init_params(mcfg, torch.Generator().manual_seed(1), device=dev)
+    fn = infonce.fused_infonce_tiled if tiled else infonce.fused_infonce
+    out = {}
+    for name, loss_fn in (("kernel", None), ("plain", infonce.clip_infonce)):
+        params = _clone(heads0)
+        state = _Capture(optimizer.adam(lr), params)
+        before = (fn.launches, fn.bwd_launches)
+        params, state, loss = clip_engine.make_train_step(cfg, loss_fn)(
+            params, state, esm_params, batch, None)
+        torch.cuda.synchronize()
+        launched = (fn.launches - before[0], fn.bwd_launches - before[1])
+        assert launched == ((1, 1) if name == "kernel" else (0, 0))
+        out[name] = (float(loss), state.grads, [t.detach() for t in state.leaves])
+    (lk, gk, pk), (lp, gp, pp) = out["kernel"], out["plain"]
+    assert abs(lk - lp) <= 1e-5 * abs(lp)
+    for a, b in zip(gk, gp):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+    for a, b, ga, gb in zip(pk, pp, gk, gp):
+        allowed = 1e-6 + 2 * lr * (ga - gb).abs() / (torch.maximum(ga.abs(), gb.abs()) + 1e-8)
+        assert bool(((a - b).abs() <= allowed).all())
