@@ -22,6 +22,11 @@ and a nonzero exit code, and no result line:
                 ops.infonce.clip_infonce: unit rows scaled by exp(t/2) for
                 t in {1, 4}, K2 at B in {16, 100, 256, 512}, K3 at B in
                 {1000, 1024, 2048, 4096}, D=128, and each at D=64 once.
+                K5 (segment-masked attention backward) against
+                ops.attention.attention_reference_bwd at the finetune
+                chunks' shapes (16 rows at the pep and rec buckets 32 and
+                192), at K1's timing shape and at odd T, NH=20, bf16, with
+                padded, fully padded and packed rows.
 3. serve        ESM-2 t30_150M in bf16 with seeded random weights and CLIP
                 heads, written as npz; an index of 256 synthetic sequences
                 built with cli.embed; cli.serve's server on an ephemeral port
@@ -53,12 +58,33 @@ and a nonzero exit code, and no result line:
                 (32 forwards per step, 8 per eval batch); K2 and K3 once
                 forward and once backward per step and once forward per eval
                 batch, each on its own pools. cli.embed then embeds with run
-                1's best_model.npz.
+                1's best_model.npz. Then the unfrozen modes on the same
+                fixture: cli.main --finetune and cli.main --lora-rank 8 at
+                the defaults (global batch 256 in one pad bucket, 16 chunks,
+                remat, two learning rates), one epoch each, with the same
+                artifact checks; per step K1 launches 30 times per pass-1
+                forward and 60 per pass-2 chunk (forward and remat
+                recompute), K5 30 times per pass-2 chunk, K2 once forward and
+                once backward; per eval batch K1 60 times and K2 once.
+                cli.embed embeds with each run's best_model.npz (the
+                finetuned backbone; the adapters merged into the base).
 8. step check   one default train step with K2 and one with the plain loss
                 from the same heads and batch (dropout 0, Adam lr 1e-3), at
                 256 and, with K3, at 1024: loss within 1e-5 relative,
                 gradients within 1e-5 of each leaf's largest, parameters
-                within the bound Adam's first update puts on them.
+                within the bound Adam's first update puts on them. One
+                finetune step at 256 (dropout 0) from the same weights and
+                batch through K1/K5, through their plain versions in the
+                same autograd Function, through each kernel with the other's
+                plain version, through a K5 that drops the last query tile
+                of its dk/dv loop (a planted fault), and with
+                attention_impl="eager" in bf16 and f32. Every leaf of the
+                K1/K5 step within FT_K5_TOL of its largest entry of the
+                step through K1 and K5's plain version, the loss within
+                FT_LOSS_TOL, and the planted fault past that; against the
+                eager step, per leaf within
+                twice the eager step's distance from the f32 step plus 1e-2
+                of the leaf's largest entry (check_finetune_step says why).
 9. times        K1, its plain version and torch's
                 scaled_dot_product_attention at B=16, T=512, NH=20 beside
                 K1's bound; K4 and its plain version at the /topk and full
@@ -71,7 +97,11 @@ and a nonzero exit code, and no result line:
                 256, 384, 512, 1024, 2048}, the readings behind the dispatch rule; the
                 train step in pairs/s at global batch 256 (median over the
                 steps after the first of run 1, by CUDA events recorded
-                after each step, with no sync inside the epoch).
+                after each step, with no sync inside the epoch), and the same
+                for the finetune and LoRA runs. K5, its plain version and the
+                backward of torch's scaled_dot_product_attention at B=16,
+                T=512, NH=20 and at the finetune chunks' shapes, beside K5's
+                bound.
 
 The last three lines of standard output are the card's name and power
 limit, the kernels line (one JSON object per hand-written kernel) and
@@ -101,12 +131,13 @@ import torch
 from protein_clip_tpu_torch.cli import common, embed, main as train_cli, retrieve, serve
 from protein_clip_tpu_torch.data import dataset
 from protein_clip_tpu_torch.data.fasta import sequences_only
+from protein_clip_tpu_torch.data.synthetic import write_fixture
 from protein_clip_tpu_torch.eval import retrieval
 from protein_clip_tpu_torch.kernels import build
 from protein_clip_tpu_torch.models import clip, esm2, filip
 from protein_clip_tpu_torch.ops import attention, infonce
 from protein_clip_tpu_torch.ops import filip as maxsim
-from protein_clip_tpu_torch.train import clip_engine, optimizer
+from protein_clip_tpu_torch.train import checkpoint, clip_engine, finetune, lora, optimizer
 from protein_clip_tpu_torch.train.checkpoint import export_npz
 
 ROOT = Path(__file__).resolve().parent
@@ -134,7 +165,7 @@ FILIP_COSINE_MIN = 0.99
 H100_BF16_FLOPS = 989e12              # dense tensor-core peak, SXM, 700 W
 H100_F32_FLOPS = 67e12                # f32 on the CUDA cores (no tensor cores), SXM
 H100_BYTES_PER_S = 3.35e12
-KERNELS = ("attention_fwd", "filip_maxsim", "infonce")
+KERNELS = ("attention_fwd", "attention_bwd", "filip_maxsim", "infonce")
 # K2/K3 against their plain version, both f32 (FFMA against cuBLAS f32 and
 # logsumexp: the same sums in another order, over up to 4096 terms):
 # |loss - ref| <= 1e-5 max(1, |ref|), |grad - ref| <= 1e-5 max|ref|.
@@ -143,6 +174,26 @@ K2_POOLS, K3_POOLS = (16, 100, 256, 512), (1000, 1024, 2048, 4096)
 DISPATCH_POOLS = (16, 128, 256, 384, 512, 1024, 2048)    # K2 and K3 timed side by side
 FIXTURE_FAMILIES = 3000
 TRAIN_LR = 1e-3
+LORA_RANK = 8
+# K5 at (B, T): the finetune chunks at the fixture's pep and rec buckets, K1's
+# timing shape, odd T and a long row
+K5_SHAPES = ((16, 32), (16, 192), (16, 512), (1, 1), (3, 63), (2, 200), (1, 2048))
+K5_TIME_SHAPES = ((16, 512), (16, 192), (16, 32))
+# The finetune step through K1/K5 against the same step through K1 and K5's
+# plain version: per leaf max|g_kernel - g_plain| <= FT_K5_TOL max|g_plain|,
+# the loss within FT_LOSS_TOL relative. Every backbone gradient passes
+# through bf16 at each layer, so K5's sum order shows as bf16 rounding
+# flips: one bf16 ulp (2^-8) in L2 at the median leaf, 2.6 ulps of the
+# leaf's largest entry at the key bias, whose gradient nearly cancels
+# (softmax ignores a per-query constant; RoPE leaves a remainder). The
+# limit is four ulps; a K5 whose dk/dv loop drops the last query tile
+# moves that leaf by 59 times it and every attention leaf by 34 or more.
+FT_LOSS_TOL, FT_K5_TOL = 1e-6, 2 ** -6
+# The same step against eager autograd, both bf16: per leaf |g_kernel -
+# g_eager| <= 2 |g_eager - g_f32| + FT_GRAD_FLOOR max|g_f32| (and the loss
+# alike, with FT_LOSS_FLOOR |loss_f32|, 1/40 of a bf16 ulp), with the eager
+# step in f32 as the reference.
+FT_LOSS_FLOOR, FT_GRAD_FLOOR = 1e-4, 1e-2
 AAS = "LAGVSERTIDPKQNFYMHWC"
 
 
@@ -228,6 +279,53 @@ def check_attention(gen: torch.Generator) -> float:
         if not ok:
             raise AssertionError(f"attention_fwd disagrees with its plain version "
                                  f"at B={B} T={T} ({kind})")
+    return worst
+
+
+def bwd_cases(gen: torch.Generator):
+    """(B, T, kind, q, k, v, dO, segments) for K5: padded rows everywhere
+    (with one row of no valid token where B > 1, whose queries are all
+    uniform), packed rows at three shapes."""
+    for B, T in K5_SHAPES:
+        kinds = ["padded"] + (["packed"] if T in (192, 200, 2048) else [])
+        for kind in kinds:
+            if kind == "packed":
+                seg = packed_segments(B, T)
+            else:
+                seg = padded_segments(B, T)
+                if B > 1:
+                    seg[B // 2] = 0
+                    kind = "padded, one row fully padded"
+            q, k, v = qkv(B, T, gen)
+            do = torch.randn(B, T, NH, DH, device="cuda", generator=gen).bfloat16()
+            yield B, T, kind, q, k, v, do, seg
+
+
+def check_attention_bwd(gen: torch.Generator) -> float:
+    """K5 against attention_reference_bwd, each of dq, dk, dv held to K1's
+    form |err| <= ATOL_RMS * rms(ref) + RTOL * |ref|: both round P and dS to
+    bf16 for the products, from f32 values that differ by the order of
+    their sums (K5's online max and 64-key tiles against one softmax), and
+    round the outputs to bf16 (2^-8 relative, within RTOL)."""
+    worst = 0.0
+    for B, T, kind, q, k, v, do, seg in bwd_cases(gen):
+        got = attention.fused_attention_bwd(q, k, v, seg, do)
+        torch.cuda.synchronize()
+        want = attention.attention_reference_bwd(q, k, v, seg, do)
+        needs = []
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            w = w.float()
+            err = (g.float() - w).abs()
+            rms = w.square().mean().sqrt().item()
+            need = (err - RTOL * w.abs()).max().item() / max(rms, 1e-30)
+            if not (bool(torch.isfinite(g).all()) and need <= ATOL_RMS):
+                raise AssertionError(f"attention_bwd {name} disagrees with its plain version "
+                                     f"at B={B} T={T} ({kind}): least passing atol "
+                                     f"{need:.6g} rms(ref)")
+            worst = max(worst, err.max().item())
+            needs.append(f"{name} {err.max().item():.6g} (least passing atol {need:.6g} rms)")
+        log(f"[kernels] attention_bwd B={B} T={T} NH={NH} {kind}: max|err| " + ", ".join(needs)
+            + f"; tolerance {ATOL_RMS:g}*rms(ref) + {RTOL}*|ref| ok")
     return worst
 
 
@@ -324,9 +422,9 @@ def counted_forwards():
     forwards = []
     plain_forward = esm2.forward
 
-    def counted_forward(params, ids, mask, c):
+    def counted_forward(params, ids, mask, c, **kw):
         forwards.append(tuple(ids.shape))
-        return plain_forward(params, ids, mask, c)
+        return plain_forward(params, ids, mask, c, **kw)
 
     esm2.forward = counted_forward
     try:
@@ -337,6 +435,7 @@ def counted_forwards():
 
 def reset_counts() -> None:
     attention.fused_attention.launches = 0
+    attention.fused_attention_bwd.launches = 0
     maxsim.filip_similarity_fused.launches = 0
     for fn in (infonce.fused_infonce, infonce.fused_infonce_tiled):
         fn.launches = fn.bwd_launches = 0
@@ -728,12 +827,13 @@ def check_filip_end_to_end(ctx: dict, fctx: dict) -> float:
 # ---------------------------------------------------------------------------
 
 @contextlib.contextmanager
-def timed_steps():
-    """Record a CUDA event on the current stream after every train step
-    while the block runs. Nothing syncs: the steps overlap the host and the
-    card as train_gc runs them, and the events are read after the epoch."""
+def timed_steps(engine=clip_engine):
+    """Record a CUDA event on the current stream after every train step of
+    ``engine`` while the block runs. Nothing syncs: the steps overlap the
+    host and the card as train_gc runs them, and the events are read after
+    the epoch."""
     ends: list[torch.cuda.Event] = []
-    plain_make = clip_engine.make_train_step
+    plain_make = engine.make_train_step
 
     def make(cfg, loss_fn=None):
         step = plain_make(cfg, loss_fn)
@@ -745,11 +845,11 @@ def timed_steps():
             return out
         return timed
 
-    clip_engine.make_train_step = make
+    engine.make_train_step = make
     try:
         yield ends
     finally:
-        clip_engine.make_train_step = plain_make
+        engine.make_train_step = plain_make
 
 
 def check_run_dir(runs: Path) -> Path:
@@ -810,6 +910,61 @@ def run_train(name: str, data_dir: Path, batch_size: int) -> dict:
         **{k: v[0] for k, v in counts.items()}}, "bwd": {k: v[1] for k, v in counts.items()}}
 
 
+def run_unfrozen(name: str, data_dir: Path, mode_args: list[str], engine) -> dict:
+    """cli.main --finetune or --lora-rank for one epoch at the defaults
+    (global batch 256 in one pad bucket, 16 chunks, remat); checks the
+    artifacts and every kernel's launch count against the loaders."""
+    runs = WORK / f"runs_{name}"
+    t0 = time.perf_counter()
+    with counted_forwards() as forwards, timed_steps(engine) as ends:
+        reset_counts()
+        train_cli.main(["--synthetic-fixture", "--data-dir", str(data_dir), "--fixture-families",
+                        str(FIXTURE_FAMILIES), "--epochs", "1", "--runs-dir", str(runs)]
+                       + mode_args)
+        k1 = attention.fused_attention.launches
+        k5 = attention.fused_attention_bwd.launches
+        counts = infonce_counts()
+    wall = time.perf_counter() - t0
+    run = check_run_dir(runs)
+    train_ds, val_ds, test_ds = dataset.generate_datasets(data_dir, seed=42)
+    steps = len(train_ds) // 16 // 16
+    evals = len(val_ds) // 16 + len(test_ds) // 16
+    chunks = 2 * 16                          # per step: 16 chunks of 16 pairs per side
+    want_forwards = 2 * chunks * steps + 2 * evals       # pass 1 and pass 2; 2 per eval
+    want_k1 = (30 * chunks + 60 * chunks) * steps + 60 * evals
+    want_k5 = 30 * chunks * steps
+    want = {"infonce": (steps + evals, steps), "infonce_tiled": (0, 0)}
+    if (len(ends), len(forwards), k1, k5) != (steps, want_forwards, want_k1, want_k5):
+        raise AssertionError(f"{name}: {len(ends)} steps (want {steps}), {len(forwards)} "
+                             f"forwards (want {want_forwards}), attention_fwd {k1} (want "
+                             f"{want_k1}), attention_bwd {k5} (want {want_k5})")
+    if counts != want:
+        raise AssertionError(f"{name}: InfoNCE (forward, backward) calls {counts}, want {want}")
+    metrics = json.loads((run / "metrics.jsonl").read_text().splitlines()[0])
+    log(f"[train] {name}: global batch 256 in one pad bucket, {steps} steps, {evals} eval "
+        f"batches of 16; train loss {metrics['train_loss']:.6f}, val loss "
+        f"{metrics['val_loss']:.6f}; {len(forwards)} backbone forwards; attention_fwd {k1} "
+        f"(30 per pass-1 forward, 60 per pass-2 chunk, 60 per eval batch), attention_bwd "
+        f"{k5} (30 per pass-2 chunk); InfoNCE (forward, backward) calls {counts}; epoch "
+        f"{metrics['seconds']:.2f} s, cli.main {wall:.2f} s")
+    return {"run": run, "steps": steps, "ends": ends, "launches": {
+        "attention_fwd": k1, "attention_bwd": k5,
+        "filip_maxsim": maxsim.filip_similarity_fused.launches,
+        **{k: v[0] for k, v in counts.items()}}}
+
+
+def embed_check(path: Path, recs: list[str], what: str) -> None:
+    fasta = WORK / "train_embed.fasta"
+    fasta.write_text("".join(f">r{i}\n{s}\n" for i, s in enumerate(recs[:8])))
+    embed.main(["--checkpoint", str(path), "--fasta", str(fasta),
+                "--side", "rec", "--out", str(WORK / "train_embed.npz")])
+    with np.load(WORK / "train_embed.npz") as index:
+        emb = index["embeddings"]
+    if emb.shape != (8, 128) or not np.isfinite(emb).all():
+        raise AssertionError(f"cli.embed with {what} gave {emb.shape}")
+    log(f"[train] cli.embed with {what}: {emb.shape}, finite")
+
+
 def run_train_phase() -> dict:
     data_dir = WORK / "train_data"
     out = {"k2": run_train("train_256", data_dir, 16),
@@ -820,15 +975,13 @@ def run_train_phase() -> dict:
                       f"{max(map(len, recs))} aa, peptides {min(map(len, peps))}-"
                       f"{max(map(len, peps))} aa")
     log(f"[train] fixture: {FIXTURE_FAMILIES} families, {out['profile']}")
-    fasta = WORK / "train_embed.fasta"
-    fasta.write_text("".join(f">r{i}\n{s}\n" for i, s in enumerate(recs[:8])))
-    embed.main(["--checkpoint", str(out["k2"]["run"] / "best_model.npz"), "--fasta", str(fasta),
-                "--side", "rec", "--out", str(WORK / "train_embed.npz")])
-    with np.load(WORK / "train_embed.npz") as index:
-        emb = index["embeddings"]
-    if emb.shape != (8, 128) or not np.isfinite(emb).all():
-        raise AssertionError(f"cli.embed with the trained heads gave {emb.shape}")
-    log(f"[train] cli.embed with run 1's best_model.npz: {emb.shape}, finite")
+    embed_check(out["k2"]["run"] / "best_model.npz", recs, "run 1's best_model.npz")
+    out["finetune"] = run_unfrozen("train_finetune", data_dir, ["--finetune"], finetune)
+    embed_check(out["finetune"]["run"] / "best_model.npz", recs,
+                "the finetune run's best_model.npz (its own backbone)")
+    out["lora"] = run_unfrozen("train_lora", data_dir, ["--lora-rank", str(LORA_RANK)], lora)
+    embed_check(out["lora"]["run"] / "best_model.npz", recs,
+                "the LoRA run's best_model.npz (adapters merged into the base)")
     return out
 
 
@@ -836,12 +989,17 @@ def run_train_phase() -> dict:
 # Phase 8: one train step through K2 / K3 against the plain loss
 # ---------------------------------------------------------------------------
 
-class CapturingOptState(optimizer.OptState):
-    """OptState that keeps the gradients it applies."""
+def capturing(state, params):
+    """Make ``state.apply`` keep, by leaf name, the gradients it applies."""
+    named = checkpoint._flatten(params)
+    apply = state.apply
 
-    def apply(self):
-        self.grads = [t.grad.detach().clone() for t in self.leaves]
-        super().apply()
+    def capture():
+        state.grads = {k: t.grad.detach().clone() for k, t in named.items()}
+        apply()
+
+    state.apply = capture
+    return state
 
 
 def clone_tree(tree):
@@ -872,7 +1030,7 @@ def check_step(pool: int) -> dict:
     out = {}
     for name, loss_fn in (("kernel", None), ("plain", infonce.clip_infonce)):
         params = clone_tree(heads0)
-        state = CapturingOptState(optimizer.adam(TRAIN_LR), params)
+        state = capturing(optimizer.adam(TRAIN_LR).init(params), params)
         before = (kernel_fn.launches, kernel_fn.bwd_launches)
         _, _, loss = clip_engine.make_train_step(cfg, loss_fn)(params, state, esm_params, batch,
                                                                 None)
@@ -880,7 +1038,7 @@ def check_step(pool: int) -> dict:
         calls = (kernel_fn.launches - before[0], kernel_fn.bwd_launches - before[1])
         if calls != ((1, 1) if name == "kernel" else (0, 0)):
             raise AssertionError(f"step check {pool}: {kernel} calls {calls} ({name})")
-        out[name] = (float(loss), state.grads, [t.detach() for t in state.leaves])
+        out[name] = (float(loss), list(state.grads.values()), [t.detach() for t in state.leaves])
     (lk, gk, pk), (lp, gp, pp) = out["kernel"], out["plain"]
     loss_err = abs(lk - lp) / abs(lp)
     grad_err = max(float((a - b).abs().max()) / float(b.abs().max()) for a, b in zip(gk, gp))
@@ -901,6 +1059,191 @@ def check_step(pool: int) -> dict:
     if not ok:
         raise AssertionError(f"the train step through {kernel} disagrees with the plain loss")
     return {"loss_rel_err": loss_err, "grad_rel_err": grad_err, "param_max_abs_err": param_err}
+
+
+def drop_last_query_tile(bwd):
+    """K5 with the planted fault the step check must catch: its dk/dv loop
+    drops the last 64-query tile. Zeroing dO on those queries removes
+    exactly their terms from dk and dv (their dS and P.dO vanish); dq comes
+    from the whole call. Two K5 calls per backward."""
+    def fault(q, k, v, segments, do):
+        cut = do.clone()
+        cut[:, (q.shape[1] - 1) // 64 * 64:] = 0
+        return (bwd(q, k, v, segments, do)[0], *bwd(q, k, v, segments, cut)[1:])
+    return fault
+
+
+@contextlib.contextmanager
+def attention_function(forward, backward):
+    """The fused attention Function with another forward (K1's place) and
+    backward (K5's place) while the block runs. K5 counts its launches on
+    the module's name fused_attention_bwd, so the stand-in there carries
+    the count meanwhile and hands it back."""
+    saved = attention._forward, attention.fused_attention_bwd
+
+    def stand_in(*args):
+        return backward(*args)
+
+    stand_in.launches = saved[1].launches
+    attention._forward, attention.fused_attention_bwd = forward, stand_in
+    try:
+        yield
+    finally:
+        attention._forward, attention.fused_attention_bwd = saved
+        saved[1].launches = stand_in.launches
+
+
+def finetune_step_runs() -> dict:
+    """One finetune step at global batch 256 (one pad bucket, 16 chunks,
+    remat, dropout 0, the two-group Adam) from the same f32 master weights
+    and batch, once per attention path: {name: (loss, {leaf: gradient})}.
+    "kernel" runs K1 and K5; "k1_plain_bwd" K1 and K5's plain version;
+    "plain_fwd_k5" K1's plain version and K5; "plain" both plain versions
+    (the TPU kernels' semantics, rounding where they round); "fault" K1
+    and drop_last_query_tile(K5); "eager" and "eager_f32"
+    attention_impl="eager" (plain attention through autograd) with a bf16
+    and an f32 backbone."""
+    base = common.esm_config("t30_150M", "bfloat16")
+    esm0 = esm2.init_params(base, torch.Generator(device="cuda").manual_seed(0),
+                            dtype=torch.bfloat16, device="cuda")
+    data_dir = WORK / "train_data"
+    if not (data_dir / "receptor.fasta").exists():
+        write_fixture(data_dir, n_families=FIXTURE_FAMILIES, seed=42)
+    train_ds, _, _ = dataset.generate_datasets(data_dir, seed=42)
+    peps, recs = next(clip_engine._accumulate(dataset.PairLoader(train_ds, 16, seed=SEED), 16))
+    batch = {k: v.cuda() for k, v in clip_engine.tokenize_pair_batch(
+        common.make_tokenizer(), peps, recs).items()}
+    heads0 = clip.init_params(clip.CLIPConfig(input_dim=base.hidden_size, esm=base),
+                              torch.Generator().manual_seed(SEED), device="cuda")
+    k1, k5 = attention._forward, attention.fused_attention_bwd
+    plain_fwd, plain_bwd = attention.attention_reference, attention.attention_reference_bwd
+    c = 2 * 16                                   # chunks per step
+    runs = (("kernel", "fused", torch.bfloat16, k1, k5, (90 * c, 30 * c)),
+            ("k1_plain_bwd", "fused", torch.bfloat16, k1, plain_bwd, (90 * c, 0)),
+            ("plain_fwd_k5", "fused", torch.bfloat16, plain_fwd, k5, (0, 30 * c)),
+            ("plain", "fused", torch.bfloat16, plain_fwd, plain_bwd, (0, 0)),
+            ("fault", "fused", torch.bfloat16, k1, drop_last_query_tile(k5), (90 * c, 60 * c)),
+            ("eager", "eager", torch.bfloat16, k1, k5, (0, 0)),
+            ("eager_f32", "eager", torch.float32, k1, k5, (0, 0)))
+    out = {"shapes": (tuple(batch["pep_ids"].shape), tuple(batch["rec_ids"].shape))}
+    for name, impl, dtype, fwd, bwd, want in runs:
+        esm_cfg = dataclasses.replace(base, attention_impl=impl, compute_dtype=dtype)
+        cfg = clip_engine.EngineConfig(
+            model=clip.CLIPConfig(input_dim=base.hidden_size, dropout=0.0, esm=esm_cfg))
+        params = finetune.init_params(esm0, clone_tree(heads0))
+        state = capturing(finetune.make_optimizer(cfg).init(params), params)
+        before = (attention.fused_attention.launches, k5.launches)
+        with attention_function(fwd, bwd):
+            _, _, loss = finetune.make_train_step(cfg)(params, state, {}, batch, None)
+        torch.cuda.synchronize()
+        calls = (attention.fused_attention.launches - before[0], k5.launches - before[1])
+        if calls != want:
+            raise AssertionError(f"finetune step check ({name}): (attention_fwd, "
+                                 f"attention_bwd) launches {calls}, want {want}")
+        out[name] = (float(loss), state.grads)
+        del params, state
+    return out
+
+
+def leaf_gaps(a: dict, b: dict) -> dict:
+    """{leaf: (max|a - b| / max|b|, |a - b| / |b| in L2)} over b's leaves."""
+    return {k: (float((a[k] - b[k]).abs().max()) / max(float(b[k].abs().max()), 1e-30),
+                float((a[k] - b[k]).norm()) / max(float(b[k].norm()), 1e-30)) for k in b}
+
+
+def gap_summary(gaps: dict) -> dict:
+    """Per part (backbone "esm/", heads "heads/"): the leaf with the largest
+    max-relative gap, and the median and largest L2-relative gap."""
+    out = {}
+    for part in ("esm/", "heads/"):
+        leaves = {k: v for k, v in gaps.items() if k.startswith(part)}
+        worst = max(leaves, key=lambda k: leaves[k][0])
+        out[part[:-1]] = {"max_rel": leaves[worst][0], "leaf": worst,
+                          "l2_median": statistics.median(v[1] for v in leaves.values()),
+                          "l2_max": max(v[1] for v in leaves.values())}
+    return out
+
+
+def check_finetune_step() -> dict:
+    """K5 inside the finetune step, and the port's attention against eager
+    autograd (finetune_step_runs).
+
+    1. K5 in the step: "kernel" against "k1_plain_bwd". Both run K1's
+       forward, so the loss and the heads' gradients agree exactly, and the
+       backbone's gradients differ only by K5 against its plain version:
+       the order of f32 sums before P and dS are rounded to bf16. Every
+       leaf within FT_K5_TOL of its largest entry (four bf16 ulps, see
+       there), the loss within
+       FT_LOSS_TOL relative. The planted fault (K5 dropping the last query
+       tile of its dk/dv loop) must fail this; its largest ratio to the
+       limit is printed.
+    2. The port's attention against eager autograd, which rounds elsewhere
+       (P to bf16 before P.V, and dP rather than dS to bf16 in the
+       backward): per leaf |g_kernel - g_eager| <= 2 |g_eager - g_f32| +
+       FT_GRAD_FLOOR max|g_f32|, the loss alike with FT_LOSS_FLOOR. With
+       random weights the attention is near uniform, where bf16 rounds a
+       row's probabilities alike, and a head bias whose gradient is small
+       beside its sensitivity to the hidden states moves by a third of its
+       largest entry between the bf16 and the f32 step: a check of the
+       semantics, where 1 checks the kernel.
+    Each path's distance from the f32 step (K1 or its plain version, K5
+    or its plain version, eager) says which rounding point moves the
+    gradients away from the eager step's."""
+    out = finetune_step_runs()
+    grads = {k: v[1] for k, v in out.items() if k != "shapes"}
+    loss = {k: v[0] for k, v in out.items() if k != "shapes"}
+    pairs = (("kernel", "k1_plain_bwd"), ("fault", "k1_plain_bwd"), ("kernel", "plain_fwd_k5"),
+             ("kernel", "eager"), ("plain", "eager"), ("kernel", "eager_f32"),
+             ("k1_plain_bwd", "eager_f32"), ("plain_fwd_k5", "eager_f32"),
+             ("plain", "eager_f32"), ("eager", "eager_f32"))
+    gaps = {f"{a}_vs_{b}": leaf_gaps(grads[a], grads[b]) for a, b in pairs}
+    summary = {name: {"loss_rel": abs(loss[a] - loss[b]) / abs(loss[b]),
+                      **gap_summary(gaps[name])}
+               for name, (a, b) in zip(gaps, pairs)}
+    for name, row in summary.items():
+        log(f"[step] finetune {name}: loss relative {row['loss_rel']:.3g}; " + "; ".join(
+            f"{part} max|err|/leaf max {row[part]['max_rel']:.4g} ({row[part]['leaf']}), L2 "
+            f"relative median {row[part]['l2_median']:.4g}, largest {row[part]['l2_max']:.4g}"
+            for part in ("esm", "heads")))
+    # 1. K5 against its plain version inside the step, and the planted fault
+    tight = {k: v[0] / FT_K5_TOL for k, v in gaps["kernel_vs_k1_plain_bwd"].items()}
+    fault = {k: v[0] / FT_K5_TOL for k, v in gaps["fault_vs_k1_plain_bwd"].items()}
+    worst, worst_fault = max(tight, key=tight.get), max(fault, key=fault.get)
+    loss_k5 = summary["kernel_vs_k1_plain_bwd"]["loss_rel"]
+    ok1 = tight[worst] <= 1.0 and loss_k5 <= FT_LOSS_TOL
+    # 2. against eager autograd, per leaf, with the f32 step as the anchor
+    (lk, gk), (le, ge), (lf, gf) = out["kernel"], out["eager"], out["eager_f32"]
+    loss_allowed = 2 * abs(le - lf) + FT_LOSS_FLOOR * abs(lf)
+    ratios = {}
+    for key in gf:
+        err = float((gk[key] - ge[key]).abs().max())
+        allowed = (2 * float((ge[key] - gf[key]).abs().max())
+                   + FT_GRAD_FLOOR * float(gf[key].abs().max()))
+        ratios[key] = err / allowed if allowed > 0 else (0.0 if err == 0 else math.inf)
+    worst_eager = max(ratios, key=ratios.get)
+    ok2 = abs(lk - le) <= loss_allowed and ratios[worst_eager] <= 1.0
+    pep, rec = out["shapes"]
+    log(f"[step] finetune step at global batch 256 (pep {pep}, rec {rec}; dropout 0): loss "
+        f"through K1/K5 {lk:.6f}, K1 and K5's plain version {loss['k1_plain_bwd']:.6f}, eager "
+        f"{le:.6f}, eager f32 {lf:.6f}. K5 against its plain version in the step: loss "
+        f"relative {loss_k5:.3g} (tolerance {FT_LOSS_TOL:g}), largest max|err|/leaf max over "
+        f"the tolerance {FT_K5_TOL:g}: {tight[worst]:.4g} ({worst}); the planted fault (K5 "
+        f"dropping the last query tile of dk/dv): {fault[worst_fault]:.4g} ({worst_fault}) "
+        f"{'ok' if ok1 else 'FAIL'}. Against eager: |loss - eager| {abs(lk - le):.3g} "
+        f"(allowed {loss_allowed:.3g}), largest gradient ratio to 2|eager - f32| + "
+        f"{FT_GRAD_FLOOR:g} max|f32|: {ratios[worst_eager]:.4g} ({worst_eager}) "
+        f"{'ok' if ok2 else 'FAIL'}")
+    if not ok1:
+        raise AssertionError("K5 in the finetune step disagrees with its plain version")
+    if fault[worst_fault] <= 1.0:
+        raise AssertionError("the finetune step check does not see a K5 that drops a query tile")
+    if not ok2:
+        raise AssertionError("the finetune step through K1/K5 disagrees with the eager step")
+    return {"loss_rel_err": loss_k5, "grad_ratio": tight[worst], "grad_leaf": worst,
+            "fault_ratio": fault[worst_fault], "fault_leaf": worst_fault,
+            "eager_loss_abs_err": abs(lk - le), "eager_loss_allowed": loss_allowed,
+            "eager_grad_ratio": ratios[worst_eager], "eager_grad_leaf": worst_eager,
+            "gaps": summary}
 
 
 # ---------------------------------------------------------------------------
@@ -941,6 +1284,65 @@ def time_attention(gen: torch.Generator, gpu: str) -> dict:
         f"{nbytes / 1e6:.4f} MB) | {gpu}")
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def attention_bwd_bound(B: int, T: int) -> tuple[float, str, str]:
+    """(bound ms, what bounds it, the counts): the five (T x T x 32)
+    products per (row, head) of the backward (S, dP, dq, dk, dv) in bf16 on
+    the tensor cores, against q, k, v, dO read and dq, dk, dv written once
+    (bf16) and the segments read."""
+    flops = 5 * 2 * B * NH * T * T * DH
+    nbytes = 7 * B * T * NH * DH * 2 + B * T * 4
+    t_ops, t_bytes = flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes), "bytes" if t_bytes >= t_ops else "operations",
+            f"{flops / 1e9:.4f} GFLOP, {nbytes / 1e6:.4f} MB")
+
+
+def time_attention_bwd(gen: torch.Generator, gpu: str) -> list[dict]:
+    """K5, its plain version, and the backward alone of torch's
+    scaled_dot_product_attention with the same boolean mask (a yardstick:
+    torch.autograd.grad on a saved graph), at K5_TIME_SHAPES, in device
+    time summed by torch.profiler: at the chunk shapes the wrapper's host
+    work (checks, allocations, ctypes) outlasts the kernels."""
+    rows = []
+    for B, T in K5_TIME_SHAPES:
+        seg = padded_segments(B, T)
+        allowed = ((seg[:, None, :, None] == seg[:, None, None, :])
+                   & (seg[:, None, None, :] > 0))
+        # four input sets so that successive calls miss the 50 MB L2
+        sets = []
+        for _ in range(4):
+            q, k, v = qkv(B, T, gen)
+            do = torch.randn(B, T, NH, DH, device="cuda", generator=gen).bfloat16()
+            lq, lk, lv = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+            out = torch.nn.functional.scaled_dot_product_attention(lq, lk, lv, attn_mask=allowed,
+                                                                   scale=1.0)
+            sets.append((q, k, v, do, (out, (lq, lk, lv), do.transpose(1, 2))))
+        cycle = itertools.cycle(sets)
+
+        def kernel():
+            q, k, v, do, _ = next(cycle)
+            attention.fused_attention_bwd(q, k, v, seg, do)
+
+        def plain():
+            q, k, v, do, _ = next(cycle)
+            attention.attention_reference_bwd(q, k, v, seg, do)
+
+        def library():
+            out, inputs, do = next(cycle)[4]
+            torch.autograd.grad(out, inputs, do, retain_graph=True)
+
+        row = {"shape": [B, T, NH, DH], "ms": device_ms(kernel, 100),
+               "wall_ms": cuda_ms(kernel, 100), "plain_ms": device_ms(plain, 10),
+               "library_ms": device_ms(library, 100)}
+        row["bound_ms"], row["bound_by"], counts = attention_bwd_bound(B, T)
+        log(f"[time] attention_bwd B={B} T={T} NH={NH}, device time: kernel {row['ms']:.6f} ms "
+            f"({row['wall_ms']:.6f} ms per call with the host), plain {row['plain_ms']:.6f} ms, "
+            f"library (scaled_dot_product_attention backward) {row['library_ms']:.6f} ms, bound "
+            f"{row['bound_ms']:.6f} ms ({row['bound_by']}: {counts}) = "
+            f"{100 * row['bound_ms'] / row['ms']:.2f}% of the bound | {gpu}")
+        rows.append(row)
+    return rows
 
 
 def maxsim_bound(Ba: int, Bb: int, TA: int, TB: int, D: int) -> tuple[float, str, str]:
@@ -1149,18 +1551,17 @@ def time_dispatch(gen: torch.Generator, gpu: str) -> list[dict]:
     return rows
 
 
-def time_train_steps(tctx: dict, gpu: str) -> float:
-    """pairs/s of the global-batch-256 step over run 1's steps after the
+def time_train_steps(tctx: dict, run: str, what: str, gpu: str) -> float:
+    """pairs/s of a global-batch-256 step over a run's steps after the
     first: the card's time between the events recorded after consecutive
     steps, with no sync inside the epoch."""
     torch.cuda.synchronize()
-    ends = tctx["k2"]["ends"]
+    ends = tctx[run]["ends"]
     dts = [a.elapsed_time(b) / 1e3 for a, b in zip(ends, ends[1:])]
     rate = 256 / statistics.median(dts)
-    log(f"[time] train step at global batch 256 (t30_150M bf16, 4 length groups, 16 chunks): "
-        f"{rate:.4f} pairs/s, median of {len(dts)} steps after the first ({1e3 * min(dts):.2f}-"
-        f"{1e3 * max(dts):.2f} ms per step, by CUDA events, no sync per step); fixture "
-        f"{tctx['profile']} | {gpu}")
+    log(f"[time] {what} at global batch 256 (t30_150M bf16, 16 chunks): {rate:.4f} pairs/s, "
+        f"median of {len(dts)} steps after the first ({1e3 * min(dts):.2f}-"
+        f"{1e3 * max(dts):.2f} ms per step, by CUDA events); fixture {tctx['profile']} | {gpu}")
     return rate
 
 
@@ -1191,6 +1592,7 @@ def main() -> int:
     max_err = check_attention(gen)
     k4_err = check_maxsim(gen)
     nce_err = check_infonce(gen)
+    k5_err = check_attention_bwd(gen)
     rng = np.random.default_rng(SEED)
     ctx = run_serve_phase(rng)
     try:
@@ -1199,14 +1601,19 @@ def main() -> int:
         try:
             check_filip_end_to_end(ctx, fctx)
             tctx = run_train_phase()
-            steps = {"k2": check_step(256), "k3": check_step(1024)}
+            steps = {"k2": check_step(256), "k3": check_step(1024),
+                     "finetune": check_finetune_step()}
             times = time_attention(gen, gpu)
+            k5_times = time_attention_bwd(gen, gpu)
             k4_times = time_maxsim(gen, gpu)
             nce_times = time_infonce(gen, gpu)
             dispatch = time_dispatch(gen, gpu)
             time_serving(ctx, rng, gpu)
             time_filip_serving(ctx, fctx, rng, gpu)
-            pairs_per_s = time_train_steps(tctx, gpu)
+            pairs_per_s = {run: time_train_steps(tctx, run, what, gpu) for run, what in (
+                ("k2", "frozen train step (4 length groups)"),
+                ("finetune", "finetune step (one pad bucket, remat)"),
+                ("lora", f"LoRA step (rank {LORA_RANK}, one pad bucket, remat)"))}
         finally:
             stop(fctx)
     finally:
@@ -1214,15 +1621,26 @@ def main() -> int:
         shutil.rmtree(WORK, ignore_errors=True)
 
     paths = {"serve": ctx["launches"], "filip_serve": fctx["launches"],
-             "train_256": tctx["k2"]["launches"], "train_1024": tctx["k3"]["launches"]}
+             "train_256": tctx["k2"]["launches"], "train_1024": tctx["k3"]["launches"],
+             "train_finetune": tctx["finetune"]["launches"],
+             "train_lora": tctx["lora"]["launches"]}
     by_path = {name: {path: counts.get(name, 0) for path, counts in paths.items()}
-               for name in ("attention_fwd", "filip_maxsim", "infonce", "infonce_tiled")}
+               for name in ("attention_fwd", "attention_bwd", "filip_maxsim", "infonce",
+                            "infonce_tiled")}
     kernels = [{
         "name": "attention_fwd", "phase": "serve", "route": "cuda",
         "source": "protein_clip_tpu_torch/csrc/attention_fwd.cu",
         "replaces": "protein_clip_tpu/ops/attention_pallas.py:105",
         "launches": ctx["launches"]["attention_fwd"],
         "launches_by_path": by_path["attention_fwd"], "max_abs_err": max_err, **times,
+    }, {
+        "name": "attention_bwd", "phase": "train_finetune", "route": "cuda",
+        "source": "protein_clip_tpu_torch/csrc/attention_bwd.cu",
+        "replaces": "protein_clip_tpu/ops/attention_pallas.py:287",
+        "launches": tctx["finetune"]["launches"]["attention_bwd"],
+        "launches_by_path": by_path["attention_bwd"], "max_abs_err": k5_err, **k5_times[0],
+        "at_chunks": k5_times[1:], "step_check": steps["finetune"],
+        "finetune_pairs_per_s": pairs_per_s["finetune"], "lora_pairs_per_s": pairs_per_s["lora"],
     }, {
         "name": "filip_maxsim", "phase": "filip_serve", "route": "cuda",
         "source": "protein_clip_tpu_torch/csrc/filip_maxsim.cu",
@@ -1240,7 +1658,7 @@ def main() -> int:
         "bwd_launches": tctx["k2"]["bwd"]["infonce"],
         "launches_by_path": by_path["infonce"], "max_abs_err": nce_err["infonce"],
         **nce_times["infonce"][0], "step_check": steps["k2"],
-        "train_pairs_per_s": pairs_per_s, "dispatch": dispatch,
+        "train_pairs_per_s": pairs_per_s["k2"], "dispatch": dispatch,
     }, {
         "name": "infonce_tiled", "phase": "train_1024", "route": "cuda",
         "source": "protein_clip_tpu_torch/csrc/infonce.cu",

@@ -19,7 +19,7 @@ from ..data.synthetic import write_fixture
 from ..data.tokenizer import EsmTokenizer
 from ..models import clip, esm2
 from ..ops import attention
-from ..train import checkpoint
+from ..train import checkpoint, lora
 
 ESM_FAMILIES = ("t30_150M", "t6_8M", "t12_35M", "t33_650M", "t36_3B", "t48_15B", "tiny")
 
@@ -77,9 +77,21 @@ def add_train_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--packed", action="store_true",
                    help="sequence-packed encoding (not ported yet: raises)")
     p.add_argument("--finetune", action="store_true",
-                   help="unfreeze the backbone (not ported yet: raises)")
+                   help="unfreeze the ESM-2 backbone: end-to-end training via the two-pass "
+                        "gradcache and the attention backward K5 (train/finetune.py; the "
+                        "reference is frozen-only). The f32 master backbone trains at "
+                        "--backbone-lr. Not with --packed (not ported yet: raises)")
+    p.add_argument("--backbone-lr", type=float, default=None,
+                   help="with --finetune: backbone learning rate (heads stay at --lr). "
+                        "Default None resolves per mode: 1e-5 for full finetune, 1e-4 for "
+                        "LoRA adapters (zero-init adapters want a hotter rate)")
     p.add_argument("--lora-rank", type=int, default=0,
-                   help="> 0: LoRA adapters on the backbone (not ported yet: raises)")
+                   help="> 0: LoRA parameter-efficient finetuning (train/lora.py): low-rank "
+                        "adapters on the attention projections, base backbone frozen; "
+                        "adapter LR = --backbone-lr (default 1e-4 here). Mutually "
+                        "exclusive with --finetune")
+    p.add_argument("--lora-ffn", action="store_true",
+                   help="with --lora-rank: also adapt the FFN wi/wo")
     p.add_argument("--resume-dir", default=None,
                    help="continue a run from its state snapshot (not ported yet: raises)")
 
@@ -93,15 +105,15 @@ def add_mesh_args(p: argparse.ArgumentParser) -> None:
 
 
 def check_train_args(args) -> None:
-    """Raise on the training options this port does not run yet, before
-    anything is loaded."""
+    """Raise on the training options this port does not run yet, and on
+    --finetune with --lora-rank (as the TPU package does), before anything
+    is loaded."""
+    if args.finetune and args.lora_rank:
+        raise SystemExit("--finetune and --lora-rank are mutually exclusive "
+                         "(full vs parameter-efficient)")
     refused = [
         (args.packed, "--packed: the packed train step (ROADMAP queue 1: the packed "
-                      "CLIP train step)"),
-        (args.finetune, "--finetune: the unfrozen backbone (ROADMAP queue 1 item 2: "
-                        "the unfrozen modes, with K5)"),
-        (args.lora_rank, "--lora-rank: LoRA adapters (ROADMAP queue 1 item 2: the "
-                         "unfrozen modes, with K5)"),
+                      "CLIP train step, then the packed finetune and LoRA steps)"),
         (args.resume_dir is not None, "--resume-dir: train-state snapshots and resume "
                                       "(ROADMAP queue 1)"),
         ((args.dp, args.tp, args.pp) != (1, 1, 1), "--dp/--tp/--pp other than 1: "
@@ -167,15 +179,27 @@ def load_esm(args, cfg: esm2.ESM2Config, device: torch.device) -> dict:
 
 def load_clip_checkpoint(path, mcfg: clip.CLIPConfig, esm_params: dict,
                          device: torch.device) -> tuple[dict, dict]:
-    """A best_model.npz that is heads-only (frozen runs) or the finetune
-    engine's combined {heads, esm}. Returns (head_params, esm_params): a
-    finetuned checkpoint carries its own backbone."""
+    """A best_model.npz that is heads-only (frozen runs), the finetune
+    engine's combined {heads, esm}, or a LoRA run's {heads, lora}. Returns
+    (head_params, esm_params): a finetuned checkpoint carries its own
+    backbone; a LoRA checkpoint's adapters merge into ``esm_params`` (the
+    base it trained against) at ``lora.default_alpha`` of its rank."""
     with np.load(path, allow_pickle=False) as data:
         keys = data.files
-    if any(k.startswith("lora/") for k in keys):
-        raise NotImplementedError(f"{path} holds LoRA adapters, which are not "
-                                  "ported yet (ROADMAP queue 1: LoRA checkpoints)")
+        lora_shapes = {k[len("lora/"):]: data[k].shape for k in keys if k.startswith("lora/")}
     head_like = clip.abstract_params(mcfg)
+    if lora_shapes:
+        lora_like: dict = {}
+        for key, shape in lora_shapes.items():
+            name, ab = key.rsplit("/", 1)
+            lora_like.setdefault(name, {})[ab] = torch.empty(shape, device="meta")
+        tree = checkpoint.load_npz(path, {"lora": lora_like, "heads": head_like}, device)
+        rank = next(iter(tree["lora"].values()))["a"].shape[-1]
+        print(f"[checkpoint] LoRA adapters found (rank {rank}) — merging into the loaded "
+              "backbone")
+        with torch.no_grad():
+            merged = lora.merge_lora(esm_params, tree["lora"], lora.default_alpha(rank))
+        return tree["heads"], merged
     if any(k.startswith("heads/") for k in keys):
         like = {"heads": head_like, "esm": esm2.abstract_params(mcfg.esm, mcfg.esm.compute_dtype)}
         tree = checkpoint.load_npz(path, like, device)

@@ -9,9 +9,9 @@ dh^-0.5 before RoPE, ESM's exact-erf GELU by default, and token dropout
 rescaled by the observed mask ratio over each sequence's true length.
 
 Attention: with ``attention_impl="fused"`` on CUDA tensors each layer calls
-the hand-written kernel (``ops/attention.fused_attention``, kernel K1), for
-every sequence length; the kernel takes bf16 at head_dim 32, and ``forward``
-raises on CUDA for any other config unless it asks for
+the hand-written kernels (``ops/attention.fused_attention``: K1 forward, K5
+backward), for every sequence length; the kernels take bf16 at head_dim 32,
+and ``forward`` raises on CUDA for any other config unless it asks for
 ``attention_impl="eager"``. Otherwise the eager form runs: f32 scores plus an
 additive f32-min key mask, f32 softmax, probabilities cast to the compute
 dtype, P.V in f32. The two differ only at pad query rows (the kernel's are
@@ -27,6 +27,7 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from ..ops import attention
 from ..utils.device import resolve_device
@@ -156,10 +157,23 @@ def abstract_params(cfg: ESM2Config, dtype: torch.dtype = torch.float32) -> Para
                      lambda shape, _: torch.empty(shape, dtype=dtype, device="meta"))
 
 
-def _layer(tree: Params, i: int) -> Params:
+def _layers(tree: Params, n: int) -> list[Params]:
+    """The per-layer trees of a tree stacked on a leading layer axis. One
+    ``unbind`` per leaf, so under autograd each leaf's layer gradients come
+    back stacked by one op, not as n zero-padded full-size gradients."""
     if isinstance(tree, dict):
-        return {k: _layer(v, i) for k, v in tree.items()}
-    return tree[i]
+        per_key = {k: _layers(v, n) for k, v in tree.items()}
+        return [{k: per_key[k][i] for k in tree} for i in range(n)]
+    return list(tree.unbind(0))
+
+
+def cast_params(params: Params, dtype: torch.dtype) -> Params:
+    """Every leaf in ``dtype`` (``esm2.cast_params`` of the TPU package);
+    differentiable, so a cast of f32 master weights routes the compute
+    dtype's gradients back into them in f32."""
+    if isinstance(params, dict):
+        return {k: cast_params(v, dtype) for k, v in params.items()}
+    return params.to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -250,9 +264,18 @@ def embed(params: Params, input_ids, attention_mask, cfg: ESM2Config):
     return x * attention_mask[..., None].to(x.dtype)
 
 
+def _layer_block(x, lp, mask_bias, segments, cos, sin, cfg: ESM2Config):
+    x = _attention_block(x, lp["attn"], mask_bias, segments, cos, sin, cfg)
+    return _ffn_block(x, lp["ffn"], cfg)
+
+
 def forward(params: Params, input_ids: torch.Tensor, attention_mask: torch.Tensor,
-            cfg: ESM2Config) -> torch.Tensor:
-    """last_hidden_state (B, T, H) of (B, T) token ids and 0/1 mask."""
+            cfg: ESM2Config, remat: bool = False) -> torch.Tensor:
+    """last_hidden_state (B, T, H) of (B, T) token ids and 0/1 mask. With
+    ``remat`` and autograd recording, each layer runs under
+    ``torch.utils.checkpoint`` (the TPU package's ``jax.checkpoint`` of the
+    layer): the backward recomputes the layer from its input, so a layer
+    keeps only that input alive."""
     B, T = input_ids.shape
     x = embed(params, input_ids, attention_mask, cfg)
     if cfg.attention_impl == "fused" and x.is_cuda:
@@ -261,10 +284,14 @@ def forward(params: Params, input_ids: torch.Tensor, attention_mask: torch.Tenso
     mask_bias = (1.0 - attention_mask[:, None, None, :].float()) * neg
     cos, sin = _rope_tables(T, cfg.head_dim, cfg.compute_dtype, x.device)
     segments = attention_mask.to(torch.int32).contiguous()
-    layers = params["layers"]
-    for i in range(cfg.num_layers):
-        lp = _layer(layers, i)
-        x = _attention_block(x, lp["attn"], mask_bias, segments, cos, sin, cfg)
-        x = _ffn_block(x, lp["ffn"], cfg)
+    checkpoint = remat and torch.is_grad_enabled()
+    for lp in _layers(params["layers"], cfg.num_layers):
+        if checkpoint:
+            # the layers draw no random numbers: no RNG state to replay
+            x = torch.utils.checkpoint.checkpoint(
+                _layer_block, x, lp, mask_bias, segments, cos, sin, cfg,
+                use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = _layer_block(x, lp, mask_bias, segments, cos, sin, cfg)
     return _layer_norm(x, params["final_ln"]["w"], params["final_ln"]["b"],
                        cfg.layer_norm_eps)

@@ -30,16 +30,12 @@ def _flatten(tree: Any, prefix: str = "") -> dict[str, Any]:
     return {prefix[:-1]: tree}
 
 
-def unflatten(flat: dict[str, Any]) -> dict[str, Any]:
-    """``{"a/b": x}`` -> ``{"a": {"b": x}}``."""
-    tree: dict[str, Any] = {}
-    for key, leaf in flat.items():
-        node = tree
-        *parents, last = key.split("/")
-        for p in parents:
-            node = node.setdefault(p, {})
-        node[last] = leaf
-    return tree
+def _map_like(like: Any, fn, prefix: str = "") -> Any:
+    """``like``'s structure with each leaf replaced by fn(flat key, leaf);
+    dict keys may hold ``/`` themselves (LoRA's ``attn/q``)."""
+    if isinstance(like, dict):
+        return {k: _map_like(v, fn, f"{prefix}{k}/") for k, v in like.items()}
+    return fn(prefix[:-1], like)
 
 
 def _to_numpy(leaf) -> np.ndarray:
@@ -82,17 +78,17 @@ def load_npz(path: str | Path, like: Any, device="cuda") -> Any:
     of the leaf it replaces."""
     device = resolve_device(device)
     data = read_npz(path)
-    flat = _flatten(like)
-    missing = set(flat) - set(data)
+    missing = set(_flatten(like)) - set(data)
     if missing:
         raise KeyError(f"checkpoint missing keys: {sorted(missing)[:5]} ...")
-    out = {}
-    for key, leaf in flat.items():
+
+    def load(key, leaf):
         arr = data[key]
         if tuple(arr.shape) != tuple(leaf.shape):
             raise ValueError(f"{key}: checkpoint shape {arr.shape} != {tuple(leaf.shape)}")
-        out[key] = to_tensor(arr, device, leaf.dtype)
-    return unflatten(out)
+        return to_tensor(arr, device, leaf.dtype)
+
+    return _map_like(like, load)
 
 
 def from_numpy_tree(tree: Any, device="cuda", dtype: torch.dtype | None = None) -> Any:

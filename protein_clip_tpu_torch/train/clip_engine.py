@@ -77,6 +77,12 @@ class EngineConfig:
     length_groups: int = 1
     # sequence packing: not ported yet (ROADMAP queue 1)
     packed: bool = False
+    # per-layer rematerialisation of the backbone where it takes gradients
+    # (train/finetune.py, train/lora.py); the frozen path keeps no graph
+    remat: bool = True
+    # learning rate of the backbone (finetune, default 1e-5) or of the LoRA
+    # adapters (default 1e-4); the heads train at learning_rate
+    backbone_lr: float | None = None
     # trainer knobs of train/optimizer.build; the defaults are plain Adam
     weight_decay: float = 0.0
     warmup_steps: int = 0

@@ -48,19 +48,25 @@ def _snapshot(params):
 def fit(run_dir: str | Path, cfg: clip_engine.EngineConfig, params: Any, esm_params: Any,
         train_loader, val_loader, tokenizer: EsmTokenizer, num_epochs: int, *, seed: int,
         device, use_gradcache: bool = True, test_loader=None,
-        log: Callable[[str], None] = print, resume: bool = False) -> FitResult:
+        log: Callable[[str], None] = print, resume: bool = False, engine=None) -> FitResult:
     """Train ``params`` (updated in place) for ``num_epochs`` and write the
     run's artifacts into ``run_dir``. ``best_params`` is a copy taken at the
-    best validation loss."""
+    best validation loss. ``engine`` is a module with ``make_train_step`` and
+    ``make_eval_step`` of the ``clip_engine`` signatures (the default), and
+    optionally ``make_optimizer`` (``finetune``, ``lora``: two learning-rate
+    groups), which replaces the optimizer of the config's trainer knobs."""
     if resume:
         raise NotImplementedError("resuming a run is not ported yet (ROADMAP queue 1: "
                                   "train-state snapshots and resume)")
     device = torch.device(device)
     run_dir = Path(run_dir)
     run_dir.mkdir(parents=True, exist_ok=True)
-    opt_state = opt_mod.from_config(cfg).init(params)
-    train_step = clip_engine.make_train_step(cfg)
-    eval_step = clip_engine.make_eval_step(cfg)
+    engine = engine or clip_engine
+    optimizer = (engine.make_optimizer(cfg) if hasattr(engine, "make_optimizer")
+                 else opt_mod.from_config(cfg))
+    opt_state = optimizer.init(params)
+    train_step = engine.make_train_step(cfg)
+    eval_step = engine.make_eval_step(cfg)
 
     losses_path = run_dir / "losses_per_epoch.txt"
     metrics_path = run_dir / "metrics.jsonl"

@@ -16,6 +16,12 @@ near-equivalents:
 ``torch.optim.Adam`` and ``AdamW`` compute optax's ``adam`` and ``adamw``
 updates (decoupled decay scaled by the scheduled lr). The parameters are
 updated in place: the TPU package returns new arrays instead.
+
+``multi_transform`` is the counterpart of ``optax.multi_transform`` over the
+top-level groups of a parameter tree (backbone or adapters, and heads), each
+group with its own ``Optimizer``; its ``grad_clip`` clips by the norm of the
+whole tree before either group steps, as ``optax.chain(clip_by_global_norm,
+multi_transform)`` does.
 """
 
 from __future__ import annotations
@@ -89,17 +95,59 @@ class OptState:
 
     def apply(self) -> None:
         """Clip, step at the scheduled lr, and clear the gradients."""
-        grads = [t.grad for t in self.leaves if t.grad is not None]
-        if self.opt.grad_clip and grads:
-            norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
-            scale = torch.where(norm < self.opt.grad_clip, 1.0, self.opt.grad_clip / norm)
-            for g in grads:
-                g.mul_(scale.to(g.dtype))
+        clip_by_global_norm(self.leaves, self.opt.grad_clip)
         for group in self.torch_opt.param_groups:
             group["lr"] = self.opt.learning_rate(self.count)
         self.torch_opt.step()
         self.torch_opt.zero_grad(set_to_none=True)
         self.count += 1
+
+
+def clip_by_global_norm(leaves: list[torch.Tensor], max_norm: float) -> None:
+    """Scale the leaves' gradients in place by max_norm / norm when their
+    global L2 norm reaches max_norm (optax: no epsilon); 0 turns it off."""
+    grads = [t.grad for t in leaves if t.grad is not None]
+    if max_norm and grads:
+        norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+        scale = torch.where(norm < max_norm, 1.0, max_norm / norm)
+        for g in grads:
+            g.mul_(scale.to(g.dtype))
+
+
+@dataclasses.dataclass(frozen=True)
+class MultiOptimizer:
+    """One ``Optimizer`` per top-level group of the parameter tree, and a
+    clip by the whole tree's global norm ahead of them."""
+
+    groups: dict[str, Optimizer]
+    grad_clip: float = 0.0
+
+    def init(self, params) -> "MultiOptState":
+        return MultiOptState(self, params)
+
+
+class MultiOptState:
+    """``MultiOptimizer`` bound to a tree: one ``OptState`` per group."""
+
+    def __init__(self, opt: MultiOptimizer, params):
+        if set(params) != set(opt.groups):
+            raise ValueError(f"parameter groups {sorted(params)} != optimizer groups "
+                             f"{sorted(opt.groups)}")
+        self.opt = opt
+        self.states = {k: o.init(params[k]) for k, o in opt.groups.items()}
+        self.leaves = [t for s in self.states.values() for t in s.leaves]
+
+    def apply(self) -> None:
+        """Clip the whole tree, then step each group and clear its gradients."""
+        clip_by_global_norm(self.leaves, self.opt.grad_clip)
+        for state in self.states.values():
+            state.apply()
+
+
+def multi_transform(groups: dict[str, Optimizer], grad_clip: float = 0.0) -> MultiOptimizer:
+    """Two-group (or more) training: the whole tree is clipped once, before
+    the groups step, so each group's own grad_clip stays 0."""
+    return MultiOptimizer(dict(groups), grad_clip)
 
 
 def adam(lr: float = 1e-3, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> Optimizer:

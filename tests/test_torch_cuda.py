@@ -1,7 +1,8 @@
-"""The port's CUDA kernels on the card: K1, K4 and the InfoNCE kernels K2
-and K3 (forward and backward) against their plain versions at odd shapes,
-the wrappers' refusals, their launch counts, the ESM-2 forward through K1,
-the FILIP scorer through K4 and a train step through K2 and K3.
+"""The port's CUDA kernels on the card: K1 and its backward K5, K4 and the
+InfoNCE kernels K2 and K3 (forward and backward) against their plain
+versions at odd shapes, the wrappers' refusals, their launch counts, the
+ESM-2 forward through K1, the FILIP scorer through K4, a train step through
+K2 and K3, and a finetune step through K1 and K5.
 
 These tests need an NVIDIA GPU and nvcc; elsewhere they skip. This file
 imports torch and the port only, so on a machine without JAX it runs as
@@ -9,6 +10,7 @@ imports torch and the port only, so on a machine without JAX it runs as
     python -m pytest tests/test_torch_cuda.py --noconftest -q -p no:cacheprovider
 """
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -94,8 +96,8 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(dev):
                                   seg[:, :2])
     with pytest.raises(ValueError, match="segments"):
         attention.fused_attention(q, k, v, seg[:, :10])
-    with pytest.raises(NotImplementedError, match="backward"):
-        attention.fused_attention(q.requires_grad_(), k, v, seg)
+    with pytest.raises(ValueError, match="do shape"):
+        attention.fused_attention_bwd(q, k, v, seg, q[:, :10].contiguous())
 
 
 @pytest.mark.parametrize("over", [dict(hidden_size=256, num_heads=4),       # head_dim 64
@@ -134,6 +136,73 @@ def test_esm_forward_runs_the_kernel_in_every_layer(dev):
     cos = torch.nn.functional.cosine_similarity(fused[valid].float(), eager[valid].float(),
                                                 dim=-1)
     assert float(cos.min()) >= 0.999
+
+
+# K5 against its plain version, both bf16 out: the kernel rounds P and dS to
+# bf16 at f32 values that differ from the plain version's by the order of
+# their sums (an online max and sums over 64-key tiles against one softmax),
+# and the outputs are bf16 (2^-8 relative, within RTOL). Same form and
+# numbers as K1's; chip_smoke.py prints the least atol that passes.
+def _bwd_segments(B, T, kind, dev):
+    if kind == "packed":
+        return _segments(B, T, "packed", dev)
+    seg = _segments(B, T, "padded", dev)
+    if kind == "fully_padded":
+        seg[-1] = 0    # a row with no valid token: every one of its queries is uniform
+    return seg
+
+
+def _assert_bwd_close(got, want):
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert torch.isfinite(g).all(), name
+        w = w.float()
+        err = (g.float() - w).abs()
+        atol = ATOL_RMS * float(w.square().mean().sqrt())
+        assert (err <= atol + RTOL * w.abs()).all(), (name, float(err.max()))
+
+
+@pytest.mark.parametrize("kind", ["padded", "fully_padded", "packed"])
+@pytest.mark.parametrize("T", [1, 63, 64, 200, 512, 2048])
+@pytest.mark.parametrize("B", [1, 16])
+def test_attention_bwd_kernel_matches_plain(dev, B, T, kind):
+    NH = 4 if T <= 512 else 2
+    q, k, v = _inputs(B, T, NH, dev)
+    do = _inputs(B, T, NH, dev, seed=1)[2]
+    seg = _bwd_segments(B, T, kind, dev)
+    got = attention.fused_attention_bwd(q, k, v, seg, do)
+    torch.cuda.synchronize()
+    _assert_bwd_close(got, attention.attention_reference_bwd(q, k, v, seg, do))
+
+
+def test_attention_bwd_is_deterministic_and_counts_launches(dev):
+    q, k, v = _inputs(16, 200, 20, dev)
+    do = _inputs(16, 200, 20, dev, seed=1)[2]
+    seg = _bwd_segments(16, 200, "packed", dev)
+    before = attention.fused_attention_bwd.launches
+    a = attention.fused_attention_bwd(q, k, v, seg, do)
+    b = attention.fused_attention_bwd(q, k, v, seg, do)
+    assert attention.fused_attention_bwd.launches == before + 2
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_fused_attention_function_runs_k1_then_k5(dev):
+    """Through autograd: K1 once forward, K5 once backward, and the plain
+    backward's gradients; under no_grad K1 alone."""
+    q, k, v = (t.requires_grad_(True) for t in _inputs(3, 130, 20, dev))
+    do = _inputs(3, 130, 20, dev, seed=1)[2]
+    seg = _bwd_segments(3, 130, "padded", dev)
+    k1, k5 = attention.fused_attention.launches, attention.fused_attention_bwd.launches
+    out = attention.fused_attention(q, k, v, seg)
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    torch.cuda.synchronize()
+    assert (attention.fused_attention.launches, attention.fused_attention_bwd.launches) == (
+        k1 + 1, k5 + 1)
+    _assert_bwd_close(grads, attention.attention_reference_bwd(
+        q.detach(), k.detach(), v.detach(), seg, do))
+    with torch.no_grad():
+        attention.fused_attention(q, k, v, seg)
+    assert attention.fused_attention_bwd.launches == k5 + 1
 
 
 # K4: f32 scores on the CUDA cores; the kernel and the plain version sum the
@@ -316,12 +385,16 @@ def _tiny_t30_like(dev):
     return mcfg, esm_params
 
 
-class _Capture(optimizer.OptState):
-    """OptState that keeps the gradients it applies."""
+def _capturing(state):
+    """Make ``state.apply`` keep the gradients it applies, in leaf order."""
+    apply = state.apply
 
-    def apply(self):
-        self.grads = [t.grad.detach().clone() for t in self.leaves]
-        super().apply()
+    def capture():
+        state.grads = [t.grad.detach().clone() for t in state.leaves]
+        apply()
+
+    state.apply = capture
+    return state
 
 
 @pytest.mark.parametrize("pool,tiled", [(64, False), (640, True)])
@@ -349,7 +422,7 @@ def test_train_step_through_the_kernels_matches_the_plain_loss(dev, pool, tiled)
     out = {}
     for name, loss_fn in (("kernel", None), ("plain", infonce.clip_infonce)):
         params = _clone(heads0)
-        state = _Capture(optimizer.adam(lr), params)
+        state = _capturing(optimizer.adam(lr).init(params))
         before = (fn.launches, fn.bwd_launches)
         params, state, loss = clip_engine.make_train_step(cfg, loss_fn)(
             params, state, esm_params, batch, None)
@@ -364,3 +437,129 @@ def test_train_step_through_the_kernels_matches_the_plain_loss(dev, pool, tiled)
     for a, b, ga, gb in zip(pk, pp, gk, gp):
         allowed = 1e-6 + 2 * lr * (ga - gb).abs() / (torch.maximum(ga.abs(), gb.abs()) + 1e-8)
         assert bool(((a - b).abs() <= allowed).all())
+
+
+# The finetune step through K1/K5 against the same step through K1 and K5's
+# plain version, which differ only by the order of K5's f32 sums: per leaf
+# max|err| <= FT_K5_TOL max|g_plain|, the loss within FT_LOSS_TOL relative
+# (both steps run K1's forward: the loss agrees exactly). On an H100 the
+# worst leaf reads 0.0026 and a K5 that drops its last query tile 0.98.
+FT_LOSS_TOL, FT_K5_TOL = 1e-6, 1e-2
+
+
+def _drop_last_query_tile(bwd):
+    """K5 whose dk/dv loop drops the last 64-query tile (a planted fault):
+    zeroing dO on those queries removes exactly their dk and dv terms."""
+    def fault(q, k, v, segments, do):
+        cut = do.clone()
+        cut[:, (q.shape[1] - 1) // 64 * 64:] = 0
+        return (bwd(q, k, v, segments, do)[0], *bwd(q, k, v, segments, cut)[1:])
+    return fault
+
+
+@contextlib.contextmanager
+def _attention_function(forward, backward):
+    """The fused attention Function with another forward and backward while
+    the block runs; K5 counts its launches on the module's name
+    fused_attention_bwd, so the stand-in there carries the count."""
+    saved = attention._forward, attention.fused_attention_bwd
+
+    def stand_in(*args):
+        return backward(*args)
+
+    stand_in.launches = saved[1].launches
+    attention._forward, attention.fused_attention_bwd = forward, stand_in
+    try:
+        yield
+    finally:
+        attention._forward, attention.fused_attention_bwd = saved
+        saved[1].launches = stand_in.launches
+
+
+def _finetune_steps(dev):
+    """One finetune step (two passes over 4 chunks a side, remat) from the
+    same f32 master and batch per attention path: {name: (loss, grads,
+    (K1, K5) launches)}. "kernel" runs K1 and K5, "plain_bwd" K1 and K5's
+    plain version in the same Function, "fault" K1 and a K5 that drops a
+    query tile, "eager" and "eager_f32" attention_impl="eager" in bf16 and
+    f32."""
+    from protein_clip_tpu_torch.train import finetune
+
+    mcfg, esm_params = _tiny_t30_like(dev)
+    rng = np.random.default_rng(1)
+    aas = list("LAGVSERTIDPKQNFYMHWC")
+    peps = ["".join(rng.choice(aas, int(n))) for n in rng.integers(8, 30, 32)]
+    recs = ["".join(rng.choice(aas, int(n))) for n in rng.integers(30, 90, 32)]
+    batch = {k: v.to(dev) for k, v in
+             clip_engine.tokenize_pair_batch(EsmTokenizer(), peps, recs).items()}
+    heads0 = clip.init_params(mcfg, torch.Generator().manual_seed(1), device=dev)
+    k1, k5 = attention._forward, attention.fused_attention_bwd
+    paths = {"kernel": ("fused", torch.bfloat16, k1, k5),
+             "plain_bwd": ("fused", torch.bfloat16, k1, attention.attention_reference_bwd),
+             "fault": ("fused", torch.bfloat16, k1, _drop_last_query_tile(k5)),
+             "eager": ("eager", torch.bfloat16, k1, k5),
+             "eager_f32": ("eager", torch.float32, k1, k5)}
+    out = {}
+    for name, (impl, dtype, fwd, bwd) in paths.items():
+        esm_cfg = dataclasses.replace(mcfg.esm, attention_impl=impl, compute_dtype=dtype)
+        cfg = clip_engine.EngineConfig(model=dataclasses.replace(mcfg, esm=esm_cfg),
+                                       batch_size=32, accumulated_batches=1, num_chunks=4)
+        params = finetune.init_params(esm_params, _clone(heads0))
+        state = _capturing(finetune.make_optimizer(cfg).init(params))
+        before = (attention.fused_attention.launches, k5.launches)
+        with _attention_function(fwd, bwd):
+            _, _, loss = finetune.make_train_step(cfg)(params, state, {}, batch, None)
+        torch.cuda.synchronize()
+        out[name] = (float(loss), state.grads,
+                     (attention.fused_attention.launches - before[0], k5.launches - before[1]))
+    return out
+
+
+def _worst_gap(a, b):
+    """The largest max|a - b| / max|b| over the leaves."""
+    return max(float((x - y).abs().max()) / float(y.abs().max()) for x, y in zip(a, b))
+
+
+def test_finetune_step_runs_k1_and_k5_and_matches_eager(dev):
+    """One finetune step through K1/K5. Per layer K1 launches once per
+    pass-1 forward and twice per pass-2 chunk (forward and recompute), K5
+    once per pass-2 chunk. Against the same step through K1 and K5's plain
+    version, every leaf's gradient within FT_K5_TOL of its largest entry
+    and the loss within FT_LOSS_TOL, and a K5 that drops the last query tile
+    of its dk/dv loop fails that. Against eager autograd, which rounds
+    elsewhere (P to bf16 before P.V, dP rather than dS to bf16), each leaf
+    is held in L2 norm to |kernel - eager| <= 2 |eager - f32| + 5e-2 |f32|,
+    and the loss to 2 |eager - f32| + 1e-4 |f32|, with the eager step in
+    f32 as the reference: with random weights the attention is near
+    uniform, where bf16 rounds every probability of a row alike, so each
+    path carries its own bias of up to 2^-9 per layer."""
+    out = _finetune_steps(dev)
+    chunks, layers = 2 * 4, 2
+    assert out["kernel"][2] == (3 * chunks * layers, chunks * layers)
+    assert out["plain_bwd"][2] == (3 * chunks * layers, 0)
+    assert out["fault"][2] == (3 * chunks * layers, 2 * chunks * layers)
+    assert out["eager"][2] == out["eager_f32"][2] == (0, 0)
+    (lk, gk, _), (lp, gp, _) = out["kernel"], out["plain_bwd"]
+    assert abs(lk - lp) <= FT_LOSS_TOL * abs(lp)
+    assert _worst_gap(gk, gp) <= FT_K5_TOL
+    assert _worst_gap(out["fault"][1], gp) > FT_K5_TOL
+    (le, ge, _), (lf, gf, _) = out["eager"], out["eager_f32"]
+    assert abs(lk - le) <= 2 * abs(le - lf) + 1e-4 * abs(lf)
+    for a, b, f in zip(gk, ge, gf):
+        assert float((a - b).norm()) <= 2 * float((b - f).norm()) + 5e-2 * float(f.norm())
+
+
+def test_chunk_seeds_on_a_cuda_generator_need_no_sync(dev):
+    """The unfrozen step's per-chunk dropout seeds come from the CUDA
+    generator's host state: the same state gives the same seeds, and each
+    call moves the Philox offset on, so the next step draws others."""
+    from protein_clip_tpu_torch.train import finetune
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    first = finetune._chunk_seeds(gen, 16)
+    assert gen.get_offset() == 4
+    second = finetune._chunk_seeds(gen, 16)
+    again = finetune._chunk_seeds(torch.Generator(device=dev).manual_seed(5), 16)
+    assert first == again != second
+    assert all(isinstance(s, int) for side in first + second for s in side)
+    assert len({s for side in first for s in side}) == 32

@@ -270,11 +270,37 @@ def test_esm_config_keeps_the_kernel_and_refuses_what_it_does_not_take(family, d
 
 
 def test_lora_checkpoint_raises(tmp_path, model_files):
+    """A LoRA run's {heads, lora} npz (written by the JAX package) loads for
+    serving: the heads as saved, and the adapters merged into the base
+    backbone as the JAX loader merges them, within 1e-6 (float32, the same
+    einsum in another order). Adapters without heads raise."""
+    from protein_clip_tpu.train import lora as jlora
     from protein_clip_tpu_torch.cli import common
+    from protein_clip_tpu_torch.models import clip
+    from protein_clip_tpu_torch.train import checkpoint
 
-    np.savez(tmp_path / "lora.npz", **{"lora/attn_q/a": np.zeros((2, 4, 1), np.float32)})
-    with pytest.raises(NotImplementedError, match="LoRA"):
-        common.load_clip_checkpoint(tmp_path / "lora.npz", None, None, "cpu")
+    np.savez(tmp_path / "bare.npz", **{"lora/attn/q/a": np.zeros((2, 64, 1), np.float32),
+                                       "lora/attn/q/b": np.zeros((2, 1, 64), np.float32)})
+    esm_cfg = common.esm_config("tiny", "float32")
+    mcfg = clip.CLIPConfig(input_dim=esm_cfg.hidden_size, esm=esm_cfg)
+    esm = checkpoint.from_numpy_tree(jax.tree.map(np.asarray, model_files["esm"]), "cpu")
+    with pytest.raises(KeyError, match="missing"):
+        common.load_clip_checkpoint(tmp_path / "bare.npz", mcfg, esm, "cpu")
+
+    targets = jlora.ATTN_TARGETS + jlora.FFN_TARGETS
+    adapters = jax.tree.map(lambda a: a + 0.05, jlora.init_lora(
+        jax.random.key(5), model_files["esm"], 4, targets))
+    jax_export_npz(tmp_path / "lora.npz", jlora.init_params(adapters, model_files["heads"]))
+    heads, merged = common.load_clip_checkpoint(tmp_path / "lora.npz", mcfg, esm, "cpu")
+    jheads, jmerged = jcommon.load_clip_checkpoint(tmp_path / "lora.npz", model_files["mcfg"],
+                                                   model_files["esm"])
+    for got, want in ((heads, jheads), (merged, jmerged)):
+        flat, jflat = checkpoint._flatten(got), checkpoint._flatten(jax.tree.map(np.asarray, want))
+        assert flat.keys() == jflat.keys()
+        for key in flat:
+            np.testing.assert_allclose(flat[key].numpy(), jflat[key], atol=1e-6, err_msg=key)
+    moved = merged["layers"]["ffn"]["wi"]["w"] - esm["layers"]["ffn"]["wi"]["w"]
+    assert float(moved.abs().max()) > 0
 
 
 BLOCKER = """

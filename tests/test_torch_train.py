@@ -370,7 +370,8 @@ def test_cli_main_2protein(tmp_path):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--packed"], "packed"), (["--finetune"], "unfrozen"), (["--lora-rank", "4"], "LoRA"),
+    (["--packed"], "packed"), (["--finetune", "--packed"], "packed"),
+    (["--lora-rank", "4", "--resume-dir", "x"], "resume"),
     (["--resume-dir", "x"], "resume"), (["--dp", "2"], "multi-device"),
     (["--tp", "2"], "multi-device"), (["--pp", "2"], "multi-device")])
 def test_cli_refuses_what_is_not_ported(tmp_path, extra, match):
