@@ -8,8 +8,11 @@ Phases, in order; a failure in any of them ends the run with a traceback
 and a nonzero exit code, and no result line:
 
 1. build        compile every kernel under protein_clip_tpu_torch/csrc/ with
-                nvcc for sm_90a, one nvcc per source, all at once; print the
-                card's name and power limit.
+                nvcc for sm_90a, one nvcc per source, all at once, and
+                beside them the planted-fault copies of dense_mm and
+                ffn_gelu (their shared main loop drops its last k-tile;
+                built from a patched copy under _build/fault/, never loaded
+                by the package); print the card's name and power limit.
 2. kernels      K1 (segment-masked attention forward) against
                 ops.attention.attention_reference at the serving shapes
                 (NH=20, dh=32, bf16), with padded rows (fully padded query
@@ -26,14 +29,25 @@ and a nonzero exit code, and no result line:
                 ops.attention.attention_reference_bwd at the finetune
                 chunks' shapes (16 rows at the pep and rec buckets 32 and
                 192), at K1's timing shape and at odd T, NH=20, bf16, with
-                padded, fully padded and packed rows.
+                padded, fully padded and packed rows. P1 (dense_mm) s8 ->
+                s32 against ops.dense_mm.mm_reference to the bit at the
+                probe's (8192, 2560, 2560), at N in {1, 128, 1000, 3072,
+                10240} tokens through t30_150M's three layer shapes, and at
+                the extreme values; bf16 -> f32 within MM_BF16_TOL of
+                |x| @ |w|. K6 (ffn_gelu) against ops.ffn.dense_gelu_reference
+                at N in {64, 128, 3072, 10240}, H=640, M=2560, erf and tanh:
+                FFN_ULPS bf16 ulps per output and at most FFN_SHARE of them
+                off; the plain version with either epilogue rounding skipped
+                must fail that. Then each check against the planted fault,
+                which must fail it (by how much is printed).
 3. serve        ESM-2 t30_150M in bf16 with seeded random weights and CLIP
                 heads, written as npz; an index of 256 synthetic sequences
                 built with cli.embed; cli.serve's server on an ephemeral port
                 answers /healthz, single-sequence /embed at the
                 64/128/512/2048 buckets on both sides, a 32-sequence /embed,
                 the binary wire, /topk and 16 concurrent clients. The K1
-                launch count must be 30 per backbone forward.
+                launch count must be 30 per backbone forward, and P1 and K6
+                must not launch.
 4. e2e          the served embeddings against the same sequences encoded
                 with attention_impl="eager": cosine >= 0.999 per row.
 5. filip serve  FILIP heads (seeded, written as npz) over the same backbone:
@@ -57,16 +71,16 @@ and a nonzero exit code, and no result line:
                 best_model.npz; K1 launches 30 times per backbone forward
                 (32 forwards per step, 8 per eval batch); K2 and K3 once
                 forward and once backward per step and once forward per eval
-                batch, each on its own pools. cli.embed then embeds with run
-                1's best_model.npz. Then the unfrozen modes on the same
-                fixture: cli.main --finetune and cli.main --lora-rank 8 at
-                the defaults (global batch 256 in one pad bucket, 16 chunks,
-                remat, two learning rates), one epoch each, with the same
-                artifact checks; per step K1 launches 30 times per pass-1
-                forward and 60 per pass-2 chunk (forward and remat
-                recompute), K5 30 times per pass-2 chunk, K2 once forward and
-                once backward; per eval batch K1 60 times and K2 once.
-                cli.embed embeds with each run's best_model.npz (the
+                batch, each on its own pools; P1 and K6 never. cli.embed then
+                embeds with run 1's best_model.npz. Then the unfrozen modes
+                on the same fixture: cli.main --finetune and cli.main
+                --lora-rank 8 at the defaults (global batch 256 in one pad
+                bucket, 16 chunks, remat, two learning rates), one epoch
+                each, with the same artifact checks; per step K1 launches 30
+                times per pass-1 forward and 60 per pass-2 chunk (forward and
+                remat recompute), K5 30 times per pass-2 chunk, K2 once
+                forward and once backward; per eval batch K1 60 times and K2
+                once. cli.embed embeds with each run's best_model.npz (the
                 finetuned backbone; the adapters merged into the base).
 8. step check   one default train step with K2 and one with the plain loss
                 from the same heads and batch (dropout 0, Adam lr 1e-3), at
@@ -85,23 +99,46 @@ and a nonzero exit code, and no result line:
                 eager step, per leaf within
                 twice the eager step's distance from the f32 step plus 1e-2
                 of the leaf's largest entry (check_finetune_step says why).
-9. times        K1, its plain version and torch's
+9. int8 serve   cli.serve --esm-dtype int8 over phase 3's weights and index
+                (the w8a8 backbone: every quantised linear layer runs P1):
+                /healthz, phase 3's single sequences, its 32-sequence
+                /embed and /topk. P1 launches 180 times per backbone forward
+                (q, k, v, o, wi, wo in 30 layers) and K1 30; the served
+                embeddings equal, to the bit, the same sequences encoded
+                through P1's plain version on the card; per-row cosine
+                against phase 3's bf16 embeddings >= INT8_COSINE_MIN.
+10. int8 train  cli.main --esm-dtype int8 for one epoch on a fixture of
+                1100 families: three frozen steps at global batch 256 and
+                20 eval batches; finite losses, the run's artifacts; P1
+                launches 180 times per backbone forward (32 forwards per
+                step, 8 per eval batch), K1 30; K2 once forward and once
+                backward per step.
+11. K6 serve    phase 3's server and requests with PCT_FFN_PALLAS=1 set for
+                the phase: K6 launches 30 times per backbone forward (every
+                FFN's wi + gelu), and the embeddings reach cosine >= 0.999
+                per row against the gate off.
+12. times       K1, its plain version and torch's
                 scaled_dot_product_attention at B=16, T=512, NH=20 beside
                 K1's bound; K4 and its plain version at the /topk and full
-                scorer-block shapes beside K4's bound; /embed p50 for one
-                sequence, and the same encode called without HTTP; seqs/s
-                at batch 32; FILIP /topk p50 for one query, and its parts
-                called without HTTP. K2 forward+backward at (256, 128), K3
-                at (1024, 128) and (4096, 128), and their plain versions,
-                beside the bound; K2 and K3 side by side at B in {16, 128,
-                256, 384, 512, 1024, 2048}, the readings behind the dispatch rule; the
-                train step in pairs/s at global batch 256 (median over the
-                steps after the first of run 1, by CUDA events recorded
-                after each step, with no sync inside the epoch), and the same
-                for the finetune and LoRA runs. K5, its plain version and the
+                scorer-block shapes beside K4's bound; K2 forward+backward
+                at (256, 128), K3 at (1024, 128) and (4096, 128), and their
+                plain versions, beside the bound; K2 and K3 side by side at
+                B in {16, 128, 256, 384, 512, 1024, 2048}, the readings
+                behind the dispatch rule; K5, its plain version and the
                 backward of torch's scaled_dot_product_attention at B=16,
                 T=512, NH=20 and at the finetune chunks' shapes, beside K5's
-                bound.
+                bound. P1 s8 at (8192, 2560, 2560) and (10240, 640, 2560)
+                against torch._int_mm (W k-major), P1 bf16 at (8192, 2560, 2560)
+                against torch.matmul, K6 at (10240, 640, 2560) against
+                torch.addmm + gelu, each with its plain version and bound.
+                /embed p50 for one sequence, the same encode called without
+                HTTP, and seqs/s at batch 32, for bf16, int8 and
+                PCT_FFN_PALLAS=1; FILIP /topk p50 for one query, and its
+                parts called without HTTP. The train step in pairs/s at
+                global batch 256 (median over the steps after the first of
+                run 1, by CUDA events recorded after each step, with no sync
+                inside the epoch), and the same for the finetune, LoRA and
+                int8 runs.
 
 The last three lines of standard output are the card's name and power
 limit, the kernels line (one JSON object per hand-written kernel) and
@@ -112,10 +149,12 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import ctypes
 import dataclasses
 import itertools
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
@@ -135,7 +174,7 @@ from protein_clip_tpu_torch.data.synthetic import write_fixture
 from protein_clip_tpu_torch.eval import retrieval
 from protein_clip_tpu_torch.kernels import build
 from protein_clip_tpu_torch.models import clip, esm2, filip
-from protein_clip_tpu_torch.ops import attention, infonce
+from protein_clip_tpu_torch.ops import attention, dense_mm, ffn, infonce
 from protein_clip_tpu_torch.ops import filip as maxsim
 from protein_clip_tpu_torch.train import checkpoint, clip_engine, finetune, lora, optimizer
 from protein_clip_tpu_torch.train.checkpoint import export_npz
@@ -165,7 +204,8 @@ FILIP_COSINE_MIN = 0.99
 H100_BF16_FLOPS = 989e12              # dense tensor-core peak, SXM, 700 W
 H100_F32_FLOPS = 67e12                # f32 on the CUDA cores (no tensor cores), SXM
 H100_BYTES_PER_S = 3.35e12
-KERNELS = ("attention_fwd", "attention_bwd", "filip_maxsim", "infonce")
+H100_INT8_OPS = 1979e12               # dense tensor-core peak, SXM, 700 W
+KERNELS = ("attention_fwd", "attention_bwd", "filip_maxsim", "infonce", "dense_mm", "ffn_gelu")
 # K2/K3 against their plain version, both f32 (FFMA against cuBLAS f32 and
 # logsumexp: the same sums in another order, over up to 4096 terms):
 # |loss - ref| <= 1e-5 max(1, |ref|), |grad - ref| <= 1e-5 max|ref|.
@@ -194,6 +234,35 @@ FT_LOSS_TOL, FT_K5_TOL = 1e-6, 2 ** -6
 # alike, with FT_LOSS_FLOOR |loss_f32|, 1/40 of a bf16 ulp), with the eager
 # step in f32 as the reference.
 FT_LOSS_FLOOR, FT_GRAD_FLOOR = 1e-4, 1e-2
+# P1: the probe's shape and t30_150M's linear layers (K, M) = q/k/v/o, wi, wo
+# at serving and training token counts. s8 -> s32 is exact: equal to its
+# plain version to the bit. bf16 -> f32: the same f32 products summed in
+# another order, |err| <= MM_BF16_TOL (|x| @ |w|), the scale of a sum's
+# rounding error.
+T30_LAYERS = ((640, 640), (640, 2560), (2560, 640))
+P1_SHAPES = ((8192, 2560, 2560),) + tuple((n, k, m) for n in (1, 128, 1000, 3072, 10240)
+                                          for k, m in T30_LAYERS)
+P1_BF16_SHAPES = ((8192, 2560, 2560), (10240, 640, 2560), (1000, 2560, 640), (1, 640, 640))
+MM_BF16_TOL = 1e-5
+# K6 against its plain version, both bf16 out, at t30_150M's wi (H = 640, M
+# = 2560): every output within FFN_ULPS bf16 ulps of max(|x @ w|, |b|,
+# |ref|), and at most FFN_SHARE of them differ at all. The kernel's f32 sums
+# run in another order, which flips the bf16 rounding of x @ w in about 2e-5
+# of the outputs (emulated on the CPU: by up to 3 such ulps where the bias
+# nearly cancels); a kernel that skips the rounding before the bias, or adds
+# the bias without rounding the sum, changes 23-26% of them.
+K6_ROWS = (64, 128, 3072, 10240)
+FFN_ULPS, FFN_SHARE = 4, 1e-3
+# The planted fault of P1 and K6: their shared main loop (csrc/mma_gemm.cuh)
+# drops its last k-tile, in a patched copy built under _build/fault/.
+FAULT_LINE = "  const int n_tiles = (K * Op::kEltBytes + kTileBytes - 1) / kTileBytes;"
+FAULT_DIR = build.BUILD_ROOT / "fault"
+# int8 training: a fixture of 1100 families gives 770 train pairs, three
+# steps at global batch 256, and 20 eval batches of 16.
+INT8_FIXTURE_FAMILIES = 1100
+# int8 against bf16 served embeddings, per row (no JAX reading at t30_150M:
+# the sandbox that holds JAX runs no full-size model).
+INT8_COSINE_MIN = 0.99
 AAS = "LAGVSERTIDPKQNFYMHWC"
 
 
@@ -412,6 +481,175 @@ def check_infonce(gen: torch.Generator) -> dict:
     return worst
 
 
+def s8_pair(N: int, K: int, M: int, gen: torch.Generator):
+    return (torch.randint(-128, 128, (N, K), generator=gen, device="cuda", dtype=torch.int8),
+            torch.randint(-128, 128, (K, M), generator=gen, device="cuda", dtype=torch.int8))
+
+
+def bf16_pair(N: int, K: int, M: int, gen: torch.Generator):
+    return (torch.randn(N, K, generator=gen, device="cuda").bfloat16(),
+            (torch.randn(K, M, generator=gen, device="cuda") / K ** 0.5).bfloat16())
+
+
+def mm_bf16_gap(x: torch.Tensor, w: torch.Tensor, got: torch.Tensor) -> float:
+    """max |got - plain| / (|x| @ |w|): the bf16 form's error on the scale
+    of an f32 sum's rounding error."""
+    want = dense_mm.mm_reference(x, w, torch.float32)
+    scale = torch.matmul(x.float().abs(), w.float().abs()).clamp(min=1e-30)
+    return float(((got - want).abs() / scale).max())
+
+
+def check_dense_mm(gen: torch.Generator) -> dict:
+    """P1 s8 against mm_reference to the bit at P1_SHAPES and at the extreme
+    values, and bf16 -> f32 within MM_BF16_TOL at P1_BF16_SHAPES."""
+    for N, K, M in P1_SHAPES:
+        x, w = s8_pair(N, K, M, gen)
+        got = dense_mm.mm(x, w, torch.int32)
+        torch.cuda.synchronize()
+        if not torch.equal(got, dense_mm.mm_reference(x, w, torch.int32)):
+            raise AssertionError(f"dense_mm s8 differs from its plain version at {(N, K, M)}")
+    log(f"[kernels] dense_mm s8 -> s32 equals its plain version to the bit at "
+        f"{len(P1_SHAPES)} shapes: {P1_SHAPES}")
+    for value in (127, -127, -128):
+        for N, K, M in ((130, 2560, 640), (1000, 640, 2560)):
+            x = torch.full((N, K), value, dtype=torch.int8, device="cuda")
+            x[1::3] = -128
+            w = torch.full((K, M), value, dtype=torch.int8, device="cuda")
+            w[:, 1::2] = 127
+            want = dense_mm.mm_reference(x, w, torch.int32)
+            if not torch.equal(dense_mm.mm(x, w, torch.int32), want):
+                raise AssertionError(f"dense_mm s8 differs at the extreme {value}, {(N, K, M)}")
+    log(f"[kernels] dense_mm s8 at the extremes (+127, -127, -128; sums up to "
+        f"{2560 * 128 * 128}) equal to the bit")
+    worst = 0.0
+    for N, K, M in P1_BF16_SHAPES:
+        x, w = bf16_pair(N, K, M, gen)
+        got = dense_mm.mm(x, w, torch.float32)
+        torch.cuda.synchronize()
+        gap = mm_bf16_gap(x, w, got)
+        worst = max(worst, gap)
+        log(f"[kernels] dense_mm bf16 -> f32 {(N, K, M)}: max |err| / (|x| @ |w|) {gap:.3g} "
+            f"(tolerance {MM_BF16_TOL:g}) {'ok' if gap <= MM_BF16_TOL else 'FAIL'}")
+        if not gap <= MM_BF16_TOL:
+            raise AssertionError(f"dense_mm bf16 disagrees with its plain version at {(N, K, M)}")
+    return {"s8_max_abs_err": 0, "bf16_rel_err": worst}
+
+
+def ffn_inputs(N: int, H: int, M: int, gen: torch.Generator):
+    """bf16 x, W at unit output scale and a bias of half that scale, so that
+    both roundings before the gelu matter."""
+    return (torch.randn(N, H, generator=gen, device="cuda").bfloat16(),
+            (torch.randn(H, M, generator=gen, device="cuda") / H ** 0.5).bfloat16(),
+            (0.5 * torch.randn(M, generator=gen, device="cuda")).bfloat16())
+
+
+def ffn_gap(x, w, b, got: torch.Tensor, mode: str) -> tuple[float, float, float]:
+    """(largest error in bf16 ulps of max(|x @ w|, |b|, |ref|), share of the
+    outputs that differ, largest absolute error) against the plain version."""
+    ref = ffn.dense_gelu_reference(x, w, b, mode).float()
+    scale = torch.maximum(torch.matmul(x.float(), w.float()).abs(), b.float().abs()[None])
+    _, e = torch.frexp(torch.maximum(scale, ref.abs()))
+    err = (got.float() - ref).abs()
+    return (float((err / torch.ldexp(torch.ones_like(ref), e - 8)).max()),
+            float((err > 0).float().mean()), float(err.max()))
+
+
+def check_ffn(gen: torch.Generator) -> float:
+    """K6 against dense_gelu_reference, erf and tanh, at t30_150M's wi for
+    K6_ROWS tokens; then the plain version with either epilogue rounding
+    skipped must fail the share bound."""
+    worst = 0.0
+    for N in K6_ROWS:
+        x, w, b = ffn_inputs(N, 640, 2560, gen)
+        for mode in ("erf", "tanh"):
+            got = ffn.dense_gelu(x, w, b, mode)
+            torch.cuda.synchronize()
+            ulps, share, err = ffn_gap(x, w, b, got, mode)
+            ok = bool(torch.isfinite(got.float()).all()) and ulps <= FFN_ULPS \
+                and share <= FFN_SHARE
+            worst = max(worst, err)
+            log(f"[kernels] ffn_gelu N={N} H=640 M=2560 {mode}: max |err| {err:.6g} = "
+                f"{ulps:g} bf16 ulps (tolerance {FFN_ULPS}), {share:.3g} of the outputs differ "
+                f"(tolerance {FFN_SHARE:g}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"ffn_gelu disagrees with its plain version at N={N} {mode}")
+    acc = torch.matmul(x.float(), w.float())
+    for what, z in (("the rounding before the bias", (acc + b.float()).bfloat16()),
+                    ("the rounding of the biased sum", acc.bfloat16().float() + b.float())):
+        share = ffn_gap(x, w, b, ffn._gelu_f32(z.float(), "erf").bfloat16(), "erf")[1]
+        log(f"[kernels] ffn_gelu check against a plain version that skips {what}: {share:.3g} "
+            f"of the outputs differ ({share / FFN_SHARE:.4g} x the tolerance)")
+        if share <= FFN_SHARE:
+            raise AssertionError(f"the ffn_gelu check does not see a skipped rounding ({what})")
+    return worst
+
+
+def build_faults() -> dict:
+    """dense_mm and ffn_gelu built from a copy of csrc/ whose shared main
+    loop drops its last k-tile (FAULT_LINE): {name: library path}. The copy
+    lives under _build/fault/ and is never loaded by the package."""
+    src = FAULT_DIR / "csrc"
+    shutil.rmtree(FAULT_DIR, ignore_errors=True)
+    shutil.copytree(build.CSRC_DIR, src)
+    header = src / "mma_gemm.cuh"
+    text = header.read_text()
+    if text.count(FAULT_LINE) != 1:
+        raise AssertionError("the planted fault's line is not in csrc/mma_gemm.cuh once")
+    header.write_text(text.replace(FAULT_LINE, FAULT_LINE[:-1] + " - 1;"))
+    libs = {name: FAULT_DIR / f"lib{name}_fault.so" for name in ("dense_mm", "ffn_gelu")}
+    cmd = [build._nvcc(), *build.NVCC_FLAGS, "-I", str(src)]
+    with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
+        list(pool.map(lambda name: build.compile_library(cmd, src / f"{name}.cu", libs[name]),
+                      libs))
+    return libs
+
+
+@contextlib.contextmanager
+def fault_kernels(libs: dict):
+    """The wrappers launch the planted-fault builds while the block runs."""
+    saved = dense_mm._launchers, ffn._launcher
+    faulty_mm = dense_mm.bind(ctypes.CDLL(str(libs["dense_mm"])))
+    faulty_ffn = ffn.bind(ctypes.CDLL(str(libs["ffn_gelu"])))
+    dense_mm._launchers, ffn._launcher = (lambda: faulty_mm), (lambda: faulty_ffn)
+    try:
+        yield
+    finally:
+        dense_mm._launchers, ffn._launcher = saved
+
+
+def check_faults(libs: dict, gen: torch.Generator) -> dict:
+    """Each check above against the planted fault: it must fail, and by how
+    much is returned (and goes to PERF.md)."""
+    out = {}
+    with fault_kernels(libs):
+        x, w = s8_pair(1000, 640, 2560, gen)
+        got = dense_mm.mm(x, w, torch.int32)
+        want = dense_mm.mm_reference(x, w, torch.int32)
+        torch.cuda.synchronize()
+        diff = (got.long() - want.long()).abs()
+        out["dense_mm_s8"] = {"shape": [1000, 640, 2560], "share_differ": float((diff > 0).float()
+                                                                               .mean()),
+                              "max_abs_diff": int(diff.max())}
+        x, w = bf16_pair(8192, 2560, 2560, gen)
+        out["dense_mm_bf16"] = {"shape": [8192, 2560, 2560],
+                                "x_tolerance": mm_bf16_gap(x, w, dense_mm.mm(x, w, torch.float32))
+                                / MM_BF16_TOL}
+        x, w, b = ffn_inputs(3072, 640, 2560, gen)
+        ulps, share, err = ffn_gap(x, w, b, ffn.dense_gelu(x, w, b, "erf"), "erf")
+        out["ffn_gelu"] = {"shape": [3072, 640, 2560], "ulps_x_tolerance": ulps / FFN_ULPS,
+                           "share_x_tolerance": share / FFN_SHARE, "max_abs_err": err}
+    log(f"[kernels] planted fault (main loop drops its last k-tile): dense_mm s8 differs in "
+        f"{out['dense_mm_s8']['share_differ']:.6g} of the outputs, by up to "
+        f"{out['dense_mm_s8']['max_abs_diff']}; dense_mm bf16 at "
+        f"{out['dense_mm_bf16']['x_tolerance']:.4g} x its tolerance; ffn_gelu at "
+        f"{out['ffn_gelu']['ulps_x_tolerance']:.4g} x its ulp bound and "
+        f"{out['ffn_gelu']['share_x_tolerance']:.4g} x its share bound")
+    if (out["dense_mm_s8"]["max_abs_diff"] == 0 or out["dense_mm_bf16"]["x_tolerance"] <= 1
+            or out["ffn_gelu"]["ulps_x_tolerance"] <= 1):
+        raise AssertionError("a check does not see the planted fault")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: the serving path
 # ---------------------------------------------------------------------------
@@ -439,6 +677,15 @@ def reset_counts() -> None:
     maxsim.filip_similarity_fused.launches = 0
     for fn in (infonce.fused_infonce, infonce.fused_infonce_tiled):
         fn.launches = fn.bwd_launches = 0
+    dense_mm.mm.launches = 0
+    ffn.dense_gelu.launches = 0
+
+
+def check_default_path(what: str) -> None:
+    """The default bf16 paths launch neither P1 nor K6."""
+    if dense_mm.mm.launches or ffn.dense_gelu.launches:
+        raise AssertionError(f"{what}: dense_mm launched {dense_mm.mm.launches} and ffn_gelu "
+                             f"{ffn.dense_gelu.launches} times on the default path")
 
 
 def infonce_counts() -> dict:
@@ -584,6 +831,7 @@ def run_serve_phase(rng: np.random.Generator) -> dict:
 
         launches = attention.fused_attention.launches
         k4_launches = maxsim.filip_similarity_fused.launches
+        check_default_path("serve")
     if not forwards or launches != cfg.num_layers * len(forwards):
         raise AssertionError(f"attention_fwd launched {launches} times for "
                              f"{len(forwards)} backbone forwards; want "
@@ -883,6 +1131,7 @@ def run_train(name: str, data_dir: Path, batch_size: int) -> dict:
                         "--batch-size", str(batch_size), "--accumulated-batches", "16"])
         k1 = attention.fused_attention.launches
         counts = infonce_counts()
+        check_default_path(name)
     wall = time.perf_counter() - t0
     run = check_run_dir(runs)
     train_ds, val_ds, test_ds = dataset.generate_datasets(data_dir, seed=42)
@@ -1374,7 +1623,9 @@ def time_maxsim(gen: torch.Generator, gpu: str) -> list[dict]:
     return rows
 
 
-def time_serving(ctx: dict, rng: np.random.Generator, gpu: str) -> None:
+def time_serving(ctx: dict, rng: np.random.Generator, gpu: str, what: str = "bf16") -> dict:
+    """/embed p50 for one sequence, the same encode without HTTP, and seqs/s
+    at batch 32, against ctx's server and backbone."""
     base = ctx["base"]
     one = synthetic_seqs(rng, [100])
     for _ in range(3):
@@ -1384,8 +1635,9 @@ def time_serving(ctx: dict, rng: np.random.Generator, gpu: str) -> None:
         t0 = time.perf_counter()
         embed_json(base, one, "rec")
         lat.append(1e3 * (time.perf_counter() - t0))
-    log(f"[time] /embed 1 sequence (100 aa, bucket 128): p50 {statistics.median(lat):.4f} ms "
-        f"over 30 requests | {gpu}")
+    out = {"embed_p50_ms": statistics.median(lat)}
+    log(f"[time] {what} /embed 1 sequence (100 aa, bucket 128): p50 {out['embed_p50_ms']:.4f} "
+        f"ms over 30 requests | {gpu}")
     # the same encode without HTTP and the coalescer: what those layers add
     tok = common.make_tokenizer()
     direct = []
@@ -1394,8 +1646,9 @@ def time_serving(ctx: dict, rng: np.random.Generator, gpu: str) -> None:
         embed.embed_sequences(ctx["heads"], ctx["esm_params"], one, "rec", ctx["mcfg"], tok,
                               torch.device("cuda"), batch_size=32, pad_batch=True)
         direct.append(1e3 * (time.perf_counter() - t0))
-    log(f"[time] embed_sequences 1 sequence without HTTP: p50 "
-        f"{statistics.median(direct):.4f} ms over 30 calls | {gpu}")
+    out["encode_p50_ms"] = statistics.median(direct)
+    log(f"[time] {what} embed_sequences 1 sequence without HTTP: p50 "
+        f"{out['encode_p50_ms']:.4f} ms over 30 calls | {gpu}")
     batch = ctx["batch32"]
     embed_json(base, batch, "rec")
     dts = []
@@ -1403,8 +1656,10 @@ def time_serving(ctx: dict, rng: np.random.Generator, gpu: str) -> None:
         t0 = time.perf_counter()
         embed_json(base, batch, "rec")
         dts.append(time.perf_counter() - t0)
-    log(f"[time] /embed batch 32 (50-299 aa): {32 / statistics.median(dts):.4f} seqs/s "
+    out["batch32_seqs_per_s"] = 32 / statistics.median(dts)
+    log(f"[time] {what} /embed batch 32 (50-299 aa): {out['batch32_seqs_per_s']:.4f} seqs/s "
         f"(median of 10 requests) | {gpu}")
+    return out
 
 
 def time_filip_serving(ctx: dict, fctx: dict, rng: np.random.Generator, gpu: str) -> None:
@@ -1559,10 +1814,247 @@ def time_train_steps(tctx: dict, run: str, what: str, gpu: str) -> float:
     ends = tctx[run]["ends"]
     dts = [a.elapsed_time(b) / 1e3 for a, b in zip(ends, ends[1:])]
     rate = 256 / statistics.median(dts)
-    log(f"[time] {what} at global batch 256 (t30_150M bf16, 16 chunks): {rate:.4f} pairs/s, "
+    log(f"[time] {what} at global batch 256 (t30_150M, 16 chunks): {rate:.4f} pairs/s, "
         f"median of {len(dts)} steps after the first ({1e3 * min(dts):.2f}-"
         f"{1e3 * max(dts):.2f} ms per step, by CUDA events); fixture {tctx['profile']} | {gpu}")
     return rate
+
+
+# ---------------------------------------------------------------------------
+# Phases 9-11: the int8 w8a8 backbone (P1) and the fused FFN gate (K6)
+# ---------------------------------------------------------------------------
+
+def row_cosines(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    return (a * b).sum(1) / (np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1))
+
+
+def serve_requests(base: str, ctx: dict, what: str) -> dict:
+    """/healthz, the single-sequence /embed of phase 3's sequences, its
+    32-sequence /embed and /topk over the index (order checked as in phase
+    3): {(side, bucket) or "batch32": embeddings}."""
+    health = json.loads(call(base, "/healthz")[1])
+    if not (health["status"] == "ok" and health["index_size"] == 256):
+        raise AssertionError(f"{what} /healthz {health}")
+    got = {key: embed_json(base, [seq], key[0])[0] for key, (seq, _) in ctx["singles"].items()}
+    got["batch32"] = embed_json(base, ctx["batch32"], "rec")
+    queries = ctx["batch32"][:4]
+    hits = post_json(base, "/topk", {"queries": queries, "side": "pep", "k": 10})["hits"]
+    qemb = embed_json(base, queries, "pep")
+    with np.load(WORK / "index.npz") as index:
+        ids, corpus = index["ids"], index["embeddings"]
+    want = np.argsort(-(qemb @ corpus.T), axis=1)[:, :10]
+    for q, row in enumerate(hits):
+        if [h["id"] for h in row] != [str(ids[i]) for i in want[q]]:
+            raise AssertionError(f"{what} /topk order wrong for query {q}")
+    log(f"[{what}] /healthz ok; /embed of {len(ctx['singles'])} single sequences and of 32; "
+        f"/topk k=10 over 256: order ok")
+    return got
+
+
+def cosines_against(got: dict, ctx: dict) -> np.ndarray:
+    """Per-row cosines of got's embeddings against phase 3's (bf16, gate off)."""
+    cos = list(row_cosines(got["batch32"], ctx["emb32"]))
+    cos += [float(row_cosines(got[key][None], emb[None])[0])
+            for key, (_, emb) in ctx["singles"].items()]
+    return np.asarray(cos)
+
+
+def run_int8_serve_phase(ctx: dict) -> dict:
+    """cli.serve --esm-dtype int8 over phase 3's weights and index: launch
+    counts (P1 six times a layer, K1 once), the served embeddings against
+    the same encode through P1's plain version on the card (equal to the
+    bit), and their cosine against the bf16 path."""
+    model_args = ctx["model_args"] + ["--esm-dtype", "int8"]
+    with counted_forwards() as forwards:
+        reset_counts()
+        args = serve.build_argparser().parse_args(
+            model_args + ["--index", str(WORK / "index.npz"), "--port", "0"])
+        server = serve.make_server(args)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        out: dict = {"base": base, "server": server, "thread": thread}
+        got = serve_requests(base, ctx, "int8 serve")
+        launches = {"dense_mm": dense_mm.mm.launches,
+                    "attention_fwd": attention.fused_attention.launches,
+                    "ffn_gelu": ffn.dense_gelu.launches}
+    cfg = common.esm_config("t30_150M", "int8")
+    n = len(forwards)
+    want = {"dense_mm": 6 * cfg.num_layers * n, "attention_fwd": cfg.num_layers * n,
+            "ffn_gelu": 0}
+    if not forwards or launches != want:
+        raise AssertionError(f"int8 serve: launches {launches} over {n} forwards, want {want}")
+    log(f"[int8 serve] {n} backbone forwards: dense_mm {launches['dense_mm']} = "
+        f"{6 * cfg.num_layers} per forward (q, k, v, o, wi, wo x {cfg.num_layers} layers), "
+        f"attention_fwd {launches['attention_fwd']} = {cfg.num_layers} per forward")
+    mcfg = clip.CLIPConfig(input_dim=cfg.hidden_size, esm=cfg)
+    qparams = esm2.quantize_params(ctx["esm_params"])
+    tok = common.make_tokenizer()
+    kernel_mm = dense_mm.mm
+    dense_mm.mm = dense_mm.mm_reference
+    try:
+        plain = {key: embed.embed_sequences(ctx["heads"], qparams, [seq], key[0], mcfg, tok,
+                                            torch.device("cuda"), batch_size=32,
+                                            pad_batch=True)[0]
+                 for key, (seq, _) in ctx["singles"].items()}
+        plain["batch32"] = embed.embed_sequences(ctx["heads"], qparams, ctx["batch32"], "rec",
+                                                 mcfg, tok, torch.device("cuda"), batch_size=32,
+                                                 pad_batch=True)
+    finally:
+        dense_mm.mm = kernel_mm
+    equal = all(np.array_equal(got[k], plain[k]) for k in got)
+    cos = cosines_against(got, ctx)
+    log(f"[int8 serve] served embeddings against the same encode through dense_mm's plain "
+        f"version: {'equal to the bit' if equal else 'DIFFERENT'}; per-row cosine against "
+        f"the bf16 path over {len(cos)} rows: min {cos.min():.6f}, median "
+        f"{np.median(cos):.6f} (need min >= {INT8_COSINE_MIN})")
+    if not equal:
+        raise AssertionError("the int8 path through P1 differs from P1's plain version")
+    if not cos.min() >= INT8_COSINE_MIN:
+        raise AssertionError(f"int8 embeddings drift from bf16: cosine {cos.min()}")
+    out.update(launches=launches, cos_min=float(cos.min()), cos_median=float(np.median(cos)),
+               heads=ctx["heads"], esm_params=qparams, mcfg=mcfg, batch32=ctx["batch32"])
+    return out
+
+
+def run_int8_train() -> dict:
+    """cli.main --esm-dtype int8 for one epoch on a fixture of
+    INT8_FIXTURE_FAMILIES families: three frozen steps at global batch 256
+    (16 chunks, 4 length groups) and the eval batches; finite losses; P1
+    six times a layer per backbone forward, 32 forwards per step, 8 per
+    eval batch; K2 once forward and once backward per step."""
+    data_dir, runs = WORK / "int8_data", WORK / "runs_int8"
+    t0 = time.perf_counter()
+    with counted_forwards() as forwards, timed_steps() as ends:
+        reset_counts()
+        train_cli.main(["--synthetic-fixture", "--data-dir", str(data_dir), "--fixture-families",
+                        str(INT8_FIXTURE_FAMILIES), "--epochs", "1", "--runs-dir", str(runs),
+                        "--esm-dtype", "int8"])
+        p1, k1 = dense_mm.mm.launches, attention.fused_attention.launches
+        counts = infonce_counts()
+    wall = time.perf_counter() - t0
+    run = check_run_dir(runs)
+    train_ds, val_ds, test_ds = dataset.generate_datasets(data_dir, seed=42)
+    steps = len(train_ds) // 16 // 16
+    evals = len(val_ds) // 16 + len(test_ds) // 16
+    want_forwards = 32 * steps + 8 * evals
+    want = {"infonce": (steps + evals, steps), "infonce_tiled": (0, 0)}
+    if (steps != 3 or len(ends) != steps or len(forwards) != want_forwards
+            or p1 != 180 * want_forwards or k1 != 30 * want_forwards or counts != want):
+        raise AssertionError(f"int8 train: {len(ends)} steps (want {steps} = 3), "
+                             f"{len(forwards)} forwards (want {want_forwards}), dense_mm {p1}, "
+                             f"attention_fwd {k1}, InfoNCE {counts} (want {want})")
+    metrics = json.loads((run / "metrics.jsonl").read_text().splitlines()[0])
+    log(f"[int8 train] cli.main --esm-dtype int8: {steps} steps at global batch 256, {evals} "
+        f"eval batches of 16; train loss {metrics['train_loss']:.6f}, val loss "
+        f"{metrics['val_loss']:.6f} (finite); {len(forwards)} backbone forwards, dense_mm {p1} "
+        f"= 180 per forward, attention_fwd {k1}; InfoNCE (forward, backward) calls {counts}; "
+        f"cli.main {wall:.2f} s")
+    return {"steps": steps, "ends": ends, "launches": {
+        "dense_mm": p1, "attention_fwd": k1, **{k: v[0] for k, v in counts.items()}}}
+
+
+@contextlib.contextmanager
+def ffn_gate():
+    os.environ["PCT_FFN_PALLAS"] = "1"
+    try:
+        yield
+    finally:
+        del os.environ["PCT_FFN_PALLAS"]
+
+
+def run_k6_serve_phase(ctx: dict) -> dict:
+    """Phase 3's server and requests with PCT_FFN_PALLAS=1 set for the
+    phase: K6 once a layer per forward, and the embeddings at cosine >=
+    COSINE_MIN per row against the gate off."""
+    with ffn_gate(), counted_forwards() as forwards:
+        reset_counts()
+        got = serve_requests(ctx["base"], ctx, "K6 serve")
+        launches = {"ffn_gelu": ffn.dense_gelu.launches,
+                    "attention_fwd": attention.fused_attention.launches,
+                    "dense_mm": dense_mm.mm.launches}
+    layers = ctx["mcfg"].esm.num_layers
+    n = len(forwards)
+    want = {"ffn_gelu": layers * n, "attention_fwd": layers * n, "dense_mm": 0}
+    if not forwards or launches != want:
+        raise AssertionError(f"K6 serve: launches {launches} over {n} forwards, want {want}")
+    cos = cosines_against(got, ctx)
+    log(f"[K6 serve] {n} backbone forwards: ffn_gelu {launches['ffn_gelu']} = {layers} per "
+        f"forward; per-row cosine against the gate off over {len(cos)} rows: min "
+        f"{cos.min():.6f}, median {np.median(cos):.6f} (need >= {COSINE_MIN})")
+    if not cos.min() >= COSINE_MIN:
+        raise AssertionError(f"K6 embeddings drift from the gate off: cosine {cos.min()}")
+    return {"launches": launches, "cos_min": float(cos.min())}
+
+
+def dense_bound(N: int, K: int, M: int, s8: bool) -> tuple[float, str, str]:
+    """(bound ms, what bounds it, the counts) of P1: 2NKM operations at the
+    int8 or bf16 tensor-core peak, against x and W read and the 4-byte
+    output written once."""
+    ops = 2 * N * K * M
+    e = 1 if s8 else 2
+    nbytes = e * (N * K + K * M) + 4 * N * M
+    t_ops = ops / (H100_INT8_OPS if s8 else H100_BF16_FLOPS)
+    t_bytes = nbytes / H100_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes), "bytes" if t_bytes >= t_ops else "operations",
+            f"{ops / 1e9:.4f} G{'OP' if s8 else 'FLOP'}, {nbytes / 1e6:.4f} MB")
+
+
+def time_dense_mm(gen: torch.Generator, gpu: str) -> list[dict]:
+    """P1 s8 at the probe's shape and at the batch-32 wi shape against
+    torch._int_mm (cuBLASLt s8, given W k-major, the layout cuBLASLt takes
+    fast, made once outside the timing: the weights are static), P1 bf16
+    against torch.matmul (bf16 out), their plain versions, four input sets
+    each so that calls miss the L2."""
+    rows = []
+    for kind, (N, K, M) in (("s8", (8192, 2560, 2560)), ("s8", (10240, 640, 2560)),
+                            ("bf16", (8192, 2560, 2560))):
+        s8 = kind == "s8"
+        sets = [(s8_pair if s8 else bf16_pair)(N, K, M, gen) for _ in range(4)]
+        cycle = itertools.cycle(sets)
+        out_dtype = torch.int32 if s8 else torch.float32
+        library = torch._int_mm if s8 else torch.matmul
+        library_cycle = itertools.cycle([(x, w.t().contiguous().t()) for x, w in sets]
+                                        if s8 else sets)
+        row = {"kind": kind, "shape": [N, K, M],
+               "ms": cuda_ms(lambda: dense_mm.mm(*next(cycle), out_dtype), 50),
+               "plain_ms": cuda_ms(lambda: dense_mm.mm_reference(*next(cycle), out_dtype), 5),
+               "library_ms": cuda_ms(lambda: library(*next(library_cycle)), 50)}
+        row["bound_ms"], row["bound_by"], counts = dense_bound(N, K, M, s8)
+        log(f"[time] dense_mm {kind} {(N, K, M)}: kernel {row['ms']:.6f} ms, plain "
+            f"{row['plain_ms']:.6f} ms, library ({'torch._int_mm, W k-major' if s8 else 'torch.matmul, bf16 out'}) "
+            f"{row['library_ms']:.6f} ms, bound {row['bound_ms']:.6f} ms ({row['bound_by']}: "
+            f"{counts}) = {100 * row['bound_ms'] / row['ms']:.2f}% of the bound | {gpu}")
+        rows.append(row)
+    return rows
+
+
+def time_ffn(gen: torch.Generator, gpu: str) -> dict:
+    """K6 at the batch-32 wi shape, its plain version, and torch.addmm
+    followed by gelu (two calls: no single PyTorch call computes it)."""
+    N, H, M = 10240, 640, 2560
+    sets = [ffn_inputs(N, H, M, gen) for _ in range(4)]
+    cycle = itertools.cycle(sets)
+
+    def two_calls():
+        x, w, b = next(cycle)
+        torch.nn.functional.gelu(torch.addmm(b, x, w))
+
+    row = {"shape": [N, H, M],
+           "ms": cuda_ms(lambda: ffn.dense_gelu(*next(cycle), "erf"), 50),
+           "plain_ms": cuda_ms(lambda: ffn.dense_gelu_reference(*next(cycle), "erf"), 5),
+           "library_ms": None, "addmm_gelu_ms": cuda_ms(two_calls, 50)}
+    flops = 2 * N * H * M
+    nbytes = 2 * (N * H + H * M + M + N * M)
+    t_ops, t_bytes = flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
+    row["bound_ms"] = 1e3 * max(t_ops, t_bytes)
+    row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    log(f"[time] ffn_gelu {(N, H, M)} erf: kernel {row['ms']:.6f} ms, plain "
+        f"{row['plain_ms']:.6f} ms, library none (torch.addmm + gelu, two calls: "
+        f"{row['addmm_gelu_ms']:.6f} ms), bound {row['bound_ms']:.6f} ms ({row['bound_by']}: "
+        f"{flops / 1e9:.4f} GFLOP, {nbytes / 1e6:.4f} MB) = "
+        f"{100 * row['bound_ms'] / row['ms']:.2f}% of the bound | {gpu}")
+    return row
 
 
 def stop(server_ctx: dict) -> None:
@@ -1582,17 +2074,23 @@ def main() -> int:
     gpu = gpu_line()
     log(f"[build] {gpu}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
+    with concurrent.futures.ThreadPoolExecutor(len(KERNELS) + 1) as pool:
+        faults = pool.submit(build_faults)
         reports = list(pool.map(build.build, KERNELS))
+        fault_libs = faults.result()
     for name, report in zip(KERNELS, reports):
         log(f"[build] {name}: {build.library_path(name)}\n{report.strip()}")
-    log(f"[build] done in {time.perf_counter() - t0:.1f} s")
+    log(f"[build] done in {time.perf_counter() - t0:.1f} s (and the planted-fault copies of "
+        f"dense_mm and ffn_gelu under {FAULT_DIR})")
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     max_err = check_attention(gen)
     k4_err = check_maxsim(gen)
     nce_err = check_infonce(gen)
     k5_err = check_attention_bwd(gen)
+    p1_err = check_dense_mm(gen)
+    k6_err = check_ffn(gen)
+    fault_reads = check_faults(fault_libs, gen)
     rng = np.random.default_rng(SEED)
     ctx = run_serve_phase(rng)
     try:
@@ -1603,30 +2101,46 @@ def main() -> int:
             tctx = run_train_phase()
             steps = {"k2": check_step(256), "k3": check_step(1024),
                      "finetune": check_finetune_step()}
-            times = time_attention(gen, gpu)
-            k5_times = time_attention_bwd(gen, gpu)
-            k4_times = time_maxsim(gen, gpu)
-            nce_times = time_infonce(gen, gpu)
-            dispatch = time_dispatch(gen, gpu)
-            time_serving(ctx, rng, gpu)
-            time_filip_serving(ctx, fctx, rng, gpu)
-            pairs_per_s = {run: time_train_steps(tctx, run, what, gpu) for run, what in (
-                ("k2", "frozen train step (4 length groups)"),
-                ("finetune", "finetune step (one pad bucket, remat)"),
-                ("lora", f"LoRA step (rank {LORA_RANK}, one pad bucket, remat)"))}
+            ictx = run_int8_serve_phase(ctx)
+            try:
+                i8train = run_int8_train()
+                k6ctx = run_k6_serve_phase(ctx)
+                times = time_attention(gen, gpu)
+                k5_times = time_attention_bwd(gen, gpu)
+                k4_times = time_maxsim(gen, gpu)
+                nce_times = time_infonce(gen, gpu)
+                dispatch = time_dispatch(gen, gpu)
+                p1_times = time_dense_mm(gen, gpu)
+                k6_times = time_ffn(gen, gpu)
+                serving = {"bf16": time_serving(ctx, rng, gpu),
+                           "int8": time_serving(ictx, rng, gpu, "int8")}
+                with ffn_gate():
+                    serving["k6"] = time_serving(ctx, rng, gpu, "PCT_FFN_PALLAS=1")
+                time_filip_serving(ctx, fctx, rng, gpu)
+                pairs_per_s = {run: time_train_steps(tctx, run, what, gpu) for run, what in (
+                    ("k2", "frozen train step (4 length groups)"),
+                    ("finetune", "finetune step (one pad bucket, remat)"),
+                    ("lora", f"LoRA step (rank {LORA_RANK}, one pad bucket, remat)"))}
+                pairs_per_s["int8"] = time_train_steps(
+                    {"int8": i8train, "profile": f"{INT8_FIXTURE_FAMILIES} families"}, "int8",
+                    "int8 w8a8 frozen train step (4 length groups)", gpu)
+            finally:
+                stop(ictx)
         finally:
             stop(fctx)
     finally:
         stop(ctx)
         shutil.rmtree(WORK, ignore_errors=True)
+        shutil.rmtree(FAULT_DIR, ignore_errors=True)
 
     paths = {"serve": ctx["launches"], "filip_serve": fctx["launches"],
              "train_256": tctx["k2"]["launches"], "train_1024": tctx["k3"]["launches"],
              "train_finetune": tctx["finetune"]["launches"],
-             "train_lora": tctx["lora"]["launches"]}
+             "train_lora": tctx["lora"]["launches"], "int8_serve": ictx["launches"],
+             "int8_train": i8train["launches"], "k6_serve": k6ctx["launches"]}
     by_path = {name: {path: counts.get(name, 0) for path, counts in paths.items()}
                for name in ("attention_fwd", "attention_bwd", "filip_maxsim", "infonce",
-                            "infonce_tiled")}
+                            "infonce_tiled", "dense_mm", "ffn_gelu")}
     kernels = [{
         "name": "attention_fwd", "phase": "serve", "route": "cuda",
         "source": "protein_clip_tpu_torch/csrc/attention_fwd.cu",
@@ -1668,6 +2182,28 @@ def main() -> int:
         "launches_by_path": by_path["infonce_tiled"], "max_abs_err": nce_err["infonce_tiled"],
         **nce_times["infonce_tiled"][0], "at_4096": nce_times["infonce_tiled"][1],
         "step_check": steps["k3"],
+    }, {
+        "name": "dense_mm", "phase": "int8_serve", "route": "cuda",
+        "source": "protein_clip_tpu_torch/csrc/dense_mm.cu",
+        "replaces": "tools/probe_int8_pallas.py:19",
+        "launches": ictx["launches"]["dense_mm"],
+        "launches_by_path": by_path["dense_mm"], "max_abs_err": p1_err["s8_max_abs_err"],
+        "bf16_rel_err": p1_err["bf16_rel_err"],
+        **{key: p1_times[0][key] for key in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                                             "library_ms")},
+        "at_wi_batch32": p1_times[1], "bf16": p1_times[2], "fault": {
+            k: fault_reads[k] for k in ("dense_mm_s8", "dense_mm_bf16")},
+        "int8_cos_min": ictx["cos_min"], "int8_cos_median": ictx["cos_median"],
+        "serving": serving["int8"], "bf16_serving": serving["bf16"],
+        "int8_train_pairs_per_s": pairs_per_s["int8"],
+    }, {
+        "name": "ffn_gelu", "phase": "k6_serve", "route": "cuda",
+        "source": "protein_clip_tpu_torch/csrc/ffn_gelu.cu",
+        "replaces": "protein_clip_tpu/ops/ffn_pallas.py:99",
+        "launches": k6ctx["launches"]["ffn_gelu"],
+        "launches_by_path": by_path["ffn_gelu"], "max_abs_err": k6_err, **k6_times,
+        "fault": fault_reads["ffn_gelu"], "cos_min": k6ctx["cos_min"],
+        "serving": serving["k6"],
     }]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(gpu_line(), flush=True)

@@ -10,6 +10,7 @@ CUDA where there is none raises, and nothing falls back to the CPU.
 from __future__ import annotations
 
 import argparse
+import os
 from pathlib import Path
 
 import numpy as np
@@ -42,10 +43,13 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--fast-gelu", action="store_true",
                    help="tanh-approximate FFN gelu in the backbone")
     p.add_argument("--exact-gelu", action="store_true",
-                   help="force exact-erf gelu (the default, and the parity contract)")
+                   help="force exact-erf gelu (the default, and the parity contract), "
+                        "even under --esm-dtype int8")
     p.add_argument("--esm-dtype", default="bfloat16",
                    choices=["bfloat16", "float32", "int8"],
-                   help="backbone compute dtype (int8 is not ported yet)")
+                   help="backbone compute dtype; int8 = post-training w8a8 quantised "
+                        "backbone (bf16 activations and attention; implies the tanh gelu "
+                        "unless --exact-gelu)")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the plain versions of the kernels")
 
@@ -105,12 +109,18 @@ def add_mesh_args(p: argparse.ArgumentParser) -> None:
 
 
 def check_train_args(args) -> None:
-    """Raise on the training options this port does not run yet, and on
-    --finetune with --lora-rank (as the TPU package does), before anything
-    is loaded."""
+    """Raise on the training options this port does not run yet, on
+    --finetune with --lora-rank (as the TPU package does), and on either of
+    them with --esm-dtype int8, before anything is loaded."""
     if args.finetune and args.lora_rank:
         raise SystemExit("--finetune and --lora-rank are mutually exclusive "
                          "(full vs parameter-efficient)")
+    if args.esm_dtype == "int8" and (args.finetune or args.lora_rank):
+        flag = "--finetune" if args.finetune else "--lora-rank"
+        raise NotImplementedError(
+            f"{flag} with --esm-dtype int8: the unfrozen modes train a bf16 or f32 "
+            "backbone, and the int8 tree has no weights to train (the TPU package "
+            "fails on it too); train with --esm-dtype bfloat16")
     refused = [
         (args.packed, "--packed: the packed train step (ROADMAP queue 1: the packed "
                       "CLIP train step, then the packed finetune and LoRA steps)"),
@@ -146,35 +156,51 @@ def esm_config(name: str, dtype_name: str, fast_gelu: bool = False,
                exact_gelu: bool = False) -> esm2.ESM2Config:
     """The named family with ``fused`` attention. On CUDA the attention
     kernel takes bf16 at head_dim 32 (t30_150M) only: ``load_esm`` refuses
-    the other families (head_dim 16, 24, 64 or 128) and float32 there."""
+    the other families (head_dim 16, 24, 64 or 128) and float32 there.
+    int8 quantises the weights (``load_esm``); activations stay bf16.
+
+    The gelu resolves as in the TPU package: int8 implies tanh unless
+    --exact-gelu; --exact-gelu gives erf; then --fast-gelu gives tanh; with
+    neither flag the PCT_GELU A/B knob, read here, names it (default erf)."""
     dtype = torch.float32 if dtype_name == "float32" else torch.bfloat16
     if dtype_name == "int8" and not exact_gelu:
-        fast_gelu = True  # as in the TPU package: int8 implies tanh gelu
-    gelu = "tanh" if fast_gelu and not exact_gelu else "erf"
+        fast_gelu = True
+    if exact_gelu:
+        gelu = "erf"
+    elif fast_gelu:
+        gelu = "tanh"
+    else:
+        gelu = os.environ.get("PCT_GELU", "erf")
     return getattr(esm2.ESM2Config, name)(compute_dtype=dtype, gelu=gelu)
 
 
 def load_esm(args, cfg: esm2.ESM2Config, device: torch.device) -> dict:
     """Backbone parameters on ``device`` in the compute dtype: random init
     (seed 0, like the TPU package) or an npz from
-    ``tools/convert_esm_weights.py`` (or the port's ``export_npz``). Raises
-    before loading when the attention kernel does not take the config."""
-    if args.esm_dtype == "int8":
-        raise NotImplementedError("--esm-dtype int8 is not ported yet "
-                                  "(ROADMAP queue 1: int8 w8a8)")
+    ``tools/convert_esm_weights.py`` (or the port's ``export_npz``);
+    ``--esm-dtype int8`` quantises them after the load
+    (``esm2.quantize_params``). Raises before loading when the attention
+    kernel does not take the config."""
     if device.type == "cuda" and cfg.attention_impl == "fused":
         attention.check_config(cfg.compute_dtype, cfg.head_dim)
     dtype = cfg.compute_dtype
+
+    def finish(params):
+        if args.esm_dtype == "int8":
+            print("[esm] int8 w8a8 backbone (post-training quantisation)")
+            return esm2.quantize_params(params)
+        return params
+
     if args.esm_weights is None:
         print("[esm] random init (pass --esm-weights for pretrained)")
         gen = torch.Generator(device=device).manual_seed(0)
-        return esm2.init_params(cfg, gen, dtype=dtype, device=device)
+        return finish(esm2.init_params(cfg, gen, dtype=dtype, device=device))
     path = Path(args.esm_weights)
     if path.suffix != ".npz":
         raise NotImplementedError(f"--esm-weights {path}: only .npz is read; HF "
                                   "checkpoint directories are not ported yet "
                                   "(ROADMAP queue 1: HF-directory loader)")
-    return checkpoint.load_npz(path, esm2.abstract_params(cfg, dtype), device)
+    return finish(checkpoint.load_npz(path, esm2.abstract_params(cfg, dtype), device))
 
 
 def load_clip_checkpoint(path, mcfg: clip.CLIPConfig, esm_params: dict,
@@ -182,13 +208,21 @@ def load_clip_checkpoint(path, mcfg: clip.CLIPConfig, esm_params: dict,
     """A best_model.npz that is heads-only (frozen runs), the finetune
     engine's combined {heads, esm}, or a LoRA run's {heads, lora}. Returns
     (head_params, esm_params): a finetuned checkpoint carries its own
-    backbone; a LoRA checkpoint's adapters merge into ``esm_params`` (the
-    base it trained against) at ``lora.default_alpha`` of its rank."""
+    backbone, in the compute dtype also when ``esm_params`` is int8; a LoRA
+    checkpoint's adapters merge into ``esm_params`` (the base it trained
+    against) at ``lora.default_alpha`` of its rank, and raise on an int8
+    base."""
     with np.load(path, allow_pickle=False) as data:
         keys = data.files
         lora_shapes = {k[len("lora/"):]: data[k].shape for k in keys if k.startswith("lora/")}
     head_like = clip.abstract_params(mcfg)
+    quantized = "w_q" in esm_params["layers"]["attn"]["q"]
     if lora_shapes:
+        if quantized:
+            raise NotImplementedError(
+                f"{path} holds LoRA adapters, which merge into a bf16 or f32 base; "
+                "--esm-dtype int8 quantised it (the TPU package fails on it too): serve "
+                "with --esm-dtype bfloat16")
         lora_like: dict = {}
         for key, shape in lora_shapes.items():
             name, ab = key.rsplit("/", 1)
@@ -204,7 +238,8 @@ def load_clip_checkpoint(path, mcfg: clip.CLIPConfig, esm_params: dict,
         like = {"heads": head_like, "esm": esm2.abstract_params(mcfg.esm, mcfg.esm.compute_dtype)}
         tree = checkpoint.load_npz(path, like, device)
         print("[checkpoint] finetuned backbone found — using the checkpoint's "
-              "own ESM weights")
+              "own ESM weights" + (f" in {mcfg.esm.compute_dtype}, not int8" if quantized
+                                   else ""))
         return tree["heads"], tree["esm"]
     return checkpoint.load_npz(path, head_like, device), esm_params
 

@@ -8,6 +8,12 @@ f32 accumulation in the matmuls, LayerNorm and softmax in f32, q scaled by
 dh^-0.5 before RoPE, ESM's exact-erf GELU by default, and token dropout
 rescaled by the observed mask ratio over each sequence's true length.
 
+Linear layers: ``{"w", "b"}`` leaves run in the compute dtype;
+``{"w_q", "w_s", "b"}`` leaves from ``quantize_params`` (``--esm-dtype
+int8``) run w8a8 through the s8 tensor-core kernel P1 (``ops/dense_mm``).
+Under ``PCT_FFN_PALLAS=1`` the FFN's wi + gelu runs as the fused kernel K6
+(``ops/ffn``).
+
 Attention: with ``attention_impl="fused"`` on CUDA tensors each layer calls
 the hand-written kernels (``ops/attention.fused_attention``: K1 forward, K5
 backward), for every sequence length; the kernels take bf16 at head_dim 32,
@@ -23,13 +29,14 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
-from ..ops import attention
+from ..ops import attention, dense_mm, ffn
 from ..utils.device import resolve_device
 
 Params = dict
@@ -53,7 +60,9 @@ class ESM2Config:
     # softmax, the plain version, on any device.
     attention_impl: str = "fused"
     # FFN gelu: "erf" (ESM's exact form, the parity contract) or "tanh".
-    gelu: str = "erf"
+    # The PCT_GELU A/B knob is read once, here at construction, as in the
+    # TPU package: an explicit gelu= wins over a stale PCT_GELU.
+    gelu: str = dataclasses.field(default_factory=lambda: os.environ.get("PCT_GELU", "erf"))
 
     @property
     def head_dim(self) -> int:
@@ -176,6 +185,37 @@ def cast_params(params: Params, dtype: torch.dtype) -> Params:
     return params.to(dtype)
 
 
+@torch.no_grad()
+def quantize_params(params: Params) -> Params:
+    """Post-training int8 quantisation of the big linear weights
+    (``--esm-dtype int8``), as the TPU package's ``quantize_params``:
+    symmetric per-output-channel scales s = max(max|w| over ``in``, 1e-12) /
+    127 and w_q = round(w / s) (half to even) for attention q, k, v, o and
+    FFN wi, wo, one layer at a time in f32. Embeddings, LayerNorms and
+    biases stay as they are; activations are quantised per token in
+    ``_dense``. Not a parity path: hidden states drift by int8 rounding."""
+
+    def q(lp):
+        w_q, w_s = [], []
+        for w_l in lp["w"].unbind(0):          # (in, out), one layer at a time
+            w = w_l.float()
+            s = w.abs().amax(0).clamp(min=1e-12) / 127.0
+            w_q.append(torch.round(w / s).to(torch.int8))
+            w_s.append(s)
+        return {"w_q": torch.stack(w_q), "w_s": torch.stack(w_s), "b": lp["b"]}
+
+    layers = params["layers"]
+    return {
+        "embed": params["embed"],
+        "layers": {
+            "attn": {k: q(v) if k in ("q", "k", "v", "o") else v
+                     for k, v in layers["attn"].items()},
+            "ffn": {k: q(v) if k in ("wi", "wo") else v for k, v in layers["ffn"].items()},
+        },
+        "final_ln": params["final_ln"],
+    }
+
+
 # ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------
@@ -215,8 +255,23 @@ def _apply_rope(x, cos, sin):
 
 
 def _dense(x, lp):
-    """(B, T, in) @ (in, out) + b: bf16 or f32 operands, f32 accumulation,
-    result in the operands' dtype, then the bias."""
+    """(B, T, in) @ layer params -> (B, T, out), dispatching on the params.
+
+    ``{"w", "b"}``: bf16 or f32 operands, f32 accumulation, result in the
+    operands' dtype, then the bias. ``{"w_q", "w_s", "b"}`` (from
+    ``quantize_params``): w8a8, with a dynamic symmetric int8 scale per token
+    (xs = max|x| / 127, at least 1e-6 / 127), round half to even, the s8 x s8
+    -> s32 product through P1, dequantised in f32 by xs * w_s, cast to x's
+    dtype, then the bias.
+    """
+    if "w_q" in lp:
+        x32 = x.float()
+        xs = x32.abs().amax(-1, keepdim=True).clamp(min=1e-6) * (1.0 / 127.0)
+        xq = torch.round(x32 / xs).to(torch.int8)
+        w_q = lp["w_q"]
+        y = dense_mm.mm(xq.reshape(-1, w_q.shape[0]), w_q, torch.int32)
+        y = y.view(*x.shape[:-1], w_q.shape[1])
+        return (y.float() * xs * lp["w_s"]).to(x.dtype) + lp["b"]
     return torch.matmul(x, lp["w"]) + lp["b"]
 
 
@@ -244,8 +299,23 @@ def _attention_block(x, p, mask_bias, segments, cos, sin, cfg: ESM2Config):
 
 def _ffn_block(x, p, cfg: ESM2Config):
     h = _layer_norm(x, p["ln"]["w"], p["ln"]["b"], cfg.layer_norm_eps)
-    h = _gelu(_dense(h, p["wi"]), cfg.gelu)
+    h = _wi_gelu(h, p["wi"], cfg)
     return x + _dense(h, p["wo"])
+
+
+def _wi_gelu(h, wi, cfg: ESM2Config):
+    """wi and the gelu. Under PCT_FFN_PALLAS=1 a compute-dtype wi (never the
+    int8 tree) runs as the fused K6 in ``cfg.gelu``'s mode, so the gate
+    changes speed only. On the card every shape goes to K6, whose wrapper
+    raises on one it does not take; a CPU tensor of a shape the kernel does
+    not take gets the product then the gelu, as without the gate."""
+    if ffn.enabled() and "w" in wi:
+        B, T, H = h.shape
+        M = wi["w"].shape[1]
+        if h.is_cuda or ffn.fits(B * T, H, M):
+            out = ffn.dense_gelu(h.reshape(B * T, H), wi["w"], wi["b"], cfg.gelu)
+            return out.view(B, T, M)
+    return _gelu(_dense(h, wi), cfg.gelu)
 
 
 def embed(params: Params, input_ids, attention_mask, cfg: ESM2Config):

@@ -1,21 +1,27 @@
 """Where the time of one serving request goes, on the card.
 
-    python -m protein_clip_tpu_torch.tools.profile_serve
+    python -m protein_clip_tpu_torch.tools.profile_serve [--esm-dtype int8]
+    PCT_FFN_PALLAS=1 python -m protein_clip_tpu_torch.tools.profile_serve
 
-Builds ESM-2 t30_150M in bf16 with seeded random weights and CLIP heads on
-the GPU, then for two requests (one 100-residue sequence; 32 sequences of
-50-299 residues) measures the host wall time of ``cli.embed.embed_sequences``
-(median of 10, after warm-up) and profiles 5 more calls with
-``torch.profiler``: device time by kernel, the device's busy share of the
-wall time, and kernel launches per call. Then the same for FILIP's /topk
-without HTTP (``embed_sequences_tokens`` for one 100-residue query, then
-``filip_score_matrix_ragged`` over a ragged index of 256 sequences of
-30-499 residues). Prints the card's name and power limit beside the
-numbers.
+Builds ESM-2 t30_150M in bf16 (with ``--esm-dtype int8``, its w8a8
+quantisation, whose linear layers run P1) with seeded random weights and
+CLIP heads on the GPU, then for two requests (one 100-residue sequence;
+32 sequences of 50-299 residues) measures the host wall time of
+``cli.embed.embed_sequences`` (median of 10, after warm-up) and profiles 5
+more calls with ``torch.profiler``: device time by kernel, the device's
+busy share of the wall time, and kernel launches per call. Then the same
+for FILIP's /topk without HTTP (``embed_sequences_tokens`` for one
+100-residue query, then ``filip_score_matrix_ragged`` over a ragged index
+of 256 sequences of 30-499 residues). Under ``PCT_FFN_PALLAS=1`` every
+FFN's wi + gelu runs K6. Each request's line names the launches of K1, K4,
+P1 and K6 per call and their share of the device time. Prints the card's
+name and power limit beside the numbers.
 """
 
 from __future__ import annotations
 
+import argparse
+import os
 import statistics
 import subprocess
 import time
@@ -27,7 +33,7 @@ from torch.profiler import ProfilerActivity, profile
 from ..cli import common, embed
 from ..eval import retrieval
 from ..models import clip, esm2, filip
-from ..ops import attention
+from ..ops import attention, dense_mm, ffn
 from ..ops import filip as maxsim
 from ..utils.device import resolve_device
 
@@ -45,8 +51,9 @@ def profile_request(name: str, seqs: list[str], encode, top: int = 12) -> None:
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     n = 5
-    launches0 = attention.fused_attention.launches
-    k4_launches0 = maxsim.filip_similarity_fused.launches
+    counters = {"K1": attention.fused_attention, "K4": maxsim.filip_similarity_fused,
+                "P1": dense_mm.mm, "K6": ffn.dense_gelu}
+    before = {k: fn.launches for k, fn in counters.items()}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -54,33 +61,42 @@ def profile_request(name: str, seqs: list[str], encode, top: int = 12) -> None:
             encode(seqs)
         torch.cuda.synchronize()
         window = time.perf_counter() - t0
-    k1_calls = (attention.fused_attention.launches - launches0) // n
-    k4_calls = (maxsim.filip_similarity_fused.launches - k4_launches0) // n
+    calls = {k: (fn.launches - before[k]) // n for k, fn in counters.items()}
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
     busy_us = sum(e.self_device_time_total for e in kernels)
     n_launch = sum(e.count for e in kernels) / n
+    shares = {k: sum(e.self_device_time_total for e in kernels if sym in e.key)
+              for k, sym in (("P1", "dense_mm_kernel"), ("K6", "ffn_gelu_kernel"))}
     print(f"[{name}] wall p50 {1e3 * statistics.median(walls):.4f} ms (10 calls); "
           f"profiled {n} calls: device busy {busy_us / n / 1e3:.4f} ms per call = "
           f"{100 * busy_us / 1e6 / window:.2f}% of the wall time; "
-          f"{n_launch:.0f} kernel launches per call ({k1_calls} of them K1, "
-          f"{k4_calls} K4)")
+          f"{n_launch:.0f} kernel launches per call ("
+          + ", ".join(f"{calls[k]} {k}" for k in counters) + "); "
+          + ", ".join(f"{k} {100 * us / busy_us:.2f}% of the device time "
+                      f"({us / n / 1e3:.4f} ms/call)" for k, us in shares.items()))
     for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:top]:
         us = e.self_device_time_total
         print(f"[{name}]   {100 * us / busy_us:6.2f}%  {us / n / 1e3:9.4f} ms/call  "
               f"{e.count // n:5d}x  {e.key[:90]}")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--esm-dtype", default="bfloat16", choices=["bfloat16", "int8"])
+    args = p.parse_args(argv)
     device = resolve_device("cuda")
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip()
-    print(f"card: {gpu}; torch {torch.__version__}")
-    cfg = common.esm_config("t30_150M", "bfloat16")
+    print(f"card: {gpu}; torch {torch.__version__}; --esm-dtype {args.esm_dtype}, "
+          f"PCT_FFN_PALLAS={os.environ.get('PCT_FFN_PALLAS', '')!r}")
+    cfg = common.esm_config("t30_150M", args.esm_dtype)
     mcfg = clip.CLIPConfig(input_dim=cfg.hidden_size, esm=cfg)
     esm_params = esm2.init_params(cfg, torch.Generator(device=device).manual_seed(0),
                                   dtype=torch.bfloat16, device=device)
+    if args.esm_dtype == "int8":
+        esm_params = esm2.quantize_params(esm_params)
     heads = clip.init_params(mcfg, torch.Generator().manual_seed(0), device=device)
     tok = common.make_tokenizer()
     rng = np.random.default_rng(0)

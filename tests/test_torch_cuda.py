@@ -1,8 +1,10 @@
-"""The port's CUDA kernels on the card: K1 and its backward K5, K4 and the
-InfoNCE kernels K2 and K3 (forward and backward) against their plain
-versions at odd shapes, the wrappers' refusals, their launch counts, the
-ESM-2 forward through K1, the FILIP scorer through K4, a train step through
-K2 and K3, and a finetune step through K1 and K5.
+"""The port's CUDA kernels on the card: K1 and its backward K5, K4, the
+InfoNCE kernels K2 and K3 (forward and backward), the dense product P1 (s8
+and bf16) and the fused FFN K6 against their plain versions at odd shapes,
+each tolerance against a planted fault, the wrappers' refusals, their
+launch counts, the ESM-2 forward through K1, P1 (int8) and K6, the FILIP
+scorer through K4, a train step through K2 and K3, and finetune steps
+through K1 and K5, and under the K6 gate.
 
 These tests need an NVIDIA GPU and nvcc; elsewhere they skip. This file
 imports torch and the port only, so on a machine without JAX it runs as
@@ -20,7 +22,7 @@ import torch
 from protein_clip_tpu_torch.data.tokenizer import EsmTokenizer
 from protein_clip_tpu_torch.eval import retrieval
 from protein_clip_tpu_torch.models import clip, esm2
-from protein_clip_tpu_torch.ops import attention, filip, infonce
+from protein_clip_tpu_torch.ops import attention, dense_mm, ffn, filip, infonce
 from protein_clip_tpu_torch.train import clip_engine, optimizer
 
 pytestmark = pytest.mark.cuda
@@ -563,3 +565,258 @@ def test_chunk_seeds_on_a_cuda_generator_need_no_sync(dev):
     assert first == again != second
     assert all(isinstance(s, int) for side in first + second for s in side)
     assert len({s for side in first for s in side}) == 32
+
+
+# ---------------------------------------------------------------------------
+# P1 (dense_mm) and K6 (ffn_gelu)
+# ---------------------------------------------------------------------------
+
+# P1 s8 -> s32 is exact: equal to its plain version to the bit. bf16 -> f32:
+# the same f32 products summed in another order, |err| <= MM_BF16_TOL times
+# |x| @ |w| (a sum's rounding scale); a kernel that drops its last k-tile
+# misses 16 of K products, past it by orders of magnitude.
+MM_BF16_TOL = 1e-5
+# The t30_150M linear layers (K, M): q/k/v/o, wi, wo.
+T30_LAYERS = ((640, 640), (640, 2560), (2560, 640))
+# K6 against its plain version, both bf16: per element |err| <= FFN_ULPS bf16
+# ulps of max(|x @ w|, |b|, |ref|), and at most FFN_SHARE of the outputs
+# differ at all. Sum order flips a rounding of x @ w in ~2e-5 of them; a
+# kernel that skips the bf16 rounding before the bias, or adds the bias
+# without rounding the sum, changes 23-26% (emulated on the plain version).
+FFN_ULPS, FFN_SHARE = 4, 1e-3
+
+
+def _s8(shape, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(-128, 128, shape, generator=g, device=dev, dtype=torch.int8)
+
+
+def _drop_last_k_tile(x, tile):
+    """x with its last k-tile of `tile` columns zeroed: what a main loop that
+    drops its last k-tile computes (a planted fault)."""
+    cut = x.clone()
+    cut[:, (x.shape[1] - 1) // tile * tile:] = 0
+    return cut
+
+
+@pytest.mark.parametrize("N,K,M", [(n, k, m) for n in (1, 37, 256) for k in (32, 640)
+                                   for m in (64, 640)]
+                         + [(n, k, m) for n in (128, 1000) for k, m in T30_LAYERS])
+def test_dense_mm_s8_equals_plain(dev, N, K, M):
+    x, w = _s8((N, K), dev, N + K), _s8((K, M), dev, M)
+    before = dense_mm.mm.launches
+    got = dense_mm.mm(x, w, torch.int32)
+    torch.cuda.synchronize()
+    assert dense_mm.mm.launches == before + 1
+    want = dense_mm.mm_reference(x, w, torch.int32)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    assert not torch.equal(dense_mm.mm(_drop_last_k_tile(x, 64), w, torch.int32), want)
+
+
+@pytest.mark.parametrize("value", [127, -127, -128])
+def test_dense_mm_s8_at_the_extremes(dev, value):
+    K = 2560
+    x = torch.full((130, K), value, dtype=torch.int8, device=dev)
+    x[1::3] = -128
+    w = torch.full((K, 640), value, dtype=torch.int8, device=dev)
+    w[:, 1::2] = 127
+    got = dense_mm.mm(x, w, torch.int32)
+    want = dense_mm.mm_reference(x, w, torch.int32)
+    assert torch.equal(got, want)
+    assert int(want.abs().max()) >= K * 127 * 127
+
+
+def _mm_bf16_gap(x, w, got):
+    want = dense_mm.mm_reference(x, w, torch.float32)
+    scale = torch.matmul(x.float().abs(), w.float().abs())
+    return float(((got - want).abs() / scale.clamp(min=1e-30)).max())
+
+
+@pytest.mark.parametrize("N,K,M", [(1, 16, 8), (37, 640, 640), (300, 2560, 640),
+                                   (129, 640, 2560)])
+def test_dense_mm_bf16_within_bound(dev, N, K, M):
+    g = torch.Generator(device=dev).manual_seed(N)
+    x = torch.randn(N, K, generator=g, device=dev).bfloat16()
+    w = (0.05 * torch.randn(K, M, generator=g, device=dev)).bfloat16()
+    got = dense_mm.mm(x, w, torch.float32)
+    assert got.dtype == torch.float32
+    assert _mm_bf16_gap(x, w, got) <= MM_BF16_TOL
+    if K > 32:
+        assert _mm_bf16_gap(x, w, dense_mm.mm(_drop_last_k_tile(x, 32), w, torch.float32)) \
+            > MM_BF16_TOL
+
+
+def test_dense_mm_refuses_what_the_kernel_does_not_take(dev):
+    x, w = _s8((4, 64), dev, 0), _s8((64, 16), dev, 1)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        dense_mm.mm(x[:, :48].contiguous(), w[:48].contiguous(), torch.int32)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        dense_mm.mm(x, w[:, :12].contiguous(), torch.int32)
+    with pytest.raises(ValueError, match="contiguous"):
+        dense_mm.mm(x, w.t().contiguous().t(), torch.int32)
+    with pytest.raises(TypeError, match="int8 x int8"):
+        dense_mm.mm(x, w.bfloat16(), torch.int32)
+    with pytest.raises(ValueError, match="on cpu"):
+        dense_mm.mm(x, w.cpu(), torch.int32)
+
+
+def _ffn_inputs(N, H, M, dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn(N, H, generator=g, device=dev).bfloat16(),
+            (torch.randn(H, M, generator=g, device=dev) / H ** 0.5).bfloat16(),
+            (0.5 * torch.randn(M, generator=g, device=dev)).bfloat16())
+
+
+def _ffn_gap(x, w, b, got, mode):
+    """(largest error in bf16 ulps of max(|x @ w|, |b|, |ref|), share of
+    outputs that differ)."""
+    ref = ffn.dense_gelu_reference(x, w, b, mode).float()
+    scale = torch.maximum(torch.matmul(x.float(), w.float()).abs(), b.float().abs()[None])
+    _, e = torch.frexp(torch.maximum(scale, ref.abs()))
+    err = (got.float() - ref).abs()
+    return float((err / torch.ldexp(torch.ones_like(ref), e - 8)).max()), \
+        float((err > 0).float().mean())
+
+
+@pytest.mark.parametrize("mode", ["erf", "tanh"])
+@pytest.mark.parametrize("N,H,M", [(64, 640, 2560), (128, 640, 2560), (3072, 640, 2560),
+                                   (33, 48, 40)])
+def test_ffn_gelu_matches_plain(dev, N, H, M, mode):
+    x, w, b = _ffn_inputs(N, H, M, dev)
+    before = ffn.dense_gelu.launches
+    got = ffn.dense_gelu(x, w, b, mode)
+    torch.cuda.synchronize()
+    assert ffn.dense_gelu.launches == before + 1 and got.dtype == torch.bfloat16
+    ulps, share = _ffn_gap(x, w, b, got, mode)
+    assert ulps <= FFN_ULPS and share <= FFN_SHARE, (ulps, share)
+    fault = ffn.dense_gelu(_drop_last_k_tile(x, 32), w, b, mode)
+    assert _ffn_gap(x, w, b, fault, mode)[0] > FFN_ULPS
+
+
+def test_ffn_gelu_check_sees_a_skipped_rounding(dev):
+    """The plain version without the bf16 rounding before the bias, and
+    with the bias added to the unrounded sum: each fails FFN_SHARE."""
+    x, w, b = _ffn_inputs(256, 640, 2560, dev)
+    acc = torch.matmul(x.float(), w.float())
+    for z in ((acc + b.float()).bfloat16(), acc.bfloat16().float() + b.float()):
+        out = ffn._gelu_f32(z.float(), "erf").bfloat16()
+        assert _ffn_gap(x, w, b, out, "erf")[1] > 10 * FFN_SHARE
+
+
+def test_ffn_gelu_backward_is_the_plain_composition(dev):
+    x, w, b = (t.requires_grad_(True) for t in _ffn_inputs(64, 640, 2560, dev))
+    g = torch.randn(64, 2560, device=dev).bfloat16()
+    got = torch.autograd.grad(ffn.dense_gelu(x, w, b, "erf"), (x, w, b), g)
+    want = torch.autograd.grad(ffn.dense_gelu_reference(x, w, b, "erf"), (x, w, b), g)
+    for a, c in zip(got, want):
+        assert torch.equal(a, c)
+
+
+def test_ffn_gelu_refuses_what_the_kernel_does_not_take(dev):
+    x, w, b = _ffn_inputs(8, 64, 64, dev)
+    with pytest.raises(TypeError, match="bfloat16"):
+        ffn.dense_gelu(x.float(), w.float(), b.float(), "erf")
+    with pytest.raises(ValueError, match="fits"):
+        ffn.dense_gelu(x[:, :40].contiguous(), w[:40].contiguous(), b, "erf")
+    with pytest.raises(ValueError, match="mode"):
+        ffn.dense_gelu(x, w, b, "relu")
+
+
+def test_ffn_gate_raises_on_a_shape_the_kernel_does_not_take(dev, monkeypatch):
+    """Under PCT_FFN_PALLAS=1 a CUDA wi of a shape K6 does not take (H no
+    multiple of 16) raises; it never runs the plain version on the card."""
+    monkeypatch.setenv("PCT_FFN_PALLAS", "1")
+    cfg = esm2.ESM2Config.tiny()
+    x, w, b = _ffn_inputs(8, 40, 64, dev)
+    before = ffn.dense_gelu.launches
+    with pytest.raises(ValueError, match="fits"):
+        esm2._wi_gelu(x.view(2, 4, 40), {"w": w, "b": b}, cfg)
+    assert ffn.dense_gelu.launches == before
+
+
+def _t30_width(dev, layers=2):
+    cfg = esm2.ESM2Config(num_layers=layers, compute_dtype=torch.bfloat16)
+    params = esm2.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                              dtype=torch.bfloat16, device=dev)
+    ids = torch.randint(4, 24, (3, 100), device=dev)
+    mask = torch.ones(3, 100, dtype=torch.int32, device=dev)
+    mask[2, 60:] = 0
+    ids[2, 60:] = 1
+    return cfg, params, ids, mask
+
+
+def test_int8_forward_runs_p1_six_times_a_layer_and_equals_plain_mm(dev, monkeypatch):
+    cfg, params, ids, mask = _t30_width(dev)
+    cfg = dataclasses.replace(cfg, gelu="tanh")
+    q = esm2.quantize_params(params)
+    before = (dense_mm.mm.launches, attention.fused_attention.launches)
+    with torch.inference_mode():
+        got = esm2.forward(q, ids, mask, cfg)
+    assert (dense_mm.mm.launches - before[0], attention.fused_attention.launches - before[1]) \
+        == (6 * cfg.num_layers, cfg.num_layers)
+    monkeypatch.setattr(dense_mm, "mm", dense_mm.mm_reference)
+    with torch.inference_mode():
+        want = esm2.forward(q, ids, mask, cfg)
+    assert torch.equal(got, want)
+
+
+def test_ffn_gate_runs_k6_once_a_layer(dev, monkeypatch):
+    cfg, params, ids, mask = _t30_width(dev)
+    with torch.inference_mode():
+        off = esm2.forward(params, ids, mask, cfg)
+        monkeypatch.setenv("PCT_FFN_PALLAS", "1")
+        before = ffn.dense_gelu.launches
+        on = esm2.forward(params, ids, mask, cfg)
+    assert ffn.dense_gelu.launches - before == cfg.num_layers
+    valid = mask.bool()
+    cos = torch.nn.functional.cosine_similarity(on[valid].float(), off[valid].float(), dim=-1)
+    assert float(cos.min()) >= 0.999
+
+
+def test_finetune_step_under_the_ffn_gate(dev, monkeypatch):
+    """One finetune step of a 2-layer backbone with PCT_FFN_PALLAS=1 against
+    the gate off, from the same weights and batch. K6's backward is the
+    plain composition, so the gradients differ only through K6's forward
+    against cuBLAS's bf16 product (a few bf16 flips): every leaf within
+    FT_K5_TOL of its largest entry, the loss within 1e-3 relative. A K6
+    whose main loop drops its last k-tile (emulated by zeroing x's last 32
+    columns) must fail that. On an H100 the loss agrees to the bit and the
+    worst leaf reads 0.0050, not 0: the plain composition's backward runs
+    its products in f32 where the gate-off path's runs bf16 GEMMs. The
+    planted fault reads 1.46."""
+    from protein_clip_tpu_torch.train import finetune
+
+    mcfg, esm_params = _tiny_t30_like(dev)
+    rng = np.random.default_rng(2)
+    aas = list("LAGVSERTIDPKQNFYMHWC")
+    peps = ["".join(rng.choice(aas, int(n))) for n in rng.integers(8, 30, 32)]
+    recs = ["".join(rng.choice(aas, int(n))) for n in rng.integers(30, 90, 32)]
+    batch = {k: v.to(dev) for k, v in
+             clip_engine.tokenize_pair_batch(EsmTokenizer(), peps, recs).items()}
+    heads0 = clip.init_params(mcfg, torch.Generator().manual_seed(1), device=dev)
+    cfg = clip_engine.EngineConfig(model=mcfg, batch_size=32, accumulated_batches=1,
+                                   num_chunks=4)
+    kernel_forward = ffn._forward
+
+    def fault(x, w, b, mode):
+        return kernel_forward(_drop_last_k_tile(x, 32), w, b, mode)
+
+    out = {}
+    for name, gate, forward in (("off", "0", kernel_forward), ("on", "1", kernel_forward),
+                                ("fault", "1", fault)):
+        monkeypatch.setenv("PCT_FFN_PALLAS", gate)
+        monkeypatch.setattr(ffn, "_forward", forward)
+        params = finetune.init_params(esm_params, _clone(heads0))
+        state = _capturing(finetune.make_optimizer(cfg).init(params))
+        before = ffn.dense_gelu.launches
+        _, _, loss = finetune.make_train_step(cfg)(params, state, {}, batch, None)
+        torch.cuda.synchronize()
+        out[name] = (float(loss), state.grads, ffn.dense_gelu.launches - before)
+    # pass 1: 1 per layer per chunk; pass 2: forward and remat recompute
+    assert out["off"][2] == 0 and out["on"][2] == 3 * 2 * 4 * mcfg.esm.num_layers
+    loss_gap = abs(out["on"][0] - out["off"][0]) / abs(out["off"][0])
+    gap, fault_gap = (_worst_gap(out[k][1], out["off"][1]) for k in ("on", "fault"))
+    print(f"K6 gate finetune step: loss gap {loss_gap:.3g}, worst leaf {gap:.4g}, "
+          f"planted fault {fault_gap:.4g} (tolerance {FT_K5_TOL:g})")
+    assert loss_gap <= 1e-3
+    assert gap <= FT_K5_TOL < fault_gap

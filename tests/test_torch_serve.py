@@ -197,7 +197,6 @@ def test_combined_checkpoint_serves_its_own_backbone(tmp_path, model_files):
 
 @pytest.mark.parametrize("extra,match", [
     (["--device", "cuda"], "CUDA is not available"),
-    (["--esm-dtype", "int8"], "int8"),
     (["--esm-weights", "some_hf_dir"], "HF"),
 ])
 def test_unported_or_unavailable_options_raise(model_files, extra, match):
