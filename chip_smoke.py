@@ -32,10 +32,15 @@ and a nonzero exit code, and no result line:
                 padded, fully padded and packed rows. P1 (dense_mm) s8 ->
                 s32 against ops.dense_mm.mm_reference to the bit at the
                 probe's (8192, 2560, 2560), at N in {1, 128, 1000, 3072,
-                10240} tokens through t30_150M's three layer shapes, and at
-                the extreme values; bf16 -> f32 within MM_BF16_TOL of
-                |x| @ |w|. K6 (ffn_gelu) against ops.ffn.dense_gelu_reference
-                at N in {64, 128, 3072, 10240}, H=640, M=2560, erf and tanh:
+                10240} tokens through t30_150M's three layer shapes, at the
+                main loop's edges (EDGE_SHAPES: N around its 64- and
+                256-row blocks, K below, at and past one ring stage, M = 8
+                and M no multiple of its blocks' columns) and at the extreme
+                values; bf16 -> f32 within MM_BF16_TOL of |x| @ |w| at the
+                probe's shape, the three layer shapes at 128 and 10240
+                tokens and the edges. K6 (ffn_gelu) against
+                ops.ffn.dense_gelu_reference at N in {64, 128, 3072, 10240},
+                H=640, M=2560, erf and tanh, and at the edges (erf):
                 FFN_ULPS bf16 ulps per output and at most FFN_SHARE of them
                 off; the plain version with either epilogue rounding skipped
                 must fail that. Then each check against the planted fault,
@@ -130,7 +135,10 @@ and a nonzero exit code, and no result line:
                 bound. P1 s8 at (8192, 2560, 2560) and (10240, 640, 2560)
                 against torch._int_mm (W k-major), P1 bf16 at (8192, 2560, 2560)
                 against torch.matmul, K6 at (10240, 640, 2560) against
-                torch.addmm + gelu, each with its plain version and bound.
+                torch.addmm + gelu, each with its plain version and bound;
+                P1 s8 and K6 at 128 tokens through the three layer shapes
+                (device time by torch.profiler: a call there is shorter than
+                its host side) beside the same library calls and bounds.
                 /embed p50 for one sequence, the same encode called without
                 HTTP, and seqs/s at batch 32, for bf16, int8 and
                 PCT_FFN_PALLAS=1; FILIP /topk p50 for one query, and its
@@ -242,7 +250,13 @@ FT_LOSS_FLOOR, FT_GRAD_FLOOR = 1e-4, 1e-2
 T30_LAYERS = ((640, 640), (640, 2560), (2560, 640))
 P1_SHAPES = ((8192, 2560, 2560),) + tuple((n, k, m) for n in (1, 128, 1000, 3072, 10240)
                                           for k, m in T30_LAYERS)
-P1_BF16_SHAPES = ((8192, 2560, 2560), (10240, 640, 2560), (1000, 2560, 640), (1, 640, 640))
+P1_BF16_SHAPES = ((8192, 2560, 2560), (1000, 2560, 640), (1, 640, 640)) + tuple(
+    (n, k, m) for n in (128, 10240) for k, m in T30_LAYERS)
+# The main loop's edges (csrc/mma_gemm.cuh), as (N, K, M) for s8: N around
+# its 64- and 256-row blocks; K below, at and past one 128-byte ring stage
+# (32, 128, 160 s8); M = 8 and M no multiple of its blocks' 64 or 128
+# columns. bf16 P1 and K6 take K // 2 (16, 64, 80).
+EDGE_SHAPES = tuple((n, k, m) for n in (1, 127, 129) for k, m in ((32, 8), (128, 200), (160, 72)))
 MM_BF16_TOL = 1e-5
 # K6 against its plain version, both bf16 out, at t30_150M's wi (H = 640, M
 # = 2560): every output within FFN_ULPS bf16 ulps of max(|x @ w|, |b|,
@@ -508,8 +522,14 @@ def check_dense_mm(gen: torch.Generator) -> dict:
         torch.cuda.synchronize()
         if not torch.equal(got, dense_mm.mm_reference(x, w, torch.int32)):
             raise AssertionError(f"dense_mm s8 differs from its plain version at {(N, K, M)}")
+    for N, K, M in EDGE_SHAPES:
+        x, w = s8_pair(N, K, M, gen)
+        if not torch.equal(dense_mm.mm(x, w, torch.int32),
+                           dense_mm.mm_reference(x, w, torch.int32)):
+            raise AssertionError(f"dense_mm s8 differs from its plain version at the edge "
+                                 f"{(N, K, M)}")
     log(f"[kernels] dense_mm s8 -> s32 equals its plain version to the bit at "
-        f"{len(P1_SHAPES)} shapes: {P1_SHAPES}")
+        f"{len(P1_SHAPES)} shapes: {P1_SHAPES}, and at {len(EDGE_SHAPES)} edges: {EDGE_SHAPES}")
     for value in (127, -127, -128):
         for N, K, M in ((130, 2560, 640), (1000, 640, 2560)):
             x = torch.full((N, K), value, dtype=torch.int8, device="cuda")
@@ -522,7 +542,7 @@ def check_dense_mm(gen: torch.Generator) -> dict:
     log(f"[kernels] dense_mm s8 at the extremes (+127, -127, -128; sums up to "
         f"{2560 * 128 * 128}) equal to the bit")
     worst = 0.0
-    for N, K, M in P1_BF16_SHAPES:
+    for N, K, M in P1_BF16_SHAPES + tuple((n, k // 2, m) for n, k, m in EDGE_SHAPES):
         x, w = bf16_pair(N, K, M, gen)
         got = dense_mm.mm(x, w, torch.float32)
         torch.cuda.synchronize()
@@ -556,23 +576,26 @@ def ffn_gap(x, w, b, got: torch.Tensor, mode: str) -> tuple[float, float, float]
 
 def check_ffn(gen: torch.Generator) -> float:
     """K6 against dense_gelu_reference, erf and tanh, at t30_150M's wi for
-    K6_ROWS tokens; then the plain version with either epilogue rounding
-    skipped must fail the share bound."""
+    K6_ROWS tokens, and erf at the main loop's edges; then the plain version
+    with either epilogue rounding skipped must fail the share bound."""
     worst = 0.0
-    for N in K6_ROWS:
-        x, w, b = ffn_inputs(N, 640, 2560, gen)
-        for mode in ("erf", "tanh"):
-            got = ffn.dense_gelu(x, w, b, mode)
-            torch.cuda.synchronize()
-            ulps, share, err = ffn_gap(x, w, b, got, mode)
-            ok = bool(torch.isfinite(got.float()).all()) and ulps <= FFN_ULPS \
-                and share <= FFN_SHARE
-            worst = max(worst, err)
-            log(f"[kernels] ffn_gelu N={N} H=640 M=2560 {mode}: max |err| {err:.6g} = "
-                f"{ulps:g} bf16 ulps (tolerance {FFN_ULPS}), {share:.3g} of the outputs differ "
-                f"(tolerance {FFN_SHARE:g}) {'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError(f"ffn_gelu disagrees with its plain version at N={N} {mode}")
+    cases = [(N, 640, 2560, mode) for N in K6_ROWS for mode in ("erf", "tanh")]
+    cases += [(n, k // 2, m, "erf") for n, k, m in EDGE_SHAPES]
+    for N, H, M, mode in cases:
+        x, w, b = ffn_inputs(N, H, M, gen)
+        got = ffn.dense_gelu(x, w, b, mode)
+        torch.cuda.synchronize()
+        ulps, share, err = ffn_gap(x, w, b, got, mode)
+        ok = bool(torch.isfinite(got.float()).all()) and ulps <= FFN_ULPS \
+            and share <= FFN_SHARE
+        worst = max(worst, err)
+        log(f"[kernels] ffn_gelu N={N} H={H} M={M} {mode}: max |err| {err:.6g} = "
+            f"{ulps:g} bf16 ulps (tolerance {FFN_ULPS}), {share:.3g} of the outputs differ "
+            f"(tolerance {FFN_SHARE:g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"ffn_gelu disagrees with its plain version at "
+                                 f"{(N, H, M)} {mode}")
+    x, w, b = ffn_inputs(10240, 640, 2560, gen)
     acc = torch.matmul(x.float(), w.float())
     for what, z in (("the rounding before the bias", (acc + b.float()).bfloat16()),
                     ("the rounding of the biased sum", acc.bfloat16().float() + b.float())):
@@ -618,34 +641,43 @@ def fault_kernels(libs: dict):
 
 
 def check_faults(libs: dict, gen: torch.Generator) -> dict:
-    """Each check above against the planted fault: it must fail, and by how
-    much is returned (and goes to PERF.md)."""
+    """Each check above against the planted fault, in the large block and in
+    the small one (128 tokens): it must fail every check, and by how much is
+    returned (and goes to PERF.md)."""
     out = {}
     with fault_kernels(libs):
-        x, w = s8_pair(1000, 640, 2560, gen)
-        got = dense_mm.mm(x, w, torch.int32)
-        want = dense_mm.mm_reference(x, w, torch.int32)
-        torch.cuda.synchronize()
-        diff = (got.long() - want.long()).abs()
-        out["dense_mm_s8"] = {"shape": [1000, 640, 2560], "share_differ": float((diff > 0).float()
-                                                                               .mean()),
-                              "max_abs_diff": int(diff.max())}
+        for key, (N, K, M) in (("dense_mm_s8", (1000, 640, 2560)),
+                               ("dense_mm_s8_small", (128, 2560, 640))):
+            x, w = s8_pair(N, K, M, gen)
+            got = dense_mm.mm(x, w, torch.int32)
+            want = dense_mm.mm_reference(x, w, torch.int32)
+            torch.cuda.synchronize()
+            diff = (got.long() - want.long()).abs()
+            out[key] = {"shape": [N, K, M], "share_differ": float((diff > 0).float().mean()),
+                        "max_abs_diff": int(diff.max())}
         x, w = bf16_pair(8192, 2560, 2560, gen)
         out["dense_mm_bf16"] = {"shape": [8192, 2560, 2560],
                                 "x_tolerance": mm_bf16_gap(x, w, dense_mm.mm(x, w, torch.float32))
                                 / MM_BF16_TOL}
-        x, w, b = ffn_inputs(3072, 640, 2560, gen)
-        ulps, share, err = ffn_gap(x, w, b, ffn.dense_gelu(x, w, b, "erf"), "erf")
-        out["ffn_gelu"] = {"shape": [3072, 640, 2560], "ulps_x_tolerance": ulps / FFN_ULPS,
-                           "share_x_tolerance": share / FFN_SHARE, "max_abs_err": err}
+        for key, N in (("ffn_gelu", 3072), ("ffn_gelu_small", 128)):
+            x, w, b = ffn_inputs(N, 640, 2560, gen)
+            ulps, share, err = ffn_gap(x, w, b, ffn.dense_gelu(x, w, b, "erf"), "erf")
+            out[key] = {"shape": [N, 640, 2560], "ulps_x_tolerance": ulps / FFN_ULPS,
+                        "share_x_tolerance": share / FFN_SHARE, "max_abs_err": err}
     log(f"[kernels] planted fault (main loop drops its last k-tile): dense_mm s8 differs in "
         f"{out['dense_mm_s8']['share_differ']:.6g} of the outputs, by up to "
-        f"{out['dense_mm_s8']['max_abs_diff']}; dense_mm bf16 at "
+        f"{out['dense_mm_s8']['max_abs_diff']} (at 128 tokens in "
+        f"{out['dense_mm_s8_small']['share_differ']:.6g}, by up to "
+        f"{out['dense_mm_s8_small']['max_abs_diff']}); dense_mm bf16 at "
         f"{out['dense_mm_bf16']['x_tolerance']:.4g} x its tolerance; ffn_gelu at "
         f"{out['ffn_gelu']['ulps_x_tolerance']:.4g} x its ulp bound and "
-        f"{out['ffn_gelu']['share_x_tolerance']:.4g} x its share bound")
-    if (out["dense_mm_s8"]["max_abs_diff"] == 0 or out["dense_mm_bf16"]["x_tolerance"] <= 1
-            or out["ffn_gelu"]["ulps_x_tolerance"] <= 1):
+        f"{out['ffn_gelu']['share_x_tolerance']:.4g} x its share bound (at 128 tokens "
+        f"{out['ffn_gelu_small']['ulps_x_tolerance']:.4g} and "
+        f"{out['ffn_gelu_small']['share_x_tolerance']:.4g})")
+    if (min(out[k]["max_abs_diff"] for k in ("dense_mm_s8", "dense_mm_s8_small")) == 0
+            or out["dense_mm_bf16"]["x_tolerance"] <= 1
+            or min(out[k][b] for k in ("ffn_gelu", "ffn_gelu_small")
+                   for b in ("ulps_x_tolerance", "share_x_tolerance")) <= 1):
         raise AssertionError("a check does not see the planted fault")
     return out
 
@@ -2044,17 +2076,60 @@ def time_ffn(gen: torch.Generator, gpu: str) -> dict:
            "ms": cuda_ms(lambda: ffn.dense_gelu(*next(cycle), "erf"), 50),
            "plain_ms": cuda_ms(lambda: ffn.dense_gelu_reference(*next(cycle), "erf"), 5),
            "library_ms": None, "addmm_gelu_ms": cuda_ms(two_calls, 50)}
-    flops = 2 * N * H * M
-    nbytes = 2 * (N * H + H * M + M + N * M)
-    t_ops, t_bytes = flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
-    row["bound_ms"] = 1e3 * max(t_ops, t_bytes)
-    row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    row["bound_ms"], row["bound_by"], counts = ffn_bound(N, H, M)
     log(f"[time] ffn_gelu {(N, H, M)} erf: kernel {row['ms']:.6f} ms, plain "
         f"{row['plain_ms']:.6f} ms, library none (torch.addmm + gelu, two calls: "
         f"{row['addmm_gelu_ms']:.6f} ms), bound {row['bound_ms']:.6f} ms ({row['bound_by']}: "
-        f"{flops / 1e9:.4f} GFLOP, {nbytes / 1e6:.4f} MB) = "
-        f"{100 * row['bound_ms'] / row['ms']:.2f}% of the bound | {gpu}")
+        f"{counts}) = {100 * row['bound_ms'] / row['ms']:.2f}% of the bound | {gpu}")
     return row
+
+
+def ffn_bound(N: int, H: int, M: int) -> tuple[float, str, str]:
+    """(bound ms, what bounds it, the counts) of K6: 2NHM bf16 FLOP against
+    x, W, b read and the bf16 output written once."""
+    flops = 2 * N * H * M
+    nbytes = 2 * (N * H + H * M + M + N * M)
+    t_ops, t_bytes = flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes), "bytes" if t_bytes >= t_ops else "operations",
+            f"{flops / 1e9:.4f} GFLOP, {nbytes / 1e6:.4f} MB")
+
+
+def time_short_products(gen: torch.Generator, gpu: str) -> dict:
+    """P1 s8 and K6 at 128 tokens (a one-sequence request) through t30_150M's
+    three layer shapes, beside torch._int_mm (W k-major) and torch.addmm +
+    gelu, by device time (torch.profiler): at this size a call's host side
+    outlasts its kernel, so CUDA events around back-to-back calls would read
+    the host."""
+    rows = {"s8": [], "ffn": []}
+    N = 128
+    for K, M in T30_LAYERS:
+        sets = [s8_pair(N, K, M, gen) for _ in range(4)]
+        cycle = itertools.cycle(sets)
+        lib = itertools.cycle([(x, w.t().contiguous().t()) for x, w in sets])
+        row = {"shape": [N, K, M],
+               "ms": device_ms(lambda: dense_mm.mm(*next(cycle), torch.int32), 50),
+               "library_ms": device_ms(lambda: torch._int_mm(*next(lib)), 50)}
+        row["bound_ms"], row["bound_by"], counts = dense_bound(N, K, M, True)
+        rows["s8"].append(row)
+        log(f"[time] dense_mm s8 {(N, K, M)} (device time): kernel {row['ms']:.6f} ms, library "
+            f"(torch._int_mm, W k-major) {row['library_ms']:.6f} ms, bound "
+            f"{row['bound_ms']:.6f} ms ({row['bound_by']}: {counts}) | {gpu}")
+        fsets = [ffn_inputs(N, K, M, gen) for _ in range(4)]
+        fcycle = itertools.cycle(fsets)
+
+        def two_calls():
+            x, w, b = next(fcycle)
+            torch.nn.functional.gelu(torch.addmm(b, x, w))
+
+        row = {"shape": [N, K, M],
+               "ms": device_ms(lambda: ffn.dense_gelu(*next(fcycle), "erf"), 50),
+               "library_ms": None, "addmm_gelu_ms": device_ms(two_calls, 50)}
+        row["bound_ms"], row["bound_by"], counts = ffn_bound(N, K, M)
+        rows["ffn"].append(row)
+        log(f"[time] ffn_gelu {(N, K, M)} erf (device time): kernel {row['ms']:.6f} ms, "
+            f"library none (torch.addmm + gelu: {row['addmm_gelu_ms']:.6f} ms), bound "
+            f"{row['bound_ms']:.6f} ms ({row['bound_by']}: {counts}) | {gpu}")
+    return rows
 
 
 def stop(server_ctx: dict) -> None:
@@ -2112,6 +2187,7 @@ def main() -> int:
                 dispatch = time_dispatch(gen, gpu)
                 p1_times = time_dense_mm(gen, gpu)
                 k6_times = time_ffn(gen, gpu)
+                short_times = time_short_products(gen, gpu)
                 serving = {"bf16": time_serving(ctx, rng, gpu),
                            "int8": time_serving(ictx, rng, gpu, "int8")}
                 with ffn_gate():
@@ -2191,8 +2267,9 @@ def main() -> int:
         "bf16_rel_err": p1_err["bf16_rel_err"],
         **{key: p1_times[0][key] for key in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
                                              "library_ms")},
-        "at_wi_batch32": p1_times[1], "bf16": p1_times[2], "fault": {
-            k: fault_reads[k] for k in ("dense_mm_s8", "dense_mm_bf16")},
+        "at_wi_batch32": p1_times[1], "bf16": p1_times[2], "at_128_tokens": short_times["s8"],
+        "fault": {k: fault_reads[k] for k in ("dense_mm_s8", "dense_mm_s8_small",
+                                              "dense_mm_bf16")},
         "int8_cos_min": ictx["cos_min"], "int8_cos_median": ictx["cos_median"],
         "serving": serving["int8"], "bf16_serving": serving["bf16"],
         "int8_train_pairs_per_s": pairs_per_s["int8"],
@@ -2202,7 +2279,9 @@ def main() -> int:
         "replaces": "protein_clip_tpu/ops/ffn_pallas.py:99",
         "launches": k6ctx["launches"]["ffn_gelu"],
         "launches_by_path": by_path["ffn_gelu"], "max_abs_err": k6_err, **k6_times,
-        "fault": fault_reads["ffn_gelu"], "cos_min": k6ctx["cos_min"],
+        "at_128_tokens": short_times["ffn"],
+        "fault": {k: fault_reads[k] for k in ("ffn_gelu", "ffn_gelu_small")},
+        "cos_min": k6ctx["cos_min"],
         "serving": serving["k6"],
     }]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

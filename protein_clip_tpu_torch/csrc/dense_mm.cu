@@ -17,11 +17,17 @@
 // writing 4 bytes per output. Fusing the dequantisation (x scale times w
 // scale, cast, bias) into the epilogue would write 2; that is a later PR.
 //
-// Design: csrc/mma_gemm.cuh's main loop (mma.sync m16n8k32 s8, m16n8k16 bf16;
-// the s8 W tile transposed with byte permutes while it is staged, the
-// parameter tree's (in, out) layout kept), and an epilogue that writes the
-// accumulators as they are: s32 sums of s8 products are exact, so the s8
-// result equals any exact product to the bit.
+// Design: csrc/mma_gemm.cuh (a cp.async ring of 128-byte k-tiles with
+// mbarriers, a producer warpgroup, wgmma m64nBNk32 s8 / m64nBNk16 bf16 in
+// consumer warpgroups; the s8 W tile turned K-major with byte permutes by the
+// producer, the parameter tree's (in, out) layout kept) with an epilogue that
+// writes the accumulators as they are, staged through shared memory into
+// 16-byte coalesced stores: s32 sums of s8 products are exact, so the s8
+// result equals any exact product to the bit. What limits it now (PERF.md
+// section 6): each block loads its x and W tiles from L2 on its own (no
+// cluster multicast), and its epilogue's 4-byte stores overlap no loads (at
+// the wi shape they are 93% of the bytes); at 128 tokens each k-tile waits
+// one W load, which the producer's registers prefetch a single tile ahead.
 //
 // Built by protein_clip_tpu_torch/kernels/build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -33,60 +39,37 @@ namespace {
 
 using namespace pct_gemm;
 
-// grid (ceil(M / 128), ceil(N / 128)), 256 threads.
-template <class Op>
-__global__ void __launch_bounds__(kThreads)
-dense_mm_kernel(const typename Op::Elt* __restrict__ x, const typename Op::Elt* __restrict__ w,
-                typename Op::Acc* __restrict__ out, int N, int K, int M) {
-  const int row0 = blockIdx.y * kBlockRows;
-  const int col0 = blockIdx.x * kBlockCols;
-  typename Op::Acc acc[4][4][4];
-  mainloop<Op>(x, w, N, K, M, row0, col0, acc);
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int g = lane >> 2;
-  const int tig = lane & 3;
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {  // fragment rows g and g + 8
-      const int row = row0 + (warp >> 2) * 64 + mt * 16 + g + 8 * h;
-      if (row >= N) continue;
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int col = col0 + (warp & 3) * 32 + nt * 8 + tig * 2;
-        if (col >= M) continue;
-        typename Op::Acc* p = out + static_cast<int64_t>(row) * M + col;
-        p[0] = acc[mt][nt][2 * h];
-        p[1] = acc[mt][nt][2 * h + 1];
-      }
-    }
+// The accumulators as they are.
+template <class Acc>
+struct DenseMmOut {
+  using Out = Acc;
+  Out* out;
+  int M;
+  __device__ __forceinline__ void operator()(Acc a0, Acc a1, int, Out& o0, Out& o1) const {
+    o0 = a0;
+    o1 = a1;
   }
-}
+};
 
 template <class Op>
-int launch(const void* x, const void* w, void* out, int N, int K, int M, void* stream) {
-  const dim3 grid((M + kBlockCols - 1) / kBlockCols, (N + kBlockRows - 1) / kBlockRows);
-  dense_mm_kernel<Op><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const typename Op::Elt*>(x), static_cast<const typename Op::Elt*>(w),
-      static_cast<typename Op::Acc*>(out), N, K, M);
-  return static_cast<int>(cudaGetLastError());
+int run(const void* x, const void* w, void* out, int N, int K, int M, void* stream) {
+  const DenseMmOut<typename Op::Acc> epi{static_cast<typename Op::Acc*>(out), M};
+  return launch_for<Op>(x, w, epi, N, K, M, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
 
 // x (N, K), w (K, M), out (N, M), all contiguous; the wrapper checks shapes
 // (K % 32 == 0, M % 8 == 0) and alignment. Launches on `stream` (a
-// cudaStream_t) and returns cudaGetLastError(): 0 when the launch was
+// cudaStream_t) and returns the first CUDA error: 0 when the launch was
 // accepted.
 extern "C" int pct_dense_mm_s8(const void* x, const void* w, void* out, int N, int K, int M,
                                void* stream) {
-  return launch<S8>(x, w, out, N, K, M, stream);
+  return run<S8>(x, w, out, N, K, M, stream);
 }
 
 // As pct_dense_mm_s8 in bf16 -> f32 (K % 16 == 0, M % 8 == 0).
 extern "C" int pct_dense_mm_bf16(const void* x, const void* w, void* out, int N, int K, int M,
                                  void* stream) {
-  return launch<BF16>(x, w, out, N, K, M, stream);
+  return run<BF16>(x, w, out, N, K, M, stream);
 }

@@ -19,13 +19,18 @@
 // per output (26.2 M of them) runs on the FMA and special-function units
 // beside the tensor cores.
 //
-// Design: csrc/mma_gemm.cuh's bf16 main loop (mma.sync m16n8k16, f32
-// accumulators in registers, 128 x 128 output tile per block) and the
-// epilogue on those registers, so the f32 pre-activation never reaches
-// device memory: the TPU kernel's point (one pass instead of a matmul that
-// writes z and an elementwise pass that reads it back). The TPU kernel split
-// its tile into two sub-blocks so that Mosaic could overlap one's matmul with
-// the other's epilogue; on Hopper other resident blocks give that overlap.
+// Design: csrc/mma_gemm.cuh's bf16 main loop (a cp.async ring of 64-deep
+// k-tiles with mbarriers, a producer warpgroup, wgmma m64nBNk16 with W read
+// MN-major as stored, f32 accumulators in registers) and the epilogue on
+// those registers, so the f32 pre-activation never reaches device memory:
+// the TPU kernel's point (one pass instead of a matmul that writes z and an
+// elementwise pass that reads it back). The bf16 results are staged through
+// shared memory and stored 16 bytes a thread. The TPU kernel split its tile
+// into two sub-blocks so that Mosaic could overlap one's matmul with the
+// other's epilogue; here the epilogue runs after the block's k-loop. What
+// limits it now (PERF.md section 6): that epilogue (an erff per output)
+// overlaps neither the tensor cores nor the next tile's loads, and each
+// block loads its tiles from L2 on its own (no cluster multicast).
 //
 // Built by protein_clip_tpu_torch/kernels/build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -49,55 +54,37 @@ __device__ __forceinline__ float gelu(float a, int mode) {
     const float cube = a * a * a;
     return 0.5f * a * (1.0f + tanhf(kBeta * (a + kKappa * cube)));
   }
-  return a * 0.5f * (1.0f + erff(a / 1.4142135623730951f));
+  return a * 0.5f * (1.0f + erff(a * 0.7071067811865476f));
 }
 
-// grid (ceil(M / 128), ceil(N / 128)), 256 threads.
-__global__ void __launch_bounds__(kThreads)
-ffn_gelu_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
-                const __nv_bfloat16* __restrict__ b, __nv_bfloat16* __restrict__ out, int N,
-                int K, int M, int mode) {
-  const int row0 = blockIdx.y * kBlockRows;
-  const int col0 = blockIdx.x * kBlockCols;
-  float acc[4][4][4];
-  mainloop<BF16>(x, w, N, K, M, row0, col0, acc);
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int g = lane >> 2;
-  const int tig = lane & 3;
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
-    const int col = col0 + (warp & 3) * 32 + nt * 8 + tig * 2;
-    if (col >= M) continue;
-    const float b0 = __bfloat162float(b[col]);
-    const float b1 = __bfloat162float(b[col + 1]);
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {  // fragment rows g and g + 8
-        const int row = row0 + (warp >> 2) * 64 + mt * 16 + g + 8 * h;
-        if (row >= N) continue;
-        const float z0 = round_bf16(round_bf16(acc[mt][nt][2 * h]) + b0);
-        const float z1 = round_bf16(round_bf16(acc[mt][nt][2 * h + 1]) + b1);
-        *reinterpret_cast<__nv_bfloat162*>(out + static_cast<int64_t>(row) * M + col) =
-            __floats2bfloat162_rn(gelu(z0, mode), gelu(z1, mode));
-      }
+// round(gelu(round(round(acc) + b))) for the pair at columns col, col + 1.
+struct FfnGeluOut {
+  using Out = __nv_bfloat16;
+  Out* out;
+  int M;
+  const __nv_bfloat16* b;
+  int mode;
+  __device__ __forceinline__ void operator()(float a0, float a1, int col, Out& o0,
+                                             Out& o1) const {
+    float b0 = 0.0f, b1 = 0.0f;
+    if (col < M) {  // M is even: col + 1 < M too
+      b0 = __bfloat162float(b[col]);
+      b1 = __bfloat162float(b[col + 1]);
     }
+    o0 = __float2bfloat16_rn(gelu(round_bf16(round_bf16(a0) + b0), mode));
+    o1 = __float2bfloat16_rn(gelu(round_bf16(round_bf16(a1) + b1), mode));
   }
-}
+};
 
 }  // namespace
 
 // x (N, K), w (K, M), b (M,), out (N, M), bf16, contiguous; the wrapper
 // checks shapes (K % 16 == 0, M % 8 == 0) and alignment; mode 0 is erf, 1
-// tanh. Launches on `stream` (a cudaStream_t) and returns
-// cudaGetLastError(): 0 when the launch was accepted.
+// tanh. Launches on `stream` (a cudaStream_t) and returns the first CUDA
+// error: 0 when the launch was accepted.
 extern "C" int pct_ffn_gelu(const void* x, const void* w, const void* b, void* out, int N,
                             int K, int M, int mode, void* stream) {
-  const dim3 grid((M + kBlockCols - 1) / kBlockCols, (N + kBlockRows - 1) / kBlockRows);
-  ffn_gelu_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
-      static_cast<const __nv_bfloat16*>(b), static_cast<__nv_bfloat16*>(out), N, K, M, mode);
-  return static_cast<int>(cudaGetLastError());
+  const FfnGeluOut epi{static_cast<__nv_bfloat16*>(out), M, static_cast<const __nv_bfloat16*>(b),
+                     mode};
+  return launch_for<BF16>(x, w, epi, N, K, M, static_cast<cudaStream_t>(stream));
 }

@@ -288,13 +288,21 @@ def _attention_block(x, p, mask_bias, segments, cos, sin, cfg: ESM2Config):
     q = _apply_rope(q, cos, sin)
     k = _apply_rope(k, cos, sin)
 
-    if cfg.attention_impl == "fused" and x.is_cuda:
-        ctx = attention.fused_attention(q, k, v, segments)
-    else:
-        scores = torch.einsum("bqnd,bknd->bnqk", q.float(), k.float()) + mask_bias
-        probs = torch.softmax(scores, dim=-1).to(x.dtype)
-        ctx = torch.einsum("bnqk,bknd->bqnd", probs.float(), v.float()).to(x.dtype)
+    ctx = _attend(q, k, v, mask_bias, segments, cfg)
     return x + _dense(ctx.reshape(B, T, H), p["o"])
+
+
+def _attend(q, k, v, mask_bias, segments, cfg: ESM2Config):
+    """(B, T, heads, dh) attention context: K1 with ``attention_impl="fused"``
+    on CUDA tensors (a pad query row averages v over all T keys), else the
+    eager form, which masks keys only (a pad query row attends to the valid
+    keys, as the TPU package's eager path does). Pooling drops pad rows, so
+    the two differ only there."""
+    if cfg.attention_impl == "fused" and q.is_cuda:
+        return attention.fused_attention(q, k, v, segments)
+    scores = torch.einsum("bqnd,bknd->bnqk", q.float(), k.float()) + mask_bias
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bnqk,bknd->bqnd", probs.float(), v.float()).to(q.dtype)
 
 
 def _ffn_block(x, p, cfg: ESM2Config):

@@ -18,12 +18,12 @@ import torch
 
 from ..kernels import build
 
-# out dtype of each operand dtype, and the K multiple the kernel's k-steps
-# need (32 bytes: m16n8k32 for s8, m16n8k16 for bf16)
+# out dtype of each operand dtype, and the K multiple of a wgmma k-step (32
+# bytes: m64nNk32 for s8, m64nNk16 for bf16)
 OUT_DTYPE = {torch.int8: torch.int32, torch.bfloat16: torch.float32}
 K_MULTIPLE = {torch.int8: 32, torch.bfloat16: 16}
-M_MULTIPLE = 8          # columns per mma n-tile
-MAX_ROWS = 65535 * 128  # grid.y blocks of 128 rows
+M_MULTIPLE = 8          # W and out rows in whole 16-byte chunks of 8 columns
+MAX_ROWS = 65535 * 256  # grid.y blocks of 256 rows
 
 
 def mm_reference(x: torch.Tensor, w: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:

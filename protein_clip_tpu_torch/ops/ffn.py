@@ -6,10 +6,14 @@ The port of ``protein_clip_tpu/ops/ffn_pallas.py``. ``dense_gelu`` is a
 ``csrc/ffn_gelu.cu`` (replacing the TPU kernel ``ffn_pallas._kernel``; its
 note gives the bound on an H100 and the design) on CUDA tensors, and the
 plain ``dense_gelu_reference`` on CPU tensors. Its backward, as the TPU
-``_bwd`` replays ``_eager``, is autograd through the plain composition
-recomputed from (x, W, b): the kernel is a forward-path optimisation.
+``_bwd`` replays ``_eager``, is autograd through ``plain_composition``
+recomputed from (x, W, b): the gate-off path's arithmetic, so the kernel is
+a forward-path optimisation and, on bf16 inputs, the backward's products are
+bf16 GEMMs with f32 accumulation (as JAX's VJP of ``_eager``:
+``dot_general`` of the f32 cast of a bf16 cotangent with a bf16 operand,
+``preferred_element_type=f32``, rounded to bf16).
 
-Shapes the kernel takes (``fits``): any N up to 65535 * 128 rows, H a
+Shapes the kernel takes (``fits``): any N up to 65535 * 256 rows, H a
 multiple of 16, M a multiple of 8. Every t30_150M serving and training shape
 fits (H = 640, M = 2560, N = B * T of any bucket); a hidden size that is no
 multiple of 16 (none of the ESM-2 families) takes the plain path.
@@ -28,8 +32,8 @@ import torch.nn.functional as F
 from ..kernels import build
 
 MODES = {"erf": 0, "tanh": 1}
-H_MULTIPLE, M_MULTIPLE = 16, 8   # the main loop's k-step (bf16) and n-tile
-MAX_ROWS = 65535 * 128
+H_MULTIPLE, M_MULTIPLE = 16, 8   # a wgmma k-step (bf16) and 8 columns (16 bytes)
+MAX_ROWS = 65535 * 256           # grid.y blocks of 256 rows
 
 
 def enabled() -> bool:
@@ -52,6 +56,17 @@ def dense_gelu_reference(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     """Plain version of K6 (the TPU package's ``_eager``): the product in
     f32, cast to x's dtype, THEN the bias, gelu in f32, cast back."""
     z = torch.matmul(x.float(), w.float()).to(x.dtype) + b
+    return _gelu_f32(z.float(), mode).to(x.dtype)
+
+
+def plain_composition(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                      mode: str) -> torch.Tensor:
+    """The gate-off path's wi + gelu (``models/esm2._dense`` then ``_gelu``),
+    which ``dense_gelu``'s backward differentiates: the product in the
+    operands' dtype (bf16 tensor-core GEMMs with f32 accumulation on the
+    card), the bias, gelu in f32, cast back. In f32 it is
+    ``dense_gelu_reference``'s arithmetic."""
+    z = torch.matmul(x, w) + b
     return _gelu_f32(z.float(), mode).to(x.dtype)
 
 
@@ -111,7 +126,7 @@ def _forward(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, mode: str) -> to
 
 class _DenseGelu(torch.autograd.Function):
     """K6 forward (the plain version on CPU tensors); the backward through
-    the plain composition, recomputed from the saved inputs."""
+    ``plain_composition``, recomputed from the saved inputs."""
 
     @staticmethod
     def forward(ctx, x, w, b, mode):
@@ -124,7 +139,7 @@ class _DenseGelu(torch.autograd.Function):
         need = ctx.needs_input_grad[:3]
         with torch.enable_grad():
             inputs = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, need)]
-            out = dense_gelu_reference(*inputs, ctx.mode)
+            out = plain_composition(*inputs, ctx.mode)
             grads = iter(torch.autograd.grad(out, [t for t in inputs if t.requires_grad], g))
         return (*(next(grads) if n else None for n in need), None)
 

@@ -10,13 +10,20 @@ fast; made once outside the timing, as static weights would be) and with W
 (K, M) row-major as P1 takes it, and ``torch.matmul`` in bf16: device time
 per call by CUDA events, over four input sets so that successive calls miss
 the 50 MB L2, and the rate. The library calls are yardsticks here only; the
-port's paths never call them. Prints the card's name and power limit first.
+port's paths never call them. Prints the card's name and power limit first,
+and last the host cost of what P1 does on the host for every launch besides
+the launch: encoding a TMA tensor map (one for s8, two for bf16) with the
+driver's ``cuTensorMapEncodeTiled``, timed on the host clock over 10 000
+calls at a one-sequence shape, beside the host time of a whole ``mm`` call
+from Python there.
 """
 
 from __future__ import annotations
 
+import ctypes
 import itertools
 import subprocess
+import time
 
 import torch
 
@@ -39,6 +46,42 @@ def device_ms(fn, sets, iters: int = 50, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def encode_us(x: torch.Tensor, calls: int = 10_000) -> float:
+    """Host microseconds per cuTensorMapEncodeTiled call for x's TMA map as
+    P1 encodes it: (rows, cols) u8, 128-byte x 64-row boxes, 128-byte
+    swizzle."""
+    encode = ctypes.CDLL("libcuda.so.1").cuTensorMapEncodeTiled
+    encode.restype = ctypes.c_int
+    raw = ctypes.create_string_buffer(256)
+    tensor_map = ctypes.c_void_p((ctypes.addressof(raw) + 63) // 64 * 64)  # 64-byte aligned
+    dims = (ctypes.c_uint64 * 2)(x.shape[1], x.shape[0])
+    strides = (ctypes.c_uint64 * 1)(x.shape[1])
+    box = (ctypes.c_uint32 * 2)(128, 64)
+    unit = (ctypes.c_uint32 * 2)(1, 1)
+    args = (tensor_map, ctypes.c_int(0), ctypes.c_uint32(2), ctypes.c_void_p(x.data_ptr()), dims,
+            strides, box, unit, ctypes.c_int(0), ctypes.c_int(3), ctypes.c_int(3), ctypes.c_int(0))
+    if encode(*args) != 0:
+        raise RuntimeError("cuTensorMapEncodeTiled refused P1's map")
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        encode(*args)
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def call_us(x: torch.Tensor, w: torch.Tensor, calls: int = 2_000) -> float:
+    """Host microseconds per dense_mm.mm call from Python (allocation, checks,
+    ctypes, tensor map and launch), the card kept ahead by the queue."""
+    for _ in range(10):
+        dense_mm.mm(x, w, torch.int32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        dense_mm.mm(x, w, torch.int32)
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return host / calls * 1e6
 
 
 def main() -> int:
@@ -71,6 +114,11 @@ def main() -> int:
                                 dense_mm.mm_reference(x, w, torch.int32))
             line += f"  s8 exact: {exact}"
         print(line + f" | {gpu}", flush=True)
+    x = torch.randint(-127, 128, (128, 640), generator=gen, device=device, dtype=torch.int8)
+    w = torch.randint(-127, 128, (640, 2560), generator=gen, device=device, dtype=torch.int8)
+    print(f"host cost at (128, 640, 2560): cuTensorMapEncodeTiled {encode_us(x):.3f} us a map "
+          f"(P1 s8 encodes 1 per call, bf16 2); a whole mm call from Python "
+          f"{call_us(x, w):.3f} us | {gpu}", flush=True)
     return 0
 
 

@@ -66,8 +66,10 @@ def profile_request(name: str, seqs: list[str], encode, top: int = 12) -> None:
                if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
     busy_us = sum(e.self_device_time_total for e in kernels)
     n_launch = sum(e.count for e in kernels) / n
+    # P1 and K6 are one kernel template (csrc/mma_gemm.cuh's gemm_kernel),
+    # told apart by their epilogue types
     shares = {k: sum(e.self_device_time_total for e in kernels if sym in e.key)
-              for k, sym in (("P1", "dense_mm_kernel"), ("K6", "ffn_gelu_kernel"))}
+              for k, sym in (("P1", "DenseMmOut"), ("K6", "FfnGeluOut"))}
     print(f"[{name}] wall p50 {1e3 * statistics.median(walls):.4f} ms (10 calls); "
           f"profiled {n} calls: device busy {busy_us / n / 1e3:.4f} ms per call = "
           f"{100 * busy_us / 1e6 / window:.2f}% of the wall time; "

@@ -15,7 +15,8 @@ import pytest
 import torch
 
 from protein_clip_tpu.models import esm2 as jesm2
-from protein_clip_tpu_torch.models import esm2
+from protein_clip_tpu_torch.models import clip, esm2
+from protein_clip_tpu_torch.ops import attention
 from protein_clip_tpu_torch.train.checkpoint import from_numpy_tree
 
 ATOL = 2e-5
@@ -139,3 +140,35 @@ def test_bf16_forward_close_to_f32():
                         torch.from_numpy(mask), cfg16)
     assert bf16.dtype == torch.bfloat16 and torch.isfinite(bf16).all()
     np.testing.assert_allclose(bf16.float().numpy(), f32.numpy(), atol=0.1)
+
+
+def test_k1_pad_rows_differ_from_eager_only_at_pads(monkeypatch):
+    """Kept on purpose: K1, like the TPU kernel it replaces, gives a pad query
+    row the uniform average of v over all T keys, while the eager form (the
+    JAX package's path outside 128 <= T <= 2048) masks keys only. At T = 48
+    the port's forward with attention through K1's plain version
+    (attention_reference) against its eager forward, which matches JAX's at
+    every position: valid positions and the pooled CLIP embeddings agree
+    within ATOL, and every pad position differs by far more."""
+    rng = np.random.default_rng(11)
+    jcfg, cfg = _configs()
+    ids, mask = _batch(rng, 3, 48, [48, 30, 9])
+    jparams = jesm2.init_params(jax.random.key(3), jcfg)
+    params = _carry(jparams)
+    tids, tmask = torch.from_numpy(ids), torch.from_numpy(mask)
+    eager = esm2.forward(params, tids, tmask, cfg)
+    want = np.asarray(jesm2.forward(jparams, jnp.asarray(ids), jnp.asarray(mask), jcfg))
+    np.testing.assert_allclose(eager.numpy(), want, atol=ATOL)
+    monkeypatch.setattr(esm2, "_attend", lambda q, k, v, mask_bias, segments, c:
+                        attention.attention_reference(q, k, v, segments))
+    fused = esm2.forward(params, tids, tmask, cfg)
+    valid = tmask.bool()
+    torch.testing.assert_close(fused[valid], eager[valid], atol=ATOL, rtol=0)
+    pad_gap = (fused[~valid] - eager[~valid]).abs().amax(-1)
+    assert pad_gap.numel() == 18 + 39 and float(pad_gap.min()) > 100 * ATOL, pad_gap.min()
+    ccfg = clip.CLIPConfig(input_dim=cfg.hidden_size, esm=cfg)
+    heads = clip.init_params(ccfg, torch.Generator().manual_seed(0), device="cpu")
+    for side in ("pep", "rec"):
+        torch.testing.assert_close(clip.encode_side(heads, side, fused, tmask, ccfg),
+                                   clip.encode_side(heads, side, eager, tmask, ccfg),
+                                   atol=ATOL, rtol=0)

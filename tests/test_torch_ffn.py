@@ -10,7 +10,8 @@ absolute (a couple of bf16 ulps on O(1) activations). Largest bf16 readings:
 0.015625 against the interpret-mode kernel (one bf16 ulp at 2.05; its
 interpreted dot rounds elsewhere, and 28% of the outputs differ by an ulp),
 0.00098 against ``_eager`` (one ulp at 0.064; 0.02% differ). Gradients 1e-3
-absolute and relative. Inputs come from a numpy seed.
+absolute and relative in f32; in bf16 within BF16_GRAD_TOL (four bf16 ulps)
+of each gradient's largest entry. Inputs come from a numpy seed.
 """
 
 import jax
@@ -26,6 +27,13 @@ from protein_clip_tpu_torch.ops import ffn
 from protein_clip_tpu_torch.train.checkpoint import from_numpy_tree
 
 F32_ATOL, BF16_ATOL, GRAD_TOL = 2e-6, 0.05, 1e-3
+# bf16 gradients against JAX's custom VJP, per input: max |got - want| <=
+# BF16_GRAD_TOL * max |want|. Both multiply bf16 operands with f32
+# accumulation and round to bf16, in other summation orders. Largest reading
+# 0.0103 (db under tanh: the bias gradient sums 512 bf16 rows, and 81% of
+# its entries differ by an ulp or two); dx and dw differ in under 0.05% of
+# their entries, by at most 0.0032.
+BF16_GRAD_TOL = 2 ** -6
 
 
 def _xwb(seed, N=512, H=128, M=512):
@@ -84,18 +92,54 @@ def test_grads_match_jax_custom_vjp(mode):
         np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), atol=GRAD_TOL, rtol=GRAD_TOL)
 
 
-def test_backward_is_the_plain_composition():
-    """dense_gelu's gradients are autograd's through dense_gelu_reference,
-    to the bit, also for an input that needs none."""
-    x, w, b = _port(_xwb(3, N=64, H=32, M=48), torch.float32)
+@pytest.mark.parametrize("mode", ["erf", "tanh"])
+def test_bf16_grads_match_jax_custom_vjp(mode):
+    """bf16 gradients through dense_gelu's backward (the gate-off path's bf16
+    products) against JAX's custom VJP (``_bwd``: the VJP of ``_eager``, its
+    forward the Pallas kernel in interpret mode), for one bf16 cotangent."""
+    arrays = _xwb(7)
+    g = np.random.default_rng(8).normal(size=(512, 512)).astype(np.float32)
+    _, vjp = jax.vjp(lambda a, c, d: ffn_pallas.dense_gelu(a, c, d, mode),
+                     *_jax(arrays, jnp.bfloat16))
+    want = vjp(jnp.asarray(g, jnp.bfloat16))
+    inputs = [t.requires_grad_(True) for t in _port(arrays, torch.bfloat16)]
+    got = torch.autograd.grad(ffn.dense_gelu(*inputs, mode), inputs,
+                              torch.from_numpy(g).bfloat16())
+    for a, w in zip(got, want):
+        assert a.dtype == torch.bfloat16
+        w = np.asarray(w, np.float32)
+        err = np.abs(a.float().numpy() - w).max()
+        assert err <= BF16_GRAD_TOL * np.abs(w).max(), (err, np.abs(w).max())
+
+
+def _composition_grads(dtype, fn):
+    """Gradients of w and b (x needs none) through fn for one cotangent."""
+    x, w, b = _port(_xwb(3, N=64, H=32, M=48), dtype)
     g = torch.from_numpy(np.random.default_rng(4).normal(size=(64, 48)).astype(np.float32))
-    got_inputs = [x.clone(), w.clone().requires_grad_(True), b.clone().requires_grad_(True)]
-    ffn.dense_gelu(*got_inputs, "erf").backward(g)
-    want_inputs = [x.clone(), w.clone().requires_grad_(True), b.clone().requires_grad_(True)]
-    ffn.dense_gelu_reference(*want_inputs, "erf").backward(g)
-    assert got_inputs[0].grad is None
-    for a, c in zip(got_inputs[1:], want_inputs[1:]):
-        assert torch.equal(a.grad, c.grad)
+    inputs = [x, w.requires_grad_(True), b.requires_grad_(True)]
+    fn(*inputs, "erf").backward(g.to(dtype))
+    assert inputs[0].grad is None
+    return inputs[1].grad, inputs[2].grad
+
+
+def test_backward_is_the_plain_composition():
+    """dense_gelu's gradients are autograd's through plain_composition (the
+    gate-off path's product, bias and gelu), to the bit, also for an input
+    that needs none. In f32 that is dense_gelu_reference's arithmetic."""
+    got = _composition_grads(torch.float32, ffn.dense_gelu)
+    for fn in (ffn.plain_composition, ffn.dense_gelu_reference):
+        for a, c in zip(got, _composition_grads(torch.float32, fn)):
+            assert torch.equal(a, c)
+
+
+def test_bf16_backward_is_the_plain_composition():
+    """On bf16 inputs the backward differentiates the bf16-operand products
+    of the gate-off path (plain_composition), to the bit. (On the CPU the f32
+    products of dense_gelu_reference give the same bits here; on the card
+    they would run on the CUDA cores instead of the tensor cores.)"""
+    got = _composition_grads(torch.bfloat16, ffn.dense_gelu)
+    for a, c in zip(got, _composition_grads(torch.bfloat16, ffn.plain_composition)):
+        assert a.dtype == torch.bfloat16 and torch.equal(a, c)
 
 
 def test_fits_takes_every_t30_150m_shape():
