@@ -4,10 +4,14 @@ backward (kernel K5).
 ``fused_attention`` is a ``torch.autograd.Function`` over two hand-written
 CUDA kernels: ``csrc/attention_fwd.cu`` (K1), which replaces the TPU kernel
 ``protein_clip_tpu/ops/attention_pallas.py::_kernel``, and
-``csrc/attention_bwd.cu`` (K5), which replaces ``_bwd_kernel``. Each
-kernel's note gives its bound on an H100 and what its design does about it.
-Like the TPU ``custom_vjp``, the forward saves only q, k, v and the segments;
-the backward recomputes the masked softmax from them.
+``csrc/attention_bwd.cu`` (K5), which replaces ``_bwd_kernel``; both share
+``csrc/attention.cuh`` (wgmma on a cp.async tile ring, exact tile skipping
+by segment ranges). Each kernel's note gives its bound on an H100 and what
+its design does about it. When a gradient is wanted, K1 also returns the
+base-2 log-sum-exp of each query's masked scores (``attention_reference_lse``
+is its plain version), and the Function saves it beside q, k, v and the
+segments: K5 takes P from it, where the TPU ``custom_vjp`` saves q, k, v
+and the segments alone and recomputes the softmax statistics.
 
 ``segments`` is (B, T) int32: 0 marks pads and gaps, and tokens attend iff
 their nonzero ids match, so a plain 0/1 attention mask is the one-segment
@@ -31,7 +35,9 @@ import torch
 from ..kernels import build
 
 HEAD_DIM = 32
+MAX_T = 65536               # the kernels keep one segment range per 64-token tile
 _NEG = torch.finfo(torch.float32).min
+_LOG2E = 1.4426950408889634
 
 
 def check_config(dtype: torch.dtype, head_dim: int) -> None:
@@ -44,16 +50,22 @@ def check_config(dtype: torch.dtype, head_dim: int) -> None:
             "dims and float32); attention_impl='eager' runs the plain form")
 
 
-@functools.cache
-def _launcher(name: str):
-    """Kernel ``name``'s C entry point, built and loaded at first use: its
-    pointers (q, k, v, segments, then outputs and scratch), B, T, NH and
-    the stream."""
-    n_ptr = {"attention_fwd": 5, "attention_bwd": 9}[name]
-    fn = getattr(build.load(name), f"pct_{name}")
-    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_POINTERS = {"attention_fwd": 6, "attention_bwd": 10}
+
+
+def bind(lib: ctypes.CDLL, name: str):
+    """Kernel ``name``'s C entry point in ``lib``: its pointers (q, k, v,
+    segments, then inputs, outputs and scratch), B, T, NH and the stream."""
+    fn = getattr(lib, f"pct_{name}")
+    fn.argtypes = [ctypes.c_void_p] * _POINTERS[name] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _launcher(name: str):
+    """Kernel ``name``'s entry point, built and loaded at first use."""
+    return bind(build.load(name), name)
 
 
 def _allowed(segments: torch.Tensor) -> torch.Tensor:
@@ -62,11 +74,18 @@ def _allowed(segments: torch.Tensor) -> torch.Tensor:
     return (seg[:, None, :, None] == seg[:, None, None, :]) & (seg[:, None, None, :] > 0)
 
 
-def _probs(q, k, segments) -> tuple[torch.Tensor, torch.Tensor]:
-    """(allowed, f32 softmax of the masked scores), both (B, NH, T, T)."""
+def _masked_scores(q, k, segments) -> tuple[torch.Tensor, torch.Tensor]:
+    """(allowed, f32 scores q.k^T with f32-min where not allowed), both
+    (B, NH, T, T)."""
     scores = torch.einsum("bqnd,bknd->bnqk", q.float(), k.float())
     allowed = _allowed(segments)
-    return allowed, torch.softmax(torch.where(allowed, scores, _NEG), dim=-1)
+    return allowed, torch.where(allowed, scores, _NEG)
+
+
+def _probs(q, k, segments) -> tuple[torch.Tensor, torch.Tensor]:
+    """(allowed, f32 softmax of the masked scores), both (B, NH, T, T)."""
+    allowed, masked = _masked_scores(q, k, segments)
+    return allowed, torch.softmax(masked, dim=-1)
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -77,6 +96,15 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     f32, output in q's dtype. Materialises the (B, NH, T, T) f32 scores."""
     probs = _probs(q, k, segments)[1].to(q.dtype)
     return torch.einsum("bnqk,bknd->bqnd", probs.float(), v.float()).to(q.dtype)
+
+
+def attention_reference_lse(q: torch.Tensor, k: torch.Tensor,
+                            segments: torch.Tensor) -> torch.Tensor:
+    """Plain version of K1's second output: (B, NH, T) f32, the log-sum-exp
+    of each query's masked scores (f32-min where not allowed) in base 2,
+    log2(e) * logsumexp. A pad query's scores are all f32-min, so its
+    log-sum-exp rounds to f32-min and times log2(e) to -inf."""
+    return torch.logsumexp(_masked_scores(q, k, segments)[1], dim=-1) * _LOG2E
 
 
 def attention_reference_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -124,7 +152,7 @@ def _check(segments, *tensors) -> None:
             raise TypeError(f"{name} must be bfloat16 on CUDA, got {t.dtype}")
     if segments.dtype != torch.int32:
         raise TypeError(f"segments must be int32, got {segments.dtype}")
-    if T < 1 or NH < 1 or NH > 65535 or B < 1 or B > 65535:
+    if T < 1 or T > MAX_T or NH < 1 or NH > 65535 or B < 1 or B > 65535:
         raise ValueError(f"unsupported shape B={B}, T={T}, NH={NH}")
 
 
@@ -132,31 +160,39 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _forward(q, k, v, segments) -> torch.Tensor:
+def _forward(q, k, v, segments, with_lse: bool = False):
+    """K1's output, and with ``with_lse`` its (B, NH, T) f32 statistics too
+    (``attention_reference_lse``); without, the kernel writes and allocates
+    none."""
     if q.device.type == "cpu":
-        return attention_reference(q, k, v, segments)
+        out = attention_reference(q, k, v, segments)
+        return (out, attention_reference_lse(q, k, segments)) if with_lse else out
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention runs on cpu or cuda, not {q.device}")
     _check(segments, q, k, v)
     B, T, NH, _ = q.shape
     launch = _launcher("attention_fwd")
     out = torch.empty_like(q)
+    lse = torch.empty(B, NH, T, dtype=torch.float32, device=q.device) if with_lse else None
     with torch.cuda.device(q.device):
         err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), segments.data_ptr(),
-                     out.data_ptr(), B, T, NH, _stream(q.device))
+                     out.data_ptr(), lse.data_ptr() if with_lse else None, B, T, NH,
+                     _stream(q.device))
     if err != 0:
         raise RuntimeError(f"attention_fwd launch failed: cudaError_t {err}")
     fused_attention.launches += 1
-    return out
+    return (out, lse) if with_lse else out
 
 
 def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        segments: torch.Tensor, do: torch.Tensor
-                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                        segments: torch.Tensor, do: torch.Tensor,
+                        lse: torch.Tensor | None) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of ``fused_attention`` for the cotangent ``do``, all
-    (B, T, NH, 32). On CPU tensors this is ``attention_reference_bwd``; on
-    CUDA tensors it launches K5 (two launches: per-row softmax statistics
-    with dq, then dk and dv) or raises."""
+    (B, T, NH, 32), given the forward's statistics ``lse`` ((B, NH, T)
+    f32, ``_forward(..., with_lse=True)``). On CPU tensors this is
+    ``attention_reference_bwd``, which recomputes them (``lse`` may be
+    None); on CUDA tensors it launches K5 (two launches: delta and dq, then
+    dk and dv) or raises."""
     if q.device.type == "cpu":
         return attention_reference_bwd(q, k, v, segments, do)
     if q.device.type != "cuda":
@@ -164,14 +200,19 @@ def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     do = do.to(q.dtype).contiguous()
     _check(segments, q, k, v, do)
     B, T, NH, _ = q.shape
+    if (lse is None or lse.shape != (B, NH, T) or lse.dtype != torch.float32
+            or lse.device != q.device or not lse.is_contiguous()):
+        got = "None" if lse is None else f"{lse.dtype} {tuple(lse.shape)} on {lse.device}"
+        raise ValueError(f"lse must be contiguous float32 (B, NH, T) = {(B, NH, T)} on "
+                         f"{q.device}, got {got}")
     launch = _launcher("attention_bwd")
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    # per (row, head, query): the softmax max, 1 / sum and delta, in f32
-    stats = torch.empty(3, B, NH, T, dtype=torch.float32, device=q.device)
+    delta = torch.empty(B, NH, T, dtype=torch.float32, device=q.device)  # rowsum(P * dP)
     with torch.cuda.device(q.device):
         err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), segments.data_ptr(),
-                     do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                     stats.data_ptr(), B, T, NH, _stream(q.device))
+                     do.data_ptr(), lse.data_ptr(), dq.data_ptr(),
+                     dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), B, T, NH,
+                     _stream(q.device))
     if err != 0:
         raise RuntimeError(f"attention_bwd launch failed: cudaError_t {err}")
     fused_attention_bwd.launches += 1
@@ -179,17 +220,24 @@ def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 class _FusedAttention(torch.autograd.Function):
-    """K1 forward, K5 backward; the plain versions on CPU tensors."""
+    """K1 forward, K5 backward; the plain versions on CPU tensors. K1 writes
+    its statistics only when the caller wants a gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, segments):
-        ctx.save_for_backward(q, k, v, segments)
-        return _forward(q, k, v, segments)
+    def forward(ctx, q, k, v, segments, want_grad):
+        if not want_grad:
+            return _forward(q, k, v, segments)
+        if q.device.type == "cpu":  # the plain backward recomputes the statistics
+            out, lse = _forward(q, k, v, segments), None
+        else:
+            out, lse = _forward(q, k, v, segments, with_lse=True)
+        ctx.save_for_backward(q, k, v, segments, lse)
+        return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, segments = ctx.saved_tensors
-        return (*fused_attention_bwd(q, k, v, segments, do), None)
+        q, k, v, segments, lse = ctx.saved_tensors
+        return (*fused_attention_bwd(q, k, v, segments, do, lse), None, None)
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -198,7 +246,8 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     segments -> (B, T, NH, 32), differentiable in q, k and v. On CPU tensors
     the plain versions; on CUDA tensors K1 (and K5 in the backward) or an
     error."""
-    return _FusedAttention.apply(q, k, v, segments)
+    want_grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    return _FusedAttention.apply(q, k, v, segments, want_grad)
 
 
 # Kernel launches since the counts were last set to 0 (chip_smoke.py reads

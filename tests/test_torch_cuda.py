@@ -1,4 +1,5 @@
-"""The port's CUDA kernels on the card: K1 and its backward K5, K4, the
+"""The port's CUDA kernels on the card: K1 (and its statistics) and its
+backward K5 fed them, K4, the
 InfoNCE kernels K2 and K3 (forward and backward), the dense product P1 (s8
 and bf16) and the fused FFN K6 against their plain versions at odd shapes,
 each tolerance against a planted fault, the wrappers' refusals, their
@@ -7,7 +8,9 @@ scorer through K4, a train step through K2 and K3, and finetune steps
 through K1 and K5, and under the K6 gate.
 
 These tests need an NVIDIA GPU and nvcc; elsewhere they skip. This file
-imports torch and the port only, so on a machine without JAX it runs as
+imports torch, the port and chip_smoke.py (whose planted faults and plain
+stand-ins it shares), none of which imports JAX, so on a machine without
+JAX it runs as
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q -p no:cacheprovider
 """
@@ -19,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from protein_clip_tpu_torch.data.tokenizer import EsmTokenizer
 from protein_clip_tpu_torch.eval import retrieval
 from protein_clip_tpu_torch.models import clip, esm2
@@ -75,6 +79,29 @@ def test_kernel_matches_plain(dev, B, T, NH, kind):
     assert (err <= atol + RTOL * ref.abs()).all(), float(err.max())
 
 
+@pytest.mark.parametrize("kind", ["padded", "packed"])
+@pytest.mark.parametrize("B,T,NH", [(1, 1, 1), (2, 63, 3), (3, 65, 20), (2, 127, 5),
+                                    (1, 128, 2), (2, 129, 4), (16, 512, 20), (1, 2048, 2)])
+def test_kernel_statistics_match_plain(dev, B, T, NH, kind):
+    """K1's second output against attention_reference_lse: the base-2
+    log-sum-exp of each query's masked scores, -inf at pad queries. The
+    kernel sums 2^(s log2(e) - m) by ex2.approx (2^-22 relative) over 64-key
+    tiles; the plain version takes f32 logsumexp in one pass. 1e-4 absolute
+    on values of a few units is some 100 f32 ulps of slack; a kernel that
+    drops a key tile moves a row's value by the log of that tile's share."""
+    q, k, v = _inputs(B, T, NH, dev)
+    seg = _segments(B, T, kind, dev)
+    if B > 1:
+        seg[-1, T // 2:] = 0          # pad queries
+    out, lse = attention._forward(q, k, v, seg, with_lse=True)
+    torch.cuda.synchronize()
+    want = attention.attention_reference_lse(q, k, seg)
+    pad = torch.isinf(want)
+    assert torch.equal(torch.isinf(lse), pad) and bool((lse[pad] < 0).all())
+    torch.testing.assert_close(lse[~pad], want[~pad], rtol=0, atol=1e-4)
+    torch.testing.assert_close(out, attention.fused_attention(q, k, v, seg), rtol=0, atol=0)
+
+
 def test_launch_count(dev):
     q, k, v = _inputs(1, 64, 2, dev)
     seg = _segments(1, 64, "padded", dev)
@@ -98,8 +125,11 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(dev):
                                   seg[:, :2])
     with pytest.raises(ValueError, match="segments"):
         attention.fused_attention(q, k, v, seg[:, :10])
+    lse = attention._forward(q, k, v, seg, with_lse=True)[1]
     with pytest.raises(ValueError, match="do shape"):
-        attention.fused_attention_bwd(q, k, v, seg, q[:, :10].contiguous())
+        attention.fused_attention_bwd(q, k, v, seg, q[:, :10].contiguous(), lse)
+    with pytest.raises(ValueError, match="lse"):
+        attention.fused_attention_bwd(q, k, v, seg, q, lse[:, :1])
 
 
 @pytest.mark.parametrize("over", [dict(hidden_size=256, num_heads=4),       # head_dim 64
@@ -163,15 +193,21 @@ def _assert_bwd_close(got, want):
         assert (err <= atol + RTOL * w.abs()).all(), (name, float(err.max()))
 
 
+def _k5(q, k, v, seg, do):
+    """K5 fed K1's output and statistics, as the Function's backward is."""
+    lse = attention._forward(q, k, v, seg, with_lse=True)[1]
+    return attention.fused_attention_bwd(q, k, v, seg, do, lse)
+
+
 @pytest.mark.parametrize("kind", ["padded", "fully_padded", "packed"])
-@pytest.mark.parametrize("T", [1, 63, 64, 200, 512, 2048])
+@pytest.mark.parametrize("T", [1, 63, 64, 65, 127, 128, 129, 200, 512, 2048])
 @pytest.mark.parametrize("B", [1, 16])
 def test_attention_bwd_kernel_matches_plain(dev, B, T, kind):
     NH = 4 if T <= 512 else 2
     q, k, v = _inputs(B, T, NH, dev)
     do = _inputs(B, T, NH, dev, seed=1)[2]
     seg = _bwd_segments(B, T, kind, dev)
-    got = attention.fused_attention_bwd(q, k, v, seg, do)
+    got = _k5(q, k, v, seg, do)
     torch.cuda.synchronize()
     _assert_bwd_close(got, attention.attention_reference_bwd(q, k, v, seg, do))
 
@@ -180,17 +216,19 @@ def test_attention_bwd_is_deterministic_and_counts_launches(dev):
     q, k, v = _inputs(16, 200, 20, dev)
     do = _inputs(16, 200, 20, dev, seed=1)[2]
     seg = _bwd_segments(16, 200, "packed", dev)
+    lse = attention._forward(q, k, v, seg, with_lse=True)[1]
     before = attention.fused_attention_bwd.launches
-    a = attention.fused_attention_bwd(q, k, v, seg, do)
-    b = attention.fused_attention_bwd(q, k, v, seg, do)
+    a = attention.fused_attention_bwd(q, k, v, seg, do, lse)
+    b = attention.fused_attention_bwd(q, k, v, seg, do, lse)
     assert attention.fused_attention_bwd.launches == before + 2
     for x, y in zip(a, b):
         assert torch.equal(x, y)
 
 
 def test_fused_attention_function_runs_k1_then_k5(dev):
-    """Through autograd: K1 once forward, K5 once backward, and the plain
-    backward's gradients; under no_grad K1 alone."""
+    """Through autograd: K1 once forward (with its statistics), K5 once
+    backward, and the plain backward's gradients; under no_grad K1 alone,
+    which allocates its output and no statistics."""
     q, k, v = (t.requires_grad_(True) for t in _inputs(3, 130, 20, dev))
     do = _inputs(3, 130, 20, dev, seed=1)[2]
     seg = _bwd_segments(3, 130, "padded", dev)
@@ -202,8 +240,14 @@ def test_fused_attention_function_runs_k1_then_k5(dev):
         k1 + 1, k5 + 1)
     _assert_bwd_close(grads, attention.attention_reference_bwd(
         q.detach(), k.detach(), v.detach(), seg, do))
+    del out, grads
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
     with torch.no_grad():
-        attention.fused_attention(q, k, v, seg)
+        out = attention.fused_attention(q, k, v, seg)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated(dev) - before == out.numel() * out.element_size()
+    assert attention.fused_attention.launches == k1 + 2
     assert attention.fused_attention_bwd.launches == k5 + 1
 
 
@@ -449,43 +493,17 @@ def test_train_step_through_the_kernels_matches_the_plain_loss(dev, pool, tiled)
 FT_LOSS_TOL, FT_K5_TOL = 1e-6, 1e-2
 
 
-def _drop_last_query_tile(bwd):
-    """K5 whose dk/dv loop drops the last 64-query tile (a planted fault):
-    zeroing dO on those queries removes exactly their dk and dv terms."""
-    def fault(q, k, v, segments, do):
-        cut = do.clone()
-        cut[:, (q.shape[1] - 1) // 64 * 64:] = 0
-        return (bwd(q, k, v, segments, do)[0], *bwd(q, k, v, segments, cut)[1:])
-    return fault
-
-
-@contextlib.contextmanager
-def _attention_function(forward, backward):
-    """The fused attention Function with another forward and backward while
-    the block runs; K5 counts its launches on the module's name
-    fused_attention_bwd, so the stand-in there carries the count."""
-    saved = attention._forward, attention.fused_attention_bwd
-
-    def stand_in(*args):
-        return backward(*args)
-
-    stand_in.launches = saved[1].launches
-    attention._forward, attention.fused_attention_bwd = forward, stand_in
-    try:
-        yield
-    finally:
-        attention._forward, attention.fused_attention_bwd = saved
-        saved[1].launches = stand_in.launches
-
-
 def _finetune_steps(dev):
     """One finetune step (two passes over 4 chunks a side, remat) from the
     same f32 master and batch per attention path: {name: (loss, grads,
     (K1, K5) launches)}. "kernel" runs K1 and K5, "plain_bwd" K1 and K5's
     plain version in the same Function, "fault" K1 and a K5 that drops a
-    query tile, "eager" and "eager_f32" attention_impl="eager" in bf16 and
-    f32."""
+    query tile (chip_smoke.py's swept_tiles planted fault, built from a
+    patched copy of csrc/), "eager" and "eager_f32" attention_impl="eager"
+    in bf16 and f32."""
     from protein_clip_tpu_torch.train import finetune
+
+    fault = chip_smoke.build_faults(("swept_tiles",))["swept_tiles"]
 
     mcfg, esm_params = _tiny_t30_like(dev)
     rng = np.random.default_rng(1)
@@ -497,8 +515,8 @@ def _finetune_steps(dev):
     heads0 = clip.init_params(mcfg, torch.Generator().manual_seed(1), device=dev)
     k1, k5 = attention._forward, attention.fused_attention_bwd
     paths = {"kernel": ("fused", torch.bfloat16, k1, k5),
-             "plain_bwd": ("fused", torch.bfloat16, k1, attention.attention_reference_bwd),
-             "fault": ("fused", torch.bfloat16, k1, _drop_last_query_tile(k5)),
+             "plain_bwd": ("fused", torch.bfloat16, k1, chip_smoke.plain_backward),
+             "fault": ("fused", torch.bfloat16, k1, k5),
              "eager": ("eager", torch.bfloat16, k1, k5),
              "eager_f32": ("eager", torch.float32, k1, k5)}
     out = {}
@@ -509,7 +527,9 @@ def _finetune_steps(dev):
         params = finetune.init_params(esm_params, _clone(heads0))
         state = _capturing(finetune.make_optimizer(cfg).init(params))
         before = (attention.fused_attention.launches, k5.launches)
-        with _attention_function(fwd, bwd):
+        faulty = (chip_smoke.attention_kernels(fault, ("attention_bwd",))
+                  if name == "fault" else contextlib.nullcontext())
+        with chip_smoke.attention_function(fwd, bwd), faulty:
             _, _, loss = finetune.make_train_step(cfg)(params, state, {}, batch, None)
         torch.cuda.synchronize()
         out[name] = (float(loss), state.grads,
@@ -539,7 +559,7 @@ def test_finetune_step_runs_k1_and_k5_and_matches_eager(dev):
     chunks, layers = 2 * 4, 2
     assert out["kernel"][2] == (3 * chunks * layers, chunks * layers)
     assert out["plain_bwd"][2] == (3 * chunks * layers, 0)
-    assert out["fault"][2] == (3 * chunks * layers, 2 * chunks * layers)
+    assert out["fault"][2] == (3 * chunks * layers, chunks * layers)
     assert out["eager"][2] == out["eager_f32"][2] == (0, 0)
     (lk, gk, _), (lp, gp, _) = out["kernel"], out["plain_bwd"]
     assert abs(lk - lp) <= FT_LOSS_TOL * abs(lp)
