@@ -15,8 +15,10 @@ and a nonzero exit code, and no result line:
                 drops its last k-tile; attention_fwd and attention_bwd whose
                 swept loop (K1's keys, K5's dk/dv queries) drops its last
                 tile; attention_fwd and attention_bwd whose skip predicate
-                is off by one at a segment boundary; print the card's name
-                and power limit.
+                is off by one at a segment boundary; filip_maxsim whose
+                b-tile skip predicate misses a tile's first token, and
+                filip_maxsim in plain TF32 (the two correction products
+                dropped); print the card's name and power limit.
 2. kernels      K1 (segment-masked attention forward) against
                 ops.attention.attention_reference at the serving shapes
                 and at T around a tile (65, 127, 128, 129) (NH=20, dh=32,
@@ -24,8 +26,12 @@ and a nonzero exit code, and no result line:
                 and packed rows (several segments, gap zeros); its
                 statistics against attention_reference_lse (LSE_ATOL). K4 (FILIP masked max-sim) against
                 ops.filip.maxsim_reference at the scorer's shapes (D=128,
-                f32), with padded masks, an all-masked a-row and b-row, and
-                token counts that are not multiples of 64. K2 and K3
+                f32), with padded masks, an all-masked a-row and b-row, a
+                b-row whose second tile holds one valid token, token counts
+                that are not multiples of 64, (K4_SHORT_SHAPES) tokens
+                of norm 2 with 1-4 valid tokens a row, where plain TF32's
+                error shows past K4_ATOL, and (K4_EMPTY_SHAPES) a query
+                with no valid token at the /topk grid. K2 and K3
                 (InfoNCE, forward and backward through autograd) against
                 ops.infonce.clip_infonce: unit rows scaled by exp(t/2) for
                 t in {1, 4}, K2 at B in {16, 100, 256, 512}, K3 at B in
@@ -51,7 +57,9 @@ and a nonzero exit code, and no result line:
                 must fail that. Then each check against its planted faults,
                 which must fail it (by how much is printed): P1 and K6
                 against their main loop's, K1 and K5 against the swept-loop
-                and the skip faults (the skip fault every packed case).
+                and the skip faults (the skip fault every packed case), K4
+                against its skip fault (every case with the one-token tile)
+                and its plain-TF32 fault.
 3. serve        ESM-2 t30_150M in bf16 with seeded random weights and CLIP
                 heads, written as npz; an index of 256 synthetic sequences
                 built with cli.embed; cli.serve's server on an ephemeral port
@@ -133,8 +141,10 @@ and a nonzero exit code, and no result line:
                 and torch's scaled_dot_product_attention at B=16, T=512,
                 NH=20, padded and dense (one segment), beside K1's bound on
                 the run's segments and the exponential floor at the card's
-                clocks.max.sm; K4 and its plain version at the /topk and full
-                scorer-block shapes beside K4's bound; K2 forward+backward
+                clocks.max.sm; K4 and its plain version at four queries,
+                the /topk shape and a full scorer block, beside K4's bound
+                on the run's masks (3xTF32 products of the allowed pairs);
+                K2 forward+backward
                 at (256, 128), K3 at (1024, 128) and (4096, 128), and their
                 plain versions, beside the bound; K2 and K3 side by side at
                 B in {16, 128, 256, 384, 512, 1024, 2048}, the readings
@@ -215,16 +225,26 @@ ATOL_RMS, RTOL = 2 ** -5, 2e-2
 # takes one f32 logsumexp; 1e-4 is some 100 f32 ulps at these values.
 LSE_ATOL = 1e-4
 COSINE_MIN = 0.999
-# K4 against its plain version, both f32: the same products summed in
-# another order, in means of maxima of unit-vector dot products (|x| <= 1).
+# K4 (3xTF32 on the tensor cores) against its plain version (f32 products),
+# in means of maxima of dot products of tokens of norm <= 2: 3xTF32 keeps
+# about f32's accuracy (a numpy emulation of the kernel's split is within
+# K4_ATOL / 10 of the JAX kernel, tests/test_torch_filip.py). Plain TF32
+# (the planted fault maxsim_tf32) errs by 0.3-1.0 x K4_ATOL at unit norm
+# over long masks, where the means average its error out, and by 12-16 x
+# at norm 2 over 1-4 valid tokens a row (K4_SHORT_SHAPES), on an H100.
 K4_ATOL = 2e-5
 K4_SHAPES = ((1, 256, 128, 512), (4, 256, 320, 512), (16, 64, 32, 2048),
              (64, 1024, 256, 192), (5, 300, 77, 333))    # (Ba, Bb, TA, TB)
-K4_TIME_SHAPES = ((4, 256, 128, 512), (64, 1024, 256, 256))
+K4_SHORT_SHAPES = ((8, 256, 64, 192), (1, 256, 128, 512))
+K4_SHORT_SCALE = 2.0
+K4_EMPTY_SHAPES = ((1, 256, 128, 512),)  # a query with no valid token
+# four queries, the /topk shape and one full block of the ragged scorer
+K4_TIME_SHAPES = ((4, 256, 128, 512), (1, 256, 128, 512), (64, 1024, 256, 256))
 FILIP_D = 128
 FILIP_COSINE_MIN = 0.99
 H100_BF16_FLOPS = 989e12              # dense tensor-core peak, SXM, 700 W
 H100_F32_FLOPS = 67e12                # f32 on the CUDA cores (no tensor cores), SXM
+H100_TF32_FLOPS = 495e12              # dense tensor-core peak, SXM, 700 W
 H100_BYTES_PER_S = 3.35e12
 H100_INT8_OPS = 1979e12               # dense tensor-core peak, SXM, 700 W
 KERNELS = ("attention_fwd", "attention_bwd", "filip_maxsim", "infonce", "dense_mm", "ffn_gelu")
@@ -287,16 +307,26 @@ FFN_ULPS, FFN_SHARE = 4, 1e-3
 # main loop (csrc/mma_gemm.cuh) drops its last k-tile; K1's key loop and
 # K5's dk/dv query loop (csrc/attention.cuh) drop their last tile; the
 # attention kernels' skip predicate misses a pair of tiles whose segment
-# ranges meet at one id (the query tile's smallest, the key tile's largest).
+# ranges meet at one id (the query tile's smallest, the key tile's largest);
+# K4's b-tile skip predicate (csrc/filip_maxsim.cu) misses the tile's first
+# token, and K4 drops its two correction products (plain TF32).
 FAULT_LINE = "  const int n_tiles = (K * Op::kEltBytes + kTileBytes - 1) / kTileBytes;"
 SWEEP_FAULT_LINE = "  return (T + kTile - 1) / kTile;"
 SKIP_FAULT_LINE = "  return q.x <= k.y && k.x <= q.y;"
+MAXSIM_SKIP_LINE = ("          if (!__any_sync(0xffffffffu, (mbv.x | mbv.y) != 0)) continue;  "
+                    "// an empty b-tile")
+MAXSIM_TF32_LINE = "constexpr int kProducts = 3;  // TF32 products per k-step: hi.hi, hi.lo, lo.hi"
 FAULTS = {   # name: (header, line, patched line, kernels built)
     "main_loop": ("mma_gemm.cuh", FAULT_LINE, FAULT_LINE[:-1] + " - 1;", ("dense_mm", "ffn_gelu")),
     "swept_tiles": ("attention.cuh", SWEEP_FAULT_LINE, SWEEP_FAULT_LINE[:-1] + " - 1;",
                     ("attention_fwd", "attention_bwd")),
     "skip": ("attention.cuh", SKIP_FAULT_LINE, SKIP_FAULT_LINE.replace("q.x <=", "q.x <"),
              ("attention_fwd", "attention_bwd")),
+    "maxsim_skip": ("filip_maxsim.cu", MAXSIM_SKIP_LINE,
+                    MAXSIM_SKIP_LINE.replace("(mbv.x | mbv.y)", "((lane ? mbv.x : 0) | mbv.y)"),
+                    ("filip_maxsim",)),
+    "maxsim_tf32": ("filip_maxsim.cu", MAXSIM_TF32_LINE, MAXSIM_TF32_LINE.replace("3;", "1;"),
+                    ("filip_maxsim",)),
 }
 FAULT_DIR = build.BUILD_ROOT / "fault"
 # int8 training: a fixture of 1100 families gives 770 train pairs, three
@@ -480,44 +510,116 @@ def check_attention_bwd(cases: list) -> float:
     return worst
 
 
-def maxsim_inputs(Ba: int, Bb: int, TA: int, TB: int, gen: torch.Generator):
-    """Unit-norm f32 tokens and padded 0/1 masks (true lengths over
-    [T/4, T]); when Ba > 1 one a-row, and always one b-row, has no valid
-    token (the clamp path)."""
+def maxsim_inputs(Ba: int, Bb: int, TA: int, TB: int, gen: torch.Generator,
+                  scale: float = 1.0, short: bool = False, empty_a: bool = False):
+    """f32 tokens of norm `scale` and padded 0/1 masks, true lengths over
+    [T/4, T] (short: [1, 4]); when Ba > 1 one a-row (empty_a: every a-row),
+    and always one b-row, has no valid token (the clamp path); when TB > 64,
+    b-row 0 holds 65 valid tokens, so its second tile's only valid token is
+    its first."""
     def tokens(B, T):
         x = torch.randn(B, T, FILIP_D, device="cuda", generator=gen)
-        return torch.nn.functional.normalize(x, dim=-1)
+        return scale * torch.nn.functional.normalize(x, dim=-1)
 
     def mask(B, T):
-        lengths = torch.randint(max(1, T // 4), T + 1, (B, 1), device="cuda", generator=gen)
+        lo, hi = (1, min(4, T)) if short else (max(1, T // 4), T)
+        lengths = torch.randint(lo, hi + 1, (B, 1), device="cuda", generator=gen)
         return (torch.arange(T, device="cuda")[None, :] < lengths).to(torch.int32)
 
     ma, mb = mask(Ba, TA), mask(Bb, TB)
+    if TB > 64 and Bb > 1:
+        mb[0] = 0
+        mb[0, :65] = 1
     if Ba > 1:
         ma[Ba // 2] = 0
+    if empty_a:
+        ma[:] = 0
     mb[Bb // 2] = 0
     return tokens(Ba, TA), tokens(Bb, TB), ma, mb
 
 
-def check_maxsim(gen: torch.Generator) -> float:
-    worst = 0.0
-    for Ba, Bb, TA, TB in K4_SHAPES:
-        ha, hb, ma, mb = maxsim_inputs(Ba, Bb, TA, TB, gen)
+def maxsim_cases(gen: torch.Generator) -> list:
+    """K4's check inputs: K4_SHAPES at unit norm, K4_SHORT_SHAPES short, and
+    a query with no valid token at the /topk grid (K4_EMPTY_SHAPES)."""
+    return ([(shape, maxsim_inputs(*shape, gen)) for shape in K4_SHAPES]
+            + [(shape, maxsim_inputs(*shape, gen, K4_SHORT_SCALE, short=True))
+               for shape in K4_SHORT_SHAPES]
+            + [(shape, maxsim_inputs(*shape, gen, empty_a=True))
+               for shape in K4_EMPTY_SHAPES])
+
+
+def k4_readings(cases: list) -> list[dict]:
+    """Per case: K4's largest gap from maxsim_reference over oa and ob,
+    whether the outputs are finite and whether the rows with no valid token
+    (an a-row's or a b-row's) score 0 on both outputs."""
+    rows = []
+    for (Ba, Bb, TA, TB), (ha, hb, ma, mb) in cases:
         got = maxsim.filip_similarity_fused(ha, hb, ma, mb, 1.0)
         torch.cuda.synchronize()
         want = maxsim.maxsim_reference(ha, hb, ma, mb)
-        errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
-        ok = all(bool(torch.isfinite(g).all()) for g in got) and max(errs) <= K4_ATOL
-        empty_ok = bool((got[1][:, Bb // 2] == 0).all()) and (
-            Ba == 1 or bool((got[0][Ba // 2] == 0).all()))
-        worst = max(worst, *errs)
-        log(f"[kernels] filip_maxsim (Ba, Bb, TA, TB)=({Ba}, {Bb}, {TA}, {TB}) D={FILIP_D}: "
-            f"max|err| oa {errs[0]:.6g}, ob {errs[1]:.6g} (tolerance {K4_ATOL:g}); "
-            f"empty rows score 0: {empty_ok} {'ok' if ok and empty_ok else 'FAIL'}")
-        if not (ok and empty_ok):
-            raise AssertionError(f"filip_maxsim disagrees with its plain version at "
-                                 f"({Ba}, {Bb}, {TA}, {TB})")
-    return worst
+        empty_a, empty_b = ma.sum(1) == 0, mb.sum(1) == 0
+        empty_ok = all(bool((g[empty_a] == 0).all()) and bool((g[:, empty_b] == 0).all())
+                       for g in got)
+        rows.append({"shape": [Ba, Bb, TA, TB], "short": 0 < int(ma.sum(1).max()) <= 4,
+                     "empty_a": bool(empty_a.all()),
+                     "one_token_tile": TB > 64 and Bb > 1 and not bool(empty_a.all()),
+                     "err": max(float((g - w).abs().max()) for g, w in zip(got, want)),
+                     "finite": all(bool(torch.isfinite(g).all()) for g in got),
+                     "empty_ok": empty_ok})
+    return rows
+
+
+def check_maxsim(cases: list) -> float:
+    rows = k4_readings(cases)
+    for r in rows:
+        ok = r["finite"] and r["err"] <= K4_ATOL and r["empty_ok"]
+        log(f"[kernels] filip_maxsim (Ba, Bb, TA, TB)={tuple(r['shape'])} D={FILIP_D}"
+            f"{f' norm {K4_SHORT_SCALE:g}, 1-4 valid tokens a row' if r['short'] else ''}"
+            f"{', no valid a-token' if r['empty_a'] else ''}: "
+            f"max|err| {r['err']:.6g} (tolerance {K4_ATOL:g}); empty rows score 0: "
+            f"{r['empty_ok']} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"filip_maxsim disagrees with its plain version at {r['shape']}")
+    return max(r["err"] for r in rows)
+
+
+@contextlib.contextmanager
+def maxsim_kernel(lib: Path):
+    """ops.filip launches the build ``lib`` while the block runs."""
+    saved = maxsim._launcher
+    faulty = maxsim.bind(ctypes.CDLL(str(lib)))
+    maxsim._launcher = lambda: faulty
+    try:
+        yield
+    finally:
+        maxsim._launcher = saved
+
+
+def check_maxsim_faults(libs: dict, cases: list) -> dict:
+    """K4's check against its two planted faults, on the same inputs: the
+    skip fault must fail every case with a one-token tile, the plain-TF32
+    fault at least the short ones. Returns the worst ratio to K4_ATOL and the
+    cases failed."""
+    out = {}
+    for name, what, must in (
+            ("maxsim_skip", "b-tile skip predicate misses the tile's first token",
+             lambda r: r["one_token_tile"]),
+            ("maxsim_tf32", "plain TF32, the correction products dropped",
+             lambda r: r["short"])):
+        with maxsim_kernel(libs[name]["filip_maxsim"]):
+            rows = k4_readings(cases)
+        fails = [r["err"] > K4_ATOL or not r["empty_ok"] for r in rows]
+        failed = [r for r, f in zip(rows, fails) if f]
+        missed = [r["shape"] for r, f in zip(rows, fails) if must(r) and not f]
+        out[name] = {"worst_ratio": max(r["err"] for r in rows) / K4_ATOL,
+                     "cases_failed": len(failed), "cases": len(rows),
+                     "ratios": [r["err"] / K4_ATOL for r in rows]}
+        log(f"[kernels] planted fault {name} ({what}): filip_maxsim fails {len(failed)} of "
+            f"{len(rows)} cases, at {', '.join(f'{x:.4g}' for x in out[name]['ratios'])} x "
+            f"its tolerance; cases it should fail and passes: {missed or 'none'}")
+        if missed:
+            raise AssertionError(f"the filip_maxsim check does not see the planted fault {name}")
+    return out
 
 
 def unit_rows(B: int, D: int, t: float, gen: torch.Generator):
@@ -1794,32 +1896,56 @@ def time_attention_bwd(gen: torch.Generator, gpu: str) -> list[dict]:
     return rows
 
 
-def maxsim_bound(Ba: int, Bb: int, TA: int, TB: int, D: int) -> tuple[float, str, str]:
-    """(bound ms, what bounds it, the counts): 2*Ba*Bb*TA*TB*D f32 FLOP on
-    the CUDA cores against tokens, masks and outputs moved once."""
-    flops = 2 * Ba * Bb * TA * TB * D
-    nbytes = 4 * (Ba * TA * D + Bb * TB * D) + 4 * (Ba * TA + Bb * TB) + 8 * Ba * Bb
-    t_ops, t_bytes = flops / H100_F32_FLOPS, nbytes / H100_BYTES_PER_S
+def maxsim_work(ma: torch.Tensor, mb: torch.Tensor, D: int) -> dict:
+    """What K4 needs on these masks: the token pairs both masks allow
+    (ma * mb > 0), the operations of their products kept at f32 accuracy on
+    the tensor cores (three TF32 products of 2 D operations each), and the
+    bytes of the valid tokens of ha and hb (mask nonzero), both masks and
+    both outputs, each moved once."""
+    pa, na = float((ma > 0).sum()), float((ma < 0).sum())
+    pb, nb = float((mb > 0).sum()), float((mb < 0).sum())
+    pairs = pa * pb + na * nb
+    tokens = int((ma != 0).sum()) + int((mb != 0).sum())
+    return {"pairs": pairs, "flops": 3 * 2 * D * pairs,
+            "bytes": 4 * D * tokens + 4 * (ma.numel() + mb.numel())
+            + 8 * ma.shape[0] * mb.shape[0]}
+
+
+def maxsim_bound(ma: torch.Tensor, mb: torch.Tensor, D: int) -> tuple[float, str, str]:
+    """(bound ms, what bounds it, the counts) of maxsim_work at the dense
+    TF32 peak and the memory rate."""
+    work = maxsim_work(ma, mb, D)
+    t_ops, t_bytes = work["flops"] / H100_TF32_FLOPS, work["bytes"] / H100_BYTES_PER_S
     return (1e3 * max(t_ops, t_bytes), "bytes" if t_bytes >= t_ops else "operations",
-            f"{flops / 1e9:.4f} GFLOP, {nbytes / 1e6:.4f} MB")
+            f"{work['flops'] / 1e9:.4f} GFLOP over {work['pairs']:.6g} allowed pairs "
+            f"({work['pairs'] / (ma.numel() * mb.numel()):.4f} of all), "
+            f"{work['bytes'] / 1e6:.4f} MB")
 
 
 def time_maxsim(gen: torch.Generator, gpu: str) -> list[dict]:
-    """K4 and its plain version at the /topk shape and one full block of the
-    ragged scorer. No single PyTorch call computes masked max-sim, so there
-    is no library time."""
+    """K4 and its plain version at K4_TIME_SHAPES, beside the bound on
+    the same masks and the ceiling of an f32 FFMA design (every token pair
+    at the CUDA cores' peak): the wrapper's call by CUDA events, and the
+    kernel's own device time by torch.profiler. No single PyTorch call
+    computes masked max-sim, so there is no library time."""
     rows = []
-    for (Ba, Bb, TA, TB), iters in zip(K4_TIME_SHAPES, (50, 5)):
+    for (Ba, Bb, TA, TB), iters in zip(K4_TIME_SHAPES, (50, 50, 5)):
         ha, hb, ma, mb = maxsim_inputs(Ba, Bb, TA, TB, gen)
         ms = cuda_ms(lambda: maxsim.filip_similarity_fused(ha, hb, ma, mb, 1.0), iters)
+        kernel_ms = device_ms(lambda: maxsim.filip_similarity_fused(ha, hb, ma, mb, 1.0), iters,
+                              kernel="filip_maxsim_kernel")
         plain_ms = cuda_ms(lambda: maxsim.maxsim_reference(ha, hb, ma, mb), 3, warmup=1)
-        bound_ms, bound_by, counts = maxsim_bound(Ba, Bb, TA, TB, FILIP_D)
+        bound_ms, bound_by, counts = maxsim_bound(ma, mb, FILIP_D)
+        ffma_ms = 1e3 * 2 * Ba * Bb * TA * TB * FILIP_D / H100_F32_FLOPS
         log(f"[time] filip_maxsim (Ba, Bb, TA, TB)=({Ba}, {Bb}, {TA}, {TB}) D={FILIP_D}: "
-            f"kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, library none, bound "
-            f"{bound_ms:.6f} ms ({bound_by}: {counts}; f32 peak {H100_F32_FLOPS / 1e12:g} "
-            f"TFLOP/s) = {100 * bound_ms / ms:.2f}% of the bound | {gpu}")
-        rows.append({"shape": [Ba, Bb, TA, TB, FILIP_D], "ms": ms, "plain_ms": plain_ms,
-                     "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by})
+            f"call {ms:.6f} ms (kernel's device time {kernel_ms:.6f}), plain {plain_ms:.6f} ms, "
+            f"library none, bound {bound_ms:.6f} ms ({bound_by}: {counts}; TF32 peak "
+            f"{H100_TF32_FLOPS / 1e12:g} TFLOP/s) = {100 * bound_ms / ms:.2f}% of the bound "
+            f"({100 * bound_ms / kernel_ms:.2f}% by device time); an f32 FFMA design's "
+            f"ceiling {ffma_ms:.6f} ms | {gpu}")
+        rows.append({"shape": [Ba, Bb, TA, TB, FILIP_D], "ms": ms, "device_ms": kernel_ms,
+                     "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "ffma_ceiling_ms": ffma_ms})
     return rows
 
 
@@ -1923,10 +2049,11 @@ def time_filip_serving(ctx: dict, fctx: dict, rng: np.random.Generator, gpu: str
         f"ragged): {len(corpus) / statistics.median(dts):.4f} seqs/s (median of 3) | {gpu}")
 
 
-def device_ms(fn, iters: int, warmup: int = 3) -> float:
+def device_ms(fn, iters: int, warmup: int = 3, kernel: str = "") -> float:
     """Device time of fn() per call: the CUDA kernels' self time summed by
-    torch.profiler over iters calls. Host work between launches (autograd,
-    allocation, ctypes) is left out; cuda_ms includes it."""
+    torch.profiler over iters calls (only those whose name holds `kernel`).
+    Host work between launches (autograd, allocation, ctypes) is left out;
+    cuda_ms includes it."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -1938,7 +2065,7 @@ def device_ms(fn, iters: int, warmup: int = 3) -> float:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        total_us = sum(e.self_device_time_total for e in prof.key_averages())
+        total_us = sum(e.self_device_time_total for e in prof.key_averages() if kernel in e.key)
         if total_us > 0:
             return total_us / 1e3 / iters
     raise AssertionError("torch.profiler recorded no device time in 3 sessions")
@@ -2333,7 +2460,8 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     k1_cases = attention_cases(gen)
     max_err = check_attention(k1_cases)
-    k4_err = check_maxsim(gen)
+    k4_cases = maxsim_cases(gen)
+    k4_err = check_maxsim(k4_cases)
     nce_err = check_infonce(gen)
     k5_cases = bwd_cases(gen)
     k5_err = check_attention_bwd(k5_cases)
@@ -2341,7 +2469,8 @@ def main() -> int:
     k6_err = check_ffn(gen)
     fault_reads = check_faults(fault_libs["main_loop"], gen)
     fault_reads.update(check_attention_faults(fault_libs, k1_cases, k5_cases))
-    del k1_cases, k5_cases
+    fault_reads.update(check_maxsim_faults(fault_libs, k4_cases))
+    del k1_cases, k5_cases, k4_cases
     rng = np.random.default_rng(SEED)
     ctx = run_serve_phase(rng)
     try:
@@ -2417,7 +2546,8 @@ def main() -> int:
         "launches_by_path": by_path["filip_maxsim"], "max_abs_err": k4_err,
         **{key: k4_times[0][key] for key in ("shape", "ms", "plain_ms", "bound_ms",
                                              "bound_by", "library_ms")},
-        "scorer_block": k4_times[1],
+        "topk": k4_times[1], "scorer_block": k4_times[2],
+        "fault": {k: fault_reads[k] for k in ("maxsim_skip", "maxsim_tf32")},
     }, {
         "name": "infonce", "phase": "train_256", "route": "cuda",
         "source": "protein_clip_tpu_torch/csrc/infonce.cu",

@@ -1,7 +1,9 @@
 // Hopper (sm_90a) primitives shared by the port's kernels: shared-memory
 // addresses, mbarriers, TMA and cp.async copies, proxy fences, named
-// barriers, and wgmma's fences, groups and shared-memory descriptors.
-// Included by mma_gemm.cuh (P1 and K6) and attention.cuh (K1 and K5).
+// barriers, wgmma's fences, groups and shared-memory descriptors, the TF32
+// conversion and product, and the host's tensor-map encoder. Included by
+// mma_gemm.cuh (P1 and K6), attention.cuh (K1 and K5) and filip_maxsim.cu
+// (K4).
 
 #pragma once
 
@@ -55,6 +57,16 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, i
       : "memory");
 }
 
+// TMA, 3-D: the box of `map` at (c0, c1, c2), innermost first.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
+      : "memory");
+}
+
 __device__ __forceinline__ void st_shared16(uint32_t dst, uint32_t a, uint32_t b, uint32_t c,
                                             uint32_t d) {
   asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst), "r"(a), "r"(b), "r"(c),
@@ -98,6 +110,50 @@ __device__ __forceinline__ void fence_operands(int32_t (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
+template <int R>
+__device__ __forceinline__ void fence_operands(uint64_t (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+l"(d[i])::"memory");
+}
+
+// The same for wgmma's A operand in registers.
+template <int R, int C>
+__device__ __forceinline__ void fence_operands(uint32_t (&a)[R][C]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+#pragma unroll
+    for (int j = 0; j < C; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+  }
+}
+
+// f32 -> tf32 rounded to nearest, ties away from zero, in an f32's bits with
+// the low 13 cleared (so x - tf32_rna(x) is exact, whatever the tensor core
+// does with those bits). Adding half a tf32 ulp to the magnitude's bits
+// rounds as cvt.rna.tf32.f32 does, infinities and NaNs included, in two
+// integer operations where cvt takes four and a mask.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// d (64 x 64) = A . B^T + (scale_d ? d : 0): A 64 x 8 tf32 from registers
+// (warp w holds rows 16 w .. 16 w + 15; lane 4 g + t holds (g, t), (g + 8,
+// t), (g, t + 4), (g + 8, t + 4)), B 64 x 8 tf32 K-major in shared memory.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                           int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
 // wgmma shared-memory descriptor: start, leading and stride byte offsets in
 // 16-byte units, and the swizzle (kSwizzle128: 16-byte chunk q of 128-byte
 // row r at q ^ (r % 8); kSwizzle64: chunk q of 64-byte row r at
@@ -134,6 +190,26 @@ __device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess) {
+      p = nullptr;
+    }
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
 }
 
 }  // namespace pct_hopper

@@ -407,26 +407,6 @@ gemm_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUt
   }
 }
 
-// cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda).
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-inline EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
-                                         &found) != cudaSuccess ||
-        found != cudaDriverEntryPointSuccess) {
-      p = nullptr;
-    }
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
 // The TMA map of a row-major (rows, cols) matrix of Op's elements, read in
 // boxes of 128 bytes x box_rows with the 128-byte swizzle; false on failure.
 template <class Op>

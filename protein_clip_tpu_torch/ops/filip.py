@@ -31,7 +31,6 @@ from ..kernels import build
 
 _NEG = torch.finfo(torch.float32).min
 MAX_DIM = 256                  # token dims the kernel takes (multiples of 4)
-MAX_SHARED_BYTES = 232448      # an H100 block's shared memory (227 KB)
 # Folding the temperature out of the max is valid for t > 0 only; a t driven
 # to or below 0 saturates at this floor instead of flipping the max.
 _T_FLOOR = 1e-4
@@ -44,13 +43,19 @@ def clamped_temperature(temperature) -> float:
     return max(float(temperature), _T_FLOOR)
 
 
-@functools.cache
-def _launcher():
-    """The kernel's C entry point, built and loaded at first use."""
-    fn = build.load("filip_maxsim").pct_filip_maxsim
+def bind(lib: ctypes.CDLL):
+    """The kernel's C entry point in ``lib``: ha, hb, the masks, oa, ob,
+    then Ba, Bb, TA, TB, D and the stream."""
+    fn = lib.pct_filip_maxsim
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _launcher():
+    """The kernel's C entry point, built and loaded at first use."""
+    return bind(build.load("filip_maxsim"))
 
 
 def maxsim_reference(ha: torch.Tensor, hb: torch.Tensor, mask_a: torch.Tensor,
@@ -106,19 +111,8 @@ def _check(ha, hb, mask_a, mask_b) -> None:
             raise TypeError(f"{name} must be int32, got {t.dtype}")
     if D % 4 or not 0 < D <= MAX_DIM:
         raise ValueError(f"token dim D={D} must be a multiple of 4 in [4, {MAX_DIM}]")
-    if min(TA, TB) < 1 or Ba > 65535 or Bb > 2 ** 31 - 1 or TA > 2 ** 24:
+    if min(TA, TB) < 1 or max(Ba, Bb) > 2 ** 31 - 1 or max(TA, TB) > 2 ** 24:
         raise ValueError(f"unsupported shape Ba={Ba}, Bb={Bb}, TA={TA}, TB={TB}")
-    if shared_bytes(D, TB) > MAX_SHARED_BYTES:
-        raise ValueError(f"TB={TB} at D={D} needs {shared_bytes(D, TB)} bytes of shared "
-                         f"memory, more than the {MAX_SHARED_BYTES} a block can have")
-
-
-def shared_bytes(D: int, TB: int) -> int:
-    """Dynamic shared memory of one block (csrc/filip_maxsim.cu's layout):
-    an a-tile and a b-tile of 64 tokens at row stride D + 4, a 16 x 64
-    partial column-max scratch, two 64-token mask tiles, the TB column
-    maxes."""
-    return 4 * (2 * 64 * (D + 4) + 16 * 64 + 2 * 64 + TB)
 
 
 def filip_similarity_fused(ha: torch.Tensor, hb: torch.Tensor, mask_a: torch.Tensor,
@@ -147,7 +141,10 @@ def filip_similarity_fused(ha: torch.Tensor, hb: torch.Tensor, mask_a: torch.Ten
             if err != 0:
                 raise RuntimeError(f"filip_maxsim launch failed: cudaError_t {err}")
             filip_similarity_fused.launches += 1
-    t = torch.as_tensor(temperature, dtype=torch.float32, device=oa.device).clamp(min=_T_FLOOR)
+    if isinstance(temperature, torch.Tensor):
+        t = temperature.to(dtype=torch.float32, device=oa.device).clamp(min=_T_FLOOR)
+    else:  # a number divides without a copy to the card (which would wait for it)
+        t = clamped_temperature(temperature)
     return oa / t, ob / t
 
 

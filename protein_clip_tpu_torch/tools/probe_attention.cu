@@ -14,7 +14,6 @@
 // run K5's own dkdv_consume, so the two routes must agree to the bit.
 
 #include "attention_bwd.cu"
-#include "mma_gemm.cuh"  // pct_gemm::encode_tiled
 
 #include <chrono>
 
@@ -88,7 +87,7 @@ dkdv_tma_kernel(const __grid_constant__ Maps maps, const int32_t* __restrict__ s
 }
 
 bool tile_map(CUtensorMap* map, const void* base, int B, int T, int NH) {
-  const pct_gemm::EncodeTiled encode = pct_gemm::encode_tiled();
+  const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[4] = {kHeadDim, static_cast<cuuint64_t>(NH), static_cast<cuuint64_t>(T),
                               static_cast<cuuint64_t>(B)};

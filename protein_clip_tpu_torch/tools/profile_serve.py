@@ -14,8 +14,8 @@ for FILIP's /topk without HTTP (``embed_sequences_tokens`` for one
 100-residue query, then ``filip_score_matrix_ragged`` over a ragged index
 of 256 sequences of 30-499 residues). Under ``PCT_FFN_PALLAS=1`` every
 FFN's wi + gelu runs K6. Each request's line names the launches of K1, K4,
-P1 and K6 per call and the share of the device time of K1, P1 and K6. Prints the card's
-name and power limit beside the numbers.
+P1 and K6 per call and the share of the device time of each. Prints the
+card's name and power limit beside the numbers.
 """
 
 from __future__ import annotations
@@ -69,8 +69,8 @@ def profile_request(name: str, seqs: list[str], encode, top: int = 12) -> None:
     # P1 and K6 are one kernel template (csrc/mma_gemm.cuh's gemm_kernel),
     # told apart by their epilogue types
     shares = {k: sum(e.self_device_time_total for e in kernels if sym in e.key)
-              for k, sym in (("K1", "attention_fwd_kernel"), ("P1", "DenseMmOut"),
-                             ("K6", "FfnGeluOut"))}
+              for k, sym in (("K1", "attention_fwd_kernel"), ("K4", "filip_maxsim_kernel"),
+                             ("P1", "DenseMmOut"), ("K6", "FfnGeluOut"))}
     print(f"[{name}] wall p50 {1e3 * statistics.median(walls):.4f} ms (10 calls); "
           f"profiled {n} calls: device busy {busy_us / n / 1e3:.4f} ms per call = "
           f"{100 * busy_us / 1e6 / window:.2f}% of the wall time; "

@@ -251,13 +251,19 @@ def test_fused_attention_function_runs_k1_then_k5(dev):
     assert attention.fused_attention_bwd.launches == k5 + 1
 
 
-# K4: f32 scores on the CUDA cores; the kernel and the plain version sum the
-# same products in another order. Outputs are means of maxima of unit-vector
-# dot products, |x| <= 1.
-K4_ATOL = 2e-5
+# K4: 3xTF32 products on the tensor cores against the plain version's f32
+# products, as chip_smoke.py states the margin. Outputs are means of maxima
+# of unit-vector dot products, |x| <= 1.
+K4_ATOL = chip_smoke.K4_ATOL
 
 
-def _tokens(Ba, Bb, TA, TB, dev, D=128, seed=0):
+def _tokens(Ba, Bb, TA, TB, dev, D=128, seed=0, kind="random"):
+    """Unit-norm tokens, masks of density 0.9 with padded suffixes, an a-row
+    (when Ba > 1) and a b-row (when Bb > 1) with no valid token. "holes":
+    tokens 64-127 of every row masked on both sides (an all-zero interior
+    tile); "first": b tokens 65-127 masked, so each b-row's second tile holds
+    one valid token, its first; "empty": no valid token on either side;
+    "empty_a": no valid a-token (a query whose mask is all 0)."""
     g = torch.Generator(device=dev).manual_seed(seed)
     ha = torch.nn.functional.normalize(torch.randn(Ba, TA, D, device=dev, generator=g), dim=-1)
     hb = torch.nn.functional.normalize(torch.randn(Bb, TB, D, device=dev, generator=g), dim=-1)
@@ -265,25 +271,78 @@ def _tokens(Ba, Bb, TA, TB, dev, D=128, seed=0):
     mb = (torch.rand(Bb, TB, device=dev, generator=g) < 0.9).to(torch.int32)
     ma[:, TA - TA // 3:] = 0          # padded suffixes
     mb[:, TB - TB // 4:] = 0
-    ma[0] = 0                         # an a-row and a b-row with no valid token
-    mb[-1] = 0
+    if kind == "holes":
+        ma[:, 64:128] = 0
+        mb[:, 64:128] = 0
+    elif kind == "first":
+        mb[:, 64] = 1
+        mb[:, 65:128] = 0
+    elif kind in ("empty", "empty_a"):
+        ma[:] = 0
+        if kind == "empty":
+            mb[:] = 0
+    if Ba > 1:                        # an a-row and a b-row with no valid token
+        ma[0] = 0
+    if Bb > 1:
+        mb[-1] = 0
     return ha, hb, ma, mb
 
 
-@pytest.mark.parametrize("Ba,Bb,TA,TB,D", [(1, 1, 1, 1, 128), (2, 3, 33, 70, 128),
-                                           (3, 5, 64, 64, 128), (2, 7, 130, 257, 128),
-                                           (4, 9, 32, 2048, 128), (2, 3, 50, 90, 8),
-                                           (2, 2, 17, 40, 256)])
-def test_maxsim_kernel_matches_plain(dev, Ba, Bb, TA, TB, D):
-    ha, hb, ma, mb = _tokens(Ba, Bb, TA, TB, dev, D)
+@pytest.mark.parametrize("Ba,Bb,TA,TB,D,kind", [
+    (1, 1, 1, 1, 128, "empty"), (2, 3, 33, 70, 128, "random"), (3, 5, 64, 64, 128, "random"),
+    (2, 7, 130, 257, 128, "random"), (4, 9, 32, 2048, 128, "random"),
+    (2, 3, 50, 90, 8, "random"), (2, 2, 17, 40, 256, "random"),
+    # an all-zero interior tile on each side; a b-tile whose one valid token is its first
+    (3, 4, 300, 330, 128, "holes"), (3, 4, 200, 200, 128, "first"),
+    # TA and TB no multiples of 64, at the narrow widths (D = 4 pads to k = 8)
+    (3, 6, 70, 129, 8, "holes"), (2, 5, 65, 191, 4, "first"), (3, 3, 127, 65, 4, "random"),
+    # the /topk grids
+    (1, 256, 100, 512, 128, "random"), (1, 1024, 128, 256, 128, "first"),
+    (1, 256, 100, 512, 128, "empty_a"),
+    # rows past the old shared-memory bound, and queries cut into windows
+    (2, 3, 40, 60000, 128, "random"), (2, 3, 40000, 70, 128, "holes"),
+    (1, 2, 20000, 70, 256, "random"),
+])
+def test_maxsim_kernel_matches_plain(dev, Ba, Bb, TA, TB, D, kind):
+    ha, hb, ma, mb = _tokens(Ba, Bb, TA, TB, dev, D, kind=kind)
     got = filip.filip_similarity_fused(ha, hb, ma, mb, 1.0)
     torch.cuda.synchronize()
     want = filip.maxsim_reference(ha, hb, ma, mb)
     for g, w in zip(got, want):
         assert torch.isfinite(g).all()
         assert float((g - w).abs().max()) <= K4_ATOL
-    if Ba > 1 and Bb > 1:   # the clamp: empty rows score 0
-        assert (got[0][0] == 0).all() and (got[1][:, -1] == 0).all()
+    empty_a, empty_b = ma.sum(1) == 0, mb.sum(1) == 0   # the clamp: empty rows score 0
+    assert empty_a.any() or empty_b.any()
+    for g in got:
+        assert (g[empty_a] == 0).all() and (g[:, empty_b] == 0).all()
+
+
+def test_maxsim_is_deterministic(dev):
+    ha, hb, ma, mb = _tokens(3, 40, 200, 300, dev, kind="holes")
+    first = filip.filip_similarity_fused(ha, hb, ma, mb, 1.0)
+    again = filip.filip_similarity_fused(ha, hb, ma, mb, 1.0)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+def test_maxsim_check_sees_the_planted_faults(dev):
+    """chip_smoke.py's K4 check on its own inputs against the two planted
+    faults (patched copies of csrc/ built under _build/fault/): the skip
+    fault that misses a b-tile's first token fails every case holding such
+    a tile, plain TF32 the short cases of norm 2; the kernel passes all."""
+    faults = chip_smoke.build_faults(("maxsim_skip", "maxsim_tf32"))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cases = [(shape, chip_smoke.maxsim_inputs(*shape, gen)) for shape in ((2, 64, 70, 200),)]
+    cases += [(shape, chip_smoke.maxsim_inputs(*shape, gen, chip_smoke.K4_SHORT_SCALE,
+                                                  short=True))
+              for shape in chip_smoke.K4_SHORT_SHAPES]
+    assert all(r["err"] <= K4_ATOL for r in chip_smoke.k4_readings(cases))
+    for name in ("maxsim_skip", "maxsim_tf32"):
+        with chip_smoke.maxsim_kernel(faults[name]["filip_maxsim"]):
+            rows = chip_smoke.k4_readings(cases)
+        print(name, [r["err"] / K4_ATOL for r in rows])
+        must = [r for r in rows if (r["one_token_tile"] if name == "maxsim_skip" else r["short"])]
+        assert must and all(r["err"] > K4_ATOL for r in must)
 
 
 def test_maxsim_launch_count_and_temperature(dev):
@@ -310,10 +369,8 @@ def test_maxsim_wrapper_refuses_what_the_kernel_does_not_take(dev):
     with pytest.raises(ValueError, match="multiple of 4"):
         filip.filip_similarity_fused(ha[..., :6].contiguous(), hb[..., :6].contiguous(),
                                      ma, mb, 1.0)
-    with pytest.raises(ValueError, match="shared memory"):
-        long = torch.zeros(1, 60000, 128, device=dev)
-        filip.filip_similarity_fused(ha, long, ma, torch.zeros(1, 60000, dtype=torch.int32,
-                                                               device=dev), 1.0)
+    with pytest.raises(ValueError, match="unsupported shape"):
+        filip.filip_similarity_fused(ha[:, :0].contiguous(), hb, ma[:, :0].contiguous(), mb, 1.0)
     with pytest.raises(NotImplementedError, match="backward"):
         filip.filip_similarity_fused(ha.requires_grad_(), hb, ma, mb, 1.0)
 
