@@ -18,7 +18,9 @@ and a nonzero exit code, and no result line:
                 is off by one at a segment boundary; filip_maxsim whose
                 b-tile skip predicate misses a tile's first token, and
                 filip_maxsim in plain TF32 (the two correction products
-                dropped); print the card's name and power limit.
+                dropped); infonce in plain TF32, and infonce whose
+                cross-block sums of the forward's partials drop the last,
+                partial tile; print the card's name and power limit.
 2. kernels      K1 (segment-masked attention forward) against
                 ops.attention.attention_reference at the serving shapes
                 and at T around a tile (65, 127, 128, 129) (NH=20, dh=32,
@@ -35,7 +37,9 @@ and a nonzero exit code, and no result line:
                 (InfoNCE, forward and backward through autograd) against
                 ops.infonce.clip_infonce: unit rows scaled by exp(t/2) for
                 t in {1, 4}, K2 at B in {16, 100, 256, 512}, K3 at B in
-                {1000, 1024, 2048, 4096}, D=128, and each at D=64 once.
+                {1000, 1024, 2048, 4096}, D=128, and each at D=64 once;
+                both planted InfoNCE faults must fail that check (the
+                partial-tile fault every case at B = 100 and 1000).
                 K5 (segment-masked attention backward) against
                 ops.attention.attention_reference_bwd at the finetune
                 chunks' shapes (16 rows at the pep and rec buckets 32 and
@@ -59,7 +63,7 @@ and a nonzero exit code, and no result line:
                 against their main loop's, K1 and K5 against the swept-loop
                 and the skip faults (the skip fault every packed case), K4
                 against its skip fault (every case with the one-token tile)
-                and its plain-TF32 fault.
+                and its plain-TF32 fault, K2 and K3 against theirs.
 3. serve        ESM-2 t30_150M in bf16 with seeded random weights and CLIP
                 heads, written as npz; an index of 256 synthetic sequences
                 built with cli.embed; cli.serve's server on an ephemeral port
@@ -146,9 +150,13 @@ and a nonzero exit code, and no result line:
                 on the run's masks (3xTF32 products of the allowed pairs);
                 K2 forward+backward
                 at (256, 128), K3 at (1024, 128) and (4096, 128), and their
-                plain versions, beside the bound; K2 and K3 side by side at
-                B in {16, 128, 256, 384, 512, 1024, 2048}, the readings
-                behind the dispatch rule; K5, its plain version and the
+                plain versions, beside the bound (3xTF32 products at the TF32
+                peak), the old design's CUDA-core ceiling, the device kernels
+                a call runs (torch.profiler) and the launch floor (those
+                kernels times an empty kernel's device time), with the host
+                (wall_ms) and without; K2 (up to its 512) and K3 side by
+                side at B in {16, 128, 256, 384, 512, 1024, 2048}, the
+                readings behind the dispatch rule; K5, its plain version and the
                 backward of torch's scaled_dot_product_attention at B=16,
                 T=512, NH=20 and at the finetune chunks' shapes, padded, and
                 at (16, 512) dense, beside K5's bound and exponential floor. P1 s8 at (8192, 2560, 2560) and (10240, 640, 2560)
@@ -248,9 +256,11 @@ H100_TF32_FLOPS = 495e12              # dense tensor-core peak, SXM, 700 W
 H100_BYTES_PER_S = 3.35e12
 H100_INT8_OPS = 1979e12               # dense tensor-core peak, SXM, 700 W
 KERNELS = ("attention_fwd", "attention_bwd", "filip_maxsim", "infonce", "dense_mm", "ffn_gelu")
-# K2/K3 against their plain version, both f32 (FFMA against cuBLAS f32 and
-# logsumexp: the same sums in another order, over up to 4096 terms):
-# |loss - ref| <= 1e-5 max(1, |ref|), |grad - ref| <= 1e-5 max|ref|.
+# K2/K3 against their plain version, both f32 (3xTF32 products on the
+# tensor cores against cuBLAS f32 and logsumexp: the same sums in another
+# order, over up to 4096 terms): |loss - ref| <= 1e-5 max(1, |ref|),
+# |grad - ref| <= 1e-5 max|ref|. The planted faults (plain TF32; a
+# cross-block sum that drops the last, partial tile) fail it.
 INFONCE_RTOL = 1e-5
 K2_POOLS, K3_POOLS = (16, 100, 256, 512), (1000, 1024, 2048, 4096)
 DISPATCH_POOLS = (16, 128, 256, 384, 512, 1024, 2048)    # K2 and K3 timed side by side
@@ -309,13 +319,17 @@ FFN_ULPS, FFN_SHARE = 4, 1e-3
 # attention kernels' skip predicate misses a pair of tiles whose segment
 # ranges meet at one id (the query tile's smallest, the key tile's largest);
 # K4's b-tile skip predicate (csrc/filip_maxsim.cu) misses the tile's first
-# token, and K4 drops its two correction products (plain TF32).
+# token, and K4 drops its two correction products (plain TF32); K2 and K3
+# (csrc/infonce.cu) drop theirs, and their cross-block sums of the forward's
+# partials leave out the last tile when it is partial (B / 64 tiles).
 FAULT_LINE = "  const int n_tiles = (K * Op::kEltBytes + kTileBytes - 1) / kTileBytes;"
 SWEEP_FAULT_LINE = "  return (T + kTile - 1) / kTile;"
 SKIP_FAULT_LINE = "  return q.x <= k.y && k.x <= q.y;"
 MAXSIM_SKIP_LINE = ("          if (!__any_sync(0xffffffffu, (mbv.x | mbv.y) != 0)) continue;  "
                     "// an empty b-tile")
 MAXSIM_TF32_LINE = "constexpr int kProducts = 3;  // TF32 products per k-step: hi.hi, hi.lo, lo.hi"
+INFONCE_PARTIAL_LINE = ("__device__ __forceinline__ int summed_tiles(int B) "
+                        "{ return tiles_of(B); }")
 FAULTS = {   # name: (header, line, patched line, kernels built)
     "main_loop": ("mma_gemm.cuh", FAULT_LINE, FAULT_LINE[:-1] + " - 1;", ("dense_mm", "ffn_gelu")),
     "swept_tiles": ("attention.cuh", SWEEP_FAULT_LINE, SWEEP_FAULT_LINE[:-1] + " - 1;",
@@ -327,6 +341,10 @@ FAULTS = {   # name: (header, line, patched line, kernels built)
                     ("filip_maxsim",)),
     "maxsim_tf32": ("filip_maxsim.cu", MAXSIM_TF32_LINE, MAXSIM_TF32_LINE.replace("3;", "1;"),
                     ("filip_maxsim",)),
+    "infonce_tf32": ("infonce.cu", MAXSIM_TF32_LINE, MAXSIM_TF32_LINE.replace("3;", "1;"),
+                     ("infonce",)),
+    "infonce_partial": ("infonce.cu", INFONCE_PARTIAL_LINE,
+                        INFONCE_PARTIAL_LINE.replace("tiles_of(B)", "B / kTile"), ("infonce",)),
 }
 FAULT_DIR = build.BUILD_ROOT / "fault"
 # int8 training: a fixture of 1100 families gives 770 train pairs, three
@@ -638,31 +656,90 @@ def value_and_grads(fn, x, y):
     return loss.detach(), xr.grad, yr.grad
 
 
-def check_infonce(gen: torch.Generator) -> dict:
-    """K2 and K3, forward and backward, against the plain clip_infonce;
-    returns the largest absolute error of each (loss and gradients)."""
+def infonce_cases(gen: torch.Generator) -> list:
+    """(kernel, B, D, t, x, y) of the K2 and K3 checks: unit rows scaled by
+    exp(t/2) at the pools of K2_POOLS and K3_POOLS, D = 128, and D = 64 once
+    each."""
     cases = [("infonce", B, 128, t) for B in K2_POOLS for t in (1.0, 4.0)]
     cases += [("infonce_tiled", B, 128, t) for B in K3_POOLS for t in (1.0, 4.0)]
     cases += [("infonce", 256, 64, 1.0), ("infonce_tiled", 1024, 64, 1.0)]
-    worst = {"infonce": 0.0, "infonce_tiled": 0.0}
-    for name, B, D, t in cases:
+    return [(name, B, D, t, *unit_rows(B, D, t, gen)) for name, B, D, t in cases]
+
+
+def infonce_readings(cases: list) -> list[dict]:
+    """Each case through its kernel and through clip_infonce, forward and
+    backward: the errors (loss, dX, dY), their tolerances and the largest
+    ratio of one to the other."""
+    rows = []
+    for name, B, D, t, x, y in cases:
         fn = infonce.fused_infonce if name == "infonce" else infonce.fused_infonce_tiled
-        x, y = unit_rows(B, D, t, gen)
         got = value_and_grads(fn, x, y)
         want = value_and_grads(infonce.clip_infonce, x, y)
-        loss_err = abs(float(got[0] - want[0]))
-        loss_tol = INFONCE_RTOL * max(1.0, abs(float(want[0])))
-        errs = [float((g - w).abs().max()) for g, w in zip(got[1:], want[1:])]
-        tols = [INFONCE_RTOL * float(w.abs().max()) for w in want[1:]]
-        ok = (all(bool(torch.isfinite(v).all()) for v in got) and loss_err <= loss_tol
-              and all(e <= tol for e, tol in zip(errs, tols)))
-        worst[name] = max(worst[name], loss_err, *errs)
-        log(f"[kernels] {name} B={B} D={D} t={t:g}: loss {float(got[0]):.6f}, |err| "
-            f"{loss_err:.3g} (tolerance {loss_tol:.3g}); max|err| dX {errs[0]:.3g}, dY "
-            f"{errs[1]:.3g} (tolerance {tols[0]:.3g}, {tols[1]:.3g}) {'ok' if ok else 'FAIL'}")
+        errs = [abs(float(got[0] - want[0]))]
+        errs += [float((g - w).abs().max()) for g, w in zip(got[1:], want[1:])]
+        tols = [INFONCE_RTOL * max(1.0, abs(float(want[0])))]
+        tols += [INFONCE_RTOL * float(w.abs().max()) for w in want[1:]]
+        finite = all(bool(torch.isfinite(v).all()) for v in got)
+        ratio = max(e / tol for e, tol in zip(errs, tols)) if finite else math.inf
+        rows.append({"name": name, "case": f"{name} B={B} D={D} t={t:g}", "B": B, "t": t,
+                     "loss": float(got[0]), "errs": errs, "tols": tols, "ratio": ratio})
+    return rows
+
+
+def check_infonce(cases: list) -> dict:
+    """K2 and K3, forward and backward, against the plain clip_infonce;
+    returns the largest absolute error of each (loss and gradients)."""
+    worst = {"infonce": 0.0, "infonce_tiled": 0.0}
+    for r in infonce_readings(cases):
+        ok = r["ratio"] <= 1
+        worst[r["name"]] = max(worst[r["name"]], *r["errs"])
+        log(f"[kernels] {r['case']}: loss {r['loss']:.6f}, |err| {r['errs'][0]:.3g} "
+            f"(tolerance {r['tols'][0]:.3g}); max|err| dX {r['errs'][1]:.3g}, dY "
+            f"{r['errs'][2]:.3g} (tolerance {r['tols'][1]:.3g}, {r['tols'][2]:.3g}) "
+            f"{'ok' if ok else 'FAIL'}")
         if not ok:
-            raise AssertionError(f"{name} disagrees with its plain version at B={B} D={D} t={t}")
+            raise AssertionError(f"the kernel disagrees with its plain version: {r['case']}")
     return worst
+
+
+@contextlib.contextmanager
+def infonce_kernel(lib: Path):
+    """ops.infonce launches the library at ``lib`` while the block runs."""
+    saved = infonce._launchers
+    faulty = infonce.bind(ctypes.CDLL(str(lib)))
+    infonce._launchers = lambda: faulty
+    try:
+        yield
+    finally:
+        infonce._launchers = saved
+
+
+def check_infonce_faults(libs: dict, cases: list) -> dict:
+    """The K2 and K3 check against their two planted faults, on its own
+    inputs: plain TF32 must fail every case at t = 4 (logits up to e^4,
+    where TF32's three digits show; at t = 1 the kernels' centred products
+    leave it near the tolerance), and the partial-tile fault every case
+    whose pool is no multiple of 64 (B = 100, 1000). Returns the worst ratio
+    to the tolerance, the cases failed and every case's ratio."""
+    out = {}
+    for name, what, must in (
+            ("infonce_tf32", "plain TF32, the correction products dropped",
+             lambda r: r["t"] == 4.0),
+            ("infonce_partial", "the cross-block sums drop the last, partial tile",
+             lambda r: r["B"] % 64 != 0)):
+        with infonce_kernel(libs[name]["infonce"]):
+            rows = infonce_readings(cases)
+        ratios = {r["case"]: r["ratio"] for r in rows}
+        failed = [c for c, x in ratios.items() if x > 1]
+        missed = [r["case"] for r in rows if must(r) and r["ratio"] <= 1]
+        out[name] = {"worst_ratio": max(ratios.values()), "cases_failed": len(failed),
+                     "cases": len(rows), "ratios": ratios}
+        log(f"[kernels] planted fault {name} ({what}): fails {len(failed)} of {len(rows)} "
+            f"cases, at {', '.join(f'{c}: {x:.4g}' for c, x in ratios.items())} x its "
+            f"tolerance; cases it should fail and passes: {missed or 'none'}")
+        if missed:
+            raise AssertionError(f"the infonce check does not see the planted fault {name}")
+    return out
 
 
 def s8_pair(N: int, K: int, M: int, gen: torch.Generator):
@@ -1503,19 +1580,25 @@ def clone_tree(tree):
     return {k: clone_tree(v) for k, v in tree.items()} if isinstance(tree, dict) else tree.clone()
 
 
-def check_step(pool: int) -> dict:
-    """The loss within 1e-5 relative and the gradients within 1e-5 of each
-    leaf's largest. Adam's first update is lr g / (|g| + eps): when g moves
-    by dg it moves by at most 2 lr |dg| / (max|g| + eps), which near g = 0
-    turns f32 noise into up to lr; each updated parameter is held to that
-    bound plus 1e-6, and the count beyond a flat 1e-5 is printed."""
+def step_readings(pool: int) -> dict:
+    """One frozen train step at global batch ``pool`` through K2 or K3 (by
+    clip_engine's rule) and through the plain loss, from the same heads and
+    batch: the loss within 1e-5 relative and the gradients within 1e-5 of
+    each leaf's largest. Adam's first update is lr g / (|g| + eps): when g
+    moves by dg it moves by at most 2 lr |dg| / (max|g| + eps), which near
+    g = 0 turns f32 noise into up to lr; each updated parameter is held to
+    that bound plus 1e-6, and the count beyond a flat 1e-5 is printed.
+    Returns the readings and whether they are within the limits ("ok")."""
     cfg_esm = common.esm_config("t30_150M", "bfloat16")
     mcfg = clip.CLIPConfig(input_dim=cfg_esm.hidden_size, dropout=0.0, esm=cfg_esm)
     cfg = clip_engine.EngineConfig(model=mcfg, batch_size=pool // 16, accumulated_batches=16,
                                    length_groups=4)
     esm_params = esm2.init_params(cfg_esm, torch.Generator(device="cuda").manual_seed(0),
                                   dtype=torch.bfloat16, device="cuda")
-    train_ds, _, _ = dataset.generate_datasets(WORK / "train_data", seed=42)
+    data_dir = WORK / "train_data"
+    if not (data_dir / "receptor.fasta").exists():
+        write_fixture(data_dir, n_families=FIXTURE_FAMILIES, seed=42)
+    train_ds, _, _ = dataset.generate_datasets(data_dir, seed=42)
     loader = dataset.PairLoader(train_ds, pool // 16, seed=SEED)
     peps, recs = next(clip_engine._accumulate(loader, 16))
     batch = tuple({k: v.cuda() for k, v in b.items()} for b in clip_engine.tokenize_grouped(
@@ -1553,9 +1636,17 @@ def check_step(pool: int) -> dict:
         f"1e-5); gradients max |err| / leaf max {grad_err:.3g} (tolerance 1e-5); updated "
         f"params max |err| {param_err:.3g}, {over_bound} of {n} past Adam's bound, {over_flat} "
         f"past a flat 1e-5 {'ok' if ok else 'FAIL'}")
-    if not ok:
-        raise AssertionError(f"the train step through {kernel} disagrees with the plain loss")
-    return {"loss_rel_err": loss_err, "grad_rel_err": grad_err, "param_max_abs_err": param_err}
+    return {"kernel": kernel, "loss_rel_err": loss_err, "grad_rel_err": grad_err,
+            "param_max_abs_err": param_err, "over_bound": over_bound, "ok": ok}
+
+
+def check_step(pool: int) -> dict:
+    """step_readings, which must be within their limits."""
+    r = step_readings(pool)
+    if not r["ok"]:
+        raise AssertionError(f"the train step through {r['kernel']} disagrees with the plain "
+                             f"loss")
+    return {k: r[k] for k in ("loss_rel_err", "grad_rel_err", "param_max_abs_err")}
 
 
 def plain_forward(q, k, v, segments, with_lse=False):
@@ -2073,20 +2164,67 @@ def device_ms(fn, iters: int, warmup: int = 3, kernel: str = "") -> float:
 
 def infonce_bound(B: int, D: int) -> tuple[float, str, str]:
     """(bound ms, what bounds it, the counts) of forward plus backward: the
-    logits, dX and dY, 6 B^2 D f32 FLOP on the CUDA cores, against x, y read
-    and dX, dY, the loss written once."""
-    flops = 6 * B * B * D
+    logits, dX and dY, each product kept at f32 accuracy as three TF32
+    products on the tensor cores (18 B^2 D operations at the TF32 peak),
+    against x, y read and dX, dY, the loss written once."""
+    ops = 18 * B * B * D
     nbytes = 16 * B * D + 4
-    t_ops, t_bytes = flops / H100_F32_FLOPS, nbytes / H100_BYTES_PER_S
+    t_ops, t_bytes = ops / H100_TF32_FLOPS, nbytes / H100_BYTES_PER_S
     return (1e3 * max(t_ops, t_bytes), "bytes" if t_bytes >= t_ops else "operations",
-            f"{flops / 1e9:.4f} GFLOP, {nbytes / 1e6:.4f} MB")
+            f"{ops / 1e9:.4f} GFLOP TF32, {nbytes / 1e6:.4f} MB")
+
+
+def infonce_ceiling(B: int, D: int) -> float:
+    """The ceiling of the FFMA design K2 and K3 had before (ms): 6 B^2 D f32
+    FLOP on the CUDA cores."""
+    return 1e3 * 6 * B * B * D / H100_F32_FLOPS
+
+
+# Numbers the timing rows work out rather than measure: they go to the log
+# and PERF.md, never to the kernels line, whose only computed number is
+# bound_ms.
+COMPUTED_KEYS = ("cuda_core_ceiling_ms", "ffma_ceiling_ms", "launch_floor_ms", "exp_floor_ms")
+
+
+def measured_only(obj):
+    """obj (the kernels line's dicts and lists) without COMPUTED_KEYS."""
+    if isinstance(obj, dict):
+        return {k: measured_only(v) for k, v in obj.items() if k not in COMPUTED_KEYS}
+    if isinstance(obj, list):
+        return [measured_only(v) for v in obj]
+    return obj
+
+
+def device_kernels(fn, first: str, iters: int = 20) -> tuple[float, float]:
+    """Device kernels per fn() call by torch.profiler: those whose name holds
+    "pct_infonce" (the kernels of csrc/infonce.cu) and all device events
+    (autograd's fill of the cotangent among them), each over the count of
+    the call's first kernel, whose name holds `first` (a session may drop
+    whole calls)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    calls = sum(e.count for e in events if first in e.key)
+    if calls == 0:
+        raise AssertionError(f"torch.profiler recorded no {first} kernel")
+    return (sum(e.count for e in events if "pct_infonce" in e.key) / calls,
+            sum(e.count for e in events) / calls)
 
 
 def time_infonce(gen: torch.Generator, gpu: str) -> dict:
     """K2 at (256, 128), K3 at (1024, 128) and (4096, 128), forward plus
-    backward through autograd, and the plain clip_infonce the same way. No
-    single PyTorch call computes symmetric InfoNCE, so there is no library
-    time."""
+    backward through autograd, and the plain clip_infonce the same way;
+    beside them the bound, the old design's CUDA-core ceiling, the device
+    kernels a call runs (autograd's fill of the cotangent among them) and
+    the launch floor: those kernels times an empty kernel's device time
+    (torch.cuda._sleep(0)) under the same profiler. No single PyTorch call
+    computes symmetric InfoNCE, so there is no library time."""
+    empty_ms = device_ms(lambda: torch.cuda._sleep(0), 200)
     rows = {}
     for name, B in (("infonce", 256), ("infonce_tiled", 1024), ("infonce_tiled", 4096)):
         fn = infonce.fused_infonce if name == "infonce" else infonce.fused_infonce_tiled
@@ -2104,35 +2242,50 @@ def time_infonce(gen: torch.Generator, gpu: str) -> dict:
                "plain_wall_ms": cuda_ms(plain, iters), "library_ms": None}
         row["fwd_ms"] = device_ms(lambda: fn(x.detach(), y.detach()), iters)
         row["bound_ms"], row["bound_by"], counts = infonce_bound(B, 128)
+        row["cuda_core_ceiling_ms"] = infonce_ceiling(B, 128)
+        row["kernels_per_call"], row["device_kernels_per_call"] = device_kernels(
+            kernel, "infonce_cluster" if name == "infonce" else "infonce_tiles")
+        row["empty_kernel_ms"] = empty_ms
+        row["launch_floor_ms"] = row["kernels_per_call"] * empty_ms
         log(f"[time] {name} B={B} D=128 forward+backward: kernel {row['ms']:.6f} ms of device "
             f"time ({row['wall_ms']:.6f} ms per call with the host), forward alone "
             f"{row['fwd_ms']:.6f} ms; plain {row['plain_ms']:.6f} ms ({row['plain_wall_ms']:.6f} "
             f"ms with the host); library none; bound {row['bound_ms']:.6f} ms ({row['bound_by']}: "
-            f"{counts}; f32 peak {H100_F32_FLOPS / 1e12:g} TFLOP/s) = "
-            f"{100 * row['bound_ms'] / row['ms']:.2f}% of the bound | {gpu}")
+            f"{counts}; TF32 peak {H100_TF32_FLOPS / 1e12:g} TFLOP/s) = "
+            f"{100 * row['bound_ms'] / row['ms']:.2f}% of the bound; the CUDA-core ceiling "
+            f"{row['cuda_core_ceiling_ms']:.6f} ms; {row['kernels_per_call']:.4g} kernels of "
+            f"csrc/infonce.cu a call ({row['device_kernels_per_call']:.4g} device kernels with "
+            f"autograd's), launch floor {row['launch_floor_ms']:.6f} ms (empty kernel "
+            f"{empty_ms:.6f} ms) | {gpu}")
         rows.setdefault(name, []).append(row)
     return rows
 
 
 def time_dispatch(gen: torch.Generator, gpu: str) -> list[dict]:
-    """K2 and K3 forward+backward on the same inputs at each pool of
-    DISPATCH_POOLS: the readings that clip_engine.fused_infonce_fits' split
-    rests on (the faster by device time, and what the rule picks)."""
+    """K2 (pools up to its K2_MAX_POOL) and K3 forward+backward on the same
+    inputs at each pool of DISPATCH_POOLS: the readings that
+    clip_engine.fused_infonce_fits' split rests on (the faster by device
+    time, and what the rule picks)."""
     rows = []
     for B in DISPATCH_POOLS:
         x, y = (t.requires_grad_(True) for t in unit_rows(B, 128, 1.0, gen))
-        row = {"pool": B, "picked": loss_kernel(B)}
+        row = {"pool": B, "picked": loss_kernel(B), "infonce": None}
         for name, fn in (("infonce", infonce.fused_infonce),
                          ("infonce_tiled", infonce.fused_infonce_tiled)):
+            if name == "infonce" and B > infonce.K2_MAX_POOL:
+                continue
+
             def run():
                 torch.autograd.grad(fn(x, y), (x, y))
             row[name] = {"ms": device_ms(run, 100), "wall_ms": cuda_ms(run, 100)}
-        row["faster"] = min(("infonce", "infonce_tiled"), key=lambda k: row[k]["ms"])
-        log(f"[time] dispatch B={B} D=128 forward+backward: infonce {row['infonce']['ms']:.6f} "
-            f"ms of device time ({row['infonce']['wall_ms']:.6f} ms with the host), "
-            f"infonce_tiled {row['infonce_tiled']['ms']:.6f} ms "
-            f"({row['infonce_tiled']['wall_ms']:.6f} ms); faster by device time "
-            f"{row['faster']}, the rule picks {row['picked']} | {gpu}")
+        row["faster"] = min((k for k in ("infonce", "infonce_tiled") if row[k]),
+                            key=lambda k: row[k]["ms"])
+        k2 = (f"infonce {row['infonce']['ms']:.6f} ms of device time "
+              f"({row['infonce']['wall_ms']:.6f} ms with the host)" if row["infonce"]
+              else f"infonce takes pools up to {infonce.K2_MAX_POOL}")
+        log(f"[time] dispatch B={B} D=128 forward+backward: {k2}, infonce_tiled "
+            f"{row['infonce_tiled']['ms']:.6f} ms ({row['infonce_tiled']['wall_ms']:.6f} ms); "
+            f"faster by device time {row['faster']}, the rule picks {row['picked']} | {gpu}")
         rows.append(row)
     return rows
 
@@ -2462,7 +2615,8 @@ def main() -> int:
     max_err = check_attention(k1_cases)
     k4_cases = maxsim_cases(gen)
     k4_err = check_maxsim(k4_cases)
-    nce_err = check_infonce(gen)
+    nce_cases = infonce_cases(gen)
+    nce_err = check_infonce(nce_cases)
     k5_cases = bwd_cases(gen)
     k5_err = check_attention_bwd(k5_cases)
     p1_err = check_dense_mm(gen)
@@ -2470,7 +2624,8 @@ def main() -> int:
     fault_reads = check_faults(fault_libs["main_loop"], gen)
     fault_reads.update(check_attention_faults(fault_libs, k1_cases, k5_cases))
     fault_reads.update(check_maxsim_faults(fault_libs, k4_cases))
-    del k1_cases, k5_cases, k4_cases
+    fault_reads.update(check_infonce_faults(fault_libs, nce_cases))
+    del k1_cases, k5_cases, k4_cases, nce_cases
     rng = np.random.default_rng(SEED)
     ctx = run_serve_phase(rng)
     try:
@@ -2556,6 +2711,7 @@ def main() -> int:
         "bwd_launches": tctx["k2"]["bwd"]["infonce"],
         "launches_by_path": by_path["infonce"], "max_abs_err": nce_err["infonce"],
         **nce_times["infonce"][0], "step_check": steps["k2"],
+        "fault": {k: fault_reads[k] for k in ("infonce_tf32", "infonce_partial")},
         "train_pairs_per_s": pairs_per_s["k2"], "dispatch": dispatch,
     }, {
         "name": "infonce_tiled", "phase": "train_1024", "route": "cuda",
@@ -2566,6 +2722,7 @@ def main() -> int:
         "launches_by_path": by_path["infonce_tiled"], "max_abs_err": nce_err["infonce_tiled"],
         **nce_times["infonce_tiled"][0], "at_4096": nce_times["infonce_tiled"][1],
         "step_check": steps["k3"],
+        "fault": {k: fault_reads[k] for k in ("infonce_tf32", "infonce_partial")},
     }, {
         "name": "dense_mm", "phase": "int8_serve", "route": "cuda",
         "source": "protein_clip_tpu_torch/csrc/dense_mm.cu",
@@ -2594,7 +2751,7 @@ def main() -> int:
     }]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(gpu_line(), flush=True)
-    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"kernels": measured_only(kernels)}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}),

@@ -264,12 +264,6 @@ struct Producer {
 // Consumer warpgroups
 // ---------------------------------------------------------------------------
 
-// x into hi + lo, two tf32 values with their low bits cleared.
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32_rna(x);
-  lo = tf32_rna(x - __uint_as_float(hi));
-}
-
 // The sums of a, b and c over a warpgroup, in a fixed order, in each of its
 // threads (named barrier `bar`). red: 16 floats.
 __device__ __forceinline__ float3 wg_sum3(float a, float b, float c, float* red, int bar) {

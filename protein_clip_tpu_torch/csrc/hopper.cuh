@@ -1,9 +1,10 @@
 // Hopper (sm_90a) primitives shared by the port's kernels: shared-memory
 // addresses, mbarriers, TMA and cp.async copies, proxy fences, named
-// barriers, wgmma's fences, groups and shared-memory descriptors, the TF32
-// conversion and product, and the host's tensor-map encoder. Included by
-// mma_gemm.cuh (P1 and K6), attention.cuh (K1 and K5) and filip_maxsim.cu
-// (K4).
+// barriers, thread-block clusters (rank, barrier, shared memory of another
+// block of the cluster), wgmma's fences, groups and shared-memory
+// descriptors, the TF32 conversion, split and product, and the host's
+// tensor-map encoder. Included by mma_gemm.cuh (P1 and K6), attention.cuh
+// (K1 and K5), filip_maxsim.cu (K4) and infonce.cu (K2 and K3).
 
 #pragma once
 
@@ -135,6 +136,50 @@ __device__ __forceinline__ uint32_t tf32_rna(float x) {
   return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
 
+// x into hi + lo, two tf32 values with their low bits cleared: hi . hi +
+// hi . lo + lo . hi in f32 (3xTF32) keeps about f32's accuracy.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// This block's rank in its cluster.
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of every block of the cluster arrives (release) and waits
+// (acquire): shared-memory writes before it are visible to the cluster's
+// blocks after it, and no block runs past it while another has not reached it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.aligned;\nbarrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// The address of this block's shared-memory word `addr` in block `rank` of
+// the cluster, for ld_cluster.
+__device__ __forceinline__ uint32_t cluster_addr(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ float ld_cluster(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ float4 ld_cluster4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
 // d (64 x 64) = A . B^T + (scale_d ? d : 0): A 64 x 8 tf32 from registers
 // (warp w holds rows 16 w .. 16 w + 15; lane 4 g + t holds (g, t), (g + 8,
 // t), (g, t + 4), (g + 8, t + 4)), B 64 x 8 tf32 K-major in shared memory.
@@ -151,6 +196,21 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[32], const uint32_t (&a)[4
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// The same product at n = 32: d (64 x 32) = A . B^T + (scale_d ? d : 0), B
+// 32 x 8 tf32 K-major in shared memory.
+__device__ __forceinline__ void wgmma_tf32_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t b,
+                                               int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 

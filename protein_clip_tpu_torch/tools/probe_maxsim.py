@@ -94,7 +94,8 @@ PUSH_CP_ASYNC = """    if (hdr.x != kEnd) {
     if (lane == 0) mbar_arrive(bar);  // and one that publishes the header
 """
 GRID = "  kernel<<<Bb, threads_of(kWgs), L.bytes, stream>>>(tma, tmb, p);"
-# name: [(csrc/filip_maxsim.cu's text, patched text)]
+# name: [(csrc/filip_maxsim.cu's text, patched text)], or ([header], text, patched
+# text) for a shared header of csrc/
 PARTS = {
     "cp.async": [(PUSH_TMA, PUSH_CP_ASYNC),
                  ("      mbar_init(full + 8 * s, 1);", "      mbar_init(full + 8 * s, 33);"),
@@ -109,7 +110,8 @@ PARTS = {
                   (GRID, "  int sms = 132;\n"
                          "  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, 0);\n"
                    + GRID.replace("<<<Bb,", "<<<Bb < sms ? Bb : sms,"))],
-    "truncated hi": [("  hi = tf32_rna(x);\n  lo = tf32_rna(x - __uint_as_float(hi));\n",
+    "truncated hi": [("hopper.cuh",
+                      "  hi = tf32_rna(x);\n  lo = tf32_rna(x - __uint_as_float(hi));\n",
                       "  hi = __float_as_uint(x);\n"
                       "  lo = tf32_rna(x - __uint_as_float(hi & 0xffffe000u));\n")],
     "no b split": [("        st_shared16(hi0 + off, hi[0], hi[1], hi[2], hi[3]);\n"
@@ -166,12 +168,13 @@ def build_all() -> tuple[ctypes.CDLL, dict]:
         src = PROBE_DIR / name.replace(" ", "_").replace(".", "_") / "csrc"
         shutil.rmtree(src.parent, ignore_errors=True)
         shutil.copytree(build.CSRC_DIR, src)
-        text = (src / "filip_maxsim.cu").read_text()
-        for line, patched in patches:
+        for patch in patches:
+            target = src / (patch[0] if len(patch) == 3 else "filip_maxsim.cu")
+            line, patched = patch[-2:]
+            text = target.read_text()
             if text.count(line) != 1:
-                raise RuntimeError(f"part {name}: its text is not in csrc/filip_maxsim.cu once")
-            text = text.replace(line, patched)
-        (src / "filip_maxsim.cu").write_text(text)
+                raise RuntimeError(f"part {name}: its text is not in csrc/{target.name} once")
+            target.write_text(text.replace(line, patched))
         jobs.append(([build._nvcc(), *build.NVCC_FLAGS, "-I", str(src)], src / "filip_maxsim.cu",
                      src.parent / "libfilip_maxsim.so"))
     for _, _, lib in jobs:

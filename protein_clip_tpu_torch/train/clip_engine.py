@@ -39,18 +39,19 @@ Params = dict[str, Any]
 
 def fused_infonce_fits(b: int) -> bool:
     """True when a pool of b goes to K2 (``fused_infonce``), False for K3
-    (``fused_infonce_tiled``). Both kernels take every b >= 1 and every
-    embedding dim the wrappers accept, so this rule decides speed only; the
-    dim does not enter it (the TPU package's rule takes d for its VMEM fit).
+    (``fused_infonce_tiled``). K2 takes pools up to ``K2_MAX_POOL`` (512),
+    K3 every pool; both take every embedding dim the wrappers accept, and
+    the dim does not enter the rule (the TPU package's rule takes d for its
+    VMEM fit).
 
-    The two differ only in the forward's combine of the (max, sum) partials
-    of the 64 x 64 logit tiles: K2 runs it in the tile launch's last block,
-    one block walking all 2b indices over b / 64 partials each, so it grows
-    as b^2 / 64 on one SM; K3 spreads it over b / 256 blocks of a second
-    launch. The split is where K3's forward+backward device time drops below
-    K2's on an H100 (``chip_smoke.py`` times both side by side, PERF.md):
-    K2 ahead at 16, the two within their spread between runs at 256, K3
-    ahead by 17% at 512 and 36% at 1024."""
+    K2 is one cluster of 4 x 4 blocks over the whole logit grid: up to 256
+    each block owns one 64 x 64 tile, above that four, one after another,
+    with the logits formed again for the backward. K3 spreads the tiles over
+    every block of the card and the clusters it holds. The split is where
+    K3's forward+backward device time drops below K2's on an H100
+    (``chip_smoke.time_dispatch``, PERF.md §6): K2 0.0273, 0.0280, 0.0289 ms
+    at 16, 128, 256 against K3's 0.0356, 0.0363, 0.0375; at 384 and 512 K2
+    0.0946 and 0.0979 against K3's 0.0395 and 0.0399."""
     return b <= 256
 
 

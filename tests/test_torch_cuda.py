@@ -398,10 +398,11 @@ def test_ragged_scorer_launches_one_kernel_per_block(dev):
     assert np.abs(got - want).max() <= K4_ATOL
 
 
-# K2 / K3: f32 FFMA against the plain version's f32 matmul and logsumexp,
-# the same sums in another order over up to B terms: |loss - ref| <=
-# 1e-5 max(1, |ref|), |grad - ref| <= 1e-5 max|ref|.
-INFONCE_RTOL = 1e-5
+# K2 / K3: 3xTF32 products on the tensor cores against the plain version's
+# f32 matmul and logsumexp, the same sums in another order over up to B
+# terms: |loss - ref| <= 1e-5 max(1, |ref|), |grad - ref| <= 1e-5 max|ref|
+# (chip_smoke.py's tolerance, which its planted faults fail).
+INFONCE_RTOL = chip_smoke.INFONCE_RTOL
 
 
 def _unit_rows(B, D, t, dev, seed=0):
@@ -423,7 +424,13 @@ def _value_and_grads(fn, x, y):
 @pytest.mark.parametrize("tiled,B,D", [(False, 1, 128), (False, 5, 128), (False, 63, 64),
                                        (False, 65, 128), (False, 100, 4), (False, 256, 132),
                                        (False, 300, 256), (True, 1, 128), (True, 77, 64),
-                                       (True, 700, 128), (True, 1031, 36)])
+                                       (True, 700, 128), (True, 1031, 36),
+                                       # the cluster's edges: one tile, one super-block
+                                       # (4 x 4 tiles), K2's largest pool; odd D
+                                       (False, 64, 128), (False, 255, 36), (False, 257, 4),
+                                       (False, 512, 128), (True, 63, 4), (True, 64, 128),
+                                       (True, 65, 132), (True, 255, 128), (True, 256, 36),
+                                       (True, 512, 128), (True, 4096, 128)])
 def test_infonce_kernels_match_plain(dev, tiled, B, D, t):
     x, y = _unit_rows(B, D, t, dev)
     fn = infonce.fused_infonce_tiled if tiled else infonce.fused_infonce
@@ -450,6 +457,73 @@ def test_infonce_is_deterministic_and_counts_calls(dev, tiled):
     assert (fn.launches, fn.bwd_launches) == (before[0] + 3, before[1] + 2)
 
 
+@pytest.mark.parametrize("tiled", [False, True])
+def test_infonce_under_no_grad_forms_no_gradient(dev, tiled, monkeypatch):
+    """Under no_grad the forward computes the loss alone (K2's launch is
+    asked for no gradients, K3 launches no backward), equal to the bit to
+    the loss of a forward that keeps a gradient."""
+    fn = infonce.fused_infonce_tiled if tiled else infonce.fused_infonce
+    x, y = (t.requires_grad_(True) for t in _unit_rows(200, 128, 2.0, dev))
+    calls = []
+    launch = infonce._launch
+    monkeypatch.setattr(infonce, "_launch",
+                        lambda name, device, *args: calls.append((name, args[-1])) or
+                        launch(name, device, *args))
+    with torch.no_grad():
+        quiet = fn(x, y)
+    loud = fn(x, y)
+    torch.cuda.synchronize()
+    assert quiet.grad_fn is None and loud.grad_fn is not None
+    assert torch.equal(quiet, loud.detach())
+    if tiled:
+        assert [name for name, _ in calls] == ["pct_infonce_tiled_fwd"] * 2
+    else:
+        assert calls == [("pct_infonce_fwd", 0), ("pct_infonce_fwd", 1)]
+
+
+@pytest.mark.parametrize("tiled,B,D", [(False, 256, 128), (False, 512, 256), (True, 1024, 128)])
+def test_infonce_loss_holds_no_gradients(dev, tiled, B, D):
+    """The loss a train loop keeps (detached, for the epoch) shares storage
+    with the lse only, O(B) floats, also when the forward formed the
+    gradients for g = 1: those live in the scratch the backward reads."""
+    fn = infonce.fused_infonce_tiled if tiled else infonce.fused_infonce
+    x, y = (t.requires_grad_(True) for t in _unit_rows(B, 128 if tiled else D, 1.0, dev))
+    kept = fn(x, y).detach()
+    assert kept.untyped_storage().nbytes() <= 4 * (4 + 2 * B)
+
+
+@pytest.mark.parametrize("g", [0.0, 2.5])
+@pytest.mark.parametrize("tiled,B", [(False, 256), (True, 1024)])
+def test_infonce_cotangent_scales_exactly(dev, tiled, B, g):
+    """The gradients for a cotangent g equal g times those for 1, to the
+    bit: K2 scales its g = 1 gradients, K3 multiplies each finished sum."""
+    fn = infonce.fused_infonce_tiled if tiled else infonce.fused_infonce
+    x, y = (t.requires_grad_(True) for t in _unit_rows(B, 128, 1.0, dev))
+    one = torch.autograd.grad(fn(x, y), (x, y))
+    scaled = torch.autograd.grad(fn(x, y), (x, y), grad_outputs=torch.tensor(g, device=dev))
+    for a, b in zip(scaled, one):
+        assert torch.equal(a, g * b)
+
+
+def test_infonce_check_sees_the_planted_faults(dev):
+    """chip_smoke.py's K2/K3 check on its own inputs (pools 100 and 1000,
+    whose last tile is partial, and 256, at t = 4) passes the kernels and
+    fails both planted faults: plain TF32 (every case), and cross-block sums
+    that drop the last, partial tile (every case whose pool is no multiple
+    of 64)."""
+    faults = chip_smoke.build_faults(("infonce_tf32", "infonce_partial"))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cases = [(name, B, 128, 4.0, *chip_smoke.unit_rows(B, 128, 4.0, gen))
+             for name, B in (("infonce", 100), ("infonce", 256), ("infonce_tiled", 1000))]
+    assert all(r["ratio"] <= 1 for r in chip_smoke.infonce_readings(cases))
+    for name in ("infonce_tf32", "infonce_partial"):
+        with chip_smoke.infonce_kernel(faults[name]["infonce"]):
+            rows = chip_smoke.infonce_readings(cases)
+        assert any(r["ratio"] > 1 for r in rows)
+        must = (lambda r: r["B"] % 64) if name == "infonce_partial" else (lambda r: r["t"] == 4.0)
+        assert all(r["ratio"] > 1 for r in rows if must(r))
+
+
 def test_infonce_backward_scales_by_the_cotangent(dev):
     x, y = _unit_rows(40, 64, 1.0, dev)
     _, gx, gy = _value_and_grads(infonce.fused_infonce, x, y)
@@ -472,6 +546,9 @@ def test_infonce_wrappers_refuse_what_the_kernels_do_not_take(dev):
             fn(off, y)
         with pytest.raises(ValueError, match="on cpu"):
             fn(x, y.cpu())
+    big = torch.zeros(infonce.K2_MAX_POOL + 1, 64, device=dev)
+    with pytest.raises(ValueError, match="for K2"):
+        infonce.fused_infonce(big, big)
 
 
 def _clone(tree):

@@ -111,7 +111,7 @@ def test_naive_form_overflows_where_the_stable_one_does_not():
 @pytest.mark.parametrize("b,fits", [(1, True), (16, True), (64, True), (256, True),
                                     (257, False), (1024, False), (4096, False)])
 def test_dispatch_rule(b, fits):
-    """K2 up to a pool of 256, K3 above."""
+    """K2 up to a pool of 256, K3 above (K2 is slower from 384 on an H100)."""
     assert clip_engine.fused_infonce_fits(b) is fits
 
 
@@ -145,6 +145,7 @@ def test_other_devices_are_refused():
     ("layout", ValueError, "contiguous"),
     ("shape", ValueError, r"\(B, D\)"),
     ("empty", ValueError, "pool size"),
+    ("k2_pool", ValueError, "for K2"),
 ])
 def test_wrapper_checks(case, err, match):
     """The checks the CUDA path runs before a launch (device-independent)."""
@@ -154,25 +155,101 @@ def test_wrapper_checks(case, err, match):
             "dtype": (x.bfloat16(), x.bfloat16()),
             "layout": (torch.zeros(16, 8).T, torch.zeros(16, 8).T),
             "shape": (x, torch.zeros(9, 16)),
-            "empty": (torch.zeros(0, 16), torch.zeros(0, 16))}[case]
+            "empty": (torch.zeros(0, 16), torch.zeros(0, 16)),
+            "k2_pool": (torch.zeros(513, 16), torch.zeros(513, 16), False)}[case]
     with pytest.raises(err, match=match):
         infonce._check(*args)
 
 
-@pytest.mark.parametrize("b", [1, 64, 65, 256, 1000, 1024, 4096, 65536])
-@pytest.mark.parametrize("sms", [1, 132])
-def test_backward_splits_cover_every_tile_once(b, sms):
-    """The splits tile the other side's ceil(b/64) tiles with no empty
-    split, and give every SM a block where the pool has enough tiles."""
+POOLS = [1, 64, 65, 256, 257, 1000, 1024, 4096, 65536]
+# clusters of 16 blocks an H100 holds at once (pct_infonce_max_clusters)
+H100_CLUSTERS = 7
+
+
+@pytest.mark.parametrize("b", POOLS)
+def test_sweep_clusters_cover_every_tile_once(b):
+    """K3's backward: the U x V clusters' ranges of super-blocks (CLUSTER
+    tiles a side each) cover every super-block of the tile grid once, no
+    range is empty, and no more than MAX_PLANES partial planes are
+    written."""
+    u, v = infonce.sweep_clusters(b, H100_CLUSTERS)
+    n_rows, n_cols = infonce.super_blocks(b)
     nb = -(-b // 64)
-    splits, per = infonce.backward_splits(b, sms)
-    assert (splits - 1) * per < nb <= splits * per
-    assert nb * splits * 2 >= min(sms, 2 * nb * nb)
+    assert (n_rows, n_cols) == (-(-nb // infonce.CLUSTER[0]), -(-nb // infonce.CLUSTER[1]))
+    assert 1 <= u <= n_rows and 1 <= v <= n_cols and u - 1 + v - 1 <= infonce.MAX_PLANES
+    covered = np.zeros((n_rows, n_cols), np.int64)
+    for cu in range(u):
+        rows = slice(cu * n_rows // u, (cu + 1) * n_rows // u)
+        for cv in range(v):
+            cols = slice(cv * n_cols // v, (cv + 1) * n_cols // v)
+            assert rows.stop > rows.start and cols.stop > cols.start
+            covered[rows, cols] += 1
+    assert (covered == 1).all()
+
+
+@pytest.mark.parametrize("b", POOLS)
+def test_sweep_takes_the_fewest_waves_of_steps(b):
+    """The sweep's clusters run in waves of what the card holds at once: no
+    U x V within the plane limit takes fewer waves times steps a cluster,
+    nor as few with fewer planes."""
+    u, v = infonce.sweep_clusters(b, H100_CLUSTERS)
+    n_rows, n_cols = infonce.super_blocks(b)
+
+    def cost(a, c):
+        return -(-a * c // H100_CLUSTERS) * -(-n_rows // a) * -(-n_cols // c)
+
+    for a in range(1, n_rows + 1):
+        for c in range(1, n_cols + 1):
+            if a + c - 2 <= infonce.MAX_PLANES:
+                assert (cost(u, v), u + v) <= (cost(a, c), a + c)
+
+
+@pytest.mark.parametrize("b,uv", [(256, (1, 1)), (512, (2, 2)), (1024, (4, 4)),
+                                  (4096, (2, 3))])
+def test_sweep_at_the_measured_pools(b, uv):
+    """At 1024 sixteen clusters of one step (three waves) and at 4096 six of
+    48 steps (one wave): the shapes the card's readings chose."""
+    assert infonce.sweep_clusters(b, H100_CLUSTERS) == uv
+
+
+# the split design's backward (tools/probe_infonce_ffma.cu) on 132 SMs:
+# splits of the other side's tiles, each a (B, D) partial per role
+SPLITS_BEFORE = {256: 4, 1024: 8, 4096: 3}
+
+
+@pytest.mark.parametrize("b", POOLS)
+def test_partial_planes_are_fewer_than_the_split_design(b):
+    """K3's backward writes U - 1 + V - 1 partial planes of B x D (range 0
+    sums into dX and dY themselves), fewer floats than the split design's
+    2 x splits x B x D where it was measured; one cluster has none."""
+    u, v = infonce.sweep_clusters(b, H100_CLUSTERS)
+    got = infonce.partial_floats(b, 128, H100_CLUSTERS)
+    assert got == (u - 1 + v - 1) * b * 128
+    if u * v == 1:
+        assert got == 0
+    if b in SPLITS_BEFORE:
+        assert got < 2 * SPLITS_BEFORE[b] * b * 128
+
+
+@pytest.mark.parametrize("b,k2,k3", [(1, 2, 3), (64, 2, 3), (65, 2, 3), (256, 2, 3), (257, 2, 4),
+                                     (1000, None, 4), (1024, None, 4), (4096, None, 4),
+                                     (65536, None, 4)])
+def test_kernels_per_call(b, k2, k3):
+    """Device kernels of a forward plus backward: K2 two (its cluster
+    launch and the cotangent's scale) up to K2_MAX_POOL, and refuses more;
+    K3 three (tiles, combine, one sweeping cluster) or four (with the
+    reduce of partial planes). No fill kernel in either."""
+    assert infonce.kernels_per_call(b, True, H100_CLUSTERS) == k3
+    if k2 is None:
+        assert b > infonce.K2_MAX_POOL
+        with pytest.raises(ValueError, match="K2 takes pools up to"):
+            infonce.kernels_per_call(b, False, H100_CLUSTERS)
+    else:
+        assert infonce.kernels_per_call(b, False, H100_CLUSTERS) == k2
 
 
 def test_scratch_covers_every_partial():
-    """4 partial planes of ceil(B/64) x B floats, diag, one loss term per
-    256-index combine block."""
-    assert infonce.scratch_floats(1) == 4 + 1 + 1
-    assert infonce.scratch_floats(256) == 4 * 4 * 256 + 256 + 1
-    assert infonce.scratch_floats(1000) == 4 * 16 * 1000 + 1000 + 4
+    """K3's forward: 4 partial planes of ceil(B/64) x B floats, and diag."""
+    assert infonce.scratch_floats(1) == 4 + 1
+    assert infonce.scratch_floats(256) == 4 * 4 * 256 + 256
+    assert infonce.scratch_floats(1000) == 4 * 16 * 1000 + 1000

@@ -341,3 +341,17 @@ def test_chip_smoke_refuses_without_cuda():
                          text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_kernels_line_holds_no_computed_time():
+    """chip_smoke.py's kernels line keeps what the run measured and bound_ms:
+    the ceilings and floors the timing rows work out stay off it, at every
+    depth."""
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+
+    row = {"ms": 1.0, "bound_ms": 0.5, "cuda_core_ceiling_ms": 2.0, "launch_floor_ms": 0.1,
+           "exp_floor_ms": 0.3, "at_4096": {"ms": 3.0, "cuda_core_ceiling_ms": 4.0},
+           "dense": [{"ms": 5.0, "exp_floor_ms": 0.2}], "topk": {"ffma_ceiling_ms": 0.06}}
+    assert chip_smoke.measured_only([row]) == [
+        {"ms": 1.0, "bound_ms": 0.5, "at_4096": {"ms": 3.0}, "dense": [{"ms": 5.0}], "topk": {}}]
