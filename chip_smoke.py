@@ -25,8 +25,11 @@ and a nonzero exit code, and no result line:
                 ops.attention.attention_reference at the serving shapes
                 and at T around a tile (65, 127, 128, 129) (NH=20, dh=32,
                 bf16), with padded rows (fully padded query rows included)
-                and packed rows (several segments, gap zeros); its
-                statistics against attention_reference_lse (LSE_ATOL). K4 (FILIP masked max-sim) against
+                and packed rows (several segments, gap zeros), among them
+                the segments of the last chunk of each side of cli.main
+                --packed's first global batch on the fixture, (16, 128)
+                and (16, 256) with their all-<pad> rows; its statistics
+                against attention_reference_lse (LSE_ATOL). K4 (FILIP masked max-sim) against
                 ops.filip.maxsim_reference at the scorer's shapes (D=128,
                 f32), with padded masks, an all-masked a-row and b-row, a
                 b-row whose second tile holds one valid token, token counts
@@ -106,9 +109,23 @@ and a nonzero exit code, and no result line:
                 forward and once backward; per eval batch K1 60 times and K2
                 once. cli.embed embeds with each run's best_model.npz (the
                 finetuned backbone; the adapters merged into the base).
+                Then cli.main --packed at the defaults (global batch 256,
+                flat packing, chunks of 16 packed rows) for one epoch: the
+                artifacts; the backbone's chunk forwards, and K1 30 times
+                each, exactly as many as the loaders' batches take when
+                packed again here (packed_epoch_chunks); K2 once forward
+                and once backward per step and once forward per eval batch;
+                cli.embed with its best_model.npz. The 256 pairs' pooled
+                embeddings through embed_packed (K1 on packed segments)
+                against the grouped path (K1 on padded rows): cosine >=
+                COSINE_MIN per row; one packed step run twice from the same
+                state and generator seed gives the same loss and heads to
+                the bit; one packed and one grouped step under
+                torch.profiler: kernel launches and device busy share.
 8. step check   one default train step with K2 and one with the plain loss
                 from the same heads and batch (dropout 0, Adam lr 1e-3), at
-                256 and, with K3, at 1024: loss within 1e-5 relative,
+                256 and, with K3, at 1024, and one packed step with K2 at
+                256: loss within 1e-5 relative,
                 gradients within 1e-5 of each leaf's largest, parameters
                 within the bound Adam's first update puts on them. One
                 finetune step at 256 (dropout 0) from the same weights and
@@ -172,8 +189,8 @@ and a nonzero exit code, and no result line:
                 parts called without HTTP. The train step in pairs/s at
                 global batch 256 (median over the steps after the first of
                 run 1, by CUDA events recorded after each step, with no sync
-                inside the epoch), and the same for the finetune, LoRA and
-                int8 runs.
+                inside the epoch), and the same for the packed, finetune,
+                LoRA and int8 runs.
 
 The last three lines of standard output are the card's name and power
 limit, the kernels line (one JSON object per hand-written kernel) and
@@ -205,13 +222,15 @@ import torch
 from protein_clip_tpu_torch.cli import common, embed, main as train_cli, retrieve, serve
 from protein_clip_tpu_torch.data import dataset
 from protein_clip_tpu_torch.data.fasta import sequences_only
+from protein_clip_tpu_torch.data.prefetch import to_device
 from protein_clip_tpu_torch.data.synthetic import write_fixture
 from protein_clip_tpu_torch.eval import retrieval
 from protein_clip_tpu_torch.kernels import build
 from protein_clip_tpu_torch.models import clip, esm2, filip
 from protein_clip_tpu_torch.ops import attention, dense_mm, ffn, infonce
 from protein_clip_tpu_torch.ops import filip as maxsim
-from protein_clip_tpu_torch.train import checkpoint, clip_engine, finetune, lora, optimizer
+from protein_clip_tpu_torch.train import (checkpoint, clip_engine, finetune, lora, optimizer,
+                                          packed_engine)
 from protein_clip_tpu_torch.train.checkpoint import export_npz
 
 ROOT = Path(__file__).resolve().parent
@@ -415,13 +434,38 @@ def packed_segments(B: int, T: int) -> torch.Tensor:
     return seg.cuda()
 
 
+def fixture_packed_segments() -> list[tuple[str, torch.Tensor]]:
+    """The segment ids K1 takes in the last backbone chunk of each side of
+    ``cli.main --packed``'s first global batch on the fixture, as
+    derive_segments gives them: rows of 2-11 segments, each with one gap at
+    its end, and the all-<pad> rows that _row_multiple_for adds (that chunk
+    holds them; it raises if it does not)."""
+    data_dir = WORK / "train_data"
+    if not (data_dir / "receptor.fasta").exists():
+        write_fixture(data_dir, n_families=FIXTURE_FAMILIES, seed=42)
+    train, _, _ = epoch_loaders(data_dir)
+    batch = packed_engine.tokenize_packed(common.make_tokenizer(),
+                                          *next(clip_engine._accumulate(train, 16)))
+    out = []
+    for side in ("pep", "rec"):
+        seg = packed_engine.derive_segments(batch[f"{side}_ids"].cuda())[1]
+        chunk = seg[-chunk_rows(seg.shape[0]):].contiguous()
+        pad_rows = int((chunk.amax(1) == 0).sum())
+        if not pad_rows:
+            raise AssertionError(f"the last {side} chunk {tuple(chunk.shape)} has no <pad> row")
+        out.append((f"packed, cli.main --packed {side} chunk, {pad_rows} rows all <pad>", chunk))
+    return out
+
+
 def attention_cases(gen: torch.Generator) -> list:
     """(B, T, kind, q, k, v, segments) for K1: padded rows (fully padded
-    query rows included) at KERNEL_SHAPES, packed rows at three shapes."""
+    query rows included) at KERNEL_SHAPES, synthetic packed rows at three
+    shapes, and the packed path's own segments at (16, 128) and (16, 256)."""
     cases = [(B, T, "padded", padded_segments(B, T)) for B, T in KERNEL_SHAPES]
     cases += [(4, 512, "packed", packed_segments(4, 512)), (2, 129, "packed",
                                                             packed_segments(2, 129)),
               (1, 2048, "packed", packed_segments(1, 2048))]
+    cases += [(*seg.shape, kind, seg) for kind, seg in fixture_packed_segments()]
     return [(B, T, kind, *qkv(B, T, gen), seg) for B, T, kind, seg in cases]
 
 
@@ -449,7 +493,7 @@ def k1_readings(cases: list) -> list[dict]:
         lse_err = (float((lse[~pad] - want[~pad]).abs().max()) if bool((~pad).any()) else 0.0)
         if not torch.equal(torch.isinf(lse), pad):
             lse_err = math.inf
-        rows.append({"case": f"B={B} T={T} {kind}", "packed": kind == "packed",
+        rows.append({"case": f"B={B} T={T} {kind}", "packed": kind.startswith("packed"),
                      "max_abs_err": err, "need": need, "lse_err": lse_err})
     return rows
 
@@ -1559,6 +1603,187 @@ def run_train_phase() -> dict:
     return out
 
 
+def chunk_rows(R: int) -> int:
+    """The rows of each backbone chunk of a pack of R rows: the most equal
+    chunks, at most R // 16 of them, that divide R."""
+    return R // max([d for d in range(1, R // 16 + 1) if R % d == 0], default=1)
+
+
+def packed_chunks(batch: dict) -> list[tuple[int, int]]:
+    """The (rows, L) of each backbone chunk a packed batch takes."""
+    out = []
+    for side in ("pep", "rec"):
+        R, L = batch[f"{side}_ids"].shape
+        out += [(chunk_rows(R), L)] * (R // chunk_rows(R))
+    return out
+
+
+def epoch_loaders(data_dir: Path) -> tuple:
+    """The train, val and test loaders of ``cli.main``'s first epoch at the
+    defaults, as the run builds and reseeds them (the test loader keeps its
+    first draws)."""
+    train_ds, val_ds, test_ds = dataset.generate_datasets(data_dir, seed=42)
+    train, val, test = (dataset.PairLoader(ds, 16, shuffle=ds is train_ds, seed=42)
+                        for ds in (train_ds, val_ds, test_ds))
+    train.reseed_epoch(0)
+    val.reseed_epoch(0)
+    return train, val, test
+
+
+def packed_epoch_chunks(data_dir: Path) -> tuple[list, list]:
+    """The backbone chunks of each step and each eval batch of ``cli.main
+    --packed``'s first epoch at the defaults."""
+    train, val, test = epoch_loaders(data_dir)
+    tok = common.make_tokenizer()
+    steps = [packed_chunks(packed_engine.tokenize_packed(tok, p, r))
+             for p, r in clip_engine._accumulate(train, 16)]
+    evals = [packed_chunks(packed_engine.tokenize_packed(tok, p, r))
+             for loader in (val, test) for p, r in loader]
+    return steps, evals
+
+
+def run_packed_train(data_dir: Path) -> dict:
+    """cli.main --packed for one epoch at the defaults (global batch 256,
+    flat packing, 16 rows a chunk); checks the artifacts and every kernel's
+    launch count against the chunks the loaders' batches take."""
+    runs = WORK / "runs_train_packed"
+    t0 = time.perf_counter()
+    with counted_forwards() as forwards, timed_steps() as ends:
+        reset_counts()
+        train_cli.main(["--synthetic-fixture", "--data-dir", str(data_dir), "--fixture-families",
+                        str(FIXTURE_FAMILIES), "--epochs", "1", "--runs-dir", str(runs),
+                        "--packed"])
+        k1 = attention.fused_attention.launches
+        counts = infonce_counts()
+        check_default_path("train_packed")
+    wall = time.perf_counter() - t0
+    run = check_run_dir(runs)
+    steps, evals = packed_epoch_chunks(data_dir)
+    want_forwards = [c for chunks in steps + evals for c in chunks]
+    want = {"infonce": (len(steps) + len(evals), len(steps)), "infonce_tiled": (0, 0)}
+    if (len(ends), sorted(forwards), k1) != (len(steps), sorted(want_forwards),
+                                             30 * len(want_forwards)):
+        raise AssertionError(f"train_packed: {len(ends)} steps (want {len(steps)}), "
+                             f"{len(forwards)} chunk forwards (want {len(want_forwards)}), "
+                             f"attention_fwd {k1} (want {30 * len(want_forwards)})")
+    if counts != want:
+        raise AssertionError(f"train_packed: InfoNCE (forward, backward) calls {counts}, "
+                             f"want {want}")
+    metrics = json.loads((run / "metrics.jsonl").read_text().splitlines()[0])
+    per_step = sum(map(len, steps)) / len(steps)
+    log(f"[train] train_packed: global batch 256 packed, {len(steps)} steps, {len(evals)} eval "
+        f"batches of 16; train loss {metrics['train_loss']:.6f}, val loss "
+        f"{metrics['val_loss']:.6f}; chunk forwards (rows, L) of the first step {steps[0]}, "
+        f"{per_step:.2f} a step (the grouped step: 32); attention_fwd {k1} = 30 per chunk "
+        f"forward; InfoNCE (forward, backward) calls {counts}; epoch {metrics['seconds']:.2f} s, "
+        f"cli.main {wall:.2f} s")
+    return {"run": run, "steps": len(steps), "ends": ends, "chunks_per_step": per_step,
+            "launches": {"attention_fwd": k1,
+                         "filip_maxsim": maxsim.filip_similarity_fused.launches,
+                         **{k: v[0] for k, v in counts.items()}},
+            "bwd": {k: v[1] for k, v in counts.items()}}
+
+
+def packed_setup(n: int = 256):
+    """t30_150M bf16 with the seeded weights of the train runs, CLIP heads
+    (seed SEED, dropout 0.1), and the first n training pairs of the fixture."""
+    cfg_esm = common.esm_config("t30_150M", "bfloat16")
+    mcfg = clip.CLIPConfig(input_dim=cfg_esm.hidden_size, esm=cfg_esm)
+    esm_params = esm2.init_params(cfg_esm, torch.Generator(device="cuda").manual_seed(0),
+                                  dtype=torch.bfloat16, device="cuda")
+    heads0 = clip.init_params(mcfg, torch.Generator().manual_seed(SEED), device="cuda")
+    train_ds, _, _ = dataset.generate_datasets(WORK / "train_data", seed=42)
+    peps, recs = next(clip_engine._accumulate(dataset.PairLoader(train_ds, n // 16, seed=SEED),
+                                              16))
+    return mcfg, esm_params, heads0, peps, recs
+
+
+def check_packed_paths() -> dict:
+    """The 256 pairs' pooled embeddings in eval mode through the packed path
+    (K1 on packed segments) against the grouped path (4 length groups, K1
+    on padded rows): cosine >= COSINE_MIN per row on both sides. Then one
+    packed train step (dropout 0.1) run twice from the same heads, Adam
+    state and generator seed: the same loss and the same updated heads, to
+    the bit."""
+    mcfg, esm_params, heads0, peps, recs = packed_setup()
+    tok = common.make_tokenizer()
+    before = attention.fused_attention.launches
+    packed = to_device(packed_engine.tokenize_packed(tok, peps, recs), "cuda")
+    got = packed_engine.embed_packed(heads0, esm_params, packed, mcfg)
+    k1_packed = attention.fused_attention.launches - before
+    order = sorted(range(len(recs)), key=lambda i: len(recs[i]))   # tokenize_grouped's order
+    with torch.inference_mode():
+        pairs = [clip.forward(heads0, esm_params, clip_engine.expand_batch(to_device(b, "cuda")),
+                              mcfg)
+                 for b in clip_engine.tokenize_grouped(tok, peps, recs, 4)]
+    inv = torch.argsort(torch.tensor(order, device="cuda"))
+    cos = {side: row_cosines(g.cpu().numpy(),
+                             torch.cat([p[j] for p in pairs])[inv].cpu().numpy())
+           for j, (side, g) in enumerate(zip(("pep", "rec"), got))}
+    cos_min = min(float(c.min()) for c in cos.values())
+    log(f"[packed] embed_packed ({len(packed_chunks(packed))} chunk forwards, attention_fwd "
+        f"{k1_packed}) against the grouped path on the same {len(recs)} pairs: cosine min pep "
+        f"{float(cos['pep'].min()):.6f}, rec {float(cos['rec'].min()):.6f} (>= {COSINE_MIN})")
+    if cos_min < COSINE_MIN or k1_packed != 30 * len(packed_chunks(packed)):
+        raise AssertionError(f"packed embeddings: cosine {cos_min}, attention_fwd {k1_packed}")
+
+    cfg = clip_engine.EngineConfig(model=mcfg, packed=True)
+    runs = []
+    for _ in range(2):
+        params = clone_tree(heads0)
+        state = optimizer.adam(TRAIN_LR).init(params)
+        _, _, loss = clip_engine.make_train_step(cfg)(
+            params, state, esm_params, packed, torch.Generator(device="cuda").manual_seed(1))
+        runs.append((loss.cpu(), checkpoint._flatten(params)))
+    (la, pa), (lb, pb) = runs
+    same = bool(torch.equal(la, lb)) and all(torch.equal(pa[k], pb[k]) for k in pa)
+    log(f"[packed] one packed train step twice from the same state (dropout 0.1, same "
+        f"generator seed): losses {float(la):.9f}, {float(lb):.9f}; heads after the step "
+        f"{'equal' if same else 'DIFFER'} to the bit")
+    if not same:
+        raise AssertionError("the packed train step is not deterministic")
+    return {"cos_min": cos_min, "k1_embed": k1_packed, "deterministic": same}
+
+
+def launches_per_step(packed: bool) -> dict:
+    """Kernel launches and device busy time of one frozen train step at
+    global batch 256 (packed, or 4 length groups) under torch.profiler."""
+    mcfg, esm_params, heads0, peps, recs = packed_setup()
+    cfg = clip_engine.EngineConfig(model=mcfg, packed=packed, length_groups=4)
+    batch = to_device(clip_engine._prepare(common.make_tokenizer(), cfg)(peps, recs), "cuda")
+    step = clip_engine.make_train_step(cfg)
+    params = clone_tree(heads0)
+    state = optimizer.adam(TRAIN_LR).init(params)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    step(params, state, esm_params, batch, gen)                 # warm
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(params, state, esm_params, batch, gen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    out = {"launches": sum(e.count for e in kernels), "busy_ms": busy_ms,
+           "busy_share": busy_ms / (1e3 * wall)}
+    log(f"[packed] one {'packed' if packed else 'grouped'} step under torch.profiler: "
+        f"{out['launches']} kernel launches, device busy {busy_ms:.4f} ms of "
+        f"{1e3 * wall:.4f} ms ({100 * out['busy_share']:.2f}%)")
+    return out
+
+
+def run_packed_phase() -> dict:
+    data_dir = WORK / "train_data"
+    out = run_packed_train(data_dir)
+    embed_check(out["run"] / "best_model.npz", sequences_only(data_dir / "receptor.fasta"),
+                "the packed run's best_model.npz")
+    out["paths"] = check_packed_paths()
+    out["per_step"] = {"packed": launches_per_step(True), "grouped": launches_per_step(False)}
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Phase 8: one train step through K2 / K3 against the plain loss
 # ---------------------------------------------------------------------------
@@ -1580,11 +1805,12 @@ def clone_tree(tree):
     return {k: clone_tree(v) for k, v in tree.items()} if isinstance(tree, dict) else tree.clone()
 
 
-def step_readings(pool: int) -> dict:
+def step_readings(pool: int, packed: bool = False) -> dict:
     """One frozen train step at global batch ``pool`` through K2 or K3 (by
     clip_engine's rule) and through the plain loss, from the same heads and
-    batch: the loss within 1e-5 relative and the gradients within 1e-5 of
-    each leaf's largest. Adam's first update is lr g / (|g| + eps): when g
+    batch (4 length groups, or with ``packed`` one packed batch): the loss
+    within 1e-5 relative and the gradients within 1e-5 of each leaf's
+    largest. Adam's first update is lr g / (|g| + eps): when g
     moves by dg it moves by at most 2 lr |dg| / (max|g| + eps), which near
     g = 0 turns f32 noise into up to lr; each updated parameter is held to
     that bound plus 1e-6, and the count beyond a flat 1e-5 is printed.
@@ -1592,7 +1818,7 @@ def step_readings(pool: int) -> dict:
     cfg_esm = common.esm_config("t30_150M", "bfloat16")
     mcfg = clip.CLIPConfig(input_dim=cfg_esm.hidden_size, dropout=0.0, esm=cfg_esm)
     cfg = clip_engine.EngineConfig(model=mcfg, batch_size=pool // 16, accumulated_batches=16,
-                                   length_groups=4)
+                                   length_groups=4, packed=packed)
     esm_params = esm2.init_params(cfg_esm, torch.Generator(device="cuda").manual_seed(0),
                                   dtype=torch.bfloat16, device="cuda")
     data_dir = WORK / "train_data"
@@ -1601,8 +1827,7 @@ def step_readings(pool: int) -> dict:
     train_ds, _, _ = dataset.generate_datasets(data_dir, seed=42)
     loader = dataset.PairLoader(train_ds, pool // 16, seed=SEED)
     peps, recs = next(clip_engine._accumulate(loader, 16))
-    batch = tuple({k: v.cuda() for k, v in b.items()} for b in clip_engine.tokenize_grouped(
-        common.make_tokenizer(), peps, recs, 4))
+    batch = to_device(clip_engine._prepare(common.make_tokenizer(), cfg)(peps, recs), "cuda")
     heads0 = clip.init_params(mcfg, torch.Generator().manual_seed(SEED), device="cuda")
     kernel = loss_kernel(pool)
     kernel_fn = getattr(infonce, "fused_infonce" if kernel == "infonce"
@@ -1631,7 +1856,8 @@ def step_readings(pool: int) -> dict:
         over_flat += int((d > 1e-5).sum())
         n += d.numel()
     ok = loss_err <= 1e-5 and grad_err <= 1e-5 and over_bound == 0
-    log(f"[step] global batch {pool} through {kernel} vs the plain loss (dropout 0, Adam "
+    log(f"[step] global batch {pool}{' packed' if packed else ''} through {kernel} vs the "
+        f"plain loss (dropout 0, Adam "
         f"lr {TRAIN_LR:g}): loss {lk:.6f} vs {lp:.6f}, relative |err| {loss_err:.3g} (tolerance "
         f"1e-5); gradients max |err| / leaf max {grad_err:.3g} (tolerance 1e-5); updated "
         f"params max |err| {param_err:.3g}, {over_bound} of {n} past Adam's bound, {over_flat} "
@@ -1640,12 +1866,12 @@ def step_readings(pool: int) -> dict:
             "param_max_abs_err": param_err, "over_bound": over_bound, "ok": ok}
 
 
-def check_step(pool: int) -> dict:
+def check_step(pool: int, packed: bool = False) -> dict:
     """step_readings, which must be within their limits."""
-    r = step_readings(pool)
+    r = step_readings(pool, packed)
     if not r["ok"]:
-        raise AssertionError(f"the train step through {r['kernel']} disagrees with the plain "
-                             f"loss")
+        raise AssertionError(f"the {'packed ' if packed else ''}train step through "
+                             f"{r['kernel']} disagrees with the plain loss")
     return {k: r[k] for k in ("loss_rel_err", "grad_rel_err", "param_max_abs_err")}
 
 
@@ -2298,7 +2524,7 @@ def time_train_steps(tctx: dict, run: str, what: str, gpu: str) -> float:
     ends = tctx[run]["ends"]
     dts = [a.elapsed_time(b) / 1e3 for a, b in zip(ends, ends[1:])]
     rate = 256 / statistics.median(dts)
-    log(f"[time] {what} at global batch 256 (t30_150M, 16 chunks): {rate:.4f} pairs/s, "
+    log(f"[time] {what} at global batch 256 (t30_150M): {rate:.4f} pairs/s, "
         f"median of {len(dts)} steps after the first ({1e3 * min(dts):.2f}-"
         f"{1e3 * max(dts):.2f} ms per step, by CUDA events); fixture {tctx['profile']} | {gpu}")
     return rate
@@ -2634,7 +2860,9 @@ def main() -> int:
         try:
             check_filip_end_to_end(ctx, fctx)
             tctx = run_train_phase()
+            pctx = run_packed_phase()
             steps = {"k2": check_step(256), "k3": check_step(1024),
+                     "packed": check_step(256, packed=True),
                      "finetune": check_finetune_step(fault_libs)}
             ictx = run_int8_serve_phase(ctx)
             try:
@@ -2653,8 +2881,10 @@ def main() -> int:
                 with ffn_gate():
                     serving["k6"] = time_serving(ctx, rng, gpu, "PCT_FFN_PALLAS=1")
                 time_filip_serving(ctx, fctx, rng, gpu)
+                tctx["packed"] = pctx
                 pairs_per_s = {run: time_train_steps(tctx, run, what, gpu) for run, what in (
                     ("k2", "frozen train step (4 length groups)"),
+                    ("packed", "packed frozen train step (flat packing)"),
                     ("finetune", "finetune step (one pad bucket, remat)"),
                     ("lora", f"LoRA step (rank {LORA_RANK}, one pad bucket, remat)"))}
                 pairs_per_s["int8"] = time_train_steps(
@@ -2671,6 +2901,7 @@ def main() -> int:
 
     paths = {"serve": ctx["launches"], "filip_serve": fctx["launches"],
              "train_256": tctx["k2"]["launches"], "train_1024": tctx["k3"]["launches"],
+             "train_packed": pctx["launches"],
              "train_finetune": tctx["finetune"]["launches"],
              "train_lora": tctx["lora"]["launches"], "int8_serve": ictx["launches"],
              "int8_train": i8train["launches"], "k6_serve": k6ctx["launches"]}
@@ -2684,6 +2915,9 @@ def main() -> int:
         "launches": ctx["launches"]["attention_fwd"],
         "launches_by_path": by_path["attention_fwd"], "max_abs_err": max_err, **times,
         "fault": {k: fault_reads[k] for k in ("attention_fwd_swept_tiles", "attention_fwd_skip")},
+        "train_packed": {"launches": pctx["launches"]["attention_fwd"],
+                         "chunk_forwards_per_step": pctx["chunks_per_step"],
+                         "cos_min_vs_grouped": pctx["paths"]["cos_min"]},
     }, {
         "name": "attention_bwd", "phase": "train_finetune", "route": "cuda",
         "source": "protein_clip_tpu_torch/csrc/attention_bwd.cu",
@@ -2713,6 +2947,11 @@ def main() -> int:
         **nce_times["infonce"][0], "step_check": steps["k2"],
         "fault": {k: fault_reads[k] for k in ("infonce_tf32", "infonce_partial")},
         "train_pairs_per_s": pairs_per_s["k2"], "dispatch": dispatch,
+        "train_packed": {"launches": pctx["launches"]["infonce"],
+                         "bwd_launches": pctx["bwd"]["infonce"], "step_check": steps["packed"],
+                         "pairs_per_s": pairs_per_s["packed"],
+                         "deterministic": pctx["paths"]["deterministic"],
+                         "launches_per_step": pctx["per_step"]},
     }, {
         "name": "infonce_tiled", "phase": "train_1024", "route": "cuda",
         "source": "protein_clip_tpu_torch/csrc/infonce.cu",

@@ -1,7 +1,8 @@
 """The CLIP training run behind ``main.py`` and ``main_2protein.py``: the
 port of ``protein_clip_tpu/cli/_clip_runner.run_clip_training`` on one
-device, for the frozen backbone and the unfrozen modes (``--finetune``,
-``--lora-rank``), which train on one pad bucket (``length_groups`` 1).
+device, for the frozen backbone (length-grouped, or packed with
+``--packed``) and the unfrozen modes (``--finetune``, ``--lora-rank``),
+which train on one pad bucket (``length_groups`` 1).
 
 The figures of the TPU package's run (``viz/plots.py``: lengths, clusters,
 cosine heatmaps, loss curves) need matplotlib and are not ported: the run
@@ -69,6 +70,7 @@ def run_clip_training(args, *, prefix_a: str, prefix_b: str,
         model=mcfg, batch_size=args.batch_size, accumulated_batches=args.accumulated_batches,
         learning_rate=args.lr, num_chunks=args.num_chunks,
         length_groups=1 if args.no_gradcache or unfrozen else args.length_groups,
+        packed=args.packed and not args.no_gradcache, packed_tiers=args.pack_tiers,
         backbone_lr=args.backbone_lr, weight_decay=args.weight_decay,
         warmup_steps=args.warmup_steps, lr_schedule=args.lr_schedule, grad_clip=args.grad_clip,
         total_steps=args.epochs * steps_per_epoch)

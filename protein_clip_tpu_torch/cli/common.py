@@ -79,7 +79,14 @@ def add_train_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--grad-clip", type=float, default=0.0,
                    help="> 0: clip gradients to this global L2 norm before Adam")
     p.add_argument("--packed", action="store_true",
-                   help="sequence-packed encoding (not ported yet: raises)")
+                   help="sequence-packed encoding (segment-masked rows; supersedes "
+                        "--length-groups; train/packed_engine.py). Frozen backbone only: "
+                        "with --finetune or --lora-rank it raises (not ported yet); with "
+                        "--no-gradcache it is ignored")
+    p.add_argument("--pack-tiers", type=int, default=1,
+                   help="with --packed: >1 packs each side into width-tiered row groups "
+                        "(short sequences ride narrower rows, cutting attention cost on "
+                        "long-tailed length distributions); not ported yet: > 1 raises")
     p.add_argument("--finetune", action="store_true",
                    help="unfreeze the ESM-2 backbone: end-to-end training via the two-pass "
                         "gradcache and the attention backward K5 (train/finetune.py; the "
@@ -109,9 +116,10 @@ def add_mesh_args(p: argparse.ArgumentParser) -> None:
 
 
 def check_train_args(args) -> None:
-    """Raise on the training options this port does not run yet, on
-    --finetune with --lora-rank (as the TPU package does), and on either of
-    them with --esm-dtype int8, before anything is loaded."""
+    """Raise on the training options this port does not run yet (--packed
+    with an unfrozen mode or width tiers, resume, a mesh), on --finetune
+    with --lora-rank (as the TPU package does), and on either of them with
+    --esm-dtype int8, before anything is loaded."""
     if args.finetune and args.lora_rank:
         raise SystemExit("--finetune and --lora-rank are mutually exclusive "
                          "(full vs parameter-efficient)")
@@ -122,8 +130,12 @@ def check_train_args(args) -> None:
             "backbone, and the int8 tree has no weights to train (the TPU package "
             "fails on it too); train with --esm-dtype bfloat16")
     refused = [
-        (args.packed, "--packed: the packed train step (ROADMAP queue 1: the packed "
-                      "CLIP train step, then the packed finetune and LoRA steps)"),
+        (args.packed and (args.finetune or args.lora_rank),
+         "--packed with --finetune or --lora-rank: the packed finetune and LoRA steps "
+         "(ROADMAP queue 1 item 2)"),
+        (args.packed and args.pack_tiers > 1,
+         f"--packed with --pack-tiers {args.pack_tiers}: width-tiered packing (ROADMAP "
+         "queue 1 item 9)"),
         (args.resume_dir is not None, "--resume-dir: train-state snapshots and resume "
                                       "(ROADMAP queue 1)"),
         ((args.dp, args.tp, args.pp) != (1, 1, 1), "--dp/--tp/--pp other than 1: "

@@ -250,8 +250,11 @@ def _rotate_half(x):
 
 
 def _apply_rope(x, cos, sin):
-    # x: (B, T, heads, dh); cos/sin: (T, dh)
-    return x * cos[None, :, None, :] + _rotate_half(x) * sin[None, :, None, :]
+    # x: (B, T, heads, dh); cos/sin: (T, dh) shared positions, or (B, T, dh)
+    # per-token positions (packed rows)
+    if cos.dim() == 2:
+        return x * cos[None, :, None, :] + _rotate_half(x) * sin[None, :, None, :]
+    return x * cos[:, :, None, :] + _rotate_half(x) * sin[:, :, None, :]
 
 
 def _dense(x, lp):
@@ -277,8 +280,9 @@ def _dense(x, lp):
 
 def _attention_block(x, p, mask_bias, segments, cos, sin, cfg: ESM2Config):
     """Pre-LN attention residual block in the (B, T, heads, dh) layout.
-    ``segments`` is the (B, T) int32 0/1 mask; ``mask_bias`` its additive
-    f32 form for the eager path."""
+    ``segments`` is (B, T) int32: the 0/1 mask of padded rows, or the
+    segment ids of packed rows; ``mask_bias`` its additive f32 form for the
+    eager path, None where K1 runs."""
     B, T, H = x.shape
     nh, dh = cfg.num_heads, cfg.head_dim
     h = _layer_norm(x, p["ln"]["w"], p["ln"]["b"], cfg.layer_norm_eps)
@@ -292,13 +296,19 @@ def _attention_block(x, p, mask_bias, segments, cos, sin, cfg: ESM2Config):
     return x + _dense(ctx.reshape(B, T, H), p["o"])
 
 
+def _uses_kernel(x, cfg: ESM2Config) -> bool:
+    return cfg.attention_impl == "fused" and x.is_cuda
+
+
 def _attend(q, k, v, mask_bias, segments, cfg: ESM2Config):
     """(B, T, heads, dh) attention context: K1 with ``attention_impl="fused"``
     on CUDA tensors (a pad query row averages v over all T keys), else the
-    eager form, which masks keys only (a pad query row attends to the valid
-    keys, as the TPU package's eager path does). Pooling drops pad rows, so
-    the two differ only there."""
-    if cfg.attention_impl == "fused" and q.is_cuda:
+    eager form. On padded rows the eager form masks keys only (a pad query
+    row attends to the valid keys, as the TPU package's eager path does), so
+    the two differ at pad rows, which pooling drops; on packed rows it masks
+    query and key (a gap query row is fully masked and softmaxes to the
+    uniform average), so the two agree everywhere."""
+    if _uses_kernel(q, cfg):
         return attention.fused_attention(q, k, v, segments)
     scores = torch.einsum("bqnd,bknd->bnqk", q.float(), k.float()) + mask_bias
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
@@ -326,18 +336,33 @@ def _wi_gelu(h, wi, cfg: ESM2Config):
     return _gelu(_dense(h, wi), cfg.gelu)
 
 
-def embed(params: Params, input_ids, attention_mask, cfg: ESM2Config):
+def embed(params: Params, input_ids, attention_mask, cfg: ESM2Config,
+          segment_ids: torch.Tensor | None = None):
     """Token embedding with ESM-2's token-dropout rescale: <mask> rows are
     zeroed and the rest divided by (1 - observed mask ratio) over the
-    sequence's TRUE length (transformers-4.32 / original-ESM semantics)."""
+    sequence's TRUE length (transformers-4.32 / original-ESM semantics).
+    With ``segment_ids`` (packed rows) the ratio is each segment's, so a
+    packed sequence sees the ratio it has alone."""
     x = params["embed"]["word"][input_ids.long()].to(cfg.compute_dtype)
     if cfg.token_dropout:
         is_mask = input_ids == cfg.mask_token_id
         x = torch.where(is_mask[..., None], torch.zeros((), dtype=x.dtype, device=x.device), x)
         mask_ratio_train = 0.15 * 0.8
-        src_len = attention_mask.sum(-1).clamp(min=1).float()
-        ratio_obs = is_mask.sum(-1).float() / src_len
-        scale = ((1.0 - mask_ratio_train) / (1.0 - ratio_obs))[:, None]
+        if segment_ids is None:
+            src_len = attention_mask.sum(-1).clamp(min=1).float()
+            ratio_obs = is_mask.sum(-1).float() / src_len
+            scale = ((1.0 - mask_ratio_train) / (1.0 - ratio_obs))[:, None]
+        else:
+            # per-segment counts, gathered back to tokens: a segment holds at
+            # least <cls> and <eos>, so ids stay below T // 2 + 2 (slot 0 takes
+            # the pads). The sums are of 0/1 values, exact in any order.
+            seg = segment_ids.long()
+            valid = (seg > 0).float()
+            slots = torch.zeros(seg.shape[0], seg.shape[1] // 2 + 2, device=seg.device)
+            cnt = slots.scatter_add(1, seg, valid)
+            msk = slots.scatter_add(1, seg, is_mask.float() * valid)
+            ratio_tok = torch.gather(msk / cnt.clamp(min=1.0), 1, seg)
+            scale = (1.0 - mask_ratio_train) / (1.0 - ratio_tok)      # (B, T)
         x = x * scale[..., None].to(x.dtype)
     return x * attention_mask[..., None].to(x.dtype)
 
@@ -348,20 +373,34 @@ def _layer_block(x, lp, mask_bias, segments, cos, sin, cfg: ESM2Config):
 
 
 def forward(params: Params, input_ids: torch.Tensor, attention_mask: torch.Tensor,
-            cfg: ESM2Config, remat: bool = False) -> torch.Tensor:
+            cfg: ESM2Config, remat: bool = False, segment_ids: torch.Tensor | None = None,
+            positions: torch.Tensor | None = None) -> torch.Tensor:
     """last_hidden_state (B, T, H) of (B, T) token ids and 0/1 mask. With
-    ``remat`` and autograd recording, each layer runs under
-    ``torch.utils.checkpoint`` (the TPU package's ``jax.checkpoint`` of the
-    layer): the backward recomputes the layer from its input, so a layer
-    keeps only that input alive."""
+    ``segment_ids`` and ``positions`` (packed rows, ``train/packed_engine``)
+    attention is block-diagonal per segment, RoPE restarts at each segment
+    and the token-dropout ratio is each segment's, so every packed sequence
+    computes what it would alone. With ``remat`` and autograd recording,
+    each layer runs under ``torch.utils.checkpoint`` (the TPU package's
+    ``jax.checkpoint`` of the layer): the backward recomputes the layer from
+    its input, so a layer keeps only that input alive."""
     B, T = input_ids.shape
-    x = embed(params, input_ids, attention_mask, cfg)
-    if cfg.attention_impl == "fused" and x.is_cuda:
+    x = embed(params, input_ids, attention_mask, cfg, segment_ids=segment_ids)
+    if _uses_kernel(x, cfg):
         attention.check_config(cfg.compute_dtype, cfg.head_dim)
-    neg = torch.finfo(torch.float32).min
-    mask_bias = (1.0 - attention_mask[:, None, None, :].float()) * neg
+        mask_bias = None
+    elif segment_ids is not None:
+        # query and key: a gap query row is fully masked, as K1 treats it
+        allowed = ((segment_ids[:, :, None] == segment_ids[:, None, :])
+                   & (segment_ids > 0)[:, None, :])
+        mask_bias = torch.where(allowed[:, None], 0.0, torch.finfo(torch.float32).min)
+    else:
+        neg = torch.finfo(torch.float32).min
+        mask_bias = (1.0 - attention_mask[:, None, None, :].float()) * neg
     cos, sin = _rope_tables(T, cfg.head_dim, cfg.compute_dtype, x.device)
-    segments = attention_mask.to(torch.int32).contiguous()
+    if positions is not None:
+        cos, sin = cos[positions.long()], sin[positions.long()]      # (B, T, dh)
+    # a 0/1 mask is the one-segment case of segment ids
+    segments = (attention_mask if segment_ids is None else segment_ids).to(torch.int32).contiguous()
     checkpoint = remat and torch.is_grad_enabled()
     for lp in _layers(params["layers"], cfg.num_layers):
         if checkpoint:

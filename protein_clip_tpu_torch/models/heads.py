@@ -127,7 +127,14 @@ def encode_pooled(params: Params, hidden: torch.Tensor, mask: torch.Tensor,
     """Full head pipeline -> scaled pooled embedding (B, D)."""
     drop = dict(dropout_rate=dropout_rate, train=train, generator=generator)
     x = encode_tokens(params, hidden, activation, **drop)
-    pooled = apply_ffn(params["emb_ffn"], masked_mean(x, mask), activation, **drop)
+    return finish_pooled(params, masked_mean(x, mask), temperature, activation, **drop)
+
+
+def finish_pooled(params: Params, pooled: torch.Tensor, temperature: torch.Tensor,
+                  activation: str = "relu", **dropout) -> torch.Tensor:
+    """The pooled FFN, L2 normalisation and the exp(t/2) scale of (B, D)
+    pooled token embeddings; ``dropout`` takes ``apply_ffn``'s keywords."""
+    pooled = apply_ffn(params["emb_ffn"], pooled, activation, **dropout)
     sq = pooled.float().square().sum(-1, keepdim=True).to(pooled.dtype)
     normed = pooled * torch.rsqrt(sq + torch.finfo(torch.float32).tiny)
     return normed * torch.exp(temperature.to(normed.dtype) / 2.0)

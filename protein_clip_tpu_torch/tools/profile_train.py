@@ -1,23 +1,26 @@
 """Where the time of one CLIP train step goes, on the card: the frozen
-backbone (default), ``--finetune`` or ``--lora-rank R``.
+backbone (default), the frozen backbone over packed rows (``--packed``),
+``--finetune`` or ``--lora-rank R``.
 
     python -m protein_clip_tpu_torch.tools.profile_train [--batch-size 16]
-        [--finetune | --lora-rank 8]
+        [--packed | --finetune | --lora-rank 8]
 
 Builds ESM-2 t30_150M in bf16 with seeded random weights and CLIP heads on
 the GPU, and global batches of batch-size x 16 pairs drawn from the seeded
 synthetic corpus of 3000 families (receptors 60-180 aa, peptides 8-30 aa),
 tokenized as ``cli.main`` does: into 4 length groups for the frozen step,
-into one pad bucket for the unfrozen ones. Then, for the step of that mode
-(16 chunks, dropout 0.1, Adam; the unfrozen steps with their two
-learning-rate groups, per-layer remat and an f32 master backbone or rank-R
-adapters):
+packed into rows (``train/packed_engine.tokenize_packed``) for the packed
+one, into one pad bucket for the unfrozen ones. Then, for the step of that
+mode (16 chunks, or chunks of 16 packed rows; dropout 0.1, Adam; the
+unfrozen steps with their two learning-rate groups, per-layer remat and an
+f32 master backbone or rank-R adapters):
 
 - the host time to tokenize one global batch (the prefetch thread's work);
 - the wall time per step (median of 5 after 2 warm-up steps) and pairs/s;
 - the same step cut into its layers, with a device sync after each (median
   of 5 more steps). Frozen: the backbone (32 chunked forwards under
-  no_grad), the heads' forward and the loss, the backward (heads and
+  no_grad; packed: the device-side maps and one forward per chunk of
+  packed rows), the heads' forward and the loss, the backward (heads and
   K2/K3), and the optimizer. Unfrozen: pass 1 (32 chunk encodes under
   no_grad), the loss and its gradient with respect to the embeddings,
   pass 2 (32 chunk encodes with a graph, each with its backward: remat
@@ -45,7 +48,7 @@ from ..data.prefetch import to_device
 from ..data.synthetic import make_pair_corpus
 from ..models import clip, esm2
 from ..ops import attention, infonce
-from ..train import clip_engine, finetune, lora, optimizer
+from ..train import clip_engine, finetune, lora, optimizer, packed_engine
 from ..utils.device import resolve_device
 
 
@@ -65,6 +68,8 @@ def main(argv=None) -> int:
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--batch-size", type=int, default=16, help="pairs per sub-batch (x 16)")
     mode = p.add_mutually_exclusive_group()
+    mode.add_argument("--packed", action="store_true",
+                      help="the frozen step over packed rows (train/packed_engine.py)")
     mode.add_argument("--finetune", action="store_true",
                       help="the unfrozen-backbone step (train/finetune.py)")
     mode.add_argument("--lora-rank", type=int, default=0,
@@ -79,7 +84,7 @@ def main(argv=None) -> int:
     esm_cfg = common.esm_config("t30_150M", "bfloat16")
     mcfg = clip.CLIPConfig(input_dim=esm_cfg.hidden_size, esm=esm_cfg)
     cfg = clip_engine.EngineConfig(model=mcfg, batch_size=args.batch_size,
-                                   length_groups=1 if engine else 4)
+                                   length_groups=1 if engine else 4, packed=args.packed)
     pool = cfg.global_batch
     esm_params = esm2.init_params(esm_cfg, torch.Generator(device=device).manual_seed(0),
                                   dtype=esm_cfg.compute_dtype, device=device)
@@ -102,15 +107,17 @@ def main(argv=None) -> int:
         p, r = [peps[i] for i in idx], [recs[i] for i in idx]
         if engine:
             return (clip_engine.tokenize_pair_batch(tok, p, r),)
+        if args.packed:
+            return (packed_engine.tokenize_packed(tok, p, r),)
         return clip_engine.tokenize_grouped(tok, p, r, cfg.length_groups)
 
     t0 = time.perf_counter()
     host = [host_batch() for _ in range(14)]
     tok_ms = 1e3 * (time.perf_counter() - t0) / len(host)
-    widths = [tuple(int(b[f"{s}_ids"].shape[1]) for b in host[0]) for s in ("pep", "rec")]
-    batches = [to_device(b[0] if engine else b, device) for b in host]
-    print(f"[data] global batch {pool} in {len(host[0])} pad bucket(s); pad widths of the "
-          f"first batch: pep {widths[0]}, rec {widths[1]}; tokenize {tok_ms:.4f} ms per "
+    shapes = [[tuple(b[f"{s}_ids"].shape) for b in host[0]] for s in ("pep", "rec")]
+    batches = [to_device(b if len(b) > 1 else b[0], device) for b in host]
+    print(f"[data] global batch {pool} in {len(host[0])} batch(es) of (rows, width): pep "
+          f"{shapes[0]}, rec {shapes[1]} (the first batch); tokenize {tok_ms:.4f} ms per "
           f"batch on the host")
 
     it = iter(batches)
@@ -129,14 +136,21 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             marks.append(time.perf_counter())
 
-        groups = [clip_engine.expand_batch(b) for b in next(it)]
-        hidden = [clip_engine._hidden(esm_params, b, cfg, cfg.num_chunks // len(groups))
-                  for b in groups]
-        mark()
-        embs = [[clip.encode_side(params, side, h, b[f"{side}_mask"], mcfg, train=True,
-                                  generator=gen) for side, h in zip(("pep", "rec"), hs)]
-                for hs, b in zip(hidden, groups)]
-        loss = loss_fn(torch.cat([e[0] for e in embs]), torch.cat([e[1] for e in embs]))
+        if args.packed:
+            batch, hidden = packed_engine._packs_and_hidden(
+                esm_params, next(it), mcfg, packed_engine._default_rows_per_chunk(None))
+            mark()
+            loss = loss_fn(*packed_engine._pooled_sides(params, batch, hidden, pool, mcfg,
+                                                        train=True, generator=gen))
+        else:
+            groups = [clip_engine.expand_batch(b) for b in next(it)]
+            hidden = [clip_engine._hidden(esm_params, b, cfg, cfg.num_chunks // len(groups))
+                      for b in groups]
+            mark()
+            embs = [[clip.encode_side(params, side, h, b[f"{side}_mask"], mcfg, train=True,
+                                      generator=gen) for side, h in zip(("pep", "rec"), hs)]
+                    for hs, b in zip(hidden, groups)]
+            loss = loss_fn(torch.cat([e[0] for e in embs]), torch.cat([e[1] for e in embs]))
         mark()
         loss.backward()
         mark()

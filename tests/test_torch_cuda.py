@@ -4,7 +4,8 @@ InfoNCE kernels K2 and K3 (forward and backward), the dense product P1 (s8
 and bf16) and the fused FFN K6 against their plain versions at odd shapes,
 each tolerance against a planted fault, the wrappers' refusals, their
 launch counts, the ESM-2 forward through K1, P1 (int8) and K6, the FILIP
-scorer through K4, a train step through K2 and K3, and finetune steps
+scorer through K4, a train step through K2 and K3 (grouped and packed), the
+packed embeddings against the grouped ones, and finetune steps
 through K1 and K5, and under the K6 gate.
 
 These tests need an NVIDIA GPU and nvcc; elsewhere they skip. This file
@@ -17,17 +18,19 @@ JAX it runs as
 
 import contextlib
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
 import torch
 
 import chip_smoke
+from protein_clip_tpu_torch.data.prefetch import to_device
 from protein_clip_tpu_torch.data.tokenizer import EsmTokenizer
 from protein_clip_tpu_torch.eval import retrieval
 from protein_clip_tpu_torch.models import clip, esm2
 from protein_clip_tpu_torch.ops import attention, dense_mm, ffn, filip, infonce
-from protein_clip_tpu_torch.train import clip_engine, optimizer
+from protein_clip_tpu_torch.train import clip_engine, optimizer, packed_engine
 
 pytestmark = pytest.mark.cuda
 
@@ -587,25 +590,36 @@ def test_train_step_through_the_kernels_matches_the_plain_loss(dev, pool, tiled)
     most 2 lr |dg| / (max|g| + eps) when g moves by dg: near g = 0 it turns
     f32 noise into up to lr, so a flat 1e-5 on the parameters would test
     the noise, not the kernels."""
-    lr = 1e-3
-    mcfg, esm_params = _tiny_t30_like(dev)
-    cfg = clip_engine.EngineConfig(model=mcfg, batch_size=pool // 4, accumulated_batches=4,
-                                   num_chunks=4, length_groups=2)
-    rng = np.random.default_rng(0)
+    _step_matches_the_plain_loss(dev, pool, tiled, packed=False)
+
+
+def _pairs(pool: int, seed: int = 0):
+    rng = np.random.default_rng(seed)
     aas = list("LAGVSERTIDPKQNFYMHWC")
     peps = ["".join(rng.choice(aas, int(n))) for n in rng.integers(8, 30, pool)]
     recs = ["".join(rng.choice(aas, int(n))) for n in rng.integers(30, 90, pool)]
-    batch = clip_engine.tokenize_grouped(EsmTokenizer(), peps, recs, 2)
-    batch = tuple({k: v.to(dev) for k, v in b.items()} for b in batch)
+    return peps, recs
+
+
+def _step_matches_the_plain_loss(dev, pool: int, tiled: bool, packed: bool):
+    """The check of test_train_step_through_the_kernels_matches_the_plain_loss
+    on a grouped batch, or on a packed one (chunks of 4 packed rows)."""
+    lr = 1e-3
+    mcfg, esm_params = _tiny_t30_like(dev)
+    cfg = clip_engine.EngineConfig(model=mcfg, batch_size=pool // 4, accumulated_batches=4,
+                                   num_chunks=4, length_groups=2, packed=packed)
+    batch = clip_engine._prepare(EsmTokenizer(), cfg)(*_pairs(pool))
+    batch = to_device(batch, dev)
     heads0 = clip.init_params(mcfg, torch.Generator().manual_seed(1), device=dev)
     fn = infonce.fused_infonce_tiled if tiled else infonce.fused_infonce
+    make = (functools.partial(packed_engine.make_train_step_packed, rows_per_chunk=4) if packed
+            else clip_engine.make_train_step)
     out = {}
     for name, loss_fn in (("kernel", None), ("plain", infonce.clip_infonce)):
         params = _clone(heads0)
         state = _capturing(optimizer.adam(lr).init(params))
         before = (fn.launches, fn.bwd_launches)
-        params, state, loss = clip_engine.make_train_step(cfg, loss_fn)(
-            params, state, esm_params, batch, None)
+        params, state, loss = make(cfg, loss_fn)(params, state, esm_params, batch, None)
         torch.cuda.synchronize()
         launched = (fn.launches - before[0], fn.bwd_launches - before[1])
         assert launched == ((1, 1) if name == "kernel" else (0, 0))
@@ -617,6 +631,35 @@ def test_train_step_through_the_kernels_matches_the_plain_loss(dev, pool, tiled)
     for a, b, ga, gb in zip(pk, pp, gk, gp):
         allowed = 1e-6 + 2 * lr * (ga - gb).abs() / (torch.maximum(ga.abs(), gb.abs()) + 1e-8)
         assert bool(((a - b).abs() <= allowed).all())
+
+
+def test_packed_train_step_through_k2_matches_the_plain_loss(dev):
+    """The packed step (K1 over packed segments, K2 on the pool of 64)
+    against the same step with the plain loss, at the grouped step's
+    limits."""
+    _step_matches_the_plain_loss(dev, 64, tiled=False, packed=True)
+
+
+def test_packed_embeddings_match_the_grouped_path_and_repeat(dev):
+    """embed_packed (K1 on rows of several segments, chunks of 4 rows)
+    against the grouped path (K1 on padded rows) on the same 48 pairs:
+    cosine >= 0.999 per row, 2 K1 launches (one a layer) per chunk forward;
+    a second call equals the first to the bit."""
+    mcfg, esm_params = _tiny_t30_like(dev)
+    peps, recs = _pairs(48, seed=2)
+    heads = clip.init_params(mcfg, torch.Generator().manual_seed(1), device=dev)
+    batch = to_device(packed_engine.tokenize_packed(EsmTokenizer(), peps, recs), dev)
+    before = attention.fused_attention.launches
+    got = packed_engine.embed_packed(heads, esm_params, batch, mcfg, rows_per_chunk=4)
+    chunks = sum(batch[f"{s}_ids"].shape[0] // 4 for s in ("pep", "rec"))
+    assert attention.fused_attention.launches - before == 2 * chunks
+    again = packed_engine.embed_packed(heads, esm_params, batch, mcfg, rows_per_chunk=4)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    with torch.inference_mode():
+        want = clip.forward(heads, esm_params, clip_engine.expand_batch(to_device(
+            clip_engine.tokenize_pair_batch(EsmTokenizer(), peps, recs), dev)), mcfg)
+    for g, w in zip(got, want):
+        assert float(torch.nn.functional.cosine_similarity(g, w).min()) >= 0.999
 
 
 # The finetune step through K1/K5 against the same step through K1 and K5's

@@ -6,8 +6,8 @@ tokenized by each package from the same strings, and the same steps run on
 both sides: losses agree within rtol 1e-5 per step and head parameters
 within 1e-5 after the steps (float32, sums in other orders; three Adam
 steps at lr 1e-3). Also: the eval steps, ``fit`` over two epochs (CSV,
-metrics, best_model.npz), the CLIs end to end, train-mode dropout, and the
-options the port refuses.
+metrics, best_model.npz), the CLIs end to end (``--packed`` too), train-mode
+dropout, and the options the port refuses.
 """
 
 import json
@@ -369,11 +369,32 @@ def test_cli_main_2protein(tmp_path):
     assert (_run_dir(tmp_path / "runs") / "best_model.npz").exists()
 
 
+def test_cli_main_packed(tmp_path):
+    """``cli.main --packed`` trains one epoch (the packed step and eval step)
+    and writes the run contract."""
+    assert main.main(TINY + SMALL_RUN + [
+        "--synthetic-fixture", "--data-dir", str(tmp_path / "d"), "--runs-dir",
+        str(tmp_path / "runs"), "--epochs", "1", "--packed"]) == 0
+    run = _run_dir(tmp_path / "runs")
+    assert {p.name for p in run.iterdir()} == {"best_model.npz", "losses_per_epoch.txt",
+                                               "metrics.jsonl"}
+    (row,) = (run / "losses_per_epoch.txt").read_text().splitlines()[1:]
+    assert all(np.isfinite(float(v)) for v in row.split(",")[1:])
+
+
+def test_cli_main_2protein_packed(tmp_path):
+    assert main_2protein.main(TINY + SMALL_RUN + [
+        "--synthetic-fixture", "--data-dir", str(tmp_path / "d2"), "--runs-dir",
+        str(tmp_path / "runs"), "--epochs", "1", "--packed"]) == 0
+    assert (_run_dir(tmp_path / "runs") / "best_model.npz").exists()
+
+
 @pytest.mark.parametrize("extra,match", [
-    (["--packed"], "packed"), (["--finetune", "--packed"], "packed"),
+    (["--packed", "--pack-tiers", "2"], "pack-tiers"), (["--finetune", "--packed"], "packed"),
     (["--lora-rank", "4", "--resume-dir", "x"], "resume"),
     (["--resume-dir", "x"], "resume"), (["--dp", "2"], "multi-device"),
-    (["--tp", "2"], "multi-device"), (["--pp", "2"], "multi-device")])
+    (["--tp", "2"], "multi-device"), (["--pp", "2"], "multi-device"),
+    (["--lora-rank", "4", "--packed"], "packed")])
 def test_cli_refuses_what_is_not_ported(tmp_path, extra, match):
     with pytest.raises(NotImplementedError, match=match):
         main.main(TINY + ["--runs-dir", str(tmp_path / "runs")] + extra)
@@ -394,10 +415,12 @@ def test_cli_needs_data_or_the_fixture(tmp_path):
 
 
 def test_engine_refuses_packed_and_resume(tiny, tmp_path):
+    """The engine takes flat packing (tests/test_torch_packing.py) and
+    refuses width-tiered packing and resuming."""
     _, mcfg, _, esm, _ = tiny
-    cfg = clip_engine.EngineConfig(model=mcfg, packed=True)
+    cfg = clip_engine.EngineConfig(model=mcfg, packed=True, packed_tiers=2)
     for make in (clip_engine.make_train_step, clip_engine.make_eval_step):
-        with pytest.raises(NotImplementedError, match="packed"):
+        with pytest.raises(NotImplementedError, match="packing"):
             make(cfg)
     with pytest.raises(NotImplementedError, match="resum"):
         loop.fit(tmp_path, cfg, {}, esm, [], [], EsmTokenizer(), 1, seed=0, device="cpu",
