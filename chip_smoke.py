@@ -26,9 +26,12 @@ and a nonzero exit code, and no result line:
                 and at T around a tile (65, 127, 128, 129) (NH=20, dh=32,
                 bf16), with padded rows (fully padded query rows included)
                 and packed rows (several segments, gap zeros), among them
-                the segments of the last chunk of each side of cli.main
-                --packed's first global batch on the fixture, (16, 128)
-                and (16, 256) with their all-<pad> rows; its statistics
+                the packed paths' own chunks (path_segments): the last
+                chunk of each side of cli.main --packed's first global
+                batch on the fixture, (16, 128) and (16, 256) with their
+                all-<pad> rows, the last pep chunk of cli.main --packed
+                --finetune's, (48, 128), and a (16, 512) and a (28, 2048)
+                receptor chunk of tools/bench_train's draws; its statistics
                 against attention_reference_lse (LSE_ATOL). K4 (FILIP masked max-sim) against
                 ops.filip.maxsim_reference at the scorer's shapes (D=128,
                 f32), with padded masks, an all-masked a-row and b-row, a
@@ -47,7 +50,8 @@ and a nonzero exit code, and no result line:
                 ops.attention.attention_reference_bwd at the finetune
                 chunks' shapes (16 rows at the pep and rec buckets 32 and
                 192), at K1's timing shape and at odd T, NH=20, bf16, with
-                padded, fully padded and packed rows, fed K1's statistics. P1 (dense_mm) s8 ->
+                padded, fully padded and packed rows, and on the packed
+                unfrozen path's four chunks above, fed K1's statistics. P1 (dense_mm) s8 ->
                 s32 against ops.dense_mm.mm_reference to the bit at the
                 probe's (8192, 2560, 2560), at N in {1, 128, 1000, 3072,
                 10240} tokens through t30_150M's three layer shapes, at the
@@ -64,7 +68,8 @@ and a nonzero exit code, and no result line:
                 must fail that. Then each check against its planted faults,
                 which must fail it (by how much is printed): P1 and K6
                 against their main loop's, K1 and K5 against the swept-loop
-                and the skip faults (the skip fault every packed case), K4
+                and the skip faults (the skip fault every packed case,
+                both faults every chunk of the packed unfrozen path), K4
                 against its skip fault (every case with the one-token tile)
                 and its plain-TF32 fault, K2 and K3 against theirs.
 3. serve        ESM-2 t30_150M in bf16 with seeded random weights and CLIP
@@ -122,6 +127,17 @@ and a nonzero exit code, and no result line:
                 state and generator seed gives the same loss and heads to
                 the bit; one packed and one grouped step under
                 torch.profiler: kernel launches and device busy share.
+                Then cli.main --packed --finetune and --packed --lora-rank
+                8 at the defaults for one epoch each: the artifacts; the
+                chunk forwards of each pass exactly as many as the loaders'
+                batches take when packed again here by the unfrozen step's
+                constant-token rule (unfrozen_chunks: 9 a pass on the
+                fixture); per step K1 30 times per pass-1 chunk and 60 per
+                pass-2 chunk, K5 30 per pass-2 chunk, K2 once forward and
+                once backward; per eval batch K1 30 per chunk forward and
+                K2 once; cli.embed with each run's best_model.npz; one
+                packed finetune step under torch.profiler: launches, busy
+                share and peak memory.
 8. step check   one default train step with K2 and one with the plain loss
                 from the same heads and batch (dropout 0, Adam lr 1e-3), at
                 256 and, with K3, at 1024, and one packed step with K2 at
@@ -140,6 +156,9 @@ and a nonzero exit code, and no result line:
                 eager step, per leaf within
                 twice the eager step's distance from the f32 step plus 1e-2
                 of the leaf's largest entry (check_finetune_step says why).
+                The same checks on the packed finetune step over the same
+                256 pairs (9 chunks a pass), whose K1/K5 step, run twice,
+                must give the same loss and gradients to the bit.
 9. int8 serve   cli.serve --esm-dtype int8 over phase 3's weights and index
                 (the w8a8 backbone: every quantised linear layer runs P1):
                 /healthz, phase 3's single sequences, its 32-sequence
@@ -176,7 +195,9 @@ and a nonzero exit code, and no result line:
                 readings behind the dispatch rule; K5, its plain version and the
                 backward of torch's scaled_dot_product_attention at B=16,
                 T=512, NH=20 and at the finetune chunks' shapes, padded, and
-                at (16, 512) dense, beside K5's bound and exponential floor. P1 s8 at (8192, 2560, 2560) and (10240, 640, 2560)
+                at (16, 512) dense, and on the packed unfrozen path's (16,
+                256) and (28, 2048) chunks, beside K5's bound and
+                exponential floor. P1 s8 at (8192, 2560, 2560) and (10240, 640, 2560)
                 against torch._int_mm (W k-major), P1 bf16 at (8192, 2560, 2560)
                 against torch.matmul, K6 at (10240, 640, 2560) against
                 torch.addmm + gelu, each with its plain version and bound;
@@ -190,7 +211,7 @@ and a nonzero exit code, and no result line:
                 global batch 256 (median over the steps after the first of
                 run 1, by CUDA events recorded after each step, with no sync
                 inside the epoch), and the same for the packed, finetune,
-                LoRA and int8 runs.
+                LoRA, packed finetune, packed LoRA and int8 runs.
 
 The last three lines of standard output are the card's name and power
 limit, the kernels line (one JSON object per hand-written kernel) and
@@ -229,6 +250,7 @@ from protein_clip_tpu_torch.kernels import build
 from protein_clip_tpu_torch.models import clip, esm2, filip
 from protein_clip_tpu_torch.ops import attention, dense_mm, ffn, infonce
 from protein_clip_tpu_torch.ops import filip as maxsim
+from protein_clip_tpu_torch.tools import bench_train
 from protein_clip_tpu_torch.train import (checkpoint, clip_engine, finetune, lora, optimizer,
                                           packed_engine)
 from protein_clip_tpu_torch.train.checkpoint import export_npz
@@ -434,39 +456,73 @@ def packed_segments(B: int, T: int) -> torch.Tensor:
     return seg.cuda()
 
 
-def fixture_packed_segments() -> list[tuple[str, torch.Tensor]]:
-    """The segment ids K1 takes in the last backbone chunk of each side of
-    ``cli.main --packed``'s first global batch on the fixture, as
-    derive_segments gives them: rows of 2-11 segments, each with one gap at
-    its end, and the all-<pad> rows that _row_multiple_for adds (that chunk
-    holds them; it raises if it does not)."""
+def path_segments() -> list[tuple[str, bool, torch.Tensor]]:
+    """(kind, on the packed unfrozen path, segment ids) of the chunks K1 and
+    K5 take on the packed paths, as derive_segments gives them: the last
+    chunk of each side of ``cli.main --packed``'s first global batch on the
+    fixture (pep (16, 128), rec (16, 256): rows of 2-11 segments, each with
+    one gap at its end, and the all-<pad> rows that _row_multiple_for adds,
+    which these chunks hold; it raises if they do not); the last pep chunk
+    of ``cli.main --packed --finetune``'s first batch ((48, 128): the
+    unfrozen step's constant-token rule); and the last receptor chunk of
+    tools/bench_train's first standard draw ((16, 512)) and of its second
+    long-tail draw ((28, 2048)). The rec (16, 256) chunk is on both
+    paths."""
     data_dir = WORK / "train_data"
     if not (data_dir / "receptor.fasta").exists():
         write_fixture(data_dir, n_families=FIXTURE_FAMILIES, seed=42)
     train, _, _ = epoch_loaders(data_dir)
-    batch = packed_engine.tokenize_packed(common.make_tokenizer(),
-                                          *next(clip_engine._accumulate(train, 16)))
+    fixture = packed_engine.tokenize_packed(common.make_tokenizer(),
+                                            *next(clip_engine._accumulate(train, 16)))
+    draws = (("bench_train standard draw 1",
+              bench_train.make_batches(np.random.default_rng(42), 1, "standard")[0]),
+             ("bench_train long-tail draw 2",
+              bench_train.make_batches(np.random.default_rng(42), 2, "longtail")[1]))
     out = []
-    for side in ("pep", "rec"):
+
+    def last_chunk(what, path, batch, side, rows, pads_needed=False):
         seg = packed_engine.derive_segments(batch[f"{side}_ids"].cuda())[1]
-        chunk = seg[-chunk_rows(seg.shape[0]):].contiguous()
+        chunk = seg[-rows:].contiguous()
         pad_rows = int((chunk.amax(1) == 0).sum())
-        if not pad_rows:
+        if pads_needed and not pad_rows:
             raise AssertionError(f"the last {side} chunk {tuple(chunk.shape)} has no <pad> row")
-        out.append((f"packed, cli.main --packed {side} chunk, {pad_rows} rows all <pad>", chunk))
+        out.append((f"packed, {what} {side} chunk, {pad_rows} rows all <pad>", path, chunk))
+
+    for side in ("pep", "rec"):
+        last_chunk("cli.main --packed", side == "rec", fixture, side,
+                   chunk_rows(fixture[f"{side}_ids"].shape[0]), pads_needed=True)
+    last_chunk("cli.main --packed --finetune", True, fixture, "pep",
+               unfrozen_chunk_shapes(fixture)[0][0])
+    for what, batch in draws:
+        last_chunk(what, True, batch, "rec", unfrozen_chunk_shapes(batch)[1][0])
     return out
 
 
-def attention_cases(gen: torch.Generator) -> list:
-    """(B, T, kind, q, k, v, segments) for K1: padded rows (fully padded
-    query rows included) at KERNEL_SHAPES, synthetic packed rows at three
-    shapes, and the packed path's own segments at (16, 128) and (16, 256)."""
-    cases = [(B, T, "padded", padded_segments(B, T)) for B, T in KERNEL_SHAPES]
-    cases += [(4, 512, "packed", packed_segments(4, 512)), (2, 129, "packed",
-                                                            packed_segments(2, 129)),
-              (1, 2048, "packed", packed_segments(1, 2048))]
-    cases += [(*seg.shape, kind, seg) for kind, seg in fixture_packed_segments()]
-    return [(B, T, kind, *qkv(B, T, gen), seg) for B, T, kind, seg in cases]
+def attention_cases(gen: torch.Generator, segments: list) -> list:
+    """(B, T, kind, on the unfrozen path, q, k, v, segments) for K1: padded
+    rows (fully padded query rows included) at KERNEL_SHAPES, synthetic
+    packed rows at three shapes, and the packed paths' own ``segments``
+    (path_segments)."""
+    cases = [(B, T, "padded", False, padded_segments(B, T)) for B, T in KERNEL_SHAPES]
+    cases += [(4, 512, "packed", False, packed_segments(4, 512)),
+              (2, 129, "packed", False, packed_segments(2, 129)),
+              (1, 2048, "packed", False, packed_segments(1, 2048))]
+    cases += [(*seg.shape, kind, path, seg) for kind, path, seg in segments]
+    return [(B, T, kind, path, *qkv(B, T, gen), seg) for B, T, kind, path, seg in cases]
+
+
+def by_rows(fn, q, *tensors):
+    """fn(q, *tensors) of an attention plain version, over slices of rows
+    whose (rows, NH, T, T) f32 tensors hold at most 2^29 elements, the
+    outputs concatenated: at (28, 2048) one such tensor is 9.4 GB."""
+    T = q.shape[1]
+    rows = max(1, 2 ** 29 // (q.shape[2] * T * T))
+    if rows >= q.shape[0]:
+        return fn(q, *tensors)
+    parts = [fn(*(t[i:i + rows] for t in (q, *tensors))) for i in range(0, q.shape[0], rows)]
+    if isinstance(parts[0], tuple):
+        return tuple(torch.cat(p) for p in zip(*parts))
+    return torch.cat(parts)
 
 
 def least_atol(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
@@ -484,17 +540,17 @@ def k1_readings(cases: list) -> list[dict]:
     (rms units) of the output, and its statistics' largest gap from
     attention_reference_lse (inf where a pad query's -inf is not matched)."""
     rows = []
-    for B, T, kind, q, k, v, seg in cases:
+    for B, T, kind, path, q, k, v, seg in cases:
         out, lse = attention._forward(q, k, v, seg, with_lse=True)
         torch.cuda.synchronize()
-        err, need = least_atol(out, attention.attention_reference(q, k, v, seg))
-        want = attention.attention_reference_lse(q, k, seg)
+        err, need = least_atol(out, by_rows(attention.attention_reference, q, k, v, seg))
+        want = by_rows(attention.attention_reference_lse, q, k, seg)
         pad = torch.isinf(want)
         lse_err = (float((lse[~pad] - want[~pad]).abs().max()) if bool((~pad).any()) else 0.0)
         if not torch.equal(torch.isinf(lse), pad):
             lse_err = math.inf
         rows.append({"case": f"B={B} T={T} {kind}", "packed": kind.startswith("packed"),
-                     "max_abs_err": err, "need": need, "lse_err": lse_err})
+                     "path": path, "max_abs_err": err, "need": need, "lse_err": lse_err})
     return rows
 
 
@@ -515,10 +571,12 @@ def check_attention(cases: list) -> float:
     return worst
 
 
-def bwd_cases(gen: torch.Generator) -> list:
-    """(B, T, kind, q, k, v, dO, segments) for K5: padded rows everywhere
-    (with one row of no valid token where B > 1, whose queries are all
-    uniform), packed rows at three shapes."""
+def bwd_cases(gen: torch.Generator, segments: list) -> list:
+    """(B, T, kind, on the unfrozen path, q, k, v, dO, segments) for K5:
+    padded rows everywhere (with one row of no valid token where B > 1,
+    whose queries are all uniform), synthetic packed rows at three shapes,
+    and the chunks of ``segments`` (path_segments) on the packed unfrozen
+    path."""
     cases = []
     for B, T in K5_SHAPES:
         kinds = ["padded"] + (["packed"] if T in (192, 200, 2048) else [])
@@ -530,10 +588,14 @@ def bwd_cases(gen: torch.Generator) -> list:
                 if B > 1:
                     seg[B // 2] = 0
                     kind = "padded, one row fully padded"
-            q, k, v = qkv(B, T, gen)
-            do = torch.randn(B, T, NH, DH, device="cuda", generator=gen).bfloat16()
-            cases.append((B, T, kind, q, k, v, do, seg))
-    return cases
+            cases.append((B, T, kind, False, seg))
+    cases += [(*seg.shape, kind, True, seg) for kind, path, seg in segments if path]
+    out = []
+    for B, T, kind, path, seg in cases:
+        q, k, v = qkv(B, T, gen)
+        do = torch.randn(B, T, NH, DH, device="cuda", generator=gen).bfloat16()
+        out.append((B, T, kind, path, q, k, v, do, seg))
+    return out
 
 
 def k5_readings(cases: list) -> list[dict]:
@@ -541,14 +603,14 @@ def k5_readings(cases: list) -> list[dict]:
     attention_reference_bwd: the least passing atol (rms units) of dq, dk
     and dv."""
     rows = []
-    for B, T, kind, q, k, v, do, seg in cases:
+    for B, T, kind, path, q, k, v, do, seg in cases:
         lse = attention._forward(q, k, v, seg, with_lse=True)[1]
         got = attention.fused_attention_bwd(q, k, v, seg, do, lse)
         torch.cuda.synchronize()
-        want = attention.attention_reference_bwd(q, k, v, seg, do)
+        want = by_rows(attention.attention_reference_bwd, q, k, v, seg, do)
         errs = [least_atol(g, w) for g, w in zip(got, want)]
-        rows.append({"case": f"B={B} T={T} {kind}", "packed": kind == "packed",
-                     "max_abs_err": max(e for e, _ in errs),
+        rows.append({"case": f"B={B} T={T} {kind}", "packed": kind.startswith("packed"),
+                     "path": path, "max_abs_err": max(e for e, _ in errs),
                      "needs": dict(zip(("dq", "dk", "dv"), (n for _, n in errs)))})
     return rows
 
@@ -953,8 +1015,9 @@ def check_attention_faults(libs: dict, k1_cases: list, k5_cases: list) -> dict:
     """K1's and K5's checks against each attention fault, on the same
     inputs, each kernel's fault alone (K5 is fed the sound K1's
     statistics): each must fail the check, the skip fault every packed case
-    of it. Returns the worst ratio to the tolerance per check and how many
-    cases failed."""
+    of it, and both faults every case on the packed unfrozen path. Returns
+    the worst ratio to the tolerance per check, how many cases failed and
+    the least ratio on the packed unfrozen path."""
     out = {}
     for name in ("swept_tiles", "skip"):
         with attention_kernels(libs[name], ("attention_fwd",)):
@@ -967,12 +1030,15 @@ def check_attention_faults(libs: dict, k1_cases: list, k5_cases: list) -> dict:
             ratios = [ratio(r) for r in rows]
             failed = [r["case"] for r, x in zip(rows, ratios) if x > 1]
             packed_missed = [r["case"] for r, x in zip(rows, ratios) if r["packed"] and x <= 1]
+            path_missed = [r["case"] for r, x in zip(rows, ratios) if r["path"] and x <= 1]
+            path = [x for r, x in zip(rows, ratios) if r["path"]]
             out[f"{kernel}_{name}"] = {"worst_ratio": max(ratios), "cases_failed": len(failed),
-                                       "cases": len(rows)}
+                                       "cases": len(rows), "least_ratio_unfrozen_path": min(path)}
             log(f"[kernels] planted fault {name} ({'last tile of the swept loop dropped' if name == 'swept_tiles' else 'skip predicate off by one at a segment boundary'}): "
                 f"{kernel} fails {len(failed)} of {len(rows)} cases, worst at {max(ratios):.4g} x "
-                f"its tolerance; packed cases it passes: {packed_missed or 'none'}")
-            if not failed or (name == "skip" and packed_missed):
+                f"its tolerance; on the packed unfrozen path's {len(path)} chunks at least "
+                f"{min(path):.4g} x; packed cases it passes: {packed_missed or 'none'}")
+            if not failed or path_missed or (name == "skip" and packed_missed):
                 raise AssertionError(f"the {kernel} check does not see the planted fault {name}")
     return out
 
@@ -1603,10 +1669,10 @@ def run_train_phase() -> dict:
     return out
 
 
-def chunk_rows(R: int) -> int:
+def chunk_rows(R: int, rows_per_chunk: int = 16) -> int:
     """The rows of each backbone chunk of a pack of R rows: the most equal
-    chunks, at most R // 16 of them, that divide R."""
-    return R // max([d for d in range(1, R // 16 + 1) if R % d == 0], default=1)
+    chunks, at most R // rows_per_chunk of them, that divide R."""
+    return R // max([d for d in range(1, R // rows_per_chunk + 1) if R % d == 0], default=1)
 
 
 def packed_chunks(batch: dict) -> list[tuple[int, int]]:
@@ -1615,6 +1681,24 @@ def packed_chunks(batch: dict) -> list[tuple[int, int]]:
     for side in ("pep", "rec"):
         R, L = batch[f"{side}_ids"].shape
         out += [(chunk_rows(R), L)] * (R // chunk_rows(R))
+    return out
+
+
+def unfrozen_chunk_shapes(batch: dict) -> list[tuple[int, int]]:
+    """(rows, L) of the pep and the rec chunks the packed unfrozen step
+    takes: a side of width L runs 16 x (the widest side's width / L) rows a
+    chunk (the same tokens a chunk on both sides), by chunk_rows' rule."""
+    widths = [batch[f"{side}_ids"].shape[1] for side in ("pep", "rec")]
+    return [(chunk_rows(batch[f"{side}_ids"].shape[0], 16 * (max(widths) // L)), L)
+            for side, L in zip(("pep", "rec"), widths)]
+
+
+def unfrozen_chunks(batch: dict) -> list[tuple[int, int]]:
+    """The (rows, L) of each backbone chunk of one pass of the packed
+    unfrozen step."""
+    out = []
+    for side, (rows, L) in zip(("pep", "rec"), unfrozen_chunk_shapes(batch)):
+        out += [(rows, L)] * (batch[f"{side}_ids"].shape[0] // rows)
     return out
 
 
@@ -1630,12 +1714,14 @@ def epoch_loaders(data_dir: Path) -> tuple:
     return train, val, test
 
 
-def packed_epoch_chunks(data_dir: Path) -> tuple[list, list]:
-    """The backbone chunks of each step and each eval batch of ``cli.main
-    --packed``'s first epoch at the defaults."""
+def packed_epoch_chunks(data_dir: Path, step_chunks=packed_chunks) -> tuple[list, list]:
+    """The backbone chunks of each step (by ``step_chunks``: the frozen
+    step's, or one pass of the unfrozen step's with unfrozen_chunks) and of
+    each eval batch of ``cli.main --packed``'s first epoch at the
+    defaults."""
     train, val, test = epoch_loaders(data_dir)
     tok = common.make_tokenizer()
-    steps = [packed_chunks(packed_engine.tokenize_packed(tok, p, r))
+    steps = [step_chunks(packed_engine.tokenize_packed(tok, p, r))
              for p, r in clip_engine._accumulate(train, 16)]
     evals = [packed_chunks(packed_engine.tokenize_packed(tok, p, r))
              for loader in (val, test) for p, r in loader]
@@ -1745,17 +1831,24 @@ def check_packed_paths() -> dict:
     return {"cos_min": cos_min, "k1_embed": k1_packed, "deterministic": same}
 
 
-def launches_per_step(packed: bool) -> dict:
-    """Kernel launches and device busy time of one frozen train step at
-    global batch 256 (packed, or 4 length groups) under torch.profiler."""
+def launches_per_step(packed: bool, engine=None) -> dict:
+    """Kernel launches, device busy time and peak memory of one train step
+    at global batch 256 under torch.profiler: frozen (packed, or 4 length
+    groups), or with ``engine`` (finetune) the packed unfrozen step."""
     mcfg, esm_params, heads0, peps, recs = packed_setup()
     cfg = clip_engine.EngineConfig(model=mcfg, packed=packed, length_groups=4)
     batch = to_device(clip_engine._prepare(common.make_tokenizer(), cfg)(peps, recs), "cuda")
-    step = clip_engine.make_train_step(cfg)
-    params = clone_tree(heads0)
-    state = optimizer.adam(TRAIN_LR).init(params)
+    if engine is finetune:
+        params, esm_params = finetune.init_params(esm_params, clone_tree(heads0)), {}
+        state = finetune.make_optimizer(cfg).init(params)
+    else:
+        params = clone_tree(heads0)
+        state = optimizer.adam(TRAIN_LR).init(params)
+    step = (engine or clip_engine).make_train_step(cfg)
     gen = torch.Generator(device="cuda").manual_seed(1)
     step(params, state, esm_params, batch, gen)                 # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
@@ -1767,10 +1860,12 @@ def launches_per_step(packed: bool) -> dict:
                if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     out = {"launches": sum(e.count for e in kernels), "busy_ms": busy_ms,
-           "busy_share": busy_ms / (1e3 * wall)}
-    log(f"[packed] one {'packed' if packed else 'grouped'} step under torch.profiler: "
-        f"{out['launches']} kernel launches, device busy {busy_ms:.4f} ms of "
-        f"{1e3 * wall:.4f} ms ({100 * out['busy_share']:.2f}%)")
+           "busy_share": busy_ms / (1e3 * wall),
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    what = ("packed finetune" if engine is finetune else "packed" if packed else "grouped")
+    log(f"[packed] one {what} step under torch.profiler: {out['launches']} kernel launches, "
+        f"device busy {busy_ms:.4f} ms of {1e3 * wall:.4f} ms "
+        f"({100 * out['busy_share']:.2f}%); peak memory {out['peak_memory_gb']:.4f} GB")
     return out
 
 
@@ -1781,6 +1876,75 @@ def run_packed_phase() -> dict:
                 "the packed run's best_model.npz")
     out["paths"] = check_packed_paths()
     out["per_step"] = {"packed": launches_per_step(True), "grouped": launches_per_step(False)}
+    return out
+
+
+def run_packed_unfrozen(name: str, data_dir: Path, mode_args: list[str], engine) -> dict:
+    """cli.main --packed --finetune or --lora-rank for one epoch at the
+    defaults (global batch 256, flat packing, remat); checks the artifacts,
+    the chunk forwards of each pass against those the loaders' batches take
+    when packed again here by the unfrozen rule (unfrozen_chunks), and every
+    kernel's launch count: per step K1 30 times per pass-1 chunk and 60 per
+    pass-2 chunk (forward and remat recompute), K5 30 per pass-2 chunk, K2
+    once forward and once backward; per eval batch K1 30 per chunk forward
+    (the frozen rule) and K2 once."""
+    runs = WORK / f"runs_{name}"
+    t0 = time.perf_counter()
+    with counted_forwards() as forwards, timed_steps(engine) as ends:
+        reset_counts()
+        train_cli.main(["--synthetic-fixture", "--data-dir", str(data_dir), "--fixture-families",
+                        str(FIXTURE_FAMILIES), "--epochs", "1", "--runs-dir", str(runs),
+                        "--packed"] + mode_args)
+        k1 = attention.fused_attention.launches
+        k5 = attention.fused_attention_bwd.launches
+        counts = infonce_counts()
+        check_default_path(name)
+    wall = time.perf_counter() - t0
+    run = check_run_dir(runs)
+    steps, evals = packed_epoch_chunks(data_dir, unfrozen_chunks)
+    step_chunks = [c for chunks in steps for c in chunks]
+    eval_chunks = [c for chunks in evals for c in chunks]
+    want_forwards = 2 * step_chunks + eval_chunks             # pass 1, pass 2, eval
+    want_k1 = 90 * len(step_chunks) + 30 * len(eval_chunks)
+    want_k5 = 30 * len(step_chunks)
+    want = {"infonce": (len(steps) + len(evals), len(steps)), "infonce_tiled": (0, 0)}
+    if (len(ends), sorted(forwards), k1, k5) != (len(steps), sorted(want_forwards), want_k1,
+                                                 want_k5):
+        raise AssertionError(f"{name}: {len(ends)} steps (want {len(steps)}), {len(forwards)} "
+                             f"chunk forwards (want {len(want_forwards)}), attention_fwd {k1} "
+                             f"(want {want_k1}), attention_bwd {k5} (want {want_k5})")
+    if counts != want:
+        raise AssertionError(f"{name}: InfoNCE (forward, backward) calls {counts}, want {want}")
+    metrics = json.loads((run / "metrics.jsonl").read_text().splitlines()[0])
+    per_pass = len(step_chunks) / len(steps)
+    log(f"[train] {name}: global batch 256 packed, {len(steps)} steps, {len(evals)} eval "
+        f"batches of 16; train loss {metrics['train_loss']:.6f}, val loss "
+        f"{metrics['val_loss']:.6f}; chunk forwards (rows, L) of the first step's pass "
+        f"{steps[0]}, {per_pass:.2f} a pass (the one-bucket step: 32); {len(forwards)} backbone "
+        f"forwards; attention_fwd {k1} (30 per pass-1 chunk, 60 per pass-2 chunk, 30 per eval "
+        f"chunk), attention_bwd {k5} (30 per pass-2 chunk); InfoNCE (forward, backward) calls "
+        f"{counts}; epoch {metrics['seconds']:.2f} s, cli.main {wall:.2f} s")
+    return {"run": run, "steps": len(steps), "ends": ends, "chunks_per_pass": per_pass,
+            "launches": {"attention_fwd": k1, "attention_bwd": k5,
+                         "filip_maxsim": maxsim.filip_similarity_fused.launches,
+                         **{k: v[0] for k, v in counts.items()}}}
+
+
+def run_packed_unfrozen_phase() -> dict:
+    """cli.main --packed --finetune and --packed --lora-rank 8, each then
+    embedding with its best_model.npz; one packed finetune step's launches,
+    busy share and peak memory."""
+    data_dir = WORK / "train_data"
+    recs = sequences_only(data_dir / "receptor.fasta")
+    out = {"finetune": run_packed_unfrozen("train_finetune_packed", data_dir, ["--finetune"],
+                                           finetune)}
+    embed_check(out["finetune"]["run"] / "best_model.npz", recs,
+                "the packed finetune run's best_model.npz")
+    out["lora"] = run_packed_unfrozen("train_lora_packed", data_dir,
+                                      ["--lora-rank", str(LORA_RANK)], lora)
+    embed_check(out["lora"]["run"] / "best_model.npz", recs,
+                "the packed LoRA run's best_model.npz")
+    out["per_step"] = launches_per_step(True, finetune)
     return out
 
 
@@ -1906,17 +2070,19 @@ def attention_function(forward, backward):
         saved[1].launches = stand_in.launches
 
 
-def finetune_step_runs(fault_libs: dict) -> dict:
-    """One finetune step at global batch 256 (one pad bucket, 16 chunks,
-    remat, dropout 0, the two-group Adam) from the same f32 master weights
-    and batch, once per attention path: {name: (loss, {leaf: gradient})}.
+def finetune_step_runs(fault_libs: dict, packed: bool = False) -> dict:
+    """One finetune step at global batch 256 (one pad bucket in 16 chunks,
+    or with ``packed`` the packed step over the same pairs; remat, dropout
+    0, the two-group Adam) from the same f32 master weights and batch, once
+    per attention path: {name: (loss, {leaf: gradient})}.
     "kernel" runs K1 and K5; "k1_plain_bwd" K1 and K5's plain version;
     "plain_fwd_k5" K1's plain version and K5; "plain" both plain versions
     (the TPU kernels' semantics, rounding where they round); "fault" K1
     and the swept_tiles planted-fault build of K5 (its dk/dv loop drops
     the last query tile); "eager" and "eager_f32"
     attention_impl="eager" (plain attention through autograd) with a bf16
-    and an f32 backbone."""
+    and an f32 backbone. The packed step runs "kernel" twice ("again")
+    and leaves out "plain_fwd_k5" and "plain"."""
     base = common.esm_config("t30_150M", "bfloat16")
     esm0 = esm2.init_params(base, torch.Generator(device="cuda").manual_seed(0),
                             dtype=torch.bfloat16, device="cuda")
@@ -1925,25 +2091,31 @@ def finetune_step_runs(fault_libs: dict) -> dict:
         write_fixture(data_dir, n_families=FIXTURE_FAMILIES, seed=42)
     train_ds, _, _ = dataset.generate_datasets(data_dir, seed=42)
     peps, recs = next(clip_engine._accumulate(dataset.PairLoader(train_ds, 16, seed=SEED), 16))
-    batch = {k: v.cuda() for k, v in clip_engine.tokenize_pair_batch(
-        common.make_tokenizer(), peps, recs).items()}
+    tokenize = packed_engine.tokenize_packed if packed else clip_engine.tokenize_pair_batch
+    batch = to_device(tokenize(common.make_tokenizer(), peps, recs), "cuda")
     heads0 = clip.init_params(clip.CLIPConfig(input_dim=base.hidden_size, esm=base),
                               torch.Generator().manual_seed(SEED), device="cuda")
     k1, k5 = attention._forward, attention.fused_attention_bwd
     plain_fwd, plain_bwd = plain_forward, plain_backward
-    c = 2 * 16                                   # chunks per step
+    c = len(unfrozen_chunks(batch)) if packed else 2 * 16       # chunks per pass
     runs = (("kernel", "fused", torch.bfloat16, k1, k5, (90 * c, 30 * c)),
+            ("again", "fused", torch.bfloat16, k1, k5, (90 * c, 30 * c)),
             ("k1_plain_bwd", "fused", torch.bfloat16, k1, plain_bwd, (90 * c, 0)),
             ("plain_fwd_k5", "fused", torch.bfloat16, plain_fwd, k5, (0, 30 * c)),
             ("plain", "fused", torch.bfloat16, plain_fwd, plain_bwd, (0, 0)),
             ("fault", "fused", torch.bfloat16, k1, k5, (90 * c, 30 * c)),
             ("eager", "eager", torch.bfloat16, k1, k5, (0, 0)),
             ("eager_f32", "eager", torch.float32, k1, k5, (0, 0)))
-    out = {"shapes": (tuple(batch["pep_ids"].shape), tuple(batch["rec_ids"].shape))}
+    skipped = ("plain_fwd_k5", "plain") if packed else ("again",)
+    out = {"shapes": (unfrozen_chunks(batch) if packed else
+                      (tuple(batch["pep_ids"].shape), tuple(batch["rec_ids"].shape)))}
     for name, impl, dtype, fwd, bwd, want in runs:
+        if name in skipped:
+            continue
         esm_cfg = dataclasses.replace(base, attention_impl=impl, compute_dtype=dtype)
         cfg = clip_engine.EngineConfig(
-            model=clip.CLIPConfig(input_dim=base.hidden_size, dropout=0.0, esm=esm_cfg))
+            model=clip.CLIPConfig(input_dim=base.hidden_size, dropout=0.0, esm=esm_cfg),
+            packed=packed)
         params = finetune.init_params(esm0, clone_tree(heads0))
         state = capturing(finetune.make_optimizer(cfg).init(params), params)
         before = (attention.fused_attention.launches, k5.launches)
@@ -1980,9 +2152,10 @@ def gap_summary(gaps: dict) -> dict:
     return out
 
 
-def check_finetune_step(fault_libs: dict) -> dict:
-    """K5 inside the finetune step, and the port's attention against eager
-    autograd (finetune_step_runs).
+def check_finetune_step(fault_libs: dict, packed: bool = False) -> dict:
+    """K5 inside the finetune step (one pad bucket, or with ``packed`` the
+    packed step, which must also repeat to the bit), and the port's
+    attention against eager autograd (finetune_step_runs).
 
     1. K5 in the step: "kernel" against "k1_plain_bwd". Both run K1's
        forward, so the loss and the heads' gradients agree exactly, and the
@@ -2005,19 +2178,21 @@ def check_finetune_step(fault_libs: dict) -> dict:
     Each path's distance from the f32 step (K1 or its plain version, K5
     or its plain version, eager) says which rounding point moves the
     gradients away from the eager step's."""
-    out = finetune_step_runs(fault_libs)
+    out = finetune_step_runs(fault_libs, packed)
+    what = "packed finetune" if packed else "finetune"
     grads = {k: v[1] for k, v in out.items() if k != "shapes"}
     loss = {k: v[0] for k, v in out.items() if k != "shapes"}
-    pairs = (("kernel", "k1_plain_bwd"), ("fault", "k1_plain_bwd"), ("kernel", "plain_fwd_k5"),
-             ("kernel", "eager"), ("plain", "eager"), ("kernel", "eager_f32"),
-             ("k1_plain_bwd", "eager_f32"), ("plain_fwd_k5", "eager_f32"),
-             ("plain", "eager_f32"), ("eager", "eager_f32"))
+    pairs = tuple((a, b) for a, b in (
+        ("kernel", "k1_plain_bwd"), ("fault", "k1_plain_bwd"), ("kernel", "plain_fwd_k5"),
+        ("kernel", "eager"), ("plain", "eager"), ("kernel", "eager_f32"),
+        ("k1_plain_bwd", "eager_f32"), ("plain_fwd_k5", "eager_f32"), ("plain", "eager_f32"),
+        ("eager", "eager_f32")) if a in grads and b in grads)
     gaps = {f"{a}_vs_{b}": leaf_gaps(grads[a], grads[b]) for a, b in pairs}
     summary = {name: {"loss_rel": abs(loss[a] - loss[b]) / abs(loss[b]),
                       **gap_summary(gaps[name])}
                for name, (a, b) in zip(gaps, pairs)}
     for name, row in summary.items():
-        log(f"[step] finetune {name}: loss relative {row['loss_rel']:.3g}; " + "; ".join(
+        log(f"[step] {what} {name}: loss relative {row['loss_rel']:.3g}; " + "; ".join(
             f"{part} max|err|/leaf max {row[part]['max_rel']:.4g} ({row[part]['leaf']}), L2 "
             f"relative median {row[part]['l2_median']:.4g}, largest {row[part]['l2_max']:.4g}"
             for part in ("esm", "heads")))
@@ -2038,8 +2213,12 @@ def check_finetune_step(fault_libs: dict) -> dict:
         ratios[key] = err / allowed if allowed > 0 else (0.0 if err == 0 else math.inf)
     worst_eager = max(ratios, key=ratios.get)
     ok2 = abs(lk - le) <= loss_allowed and ratios[worst_eager] <= 1.0
-    pep, rec = out["shapes"]
-    log(f"[step] finetune step at global batch 256 (pep {pep}, rec {rec}; dropout 0): loss "
+    shapes = (f"chunk forwards a pass {out['shapes']}" if packed else
+              f"pep {out['shapes'][0]}, rec {out['shapes'][1]}")
+    # 3. the packed step run twice from the same state: the same loss and gradients
+    same = (not packed or (loss["again"] == lk
+                           and all(torch.equal(grads["again"][k], gk[k]) for k in gk)))
+    log(f"[step] {what} step at global batch 256 ({shapes}; dropout 0): loss "
         f"through K1/K5 {lk:.6f}, K1 and K5's plain version {loss['k1_plain_bwd']:.6f}, eager "
         f"{le:.6f}, eager f32 {lf:.6f}. K5 against its plain version in the step: loss "
         f"relative {loss_k5:.3g} (tolerance {FT_LOSS_TOL:g}), largest max|err|/leaf max over "
@@ -2048,13 +2227,17 @@ def check_finetune_step(fault_libs: dict) -> dict:
         f"{'ok' if ok1 else 'FAIL'}. Against eager: |loss - eager| {abs(lk - le):.3g} "
         f"(allowed {loss_allowed:.3g}), largest gradient ratio to 2|eager - f32| + "
         f"{FT_GRAD_FLOOR:g} max|f32|: {ratios[worst_eager]:.4g} ({worst_eager}) "
-        f"{'ok' if ok2 else 'FAIL'}")
+        f"{'ok' if ok2 else 'FAIL'}"
+        + (f". Run twice: loss and gradients {'equal' if same else 'DIFFER'} to the bit"
+           if packed else ""))
     if not ok1:
-        raise AssertionError("K5 in the finetune step disagrees with its plain version")
+        raise AssertionError(f"K5 in the {what} step disagrees with its plain version")
     if fault[worst_fault] <= 1.0:
-        raise AssertionError("the finetune step check does not see a K5 that drops a query tile")
+        raise AssertionError(f"the {what} step check does not see a K5 that drops a query tile")
     if not ok2:
-        raise AssertionError("the finetune step through K1/K5 disagrees with the eager step")
+        raise AssertionError(f"the {what} step through K1/K5 disagrees with the eager step")
+    if not same:
+        raise AssertionError(f"the {what} step is not deterministic")
     return {"loss_rel_err": loss_k5, "grad_ratio": tight[worst], "grad_leaf": worst,
             "fault_ratio": fault[worst_fault], "fault_leaf": worst_fault,
             "eager_loss_abs_err": abs(lk - le), "eager_loss_allowed": loss_allowed,
@@ -2160,23 +2343,26 @@ def time_attention(gen: torch.Generator, gpu: str) -> dict:
     return {**rows["padded"], "dense": rows["dense"]}
 
 
-def time_attention_bwd(gen: torch.Generator, gpu: str) -> list[dict]:
+def time_attention_bwd(gen: torch.Generator, gpu: str, packed: list = ()) -> list[dict]:
     """K5 (fed K1's statistics), its plain version, and the backward alone
     of torch's scaled_dot_product_attention with the same boolean mask (a
     yardstick: torch.autograd.grad on a saved graph), at K5_TIME_SHAPES
-    padded and at (16, 512) dense, in device time summed by torch.profiler:
-    at the chunk shapes the wrapper's host work (checks, allocations,
-    ctypes) outlasts the kernels."""
+    padded, at (16, 512) dense and on the packed chunks ``packed`` ((kind,
+    segments) pairs), in device time summed by torch.profiler: at the chunk
+    shapes the wrapper's host work (checks, allocations, ctypes) outlasts
+    the kernels."""
     rows = []
     clock = sm_clock_hz()
-    shapes = [(B, T, "padded") for B, T in K5_TIME_SHAPES] + [(16, 512, "dense")]
-    for B, T, kind in shapes:
-        seg = padded_segments(B, T) if kind == "padded" else dense_segments(B, T)
+    shapes = ([(padded_segments(B, T), "padded") for B, T in K5_TIME_SHAPES]
+              + [(dense_segments(16, 512), "dense")] + [(seg, kind) for kind, seg in packed])
+    for seg, kind in shapes:
+        B, T = seg.shape
         allowed = ((seg[:, None, :, None] == seg[:, None, None, :])
                    & (seg[:, None, None, :] > 0))
-        # four input sets so that successive calls miss the 50 MB L2
+        # input sets enough that successive calls miss the 50 MB L2 (one set
+        # at (28, 2048) is 294 MB)
         sets = []
-        for _ in range(4):
+        for _ in range(4 if B * T <= 16 * 512 else 1):
             q, k, v = qkv(B, T, gen)
             do = torch.randn(B, T, NH, DH, device="cuda", generator=gen).bfloat16()
             lse = attention._forward(q, k, v, seg, with_lse=True)[1]
@@ -2192,7 +2378,7 @@ def time_attention_bwd(gen: torch.Generator, gpu: str) -> list[dict]:
 
         def plain():
             q, k, v, do, _, _ = next(cycle)
-            attention.attention_reference_bwd(q, k, v, seg, do)
+            by_rows(attention.attention_reference_bwd, q, k, v, seg, do)
 
         def library():
             out, inputs, do = next(cycle)[5]
@@ -2837,13 +3023,14 @@ def main() -> int:
         f"{', '.join(f'{k}: {sorted(v)}' for k, v in fault_libs.items())} under {FAULT_DIR})")
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    k1_cases = attention_cases(gen)
+    segments = path_segments()
+    k1_cases = attention_cases(gen, segments)
     max_err = check_attention(k1_cases)
     k4_cases = maxsim_cases(gen)
     k4_err = check_maxsim(k4_cases)
     nce_cases = infonce_cases(gen)
     nce_err = check_infonce(nce_cases)
-    k5_cases = bwd_cases(gen)
+    k5_cases = bwd_cases(gen, segments)
     k5_err = check_attention_bwd(k5_cases)
     p1_err = check_dense_mm(gen)
     k6_err = check_ffn(gen)
@@ -2861,15 +3048,19 @@ def main() -> int:
             check_filip_end_to_end(ctx, fctx)
             tctx = run_train_phase()
             pctx = run_packed_phase()
+            uctx = run_packed_unfrozen_phase()
             steps = {"k2": check_step(256), "k3": check_step(1024),
                      "packed": check_step(256, packed=True),
-                     "finetune": check_finetune_step(fault_libs)}
+                     "finetune": check_finetune_step(fault_libs),
+                     "finetune_packed": check_finetune_step(fault_libs, packed=True)}
             ictx = run_int8_serve_phase(ctx)
             try:
                 i8train = run_int8_train()
                 k6ctx = run_k6_serve_phase(ctx)
                 times = time_attention(gen, gpu)
-                k5_times = time_attention_bwd(gen, gpu)
+                k5_times = time_attention_bwd(gen, gpu, [
+                    (kind, seg) for kind, path, seg in segments
+                    if path and seg.shape in ((16, 256), (28, 2048))])
                 k4_times = time_maxsim(gen, gpu)
                 nce_times = time_infonce(gen, gpu)
                 dispatch = time_dispatch(gen, gpu)
@@ -2882,11 +3073,15 @@ def main() -> int:
                     serving["k6"] = time_serving(ctx, rng, gpu, "PCT_FFN_PALLAS=1")
                 time_filip_serving(ctx, fctx, rng, gpu)
                 tctx["packed"] = pctx
+                tctx["finetune_packed"], tctx["lora_packed"] = uctx["finetune"], uctx["lora"]
                 pairs_per_s = {run: time_train_steps(tctx, run, what, gpu) for run, what in (
                     ("k2", "frozen train step (4 length groups)"),
                     ("packed", "packed frozen train step (flat packing)"),
                     ("finetune", "finetune step (one pad bucket, remat)"),
-                    ("lora", f"LoRA step (rank {LORA_RANK}, one pad bucket, remat)"))}
+                    ("lora", f"LoRA step (rank {LORA_RANK}, one pad bucket, remat)"),
+                    ("finetune_packed", "packed finetune step (flat packing, remat)"),
+                    ("lora_packed", f"packed LoRA step (rank {LORA_RANK}, flat packing, "
+                                    "remat)"))}
                 pairs_per_s["int8"] = time_train_steps(
                     {"int8": i8train, "profile": f"{INT8_FIXTURE_FAMILIES} families"}, "int8",
                     "int8 w8a8 frozen train step (4 length groups)", gpu)
@@ -2903,7 +3098,9 @@ def main() -> int:
              "train_256": tctx["k2"]["launches"], "train_1024": tctx["k3"]["launches"],
              "train_packed": pctx["launches"],
              "train_finetune": tctx["finetune"]["launches"],
-             "train_lora": tctx["lora"]["launches"], "int8_serve": ictx["launches"],
+             "train_lora": tctx["lora"]["launches"],
+             "train_finetune_packed": uctx["finetune"]["launches"],
+             "train_lora_packed": uctx["lora"]["launches"], "int8_serve": ictx["launches"],
              "int8_train": i8train["launches"], "k6_serve": k6ctx["launches"]}
     by_path = {name: {path: counts.get(name, 0) for path, counts in paths.items()}
                for name in ("attention_fwd", "attention_bwd", "filip_maxsim", "infonce",
@@ -2918,15 +3115,24 @@ def main() -> int:
         "train_packed": {"launches": pctx["launches"]["attention_fwd"],
                          "chunk_forwards_per_step": pctx["chunks_per_step"],
                          "cos_min_vs_grouped": pctx["paths"]["cos_min"]},
+        "train_finetune_packed": {"launches": uctx["finetune"]["launches"]["attention_fwd"],
+                                  "chunk_forwards_per_pass": uctx["finetune"]["chunks_per_pass"]},
     }, {
         "name": "attention_bwd", "phase": "train_finetune", "route": "cuda",
         "source": "protein_clip_tpu_torch/csrc/attention_bwd.cu",
         "replaces": "protein_clip_tpu/ops/attention_pallas.py:287",
         "launches": tctx["finetune"]["launches"]["attention_bwd"],
         "launches_by_path": by_path["attention_bwd"], "max_abs_err": k5_err, **k5_times[0],
-        "at_chunks": k5_times[1:-1], "dense": k5_times[-1], "step_check": steps["finetune"],
+        "at_chunks": k5_times[1:3], "dense": k5_times[3], "packed_chunks": k5_times[4:],
+        "step_check": steps["finetune"],
         "fault": {k: fault_reads[k] for k in ("attention_bwd_swept_tiles", "attention_bwd_skip")},
         "finetune_pairs_per_s": pairs_per_s["finetune"], "lora_pairs_per_s": pairs_per_s["lora"],
+        "train_finetune_packed": {"launches": uctx["finetune"]["launches"]["attention_bwd"],
+                                  "chunk_forwards_per_pass": uctx["finetune"]["chunks_per_pass"],
+                                  "step_check": steps["finetune_packed"],
+                                  "pairs_per_s": pairs_per_s["finetune_packed"],
+                                  "lora_pairs_per_s": pairs_per_s["lora_packed"],
+                                  "launches_per_step": uctx["per_step"]},
     }, {
         "name": "filip_maxsim", "phase": "filip_serve", "route": "cuda",
         "source": "protein_clip_tpu_torch/csrc/filip_maxsim.cu",

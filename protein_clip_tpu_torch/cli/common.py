@@ -80,9 +80,9 @@ def add_train_args(p: argparse.ArgumentParser) -> None:
                    help="> 0: clip gradients to this global L2 norm before Adam")
     p.add_argument("--packed", action="store_true",
                    help="sequence-packed encoding (segment-masked rows; supersedes "
-                        "--length-groups; train/packed_engine.py). Frozen backbone only: "
-                        "with --finetune or --lora-rank it raises (not ported yet); with "
-                        "--no-gradcache it is ignored")
+                        "--length-groups; train/packed_engine.py, and with --finetune or "
+                        "--lora-rank the packed two-pass step of train/finetune.py, flat "
+                        "packing only); with --no-gradcache it is ignored")
     p.add_argument("--pack-tiers", type=int, default=1,
                    help="with --packed: >1 packs each side into width-tiered row groups "
                         "(short sequences ride narrower rows, cutting attention cost on "
@@ -91,7 +91,7 @@ def add_train_args(p: argparse.ArgumentParser) -> None:
                    help="unfreeze the ESM-2 backbone: end-to-end training via the two-pass "
                         "gradcache and the attention backward K5 (train/finetune.py; the "
                         "reference is frozen-only). The f32 master backbone trains at "
-                        "--backbone-lr. Not with --packed (not ported yet: raises)")
+                        "--backbone-lr")
     p.add_argument("--backbone-lr", type=float, default=None,
                    help="with --finetune: backbone learning rate (heads stay at --lr). "
                         "Default None resolves per mode: 1e-5 for full finetune, 1e-4 for "
@@ -117,25 +117,26 @@ def add_mesh_args(p: argparse.ArgumentParser) -> None:
 
 def check_train_args(args) -> None:
     """Raise on the training options this port does not run yet (--packed
-    with an unfrozen mode or width tiers, resume, a mesh), on --finetune
-    with --lora-rank (as the TPU package does), and on either of them with
-    --esm-dtype int8, before anything is loaded."""
+    with width tiers, resume, a mesh), on --finetune with --lora-rank (as
+    the TPU package does), on either of them with --esm-dtype int8 or with
+    width tiers, before anything is loaded."""
     if args.finetune and args.lora_rank:
         raise SystemExit("--finetune and --lora-rank are mutually exclusive "
                          "(full vs parameter-efficient)")
-    if args.esm_dtype == "int8" and (args.finetune or args.lora_rank):
-        flag = "--finetune" if args.finetune else "--lora-rank"
+    flag = "--finetune" if args.finetune else "--lora-rank" if args.lora_rank else None
+    if args.esm_dtype == "int8" and flag:
         raise NotImplementedError(
             f"{flag} with --esm-dtype int8: the unfrozen modes train a bf16 or f32 "
             "backbone, and the int8 tree has no weights to train (the TPU package "
             "fails on it too); train with --esm-dtype bfloat16")
+    if args.packed and args.pack_tiers > 1 and flag:
+        raise NotImplementedError(
+            f"{flag} with --packed --pack-tiers {args.pack_tiers}: the packed finetune and "
+            "LoRA steps take flat packing only, as the TPU package's do; drop --pack-tiers")
     refused = [
-        (args.packed and (args.finetune or args.lora_rank),
-         "--packed with --finetune or --lora-rank: the packed finetune and LoRA steps "
-         "(ROADMAP queue 1 item 2)"),
         (args.packed and args.pack_tiers > 1,
          f"--packed with --pack-tiers {args.pack_tiers}: width-tiered packing (ROADMAP "
-         "queue 1 item 9)"),
+         "queue 1: width-tiered packing)"),
         (args.resume_dir is not None, "--resume-dir: train-state snapshots and resume "
                                       "(ROADMAP queue 1)"),
         ((args.dp, args.tp, args.pp) != (1, 1, 1), "--dp/--tp/--pp other than 1: "

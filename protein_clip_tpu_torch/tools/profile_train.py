@@ -1,22 +1,23 @@
 """Where the time of one CLIP train step goes, on the card: the frozen
-backbone (default), the frozen backbone over packed rows (``--packed``),
-``--finetune`` or ``--lora-rank R``.
+backbone (default), ``--finetune`` or ``--lora-rank R``, each over one pad
+bucket (the frozen step: length groups) or over packed rows (``--packed``).
 
     python -m protein_clip_tpu_torch.tools.profile_train [--batch-size 16]
-        [--packed | --finetune | --lora-rank 8]
+        [--packed] [--finetune | --lora-rank 8]
 
 Builds ESM-2 t30_150M in bf16 with seeded random weights and CLIP heads on
 the GPU, and global batches of batch-size x 16 pairs drawn from the seeded
 synthetic corpus of 3000 families (receptors 60-180 aa, peptides 8-30 aa),
 tokenized as ``cli.main`` does: into 4 length groups for the frozen step,
-packed into rows (``train/packed_engine.tokenize_packed``) for the packed
-one, into one pad bucket for the unfrozen ones. Then, for the step of that
+packed into rows (``train/packed_engine.tokenize_packed``) with
+``--packed``, into one pad bucket for the unfrozen ones. Then, for the step of that
 mode (16 chunks, or chunks of 16 packed rows; dropout 0.1, Adam; the
 unfrozen steps with their two learning-rate groups, per-layer remat and an
 f32 master backbone or rank-R adapters):
 
 - the host time to tokenize one global batch (the prefetch thread's work);
-- the wall time per step (median of 5 after 2 warm-up steps) and pairs/s;
+- the wall time per step (median of 5 after 2 warm-up steps), pairs/s and
+  the peak of ``torch.cuda.max_memory_allocated`` over those 5 steps;
 - the same step cut into its layers, with a device sync after each (median
   of 5 more steps). Frozen: the backbone (32 chunked forwards under
   no_grad; packed: the device-side maps and one forward per chunk of
@@ -24,7 +25,10 @@ f32 master backbone or rank-R adapters):
   K2/K3), and the optimizer. Unfrozen: pass 1 (32 chunk encodes under
   no_grad), the loss and its gradient with respect to the embeddings,
   pass 2 (32 chunk encodes with a graph, each with its backward: remat
-  recompute and K5), and the optimizer;
+  recompute and K5), and the optimizer. Packed unfrozen: pass 1 (the
+  device-side maps and each chunk's token sums under no_grad), the tail
+  (pooling, loss and their backward), pass 2 (each chunk's token sums with
+  a graph and their backward), and the optimizer;
 - steps under ``torch.profiler`` (2 frozen, 1 unfrozen): the device's busy
   share of the wall time, kernel launches per step, K1 and K5 launches and
   their shares of the device time, and device time by kernel.
@@ -67,9 +71,10 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--batch-size", type=int, default=16, help="pairs per sub-batch (x 16)")
+    p.add_argument("--packed", action="store_true",
+                   help="the step over packed rows (train/packed_engine.py; with --finetune "
+                        "or --lora-rank the packed two-pass step of train/finetune.py)")
     mode = p.add_mutually_exclusive_group()
-    mode.add_argument("--packed", action="store_true",
-                      help="the frozen step over packed rows (train/packed_engine.py)")
     mode.add_argument("--finetune", action="store_true",
                       help="the unfrozen-backbone step (train/finetune.py)")
     mode.add_argument("--lora-rank", type=int, default=0,
@@ -105,10 +110,10 @@ def main(argv=None) -> int:
     def host_batch():
         idx = rng.choice(len(recs), pool, replace=False)
         p, r = [peps[i] for i in idx], [recs[i] for i in idx]
-        if engine:
-            return (clip_engine.tokenize_pair_batch(tok, p, r),)
         if args.packed:
             return (packed_engine.tokenize_packed(tok, p, r),)
+        if engine:
+            return (clip_engine.tokenize_pair_batch(tok, p, r),)
         return clip_engine.tokenize_grouped(tok, p, r, cfg.length_groups)
 
     t0 = time.perf_counter()
@@ -187,16 +192,48 @@ def main(argv=None) -> int:
         mark()
         return [b - a for a, b in zip(marks, marks[1:])]
 
+    def layered_packed_unfrozen_step() -> list[float]:
+        """The packed two-pass step's code (finetune.make_train_step_packed),
+        with a sync and a clock after each layer."""
+        marks = [time.perf_counter()]
+
+        def mark():
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+
+        chunk_sums, scan_sums, tail, prepare = finetune._packed_machinery(
+            cfg, loss_fn, packed_engine._default_rows_per_chunk(None), engine.esm_view(cfg))
+        sides = prepare(next(it), gen)
+        with torch.no_grad():
+            sums, counts = scan_sums(params, esm_params, sides)
+        mark()
+        for t in sums.values():
+            t.requires_grad_(True)
+        tail(params, sums, counts, sides).backward()
+        mark()
+        for side, (chunks, seeds, _) in sides.items():
+            for chunk, seed in zip(chunks, seeds):
+                chunk_sums(params, esm_params, side, chunk, seed)[0].backward(sums[side].grad)
+        mark()
+        state.apply()
+        mark()
+        return [b - a for a, b in zip(marks, marks[1:])]
+
     _wall(train_step, 2)
+    torch.cuda.reset_peak_memory_stats()
     walls = _wall(train_step, 5)
-    layers = np.median([(layered_unfrozen_step if engine else layered_step)()
-                        for _ in range(5)], axis=0) * 1e3
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    layered = (layered_packed_unfrozen_step if engine and args.packed
+               else layered_unfrozen_step if engine else layered_step)
+    layers = np.median([layered() for _ in range(5)], axis=0) * 1e3
     step_ms = 1e3 * statistics.median(walls)
-    names = (("pass 1", "loss + embedding gradients", "pass 2 (forward + backward)",
+    names = (("pass 1", "tail (pooling + loss, forward and backward)",
+              "pass 2 (forward + backward)", "optimizer") if engine and args.packed else
+             ("pass 1", "loss + embedding gradients", "pass 2 (forward + backward)",
               "optimizer") if engine else
              ("backbone", "heads forward + loss", "backward", "optimizer"))
-    print(f"[step] wall p50 {step_ms:.4f} ms ({pool / step_ms * 1e3:.4f} pairs/s, 5 steps) | "
-          f"{gpu}")
+    print(f"[step] wall p50 {step_ms:.4f} ms ({pool / step_ms * 1e3:.4f} pairs/s, 5 steps); "
+          f"peak memory {peak_gb:.4f} GB (max_memory_allocated) | {gpu}")
     print("[step] by layer, p50 of 5 synced steps: " + "; ".join(
         f"{n} {ms:.4f} ms ({100 * ms / layers.sum():.2f}%)" for n, ms in zip(names, layers)))
 

@@ -82,7 +82,8 @@ class EngineConfig:
     # filled, against about 80% for length groups; supersedes length_groups
     packed: bool = False
     # > 1: width-tiered packing, and FILIP's scatter tiers: not ported yet
-    # (the packed steps raise; ROADMAP queue 1 items 9 and 4)
+    # (the packed steps raise; ROADMAP queue 1: width-tiered packing, FILIP
+    # training)
     packed_tiers: int = 1
     scatter_tiers: int = 1
     # per-layer rematerialisation of the backbone where it takes gradients

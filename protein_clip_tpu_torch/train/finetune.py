@@ -24,8 +24,13 @@ Params: ``{"esm": <esm2 params, f32>, "heads": <clip params>}``. The step is
 loss)`` like the frozen engine's, so ``loop.fit`` drives it; the
 ``esm_params`` slot is ignored (the backbone lives inside params). Two
 learning rates (``make_optimizer``): heads at ``cfg.learning_rate``, backbone
-at ``cfg.backbone_lr`` (default 1e-5). The packed finetune step is not
-ported (ROADMAP queue 1).
+at ``cfg.backbone_lr`` (default 1e-5).
+
+With ``cfg.packed`` the step runs the same two passes over chunks of packed
+rows (``make_train_step_packed``, flat packing). Pooling is a sum over each
+sequence's tokens, so a chunk yields (n, D) partial token sums (zero for the
+sequences it does not hold) and pass 2 feeds every chunk the same global
+gradient of the sums: nothing per chunk is cached between the passes.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ import torch
 
 from ..models import clip, esm2
 from . import optimizer as opt_mod
+from . import packed_engine as pe
 from .clip_engine import EngineConfig, default_loss_fn, expand_batch, make_eval_step as _eval
 from .gradcache import gradcache_value_and_grad
 
@@ -137,12 +143,9 @@ def _two_pass_step(cfg: EngineConfig, loss_fn: Callable,
 
 
 def _check_plain(cfg: EngineConfig, what: str) -> None:
-    if cfg.packed:
-        raise NotImplementedError(f"the packed {what} step is not ported yet (ROADMAP "
-                                  "queue 1: the packed finetune and LoRA steps)")
     if cfg.length_groups > 1:
-        raise ValueError(f"{what} trains on plain (tokenize_pair_batch) batches; "
-                         "length-grouped training is not wired")
+        raise ValueError(f"{what} trains on plain (tokenize_pair_batch) or packed "
+                         "(cfg.packed) batches; length-grouped training is not wired")
 
 
 def esm_view(cfg: EngineConfig) -> Callable[[Params, Params], Params]:
@@ -153,16 +156,145 @@ def esm_view(cfg: EngineConfig) -> Callable[[Params, Params], Params]:
 
 
 def make_train_step(cfg: EngineConfig, loss_fn: Callable | None = None):
-    """The unfrozen step over ``tokenize_pair_batch`` batches: (params,
-    opt_state, _, batch, generator) -> (params, opt_state, loss), with
-    ``opt_state`` from ``make_optimizer(cfg).init(params)``."""
+    """The unfrozen step over ``tokenize_pair_batch`` batches, or with
+    ``cfg.packed`` over ``tokenize_packed`` ones: (params, opt_state, _,
+    batch, generator) -> (params, opt_state, loss), with ``opt_state`` from
+    ``make_optimizer(cfg).init(params)``."""
+    if cfg.packed:
+        return make_train_step_packed(cfg, loss_fn)
     _check_plain(cfg, "finetune")
     return _two_pass_step(cfg, loss_fn or default_loss_fn(), esm_view(cfg))
 
 
-def make_train_step_packed(cfg: EngineConfig, loss_fn: Callable | None = None):
-    raise NotImplementedError("the packed finetune step is not ported yet (ROADMAP queue 1: "
-                              "the packed finetune and LoRA steps)")
+def _chunk_pack(pack: dict, rows_per_chunk: int) -> list[dict]:
+    """One expanded pack's rows in chunks: the most equal chunks, at most
+    R // rows_per_chunk of them, that divide R (the frozen path's rule)."""
+    R = pack["ids"].shape[0]
+    n = max(1, R // rows_per_chunk)
+    while R % n:
+        n -= 1
+    keys = ("ids", "seg", "pos", "owner")
+    return [dict(zip(keys, parts)) for parts in zip(*(pack[k].chunk(n) for k in keys))]
+
+
+def _default_expand_sides(batch: dict) -> dict[str, dict]:
+    """The device-side maps of a flat packed batch, per side."""
+    if "pep_packs" in batch or "rec_packs" in batch:
+        raise ValueError("the packed finetune and LoRA steps take flat packing only "
+                         "(packed_tiers=1)")
+    batch = pe.expand_packed_batch(batch)
+    return {side: {k: batch[f"{side}_{k}"] for k in ("ids", "seg", "pos", "owner")}
+            for side in pe.SIDES}
+
+
+def _generator(seed: int | None, device) -> torch.Generator | None:
+    return None if seed is None else torch.Generator(device=device).manual_seed(seed)
+
+
+def _packed_machinery(cfg: EngineConfig, loss_fn: Callable, rows_per_chunk: int,
+                      view: Callable[[Params, Params], Params]):
+    """The pieces of the packed two-pass step: (chunk_sums, scan_sums, tail,
+    prepare). ``prepare(batch, generator)`` gives, per side, (chunks, chunk
+    seeds, tail seed); ``chunk_sums`` one chunk's (n, D) token sums and (n,)
+    counts; ``scan_sums`` their sums over each side's chunks, as ({side:
+    sums}, {side: counts}); ``tail`` the loss of those (masked mean, pooled
+    FFN, scale, InfoNCE)."""
+    mcfg = cfg.model
+    n_seqs = cfg.global_batch
+    drop = dict(dropout_rate=mcfg.dropout, train=True, activation=mcfg.activation)
+
+    def chunk_sums(params, esm_params, side, chunk, seed):
+        h = esm2.forward(view(params, esm_params), chunk["ids"],
+                         (chunk["seg"] > 0).to(torch.int32), mcfg.esm, remat=cfg.remat,
+                         segment_ids=chunk["seg"], positions=chunk["pos"])
+        return pe._token_sums(params["heads"][side], h.float(), chunk["owner"], n_seqs,
+                              generator=_generator(seed, h.device), **drop)
+
+    def scan_sums(params, esm_params, sides):
+        sums, counts = {}, {}
+        for side, (chunks, seeds, _) in sides.items():
+            sums[side], counts[side] = chunk_sums(params, esm_params, side, chunks[0], seeds[0])
+            for chunk, seed in zip(chunks[1:], seeds[1:]):
+                s, c = chunk_sums(params, esm_params, side, chunk, seed)
+                sums[side], counts[side] = sums[side] + s, counts[side] + c
+        return sums, counts
+
+    def tail(params, sums, counts, sides):
+        t = params["heads"]["temperature"]
+        pep, rec = (pe._finish_pool(params["heads"][side], sums[side], counts[side], t,
+                                    generator=_generator(sides[side][2], t.device), **drop)
+                    for side in pe.SIDES)
+        return loss_fn(pep, rec)
+
+    def prepare(batch, generator):
+        packs = _default_expand_sides(batch)
+        # constant tokens a chunk across the sides: rows narrower than the
+        # widest side's take proportionally more rows a chunk (JAX's rule;
+        # the frozen step chunks each side at rows_per_chunk)
+        l_max = max(p["ids"].shape[1] for p in packs.values())
+        chunks = {side: _chunk_pack(p, rows_per_chunk * (l_max // p["ids"].shape[1]))
+                  for side, p in packs.items()}
+        # one seed a chunk and the last for the tail's pooled-FFN dropout
+        seeds = _chunk_seeds(generator, max(map(len, chunks.values())) + 1)
+        return {side: (chunks[side], s[:len(chunks[side])], s[-1])
+                for side, s in zip(pe.SIDES, seeds)}
+
+    return chunk_sums, scan_sums, tail, prepare
+
+
+def make_packed_loss(cfg: EngineConfig, loss_fn: Callable | None = None,
+                     rows_per_chunk: int | None = None,
+                     view: Callable[[Params, Params], Params] | None = None):
+    """loss(params, esm_params, batch, generator): the packed step's loss in
+    one graph, with the same chunks and dropout seeds as its two passes
+    (the form the two-pass gradients are held against). ``view`` is
+    ``make_train_step_packed``'s."""
+    _, scan_sums, tail, prepare = _packed_machinery(
+        cfg, loss_fn or default_loss_fn(), pe._default_rows_per_chunk(rows_per_chunk),
+        view or esm_view(cfg))
+
+    def loss(params, esm_params, batch, generator):
+        sides = prepare(batch, generator)
+        return tail(params, *scan_sums(params, esm_params, sides), sides)
+
+    return loss
+
+
+def make_train_step_packed(cfg: EngineConfig, loss_fn: Callable | None = None,
+                           rows_per_chunk: int | None = None,
+                           view: Callable[[Params, Params], Params] | None = None):
+    """The unfrozen step over ``tokenize_packed`` batches of
+    ``cfg.global_batch`` pairs (flat packing), with ``make_train_step``'s
+    signature; ``view(params, esm_params)`` gives the backbone each chunk
+    runs on (default ``esm_view(cfg)``: the f32 master cast to the compute
+    dtype).
+
+    Pass 1 adds every chunk's token sums and counts with no graph; the tail
+    is differentiated with respect to the parameters it reaches and the
+    sums; pass 2 replays each chunk with a graph (remat, K5) and feeds it
+    the whole gradient of its side's sums, which the chunk's owner product
+    restricts to its own sequences. The counts take no gradient."""
+    pe.check_flat(cfg.packed_tiers, cfg.scatter_tiers)
+    chunk_sums, scan_sums, tail, prepare = _packed_machinery(
+        cfg, loss_fn or default_loss_fn(), pe._default_rows_per_chunk(rows_per_chunk),
+        view or esm_view(cfg))
+
+    def step(params, opt_state, esm_params, batch, generator):
+        pe._validate_packed_batch(batch, cfg.global_batch)
+        sides = prepare(batch, generator)
+        with torch.no_grad():
+            sums, counts = scan_sums(params, esm_params, sides)
+        for t in sums.values():
+            t.requires_grad_(True)
+        loss = tail(params, sums, counts, sides)
+        loss.backward()
+        for side, (chunks, seeds, _) in sides.items():
+            for chunk, seed in zip(chunks, seeds):
+                chunk_sums(params, esm_params, side, chunk, seed)[0].backward(sums[side].grad)
+        opt_state.apply()
+        return params, opt_state, loss.detach()
+
+    return step
 
 
 def make_eval_step(cfg: EngineConfig, loss_fn: Callable | None = None):

@@ -17,8 +17,9 @@ dense weight gradient to reach A and B.
 
 Params: ``{"lora": {"attn/q": {"a", "b"}, ...}, "heads": <clip params>}``.
 Two learning rates (``make_optimizer``): heads at ``cfg.learning_rate``,
-adapters at ``cfg.backbone_lr`` (default 1e-4). The packed LoRA step is not
-ported (ROADMAP queue 1).
+adapters at ``cfg.backbone_lr`` (default 1e-4). With ``cfg.packed`` the step
+is the packed finetune step (``finetune.make_train_step_packed``, flat
+packing) with the adapter merge as its backbone.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from typing import Any, Callable
 
 import torch
 
-from . import optimizer as opt_mod
+from . import finetune, optimizer as opt_mod
 from .clip_engine import EngineConfig, default_loss_fn, make_eval_step as _eval
 from .finetune import _check_plain, _two_pass_step
 
@@ -113,9 +114,20 @@ def esm_view(cfg: EngineConfig) -> Callable[[Params, Params], Params]:
 def make_train_step(cfg: EngineConfig, loss_fn: Callable | None = None):
     """The LoRA step: (params, opt_state, esm_params, batch, generator) ->
     (params, opt_state, loss), with esm_params the frozen compute-dtype
-    base and ``opt_state`` from ``make_optimizer(cfg).init(params)``."""
+    base and ``opt_state`` from ``make_optimizer(cfg).init(params)``; with
+    ``cfg.packed`` over ``tokenize_packed`` batches."""
+    if cfg.packed:
+        return make_train_step_packed(cfg, loss_fn)
     _check_plain(cfg, "LoRA")
     return _two_pass_step(cfg, loss_fn or default_loss_fn(), esm_view(cfg))
+
+
+def make_train_step_packed(cfg: EngineConfig, loss_fn: Callable | None = None,
+                           rows_per_chunk: int | None = None):
+    """The packed LoRA step: the packed finetune step with the adapters
+    merged into the frozen base inside each chunk's graph, so gradients
+    reach only the adapters and the heads."""
+    return finetune.make_train_step_packed(cfg, loss_fn, rows_per_chunk, esm_view(cfg))
 
 
 def make_eval_step(cfg: EngineConfig, loss_fn: Callable | None = None):

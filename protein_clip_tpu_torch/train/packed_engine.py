@@ -21,8 +21,9 @@ counts round up to a multiple that halves as the width doubles
 (``_row_multiple_for``), so batch shapes repeat.
 
 Not ported here: width-tiered packing (``tiers > 1``, ``--pack-tiers``;
-ROADMAP queue 1 item 9) and FILIP's scatter tiers (``scatter_tiers > 1``;
-ROADMAP queue 1 item 4). Both raise ``NotImplementedError``.
+ROADMAP queue 1: width-tiered packing) and FILIP's scatter tiers
+(``scatter_tiers > 1``; ROADMAP queue 1: FILIP training). Both raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -85,12 +86,12 @@ def check_flat(tiers: int = 1, scatter_tiers: int = 1,
     if tiers > 1 or tier_widths is not None:
         raise NotImplementedError(
             f"width-tiered packing (tiers={tiers}, tier_widths={tier_widths}, --pack-tiers) "
-            "is not ported yet (ROADMAP queue 1 item 9); the packed step takes flat "
-            "packing, tiers=1")
+            "is not ported yet (ROADMAP queue 1: width-tiered packing); the packed step "
+            "takes flat packing, tiers=1")
     if scatter_tiers > 1:
         raise NotImplementedError(
             f"FILIP scatter tiers (scatter_tiers={scatter_tiers}) are not ported yet (ROADMAP "
-            "queue 1 item 4: FILIP training); the packed step takes scatter_tiers=1")
+            "queue 1: FILIP training); the packed step takes scatter_tiers=1")
 
 
 def tokenize_packed(tokenizer: EsmTokenizer, peps: list[str], recs: list[str],
@@ -215,8 +216,15 @@ def _pool_packed(head_params, hidden, owner, n_seqs: int, temperature, *, activa
     FFN, where the TPU package splits its key in two."""
     drop = dict(dropout_rate=dropout_rate, train=train, generator=generator)
     sums, cnt = _token_sums(head_params, hidden, owner, n_seqs, activation=activation, **drop)
+    return _finish_pool(head_params, sums, cnt, temperature, activation=activation, **drop)
+
+
+def _finish_pool(head_params, sums, cnt, temperature, *, activation: str, **dropout):
+    """Scaled embeddings (n, D) from per-sequence token sums and counts: the
+    masked mean, then ``heads.finish_pooled`` (``dropout`` takes its
+    keywords)."""
     pooled = sums / cnt.clamp(min=1.0)[:, None]
-    return heads.finish_pooled(head_params, pooled, temperature, activation, **drop)
+    return heads.finish_pooled(head_params, pooled, temperature, activation, **dropout)
 
 
 def _default_rows_per_chunk(rows_per_chunk: int | None) -> int:

@@ -5,8 +5,9 @@ and bf16) and the fused FFN K6 against their plain versions at odd shapes,
 each tolerance against a planted fault, the wrappers' refusals, their
 launch counts, the ESM-2 forward through K1, P1 (int8) and K6, the FILIP
 scorer through K4, a train step through K2 and K3 (grouped and packed), the
-packed embeddings against the grouped ones, and finetune steps
-through K1 and K5, and under the K6 gate.
+packed embeddings against the grouped ones, finetune steps
+through K1 and K5 (one pad bucket, and packed: finetune and LoRA), K5 on a
+packed step's own segments, and under the K6 gate.
 
 These tests need an NVIDIA GPU and nvcc; elsewhere they skip. This file
 imports torch, the port and chip_smoke.py (whose planted faults and plain
@@ -746,6 +747,107 @@ def test_finetune_step_runs_k1_and_k5_and_matches_eager(dev):
     assert abs(lk - le) <= 2 * abs(le - lf) + 1e-4 * abs(lf)
     for a, b, f in zip(gk, ge, gf):
         assert float((a - b).norm()) <= 2 * float((b - f).norm()) + 5e-2 * float(f.norm())
+
+
+def _packed_unfrozen_batch(dev, pool=32, seed=3):
+    """pool pairs packed: peptide rows of 128 (16 rows, 11 all <pad>),
+    receptor rows of 256 (32 rows: 8 of two or more receptors, 8 all
+    <pad>)."""
+    rng = np.random.default_rng(seed)
+    aas = list("LAGVSERTIDPKQNFYMHWC")
+    peps = ["".join(rng.choice(aas, int(n))) for n in rng.integers(8, 30, pool)]
+    recs = ["".join(rng.choice(aas, int(n))) for n in rng.integers(60, 250, pool)]
+    return to_device(packed_engine.tokenize_packed(EsmTokenizer(), peps, recs), dev)
+
+
+def _packed_unfrozen_steps(dev, mode: str, names=("kernel", "plain_bwd", "fault", "again")):
+    """One packed finetune or LoRA step (rank 4; 4 rows a chunk: the peptide
+    rows take chunks of 8, the receptor rows of 4; remat) from the same
+    weights and batch per attention path, as _finetune_steps: {name: (loss,
+    grads, (K1, K5) launches, chunks)}; "again" repeats "kernel"."""
+    from protein_clip_tpu_torch.train import finetune, lora
+
+    fault = chip_smoke.build_faults(("swept_tiles",))["swept_tiles"] if "fault" in names else {}
+    mcfg, esm_params = _tiny_t30_like(dev)
+    batch = _packed_unfrozen_batch(dev)
+    heads0 = clip.init_params(mcfg, torch.Generator().manual_seed(1), device=dev)
+    adapters0 = lora.init_lora(torch.Generator(device=dev).manual_seed(2), esm_params, 4)
+    for ab in adapters0.values():     # B off its zero init, so the adapters see K5
+        ab["b"] = 0.01 * torch.randn(ab["b"].shape, device=dev,
+                                     generator=torch.Generator(device=dev).manual_seed(3))
+    cfg = clip_engine.EngineConfig(model=mcfg, batch_size=32, accumulated_batches=1,
+                                   packed=True)
+    k1, k5 = attention._forward, attention.fused_attention_bwd
+    bwd = {"plain_bwd": chip_smoke.plain_backward}
+    out = {}
+    for name in names:
+        if mode == "finetune":
+            params, esm, view = finetune.init_params(esm_params, _clone(heads0)), {}, None
+            engine = finetune
+        else:
+            params = lora.init_params(_clone(adapters0), _clone(heads0))
+            esm, view, engine = esm_params, lora.esm_view(cfg), lora
+        state = _capturing(engine.make_optimizer(cfg).init(params))
+        before = (attention.fused_attention.launches, k5.launches)
+        faulty = (chip_smoke.attention_kernels(fault, ("attention_bwd",))
+                  if name == "fault" else contextlib.nullcontext())
+        step = finetune.make_train_step_packed(cfg, rows_per_chunk=4, view=view)
+        with chip_smoke.attention_function(k1, bwd.get(name, k5)), faulty:
+            _, _, loss = step(params, state, esm, batch, None)
+        torch.cuda.synchronize()
+        out[name] = (float(loss), state.grads,
+                     (attention.fused_attention.launches - before[0], k5.launches - before[1]))
+    out["chunks"] = batch["pep_ids"].shape[0] // 8 + batch["rec_ids"].shape[0] // 4
+    return out
+
+
+@pytest.mark.parametrize("mode", ["finetune", "lora"])
+def test_packed_unfrozen_step_runs_k1_and_k5_and_matches_k5s_plain_version(dev, mode):
+    """One packed finetune (LoRA) step through K1/K5 on packed segments. Per
+    layer K1 launches once per pass-1 chunk and twice per pass-2 chunk
+    (forward and remat recompute), K5 once per pass-2 chunk. Against the
+    same step through K1 and K5's plain version every leaf's gradient is
+    within chip_smoke.FT_K5_TOL (2^-6: four bf16 ulps of the leaf's largest
+    entry, the limit of the same check on the packed step at t30_150M,
+    where chip_smoke.py says why) and the loss within FT_LOSS_TOL; a K5 that
+    drops the last query tile of its dk/dv loop fails that; the step repeats
+    to the bit. This file's FT_K5_TOL (1e-2, 2.56 ulps) was set on the
+    one-bucket step of _finetune_steps; the packed finetune step here reads
+    0.0102 on an H100 at the token embedding table, as the packed step at
+    t30_150M does (0.0141, 3.6 ulps), where the planted fault reads 46x."""
+    tol = chip_smoke.FT_K5_TOL
+    out = _packed_unfrozen_steps(dev, mode)
+    chunks, layers = out["chunks"], 2
+    assert out["kernel"][2] == out["again"][2] == (3 * chunks * layers, chunks * layers)
+    assert out["plain_bwd"][2] == (3 * chunks * layers, 0)
+    (lk, gk, _), (lp, gp, _) = out["kernel"], out["plain_bwd"]
+    assert abs(lk - lp) <= FT_LOSS_TOL * abs(lp)
+    assert _worst_gap(gk, gp) <= tol
+    assert _worst_gap(out["fault"][1], gp) > tol
+    assert lk == out["again"][0]
+    assert all(torch.equal(a, b) for a, b in zip(gk, out["again"][1]))
+
+
+def test_attention_bwd_on_packed_rows_with_gaps_and_pad_rows(dev):
+    """K5 fed K1's statistics on a packed unfrozen step's own segments (rows
+    of several sequences with a gap at each end, and all-<pad> rows): each
+    side's whole pack and every chunk the step takes of it (8 peptide rows,
+    4 receptor rows); dq, dk and dv against attention_reference_bwd within
+    K1's tolerance form."""
+    batch = packed_engine.expand_packed_batch(_packed_unfrozen_batch(dev))
+    cases = []
+    for side, rows in (("pep", 8), ("rec", 4)):
+        seg = batch[f"{side}_seg"]
+        top = seg.amax(1)
+        assert bool((top == 0).any()) and bool((top > 1).any()), side
+        cases += [seg, *(c.contiguous() for c in seg.split(rows))]
+    for seg in cases:
+        B, T = seg.shape
+        q, k, v = _inputs(B, T, 20, dev, seed=B + T)
+        do = torch.randn(B, T, 20, 32, device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(T)).bfloat16()
+        _assert_bwd_close(_k5(q, k, v, seg, do), attention.attention_reference_bwd(q, k, v, seg,
+                                                                                  do))
 
 
 def test_chunk_seeds_on_a_cuda_generator_need_no_sync(dev):

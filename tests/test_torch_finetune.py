@@ -15,7 +15,16 @@ by f32 noise give updates up to lr apart, and a flat tolerance would test
 that noise. Also: the two-pass gradients against one monolithic graph with
 dropout on, remat, the two learning rates, the eval step, the refusals and
 ``cli.main --finetune`` end to end.
+
+The packed step (``make_train_step_packed``, flat packing) is held the same
+way against JAX's on rows of 128 (peptides) and 256 (receptors), where the
+constant-token chunk rule matters, at 16 and 4 rows a chunk; its
+single-graph ``make_packed_loss`` against JAX's and against the two passes
+with dropout on; its loss against the one-bucket loss; the packed eval
+step; and ``cli.main --finetune --packed``.
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -33,7 +42,7 @@ from protein_clip_tpu.train import finetune as jfinetune
 from protein_clip_tpu_torch.cli import embed, main
 from protein_clip_tpu_torch.data.tokenizer import EsmTokenizer
 from protein_clip_tpu_torch.models import clip, esm2
-from protein_clip_tpu_torch.train import checkpoint, clip_engine, finetune
+from protein_clip_tpu_torch.train import checkpoint, clip_engine, finetune, packed_engine
 
 RTOL = 1e-5
 AAS = list("LAGVSERTIDPKQNFYMHWC")
@@ -272,12 +281,15 @@ def test_eval_step_matches_jax(tiny):
 
 
 def test_grouped_and_packed_steps_are_refused(tiny):
+    """Length groups are refused; the packed steps build (flat packing),
+    and width tiers are refused."""
     _, mcfg, _, _ = tiny
     with pytest.raises(ValueError, match="length-grouped"):
         finetune.make_train_step(clip_engine.EngineConfig(model=mcfg, length_groups=2))
     for make in (finetune.make_train_step, finetune.make_train_step_packed):
-        with pytest.raises(NotImplementedError, match="packed"):
-            make(clip_engine.EngineConfig(model=mcfg, packed=True))
+        assert callable(make(clip_engine.EngineConfig(model=mcfg, packed=True)))
+        with pytest.raises(NotImplementedError, match="width-tiered"):
+            make(clip_engine.EngineConfig(model=mcfg, packed=True, packed_tiers=2))
 
 
 def test_cli_main_finetune(tmp_path):
@@ -340,3 +352,168 @@ def test_two_group_optimizer_clips_the_whole_tree(tiny):
     jflat = checkpoint._flatten(np_tree(jp))
     for k, t in flat.items():
         np.testing.assert_allclose(t.detach().numpy(), jflat[k], atol=1e-6, err_msg=k)
+
+
+# ---------------------------------------------------------------------------
+# The packed step (cfg.packed, flat packing)
+# ---------------------------------------------------------------------------
+
+def packed_pairs(seed, n=GLOBAL):
+    """Peptides of 5-24 residues and receptors of 130-249: rows of 128 and
+    256, so the packed step's constant-token chunk rule gives the peptide
+    rows twice the receptor rows' chunk height."""
+    rng = np.random.default_rng(seed)
+    return (["".join(rng.choice(AAS, int(k))) for k in rng.integers(5, 25, n)],
+            ["".join(rng.choice(AAS, int(k))) for k in rng.integers(130, 250, n)])
+
+
+def packed_wire(seed, n=GLOBAL):
+    """The same pairs packed by each package: (JAX batch, port batch)."""
+    from protein_clip_tpu.train import packed_engine as jpacked
+    from protein_clip_tpu_torch.train import packed_engine
+
+    peps, recs = packed_pairs(seed, n)
+    return (jpacked.tokenize_packed(JaxTokenizer(), peps, recs),
+            packed_engine.tokenize_packed(EsmTokenizer(), peps, recs))
+
+
+def packed_cfgs(jmcfg, mcfg, **kw):
+    kw = dict(batch_size=4, accumulated_batches=2, packed=True, **kw)
+    return jengine.EngineConfig(model=jmcfg, **kw), clip_engine.EngineConfig(model=mcfg, **kw)
+
+
+def run_packed_steps(jstep, step, jp, jstate, params, state, esm, jesm, seed0):
+    """Three steps of each package's packed step from the same weights:
+    (params, port gradients, losses, JAX params, JAX gradients, JAX losses)."""
+    losses, jlosses, jgrads = [], [], []
+    for s in range(3):
+        jb, b = packed_wire(seed0 + s)
+        assert b["pep_ids"].shape[1] == 128 and b["rec_ids"].shape[1] == 256
+        jp, jstate, jloss = jstep(jp, jstate, jesm, jb, jax.random.key(s))
+        params, state, loss = step(params, state, esm, b, None)
+        losses.append(float(loss))
+        jlosses.append(float(jloss))
+        jgrads.append(jstate[0]["g"])
+    return params, state.grads, losses, jp, jgrads, jlosses
+
+
+@pytest.mark.parametrize("rows_per_chunk", [16, 4])
+def test_packed_finetune_steps_match_jax(tiny, rows_per_chunk):
+    """Three packed finetune steps against JAX's make_train_step_packed:
+    with 16 rows a chunk each side is one chunk (the peptide rows at 32);
+    with 4 the peptide rows take 2 chunks of 8 and the receptor rows 4 of 4.
+    Losses within 1e-5 relative, the first step's gradients within 1e-5 of
+    each leaf's largest, the parameters within Adam's bound."""
+    jmcfg, mcfg, jesm, jheads = tiny
+    jcfg, cfg = packed_cfgs(jmcfg, mcfg, **LRS)
+    tx = optax.chain(jax_capture(), jfinetune.make_optimizer(jcfg))
+    jstep = jfinetune.make_train_step_packed(jcfg, tx, rows_per_chunk=rows_per_chunk)
+    step = (finetune.make_train_step(cfg) if rows_per_chunk == 16
+            else finetune.make_train_step_packed(cfg, rows_per_chunk=rows_per_chunk))
+    jp = jfinetune.init_params(jesm, jheads)
+    params = port_params(jesm, jheads)
+    params, grads, losses, jp, jgrads, jlosses = run_packed_steps(
+        jstep, step, jp, tx.init(jp), params, Capturing(finetune.make_optimizer(cfg), params),
+        {}, {}, 40)
+    np.testing.assert_allclose(losses, jlosses, rtol=RTOL)
+    assert_grads_close(grads[0], jgrads[0])
+    esm_moved = max(float(np.abs(g).max()) for g in jax.tree.leaves(np_tree(jgrads[0]["esm"])))
+    assert esm_moved > 1e-6, "backbone gradients must be nonzero"
+    assert_within_adam_bound(params, jp, grads, jgrads,
+                             {"esm": LRS["backbone_lr"], "heads": LRS["learning_rate"]})
+
+
+def test_packed_loss_matches_jax(tiny):
+    """make_packed_loss, the single-graph form, against JAX's: within 1e-5
+    relative, at 4 rows a chunk."""
+    jmcfg, mcfg, jesm, jheads = tiny
+    jcfg, cfg = packed_cfgs(jmcfg, mcfg)
+    jb, b = packed_wire(50)
+    want = jfinetune.make_packed_loss(jcfg, rows_per_chunk=4)(
+        jfinetune.init_params(jesm, jheads), {}, jb, jax.random.key(0))
+    got = finetune.make_packed_loss(cfg, rows_per_chunk=4)(port_params(jesm, jheads), {}, b,
+                                                           None)
+    np.testing.assert_allclose(float(got), float(want), rtol=RTOL)
+
+
+def assert_two_pass_equals_packed_loss(cfg, params_fn, view, esm, optimizer_zero):
+    """The packed two-pass step's gradients (captured at lr 0) equal those
+    of make_packed_loss's single graph with the same generator seed, within
+    1e-5 of each leaf's largest, loss within 1e-5 relative; another seed
+    gives other gradients (pass 2 must redraw pass 1's masks to agree)."""
+    b = packed_wire(51)[1]
+
+    def two_pass(seed):
+        params = params_fn()
+        state = Capturing(optimizer_zero(), params)
+        _, _, loss = finetune.make_train_step_packed(cfg, rows_per_chunk=4, view=view)(
+            params, state, esm, b, torch.Generator().manual_seed(seed))
+        return float(loss), state.grads[0]
+
+    loss, grads = two_pass(7)
+    params = params_fn()
+    flat = checkpoint._flatten(params)
+    for t in flat.values():
+        t.requires_grad_(True)
+    mono = finetune.make_packed_loss(cfg, rows_per_chunk=4, view=view)(
+        params, esm, b, torch.Generator().manual_seed(7))
+    mono.backward()
+    np.testing.assert_allclose(loss, float(mono.detach()), rtol=RTOL)
+    for k, t in flat.items():
+        err = float((grads[k] - t.grad).abs().max())
+        assert err <= RTOL * float(t.grad.abs().max()), (k, err)
+    other = two_pass(8)[1]
+    assert any(not torch.allclose(grads[k], other[k]) for k in grads)
+
+
+def test_packed_two_pass_grads_equal_packed_loss_with_dropout(tiny):
+    """The gradcache invariant of the packed step, with head dropout 0.5
+    (token FFN per chunk, pooled FFN in the tail)."""
+    _, _, jesm, jheads = tiny
+    _, mcfg = mcfgs(dropout=0.5)
+    cfg = clip_engine.EngineConfig(model=mcfg, batch_size=4, accumulated_batches=2,
+                                   packed=True)
+    assert_two_pass_equals_packed_loss(cfg, lambda: port_params(jesm, jheads),
+                                       finetune.esm_view(cfg), {}, optimizer_sgd0)
+
+
+def test_packed_loss_matches_the_plain_finetune_loss(tiny):
+    """Packing changes the layout, not the objective: the packed loss on
+    the same pairs equals the one-bucket loss within 2e-4 relative (as the
+    JAX package's test_packed_finetune_matches_plain_finetune holds it)."""
+    _, mcfg, jesm, jheads = tiny
+    peps, recs = packed_pairs(52)
+    cfg = clip_engine.EngineConfig(model=mcfg, batch_size=4, accumulated_batches=2)
+    params = port_params(jesm, jheads)
+    packed = finetune.make_packed_loss(dataclasses.replace(cfg, packed=True), rows_per_chunk=4)(
+        params, {}, packed_engine.tokenize_packed(EsmTokenizer(), peps, recs), None)
+    plain = finetune.make_eval_step(cfg)(
+        params, {}, clip_engine.tokenize_pair_batch(EsmTokenizer(), peps, recs))
+    np.testing.assert_allclose(float(packed), float(plain), rtol=2e-4)
+
+
+def test_packed_eval_step_matches_jax(tiny):
+    """The eval step on a packed batch goes through clip_engine's packed
+    dispatch, as JAX's does: a pool of 12, not the global batch."""
+    jmcfg, mcfg, jesm, jheads = tiny
+    jcfg, cfg = packed_cfgs(jmcfg, mcfg)
+    jb, b = packed_wire(53, 12)
+    want = jfinetune.make_eval_step(jcfg)(jfinetune.init_params(jesm, jheads), {}, jb)
+    got = finetune.make_eval_step(cfg)(port_params(jesm, jheads), {}, b)
+    np.testing.assert_allclose(float(got), float(want), rtol=RTOL)
+
+
+def test_cli_main_finetune_packed(tmp_path):
+    """``cli.main --finetune --packed`` for one tiny epoch on the CPU: the
+    run contract, finite losses, a {heads, esm} checkpoint."""
+    assert main.main(TINY + SMALL_RUN + ["--finetune", "--packed", "--synthetic-fixture",
+                                         "--data-dir", str(tmp_path / "data"), "--runs-dir",
+                                         str(tmp_path / "runs")]) == 0
+    (run,) = list((tmp_path / "runs").iterdir())
+    assert sorted(p.name for p in run.iterdir()) == ["best_model.npz", "losses_per_epoch.txt",
+                                                     "metrics.jsonl"]
+    rows = (run / "losses_per_epoch.txt").read_text().splitlines()
+    assert len(rows) == 2 and all(np.isfinite(float(v)) for v in rows[1].split(","))
+    with np.load(run / "best_model.npz") as ckpt:
+        assert any(k.startswith("esm") for k in ckpt) and any(k.startswith("heads")
+                                                             for k in ckpt)

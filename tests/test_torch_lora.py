@@ -8,7 +8,11 @@ step, the first step's gradients within 1e-5 of each leaf's largest, the
 parameters after three steps within Adam's bound. Also: the zero-init
 identity, what the merge touches, the frozen base, the eval step, alpha and
 the learning rates, the refusals and ``cli.main --lora-rank`` end to end
-(its checkpoint loads in the JAX package and serves in the port).
+(its checkpoint loads in the JAX package and serves in the port). The packed
+LoRA step (``make_train_step_packed``: the packed finetune step with the
+adapter merge) against JAX's at 16 and 4 rows a chunk, against its
+single-graph loss with dropout on, the packed eval step, and ``cli.main
+--lora-rank --packed``.
 """
 
 import jax
@@ -25,8 +29,9 @@ from protein_clip_tpu_torch.cli import embed, main
 from protein_clip_tpu_torch.models import esm2
 from protein_clip_tpu_torch.train import checkpoint, clip_engine, lora
 from test_torch_finetune import (RTOL, SMALL_RUN, TINY, Capturing, assert_grads_close,
-                                 assert_within_adam_bound, engine_cfgs, jax_capture, mcfgs,
-                                 np_tree, pair_batches)
+                                 assert_two_pass_equals_packed_loss, assert_within_adam_bound,
+                                 engine_cfgs, jax_capture, mcfgs, np_tree, packed_cfgs,
+                                 packed_wire, pair_batches, run_packed_steps)
 
 RANK, ALPHA = 4, 8.0
 LRS = dict(learning_rate=1e-3, backbone_lr=1e-3)
@@ -151,7 +156,8 @@ def test_eval_step_matches_jax(tiny):
 def test_alpha_learning_rates_and_refusals(tiny, monkeypatch):
     """alpha is 2 * rank unless PCT_LORA_ALPHA sets it (the JAX package's
     default_alpha); the adapters train at 1e-4 unless backbone_lr is given;
-    the grouped and packed steps are refused."""
+    the grouped step is refused, the packed steps build (flat packing) and
+    refuse width tiers."""
     _, mcfg, _, _, _ = tiny
     monkeypatch.delenv("PCT_LORA_ALPHA", raising=False)
     assert lora.default_alpha(RANK) == 2.0 * RANK == jlora.default_alpha(RANK)
@@ -161,8 +167,10 @@ def test_alpha_learning_rates_and_refusals(tiny, monkeypatch):
     assert (opt.groups["lora"].lr, opt.groups["heads"].lr) == (1e-4, 1e-3)
     with pytest.raises(ValueError, match="length-grouped"):
         lora.make_train_step(clip_engine.EngineConfig(model=mcfg, length_groups=2))
-    with pytest.raises(NotImplementedError, match="packed"):
-        lora.make_train_step(clip_engine.EngineConfig(model=mcfg, packed=True))
+    for make in (lora.make_train_step, lora.make_train_step_packed):
+        assert callable(make(clip_engine.EngineConfig(model=mcfg, packed=True)))
+        with pytest.raises(NotImplementedError, match="width-tiered"):
+            make(clip_engine.EngineConfig(model=mcfg, packed=True, packed_tiers=2))
 
 
 def test_cli_main_lora(tmp_path):
@@ -192,3 +200,64 @@ def test_cli_main_lora(tmp_path):
                               "--out", str(tmp_path / "idx.npz")]) == 0
     with np.load(tmp_path / "idx.npz") as index:
         assert np.isfinite(index["embeddings"]).all()
+
+
+@pytest.mark.parametrize("rows_per_chunk", [16, 4])
+def test_packed_lora_steps_match_jax(tiny, rows_per_chunk):
+    """Three packed LoRA steps against JAX's make_train_step_packed, held as
+    the packed finetune steps are; the base takes no gradient."""
+    jmcfg, mcfg, jesm, esm, jparams = tiny
+    jcfg, cfg = packed_cfgs(jmcfg, mcfg, **LRS)
+    tx = optax.chain(jax_capture(), jlora.make_optimizer(jcfg))
+    jstep = jlora.make_train_step_packed(jcfg, tx, rows_per_chunk=rows_per_chunk)
+    step = (lora.make_train_step(cfg) if rows_per_chunk == 16
+            else lora.make_train_step_packed(cfg, rows_per_chunk=rows_per_chunk))
+    params = port_params(jparams)
+    params, grads, losses, jp, jgrads, jlosses = run_packed_steps(
+        jstep, step, jparams, tx.init(jparams), params,
+        Capturing(lora.make_optimizer(cfg), params), esm, jesm, 60)
+    np.testing.assert_allclose(losses, jlosses, rtol=RTOL)
+    assert_grads_close(grads[0], jgrads[0])
+    assert max(float(g.abs().max()) for k, g in grads[0].items() if k.endswith("/a")) > 1e-8
+    assert_within_adam_bound(params, jp, grads, jgrads,
+                             {"lora": LRS["backbone_lr"], "heads": LRS["learning_rate"]})
+    assert all(t.grad is None for t in checkpoint._flatten(esm).values())
+
+
+def test_packed_lora_two_pass_grads_equal_packed_loss_with_dropout(tiny):
+    """The packed two passes over the adapter merge against the single
+    graph, with head dropout 0.5."""
+    from protein_clip_tpu_torch.train import optimizer
+
+    _, _, _, esm, jparams = tiny
+    _, mcfg = mcfgs(dropout=0.5)
+    cfg = clip_engine.EngineConfig(model=mcfg, batch_size=4, accumulated_batches=2,
+                                   packed=True)
+    assert_two_pass_equals_packed_loss(
+        cfg, lambda: port_params(jparams), lora.esm_view(cfg), esm,
+        lambda: optimizer.multi_transform({"lora": optimizer.adam(0.0),
+                                           "heads": optimizer.adam(0.0)}))
+
+
+def test_packed_eval_step_matches_jax(tiny):
+    jmcfg, mcfg, jesm, esm, jparams = tiny
+    jcfg, cfg = packed_cfgs(jmcfg, mcfg)
+    jb, b = packed_wire(61, 12)
+    want = jlora.make_eval_step(jcfg)(jparams, jesm, jb)
+    got = lora.make_eval_step(cfg)(port_params(jparams), esm, b)
+    np.testing.assert_allclose(float(got), float(want), rtol=RTOL)
+
+
+def test_cli_main_lora_packed(tmp_path):
+    """``cli.main --lora-rank 4 --packed`` for one tiny epoch on the CPU: the
+    run contract, finite losses, a {heads, lora} checkpoint."""
+    assert main.main(TINY + SMALL_RUN + ["--lora-rank", "4", "--packed",
+                                         "--synthetic-fixture", "--data-dir",
+                                         str(tmp_path / "data"), "--runs-dir",
+                                         str(tmp_path / "runs")]) == 0
+    (run,) = list((tmp_path / "runs").iterdir())
+    rows = (run / "losses_per_epoch.txt").read_text().splitlines()
+    assert len(rows) == 2 and all(np.isfinite(float(v)) for v in rows[1].split(","))
+    with np.load(run / "best_model.npz") as ckpt:
+        assert any(k.startswith("lora") for k in ckpt)
+        assert not any(k.startswith("esm") for k in ckpt)

@@ -14,7 +14,9 @@ head parameters within the bound Adam puts on them
 sequence's hidden states against the sequence run alone, K1's plain version
 on packed rows against the eager form at every position (gaps included),
 the eval step, ``embed_packed``, ``fit`` over two epochs, and the
-refusals.
+refusals. For the packed unfrozen steps (``train/finetune.py``): the split
+``_finish_pool`` against JAX's, and the chunks their constant-token rule
+takes against JAX's at rows of 256, 512 and 2048.
 """
 
 import dataclasses
@@ -35,6 +37,7 @@ from protein_clip_tpu.data.tokenizer import EsmTokenizer as JaxTokenizer
 from protein_clip_tpu.models import esm2 as jesm2
 from protein_clip_tpu.models import clip as jclip
 from protein_clip_tpu.train import clip_engine as jengine
+from protein_clip_tpu.train import finetune as jfinetune
 from protein_clip_tpu.train import loop as jloop
 from protein_clip_tpu.train import optimizer as jopt
 from protein_clip_tpu.train import packed_engine as jpacked
@@ -44,7 +47,7 @@ from protein_clip_tpu_torch.data.tokenizer import EsmTokenizer
 from protein_clip_tpu_torch.models import clip, esm2
 from protein_clip_tpu_torch.ops import attention
 from protein_clip_tpu_torch.tools import bench_train
-from protein_clip_tpu_torch.train import checkpoint, clip_engine, loop, optimizer
+from protein_clip_tpu_torch.train import checkpoint, clip_engine, finetune, loop, optimizer
 from protein_clip_tpu_torch.train import packed_engine
 from test_torch_finetune import (Capturing, assert_grads_close, assert_within_adam_bound,
                                  jax_capture, mcfgs, np_tree)
@@ -246,6 +249,58 @@ def test_pool_packed_matches_jax():
     assert cnt.tolist() == [len(s) + 2 for s in recs]
 
 
+def test_finish_pool_matches_jax_and_pool_packed_is_its_composition():
+    """_finish_pool (masked mean, pooled FFN, scale) of token sums against
+    JAX's, within 2e-5; _pool_packed equals _token_sums then _finish_pool
+    to the bit (the frozen step's pooling, split for the unfrozen tail)."""
+    jmcfg, mcfg = mcfgs()
+    x = packed_engine.expand_packed_batch(_wire(*_pairs(8, 11))[1])
+    jhead = jclip.init_params(jax.random.key(4), jmcfg)
+    head = _carry(jhead)
+    R, L = x["rec_ids"].shape
+    hidden = torch.from_numpy(np.random.default_rng(10).standard_normal((R, L, 64)).astype(
+        np.float32))
+    sums, cnt = packed_engine._token_sums(head["rec"], hidden, x["rec_owner"], 11,
+                                          activation="relu")
+    got = packed_engine._finish_pool(head["rec"], sums, cnt, head["temperature"],
+                                     activation="relu")
+    want = jpacked._finish_pool(jhead["rec"], jnp.asarray(sums.numpy()),
+                                jnp.asarray(cnt.numpy()), jhead["temperature"],
+                                dropout_rate=0.0, train=False, rng=None, activation="relu")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+    assert torch.equal(got, packed_engine._pool_packed(head["rec"], hidden, x["rec_owner"], 11,
+                                                       head["temperature"], activation="relu"))
+
+
+@pytest.mark.parametrize("n,rec_lo,rec_hi,width", [
+    (64, 130, 250, 256), (64, 300, 500, 512), (56, 1100, 2000, 2048)])
+def test_unfrozen_chunks_match_jax(n, rec_lo, rec_hi, width):
+    """The chunks the packed unfrozen step takes per side (the constant-token
+    rule: rows_per_chunk x widest width / the side's width rows a chunk, the
+    most equal chunks that divide the rows) equal JAX's prepare's, to the
+    bit, at rows of 128 against 256, 512 and 2048; at 2048 the receptors'
+    56 rows take 2 chunks of 28, and the peptides one chunk of all rows."""
+    rng = np.random.default_rng(n + width)
+    jb, b = _wire(_seqs(rng, n, 5, 25), _seqs(rng, n, rec_lo, rec_hi))
+    jcfg, cfg = _cfgs(*mcfgs())
+    jprepare = jfinetune._packed_machinery(jcfg, jengine.default_loss_fn(), 16)[3]
+    prepare = finetune._packed_machinery(cfg, clip_engine.default_loss_fn(), 16,
+                                         finetune.esm_view(cfg))[3]
+    want, got = jprepare(jb, jax.random.key(0)), prepare(b, None)
+    shapes = {}
+    for side in ("pep", "rec"):
+        chunks = got[side][0]
+        for k in ("ids", "seg", "pos", "owner"):
+            w = np.asarray(want[side][0][k])
+            assert w.shape == (len(chunks), *chunks[0][k].shape), (side, k)
+            np.testing.assert_array_equal(np.stack([c[k].numpy() for c in chunks]), w)
+        shapes[side] = (len(chunks), *chunks[0]["ids"].shape)
+    assert shapes["pep"][2] == 128 and shapes["rec"][2] == width
+    assert shapes["pep"][0] == 1
+    if width == 2048:
+        assert shapes["rec"] == (2, 28, 2048)
+
+
 def test_pool_packed_keeps_gap_tokens_out_of_every_sum():
     """A non-finite hidden state at a gap or pad token changes no pooled
     embedding: those tokens are the dump's, as in the TPU package."""
@@ -375,7 +430,7 @@ def test_packed_steps_refuse_other_batches_and_tiers(tiny):
     for kw in ({"packed_tiers": 4}, {"scatter_tiers": 4}):
         tiered = dataclasses.replace(cfg, **kw)
         for make in (clip_engine.make_train_step, clip_engine.make_eval_step):
-            with pytest.raises(NotImplementedError, match="queue 1 item"):
+            with pytest.raises(NotImplementedError, match=r"not ported yet \(ROADMAP queue 1: "):
                 make(tiered)
 
 

@@ -390,11 +390,12 @@ def test_cli_main_2protein_packed(tmp_path):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--packed", "--pack-tiers", "2"], "pack-tiers"), (["--finetune", "--packed"], "packed"),
+    (["--packed", "--pack-tiers", "2"], "pack-tiers"),
+    (["--finetune", "--packed", "--pack-tiers", "2"], "packed"),
     (["--lora-rank", "4", "--resume-dir", "x"], "resume"),
     (["--resume-dir", "x"], "resume"), (["--dp", "2"], "multi-device"),
     (["--tp", "2"], "multi-device"), (["--pp", "2"], "multi-device"),
-    (["--lora-rank", "4", "--packed"], "packed")])
+    (["--lora-rank", "4", "--packed", "--pack-tiers", "2"], "packed")])
 def test_cli_refuses_what_is_not_ported(tmp_path, extra, match):
     with pytest.raises(NotImplementedError, match=match):
         main.main(TINY + ["--runs-dir", str(tmp_path / "runs")] + extra)
