@@ -138,6 +138,28 @@ and a nonzero exit code, and no result line:
                 K2 once; cli.embed with each run's best_model.npz; one
                 packed finetune step under torch.profiler: launches, busy
                 share and peak memory.
+                Then FILIP training: cli.main_2protein_filip for one epoch
+                on a fixture of 1100 families (protein1/protein2), at its
+                defaults (batch 10, one pad bucket, 1 chunk) and at its
+                documented scale-up with DCL (--batch-size 128 --num-chunks
+                8 --length-groups 4 --use-dcl): the artifacts; K1 30 times
+                per backbone forward (2 forwards a batch at 10, 16 at 128),
+                K4 groups^2 times per step and per eval batch, no other
+                kernel (FILIP's loss is plain PyTorch). K4 against its
+                plain version on the path's own blocks (the first train
+                batch encoded by each run's best heads: (10, 10, 32, 192)
+                and the grouped run's 16 rectangular blocks), on the first
+                and last of them with an emptied a-row and b-row, with tied
+                tokens, with b-row 0 cut to 65 tokens and at norm 2 with
+                1-4 valid tokens a row; both planted K4 faults must fail
+                it (the skip fault every case with a one-token tile, plain
+                TF32 every short case). The max-sim backward through the
+                wrapper against autograd through maxsim_reference in
+                float64 on the card, on those blocks with tokens rounded to
+                1/16 and tied (exact scores, the same ties), with the
+                path's masks and with emptied rows: MAXSIM_BWD_RTOL.
+                cli.retrieve --filip with the batch-10 run's best_model.npz
+                against the plain max-sim.
 8. step check   one default train step with K2 and one with the plain loss
                 from the same heads and batch (dropout 0, Adam lr 1e-3), at
                 256 and, with K3, at 1024, and one packed step with K2 at
@@ -158,7 +180,14 @@ and a nonzero exit code, and no result line:
                 of the leaf's largest entry (check_finetune_step says why).
                 The same checks on the packed finetune step over the same
                 256 pairs (9 chunks a pass), whose K1/K5 step, run twice,
-                must give the same loss and gradients to the bit.
+                must give the same loss and gradients to the bit. One FILIP
+                step of each FILIP run's configuration on its first batch
+                (dropout 0.1 from a seeded generator) through K4 against the
+                same step through K4's plain version in the same autograd
+                Function: the loss within FILIP_STEP_TOL relative and each
+                head gradient within FILIP_STEP_TOL of the step's largest
+                entry; run again, equal to the bit; the same step through
+                each planted K4 fault is printed.
 9. int8 serve   cli.serve --esm-dtype int8 over phase 3's weights and index
                 (the w8a8 backbone: every quantised linear layer runs P1):
                 /healthz, phase 3's single sequences, its 32-sequence
@@ -211,7 +240,13 @@ and a nonzero exit code, and no result line:
                 global batch 256 (median over the steps after the first of
                 run 1, by CUDA events recorded after each step, with no sync
                 inside the epoch), and the same for the packed, finetune,
-                LoRA, packed finetune, packed LoRA and int8 runs.
+                LoRA, packed finetune, packed LoRA and int8 runs. The FILIP
+                runs' pairs/s (batch 10 and 128) by the same events; K4 on
+                the first and last block of each FILIP step (call, device
+                time, plain version, bound); the plain max-sim backward of
+                one step's blocks by CUDA events and device time, and its
+                share of the step; one FILIP step of each under
+                torch.profiler: launches and busy share.
 
 The last three lines of standard output are the card's name and power
 limit, the kernels line (one JSON object per hand-written kernel) and
@@ -224,6 +259,7 @@ import concurrent.futures
 import contextlib
 import ctypes
 import dataclasses
+import functools
 import itertools
 import json
 import math
@@ -241,6 +277,7 @@ import numpy as np
 import torch
 
 from protein_clip_tpu_torch.cli import common, embed, main as train_cli, retrieve, serve
+from protein_clip_tpu_torch.cli import main_2protein_filip as filip_cli
 from protein_clip_tpu_torch.data import dataset
 from protein_clip_tpu_torch.data.fasta import sequences_only
 from protein_clip_tpu_torch.data.prefetch import to_device
@@ -251,8 +288,8 @@ from protein_clip_tpu_torch.models import clip, esm2, filip
 from protein_clip_tpu_torch.ops import attention, dense_mm, ffn, infonce
 from protein_clip_tpu_torch.ops import filip as maxsim
 from protein_clip_tpu_torch.tools import bench_train
-from protein_clip_tpu_torch.train import (checkpoint, clip_engine, finetune, lora, optimizer,
-                                          packed_engine)
+from protein_clip_tpu_torch.train import (checkpoint, clip_engine, filip_engine, finetune, lora,
+                                          optimizer, packed_engine)
 from protein_clip_tpu_torch.train.checkpoint import export_npz
 
 ROOT = Path(__file__).resolve().parent
@@ -394,6 +431,24 @@ INT8_FIXTURE_FAMILIES = 1100
 # int8 against bf16 served embeddings, per row (no JAX reading at t30_150M:
 # the sandbox that holds JAX runs no full-size model).
 INT8_COSINE_MIN = 0.99
+# FILIP training: cli.main_2protein_filip at its defaults (batch 10, one pad
+# bucket) and at its documented scale-up with DCL, on a fixture of 1100
+# families (770 train pairs: 77 and 6 steps).
+FILIP_FIXTURE_FAMILIES = 1100
+FILIP_RUNS = (("filip_10", []),
+              ("filip_128", ["--batch-size", "128", "--num-chunks", "8", "--length-groups", "4",
+                             "--use-dcl"]))
+# The max-sim backward (plain PyTorch in f32) against autograd through
+# maxsim_reference in float64, on tokens whose scores are exact in both: the
+# same ties, so the gap is the f32 sums' rounding, about 1e-7 of the largest
+# entry (CPU rehearsal); a split that misses one tied token is off by a
+# share of the largest.
+MAXSIM_BWD_RTOL = 1e-5
+# One FILIP step through K4 against the same step through its plain
+# version: the loss within FILIP_STEP_TOL relative, each head gradient
+# within FILIP_STEP_TOL of the step's largest gradient entry (K4's scores
+# are within K4_ATOL of the plain ones, and the backward is the same code).
+FILIP_STEP_TOL = 1e-5
 AAS = "LAGVSERTIDPKQNFYMHWC"
 
 
@@ -672,21 +727,30 @@ def maxsim_cases(gen: torch.Generator) -> list:
                for shape in K4_EMPTY_SHAPES])
 
 
+def one_token_tile(ma: torch.Tensor, mb: torch.Tensor) -> bool:
+    """Whether a b-row holds a 64-token tile whose only valid token is its
+    first, against an a-row with a valid token: what the planted skip fault
+    misses."""
+    tiles = torch.nn.functional.pad(mb != 0, (0, -mb.shape[1] % 64)).view(mb.shape[0], -1, 64)
+    return bool((ma != 0).any()) and bool(((tiles.sum(-1) == 1) & tiles[..., 0]).any())
+
+
 def k4_readings(cases: list) -> list[dict]:
-    """Per case: K4's largest gap from maxsim_reference over oa and ob,
-    whether the outputs are finite and whether the rows with no valid token
-    (an a-row's or a b-row's) score 0 on both outputs."""
+    """Per case ((Ba, Bb, TA, TB), inputs[, label]): K4's largest gap from
+    maxsim_reference over oa and ob, whether the outputs are finite and
+    whether the rows with no valid token (an a-row's or a b-row's) score 0
+    on both outputs."""
     rows = []
-    for (Ba, Bb, TA, TB), (ha, hb, ma, mb) in cases:
+    for (Ba, Bb, TA, TB), (ha, hb, ma, mb), *label in cases:
         got = maxsim.filip_similarity_fused(ha, hb, ma, mb, 1.0)
         torch.cuda.synchronize()
         want = maxsim.maxsim_reference(ha, hb, ma, mb)
         empty_a, empty_b = ma.sum(1) == 0, mb.sum(1) == 0
         empty_ok = all(bool((g[empty_a] == 0).all()) and bool((g[:, empty_b] == 0).all())
                        for g in got)
-        rows.append({"shape": [Ba, Bb, TA, TB], "short": 0 < int(ma.sum(1).max()) <= 4,
-                     "empty_a": bool(empty_a.all()),
-                     "one_token_tile": TB > 64 and Bb > 1 and not bool(empty_a.all()),
+        rows.append({"shape": [Ba, Bb, TA, TB], "label": label[0] if label else "",
+                     "short": 0 < int(ma.sum(1).max()) <= 4,
+                     "empty_a": bool(empty_a.all()), "one_token_tile": one_token_tile(ma, mb),
                      "err": max(float((g - w).abs().max()) for g, w in zip(got, want)),
                      "finite": all(bool(torch.isfinite(g).all()) for g in got),
                      "empty_ok": empty_ok})
@@ -697,7 +761,8 @@ def check_maxsim(cases: list) -> float:
     rows = k4_readings(cases)
     for r in rows:
         ok = r["finite"] and r["err"] <= K4_ATOL and r["empty_ok"]
-        log(f"[kernels] filip_maxsim (Ba, Bb, TA, TB)={tuple(r['shape'])} D={FILIP_D}"
+        log(f"[kernels] filip_maxsim {r['label'] + ' ' if r['label'] else ''}"
+            f"(Ba, Bb, TA, TB)={tuple(r['shape'])} D={FILIP_D}"
             f"{f' norm {K4_SHORT_SCALE:g}, 1-4 valid tokens a row' if r['short'] else ''}"
             f"{', no valid a-token' if r['empty_a'] else ''}: "
             f"max|err| {r['err']:.6g} (tolerance {K4_ATOL:g}); empty rows score 0: "
@@ -1949,6 +2014,419 @@ def run_packed_unfrozen_phase() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 7, FILIP training: cli.main_2protein_filip, K4 on its blocks, its
+# backward against float64 autograd, its step against the plain max-sim
+# ---------------------------------------------------------------------------
+
+def filip_data(data_dir: Path) -> tuple:
+    return dataset.generate_datasets(data_dir, "protein1", "protein2", seed=42,
+                                     max_sequence_length=2000)
+
+
+def filip_forwards_per_batch(batch_size: int, groups: int, chunks: int) -> int:
+    """Backbone forwards of one FILIP train or eval batch, both sides: one
+    bucket in _snap_chunks(batch, chunks) microbatches, or each of the
+    length groups (tokenize_grouped: the last takes the remainder) in
+    _snap_chunks(rows, chunks // groups)."""
+    if groups == 1:
+        return 2 * filip_engine._snap_chunks(batch_size, chunks)
+    g = batch_size // groups
+    rows = [g] * (groups - 1) + [batch_size - g * (groups - 1)]
+    return 2 * sum(filip_engine._snap_chunks(r, max(1, chunks // groups)) for r in rows)
+
+
+def run_filip_train(name: str, data_dir: Path, extra: list[str]) -> dict:
+    """cli.main_2protein_filip for one epoch: the artifacts, and every
+    kernel's launch count against the loaders: K1 30 per backbone forward,
+    K4 groups^2 per train step and per eval batch, no other kernel."""
+    runs = WORK / f"runs_{name}"
+    argv = ["--synthetic-fixture", "--data-dir", str(data_dir), "--fixture-families",
+            str(FILIP_FIXTURE_FAMILIES), "--epochs", "1", "--runs-dir", str(runs)] + extra
+    args = filip_cli.build_argparser().parse_args(argv)
+    bs, groups = args.batch_size, args.length_groups
+    t0 = time.perf_counter()
+    with counted_forwards() as forwards, timed_steps(filip_engine) as ends:
+        reset_counts()
+        filip_cli.main(argv)
+        k1 = attention.fused_attention.launches
+        k4 = maxsim.filip_similarity_fused.launches
+        k5 = attention.fused_attention_bwd.launches
+        counts = infonce_counts()
+        check_default_path(name)
+    wall = time.perf_counter() - t0
+    run = check_run_dir(runs)
+    train_ds, val_ds, test_ds = filip_data(data_dir)
+    steps = len(train_ds) // bs
+    evals = len(val_ds) // bs + len(test_ds) // bs
+    want_forwards = filip_forwards_per_batch(bs, groups, args.num_chunks) * (steps + evals)
+    want_k4 = groups ** 2 * (steps + evals)
+    got = (len(ends), len(forwards), k1, k4, k5)
+    want = (steps, want_forwards, 30 * want_forwards, want_k4, 0)
+    if got != want or any(v != (0, 0) for v in counts.values()):
+        raise AssertionError(f"{name}: (steps, backbone forwards, attention_fwd, filip_maxsim, "
+                             f"attention_bwd) {got}, want {want}; InfoNCE calls {counts} "
+                             f"(FILIP's loss is plain PyTorch)")
+    metrics = json.loads((run / "metrics.jsonl").read_text().splitlines()[0])
+    log(f"[filip train] {name}: batch {bs} in {groups} length group(s), "
+        f"{args.num_chunks} chunk(s){', DCL' if args.use_dcl else ''}; {steps} steps, {evals} "
+        f"eval batches; train loss {metrics['train_loss']:.6f}, val loss "
+        f"{metrics['val_loss']:.6f}; {len(forwards)} backbone forwards, attention_fwd {k1} = "
+        f"30 per forward; filip_maxsim {k4} = {groups ** 2} per step and per eval batch; "
+        f"epoch {metrics['seconds']:.2f} s, cli.main_2protein_filip {wall:.2f} s")
+    return {"run": run, "args": args, "steps": steps, "evals": evals, "ends": ends,
+            "launches": {"attention_fwd": k1, "filip_maxsim": k4}}
+
+
+@functools.cache
+def filip_setup() -> tuple:
+    """(FILIP config, backbone) of the FILIP runs: t30_150M in bf16 with the
+    CLIs' random init (seed 0), heads of dim FILIP_D."""
+    cfg_esm = common.esm_config("t30_150M", "bfloat16")
+    mcfg = filip.FILIPConfig(input_dim=cfg_esm.hidden_size, embedding_dim=FILIP_D, esm=cfg_esm)
+    esm_params = esm2.init_params(cfg_esm, torch.Generator(device="cuda").manual_seed(0),
+                                  dtype=torch.bfloat16, device="cuda")
+    return mcfg, esm_params
+
+
+def filip_first_batch(data_dir: Path, args) -> tuple:
+    """(engine config, device batch) of a run's first train batch of epoch
+    0, tokenized as the path tokenizes it (one bucket or length groups)."""
+    mcfg, _ = filip_setup()
+    cfg = clip_engine.EngineConfig(model=mcfg, batch_size=args.batch_size, accumulated_batches=1,
+                                   num_chunks=args.num_chunks, length_groups=args.length_groups,
+                                   filip_use_dcl=args.use_dcl)
+    loader = dataset.PairLoader(filip_data(data_dir)[0], args.batch_size, seed=args.seed)
+    loader.reseed_epoch(0)
+    peps, recs = next(iter(loader))
+    return cfg, to_device(clip_engine._prepare(common.make_tokenizer(), cfg)(peps, recs), "cuda")
+
+
+def filip_path_blocks(run: dict, data_dir: Path) -> list[tuple]:
+    """The K4 blocks of the run's first train batch, (ha, hb, mask_a,
+    mask_b) for every (group, group) pair: the tokens of the run's
+    best_model.npz heads in eval mode."""
+    mcfg, esm_params = filip_setup()
+    heads = checkpoint.load_npz(run["run"] / "best_model.npz",
+                                filip.init_params(mcfg, torch.Generator(), device="meta"), "cuda")
+    _, batch = filip_first_batch(data_dir, run["args"])
+    groups = [clip_engine.expand_batch(b) for b in (batch if isinstance(batch, tuple)
+                                                    else (batch,))]
+    with torch.no_grad():
+        sides = [(*filip.encode_batch_tokens(heads, esm_params, b, mcfg), b["pep_mask"],
+                  b["rec_mask"]) for b in groups]
+    return [(a[0], b[1], a[2], b[3]) for a in sides for b in sides]
+
+
+def end_blocks(blocks: list) -> list:
+    """The first block of a step and, when it has more, its last (the
+    grouped step's widest rectangle)."""
+    return blocks[:1] + blocks[1:][-1:]
+
+
+def tied(h: torch.Tensor) -> torch.Tensor:
+    """h with every odd token a copy of the even token before it: each
+    max over those tokens ties exactly, in every arithmetic."""
+    out = h.clone()
+    out[:, 1::2] = h[:, 0::2][:, :out[:, 1::2].shape[1]]
+    return out
+
+
+def filip_path_cases(blocks: list[tuple], gen: torch.Generator) -> list:
+    """K4's check inputs on the FILIP path's own blocks: every block as
+    the step gives it; and from the first block and the last (the grouped
+    run's widest rectangle) an a-row and a b-row with no valid token;
+    forced ties (tied tokens); b-row 0 cut to 65 valid tokens (a tile whose
+    only valid token is its first: the skip fault); tokens at norm
+    K4_SHORT_SCALE with 1-4 valid tokens a row (plain TF32)."""
+    def case(label, ha, hb, ma, mb):
+        return (ha.shape[0], hb.shape[0], ha.shape[1], hb.shape[1]), (ha, hb, ma, mb), label
+
+    def short(m):
+        n = torch.randint(1, 5, (m.shape[0], 1), device="cuda", generator=gen)
+        return (torch.arange(m.shape[1], device="cuda")[None] < n).to(torch.int32)
+
+    cases = [case("path block", *blk) for blk in blocks]
+    for ha, hb, ma, mb in end_blocks(blocks):
+        empty_a, empty_b = ma.clone(), mb.clone()
+        empty_a[ma.shape[0] // 2] = 0
+        empty_b[mb.shape[0] // 2] = 0
+        cases.append(case("path block, empty rows", ha, hb, empty_a, empty_b))
+        cases.append(case("path block, tied tokens", tied(ha), tied(hb), ma, mb))
+        if hb.shape[1] > 64:
+            cut = mb.clone()
+            cut[0] = 0
+            cut[0, :65] = 1
+            cases.append(case("path block, b-row 0 of 65 tokens", ha, hb, ma, cut))
+        cases.append(case("path block, short", K4_SHORT_SCALE * ha, K4_SHORT_SCALE * hb,
+                          short(ma), short(mb)))
+    return cases
+
+
+def check_filip_path_k4(blocks: dict, fault_libs: dict, gen: torch.Generator) -> dict:
+    """K4 against its plain version on both runs' blocks (filip_path_cases),
+    then against its two planted faults, which must fail: the skip fault
+    every case with a one-token tile, plain TF32 every short case."""
+    cases = [c for blks in blocks.values() for c in filip_path_cases(blks, gen)]
+    err = check_maxsim(cases)
+    faults = check_maxsim_faults(fault_libs, cases)
+    return {"max_abs_err": err, "cases": len(cases),
+            "shapes": sorted({tuple(c[0]) for c in cases if c[2] == "path block"}),
+            "fault": {k: {"worst_ratio": v["worst_ratio"], "cases_failed": v["cases_failed"]}
+                      for k, v in faults.items()}}
+
+
+def check_filip_backward(blocks: dict, gen: torch.Generator) -> float:
+    """The max-sim backward on the card (through the wrapper's autograd
+    Function: K4 forward, ops.filip.maxsim_backward) against autograd
+    through maxsim_reference in float64 on the card, for random cotangents,
+    on the path's first block of each run and the grouped run's last:
+    tokens rounded to multiples of 1/16 and tied (every score exact in f32
+    and float64, so both see the same ties, which amax also splits
+    evenly), with the path's masks and with an a-row and a b-row emptied.
+    Per output max|err| <= MAXSIM_BWD_RTOL max|ref|."""
+    worst = 0.0
+    for ha, hb, ma, mb in [b for blks in blocks.values() for b in end_blocks(blks)]:
+        qa, qb = (tied(torch.round(h * 16) / 16) for h in (ha, hb))
+        empty_a, empty_b = ma.clone(), mb.clone()
+        empty_a[0] = 0
+        empty_b[-1] = 0
+        for label, (m_a, m_b) in (("path masks", (ma, mb)), ("empty rows", (empty_a, empty_b))):
+            ga = torch.randn(ha.shape[0], hb.shape[0], device="cuda", generator=gen)
+            gb = torch.randn(ha.shape[0], hb.shape[0], device="cuda", generator=gen)
+            xa, xb = qa.clone().requires_grad_(True), qb.clone().requires_grad_(True)
+            torch.autograd.backward(maxsim.filip_similarity_fused(xa, xb, m_a, m_b, 1.0),
+                                    (ga, gb))
+            ra, rb = qa.double().requires_grad_(True), qb.double().requires_grad_(True)
+            torch.autograd.backward(maxsim.maxsim_reference(ra, rb, m_a, m_b),
+                                    (ga.double(), gb.double()))
+            errs = [float((x.grad.double() - r.grad).abs().max() / r.grad.abs().max())
+                    for x, r in ((xa, ra), (xb, rb))]
+            s = torch.einsum("atd,jsd->ajts", qa, qb)
+            valid = (m_a[:, None, :, None] * m_b[None, :, None, :]) > 0
+            sm = torch.where(valid, s, maxsim._NEG)
+            ties = int((((sm == sm.amax(3, keepdim=True)) & valid).sum(3) > 1).sum())
+            ok = max(errs) <= MAXSIM_BWD_RTOL and ties > 0
+            log(f"[filip train] max-sim backward (Ba, Bb, TA, TB)="
+                f"{(ha.shape[0], hb.shape[0], ha.shape[1], hb.shape[1])}, {label}, {ties} tied "
+                f"row maxima: max|err| / max|ref| dha {errs[0]:.4g}, dhb {errs[1]:.4g} against "
+                f"float64 autograd (tolerance {MAXSIM_BWD_RTOL:g}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError("the max-sim backward disagrees with float64 autograd")
+            worst = max(worst, *errs)
+    return worst
+
+
+def check_filip_retrieve(run: dict, data_dir: Path) -> float:
+    """embed --filip of 64 receptors with the run's best_model.npz, then
+    retrieve --filip for 4 peptides: one K4 launch, hits against the plain
+    max-sim at each rank."""
+    mcfg, esm_params = filip_setup()
+    ckpt = ["--checkpoint", str(run["run"] / "best_model.npz")]
+    peps = sequences_only(data_dir / "protein1.fasta")[:4]
+    recs = sequences_only(data_dir / "protein2.fasta")[:64]
+    (WORK / "filip_train_index.fasta").write_text("".join(f">r{i}\n{s}\n"
+                                                          for i, s in enumerate(recs)))
+    (WORK / "filip_train_queries.fasta").write_text("".join(f">p{i}\n{s}\n"
+                                                            for i, s in enumerate(peps)))
+    index = WORK / "filip_train_index.npz"
+    embed.main(ckpt + ["--filip", "--fasta", str(WORK / "filip_train_index.fasta"), "--side",
+                       "rec", "--out", str(index)])
+    before = maxsim.filip_similarity_fused.launches
+    retrieve.main(ckpt + ["--filip", "--index", str(index), "--queries",
+                          str(WORK / "filip_train_queries.fasta"), "--side", "pep", "--k", "10",
+                          "--out", str(WORK / "filip_train_hits.tsv")])
+    launched = maxsim.filip_similarity_fused.launches - before
+    heads = checkpoint.load_npz(run["run"] / "best_model.npz",
+                                filip.init_params(mcfg, torch.Generator(), device="meta"), "cuda")
+    toks, mask = embed.embed_sequences_tokens(heads, esm_params, peps, "pep", mcfg,
+                                              common.make_tokenizer(), torch.device("cuda"),
+                                              batch_size=32, pad_batch=True)
+    plain, ids = plain_filip_scores(toks, mask.sum(1), index, heads["temperature"])
+    worst = max(check_hits(f"retrieve --filip (trained heads) query {q}", [h for h, _ in row],
+                           [sc for _, sc in row], plain[q], ids)
+                for q, row in enumerate(read_tsv(WORK / "filip_train_hits.tsv", 10)))
+    if launched != scorer_blocks(len(peps), len(recs)):
+        raise AssertionError(f"retrieve --filip launched filip_maxsim {launched} times")
+    log(f"[filip train] retrieve --filip with the batch-10 run's best_model.npz: 4 queries over "
+        f"64 receptors, {launched} filip_maxsim launch; hits within {worst:.3g} of the plain "
+        f"max-sim at each rank")
+    return worst
+
+
+def run_filip_train_phase(fault_libs: dict, gen: torch.Generator) -> dict:
+    data_dir = WORK / "filip_data"
+    runs = {name: run_filip_train(name, data_dir, extra) for name, extra in FILIP_RUNS}
+    recs = sequences_only(data_dir / "protein2.fasta")
+    peps = sequences_only(data_dir / "protein1.fasta")
+    profile = (f"{FILIP_FIXTURE_FAMILIES} families, {len(recs)} pairs, protein2 "
+               f"{min(map(len, recs))}-{max(map(len, recs))} aa, protein1 "
+               f"{min(map(len, peps))}-{max(map(len, peps))} aa")
+    log(f"[filip train] fixture: {profile}")
+    blocks = {name: filip_path_blocks(run, data_dir) for name, run in runs.items()}
+    return {"runs": runs, "profile": profile, "blocks": blocks,
+            "k4": check_filip_path_k4(blocks, fault_libs, gen),
+            "backward_err": check_filip_backward(blocks, gen),
+            "retrieve_err": check_filip_retrieve(runs["filip_10"], data_dir)}
+
+
+@contextlib.contextmanager
+def plain_maxsim():
+    """The wrapper's autograd Function runs maxsim_reference in K4's place
+    (its backward is the same) while the block runs."""
+    saved = maxsim._raw_maxsim
+    maxsim._raw_maxsim = maxsim.maxsim_reference
+    try:
+        yield
+    finally:
+        maxsim._raw_maxsim = saved
+
+
+def filip_step(cfg, batch, heads0, maxsim_cm=contextlib.nullcontext) -> tuple:
+    """One FILIP train step from heads0 (Adam lr TRAIN_LR, dropout 0.1 from
+    a seeded generator): (loss, gradients by leaf, K4 launches)."""
+    _, esm_params = filip_setup()
+    params = clone_tree(heads0)
+    state = capturing(optimizer.adam(TRAIN_LR).init(params), params)
+    before = maxsim.filip_similarity_fused.launches
+    with maxsim_cm():
+        _, _, loss = filip_engine.make_train_step(cfg)(
+            params, state, esm_params, batch, torch.Generator(device="cuda").manual_seed(1))
+    torch.cuda.synchronize()
+    return float(loss), state.grads, maxsim.filip_similarity_fused.launches - before
+
+
+def check_filip_step(runs: dict, data_dir: Path, fault_libs: dict) -> dict:
+    """For each FILIP run's configuration, one step on its first batch
+    through K4 against the same step through K4's plain version in the same
+    autograd Function: the loss within FILIP_STEP_TOL relative and every
+    head gradient within FILIP_STEP_TOL of the step's largest gradient
+    entry (the temperature's gradient sums terms of that scale that nearly
+    cancel). The step through K4 run again equals itself to the bit. The
+    same step through each planted K4 fault is read (not held)."""
+    mcfg, _ = filip_setup()
+    heads0 = filip.init_params(mcfg, torch.Generator().manual_seed(SEED), device="cuda")
+    out = {}
+    for name, run in runs.items():
+        cfg, batch = filip_first_batch(data_dir, run["args"])
+        blocks = cfg.length_groups ** 2
+        lk, gk, nk = filip_step(cfg, batch, heads0)
+        lp, gp, np_ = filip_step(cfg, batch, heads0, plain_maxsim)
+        la, ga, na = filip_step(cfg, batch, heads0)
+        if (nk, np_, na) != (blocks, 0, blocks):
+            raise AssertionError(f"FILIP step check {name}: filip_maxsim launches {nk}, {np_}, "
+                                 f"{na}; want {blocks}, 0, {blocks}")
+        scale = max(float(g.abs().max()) for g in gp.values())
+        gaps = {k: float((gk[k] - gp[k]).abs().max()) / scale for k in gp}
+        loss_err = abs(lk - lp) / abs(lp)
+        same = lk == la and all(torch.equal(gk[k], ga[k]) for k in gk)
+        faults = {}
+        for fault in ("maxsim_skip", "maxsim_tf32"):
+            with maxsim_kernel(fault_libs[fault]["filip_maxsim"]):
+                lf, gf, _ = filip_step(cfg, batch, heads0)
+            faults[fault] = {"loss_ratio": abs(lf - lp) / abs(lp) / FILIP_STEP_TOL,
+                             "grad_ratio": max(float((gf[k] - gp[k]).abs().max()) / scale
+                                               for k in gp) / FILIP_STEP_TOL}
+        ok = loss_err <= FILIP_STEP_TOL and max(gaps.values()) <= FILIP_STEP_TOL and same
+        worst = max(gaps, key=gaps.get)
+        log(f"[step] FILIP {name} ({cfg.length_groups} group(s), {blocks} K4 block(s), "
+            f"{'DCL' if cfg.filip_use_dcl else 'no DCL'}) through filip_maxsim vs its plain "
+            f"version: loss {lk:.7f} vs {lp:.7f}, relative |err| {loss_err:.3g}; gradients "
+            f"max |err| / the step's largest entry {gaps[worst]:.3g} at {worst} (temperature "
+            f"{gaps['temperature']:.3g}; tolerance {FILIP_STEP_TOL:g}); run again equal to the "
+            f"bit: {same}; planted faults (x tolerance, loss / gradients): "
+            + ", ".join(f"{k} {v['loss_ratio']:.4g} / {v['grad_ratio']:.4g}"
+                        for k, v in faults.items()) + f" {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"the FILIP step through filip_maxsim ({name}) disagrees with "
+                                 "the plain step or with itself")
+        out[name] = {"loss_rel_err": loss_err, "grad_rel_err": gaps[worst],
+                     "temperature_grad_rel_err": gaps["temperature"], "bitwise_equal": same,
+                     "fault": faults}
+    return out
+
+
+def time_filip_train(ftctx: dict, data_dir: Path, gpu: str) -> dict:
+    """Per FILIP run: pairs/s by CUDA events over the run's steps; K4 on the
+    step's blocks (wrapper call by CUDA events, the kernel's device time,
+    the plain version, the bound on the blocks' masks); the plain max-sim
+    backward of one step's blocks (by CUDA events, host included, and its
+    device time) and its share of the step; one step under
+    torch.profiler: launches, K4 launches and the device's busy share."""
+    out = {}
+    for name, run in ftctx["runs"].items():
+        a = run["args"]
+        rate = time_train_steps({name: run, "profile": ftctx["profile"]}, name,
+                                f"FILIP train step ({a.length_groups} length group(s), "
+                                f"{a.num_chunks} chunk(s))", gpu, pairs=a.batch_size)
+        step_ms = 1e3 * a.batch_size / rate
+        blocks = ftctx["blocks"][name]
+        rows = []
+        for ha, hb, ma, mb in end_blocks(blocks):
+            def call():
+                return maxsim.filip_similarity_fused(ha, hb, ma, mb, 1.0)
+            ms = cuda_ms(call, 50)
+            kernel_ms = device_ms(call, 50, kernel="filip_maxsim_kernel")
+            plain_ms = cuda_ms(lambda: maxsim.maxsim_reference(ha, hb, ma, mb), 5, warmup=1)
+            bound_ms, bound_by, counts = maxsim_bound(ma, mb, FILIP_D)
+            shape = [ha.shape[0], hb.shape[0], ha.shape[1], hb.shape[1], FILIP_D]
+            log(f"[time] filip_maxsim on the FILIP {name} step's block {tuple(shape)}: call "
+                f"{ms:.6f} ms (kernel's device time {kernel_ms:.6f}), plain {plain_ms:.6f} ms, "
+                f"bound {bound_ms:.6f} ms ({bound_by}: {counts}) = {100 * bound_ms / ms:.2f}% "
+                f"of the bound | {gpu}")
+            rows.append({"shape": shape, "ms": ms, "device_ms": kernel_ms, "plain_ms": plain_ms,
+                         "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by})
+        cot = [(torch.randn(ha.shape[0], hb.shape[0], device="cuda"),
+                torch.randn(ha.shape[0], hb.shape[0], device="cuda")) for ha, hb, _, _ in blocks]
+
+        def backward():
+            for (ha, hb, ma, mb), (ga, gb) in zip(blocks, cot):
+                maxsim.maxsim_backward(ha, hb, ma, mb, ga, gb)
+        bwd_ms = cuda_ms(backward, 10)
+        bwd_device_ms = device_ms(backward, 10)
+        per_step = filip_launches_per_step(run, data_dir)
+        log(f"[time] the plain max-sim backward of one FILIP {name} step ({len(blocks)} "
+            f"block(s)): {bwd_ms:.4f} ms by CUDA events ({bwd_device_ms:.4f} ms device time) "
+            f"= {100 * bwd_ms / step_ms:.2f}% of the step's {step_ms:.4f} ms | {gpu}")
+        out[name] = {"pairs_per_s": rate, "step_ms": step_ms, "k4_blocks": rows,
+                     "backward_ms": bwd_ms, "backward_device_ms": bwd_device_ms,
+                     "backward_share": bwd_ms / step_ms, "per_step": per_step}
+    return out
+
+
+def filip_launches_per_step(run: dict, data_dir: Path) -> dict:
+    """Kernel launches and the device's busy share of one FILIP step (the
+    run's configuration, its first batch) under torch.profiler."""
+    mcfg, esm_params = filip_setup()
+    cfg, batch = filip_first_batch(data_dir, run["args"])
+    params = filip.init_params(mcfg, torch.Generator().manual_seed(SEED), device="cuda")
+    state = optimizer.adam(TRAIN_LR).init(params)
+    step = filip_engine.make_train_step(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    step(params, state, esm_params, batch, gen)                 # warm
+    torch.cuda.synchronize()
+    k4 = maxsim.filip_similarity_fused.launches
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(params, state, esm_params, batch, gen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    k4_ms = sum(e.self_device_time_total for e in kernels if "filip_maxsim" in e.key) / 1e3
+    out = {"launches": sum(e.count for e in kernels), "busy_ms": busy_ms,
+           "busy_share": busy_ms / (1e3 * wall), "wall_ms": 1e3 * wall,
+           "filip_maxsim": maxsim.filip_similarity_fused.launches - k4, "k4_device_ms": k4_ms}
+    log(f"[time] one FILIP step (batch {cfg.batch_size}, {cfg.length_groups} group(s)) under "
+        f"torch.profiler: {out['launches']} kernel launches ({out['filip_maxsim']} "
+        f"filip_maxsim, {k4_ms:.4f} ms of device time), device busy {busy_ms:.4f} ms of "
+        f"{out['wall_ms']:.4f} ms ({100 * out['busy_share']:.2f}%)")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 8: one train step through K2 / K3 against the plain loss
 # ---------------------------------------------------------------------------
 
@@ -1957,8 +2435,9 @@ def capturing(state, params):
     named = checkpoint._flatten(params)
     apply = state.apply
 
-    def capture():
-        state.grads = {k: t.grad.detach().clone() for k, t in named.items()}
+    def capture():   # FILIP's steps give emb_ffn, which they do not read, no gradient
+        state.grads = {k: t.grad.detach().clone() for k, t in named.items()
+                       if t.grad is not None}
         apply()
 
     state.apply = capture
@@ -2702,15 +3181,15 @@ def time_dispatch(gen: torch.Generator, gpu: str) -> list[dict]:
     return rows
 
 
-def time_train_steps(tctx: dict, run: str, what: str, gpu: str) -> float:
-    """pairs/s of a global-batch-256 step over a run's steps after the
-    first: the card's time between the events recorded after consecutive
-    steps, with no sync inside the epoch."""
+def time_train_steps(tctx: dict, run: str, what: str, gpu: str, pairs: int = 256) -> float:
+    """pairs/s of a step of ``pairs`` (global batch 256 by default) over a
+    run's steps after the first: the card's time between the events
+    recorded after consecutive steps, with no sync inside the epoch."""
     torch.cuda.synchronize()
     ends = tctx[run]["ends"]
     dts = [a.elapsed_time(b) / 1e3 for a, b in zip(ends, ends[1:])]
-    rate = 256 / statistics.median(dts)
-    log(f"[time] {what} at global batch 256 (t30_150M): {rate:.4f} pairs/s, "
+    rate = pairs / statistics.median(dts)
+    log(f"[time] {what} at global batch {pairs} (t30_150M): {rate:.4f} pairs/s, "
         f"median of {len(dts)} steps after the first ({1e3 * min(dts):.2f}-"
         f"{1e3 * max(dts):.2f} ms per step, by CUDA events); fixture {tctx['profile']} | {gpu}")
     return rate
@@ -3049,10 +3528,12 @@ def main() -> int:
             tctx = run_train_phase()
             pctx = run_packed_phase()
             uctx = run_packed_unfrozen_phase()
+            ftctx = run_filip_train_phase(fault_libs, gen)
             steps = {"k2": check_step(256), "k3": check_step(1024),
                      "packed": check_step(256, packed=True),
                      "finetune": check_finetune_step(fault_libs),
-                     "finetune_packed": check_finetune_step(fault_libs, packed=True)}
+                     "finetune_packed": check_finetune_step(fault_libs, packed=True),
+                     "filip": check_filip_step(ftctx["runs"], WORK / "filip_data", fault_libs)}
             ictx = run_int8_serve_phase(ctx)
             try:
                 i8train = run_int8_train()
@@ -3072,6 +3553,7 @@ def main() -> int:
                 with ffn_gate():
                     serving["k6"] = time_serving(ctx, rng, gpu, "PCT_FFN_PALLAS=1")
                 time_filip_serving(ctx, fctx, rng, gpu)
+                filip_times = time_filip_train(ftctx, WORK / "filip_data", gpu)
                 tctx["packed"] = pctx
                 tctx["finetune_packed"], tctx["lora_packed"] = uctx["finetune"], uctx["lora"]
                 pairs_per_s = {run: time_train_steps(tctx, run, what, gpu) for run, what in (
@@ -3100,7 +3582,9 @@ def main() -> int:
              "train_finetune": tctx["finetune"]["launches"],
              "train_lora": tctx["lora"]["launches"],
              "train_finetune_packed": uctx["finetune"]["launches"],
-             "train_lora_packed": uctx["lora"]["launches"], "int8_serve": ictx["launches"],
+             "train_lora_packed": uctx["lora"]["launches"],
+             **{f"train_{name}": run["launches"] for name, run in ftctx["runs"].items()},
+             "int8_serve": ictx["launches"],
              "int8_train": i8train["launches"], "k6_serve": k6ctx["launches"]}
     by_path = {name: {path: counts.get(name, 0) for path, counts in paths.items()}
                for name in ("attention_fwd", "attention_bwd", "filip_maxsim", "infonce",
@@ -3143,6 +3627,12 @@ def main() -> int:
                                              "bound_by", "library_ms")},
         "topk": k4_times[1], "scorer_block": k4_times[2],
         "fault": {k: fault_reads[k] for k in ("maxsim_skip", "maxsim_tf32")},
+        "train_filip": {"path_check": ftctx["k4"], "backward_max_rel_err": ftctx["backward_err"],
+                        "retrieve_err": ftctx["retrieve_err"], "step_check": steps["filip"],
+                        **{name: {"launches": run["launches"]["filip_maxsim"],
+                                  "steps": run["steps"], "eval_batches": run["evals"],
+                                  **filip_times[name]}
+                           for name, run in ftctx["runs"].items()}},
     }, {
         "name": "infonce", "phase": "train_256", "route": "cuda",
         "source": "protein_clip_tpu_torch/csrc/infonce.cu",

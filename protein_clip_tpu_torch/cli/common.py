@@ -1,7 +1,8 @@
 """Shared CLI wiring for the port's entry points: the serving ones
 (``embed``, ``serve``, ``retrieve``) and the training ones (``main``,
-``main_2protein``). The argument sets they read, the device, the backbone,
-checkpoint and token-index loaders, the training data, and the tokenizer.
+``main_2protein``, ``main_2protein_filip``). The argument sets they read,
+the device, the backbone, checkpoint and token-index loaders, the training
+data, and the tokenizer.
 
 Entry points run on ``cuda`` unless ``--device cpu`` is given; asking for
 CUDA where there is none raises, and nothing falls back to the CPU.

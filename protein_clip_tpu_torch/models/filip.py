@@ -1,5 +1,5 @@
-"""FILIP late-interaction heads over the ESM-2 backbone, in eval mode: the
-port of ``protein_clip_tpu/models/filip.py``.
+"""FILIP late-interaction heads over the ESM-2 backbone: the port of
+``protein_clip_tpu/models/filip.py``.
 
 Per-token embeddings from both sides, L2-normalised per token, then the
 FILIP similarity: for each pair (i, j), the max over the other side's
@@ -8,8 +8,11 @@ tokens, averaged over one's own valid tokens, in both directions.
 ``filip_similarity`` is the plain version that materialises the
 (A, B, TA, TB) score tensor, kept as the oracle;
 ``ops/filip.filip_similarity_fused`` computes the same scores through the
-masked max-sim kernel without it. The grouped and mean-average variants and
-``forward`` belong to FILIP training, which is a later slice.
+masked max-sim kernel without it, and is ``forward``'s default (the TPU
+training path's choice), differentiable in the tokens and the
+temperature. The backbone is frozen: ``encode_batch_tokens`` runs it with
+no graph, and only the heads take part in autograd. Head dropout draws
+from an explicit ``torch.Generator`` in train mode (``models/heads.py``).
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ import dataclasses
 
 import torch
 
+from ..ops.filip import filip_similarity_fused
+from ..train.gradcache import encode_hidden_chunked
 from ..utils.device import resolve_device
 from . import esm2, heads
 
@@ -50,9 +55,12 @@ def init_params(cfg: FILIPConfig, generator: torch.Generator,
 
 
 def encode_side_tokens(params: Params, side: str, hidden: torch.Tensor,
-                       cfg: FILIPConfig) -> torch.Tensor:
-    """Per-token embeddings (B, T, D), L2-normalised along D in f32."""
-    x = heads.encode_tokens(params[side], hidden, activation=cfg.activation)
+                       cfg: FILIPConfig, *, train: bool = False,
+                       generator: torch.Generator | None = None) -> torch.Tensor:
+    """Per-token embeddings (B, T, D), L2-normalised along D in f32
+    (dropout at ``cfg.dropout`` in train mode)."""
+    x = heads.encode_tokens(params[side], hidden, activation=cfg.activation,
+                            dropout_rate=cfg.dropout, train=train, generator=generator)
     x32 = x.float()
     return (x32 / x32.square().sum(-1, keepdim=True).sqrt()).to(x.dtype)
 
@@ -77,3 +85,64 @@ def filip_similarity(ha: torch.Tensor, hb: torch.Tensor, mask_a: torch.Tensor,
         return torch.where(m, t, 0.0).sum(-1) / m.sum(-1).float().clamp(min=eps)
 
     return masked_mean(s_a, mask_a[:, None, :]), masked_mean(s_b, mask_b[None, :, :])
+
+
+def filip_similarity_grouped(ha: torch.Tensor, hb: torch.Tensor, mask_a: torch.Tensor,
+                             mask_b: torch.Tensor, temperature
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The reference's ``include_group`` form: ha (M, B, TA, D), hb (N, B,
+    TB, D), masks likewise; every (m, n) group pair scores on its own.
+    Returns (sim_a, sim_b), each (M, N, B, B). Pairs score independently,
+    so this is ``filip_similarity`` over the flattened groups, regrouped."""
+    (M, B, TA, D), (N, B2, TB, _) = ha.shape, hb.shape
+    sa, sb = filip_similarity(ha.reshape(M * B, TA, D), hb.reshape(N * B2, TB, D),
+                              mask_a.reshape(M * B, TA), mask_b.reshape(N * B2, TB), temperature)
+
+    def regroup(x):
+        return x.reshape(M, B, N, B2).permute(0, 2, 1, 3)
+
+    return regroup(sa), regroup(sb)
+
+
+def token_max_similarity(ha: torch.Tensor, hb: torch.Tensor) -> torch.Tensor:
+    """For aligned pair i, the mean over ha[i]'s tokens of the max dot
+    product against hb[i]'s tokens, unmasked (the notebook prototype).
+    Returns (B,)."""
+    return torch.einsum("btd,bsd->bts", ha.float(), hb.float()).amax(-1).mean(-1)
+
+
+def mean_average_similarity(ha: torch.Tensor, hb: torch.Tensor, mask_a: torch.Tensor,
+                            mask_b: torch.Tensor, temperature) -> torch.Tensor:
+    """The reference's unused mean-pooling variant: masked tokens summed
+    and divided by T (not by the valid count), then dot products / t.
+    Returns (A, B)."""
+    pa = (ha * mask_a[..., None].to(ha.dtype)).mean(1)
+    pb = (hb * mask_b[..., None].to(hb.dtype)).mean(1)
+    return torch.einsum("ad,bd->ab", pa.float(), pb.float()) / temperature
+
+
+def encode_batch_tokens(params: Params, esm_params: Params, batch: dict[str, torch.Tensor],
+                        cfg: FILIPConfig, *, train: bool = False,
+                        generator: torch.Generator | None = None, num_chunks: int = 1
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Both sides' normalised per-token embeddings (ha, hb) from a batch of
+    ``{pep,rec}_{ids,mask}``. The frozen backbone runs with no graph in
+    ``num_chunks`` microbatches (``gradcache.encode_hidden_chunked``), and
+    its hidden states enter the heads in f32."""
+    hidden = [encode_hidden_chunked(esm_params, batch[f"{side}_ids"], batch[f"{side}_mask"],
+                                    cfg.esm, num_chunks).float() for side in ("pep", "rec")]
+    return tuple(encode_side_tokens(params, side, h, cfg, train=train, generator=generator)
+                 for side, h in zip(("pep", "rec"), hidden))
+
+
+def forward(params: Params, esm_params: Params, batch: dict[str, torch.Tensor],
+            cfg: FILIPConfig, *, train: bool = False,
+            generator: torch.Generator | None = None, similarity_fn=None,
+            num_chunks: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
+    """The FILIP forward -> (sim_a, sim_b), each (B, B). ``similarity_fn``
+    defaults to ``ops.filip.filip_similarity_fused`` (the kernel K4 on CUDA
+    tensors, its plain version on CPU tensors)."""
+    ha, hb = encode_batch_tokens(params, esm_params, batch, cfg, train=train,
+                                 generator=generator, num_chunks=num_chunks)
+    return (similarity_fn or filip_similarity_fused)(ha, hb, batch["pep_mask"],
+                                                     batch["rec_mask"], params["temperature"])

@@ -16,8 +16,14 @@ on the other side) becomes 0 before any sum, so a candidate whose mask is
 empty scores 0, not -inf. The means divide by ``max(sum(mask), 1e-6)``.
 The temperature is divided out afterwards, floored at ``_T_FLOOR``.
 
-The backward (``_raw_maxsim_bwd``, plain jnp in the TPU package) belongs to
-FILIP training and is not ported yet: inputs that require grad are refused.
+The raw scores go through ``_MaxSim``, an autograd Function whose forward
+is the kernel (or, on CPU tensors, ``maxsim_reference``) and whose backward
+is ``maxsim_backward``, the port of the TPU package's ``_raw_maxsim_bwd``
+in plain PyTorch, as that is plain jnp (no ``pallas_call``), the same code
+on both devices. It recomputes the scores in (ib, jb)
+blocks of at most ``BWD_BUDGET_ELEMS`` f32 elements and splits the max's
+gradient evenly across ties. The temperature stays outside the Function,
+so autograd gives it its gradient through the division.
 """
 
 from __future__ import annotations
@@ -34,6 +40,10 @@ MAX_DIM = 256                  # token dims the kernel takes (multiples of 4)
 # Folding the temperature out of the max is valid for t > 0 only; a t driven
 # to or below 0 saturates at this floor instead of flipping the max.
 _T_FLOOR = 1e-4
+# Score elements of one recomputed (ib, jb, TA, TB) f32 block of the
+# backward (the TPU package's 2^26 on v5e: 256 MB, about 1 GB live with
+# the tie shares and the score gradient).
+BWD_BUDGET_ELEMS = 1 << 26
 
 
 def clamped_temperature(temperature) -> float:
@@ -61,17 +71,19 @@ def _launcher():
 def maxsim_reference(ha: torch.Tensor, hb: torch.Tensor, mask_a: torch.Tensor,
                      mask_b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version (the TPU package's ``_raw_maxsim`` at t = 1): raw
-    (oa, ob), each (Ba, Bb) f32. Scores one a-row at a time, so its peak
-    memory is one (Bb, TA, TB) f32 score block."""
-    ma = mask_a.float()
-    mb = mask_b.float()
+    (oa, ob), each (Ba, Bb), in f32 (float64 for float64 tokens, which the
+    card's check of the backward differentiates). Scores one a-row at a
+    time, so its peak memory is one (Bb, TA, TB) score block."""
+    dtype = torch.float64 if ha.dtype == torch.float64 else torch.float32
+    ma = mask_a.to(dtype)
+    mb = mask_b.to(dtype)
     cnt_a = ma.sum(-1).clamp(min=1e-6)                      # (Ba,)
     cnt_b = mb.sum(-1).clamp(min=1e-6)                      # (Bb,)
-    hb32 = hb.float()
-    oa = torch.empty(ha.shape[0], hb.shape[0], dtype=torch.float32, device=ha.device)
+    hb32 = hb.to(dtype)
+    oa = torch.empty(ha.shape[0], hb.shape[0], dtype=dtype, device=ha.device)
     ob = torch.empty_like(oa)
     for i in range(ha.shape[0]):
-        s = torch.einsum("td,jsd->jts", ha[i].float(), hb32)          # (Bb, TA, TB)
+        s = torch.einsum("td,jsd->jts", ha[i].to(dtype), hb32)        # (Bb, TA, TB)
         valid = (ma[i][None, :, None] * mb[:, None, :]) > 0
         s = torch.where(valid, s, _NEG)
         # clamp the no-valid-token sentinel to 0 before it is summed
@@ -99,10 +111,6 @@ def _check(ha, hb, mask_a, mask_b) -> None:
             raise ValueError(f"{name} must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
-        if t.requires_grad:
-            raise NotImplementedError(
-                "filip_similarity_fused has no backward on CUDA yet (FILIP training "
-                "is still to port); run it under torch.inference_mode()")
     for name, t in (("ha", ha), ("hb", hb)):
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32 on CUDA, got {t.dtype}")
@@ -115,32 +123,104 @@ def _check(ha, hb, mask_a, mask_b) -> None:
         raise ValueError(f"unsupported shape Ba={Ba}, Bb={Bb}, TA={TA}, TB={TB}")
 
 
+def _block_div(n: int, cap: int) -> int:
+    """Largest divisor of n that is <= cap (>= 1)."""
+    c = max(1, min(cap, n))
+    while n % c:
+        c -= 1
+    return c
+
+
+def maxsim_backward(ha: torch.Tensor, hb: torch.Tensor, mask_a: torch.Tensor,
+                    mask_b: torch.Tensor, ga: torch.Tensor, gb: torch.Tensor,
+                    budget_elems: int = BWD_BUDGET_ELEMS) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dha, dhb) of the raw (oa, ob) for their cotangents ga, gb (Ba, Bb):
+    the port of ``_raw_maxsim_bwd``. The scores are recomputed in f32 in
+    (ib, jb) blocks, ib * jb * TA * TB <= budget_elems where one pair fits
+    (jb at most 8); a max's gradient is split evenly over the valid pairs
+    that reach it, scaled by ga / cnt_a on valid a-tokens and by gb / cnt_b
+    on valid b-tokens. Returned in the inputs' dtypes."""
+    (Ba, TA, D), (Bb, TB, _) = ha.shape, hb.shape
+    ma, mb = mask_a.float(), mask_b.float()
+    cnt_a = ma.sum(-1).clamp(min=1e-6)
+    cnt_b = mb.sum(-1).clamp(min=1e-6)
+    ga, gb = ga.float(), gb.float()
+    ha32, hb32 = ha.float(), hb.float()
+    cap = max(1, budget_elems // (TA * TB))
+    jb = _block_div(Bb, min(8, cap))
+    ib = _block_div(Ba, max(1, cap // jb))
+    dha = torch.zeros(Ba, TA, D, dtype=torch.float32, device=ha.device)
+    dhb = torch.zeros(Bb, TB, D, dtype=torch.float32, device=hb.device)
+    for i0 in range(0, Ba, ib):
+        ha_i, ma_i = ha32[i0:i0 + ib], ma[i0:i0 + ib]
+        for j0 in range(0, Bb, jb):
+            hb_j, mb_j = hb32[j0:j0 + jb], mb[j0:j0 + jb]
+            s = torch.einsum("atd,jsd->ajts", ha_i, hb_j)               # (ib, jb, TA, TB)
+            valid = (ma_i[:, None, :, None] * mb_j[None, :, None, :]) > 0
+            sm = torch.where(valid, s, _NEG)
+            pa = ((sm == sm.amax(3, keepdim=True)) & valid).float()
+            pa = pa / pa.sum(3, keepdim=True).clamp(min=1.0)
+            pb = ((sm == sm.amax(2, keepdim=True)) & valid).float()
+            pb = pb / pb.sum(2, keepdim=True).clamp(min=1.0)
+            coef_a = ((ga[i0:i0 + ib, j0:j0 + jb] / cnt_a[i0:i0 + ib, None])[:, :, None, None]
+                      * ma_i[:, None, :, None])
+            coef_b = ((gb[i0:i0 + ib, j0:j0 + jb] / cnt_b[None, j0:j0 + jb])[:, :, None, None]
+                      * mb_j[None, :, None, :])
+            ds = coef_a * pa + coef_b * pb
+            dha[i0:i0 + ib] += torch.einsum("ajts,jsd->atd", ds, hb_j)
+            dhb[j0:j0 + jb] += torch.einsum("ajts,atd->jsd", ds, ha_i)
+    return dha.to(ha.dtype), dhb.to(hb.dtype)
+
+
+def _raw_maxsim(ha, hb, mask_a, mask_b) -> tuple[torch.Tensor, torch.Tensor]:
+    """Raw (oa, ob): the plain version on CPU tensors, the kernel on CUDA
+    tensors (or a raise)."""
+    if ha.device.type == "cpu":
+        return maxsim_reference(ha, hb, mask_a, mask_b)
+    if ha.device.type != "cuda":
+        raise ValueError(f"filip_similarity_fused runs on cpu or cuda, not {ha.device}")
+    _check(ha, hb, mask_a, mask_b)
+    (Ba, TA, D), (Bb, TB, _) = ha.shape, hb.shape
+    oa = torch.empty(Ba, Bb, dtype=torch.float32, device=ha.device)
+    ob = torch.empty_like(oa)
+    if Ba and Bb:
+        launch = _launcher()
+        with torch.cuda.device(ha.device):
+            stream = torch.cuda.current_stream(ha.device).cuda_stream
+            err = launch(ha.data_ptr(), hb.data_ptr(), mask_a.data_ptr(),
+                         mask_b.data_ptr(), oa.data_ptr(), ob.data_ptr(),
+                         Ba, Bb, TA, TB, D, stream)
+        if err != 0:
+            raise RuntimeError(f"filip_maxsim launch failed: cudaError_t {err}")
+        filip_similarity_fused.launches += 1
+    return oa, ob
+
+
+class _MaxSim(torch.autograd.Function):
+    """Raw (oa, ob) with ``maxsim_backward`` as its backward; the masks
+    take no gradient."""
+
+    @staticmethod
+    def forward(ctx, ha, hb, mask_a, mask_b):
+        ctx.save_for_backward(ha, hb, mask_a, mask_b)
+        return _raw_maxsim(ha, hb, mask_a, mask_b)
+
+    @staticmethod
+    def backward(ctx, ga, gb):
+        ha, hb, mask_a, mask_b = ctx.saved_tensors
+        dha, dhb = maxsim_backward(ha, hb, mask_a, mask_b, ga, gb)
+        return dha, dhb, None, None
+
+
 def filip_similarity_fused(ha: torch.Tensor, hb: torch.Tensor, mask_a: torch.Tensor,
                            mask_b: torch.Tensor, temperature
                            ) -> tuple[torch.Tensor, torch.Tensor]:
     """(Ba, TA, D) and (Bb, TB, D) f32 tokens, (Ba, TA) and (Bb, TB) int32
     masks, a temperature (float or scalar tensor) -> (sim_a, sim_b), each
-    (Ba, Bb) f32, divided by ``max(t, _T_FLOOR)``. On CPU tensors this is
-    the plain version; on CUDA tensors it launches the kernel or raises."""
-    if ha.device.type == "cpu":
-        oa, ob = maxsim_reference(ha, hb, mask_a, mask_b)
-    elif ha.device.type != "cuda":
-        raise ValueError(f"filip_similarity_fused runs on cpu or cuda, not {ha.device}")
-    else:
-        _check(ha, hb, mask_a, mask_b)
-        (Ba, TA, D), (Bb, TB, _) = ha.shape, hb.shape
-        oa = torch.empty(Ba, Bb, dtype=torch.float32, device=ha.device)
-        ob = torch.empty_like(oa)
-        if Ba and Bb:
-            launch = _launcher()
-            with torch.cuda.device(ha.device):
-                stream = torch.cuda.current_stream(ha.device).cuda_stream
-                err = launch(ha.data_ptr(), hb.data_ptr(), mask_a.data_ptr(),
-                             mask_b.data_ptr(), oa.data_ptr(), ob.data_ptr(),
-                             Ba, Bb, TA, TB, D, stream)
-            if err != 0:
-                raise RuntimeError(f"filip_maxsim launch failed: cudaError_t {err}")
-            filip_similarity_fused.launches += 1
+    (Ba, Bb) f32, divided by ``max(t, _T_FLOOR)``. On CPU tensors the
+    forward is the plain version; on CUDA tensors it launches the kernel or
+    raises. Differentiable in ha, hb and a tensor temperature."""
+    oa, ob = _MaxSim.apply(ha, hb, mask_a, mask_b)
     if isinstance(temperature, torch.Tensor):
         t = temperature.to(dtype=torch.float32, device=oa.device).clamp(min=_T_FLOOR)
     else:  # a number divides without a copy to the card (which would wait for it)

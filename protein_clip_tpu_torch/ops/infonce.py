@@ -1,8 +1,8 @@
 """Symmetric InfoNCE for dual-encoder contrastive training (kernels K2, K3).
 
 The port of ``protein_clip_tpu/ops/infonce.py`` (the plain versions
-``clip_infonce``, ``infonce_from_logits``, ``naive_infonce_from_logits``)
-and of ``protein_clip_tpu/ops/infonce_pallas.py`` (the fused loss). With
+``clip_infonce``, ``infonce_from_logits``, ``naive_infonce_from_logits``,
+and FILIP's ``filip_direction_loss`` and ``filip_loss``) and of ``protein_clip_tpu/ops/infonce_pallas.py`` (the fused loss). With
 (B, D) embeddings x, y already scaled by exp(t/2) each, ``logits = x y^T``
 carries exp(t) and
 
@@ -63,6 +63,24 @@ def naive_infonce_from_logits(logits: torch.Tensor) -> torch.Tensor:
     l_r = -torch.mean(torch.log(torch.exp(diag) / exp_logits.sum(1)))
     l_p = -torch.mean(torch.log(torch.exp(diag) / exp_logits.sum(0)))
     return 0.5 * (l_r + l_p)
+
+
+def filip_direction_loss(logits: torch.Tensor, use_dcl: bool = False) -> torch.Tensor:
+    """FILIP's cross-entropy of one direction, mean over rows of
+    logsumexp(row) - diag, in f32. With ``use_dcl`` the diagonal leaves
+    the denominator (decoupled contrastive learning)."""
+    logits = logits.float()
+    diag = torch.diagonal(logits)
+    denom = logits
+    if use_dcl:
+        eye = torch.eye(logits.shape[0], dtype=torch.bool, device=logits.device)
+        denom = logits.masked_fill(eye, float("-inf"))
+    return torch.mean(torch.logsumexp(denom, dim=1) - diag)
+
+
+def filip_loss(sim_a: torch.Tensor, sim_b: torch.Tensor, use_dcl: bool = False) -> torch.Tensor:
+    """The mean of the two directions' losses over FILIP's (B, B) scores."""
+    return 0.5 * (filip_direction_loss(sim_a, use_dcl) + filip_direction_loss(sim_b, use_dcl))
 
 
 def _tiles(b: int) -> int:

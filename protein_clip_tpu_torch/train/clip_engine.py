@@ -82,10 +82,13 @@ class EngineConfig:
     # filled, against about 80% for length groups; supersedes length_groups
     packed: bool = False
     # > 1: width-tiered packing, and FILIP's scatter tiers: not ported yet
-    # (the packed steps raise; ROADMAP queue 1: width-tiered packing, FILIP
-    # training)
+    # (the packed steps raise; ROADMAP queue 1: width-tiered packing, packed
+    # FILIP)
     packed_tiers: int = 1
     scatter_tiers: int = 1
+    # FILIP only (train/filip_engine.py): the diagonal leaves the loss's
+    # denominator (decoupled contrastive learning)
+    filip_use_dcl: bool = False
     # per-layer rematerialisation of the backbone where it takes gradients
     # (train/finetune.py, train/lora.py); the frozen path keeps no graph
     remat: bool = True

@@ -22,7 +22,7 @@ counts round up to a multiple that halves as the width doubles
 
 Not ported here: width-tiered packing (``tiers > 1``, ``--pack-tiers``;
 ROADMAP queue 1: width-tiered packing) and FILIP's scatter tiers
-(``scatter_tiers > 1``; ROADMAP queue 1: FILIP training). Both raise
+(``scatter_tiers > 1``; ROADMAP queue 1: packed FILIP). Both raise
 ``NotImplementedError``.
 """
 
@@ -91,7 +91,7 @@ def check_flat(tiers: int = 1, scatter_tiers: int = 1,
     if scatter_tiers > 1:
         raise NotImplementedError(
             f"FILIP scatter tiers (scatter_tiers={scatter_tiers}) are not ported yet (ROADMAP "
-            "queue 1: FILIP training); the packed step takes scatter_tiers=1")
+            "queue 1: packed FILIP); the packed step takes scatter_tiers=1")
 
 
 def tokenize_packed(tokenizer: EsmTokenizer, peps: list[str], recs: list[str],

@@ -4,7 +4,9 @@ InfoNCE kernels K2 and K3 (forward and backward), the dense product P1 (s8
 and bf16) and the fused FFN K6 against their plain versions at odd shapes,
 each tolerance against a planted fault, the wrappers' refusals, their
 launch counts, the ESM-2 forward through K1, P1 (int8) and K6, the FILIP
-scorer through K4, a train step through K2 and K3 (grouped and packed), the
+scorer through K4, K4's backward against float64 autograd and a FILIP train
+step through K4 against the plain one, a train step through K2 and K3
+(grouped and packed), the
 packed embeddings against the grouped ones, finetune steps
 through K1 and K5 (one pad bucket, and packed: finetune and LoRA), K5 on a
 packed step's own segments, and under the K6 gate.
@@ -375,8 +377,78 @@ def test_maxsim_wrapper_refuses_what_the_kernel_does_not_take(dev):
                                      ma, mb, 1.0)
     with pytest.raises(ValueError, match="unsupported shape"):
         filip.filip_similarity_fused(ha[:, :0].contiguous(), hb, ma[:, :0].contiguous(), mb, 1.0)
-    with pytest.raises(NotImplementedError, match="backward"):
-        filip.filip_similarity_fused(ha.requires_grad_(), hb, ma, mb, 1.0)
+    # tokens that require a gradient take the kernel (FILIP training) and its checks
+    with pytest.raises(TypeError, match="float32"):
+        filip.filip_similarity_fused(ha.bfloat16().requires_grad_(), hb, ma, mb, 1.0)
+
+
+@pytest.mark.parametrize("Ba,Bb,TA,TB,kind", [
+    (10, 10, 32, 192, "random"), (32, 32, 32, 128, "random"), (3, 7, 40, 130, "first"),
+    (5, 4, 70, 65, "holes"), (4, 9, 32, 300, "random")])
+def test_maxsim_backward_matches_float64_autograd(dev, Ba, Bb, TA, TB, kind):
+    """The wrapper's autograd Function (K4 forward, ops.filip.maxsim_backward)
+    against autograd through maxsim_reference in float64, for random
+    cotangents, at FILIP training's block shapes and odd ones, with rows of
+    no valid token: tokens rounded to multiples of 1/16 and tied (every
+    odd token a copy of the even one before it), so every score is exact in
+    f32 and float64 and both see the same ties, which amax also splits
+    evenly. Per output max|err| <= MAXSIM_BWD_RTOL max|ref|."""
+    ha, hb, ma, mb = _tokens(Ba, Bb, TA, TB, dev, kind=kind)
+    qa, qb = (chip_smoke.tied(torch.round(h * 16) / 16) for h in (ha, hb))
+    g = torch.Generator(device=dev).manual_seed(3)
+    ga, gb = (torch.randn(Ba, Bb, device=dev, generator=g) for _ in range(2))
+    xa, xb = qa.clone().requires_grad_(True), qb.clone().requires_grad_(True)
+    before = filip.filip_similarity_fused.launches
+    torch.autograd.backward(filip.filip_similarity_fused(xa, xb, ma, mb, 1.0), (ga, gb))
+    assert filip.filip_similarity_fused.launches == before + 1
+    ra, rb = qa.double().requires_grad_(True), qb.double().requires_grad_(True)
+    torch.autograd.backward(filip.maxsim_reference(ra, rb, ma, mb), (ga.double(), gb.double()))
+    for x, r in ((xa, ra), (xb, rb)):
+        assert x.grad.dtype == torch.float32
+        err = float((x.grad.double() - r.grad).abs().max() / r.grad.abs().max())
+        assert err <= chip_smoke.MAXSIM_BWD_RTOL
+    assert bool((xa.grad[ma.sum(1) == 0] == 0).all())       # empty rows: no gradient
+
+
+@pytest.mark.parametrize("groups", [1, 2])
+def test_filip_step_through_k4_matches_the_plain_step(dev, groups):
+    """One FILIP train step (12 pairs, dropout 0.1 from a seeded generator)
+    through K4 against the same step through K4's plain version in the same
+    autograd Function: the loss within FILIP_STEP_TOL relative, every head
+    gradient within FILIP_STEP_TOL of the step's largest entry; K4 launched
+    groups^2 times; the step through K4 run again equal to the bit."""
+    import contextlib
+
+    from protein_clip_tpu_torch.models import filip as filip_model
+    from protein_clip_tpu_torch.train import filip_engine
+
+    cmcfg, esm_params = _tiny_t30_like(dev)
+    mcfg = filip_model.FILIPConfig(input_dim=cmcfg.input_dim, embedding_dim=cmcfg.embedding_dim,
+                                   esm=cmcfg.esm)
+    cfg = clip_engine.EngineConfig(model=mcfg, batch_size=12, accumulated_batches=1,
+                                   num_chunks=2, length_groups=groups, filip_use_dcl=groups > 1)
+    batch = to_device(clip_engine._prepare(EsmTokenizer(), cfg)(*_pairs(12, seed=4)), dev)
+    heads0 = filip_model.init_params(mcfg, torch.Generator().manual_seed(1), device=dev)
+
+    def step(maxsim_cm=contextlib.nullcontext):
+        params = _clone(heads0)
+        state = _capturing(optimizer.adam(1e-3).init(params))
+        before = filip.filip_similarity_fused.launches
+        with maxsim_cm():
+            _, _, loss = filip_engine.make_train_step(cfg)(
+                params, state, esm_params, batch, torch.Generator(device=dev).manual_seed(1))
+        torch.cuda.synchronize()
+        grads = [g for g in state.grads if g is not None]       # emb_ffn takes none
+        return float(loss), grads, filip.filip_similarity_fused.launches - before
+
+    (lk, gk, nk), (lp, gp, np_), (la, ga, na) = step(), step(chip_smoke.plain_maxsim), step()
+    assert (nk, np_, na) == (groups ** 2, 0, groups ** 2)
+    tol = chip_smoke.FILIP_STEP_TOL
+    assert abs(lk - lp) <= tol * abs(lp)
+    scale = max(float(g.abs().max()) for g in gp)
+    for a, b in zip(gk, gp):
+        assert float((a - b).abs().max()) <= tol * scale
+    assert lk == la and all(torch.equal(a, b) for a, b in zip(gk, ga))
 
 
 def test_ragged_scorer_launches_one_kernel_per_block(dev):
@@ -570,11 +642,13 @@ def _tiny_t30_like(dev):
 
 
 def _capturing(state):
-    """Make ``state.apply`` keep the gradients it applies, in leaf order."""
+    """Make ``state.apply`` keep the gradients it applies, in leaf order
+    (None for a leaf the step does not reach: FILIP's emb_ffn)."""
     apply = state.apply
 
     def capture():
-        state.grads = [t.grad.detach().clone() for t in state.leaves]
+        state.grads = [None if t.grad is None else t.grad.detach().clone()
+                       for t in state.leaves]
         apply()
 
     state.apply = capture

@@ -318,7 +318,7 @@ for name in names:
 import chip_smoke
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
-print(len(names))
+print(" ".join(names))
 """
 
 
@@ -329,7 +329,10 @@ def test_port_and_chip_smoke_import_no_jax():
     out = subprocess.run([sys.executable, "-c", BLOCKER], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
-    assert int(out.stdout.strip().splitlines()[-1]) >= 18
+    names = set(out.stdout.strip().splitlines()[-1].split())
+    assert len(names) >= 18
+    for mod in ("train.filip_engine", "cli.main_2protein_filip"):
+        assert f"protein_clip_tpu_torch.{mod}" in names
 
 
 def test_chip_smoke_refuses_without_cuda():

@@ -454,5 +454,6 @@ print(" ".join(names))
     for mod in ("train.clip_engine", "train.loop", "train.optimizer", "train.gradcache",
                 "data.dataset", "data.cluster", "data.synthetic", "data.prefetch",
                 "data.native.build", "ops.infonce", "cli.main", "cli.main_2protein",
-                "cli._clip_runner", "utils.rundir"):
+                "cli._clip_runner", "utils.rundir", "train.filip_engine",
+                "cli.main_2protein_filip"):
         assert f"protein_clip_tpu_torch.{mod}" in names
