@@ -160,6 +160,25 @@ and a nonzero exit code, and no result line:
                 path's masks and with emptied rows: MAXSIM_BWD_RTOL.
                 cli.retrieve --filip with the batch-10 run's best_model.npz
                 against the plain max-sim.
+                Then the rest of FILIP training on the same fixture
+                (FILIP_MORE_RUNS, one epoch each): --packed at batch 128
+                with 4 scatter tiers (the CLI's default) and with 1, and
+                --finetune and --lora-rank 8 at batch 64 in 2 chunks, one
+                bucket and --packed: the artifacts; the backbone forwards
+                and the K1, K4 and K5 launches exactly as the loaders'
+                batches, tokenized again here, predict (filip_epoch_plan:
+                K4 once per tier-pair block that holds sequences); embed
+                --filip with the packed unfrozen runs' checkpoints. K4
+                against its plain version on the packed run's first batch's
+                tier-pair blocks (phantom rows included), their variants,
+                and a block whose a-tier or b-tier is sentinels only; both
+                planted K4 faults must fail their cases; the f32 max-sim
+                backward on those blocks against float64 autograd
+                (MAXSIM_TIER_BWD_RTOL; a backward that splits ties
+                unevenly must fail it), and on float64 tokens
+                (MAXSIM_BWD_RTOL). K1 and
+                K5 against their plain versions on the packed FILIP steps'
+                own chunks.
 8. step check   one default train step with K2 and one with the plain loss
                 from the same heads and batch (dropout 0, Adam lr 1e-3), at
                 256 and, with K3, at 1024, and one packed step with K2 at
@@ -187,7 +206,17 @@ and a nonzero exit code, and no result line:
                 Function: the loss within FILIP_STEP_TOL relative and each
                 head gradient within FILIP_STEP_TOL of the step's largest
                 entry; run again, equal to the bit; the same step through
-                each planted K4 fault is printed.
+                each planted K4 fault is printed. The packed FILIP step at
+                batch 128 (4 scatter tiers) alike, and against the same
+                pairs at one scatter tier (the loss within FILIP_STEP_TOL).
+                One FILIP finetune step at the runs' batch of 64 and at 256
+                (FILIP_FT_CHECK_BATCH), one bucket and packed (dropout 0),
+                through K1/K5 and through K1 and K5's plain version, at 256
+                also through K5's swept-tile fault: every leaf within
+                FILIP_FT_K5_TOL of its largest entry (four times FT_K5_TOL,
+                which the FILIP step exceeds), the loss within
+                FT_LOSS_TOL, the fault past it, equal to itself to the
+                bit.
 9. int8 serve   cli.serve --esm-dtype int8 over phase 3's weights and index
                 (the w8a8 backbone: every quantised linear layer runs P1):
                 /healthz, phase 3's single sequences, its 32-sequence
@@ -246,7 +275,12 @@ and a nonzero exit code, and no result line:
                 time, plain version, bound); the plain max-sim backward of
                 one step's blocks by CUDA events and device time, and its
                 share of the step; one FILIP step of each under
-                torch.profiler: launches and busy share.
+                torch.profiler: launches and busy share. The phase-7b runs'
+                pairs/s by the same events; K4 over the packed step's
+                tier-pair blocks and over the flat step's one block beside
+                the bound on their masks; one packed frozen and one packed
+                finetune FILIP step under torch.profiler: launches, busy
+                share, peak memory.
 
 The last three lines of standard output are the card's name and power
 limit, the kernels line (one JSON object per hand-written kernel) and
@@ -255,11 +289,13 @@ limit, the kernels line (one JSON object per hand-written kernel) and
 
 from __future__ import annotations
 
+import argparse
 import concurrent.futures
 import contextlib
 import ctypes
 import dataclasses
 import functools
+import inspect
 import itertools
 import json
 import math
@@ -268,6 +304,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import textwrap
 import threading
 import time
 import urllib.request
@@ -285,11 +322,13 @@ from protein_clip_tpu_torch.data.synthetic import write_fixture
 from protein_clip_tpu_torch.eval import retrieval
 from protein_clip_tpu_torch.kernels import build
 from protein_clip_tpu_torch.models import clip, esm2, filip
+from protein_clip_tpu_torch.models import heads as head_mod
 from protein_clip_tpu_torch.ops import attention, dense_mm, ffn, infonce
 from protein_clip_tpu_torch.ops import filip as maxsim
 from protein_clip_tpu_torch.tools import bench_train
-from protein_clip_tpu_torch.train import (checkpoint, clip_engine, filip_engine, finetune, lora,
-                                          optimizer, packed_engine)
+from protein_clip_tpu_torch.train import (checkpoint, clip_engine, filip_engine, filip_finetune,
+                                          filip_lora, filip_packed, finetune, lora, optimizer,
+                                          packed_engine)
 from protein_clip_tpu_torch.train.checkpoint import export_npz
 
 ROOT = Path(__file__).resolve().parent
@@ -438,12 +477,48 @@ FILIP_FIXTURE_FAMILIES = 1100
 FILIP_RUNS = (("filip_10", []),
               ("filip_128", ["--batch-size", "128", "--num-chunks", "8", "--length-groups", "4",
                              "--use-dcl"]))
+# The rest of FILIP training on the same fixture (phase 7b): packed at the
+# documented scale-up (batch 128, 4 scatter tiers, the CLI's default, and 1),
+# and the unfrozen modes at batch 64 in 2 chunks (12 steps), one bucket and
+# packed; each with its engine, whose steps are timed.
+FILIP_MORE_RUNS = (
+    ("filip_packed_128", ["--batch-size", "128", "--packed"], filip_engine),
+    ("filip_packed_128_flat", ["--batch-size", "128", "--packed", "--scatter-tiers", "1"],
+     filip_engine),
+    ("filip_finetune", ["--batch-size", "64", "--num-chunks", "2", "--finetune"], filip_finetune),
+    ("filip_lora", ["--batch-size", "64", "--num-chunks", "2", "--lora-rank", str(LORA_RANK)],
+     filip_lora),
+    ("filip_finetune_packed", ["--batch-size", "64", "--finetune", "--packed"], filip_finetune),
+    ("filip_lora_packed", ["--batch-size", "64", "--lora-rank", str(LORA_RANK), "--packed"],
+     filip_lora))
+# The FILIP finetune step check's global batch: the CLIP finetune step
+# check (FT_K5_TOL) runs at 256; in chunks of 32 pairs here.
+FILIP_FT_CHECK_BATCH = 256
+# The FILIP finetune step through K1/K5 against the same step through K1
+# and K5's plain version, check_finetune_step's form: per leaf max|g_kernel
+# - g_plain| <= FILIP_FT_K5_TOL max|g_plain|. FT_K5_TOL does not hold
+# there: on an H100 the token embedding table and the q and k weights read
+# 1.26-1.64 of it (batch 256 and 64, one bucket and packed). FILIP's
+# cotangent reaches each row only through its max-sim tokens, so a leaf's
+# largest entry sums fewer terms than under pooled CLIP, and the same bf16
+# rounding flips of K5's sums weigh more against it; either bf16 step sits
+# 8-27 FT_K5_TOL from the step with eager attention in f32. The limit is
+# four times FT_K5_TOL, set after those readings; a K5 whose dk/dv loop
+# drops the last query tile reads 51-71 times FT_K5_TOL.
+FILIP_FT_K5_TOL = 4 * FT_K5_TOL
 # The max-sim backward (plain PyTorch in f32) against autograd through
 # maxsim_reference in float64, on tokens whose scores are exact in both: the
 # same ties, so the gap is the f32 sums' rounding, about 1e-7 of the largest
 # entry (CPU rehearsal); a split that misses one tied token is off by a
 # share of the largest.
 MAXSIM_BWD_RTOL = 1e-5
+# The same on packed FILIP's tier-pair blocks, where a token's gradient sums
+# up to 128 x 128 = 16 384 terms: the f32 sums read up to 1.35e-5 of the
+# largest entry on an H100, 1.7 sqrt(16 384) f32 roundings (2^-24). The
+# limit is 5 sqrt(16 384) of them, set after those readings; a backward
+# that gives each tied token the whole gradient of its max, instead of an
+# even share, must fail it.
+MAXSIM_TIER_BWD_RTOL = 5 * 128 * 2 ** -24
 # One FILIP step through K4 against the same step through its plain
 # version: the loss within FILIP_STEP_TOL relative, each head gradient
 # within FILIP_STEP_TOL of the step's largest gradient entry (K4's scores
@@ -2094,6 +2169,7 @@ def filip_first_batch(data_dir: Path, args) -> tuple:
     mcfg, _ = filip_setup()
     cfg = clip_engine.EngineConfig(model=mcfg, batch_size=args.batch_size, accumulated_batches=1,
                                    num_chunks=args.num_chunks, length_groups=args.length_groups,
+                                   packed=args.packed, scatter_tiers=args.scatter_tiers,
                                    filip_use_dcl=args.use_dcl)
     loader = dataset.PairLoader(filip_data(data_dir)[0], args.batch_size, seed=args.seed)
     loader.reseed_epoch(0)
@@ -2423,6 +2499,547 @@ def filip_launches_per_step(run: dict, data_dir: Path) -> dict:
         f"torch.profiler: {out['launches']} kernel launches ({out['filip_maxsim']} "
         f"filip_maxsim, {k4_ms:.4f} ms of device time), device busy {busy_ms:.4f} ms of "
         f"{out['wall_ms']:.4f} ms ({100 * out['busy_share']:.2f}%)")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 7b, the rest of FILIP training: packed FILIP with scatter tiers (K4
+# on tier-pair blocks), and FILIP's finetune and LoRA modes, one bucket and
+# packed (K5 in pass 2)
+# ---------------------------------------------------------------------------
+
+def filip_loaders(data_dir: Path, batch_size: int) -> tuple:
+    """The train, val and test loaders of cli.main_2protein_filip's first
+    epoch, as the run builds and reseeds them (the test loader keeps its
+    first draws)."""
+    train_ds, val_ds, test_ds = filip_data(data_dir)
+    train, val, test = (dataset.PairLoader(ds, batch_size, shuffle=ds is train_ds, seed=42)
+                        for ds in (train_ds, val_ds, test_ds))
+    train.reseed_epoch(0)
+    val.reseed_epoch(0)
+    return train, val, test
+
+
+def filip_k4_blocks(batch: dict) -> int:
+    """K4 launches of one FILIP batch: one per (pep tier, rec tier) pair of
+    tiers that hold a sequence (a tier no sequence takes ships no rows and
+    launches nothing), or one without scatter tiers."""
+    n = 1
+    for side in ("pep", "rec"):
+        n *= sum(len(t["operm"]) > 0 for t in batch.get(f"{side}_stiers") or ({"operm": [0]},))
+    return n
+
+
+def filip_epoch_plan(data_dir: Path, args) -> dict:
+    """What one epoch of cli.main_2protein_filip with ``args`` (one bucket or
+    packed; frozen or unfrozen) launches, from its loaders' batches tokenized
+    again here: the backbone forwards' (rows, L), K1 (one per layer, 30 per
+    forward; the unfrozen steps 30 per pass-1 chunk and 60 per pass-2 chunk:
+    forward and remat recompute), K5 (30 per pass-2 chunk) and K4
+    (filip_k4_blocks per step and eval batch)."""
+    train, val, test = filip_loaders(data_dir, args.batch_size)
+    mcfg, _ = filip_setup()
+    cfg = clip_engine.EngineConfig(model=mcfg, batch_size=args.batch_size, accumulated_batches=1,
+                                   packed=args.packed, scatter_tiers=args.scatter_tiers)
+    prepare = clip_engine._prepare(common.make_tokenizer(), cfg)
+    unfrozen = bool(args.finetune or args.lora_rank)
+    n = filip_engine._snap_chunks(args.batch_size, args.num_chunks)
+    layers = mcfg.esm.num_layers
+    plan = {"forwards": [], "attention_fwd": 0, "attention_bwd": 0, "filip_maxsim": 0,
+            "steps": 0, "evals": 0, "step_chunks": []}
+    for loaders, training in (((train,), True), ((val, test), False)):
+        for p, r in (pr for loader in loaders for pr in loader):
+            b = prepare(p, r)
+            if args.packed:
+                chunks = unfrozen_chunks(b) if training and unfrozen else packed_chunks(b)
+            else:
+                chunks = [(args.batch_size // n, b[f"{side}_ids"].shape[1])
+                          for side in ("pep", "rec") for _ in range(n)]
+            passes = 2 if training and unfrozen else 1
+            plan["forwards"] += chunks * passes
+            plan["attention_fwd"] += (3 if passes == 2 else 1) * layers * len(chunks)
+            plan["attention_bwd"] += layers * len(chunks) if passes == 2 else 0
+            plan["filip_maxsim"] += filip_k4_blocks(b)
+            plan["steps" if training else "evals"] += 1
+            if training:
+                plan["step_chunks"].append(chunks)
+    return plan
+
+
+def run_filip_more(name: str, data_dir: Path, extra: list[str], engine) -> dict:
+    """cli.main_2protein_filip for one epoch: the artifacts, and every
+    kernel's launch count and the backbone forwards against
+    filip_epoch_plan; no InfoNCE kernel (FILIP's loss is plain PyTorch)."""
+    runs = WORK / f"runs_{name}"
+    argv = ["--synthetic-fixture", "--data-dir", str(data_dir), "--fixture-families",
+            str(FILIP_FIXTURE_FAMILIES), "--epochs", "1", "--runs-dir", str(runs)] + extra
+    args = filip_cli.build_argparser().parse_args(argv)
+    plan = filip_epoch_plan(data_dir, args)
+    t0 = time.perf_counter()
+    with counted_forwards() as forwards, timed_steps(engine) as ends:
+        reset_counts()
+        filip_cli.main(argv)
+        got = {"attention_fwd": attention.fused_attention.launches,
+               "attention_bwd": attention.fused_attention_bwd.launches,
+               "filip_maxsim": maxsim.filip_similarity_fused.launches}
+        counts = infonce_counts()
+        check_default_path(name)
+    wall = time.perf_counter() - t0
+    run = check_run_dir(runs)
+    want = {k: plan[k] for k in got}
+    if (len(ends), sorted(forwards), got) != (plan["steps"], sorted(plan["forwards"]), want) \
+            or any(v != (0, 0) for v in counts.values()):
+        raise AssertionError(f"{name}: {len(ends)} steps (want {plan['steps']}), "
+                             f"{len(forwards)} backbone forwards (want {len(plan['forwards'])}), "
+                             f"launches {got} (want {want}); InfoNCE calls {counts}")
+    metrics = json.loads((run / "metrics.jsonl").read_text().splitlines()[0])
+    per_step = len(plan["forwards"]) and sum(map(len, plan["step_chunks"])) / plan["steps"]
+    log(f"[filip train] {name} ({' '.join(extra)}): {plan['steps']} steps, {plan['evals']} eval "
+        f"batches; train loss {metrics['train_loss']:.6f}, val loss {metrics['val_loss']:.6f}; "
+        f"chunk forwards (rows, L) of the first step {plan['step_chunks'][0]}, {per_step:.2f} a "
+        f"step (a pass), {len(forwards)} backbone forwards in all; attention_fwd "
+        f"{got['attention_fwd']}, attention_bwd {got['attention_bwd']}, filip_maxsim "
+        f"{got['filip_maxsim']} (as predicted from the loaders' batches); epoch "
+        f"{metrics['seconds']:.2f} s, cli.main_2protein_filip {wall:.2f} s")
+    return {"run": run, "args": args, "extra": extra, "steps": plan["steps"],
+            "evals": plan["evals"], "ends": ends, "launches": got, "chunks_per_step": per_step}
+
+
+def filip_embed_check(run: dict, data_dir: Path, what: str) -> None:
+    """embed --filip of 8 receptors with the run's best_model.npz (the
+    finetuned backbone, or the adapters merged into the base): finite
+    tokens of dim FILIP_D."""
+    fasta = WORK / "filip_more_embed.fasta"
+    recs = sequences_only(data_dir / "protein2.fasta")[:8]
+    fasta.write_text("".join(f">r{i}\n{s}\n" for i, s in enumerate(recs)))
+    embed.main(["--checkpoint", str(run["run"] / "best_model.npz"), "--filip", "--fasta",
+                str(fasta), "--side", "rec", "--out", str(WORK / "filip_more_embed.npz")])
+    with np.load(WORK / "filip_more_embed.npz") as index:
+        tokens, lengths = index["tokens"], index["lengths"]
+    if tokens.shape != (int(lengths.sum()), FILIP_D) or not np.isfinite(tokens).all():
+        raise AssertionError(f"embed --filip with {what} gave {tokens.shape}")
+    log(f"[filip train] embed --filip with {what}: tokens {tokens.shape}, finite")
+
+
+def filip_tier_blocks(run: dict, data_dir: Path) -> list[tuple]:
+    """The K4 blocks of a packed run's first train batch, (ha, hb, mask_a,
+    mask_b) for every (pep tier, rec tier) pair of tiers that hold a
+    sequence (or the one flat block): the tokens of the run's best heads in
+    eval mode, scattered as the step scatters them, phantom rows included."""
+    mcfg, esm_params = filip_setup()
+    heads = checkpoint.load_npz(run["run"] / "best_model.npz",
+                                filip.init_params(mcfg, torch.Generator(), device="meta"), "cuda")
+    _, batch = filip_first_batch(data_dir, run["args"])
+    b = packed_engine.expand_packed_batch(batch)
+    n = packed_engine.packed_side_count(b, "pep")
+    tiers = {}
+    with torch.no_grad():
+        for side in ("pep", "rec"):
+            pk = {k: b[f"{side}_{k}"] for k in ("ids", "seg", "pos", "owner")}
+            h = packed_engine._encode_packed_chunked(esm_params, pk["ids"], pk["seg"], pk["pos"],
+                                                     mcfg.esm, 16).float()
+            x = filip_packed._l2_normalize_tokens(head_mod.encode_tokens(heads[side], h,
+                                                                         mcfg.activation))
+            tiers[side] = filip_packed._scatter_side(x, pk, b.get(f"{side}_stiers"), n)
+    return [(a[0], c[0], a[1], c[1]) for a in tiers["pep"] for c in tiers["rec"]
+            if len(a[0]) and len(c[0])]
+
+
+def check_filip_tier_k4(blocks: list, fault_libs: dict, gen: torch.Generator) -> dict:
+    """K4 against its plain version on the packed run's tier-pair blocks
+    (filip_path_cases: as the step gives them, with their phantom rows,
+    and the variants), on the first block with every a-row and then every
+    b-row a sentinel (no valid token: every score 0), then against both
+    planted faults, which must fail their cases."""
+    cases = filip_path_cases(blocks, gen)
+    ha, hb, ma, mb = blocks[0]
+    shape = (ha.shape[0], hb.shape[0], ha.shape[1], hb.shape[1])
+    cases += [(shape, (ha, hb, torch.zeros_like(ma), mb), "tier block, a-tier of sentinels only"),
+              (shape, (ha, hb, ma, torch.zeros_like(mb)), "tier block, b-tier of sentinels only")]
+    err = check_maxsim(cases)
+    faults = check_maxsim_faults(fault_libs, cases)
+    phantom = sum(int((m.sum(1) == 0).sum()) for blk in blocks for m in blk[2:])
+    log(f"[filip train] K4 on {len(blocks)} tier-pair blocks of the packed run's first batch "
+        f"({phantom} all-masked rows among them), {len(cases)} cases: max|err| {err:.3g}")
+    return {"max_abs_err": err, "cases": len(cases), "phantom_rows": phantom,
+            "shapes": sorted({tuple(c[0]) for c in cases if c[2] == "path block"}),
+            "fault": {k: {"worst_ratio": v["worst_ratio"], "cases_failed": v["cases_failed"]}
+                      for k, v in faults.items()}}
+
+
+TIE_SPLIT_LINE = "pa = pa / pa.sum(3, keepdim=True).clamp(min=1.0)"
+
+
+@contextlib.contextmanager
+def uneven_tie_split():
+    """The planted fault of the max-sim backward, which is plain PyTorch: a
+    patched copy of ops.filip.maxsim_backward whose a-side max hands its
+    whole gradient to every tied token, not an even share, runs in the
+    wrapper's backward while the block runs."""
+    src = textwrap.dedent(inspect.getsource(maxsim.maxsim_backward))
+    if src.count(TIE_SPLIT_LINE) != 1:
+        raise AssertionError("the uneven tie split fault: its line is not in maxsim_backward")
+    scope = dict(vars(maxsim))
+    exec(compile(src.replace(TIE_SPLIT_LINE, "pa = pa"), maxsim.__file__, "exec"), scope)
+    saved = maxsim.maxsim_backward
+    maxsim.maxsim_backward = scope["maxsim_backward"]
+    try:
+        yield
+    finally:
+        maxsim.maxsim_backward = saved
+
+
+def check_filip_tier_backward(blocks: list, gen: torch.Generator) -> dict:
+    """The max-sim backward on the packed step's first and last tier-pair
+    blocks, tokens rounded to 1/16 and tied (every score exact, the same
+    ties in every arithmetic), with the path's masks and with an a-row and
+    a b-row emptied, for random cotangents: the f32 backward through the
+    wrapper (K4 forward, ops.filip.maxsim_backward) against float64
+    autograd through maxsim_reference, per output max|err| <=
+    MAXSIM_TIER_BWD_RTOL max|ref|; the same with uneven_tie_split must fail
+    every case; and, a second witness of the split, maxsim_backward on
+    float64 tokens within MAXSIM_BWD_RTOL."""
+    worst32 = worst64 = 0.0
+    fault_min = math.inf
+    for ha, hb, ma, mb in end_blocks(blocks):
+        qa, qb = (tied(torch.round(h * 16) / 16) for h in (ha, hb))
+        empty_a, empty_b = ma.clone(), mb.clone()
+        empty_a[0] = 0
+        empty_b[-1] = 0
+        for label, (m_a, m_b) in (("path masks", (ma, mb)), ("empty rows", (empty_a, empty_b))):
+            ga = torch.randn(ha.shape[0], hb.shape[0], device="cuda", generator=gen)
+            gb = torch.randn(ha.shape[0], hb.shape[0], device="cuda", generator=gen)
+            ra, rb = qa.double().requires_grad_(True), qb.double().requires_grad_(True)
+            torch.autograd.backward(maxsim.maxsim_reference(ra, rb, m_a, m_b),
+                                    (ga.double(), gb.double()))
+
+            def rel(a, b):
+                return float((a.double() - b).abs().max() / b.abs().max())
+
+            def wrapper_grads():
+                xa, xb = qa.clone().requires_grad_(True), qb.clone().requires_grad_(True)
+                torch.autograd.backward(maxsim.filip_similarity_fused(xa, xb, m_a, m_b, 1.0),
+                                        (ga, gb))
+                return max(rel(x.grad, r.grad) for x, r in ((xa, ra), (xb, rb)))
+
+            e32 = wrapper_grads()
+            with uneven_tie_split():
+                fault = wrapper_grads()
+            got64 = maxsim.maxsim_backward(qa.double(), qb.double(), m_a, m_b, ga.double(),
+                                           gb.double())
+            e64 = max(rel(g, r.grad) for g, r in zip(got64, (ra, rb)))
+            ok = e32 <= MAXSIM_TIER_BWD_RTOL < fault and e64 <= MAXSIM_BWD_RTOL
+            log(f"[filip train] max-sim backward on the tier block (Ba, Bb, TA, TB)="
+                f"{(ha.shape[0], hb.shape[0], ha.shape[1], hb.shape[1])}, {label}: max|err| / "
+                f"max|ref| against float64 autograd, f32 through the wrapper {e32:.4g} "
+                f"(tolerance {MAXSIM_TIER_BWD_RTOL:.4g}), the uneven tie split {fault:.4g} "
+                f"(must exceed it), float64 {e64:.4g} (tolerance {MAXSIM_BWD_RTOL:g}) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError("the max-sim backward disagrees with float64 autograd on a "
+                                     "tier block, or the check misses an uneven tie split")
+            worst32, worst64 = max(worst32, e32), max(worst64, e64)
+            fault_min = min(fault_min, fault)
+    return {"f32_max_rel_err": worst32, "float64_max_rel_err": worst64,
+            "uneven_tie_split_min_rel_err": fault_min}
+
+
+def filip_chunk_segments(runs: dict, data_dir: Path) -> list[tuple[str, torch.Tensor]]:
+    """The segment ids of the last chunk of each side that K1 and K5 take on
+    the packed unfrozen FILIP step's first batch (the constant-token rule),
+    and that K1 takes on the frozen packed step's (16 rows a chunk)."""
+    out = []
+    for name, shapes in (("filip_finetune_packed", unfrozen_chunk_shapes),
+                         ("filip_packed_128", lambda b: [(chunk_rows(b[f"{s}_ids"].shape[0]),)
+                                                         for s in ("pep", "rec")])):
+        _, batch = filip_first_batch(data_dir, runs[name]["args"])
+        for side, (rows, *_) in zip(("pep", "rec"), shapes(batch)):
+            seg = packed_engine.derive_segments(batch[f"{side}_ids"])[1][-rows:].contiguous()
+            out.append((f"packed, {name} {side} chunk, {int((seg.amax(1) == 0).sum())} rows all "
+                        "<pad>", seg))
+    return out
+
+
+def check_filip_chunks(segments: list, gen: torch.Generator) -> dict:
+    """K1 (with its statistics) and K5 (fed them) against their plain
+    versions on the FILIP packed paths' own chunks, at K1's tolerance form."""
+    k1 = check_attention([(*seg.shape, kind, True, *qkv(*seg.shape, gen), seg)
+                          for kind, seg in segments])
+    cases = []
+    for kind, seg in segments[:2]:                      # the unfrozen step's chunks
+        q, k, v = qkv(*seg.shape, gen)
+        do = torch.randn(*seg.shape, NH, DH, device="cuda", generator=gen).bfloat16()
+        cases.append((*seg.shape, kind, True, q, k, v, do, seg))
+    return {"attention_fwd": k1, "attention_bwd": check_attention_bwd(cases),
+            "shapes": [list(seg.shape) for _, seg in segments]}
+
+
+def run_filip_more_phase(fault_libs: dict, gen: torch.Generator) -> dict:
+    data_dir = WORK / "filip_data"
+    if not (data_dir / "protein1.fasta").exists():       # phase 7 writes it
+        write_fixture(data_dir, prefix1="protein1", prefix2="protein2",
+                      n_families=FILIP_FIXTURE_FAMILIES, seed=42)
+    runs = {name: run_filip_more(name, data_dir, extra, engine)
+            for name, extra, engine in FILIP_MORE_RUNS}
+    for name in ("filip_finetune_packed", "filip_lora_packed"):
+        filip_embed_check(runs[name], data_dir, f"the {name} run's best_model.npz")
+    blocks = filip_tier_blocks(runs["filip_packed_128"], data_dir)
+    return {"runs": runs, "blocks": blocks,
+            "flat_block": filip_tier_blocks(runs["filip_packed_128_flat"], data_dir),
+            "k4": check_filip_tier_k4(blocks, fault_libs, gen),
+            "backward": check_filip_tier_backward(blocks, gen),
+            "chunks": check_filip_chunks(filip_chunk_segments(runs, data_dir), gen)}
+
+
+def check_filip_packed_step(runs: dict, data_dir: Path, fault_libs: dict) -> dict:
+    """One packed FILIP step (batch 128, 4 scatter tiers, the run's first
+    batch, dropout 0.1 from a seeded generator) through K4 against the same
+    step through K4's plain version: the loss within FILIP_STEP_TOL relative,
+    every head gradient within FILIP_STEP_TOL of the step's largest entry;
+    run again, equal to the bit; against the same pairs at one scatter tier
+    (one flat block): the loss within FILIP_STEP_TOL relative. The planted
+    K4 faults are read, not held."""
+    mcfg, _ = filip_setup()
+    heads0 = filip.init_params(mcfg, torch.Generator().manual_seed(SEED), device="cuda")
+    cfg, batch = filip_first_batch(data_dir, runs["filip_packed_128"]["args"])
+    cfg1, batch1 = filip_first_batch(data_dir, runs["filip_packed_128_flat"]["args"])
+    blocks = filip_k4_blocks(batch)
+    lk, gk, nk = filip_step(cfg, batch, heads0)
+    lp, gp, np_ = filip_step(cfg, batch, heads0, plain_maxsim)
+    la, ga, na = filip_step(cfg, batch, heads0)
+    l1, g1, n1 = filip_step(cfg1, batch1, heads0)
+    if (nk, np_, na, n1) != (blocks, 0, blocks, 1):
+        raise AssertionError(f"packed FILIP step check: filip_maxsim launches {nk}, {np_}, {na}, "
+                             f"{n1}; want {blocks}, 0, {blocks}, 1")
+    scale = max(float(g.abs().max()) for g in gp.values())
+    gaps = {k: float((gk[k] - gp[k]).abs().max()) / scale for k in gp}
+    flat_gaps = {k: float((gk[k] - g1[k]).abs().max()) / scale for k in gp}
+    loss_err, flat_err = abs(lk - lp) / abs(lp), abs(lk - l1) / abs(l1)
+    same = lk == la and all(torch.equal(gk[k], ga[k]) for k in gk)
+    faults = {}
+    for fault in ("maxsim_skip", "maxsim_tf32"):
+        with maxsim_kernel(fault_libs[fault]["filip_maxsim"]):
+            lf, gf, _ = filip_step(cfg, batch, heads0)
+        faults[fault] = {"loss_ratio": abs(lf - lp) / abs(lp) / FILIP_STEP_TOL,
+                         "grad_ratio": max(float((gf[k] - gp[k]).abs().max()) / scale
+                                           for k in gp) / FILIP_STEP_TOL}
+    worst = max(gaps, key=gaps.get)
+    ok = max(loss_err, gaps[worst], flat_err) <= FILIP_STEP_TOL and same
+    log(f"[step] packed FILIP at batch 128, {blocks} tier-pair K4 blocks, through filip_maxsim "
+        f"vs its plain version: loss {lk:.7f} vs {lp:.7f}, relative |err| {loss_err:.3g}; "
+        f"gradients max |err| / the step's largest entry {gaps[worst]:.3g} at {worst} "
+        f"(tolerance {FILIP_STEP_TOL:g}); run again equal to the bit: {same}; at one scatter "
+        f"tier (one flat block) loss {l1:.7f}, relative |err| {flat_err:.3g}, gradients "
+        f"{max(flat_gaps.values()):.3g}; planted faults (x tolerance, loss / gradients): "
+        + ", ".join(f"{k} {v['loss_ratio']:.4g} / {v['grad_ratio']:.4g}" for k, v in faults.items())
+        + f" {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the packed FILIP step through filip_maxsim disagrees with the plain "
+                             "step, with itself or with the flat scatter")
+    return {"blocks": blocks, "loss_rel_err": loss_err, "grad_rel_err": gaps[worst],
+            "flat_loss_rel_err": flat_err, "flat_grad_rel_err": max(flat_gaps.values()),
+            "bitwise_equal": same, "fault": faults}
+
+
+def filip_finetune_steps(cfg, batch, paths: tuple, fault_libs: dict) -> dict:
+    """One FILIP finetune step per path from the same f32 master (t30_150M's
+    seeded weights) and FILIP heads, dropout 0: {path: (loss, {leaf:
+    gradient})}. "kernel" (and "again") run K1 and K5, "k1_plain_bwd" K1
+    and K5's plain version, "fault" K1 and the swept_tiles build of K5 (its
+    dk/dv loop drops the last query tile). K1, K5 and K4 must launch as
+    filip_epoch_plan predicts for the batch."""
+    mcfg, esm0 = filip_setup()
+    heads0 = filip.init_params(mcfg, torch.Generator().manual_seed(SEED), device="cuda")
+    chunks = (len(unfrozen_chunks(batch)) if cfg.packed
+              else 2 * filip_engine._snap_chunks(cfg.batch_size, cfg.num_chunks))
+    layers = mcfg.esm.num_layers
+    k1, k5 = attention._forward, attention.fused_attention_bwd
+    out = {"chunks": chunks}
+    run_cfg = dataclasses.replace(cfg, model=dataclasses.replace(mcfg, dropout=0.0))
+    for path in paths:
+        want = (3 * layers * chunks, 0 if path == "k1_plain_bwd" else layers * chunks,
+                filip_k4_blocks(batch))
+        params = finetune.init_params(esm0, clone_tree(heads0))
+        state = capturing(filip_finetune.make_optimizer(run_cfg).init(params), params)
+        before = (attention.fused_attention.launches, k5.launches,
+                  maxsim.filip_similarity_fused.launches)
+        faulty = (attention_kernels(fault_libs["swept_tiles"], ("attention_bwd",))
+                  if path == "fault" else contextlib.nullcontext())
+        with attention_function(k1, plain_backward if path == "k1_plain_bwd" else k5), faulty:
+            _, _, loss = filip_finetune.make_train_step(run_cfg)(params, state, {}, batch, None)
+        torch.cuda.synchronize()
+        calls = (attention.fused_attention.launches - before[0], k5.launches - before[1],
+                 maxsim.filip_similarity_fused.launches - before[2])
+        if calls != want:
+            raise AssertionError(f"FILIP finetune step ({path}): (attention_fwd, attention_bwd, "
+                                 f"filip_maxsim) launches {calls}, want {want}")
+        out[path] = (float(loss), state.grads)
+        del params, state
+    return out
+
+
+def k5_step_readings(steps: dict) -> dict:
+    """Per leaf, in units of FT_K5_TOL times the leaf's largest entry of the
+    step through K5's plain version, how far the step through K5 ("kernel")
+    and through its swept-tile fault ("fault", where it ran) sit from it
+    (check_finetune_step's form)."""
+    plain = steps["k1_plain_bwd"][1]
+    return {path: {k: float((steps[path][1][k] - plain[k]).abs().max())
+                   / float(plain[k].abs().max()) / FT_K5_TOL for k in plain}
+            for path in ("kernel", "fault") if path in steps}
+
+
+def top(ratios: dict, n: int = 3) -> str:
+    return ", ".join(f"{k} {v:.3g}" for k, v in sorted(ratios.items(), key=lambda kv: -kv[1])[:n])
+
+
+def check_filip_unfrozen_step(runs: dict, data_dir: Path, fault_libs: dict) -> dict:
+    """K5 inside the FILIP finetune step, one bucket and packed, at the run's
+    own batch (64) and at global batch FILIP_FT_CHECK_BATCH, on the
+    fixture's first batch (dropout 0): check_finetune_step's form, the step
+    through K1/K5 against the step through K1 and K5's plain version, every
+    leaf within FILIP_FT_K5_TOL of its largest entry (printed in units of
+    FT_K5_TOL, the CLIP check's limit, which the FILIP step exceeds: see
+    FILIP_FT_K5_TOL) and the loss within FT_LOSS_TOL relative. At FILIP_FT_CHECK_BATCH K5's
+    swept-tile fault must fail it, and the step equals itself to the bit."""
+    out = {}
+    limit = FILIP_FT_K5_TOL / FT_K5_TOL
+    for name in ("filip_finetune", "filip_finetune_packed"):
+        args = runs[name]["args"]
+        big_args = argparse.Namespace(**{**vars(args), "batch_size": FILIP_FT_CHECK_BATCH,
+                                         "num_chunks": FILIP_FT_CHECK_BATCH // 32})
+        row = {"limit_in_ft_k5_tol": limit}
+        for batch_size, run_args, paths in (
+                (args.batch_size, args, ("kernel", "k1_plain_bwd")),
+                (FILIP_FT_CHECK_BATCH, big_args, ("kernel", "again", "k1_plain_bwd", "fault"))):
+            cfg, batch = filip_first_batch(data_dir, run_args)
+            steps = filip_finetune_steps(cfg, batch, paths, fault_libs)
+            r = k5_step_readings(steps)
+            worst = max(r["kernel"], key=r["kernel"].get)
+            (lk, gk), (lp, _) = steps["kernel"], steps["k1_plain_bwd"]
+            loss_err = abs(lk - lp) / abs(lp)
+            ok = r["kernel"][worst] <= limit and loss_err <= FT_LOSS_TOL
+            line = (f"[step] FILIP finetune {name}, batch {batch_size} ({steps['chunks']} chunks "
+                    f"a pass; dropout 0) through K1/K5 vs K1 and K5's plain version: loss "
+                    f"{lk:.7f} vs {lp:.7f}, relative {loss_err:.3g} (tolerance {FT_LOSS_TOL:g}); "
+                    f"per leaf max|err| / leaf max over FT_K5_TOL {FT_K5_TOL:g}: "
+                    f"{top(r['kernel'])} (limit {limit:g}: FILIP_FT_K5_TOL {FILIP_FT_K5_TOL:g})")
+            if "fault" in r:
+                worst_fault = max(r["fault"], key=r["fault"].get)
+                same = steps["again"][0] == lk and all(
+                    torch.equal(steps["again"][1][k], gk[k]) for k in gk)
+                ok = ok and r["fault"][worst_fault] > limit and same
+                line += (f"; the planted fault (K5 built to drop the last query tile of dk/dv): "
+                         f"{r['fault'][worst_fault]:.4g} ({worst_fault}); run twice equal to "
+                         f"the bit: {same}")
+                row.update(fault_ratio=r["fault"][worst_fault], fault_leaf=worst_fault,
+                           bitwise_equal=same)
+            log(f"{line} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"the FILIP finetune step {name} at batch {batch_size} "
+                                     "through K1/K5 disagrees with K5's plain version, differs "
+                                     "from itself, or misses the planted fault")
+            row[f"batch_{batch_size}"] = {"chunks": steps["chunks"], "loss_rel_err": loss_err,
+                                          "grad_ratio": r["kernel"][worst], "grad_leaf": worst}
+        out[name] = row
+    return out
+
+
+def filip_step_profile(run: dict, data_dir: Path, engine) -> dict:
+    """Kernel launches, busy share and peak memory of one step of a run's
+    configuration on its first batch under torch.profiler (engine:
+    filip_engine, or filip_finetune with an f32 master)."""
+    mcfg, esm_params = filip_setup()
+    cfg, batch = filip_first_batch(data_dir, run["args"])
+    params = filip.init_params(mcfg, torch.Generator().manual_seed(SEED), device="cuda")
+    if engine is filip_finetune:
+        params, esm_params = filip_finetune.init_params(esm_params, params), {}
+        state = filip_finetune.make_optimizer(cfg).init(params)
+    else:
+        state = optimizer.adam(TRAIN_LR).init(params)
+    step = engine.make_train_step(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    step(params, state, esm_params, batch, gen)                 # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    k4 = maxsim.filip_similarity_fused.launches
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(params, state, esm_params, batch, gen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+
+    def share(name):
+        return sum(e.self_device_time_total for e in kernels if name in e.key) / 1e3
+
+    out = {"launches": sum(e.count for e in kernels), "busy_ms": busy_ms,
+           "busy_share": busy_ms / (1e3 * wall), "wall_ms": 1e3 * wall,
+           "filip_maxsim": maxsim.filip_similarity_fused.launches - k4,
+           "k4_device_ms": share("filip_maxsim"), "k1_device_ms": share("attention_fwd"),
+           "k5_device_ms": share("attention_bwd"),
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log(f"[time] one {run['args'].batch_size}-pair step of {' '.join(run['extra'])} under "
+        f"torch.profiler: {out['launches']} kernel launches ({out['filip_maxsim']} filip_maxsim, "
+        f"{out['k4_device_ms']:.4f} ms; K1 {out['k1_device_ms']:.4f} ms, K5 "
+        f"{out['k5_device_ms']:.4f} ms of device time), device busy {busy_ms:.4f} ms of "
+        f"{out['wall_ms']:.4f} ms ({100 * out['busy_share']:.2f}%); peak memory "
+        f"{out['peak_memory_gb']:.4f} GB")
+    return out
+
+
+def time_tier_blocks(blocks: list, what: str, gpu: str) -> dict:
+    """K4 over one step's blocks (one launch each), by CUDA events and by
+    device time, the plain version over the same blocks, and the bound of
+    the blocks' work summed (maxsim_work: allowed pairs, valid tokens)."""
+    def call():
+        for ha, hb, ma, mb in blocks:
+            maxsim.filip_similarity_fused(ha, hb, ma, mb, 1.0)
+
+    def plain():
+        for ha, hb, ma, mb in blocks:
+            maxsim.maxsim_reference(ha, hb, ma, mb)
+
+    ms = cuda_ms(call, 20)
+    kernel_ms = device_ms(call, 20, kernel="filip_maxsim_kernel")
+    plain_ms = cuda_ms(plain, 3, warmup=1)
+    work = [maxsim_work(ma, mb, FILIP_D) for _, _, ma, mb in blocks]
+    t_ops = sum(w["flops"] for w in work) / H100_TF32_FLOPS
+    t_bytes = sum(w["bytes"] for w in work) / H100_BYTES_PER_S
+    bound_ms, bound_by = 1e3 * max(t_ops, t_bytes), "bytes" if t_bytes >= t_ops else "operations"
+    shapes = [[ha.shape[0], hb.shape[0], ha.shape[1], hb.shape[1]] for ha, hb, _, _ in blocks]
+    log(f"[time] filip_maxsim over {what} ({len(blocks)} block(s) {shapes}, D={FILIP_D}): calls "
+        f"{ms:.6f} ms (kernels' device time {kernel_ms:.6f}), plain {plain_ms:.6f} ms, bound "
+        f"{bound_ms:.6f} ms ({bound_by}: {sum(w['flops'] for w in work) / 1e9:.4f} GFLOP over "
+        f"{sum(w['pairs'] for w in work):.6g} allowed pairs, "
+        f"{sum(w['bytes'] for w in work) / 1e6:.4f} MB) = {100 * bound_ms / ms:.2f}% of the "
+        f"bound | {gpu}")
+    return {"shapes": shapes, "ms": ms, "device_ms": kernel_ms, "plain_ms": plain_ms,
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def time_filip_more(fmctx: dict, data_dir: Path, gpu: str, profile: str) -> dict:
+    """Per run: pairs/s by CUDA events over its steps; K4 over the packed
+    step's tier-pair blocks and over the flat step's one block against the
+    bound; one packed frozen and one packed finetune step under
+    torch.profiler (launches, busy share, peak memory)."""
+    out = {}
+    for name, run in fmctx["runs"].items():
+        out[name] = {"pairs_per_s": time_train_steps(
+            {name: run, "profile": profile}, name, f"FILIP {' '.join(run['extra'])} step", gpu,
+            pairs=run["args"].batch_size)}
+    out["filip_packed_128"]["k4_tier_blocks"] = time_tier_blocks(
+        fmctx["blocks"], "the packed step's tier-pair blocks", gpu)
+    out["filip_packed_128_flat"]["k4_flat_block"] = time_tier_blocks(
+        fmctx["flat_block"], "the flat packed step's block", gpu)
+    out["filip_packed_128"]["per_step"] = filip_step_profile(fmctx["runs"]["filip_packed_128"],
+                                                             data_dir, filip_engine)
+    out["filip_finetune_packed"]["per_step"] = filip_step_profile(
+        fmctx["runs"]["filip_finetune_packed"], data_dir, filip_finetune)
     return out
 
 
@@ -3529,11 +4146,16 @@ def main() -> int:
             pctx = run_packed_phase()
             uctx = run_packed_unfrozen_phase()
             ftctx = run_filip_train_phase(fault_libs, gen)
+            fmctx = run_filip_more_phase(fault_libs, gen)
             steps = {"k2": check_step(256), "k3": check_step(1024),
                      "packed": check_step(256, packed=True),
                      "finetune": check_finetune_step(fault_libs),
                      "finetune_packed": check_finetune_step(fault_libs, packed=True),
-                     "filip": check_filip_step(ftctx["runs"], WORK / "filip_data", fault_libs)}
+                     "filip": check_filip_step(ftctx["runs"], WORK / "filip_data", fault_libs),
+                     "filip_packed": check_filip_packed_step(fmctx["runs"], WORK / "filip_data",
+                                                             fault_libs),
+                     "filip_unfrozen": check_filip_unfrozen_step(fmctx["runs"],
+                                                                 WORK / "filip_data", fault_libs)}
             ictx = run_int8_serve_phase(ctx)
             try:
                 i8train = run_int8_train()
@@ -3554,6 +4176,8 @@ def main() -> int:
                     serving["k6"] = time_serving(ctx, rng, gpu, "PCT_FFN_PALLAS=1")
                 time_filip_serving(ctx, fctx, rng, gpu)
                 filip_times = time_filip_train(ftctx, WORK / "filip_data", gpu)
+                filip_more_times = time_filip_more(fmctx, WORK / "filip_data", gpu,
+                                                   ftctx["profile"])
                 tctx["packed"] = pctx
                 tctx["finetune_packed"], tctx["lora_packed"] = uctx["finetune"], uctx["lora"]
                 pairs_per_s = {run: time_train_steps(tctx, run, what, gpu) for run, what in (
@@ -3584,6 +4208,7 @@ def main() -> int:
              "train_finetune_packed": uctx["finetune"]["launches"],
              "train_lora_packed": uctx["lora"]["launches"],
              **{f"train_{name}": run["launches"] for name, run in ftctx["runs"].items()},
+             **{f"train_{name}": run["launches"] for name, run in fmctx["runs"].items()},
              "int8_serve": ictx["launches"],
              "int8_train": i8train["launches"], "k6_serve": k6ctx["launches"]}
     by_path = {name: {path: counts.get(name, 0) for path, counts in paths.items()}
@@ -3601,6 +4226,11 @@ def main() -> int:
                          "cos_min_vs_grouped": pctx["paths"]["cos_min"]},
         "train_finetune_packed": {"launches": uctx["finetune"]["launches"]["attention_fwd"],
                                   "chunk_forwards_per_pass": uctx["finetune"]["chunks_per_pass"]},
+        "train_filip_more": {"path_chunks_max_abs_err": fmctx["chunks"]["attention_fwd"],
+                             "path_chunk_shapes": fmctx["chunks"]["shapes"],
+                             **{name: {"launches": run["launches"]["attention_fwd"],
+                                       "chunk_forwards_per_step": run["chunks_per_step"]}
+                                for name, run in fmctx["runs"].items()}},
     }, {
         "name": "attention_bwd", "phase": "train_finetune", "route": "cuda",
         "source": "protein_clip_tpu_torch/csrc/attention_bwd.cu",
@@ -3617,6 +4247,14 @@ def main() -> int:
                                   "pairs_per_s": pairs_per_s["finetune_packed"],
                                   "lora_pairs_per_s": pairs_per_s["lora_packed"],
                                   "launches_per_step": uctx["per_step"]},
+        "train_filip_unfrozen": {"path_chunks_max_abs_err": fmctx["chunks"]["attention_bwd"],
+                                 "step_check": steps["filip_unfrozen"],
+                                 **{name: {"launches": run["launches"]["attention_bwd"],
+                                           "steps": run["steps"],
+                                           **filip_more_times[name]}
+                                    for name, run in fmctx["runs"].items()
+                                    if name not in ("filip_packed_128",
+                                                    "filip_packed_128_flat")}},
     }, {
         "name": "filip_maxsim", "phase": "filip_serve", "route": "cuda",
         "source": "protein_clip_tpu_torch/csrc/filip_maxsim.cu",
@@ -3633,6 +4271,14 @@ def main() -> int:
                                   "steps": run["steps"], "eval_batches": run["evals"],
                                   **filip_times[name]}
                            for name, run in ftctx["runs"].items()}},
+        "train_filip_packed": {"path_check": fmctx["k4"],
+                               "backward_on_tier_blocks": fmctx["backward"],
+                               "step_check": steps["filip_packed"],
+                               **{name: {"launches": run["launches"]["filip_maxsim"],
+                                         "steps": run["steps"], "eval_batches": run["evals"],
+                                         **filip_more_times[name]}
+                                  for name, run in fmctx["runs"].items()
+                                  if name in ("filip_packed_128", "filip_packed_128_flat")}},
     }, {
         "name": "infonce", "phase": "train_256", "route": "cuda",
         "source": "protein_clip_tpu_torch/csrc/infonce.cu",

@@ -12,8 +12,6 @@ prints one line saying so and writes the CSV, ``metrics.jsonl`` and
 
 from __future__ import annotations
 
-import torch
-
 from . import common
 from ..data.dataset import PairLoader, generate_datasets
 from ..models import clip
@@ -38,19 +36,8 @@ def run_clip_training(args, *, prefix_a: str, prefix_b: str,
                            h1=args.h1, h2=args.h2, dropout=args.dropout,
                            activation=args.activation, esm=esm_cfg)
     params = clip.init_params(mcfg, generator, device=device)
-    engine = None
-    if args.finetune:
-        # the backbone joins the trainable params as an f32 master copy; the
-        # esm_params slot of the step is ignored
-        params = finetune.init_params(esm_params, params)
-        esm_params, engine = {}, finetune
-    elif args.lora_rank:
-        # esm_params stays: the frozen base the adapters merge into
-        targets = lora.ATTN_TARGETS + (lora.FFN_TARGETS if args.lora_ffn else ())
-        lora_gen = torch.Generator(device=device).manual_seed(args.seed + 1)
-        params = lora.init_params(lora.init_lora(lora_gen, esm_params, args.lora_rank, targets),
-                                  params)
-        engine = lora
+    params, esm_params, engine = common.unfrozen_params(
+        args, params, esm_params, device, finetune_engine=finetune, lora_engine=lora)
     unfrozen = engine is not None
 
     data_dir = common.ensure_data(args, prefix_a, prefix_b)

@@ -21,7 +21,7 @@ from ..data.synthetic import write_fixture
 from ..data.tokenizer import EsmTokenizer
 from ..models import clip, esm2
 from ..ops import attention
-from ..train import checkpoint, lora
+from ..train import checkpoint, finetune, lora
 
 ESM_FAMILIES = ("t30_150M", "t6_8M", "t12_35M", "t33_650M", "t36_3B", "t48_15B", "tiny")
 
@@ -147,6 +147,24 @@ def check_train_args(args) -> None:
     for hit, what in refused:
         if hit:
             raise NotImplementedError(f"not ported yet: {what}")
+
+
+def unfrozen_params(args, params: dict, esm_params: dict, device: torch.device, *,
+                    finetune_engine, lora_engine, frozen_engine=None) -> tuple:
+    """(params, esm_params, engine) of the mode the flags pick: --finetune
+    adds the backbone to the trainable params as an f32 master copy and
+    empties the step's esm_params slot, which it ignores; --lora-rank adds
+    adapters (attention, and the FFN under --lora-ffn) and keeps esm_params,
+    the frozen base they merge into; otherwise the heads train alone on
+    frozen_engine."""
+    if args.finetune:
+        return finetune.init_params(esm_params, params), {}, finetune_engine
+    if args.lora_rank:
+        targets = lora.ATTN_TARGETS + (lora.FFN_TARGETS if args.lora_ffn else ())
+        lora_gen = torch.Generator(device=device).manual_seed(args.seed + 1)
+        return (lora.init_params(lora.init_lora(lora_gen, esm_params, args.lora_rank, targets),
+                                 params), esm_params, lora_engine)
+    return params, esm_params, frozen_engine
 
 
 def ensure_data(args, prefix_a: str, prefix_b: str) -> Path:

@@ -2,7 +2,8 @@
 ``protein_clip_tpu.cli.main_2protein_filip``).
 
     python -m protein_clip_tpu_torch.cli.main_2protein_filip --synthetic-fixture \\
-        --data-dir d2 --epochs 1 [--use-dcl] [--device cpu]
+        --data-dir d2 --epochs 1 [--use-dcl] [--packed [--scatter-tiers 4]]
+        [--finetune | --lora-rank 8] [--device cpu]
 
 The reference recipe: token-level late interaction over the frozen ESM-2
 t30 backbone, batch 10, 10 epochs, no GradCache, one pad bucket; an ingest
@@ -10,15 +11,26 @@ filter of length <= 2000. The masked max-sim kernel K4 scores every train
 and eval batch on the card, forward and (through its plain backward)
 backward, so the batch can grow past 10: raise --num-chunks and
 --length-groups with it (e.g. --batch-size 128 --num-chunks 8
---length-groups 4). The run writes the CSV, ``metrics.jsonl`` and
-``best_model.npz`` of the FILIP heads and temperature (the CLIP heads'
-tree, which ``embed``/``serve``/``retrieve --filip`` read). Runs on cuda
-unless --device cpu.
+--length-groups 4), or pack the rows with --packed (train/filip_packed.py:
+flat packing, the tokens scattered into per-length-tier buffers, 4 tiers
+by default, whose rectangular K4 blocks make up the scores).
+
+--finetune (an f32 master backbone at --backbone-lr) and --lora-rank R
+(adapters on the frozen base) train the backbone too, through the
+token-level two-pass step (train/filip_finetune.py, train/filip_lora.py:
+remat and the attention backward K5 on the card), on one pad bucket or
+with --packed.
+
+The run writes the CSV, ``metrics.jsonl`` and ``best_model.npz``: the
+FILIP heads and temperature (the CLIP heads' tree, which
+``embed``/``serve``/``retrieve --filip`` read), beside the finetuned
+backbone or the adapters as the CLIP unfrozen modes save them. Runs on
+cuda unless --device cpu.
 
 Not ported yet, each raising ``NotImplementedError`` before anything
-loads: --packed (packed FILIP and its --scatter-tiers), --finetune and
---lora-rank (FILIP's unfrozen modes), --resume-dir and a mesh. The figures
-of the TPU package's run need matplotlib and are skipped.
+loads: --pack-tiers > 1, --resume-dir and a mesh; --esm-dtype int8 with an
+unfrozen mode is refused. The figures of the TPU package's run need
+matplotlib and are skipped.
 """
 
 from __future__ import annotations
@@ -28,7 +40,7 @@ import argparse
 from . import common
 from ..data.dataset import PairLoader, generate_datasets
 from ..models import filip
-from ..train import clip_engine, filip_engine, loop
+from ..train import clip_engine, filip_engine, filip_finetune, filip_lora, loop
 from ..utils import prng, rundir
 from ..utils.device import resolve_device
 
@@ -41,8 +53,8 @@ def build_argparser() -> argparse.ArgumentParser:
     common.add_mesh_args(p)
     p.set_defaults(batch_size=10, num_chunks=1, length_groups=1)
     p.add_argument("--scatter-tiers", type=int, default=4,
-                   help="with --packed: per-length-tier token buffers for the max-sim "
-                        "(packed FILIP is not ported yet)")
+                   help="with --packed: per-length-tier token buffers for the max-sim, "
+                        "scored in tier-pair blocks (1: one buffer at the row width)")
     p.add_argument("--epochs", type=int, default=10)
     p.add_argument("--max-sequence-length", type=int, default=2000)
     p.add_argument("--use-dcl", action="store_true",
@@ -55,8 +67,9 @@ def build_argparser() -> argparse.ArgumentParser:
 
 def check_filip_args(args) -> None:
     """The TPU package's mutual exclusions (SystemExit), then the options
-    this port does not run yet (NotImplementedError; resume and a mesh
-    through ``common.check_train_args``), before anything is loaded."""
+    this port does not run yet or refuses (``common.check_train_args``:
+    NotImplementedError for width tiers, resume, a mesh, and int8 with an
+    unfrozen mode), before anything is loaded."""
     if args.finetune and args.lora_rank:
         raise SystemExit("--finetune and --lora-rank are mutually exclusive "
                          "(full vs parameter-efficient)")
@@ -66,17 +79,6 @@ def check_filip_args(args) -> None:
     if (args.finetune or args.lora_rank) and args.packed and args.pack_tiers > 1:
         raise SystemExit("packed FILIP --finetune/--lora-rank supports flat packing only "
                          "(drop --pack-tiers; --scatter-tiers compose)")
-    refused = [
-        (args.packed, "--packed: packed FILIP (train/filip_packed.py, --scatter-tiers; "
-                      "ROADMAP queue 1: packed FILIP)"),
-        (args.finetune, "--finetune: FILIP's unfrozen modes (ROADMAP queue 1: FILIP's "
-                        "unfrozen modes)"),
-        (bool(args.lora_rank), "--lora-rank: FILIP's unfrozen modes (ROADMAP queue 1: "
-                               "FILIP's unfrozen modes)"),
-    ]
-    for hit, what in refused:
-        if hit:
-            raise NotImplementedError(f"not ported yet: {what}")
     common.check_train_args(args)
 
 
@@ -96,6 +98,9 @@ def main(argv=None) -> int:
                              h1=args.h1, h2=args.h2, dropout=args.dropout,
                              activation=args.activation, esm=esm_cfg)
     params = filip.init_params(mcfg, generator, device=device)
+    params, esm_params, engine = common.unfrozen_params(
+        args, params, esm_params, device, finetune_engine=filip_finetune,
+        lora_engine=filip_lora, frozen_engine=filip_engine)
 
     data_dir = common.ensure_data(args, "protein1", "protein2")
     train_ds, val_ds, test_ds = generate_datasets(data_dir, "protein1", "protein2",
@@ -111,14 +116,15 @@ def main(argv=None) -> int:
 
     cfg = clip_engine.EngineConfig(
         model=mcfg, batch_size=args.batch_size, accumulated_batches=1, learning_rate=args.lr,
-        num_chunks=args.num_chunks, length_groups=args.length_groups,
-        scatter_tiers=args.scatter_tiers, filip_use_dcl=args.use_dcl,
+        num_chunks=args.num_chunks, length_groups=args.length_groups, packed=args.packed,
+        packed_tiers=args.pack_tiers, scatter_tiers=args.scatter_tiers,
+        filip_use_dcl=args.use_dcl, backbone_lr=args.backbone_lr,
         weight_decay=args.weight_decay, warmup_steps=args.warmup_steps,
         lr_schedule=args.lr_schedule, grad_clip=args.grad_clip,
         total_steps=args.epochs * len(train_loader))
     loop.fit(run_dir, cfg, params, esm_params, train_loader, val_loader, tokenizer,
              args.epochs, seed=args.seed, device=device, use_gradcache=False,
-             test_loader=test_loader, engine=filip_engine)
+             test_loader=test_loader, engine=engine)
     return 0
 
 

@@ -17,11 +17,13 @@ import torch
 
 
 def _map_tensors(tree, fn):
+    """``fn`` on every tensor of a dict/tuple/list tree; other leaves (the
+    scatter tiers' int widths) pass through."""
     if isinstance(tree, dict):
         return {k: _map_tensors(v, fn) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
         return type(tree)(_map_tensors(v, fn) for v in tree)
-    return fn(tree)
+    return fn(tree) if isinstance(tree, torch.Tensor) else tree
 
 
 def to_device(tree, device: torch.device):

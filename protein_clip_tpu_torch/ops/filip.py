@@ -74,7 +74,7 @@ def maxsim_reference(ha: torch.Tensor, hb: torch.Tensor, mask_a: torch.Tensor,
     (oa, ob), each (Ba, Bb), in f32 (float64 for float64 tokens, which the
     card's check of the backward differentiates). Scores one a-row at a
     time, so its peak memory is one (Bb, TA, TB) score block."""
-    dtype = torch.float64 if ha.dtype == torch.float64 else torch.float32
+    dtype = torch.promote_types(ha.dtype, torch.float32)
     ma = mask_a.to(dtype)
     mb = mask_b.to(dtype)
     cnt_a = ma.sum(-1).clamp(min=1e-6)                      # (Ba,)
@@ -135,22 +135,24 @@ def maxsim_backward(ha: torch.Tensor, hb: torch.Tensor, mask_a: torch.Tensor,
                     mask_b: torch.Tensor, ga: torch.Tensor, gb: torch.Tensor,
                     budget_elems: int = BWD_BUDGET_ELEMS) -> tuple[torch.Tensor, torch.Tensor]:
     """(dha, dhb) of the raw (oa, ob) for their cotangents ga, gb (Ba, Bb):
-    the port of ``_raw_maxsim_bwd``. The scores are recomputed in f32 in
-    (ib, jb) blocks, ib * jb * TA * TB <= budget_elems where one pair fits
-    (jb at most 8); a max's gradient is split evenly over the valid pairs
-    that reach it, scaled by ga / cnt_a on valid a-tokens and by gb / cnt_b
-    on valid b-tokens. Returned in the inputs' dtypes."""
+    the port of ``_raw_maxsim_bwd``. The scores are recomputed in f32
+    (float64 for float64 tokens) in (ib, jb) blocks, ib * jb * TA * TB <=
+    budget_elems where one pair fits (jb at most 8); a max's gradient is
+    split evenly over the valid pairs that reach it, scaled by ga / cnt_a
+    on valid a-tokens and by gb / cnt_b on valid b-tokens. Returned in the
+    inputs' dtypes."""
     (Ba, TA, D), (Bb, TB, _) = ha.shape, hb.shape
-    ma, mb = mask_a.float(), mask_b.float()
+    dtype = torch.promote_types(ha.dtype, torch.float32)
+    ma, mb = mask_a.to(dtype), mask_b.to(dtype)
     cnt_a = ma.sum(-1).clamp(min=1e-6)
     cnt_b = mb.sum(-1).clamp(min=1e-6)
-    ga, gb = ga.float(), gb.float()
-    ha32, hb32 = ha.float(), hb.float()
+    ga, gb = ga.to(dtype), gb.to(dtype)
+    ha32, hb32 = ha.to(dtype), hb.to(dtype)
     cap = max(1, budget_elems // (TA * TB))
     jb = _block_div(Bb, min(8, cap))
     ib = _block_div(Ba, max(1, cap // jb))
-    dha = torch.zeros(Ba, TA, D, dtype=torch.float32, device=ha.device)
-    dhb = torch.zeros(Bb, TB, D, dtype=torch.float32, device=hb.device)
+    dha = torch.zeros(Ba, TA, D, dtype=dtype, device=ha.device)
+    dhb = torch.zeros(Bb, TB, D, dtype=dtype, device=hb.device)
     for i0 in range(0, Ba, ib):
         ha_i, ma_i = ha32[i0:i0 + ib], ma[i0:i0 + ib]
         for j0 in range(0, Bb, jb):
@@ -158,9 +160,9 @@ def maxsim_backward(ha: torch.Tensor, hb: torch.Tensor, mask_a: torch.Tensor,
             s = torch.einsum("atd,jsd->ajts", ha_i, hb_j)               # (ib, jb, TA, TB)
             valid = (ma_i[:, None, :, None] * mb_j[None, :, None, :]) > 0
             sm = torch.where(valid, s, _NEG)
-            pa = ((sm == sm.amax(3, keepdim=True)) & valid).float()
+            pa = ((sm == sm.amax(3, keepdim=True)) & valid).to(dtype)
             pa = pa / pa.sum(3, keepdim=True).clamp(min=1.0)
-            pb = ((sm == sm.amax(2, keepdim=True)) & valid).float()
+            pb = ((sm == sm.amax(2, keepdim=True)) & valid).to(dtype)
             pb = pb / pb.sum(2, keepdim=True).clamp(min=1.0)
             coef_a = ((ga[i0:i0 + ib, j0:j0 + jb] / cnt_a[i0:i0 + ib, None])[:, :, None, None]
                       * ma_i[:, None, :, None])

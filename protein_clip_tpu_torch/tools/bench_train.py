@@ -1,11 +1,13 @@
-"""Throughput of the packed CLIP train step on the card: the port of the
-TPU package's ``bench.py`` (its ``main``, ``bench_finetune`` and
-``bench_lora``).
+"""Throughput of the packed CLIP and FILIP train steps on the card: the port
+of the TPU package's ``bench.py`` (its ``main``, ``bench_finetune``,
+``bench_lora``, ``bench_filip`` and ``bench_finetune_filip``).
 
     python -m protein_clip_tpu_torch.tools.bench_train
     PCT_BENCH_PROFILE=longtail python -m protein_clip_tpu_torch.tools.bench_train
     PCT_BENCH_MODE=finetune python -m protein_clip_tpu_torch.tools.bench_train
     PCT_BENCH_MODE=lora PCT_LORA_RANK=8 python -m protein_clip_tpu_torch.tools.bench_train
+    PCT_BENCH_MODE=filip python -m protein_clip_tpu_torch.tools.bench_train
+    PCT_BENCH_MODE=finetune_filip python -m protein_clip_tpu_torch.tools.bench_train
 
 ESM-2 t30_150M with seeded random weights (seed 0), CLIP heads (seed 1),
 global batch 256 packed (``cfg.packed``, 16 rows a chunk). The mode
@@ -17,17 +19,25 @@ global batch 256 packed (``cfg.packed``, 16 rows a chunk). The mode
   backbone at 1e-5 (``bench_finetune``);
 - ``lora``: the packed LoRA step (``train/lora.py``) over a bf16 base,
   adapters of rank ``PCT_LORA_RANK`` (default 8, seed 2) at 1e-4
-  (``bench_lora``).
+  (``bench_lora``);
+- ``filip``: the packed FILIP step (``train/filip_packed.py``) over the
+  frozen bf16 backbone, FILIP heads (seed 1), batch ``PCT_FILIP_BATCH``
+  (default 128, no accumulation), ``PCT_FILIP_SCATTER_TIERS`` scatter
+  tiers (default 4), remat, Adam at 1e-3, 8 timed steps (``bench_filip``);
+- ``finetune_filip``: the packed FILIP finetune step
+  (``train/filip_finetune.py``) at the same batch and tiers, an f32 master
+  backbone at 1e-5, 6 timed steps (``bench_finetune_filip``).
 
-Eleven global batches of synthetic pairs are drawn from
+Global batches of synthetic pairs are drawn from
 ``numpy.random.default_rng(42)`` as ``bench.py`` draws them: peptides of
 8-29 residues, receptors of 100-499 (``PCT_BENCH_PROFILE=longtail``: 90% of
-100-399 and 10% of 1200-1998), tokenized into the packed wire and staged on
-the card. One warm step, then 10 timed steps with the losses left on the
-card until the end, as ``train_gc`` runs them; the wall clock stops when
-every loss has been read. Prints one JSON line: pairs/s, the step time,
-K1 and K5 launches (the wrappers' counts: a K5 call runs two kernels) and
-InfoNCE calls per step, the peak of
+100-399 and 10% of 1200-1998); the FILIP modes draw both sides as
+receptors. They are tokenized into the packed wire and staged on the card.
+One warm step, then the timed steps (10 for CLIP) with the losses left on
+the card until the end, as ``train_gc`` runs them; the wall clock stops
+when every loss has been read. Prints one JSON line: pairs/s, the step
+time, K1, K4 and K5 launches (the wrappers' counts: a K5 call runs two
+kernels) and InfoNCE calls per step, the peak of
 ``torch.cuda.max_memory_allocated`` over the timed steps, each timed
 batch's (rows, width) per side, and the card's name and power limit. Needs
 a CUDA card.
@@ -46,14 +56,17 @@ import torch
 
 from ..cli import common
 from ..data.prefetch import to_device
-from ..models import clip, esm2
+from ..models import clip, esm2, filip
 from ..ops import attention, infonce
-from ..train import clip_engine, finetune, lora, optimizer, packed_engine
+from ..ops import filip as maxsim
+from ..train import (clip_engine, filip_engine, filip_finetune, finetune, lora, optimizer,
+                     packed_engine)
 from ..utils.device import resolve_device
 
 AAS = list("LAGVSERTIDPKQNFYMHWC")
 GLOBAL_BATCH = 256
 STEPS = 10
+FILIP_STEPS = {"filip": 8, "finetune_filip": 6}
 
 
 def rec_len(rng: np.random.Generator, profile: str) -> int:
@@ -75,6 +88,41 @@ def make_batches(rng: np.random.Generator, n: int, profile: str) -> list[dict]:
         recs = ["".join(rng.choice(AAS, rec_len(rng, profile))) for _ in range(GLOBAL_BATCH)]
         out.append(packed_engine.tokenize_packed(tok, peps, recs))
     return out
+
+
+def make_filip_batches(rng: np.random.Generator, n: int, profile: str, batch: int,
+                       scatter_tiers: int) -> list[dict]:
+    """n packed host batches of ``batch`` FILIP pairs, drawn in
+    ``bench_filip``'s order: a batch's first sides, then its second, both
+    of receptor lengths."""
+    tok = common.make_tokenizer()
+    out = []
+    for _ in range(n):
+        peps = ["".join(rng.choice(AAS, rec_len(rng, profile))) for _ in range(batch)]
+        recs = ["".join(rng.choice(AAS, rec_len(rng, profile))) for _ in range(batch)]
+        out.append(packed_engine.tokenize_packed(tok, peps, recs, scatter_tiers=scatter_tiers))
+    return out
+
+
+def build_filip(mode: str, device, batch: int, scatter_tiers: int) -> tuple:
+    """(params, optimizer state, esm_params, step) of a FILIP mode's packed
+    step, as ``bench_filip`` and ``bench_finetune_filip`` configure it."""
+    esm_cfg = common.esm_config("t30_150M", "bfloat16")
+    mcfg = filip.FILIPConfig(input_dim=esm_cfg.hidden_size, esm=esm_cfg)
+    heads = filip.init_params(mcfg, torch.Generator().manual_seed(1), device=device)
+    cfg = clip_engine.EngineConfig(model=mcfg, batch_size=batch, accumulated_batches=1,
+                                   num_chunks=batch // 16, packed=True,
+                                   scatter_tiers=scatter_tiers, remat=True)
+    gen0 = torch.Generator(device=device).manual_seed(0)
+    if mode == "filip":
+        esm_params = esm2.init_params(esm_cfg, gen0, dtype=esm_cfg.compute_dtype, device=device)
+        return (heads, optimizer.adam(cfg.learning_rate).init(heads), esm_params,
+                filip_engine.make_train_step(cfg))
+    cfg = dataclasses.replace(cfg, backbone_lr=1e-5)
+    params = filip_finetune.init_params(
+        esm2.init_params(esm_cfg, gen0, dtype=torch.float32, device=device), heads)
+    return (params, filip_finetune.make_optimizer(cfg).init(params), {},
+            filip_finetune.make_train_step(cfg))
 
 
 def build(mode: str, device) -> tuple:
@@ -104,7 +152,8 @@ def build(mode: str, device) -> tuple:
             lora.init_lora(torch.Generator(device=device).manual_seed(2), esm_params, rank),
             heads)
         return params, lora.make_optimizer(cfg).init(params), esm_params, lora.make_train_step(cfg)
-    raise ValueError(f"PCT_BENCH_MODE={mode!r}: frozen, finetune or lora")
+    raise ValueError(f"PCT_BENCH_MODE={mode!r}: frozen, finetune, lora, filip or "
+                     "finetune_filip")
 
 
 def main() -> int:
@@ -113,10 +162,18 @@ def main() -> int:
     mode = os.environ.get("PCT_BENCH_MODE", "frozen")
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
-    params, state, esm_params, step = build(mode, device)
+    rng = np.random.default_rng(42)
+    if mode in FILIP_STEPS:
+        pairs = int(os.environ.get("PCT_FILIP_BATCH", "128"))
+        tiers = int(os.environ.get("PCT_FILIP_SCATTER_TIERS", "4"))
+        steps = FILIP_STEPS[mode]
+        params, state, esm_params, step = build_filip(mode, device, pairs, tiers)
+        host = make_filip_batches(rng, steps + 1, profile, pairs, tiers)
+    else:
+        pairs, tiers, steps = GLOBAL_BATCH, 1, STEPS
+        params, state, esm_params, step = build(mode, device)
+        host = make_batches(rng, steps + 1, profile)
     gen = torch.Generator(device=device).manual_seed(0)
-
-    host = make_batches(np.random.default_rng(42), STEPS + 1, profile)
     batches = [to_device(b, device) for b in host]
     torch.cuda.synchronize()
     params, state, loss = step(params, state, esm_params, batches[0], gen)
@@ -124,6 +181,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     k1 = attention.fused_attention.launches
     k5 = attention.fused_attention_bwd.launches
+    k4 = maxsim.filip_similarity_fused.launches
     nce = infonce.fused_infonce.launches + infonce.fused_infonce_tiled.launches
     losses = []
     t0 = time.perf_counter()
@@ -136,13 +194,14 @@ def main() -> int:
         raise RuntimeError(f"non-finite losses {values}")
     packs = {side: [list(b[f"{side}_ids"].shape) for b in host[1:]] for side in ("pep", "rec")}
     print(json.dumps({
-        "metric": "pairs_per_sec", "value": STEPS * GLOBAL_BATCH / dt, "unit": "pairs/s",
-        "mode": mode, "step_ms": 1e3 * dt / STEPS, "global_batch": GLOBAL_BATCH,
-        "steps": STEPS, "profile": profile, "packs": packs,
-        "k1_launches_per_step": (attention.fused_attention.launches - k1) / STEPS,
-        "k5_launches_per_step": (attention.fused_attention_bwd.launches - k5) / STEPS,
+        "metric": "pairs_per_sec", "value": steps * pairs / dt, "unit": "pairs/s",
+        "mode": mode, "step_ms": 1e3 * dt / steps, "global_batch": pairs,
+        "scatter_tiers": tiers, "steps": steps, "profile": profile, "packs": packs,
+        "k1_launches_per_step": (attention.fused_attention.launches - k1) / steps,
+        "k4_launches_per_step": (maxsim.filip_similarity_fused.launches - k4) / steps,
+        "k5_launches_per_step": (attention.fused_attention_bwd.launches - k5) / steps,
         "infonce_calls_per_step": (infonce.fused_infonce.launches
-                                   + infonce.fused_infonce_tiled.launches - nce) / STEPS,
+                                   + infonce.fused_infonce_tiled.launches - nce) / steps,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
         "device": torch.cuda.get_device_name(0), "gpu": gpu}))
     return 0

@@ -1,12 +1,13 @@
 """Where the time of one train step goes, on the card: the frozen CLIP
 backbone (default), ``--finetune`` or ``--lora-rank R``, each over one pad
 bucket (the frozen step: length groups) or over packed rows (``--packed``);
-or the FILIP step (``--filip``).
+or the FILIP step (``--filip``), frozen, packed or unfrozen alike.
 
     python -m protein_clip_tpu_torch.tools.profile_train [--batch-size 16]
         [--packed] [--finetune | --lora-rank 8]
     python -m protein_clip_tpu_torch.tools.profile_train --filip [--batch-size 10]
-        [--length-groups 1] [--num-chunks 1] [--use-dcl]
+        [--length-groups 1] [--num-chunks 1] [--use-dcl] [--packed [--scatter-tiers 4]]
+        [--finetune | --lora-rank 8]
 
 Builds ESM-2 t30_150M in bf16 with seeded random weights and CLIP heads on
 the GPU, and global batches of batch-size x 16 pairs drawn from the seeded
@@ -43,7 +44,15 @@ With ``--filip`` the step is ``train/filip_engine``'s over one batch of
 backbone, the token heads' forward, the max-sim forward (K4, one launch per
 (group, group) block), the loss, the loss's backward to the scores, the
 max-sim backward (plain PyTorch: ``ops/filip.maxsim_backward``, and the
-temperature's share), the heads' backward, and the optimizer.
+temperature's share), the heads' backward, and the optimizer. With
+``--packed`` (``train/filip_packed.py``, ``--scatter-tiers`` tiers, default
+4) the backbone runs over packed rows, and the scatter of the normalised
+tokens into their tier buffers and the assembly of the (n, n) scores from
+the tier-pair K4 blocks are layers of their own, each way. With
+``--finetune`` or ``--lora-rank`` the FILIP two-pass step
+(``train/filip_finetune.py``, ``train/filip_lora.py``; one bucket, or
+packed): pass 1, the tail (max-sim and loss, with the packed scatter,
+forward and backward), pass 2 and the optimizer.
 
 Prints the card's name and power limit beside the numbers.
 """
@@ -62,11 +71,12 @@ from torch.profiler import ProfilerActivity, profile
 from ..cli import common
 from ..data.prefetch import to_device
 from ..data.synthetic import make_pair_corpus
-from ..models import clip, esm2, filip
+from ..models import clip, esm2, filip, heads
 from ..ops import attention, infonce
 from ..ops import filip as maxsim
 from ..ops.infonce import filip_loss
-from ..train import clip_engine, filip_engine, finetune, lora, optimizer, packed_engine
+from ..train import (clip_engine, filip_engine, filip_finetune, filip_lora, filip_packed,
+                     finetune, lora, optimizer, packed_engine)
 from ..train.gradcache import encode_hidden_chunked
 from ..utils.device import resolve_device
 
@@ -94,30 +104,32 @@ def main(argv=None) -> int:
     p.add_argument("--length-groups", type=int, default=1, help="with --filip")
     p.add_argument("--num-chunks", type=int, default=1, help="with --filip")
     p.add_argument("--use-dcl", action="store_true", help="with --filip")
+    p.add_argument("--scatter-tiers", type=int, default=4, help="with --filip --packed")
+    p.add_argument("--filip", action="store_true",
+                   help="the FILIP step (train/filip_engine.py; with --finetune or --lora-rank "
+                        "train/filip_finetune.py or train/filip_lora.py)")
     mode = p.add_mutually_exclusive_group()
-    mode.add_argument("--filip", action="store_true",
-                      help="the FILIP step (train/filip_engine.py)")
     mode.add_argument("--finetune", action="store_true",
                       help="the unfrozen-backbone step (train/finetune.py)")
     mode.add_argument("--lora-rank", type=int, default=0,
                       help="> 0: the LoRA step (train/lora.py) at this rank")
     args = p.parse_args(argv)
     engine = finetune if args.finetune else lora if args.lora_rank else None
+    unfrozen = engine is not None
     device = resolve_device("cuda")
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip()
     print(f"card: {gpu}; torch {torch.__version__}")
-    if args.filip and args.packed:
-        raise NotImplementedError("packed FILIP is not ported yet (ROADMAP queue 1: "
-                                  "packed FILIP)")
     esm_cfg = common.esm_config("t30_150M", "bfloat16")
     if args.filip:
-        engine = filip_engine
+        engine = (filip_finetune if args.finetune else filip_lora if args.lora_rank
+                  else filip_engine)
         mcfg = filip.FILIPConfig(input_dim=esm_cfg.hidden_size, esm=esm_cfg)
         cfg = clip_engine.EngineConfig(model=mcfg, batch_size=args.batch_size or 10,
                                        accumulated_batches=1, num_chunks=args.num_chunks,
-                                       length_groups=args.length_groups,
+                                       length_groups=1 if unfrozen else args.length_groups,
+                                       packed=args.packed, scatter_tiers=args.scatter_tiers,
                                        filip_use_dcl=args.use_dcl)
     else:
         mcfg = clip.CLIPConfig(input_dim=esm_cfg.hidden_size, esm=esm_cfg)
@@ -146,7 +158,8 @@ def main(argv=None) -> int:
         idx = rng.choice(len(recs), pool, replace=False)
         p, r = [peps[i] for i in idx], [recs[i] for i in idx]
         if args.packed:
-            return (packed_engine.tokenize_packed(tok, p, r),)
+            return (packed_engine.tokenize_packed(tok, p, r, scatter_tiers=cfg.scatter_tiers
+                                                  if args.filip else 1),)
         if engine and cfg.length_groups == 1:
             return (clip_engine.tokenize_pair_batch(tok, p, r),)
         return clip_engine.tokenize_grouped(tok, p, r, cfg.length_groups)
@@ -296,16 +309,117 @@ def main(argv=None) -> int:
         mark()
         return [b - a for a, b in zip(marks, marks[1:])]
 
+    def layered_filip_packed_step() -> list[float]:
+        """The packed FILIP step's code (filip_packed.filip_sim_packed and
+        the loss), with a sync and a clock after each layer; each boundary
+        (tokens, tier buffers, scores) is a fresh leaf, so the backward runs
+        layer by layer."""
+        marks = [time.perf_counter()]
+
+        def mark():
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+
+        batch = packed_engine.expand_packed_batch(next(it))
+        packs = {side: {k: batch[f"{side}_{k}"] for k in ("ids", "seg", "pos", "owner")}
+                 for side in ("pep", "rec")}
+        hidden = {side: packed_engine._encode_packed_chunked(
+            esm_params, pk["ids"], pk["seg"], pk["pos"], mcfg.esm,
+            packed_engine._default_rows_per_chunk(None)).float() for side, pk in packs.items()}
+        mark()
+        toks = {side: filip_packed._l2_normalize_tokens(heads.encode_tokens(
+            params[side], h, mcfg.activation, dropout_rate=mcfg.dropout, train=True,
+            generator=gen)) for side, h in hidden.items()}
+        mark()
+        tok_leaves = {side: t.detach().requires_grad_(True) for side, t in toks.items()}
+        tiers = {side: filip_packed._scatter_side(x, packs[side], batch.get(f"{side}_stiers"),
+                                                  pool) for side, x in tok_leaves.items()}
+        mark()
+        buffers = [b for side in ("pep", "rec") for t in tiers[side] for b in t[:1]]
+        leaves = {side: [(t[0].detach().requires_grad_(True), *t[1:]) for t in tiers[side]]
+                  for side in tiers}
+        sims = filip_packed._sim_from_tiers(leaves["pep"], leaves["rec"], params["temperature"],
+                                            maxsim.filip_similarity_fused, pool)
+        mark()
+        loss = filip_loss(*sims, cfg.filip_use_dcl)
+        mark()
+        grads = torch.autograd.grad(loss, sims)
+        mark()
+        torch.autograd.backward(sims, grads)
+        mark()
+        torch.autograd.backward(buffers, [t[0].grad for side in ("pep", "rec")
+                                          for t in leaves[side]])
+        mark()
+        torch.autograd.backward(list(toks.values()), [x.grad for x in tok_leaves.values()])
+        mark()
+        state.apply()
+        mark()
+        return [b - a for a, b in zip(marks, marks[1:])]
+
+    def layered_filip_unfrozen_step() -> list[float]:
+        """The FILIP two-pass step's code (filip_finetune, one bucket or
+        packed), with a sync and a clock after each pass."""
+        marks = [time.perf_counter()]
+
+        def mark():
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+
+        sim_fn, dcl, view = filip_finetune._resolve(cfg, None, None, engine_view)
+        if args.packed:
+            chunk_tokens, prepare, tail = filip_finetune._packed_token_machinery(
+                cfg, sim_fn, dcl, packed_engine._default_rows_per_chunk(None), view)
+            sides = prepare(next(it), gen)
+            with torch.no_grad():
+                X = filip_finetune._scan_tokens(chunk_tokens, params, esm_params, sides)
+            mark()
+            for x in X.values():
+                x.requires_grad_(True)
+            tail(params, X, sides).backward()
+            mark()
+            for side, (chunks, seeds, _, _) in sides.items():
+                for chunk, seed, g in zip(chunks, seeds, X[side].grad.split(
+                        [len(c["ids"]) for c in chunks])):
+                    chunk_tokens(params, esm_params, side, chunk, seed).backward(g)
+        else:
+            encode_chunk, prepare, tail = filip_finetune._token_machinery(cfg, sim_fn, dcl, view)
+            batch, chunks = prepare(next(it), gen)
+            with torch.no_grad():
+                H = {side: torch.cat([encode_chunk(params, esm_params, side, c)
+                                      for c in chunks[side]]) for side in ("pep", "rec")}
+            mark()
+            for h in H.values():
+                h.requires_grad_(True)
+            tail(params, H["pep"], H["rec"], batch).backward()
+            mark()
+            for side in ("pep", "rec"):
+                for c, g in zip(chunks[side], H[side].grad.split(len(chunks[side][0]["ids"]))):
+                    encode_chunk(params, esm_params, side, c).backward(g)
+        mark()
+        state.apply()
+        mark()
+        return [b - a for a, b in zip(marks, marks[1:])]
+
+    engine_view = (lora if args.lora_rank else finetune).esm_view(cfg) if unfrozen else None
     _wall(train_step, 2)
     torch.cuda.reset_peak_memory_stats()
     walls = _wall(train_step, 5)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    layered = (layered_filip_step if args.filip
+    layered = (layered_filip_unfrozen_step if args.filip and unfrozen
+               else layered_filip_packed_step if args.filip and args.packed
+               else layered_filip_step if args.filip
                else layered_packed_unfrozen_step if engine and args.packed
                else layered_unfrozen_step if engine else layered_step)
     layers = np.median([layered() for _ in range(5)], axis=0) * 1e3
     step_ms = 1e3 * statistics.median(walls)
-    names = (("backbone", "heads forward", "max-sim forward (K4)", "loss",
+    names = (("pass 1", "tail (" + ("scatter, " if args.packed else "")
+              + "max-sim + loss, forward and backward)", "pass 2 (forward + backward)",
+              "optimizer") if args.filip and unfrozen else
+             ("backbone (packed)", "heads forward", "scatter into tier buffers",
+              "max-sim forward (K4) + assembly", "loss", "loss backward (to the scores)",
+              "assembly + max-sim backward (plain)", "scatter backward", "heads backward",
+              "optimizer") if args.filip and args.packed else
+             ("backbone", "heads forward", "max-sim forward (K4)", "loss",
               "loss backward (to the scores)", "max-sim backward (plain)", "heads backward",
               "optimizer") if args.filip else
              ("pass 1", "tail (pooling + loss, forward and backward)",
@@ -318,7 +432,7 @@ def main(argv=None) -> int:
     print("[step] by layer, p50 of 5 synced steps: " + "; ".join(
         f"{n} {ms:.4f} ms ({100 * ms / layers.sum():.2f}%)" for n, ms in zip(names, layers)))
 
-    n = 1 if engine and not args.filip else 2
+    n = 1 if unfrozen else 2
     k1 = attention.fused_attention.launches
     k5 = attention.fused_attention_bwd.launches
     k2 = infonce.fused_infonce.launches + infonce.fused_infonce_tiled.launches

@@ -81,10 +81,10 @@ class EngineConfig:
     # sequence packing (train/packed_engine.py): about 95% of the tokens
     # filled, against about 80% for length groups; supersedes length_groups
     packed: bool = False
-    # > 1: width-tiered packing, and FILIP's scatter tiers: not ported yet
-    # (the packed steps raise; ROADMAP queue 1: width-tiered packing, packed
-    # FILIP)
+    # > 1: width-tiered packing, not ported yet (the packed steps raise;
+    # ROADMAP queue 1: width-tiered packing)
     packed_tiers: int = 1
+    # > 1: packed FILIP's per-length-tier token buffers (train/filip_packed.py)
     scatter_tiers: int = 1
     # FILIP only (train/filip_engine.py): the diagonal leaves the loss's
     # denominator (decoupled contrastive learning)

@@ -16,10 +16,12 @@ pad bucket, and the (B, B) scores are assembled from n x n rectangular K4
 blocks, so negatives span every group and the diagonal stays aligned
 (pairs were permuted together).
 
+With ``cfg.packed`` the steps are ``train/filip_packed``'s, over
+``tokenize_packed`` batches (flat packing, and with ``cfg.scatter_tiers``
+> 1 the scores assembled from per-length-tier K4 blocks).
+
 The steps have ``clip_engine``'s signatures, so ``loop.fit(...,
-use_gradcache=False, engine=filip_engine)`` drives them. Packed FILIP
-(``cfg.packed``, the TPU package's ``train/filip_packed.py``) is not
-ported yet.
+use_gradcache=False, engine=filip_engine)`` drives them.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from ..models import filip
 from ..ops.filip import filip_similarity_fused
 from ..ops.infonce import filip_loss
 from .clip_engine import EngineConfig, _update, expand_batch
+from .filip_packed import make_eval_step_packed_filip, make_train_step_packed_filip
 
 
 def _snap_chunks(batch: int, want: int) -> int:
@@ -40,12 +43,6 @@ def _snap_chunks(batch: int, want: int) -> int:
     while batch % n:
         n -= 1
     return n
-
-
-def _check_flat(cfg: EngineConfig) -> None:
-    if cfg.packed:
-        raise NotImplementedError("packed FILIP (train/filip_packed.py, --scatter-tiers) is "
-                                  "not ported yet (ROADMAP queue 1: packed FILIP)")
 
 
 def _grouped_scores(params, esm_params, batches, cfg: EngineConfig, sim_fn: Callable,
@@ -71,10 +68,12 @@ def _grouped_scores(params, esm_params, batches, cfg: EngineConfig, sim_fn: Call
 
 def make_train_step(cfg: EngineConfig, similarity_fn: Callable | None = None,
                     use_dcl: bool | None = None):
-    """The step over one pad bucket, or with ``cfg.length_groups`` > 1 the
-    grouped step. ``similarity_fn`` defaults to ``filip_similarity_fused``
-    and ``use_dcl`` to ``cfg.filip_use_dcl``."""
-    _check_flat(cfg)
+    """The step over one pad bucket, with ``cfg.length_groups`` > 1 the
+    grouped step, with ``cfg.packed`` the packed one (which supersedes the
+    groups). ``similarity_fn`` defaults to ``filip_similarity_fused`` and
+    ``use_dcl`` to ``cfg.filip_use_dcl``."""
+    if cfg.packed:
+        return make_train_step_packed_filip(cfg, similarity_fn, use_dcl)
     if cfg.length_groups > 1:
         return make_train_step_grouped(cfg, similarity_fn, use_dcl)
     use_dcl = cfg.filip_use_dcl if use_dcl is None else use_dcl
@@ -107,9 +106,10 @@ def make_train_step_grouped(cfg: EngineConfig, similarity_fn: Callable | None = 
 
 def make_eval_step(cfg: EngineConfig, similarity_fn: Callable | None = None,
                    use_dcl: bool | None = None):
-    """The eval step on the train step's data path (grouped or one bucket),
-    in eval mode and with no graph."""
-    _check_flat(cfg)
+    """The eval step on the train step's data path (packed, grouped or one
+    bucket), in eval mode and with no graph."""
+    if cfg.packed:
+        return make_eval_step_packed_filip(cfg, similarity_fn, use_dcl)
     if cfg.length_groups > 1:
         return make_eval_step_grouped(cfg, similarity_fn, use_dcl)
     use_dcl = cfg.filip_use_dcl if use_dcl is None else use_dcl

@@ -180,11 +180,36 @@ def _chunk_pack(pack: dict, rows_per_chunk: int) -> list[dict]:
 def _default_expand_sides(batch: dict) -> dict[str, dict]:
     """The device-side maps of a flat packed batch, per side."""
     if "pep_packs" in batch or "rec_packs" in batch:
-        raise ValueError("the packed finetune and LoRA steps take flat packing only "
-                         "(packed_tiers=1)")
+        raise ValueError("the packed finetune and LoRA steps (CLIP and FILIP) take flat "
+                         "packing only (packed_tiers=1)")
     batch = pe.expand_packed_batch(batch)
     return {side: {k: batch[f"{side}_{k}"] for k in ("ids", "seg", "pos", "owner")}
             for side in pe.SIDES}
+
+
+def _packed_sides(batch: dict, rows_per_chunk: int, generator: torch.Generator | None,
+                  extra_seeds: int = 0) -> dict[str, tuple]:
+    """The chunks of a packed unfrozen step, per side: (expanded pack,
+    chunks, a seed a chunk, extra_seeds more seeds). The chunks take the
+    same tokens on both sides: rows narrower than the widest side's take
+    proportionally more rows a chunk (JAX's rule; the frozen step chunks
+    each side at rows_per_chunk)."""
+    packs = _default_expand_sides(batch)
+    l_max = max(p["ids"].shape[1] for p in packs.values())
+    chunks = {side: _chunk_pack(p, rows_per_chunk * (l_max // p["ids"].shape[1]))
+              for side, p in packs.items()}
+    n = max(map(len, chunks.values()))
+    seeds = _chunk_seeds(generator, n + extra_seeds)
+    return {side: (packs[side], chunks[side], s[:len(chunks[side])], s[n:])
+            for side, s in zip(pe.SIDES, seeds)}
+
+
+def _packed_forward(cfg: EngineConfig, view: Callable[[Params, Params], Params],
+                    params: Params, esm_params: Params, chunk: dict) -> torch.Tensor:
+    """One chunk of packed rows through the backbone ``view`` makes: (r, L, H)."""
+    return esm2.forward(view(params, esm_params), chunk["ids"],
+                        (chunk["seg"] > 0).to(torch.int32), cfg.model.esm, remat=cfg.remat,
+                        segment_ids=chunk["seg"], positions=chunk["pos"])
 
 
 def _generator(seed: int | None, device) -> torch.Generator | None:
@@ -204,9 +229,7 @@ def _packed_machinery(cfg: EngineConfig, loss_fn: Callable, rows_per_chunk: int,
     drop = dict(dropout_rate=mcfg.dropout, train=True, activation=mcfg.activation)
 
     def chunk_sums(params, esm_params, side, chunk, seed):
-        h = esm2.forward(view(params, esm_params), chunk["ids"],
-                         (chunk["seg"] > 0).to(torch.int32), mcfg.esm, remat=cfg.remat,
-                         segment_ids=chunk["seg"], positions=chunk["pos"])
+        h = _packed_forward(cfg, view, params, esm_params, chunk)
         return pe._token_sums(params["heads"][side], h.float(), chunk["owner"], n_seqs,
                               generator=_generator(seed, h.device), **drop)
 
@@ -227,17 +250,9 @@ def _packed_machinery(cfg: EngineConfig, loss_fn: Callable, rows_per_chunk: int,
         return loss_fn(pep, rec)
 
     def prepare(batch, generator):
-        packs = _default_expand_sides(batch)
-        # constant tokens a chunk across the sides: rows narrower than the
-        # widest side's take proportionally more rows a chunk (JAX's rule;
-        # the frozen step chunks each side at rows_per_chunk)
-        l_max = max(p["ids"].shape[1] for p in packs.values())
-        chunks = {side: _chunk_pack(p, rows_per_chunk * (l_max // p["ids"].shape[1]))
-                  for side, p in packs.items()}
-        # one seed a chunk and the last for the tail's pooled-FFN dropout
-        seeds = _chunk_seeds(generator, max(map(len, chunks.values())) + 1)
-        return {side: (chunks[side], s[:len(chunks[side])], s[-1])
-                for side, s in zip(pe.SIDES, seeds)}
+        # one seed a chunk, and one more for the tail's pooled-FFN dropout
+        return {side: (chunks, seeds, extra[0]) for side, (_, chunks, seeds, extra)
+                in _packed_sides(batch, rows_per_chunk, generator, extra_seeds=1).items()}
 
     return chunk_sums, scan_sums, tail, prepare
 
@@ -274,7 +289,7 @@ def make_train_step_packed(cfg: EngineConfig, loss_fn: Callable | None = None,
     sums; pass 2 replays each chunk with a graph (remat, K5) and feeds it
     the whole gradient of its side's sums, which the chunk's owner product
     restricts to its own sequences. The counts take no gradient."""
-    pe.check_flat(cfg.packed_tiers, cfg.scatter_tiers)
+    pe.check_clip_packed(cfg)
     chunk_sums, scan_sums, tail, prepare = _packed_machinery(
         cfg, loss_fn or default_loss_fn(), pe._default_rows_per_chunk(rows_per_chunk),
         view or esm_view(cfg))

@@ -20,9 +20,14 @@ Row widths follow the batch's longest sequence (a multiple of 128, at most
 counts round up to a multiple that halves as the width doubles
 (``_row_multiple_for``), so batch shapes repeat.
 
+With ``scatter_tiers`` > 1 (packed FILIP, ``train/filip_packed.py``) the
+backbone rows stay flat-packed and the wire also carries ``{side}_stiers``,
+each sequence's length tier (``_tier_widths``), so FILIP's token buffers
+and max-sim blocks follow true lengths, not the row width. The CLIP packed
+steps pool per sequence and refuse scatter tiers.
+
 Not ported here: width-tiered packing (``tiers > 1``, ``--pack-tiers``;
-ROADMAP queue 1: width-tiered packing) and FILIP's scatter tiers
-(``scatter_tiers > 1``; ROADMAP queue 1: packed FILIP). Both raise
+ROADMAP queue 1: width-tiered packing), which raises
 ``NotImplementedError``.
 """
 
@@ -50,6 +55,15 @@ def _row_len_for(max_len: int, explicit: int | None, cap: int = MAX_ROW_LEN) -> 
     if explicit is not None:
         return explicit
     return min(cap, max(128, -(-max_len // 128) * 128))
+
+
+def _tier_widths(row_len: int, n: int = 4) -> list[int]:
+    """The n-way split points of the row length, rounded up to multiples of
+    128 (at least 128), with row_len itself always a member; nearby widths
+    collapse, so there are at most n: 512 -> [128, 256, 384, 512], 128 ->
+    [128], 2048 -> [512, 1024, 1536, 2048]."""
+    return sorted({min(row_len, max(128, -(-row_len * q // n) // 128 * 128))
+                   for q in range(1, n + 1)} | {row_len})
 
 
 def _row_multiple_for(w: int) -> int:
@@ -80,18 +94,40 @@ def _pack_one(encs: list[np.ndarray], idx: np.ndarray, row_len: int) -> dict[str
     return {"ids": packed.ids.astype(np.int8), "operm": scan_order_operm(packed, idx)}
 
 
-def check_flat(tiers: int = 1, scatter_tiers: int = 1,
-               tier_widths: list[int] | None = None) -> None:
-    """Raise on the packing options the port does not run yet."""
+def check_flat(tiers: int = 1, tier_widths: list[int] | None = None) -> None:
+    """Raise on width-tiered packing, which the port does not run yet."""
     if tiers > 1 or tier_widths is not None:
         raise NotImplementedError(
             f"width-tiered packing (tiers={tiers}, tier_widths={tier_widths}, --pack-tiers) "
             "is not ported yet (ROADMAP queue 1: width-tiered packing); the packed step "
             "takes flat packing, tiers=1")
-    if scatter_tiers > 1:
+
+
+def check_clip_packed(cfg) -> None:
+    """The CLIP packed steps' options: flat packing, and no scatter tiers,
+    which only FILIP's token max-sim reads."""
+    check_flat(cfg.packed_tiers)
+    if cfg.scatter_tiers > 1:
         raise NotImplementedError(
-            f"FILIP scatter tiers (scatter_tiers={scatter_tiers}) are not ported yet (ROADMAP "
-            "queue 1: packed FILIP); the packed step takes scatter_tiers=1")
+            f"scatter_tiers={cfg.scatter_tiers}: scatter tiers lay out FILIP's token max-sim "
+            "(train/filip_packed.py); the CLIP packed steps pool per sequence and take "
+            "scatter_tiers=1")
+
+
+def _scatter_tier_wire(encs: list[np.ndarray], row_len: int, n: int) -> tuple[dict, ...]:
+    """One entry per width of ``_tier_widths(row_len, n)``, in order, also
+    for a width no sequence takes: ``operm``, the global indices of the
+    sequences whose narrowest fitting width it is, padded to a multiple of
+    8 with the sentinel len(encs) (an empty width ships none), and
+    ``width``. The TPU package carries the width as the shape of a zeros
+    array, the only static channel of a jitted tree; here it is a plain
+    int, which ``data/prefetch.py`` passes through."""
+    widths = _tier_widths(row_len, n)
+    groups: dict[int, list[int]] = {w: [] for w in widths}
+    for j, e in enumerate(encs):
+        groups[next(w for w in widths if len(e) <= w)].append(j)
+    return tuple({"operm": torch.tensor(g + [len(encs)] * (-len(g) % 8), dtype=torch.int32),
+                  "width": w} for w, g in groups.items())
 
 
 def tokenize_packed(tokenizer: EsmTokenizer, peps: list[str], recs: list[str],
@@ -99,13 +135,14 @@ def tokenize_packed(tokenizer: EsmTokenizer, peps: list[str], recs: list[str],
                     tiers: int = 1, scatter_tiers: int = 1,
                     tier_widths: list[int] | None = None) -> dict[str, torch.Tensor]:
     """Both sides packed into a compact host batch: ``{side}_ids`` (R, L)
-    int8 and ``{side}_operm`` (N,) int32.
+    int8 and ``{side}_operm`` (N,) int32, and with ``scatter_tiers`` > 1
+    ``{side}_stiers`` (``_scatter_tier_wire``; the rows do not change).
 
     Row widths follow each side's longest tokenized sequence (a multiple of
     128, at most MAX_ROW_LEN) unless given. A sequence longer than the row
     is truncated with its <eos> kept, which happens only past the 2048 cap,
     beyond the reference's own ingest filter, and is warned about."""
-    check_flat(tiers, scatter_tiers, tier_widths)
+    check_flat(tiers, tier_widths)
     out: dict[str, torch.Tensor] = {}
     for side, seqs, explicit in (("pep", peps, pep_row_len), ("rec", recs, rec_row_len)):
         encs = [tokenizer.encode(s) for s in seqs]
@@ -121,6 +158,8 @@ def tokenize_packed(tokenizer: EsmTokenizer, peps: list[str], recs: list[str],
         pk = _pack_one(encs, np.arange(len(encs), dtype=np.int32), row_len)
         out[f"{side}_ids"] = torch.from_numpy(pk["ids"])
         out[f"{side}_operm"] = torch.from_numpy(pk["operm"])
+        if scatter_tiers > 1:
+            out[f"{side}_stiers"] = _scatter_tier_wire(encs, row_len, scatter_tiers)
     return out
 
 
@@ -274,7 +313,7 @@ def make_train_step_packed(cfg, loss_fn: Callable | None = None,
     signature; ``loss_fn`` defaults to ``clip_engine.default_loss_fn()``."""
     from .clip_engine import _update, default_loss_fn   # clip_engine imports this module
 
-    check_flat(cfg.packed_tiers, cfg.scatter_tiers)
+    check_clip_packed(cfg)
     rows_per_chunk = _default_rows_per_chunk(rows_per_chunk)
     loss_fn = loss_fn or default_loss_fn()
     n_seqs = cfg.global_batch
@@ -296,7 +335,7 @@ def make_eval_step_packed(cfg, loss_fn: Callable | None = None,
     one step serves validation batches of ``cfg.batch_size`` pairs."""
     from .clip_engine import default_loss_fn
 
-    check_flat(cfg.packed_tiers, cfg.scatter_tiers)
+    check_clip_packed(cfg)
     rows_per_chunk = _default_rows_per_chunk(rows_per_chunk)
     loss_fn = loss_fn or default_loss_fn()
 

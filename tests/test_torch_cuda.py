@@ -9,7 +9,9 @@ step through K4 against the plain one, a train step through K2 and K3
 (grouped and packed), the
 packed embeddings against the grouped ones, finetune steps
 through K1 and K5 (one pad bucket, and packed: finetune and LoRA), K5 on a
-packed step's own segments, and under the K6 gate.
+packed step's own segments, and under the K6 gate; K4 on packed FILIP's
+scatter-tier blocks (phantom rows included), a packed FILIP step through
+K4 and FILIP finetune steps through K5 against their plain versions.
 
 These tests need an NVIDIA GPU and nvcc; elsewhere they skip. This file
 imports torch, the port and chip_smoke.py (whose planted faults and plain
@@ -1235,3 +1237,161 @@ def test_finetune_step_under_the_ffn_gate(dev, monkeypatch):
     print(f"K6 gate finetune step: loss gap {loss_gap:.3g}, worst leaf {gap:.4g}, "
           f"planted fault {fault_gap:.4g} (tolerance 0: to the bit)")
     assert loss_gap == 0 and gap == 0 < fault_gap
+
+
+def _filip_packed_batch(dev, pool=24, seed=5):
+    """pool FILIP pairs of spread lengths, packed with 4 scatter tiers: the
+    peptides in rows of 256 (tiers 128 and 256), the receptors in rows of
+    512 (tiers 128, 256, 384 and 512), some tiers holding one sequence and
+    seven phantom rows."""
+    rng = np.random.default_rng(seed)
+    aas = list("LAGVSERTIDPKQNFYMHWC")
+    peps = ["".join(rng.choice(aas, int(n))) for n in rng.integers(8, 200, pool)]
+    recs = ["".join(rng.choice(aas, int(n))) for n in rng.integers(30, 500, pool)]
+    return to_device(packed_engine.tokenize_packed(EsmTokenizer(), peps, recs, scatter_tiers=4),
+                     dev)
+
+
+def test_k4_on_scatter_tier_blocks_with_sentinel_rows(dev):
+    """K4 on every (pep tier, rec tier) block of a packed batch's scattered
+    tokens, phantom rows (the sentinel's, all-masked) included, and on a
+    block whose a-tier or b-tier is all sentinels: within K4_ATOL of the
+    plain version, phantom and all-sentinel rows scoring 0; the (n, n)
+    scores assembled from the blocks through K4 within K4_ATOL of the same
+    assembly through the plain version and of one flat K4 block."""
+    from protein_clip_tpu_torch.train import filip_packed
+
+    b = packed_engine.expand_packed_batch(_filip_packed_batch(dev))
+    n = packed_engine.packed_side_count(b, "pep")
+    g = torch.Generator(device=dev).manual_seed(7)
+    tiers, flat = {}, {}
+    for side in ("pep", "rec"):
+        pk = {k: b[f"{side}_{k}"] for k in ("ids", "seg", "pos", "owner")}
+        x = filip_packed._l2_normalize_tokens(torch.randn(*pk["ids"].shape, 128, device=dev,
+                                                          generator=g))
+        tiers[side] = filip_packed._scatter_side(x, pk, b[f"{side}_stiers"], n)
+        flat[side] = filip_packed._scatter_side(x, pk, None, n)
+    blocks = [(a[0], c[0], a[1], c[1]) for a in tiers["pep"] for c in tiers["rec"]
+              if len(a[0]) and len(c[0])]
+    assert len(blocks) >= 6
+    phantom = 0
+    for ha, hb, ma, mb in blocks + [(blocks[0][0], blocks[0][1], torch.zeros_like(blocks[0][2]),
+                                     blocks[0][3]),
+                                    (blocks[-1][0], blocks[-1][1], blocks[-1][2],
+                                     torch.zeros_like(blocks[-1][3]))]:
+        got = filip.filip_similarity_fused(ha, hb, ma, mb, 1.0)
+        want = filip.maxsim_reference(ha, hb, ma, mb)
+        for o, w in zip(got, want):
+            assert float((o - w).abs().max()) <= K4_ATOL
+            assert bool((o[ma.sum(1) == 0] == 0).all()) and bool((o[:, mb.sum(1) == 0] == 0).all())
+        phantom += int((ma.sum(1) == 0).sum())
+    assert phantom > 0
+    before = filip.filip_similarity_fused.launches
+    sims = filip_packed._sim_from_tiers(tiers["pep"], tiers["rec"], 0.7,
+                                        filip.filip_similarity_fused, n)
+    assert filip.filip_similarity_fused.launches - before == len(blocks)
+    with chip_smoke.plain_maxsim():
+        plain = filip_packed._sim_from_tiers(tiers["pep"], tiers["rec"], 0.7,
+                                             filip.filip_similarity_fused, n)
+    one = filip_packed._sim_from_tiers(flat["pep"], flat["rec"], 0.7,
+                                       filip.filip_similarity_fused, n)
+    for s, p, o in zip(sims, plain, one):
+        assert s.shape == (n, n) and bool(torch.isfinite(s).all())
+        assert float((s - p).abs().max()) <= K4_ATOL / 0.7
+        assert float((s - o).abs().max()) <= K4_ATOL / 0.7
+
+
+def test_packed_filip_step_through_k4_matches_the_plain_step(dev):
+    """One packed FILIP step (4 scatter tiers, dropout 0.1 from a seeded
+    generator, chunks of 4 rows) through K4 against the same step through
+    K4's plain version: the loss within FILIP_STEP_TOL relative, every head
+    gradient within FILIP_STEP_TOL of the step's largest entry; K4 launched
+    once per tier-pair block that holds sequences; the step repeats to the
+    bit."""
+    from protein_clip_tpu_torch.models import filip as filip_model
+    from protein_clip_tpu_torch.train import filip_packed
+
+    cmcfg, esm_params = _tiny_t30_like(dev)
+    mcfg = filip_model.FILIPConfig(input_dim=cmcfg.input_dim, embedding_dim=cmcfg.embedding_dim,
+                                   esm=cmcfg.esm)
+    cfg = clip_engine.EngineConfig(model=mcfg, batch_size=24, accumulated_batches=1, packed=True,
+                                   scatter_tiers=4, filip_use_dcl=True)
+    batch = _filip_packed_batch(dev)
+    blocks = chip_smoke.filip_k4_blocks(batch)
+    heads0 = filip_model.init_params(mcfg, torch.Generator().manual_seed(1), device=dev)
+
+    def step(maxsim_cm=contextlib.nullcontext):
+        params = _clone(heads0)
+        state = _capturing(optimizer.adam(1e-3).init(params))
+        before = filip.filip_similarity_fused.launches
+        with maxsim_cm():
+            _, _, loss = filip_packed.make_train_step_packed_filip(cfg, rows_per_chunk=4)(
+                params, state, esm_params, batch, torch.Generator(device=dev).manual_seed(1))
+        torch.cuda.synchronize()
+        grads = [g for g in state.grads if g is not None]       # emb_ffn takes none
+        return float(loss), grads, filip.filip_similarity_fused.launches - before
+
+    (lk, gk, nk), (lp, gp, np_), (la, ga, na) = step(), step(chip_smoke.plain_maxsim), step()
+    assert blocks >= 6 and (nk, np_, na) == (blocks, 0, blocks)
+    tol = chip_smoke.FILIP_STEP_TOL
+    assert abs(lk - lp) <= tol * abs(lp)
+    scale = max(float(g.abs().max()) for g in gp)
+    for a, b in zip(gk, gp):
+        assert float((a - b).abs().max()) <= tol * scale
+    assert lk == la and all(torch.equal(a, b) for a, b in zip(gk, ga))
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["one_bucket", "packed"])
+def test_filip_finetune_step_runs_k5_and_matches_k5s_plain_version(dev, packed):
+    """One FILIP finetune step (one bucket in 2 chunks, or packed at 4 rows a
+    chunk with 4 scatter tiers; remat, dropout 0) through K1/K5 against the
+    same step through K1 and K5's plain version: per layer K1 launches once
+    per pass-1 chunk and twice per pass-2 chunk, K5 once per pass-2 chunk;
+    every leaf within chip_smoke.FT_K5_TOL of its largest entry and the loss
+    within FT_LOSS_TOL; a K5 that drops the last query tile of its dk/dv
+    loop fails that; the step repeats to the bit."""
+    from protein_clip_tpu_torch.models import filip as filip_model
+    from protein_clip_tpu_torch.train import filip_finetune
+
+    fault = chip_smoke.build_faults(("swept_tiles",))["swept_tiles"]
+    cmcfg, esm_params = _tiny_t30_like(dev)
+    mcfg = filip_model.FILIPConfig(input_dim=cmcfg.input_dim, embedding_dim=cmcfg.embedding_dim,
+                                   dropout=0.0, esm=cmcfg.esm)
+    cfg = clip_engine.EngineConfig(model=mcfg, batch_size=24, accumulated_batches=1,
+                                   num_chunks=2, packed=packed, scatter_tiers=4)
+    if packed:
+        batch = _filip_packed_batch(dev)
+        widths = {side: batch[f"{side}_ids"].shape[1] for side in ("pep", "rec")}
+        chunks = sum(batch[f"{side}_ids"].shape[0] // chip_smoke.chunk_rows(
+            batch[f"{side}_ids"].shape[0], 4 * (max(widths.values()) // w))
+            for side, w in widths.items())
+    else:
+        batch = to_device(clip_engine.tokenize_pair_batch(EsmTokenizer(), *_pairs(24, seed=6)),
+                          dev)
+        chunks = 4
+    heads0 = filip_model.init_params(mcfg, torch.Generator().manual_seed(1), device=dev)
+    k1, k5 = attention._forward, attention.fused_attention_bwd
+    out = {}
+    for name in ("kernel", "plain_bwd", "fault", "again"):
+        params = filip_finetune.init_params(esm_params, _clone(heads0))
+        state = _capturing(filip_finetune.make_optimizer(cfg).init(params))
+        before = (attention.fused_attention.launches, k5.launches)
+        faulty = (chip_smoke.attention_kernels(fault, ("attention_bwd",))
+                  if name == "fault" else contextlib.nullcontext())
+        step = (filip_finetune.make_train_step_packed(cfg, rows_per_chunk=4) if packed
+                else filip_finetune.make_train_step(cfg))
+        with chip_smoke.attention_function(
+                k1, chip_smoke.plain_backward if name == "plain_bwd" else k5), faulty:
+            _, _, loss = step(params, state, {}, batch, None)
+        torch.cuda.synchronize()
+        out[name] = (float(loss), [g for g in state.grads if g is not None],
+                     (attention.fused_attention.launches - before[0], k5.launches - before[1]))
+    layers = 2
+    assert out["kernel"][2] == out["again"][2] == (3 * chunks * layers, chunks * layers)
+    assert out["plain_bwd"][2] == (3 * chunks * layers, 0)
+    (lk, gk, _), (lp, gp, _) = out["kernel"], out["plain_bwd"]
+    assert abs(lk - lp) <= FT_LOSS_TOL * abs(lp)
+    assert _worst_gap(gk, gp) <= chip_smoke.FT_K5_TOL
+    assert _worst_gap(out["fault"][1], gp) > chip_smoke.FT_K5_TOL
+    assert lk == out["again"][0]
+    assert all(torch.equal(a, b) for a, b in zip(gk, out["again"][1]))

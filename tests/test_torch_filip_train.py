@@ -21,7 +21,8 @@ from a numpy seed.
   (ROADMAP, lessons): 1e-5 plus, summed over the steps, 2 lr |dg| /
   (max|g| + eps) of each step's gradient gap, which near g = 0 turns f32
   noise into up to lr. Both eval steps within 1e-5.
-- ``cli.main_2protein_filip --device cpu`` end to end, its refusals, and
+- ``cli.main_2protein_filip --device cpu`` end to end, its refusals (the
+  packed and unfrozen modes run: ``test_torch_filip_{packed,finetune}.py``), and
   its ``best_model.npz`` through JAX's ``cli/common.load_clip_checkpoint``
   (the loader ``retrieve --filip`` uses), which gives the same scores.
 """
@@ -389,11 +390,15 @@ def test_eval_steps_match_jax(tiny, groups):
 
 
 def test_engine_refuses_packed_and_a_single_batch_when_grouped(tiny):
+    """Packed steps build (train/filip_packed.py, which supersedes the
+    groups); width-tiered packing is refused, and a grouped step refuses a
+    single batch."""
     _, mcfg, _, esm, _ = tiny
-    packed = clip_engine.EngineConfig(model=mcfg, packed=True)
     for make in (filip_engine.make_train_step, filip_engine.make_eval_step):
-        with pytest.raises(NotImplementedError, match="packed FILIP"):
-            make(packed)
+        assert callable(make(clip_engine.EngineConfig(model=mcfg, packed=True, length_groups=2,
+                                                      scatter_tiers=4)))
+        with pytest.raises(NotImplementedError, match="width-tiered"):
+            make(clip_engine.EngineConfig(model=mcfg, packed=True, packed_tiers=2))
     grouped = clip_engine.EngineConfig(model=mcfg, length_groups=2)
     one = _batch("port", *_pairs(0, 4), 1)
     with pytest.raises(ValueError, match="tuple"):
@@ -460,9 +465,9 @@ def test_cli_checkpoint_loads_in_jax_with_the_same_scores(cli_run):
 
 
 @pytest.mark.parametrize("extra,error,match", [
-    (["--packed"], NotImplementedError, "packed FILIP"),
-    (["--finetune"], NotImplementedError, "unfrozen"),
-    (["--lora-rank", "4"], NotImplementedError, "unfrozen"),
+    (["--packed", "--pack-tiers", "2"], NotImplementedError, "width-tiered"),
+    (["--finetune", "--esm-dtype", "int8"], NotImplementedError, "int8"),
+    (["--lora-rank", "4", "--length-groups", "2"], SystemExit, "length-groups"),
     (["--resume-dir", "x"], NotImplementedError, "resume"),
     (["--dp", "2"], NotImplementedError, "multi-device"),
     (["--finetune", "--lora-rank", "4"], SystemExit, "mutually exclusive"),

@@ -424,13 +424,14 @@ def test_packed_steps_refuse_other_batches_and_tiers(tiny):
         step(params, optimizer.adam(LR).init(params), esm, padded, None)
     with pytest.raises(ValueError, match="tokenize_packed"):
         clip_engine.make_eval_step(cfg)(params, esm, padded)
-    for kw in ({"tiers": 2}, {"tier_widths": [128]}, {"scatter_tiers": 4}):
+    for kw in ({"tiers": 2}, {"tier_widths": [128]}, {"tiers": 4, "scatter_tiers": 4}):
         with pytest.raises(NotImplementedError, match="not ported"):
             packed_engine.tokenize_packed(EsmTokenizer(), *_pairs(34), **kw)
-    for kw in ({"packed_tiers": 4}, {"scatter_tiers": 4}):
+    for kw, match in (({"packed_tiers": 4}, r"not ported yet \(ROADMAP queue 1: "),
+                      ({"scatter_tiers": 4}, "CLIP packed steps pool per sequence")):
         tiered = dataclasses.replace(cfg, **kw)
         for make in (clip_engine.make_train_step, clip_engine.make_eval_step):
-            with pytest.raises(NotImplementedError, match=r"not ported yet \(ROADMAP queue 1: "):
+            with pytest.raises(NotImplementedError, match=match):
                 make(tiered)
 
 
