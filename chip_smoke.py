@@ -24,7 +24,10 @@ and a nonzero exit code, and no result line:
 2. kernels      K1 (segment-masked attention forward) against
                 ops.attention.attention_reference at the serving shapes
                 and at T around a tile (65, 127, 128, 129) (NH=20, dh=32,
-                bf16), with padded rows (fully padded query rows included)
+                bf16), and at each other family's attention shape
+                (FAMILY_SHAPES: dh 16, 24, 64 at NH 20 and 40, 128 at NH
+                40) padded, with a fully padded row, packed and at odd T
+                (65, 129), with padded rows (fully padded query rows included)
                 and packed rows (several segments, gap zeros), among them
                 the packed paths' own chunks (path_segments): the last
                 chunk of each side of cli.main --packed's first global
@@ -51,7 +54,8 @@ and a nonzero exit code, and no result line:
                 chunks' shapes (16 rows at the pep and rec buckets 32 and
                 192), at K1's timing shape and at odd T, NH=20, bf16, with
                 padded, fully padded and packed rows, and on the packed
-                unfrozen path's four chunks above, fed K1's statistics. P1 (dense_mm) s8 ->
+                unfrozen path's four chunks above, fed K1's statistics; and
+                at the other families' shapes as K1. P1 (dense_mm) s8 ->
                 s32 against ops.dense_mm.mm_reference to the bit at the
                 probe's (8192, 2560, 2560), at N in {1, 128, 1000, 3072,
                 10240} tokens through t30_150M's three layer shapes, at the
@@ -69,7 +73,8 @@ and a nonzero exit code, and no result line:
                 which must fail it (by how much is printed): P1 and K6
                 against their main loop's, K1 and K5 against the swept-loop
                 and the skip faults (the skip fault every packed case,
-                both faults every chunk of the packed unfrozen path), K4
+                both faults every chunk of the packed unfrozen path and a
+                case at each head dim of FAULT_HEAD_DIMS), K4
                 against its skip fault (every case with the one-token tile)
                 and its plain-TF32 fault, K2 and K3 against theirs.
 3. serve        ESM-2 t30_150M in bf16 with seeded random weights and CLIP
@@ -94,6 +99,17 @@ and a nonzero exit code, and no result line:
 6. filip e2e    the served token embeddings against the same sequences
                 encoded with attention_impl="eager": cosine >= 0.99 for
                 every valid token.
+6b. t33_650M    ESM-2 t33_650M (33 layers, hidden 1280, 20 heads of 64)
+                in bf16 with seeded random weights and CLIP heads written
+                as npz: cli.embed builds a 64-sequence index, cli.serve
+                answers /healthz, single-sequence /embed at buckets 64 and
+                512 on both sides and a 32-sequence /embed; K1 33 times per
+                backbone forward; cosine >= 0.999 per row against eager
+                attention; /embed p50 and batch-32 seqs/s. Then the other
+                families (FAMILY_RUNS: t6_8M and t12_35M at full depth,
+                t36_3B and t48_15B at full width and 2 layers) through
+                esm2.forward on padded and packed rows: K1 once a layer,
+                valid tokens at cosine >= 0.999 against eager.
 7. train        cli.main twice on one synthetic fixture of 3000 families
                 (written and clustered once), t30_150M bf16 with seeded
                 random weights, one epoch: the defaults (16 x 16 = global
@@ -137,7 +153,21 @@ and a nonzero exit code, and no result line:
                 once backward; per eval batch K1 30 per chunk forward and
                 K2 once; cli.embed with each run's best_model.npz; one
                 packed finetune step under torch.profiler: launches, busy
-                share and peak memory.
+                share and peak memory. (The one-bucket finetune and LoRA
+                runs train on the 1100-family fixture, SMALL_DATA.)
+                Then t33_650M on the 1100-family fixture: cli.main
+                --esm-config t33_650M --packed and --packed --finetune for
+                one epoch each, their chunk forwards and launches against
+                the loaders (K1 33 per chunk forward; unfrozen: 33 per
+                pass-1 chunk, 66 per pass-2 chunk, K5 33 per pass-2
+                chunk), cli.embed with each checkpoint; 256 pairs' packed
+                embeddings through K1 against K1's plain version (cosine
+                >= 0.999); the packed step through K2 against the plain
+                loss (as phase 8) and the packed finetune step through K5
+                against its plain version (FT_K5_TOL, the swept-tile fault
+                past it, to the bit), both at global batch 32; one packed
+                finetune step at 256 under torch.profiler (launches, busy
+                share, peak memory).
                 Then FILIP training: cli.main_2protein_filip for one epoch
                 on a fixture of 1100 families (protein1/protein2), at its
                 defaults (batch 10, one pad bucket, 1 chunk) and at its
@@ -239,7 +269,9 @@ and a nonzero exit code, and no result line:
                 and torch's scaled_dot_product_attention at B=16, T=512,
                 NH=20, padded and dense (one segment), beside K1's bound on
                 the run's segments and the exponential floor at the card's
-                clocks.max.sm; K4 and its plain version at four queries,
+                clocks.max.sm; K1 and K5, their plain versions and SDPA
+                (forward; backward) at each FAMILY_SHAPES padded, beside
+                their bounds; K4 and its plain version at four queries,
                 the /topk shape and a full scorer block, beside K4's bound
                 on the run's masks (3xTF32 products of the allowed pairs);
                 K2 forward+backward
@@ -280,8 +312,10 @@ and a nonzero exit code, and no result line:
                 tier-pair blocks and over the flat step's one block beside
                 the bound on their masks; one packed frozen and one packed
                 finetune FILIP step under torch.profiler: launches, busy
-                share, peak memory.
+                share, peak memory. t33_650M's packed and packed finetune
+                epochs in pairs/s by the same events.
 
+Each phase's seconds are printed ([timing]) and summed at the end ([done]).
 The last three lines of standard output are the card's name and power
 limit, the kernels line (one JSON object per hand-written kernel) and
 {"ok": true, "device": {...}}.
@@ -295,6 +329,7 @@ import contextlib
 import ctypes
 import dataclasses
 import functools
+import gc
 import inspect
 import itertools
 import json
@@ -326,6 +361,7 @@ from protein_clip_tpu_torch.models import heads as head_mod
 from protein_clip_tpu_torch.ops import attention, dense_mm, ffn, infonce
 from protein_clip_tpu_torch.ops import filip as maxsim
 from protein_clip_tpu_torch.tools import bench_train
+from protein_clip_tpu_torch.tools.timing import kernel_times
 from protein_clip_tpu_torch.train import (checkpoint, clip_engine, filip_engine, filip_finetune,
                                           filip_lora, filip_packed, finetune, lora, optimizer,
                                           packed_engine)
@@ -336,6 +372,14 @@ WORK = ROOT / "_smoke_work"
 SEED = 0
 NH, DH = 20, 32                       # t30_150M attention
 KERNEL_SHAPES = ((1, 64), (16, 128), (16, 512), (4, 2048), (3, 65), (3, 127), (3, 128), (3, 129))
+# The other families' attention (B, T, NH, DH): t6_8M, t12_35M (24 in the
+# kernels' 32-wide tiles), t33_650M, t36_3B, t48_15B. K1 and K5 run each
+# padded, with a fully padded row and packed, and at odd T (65 padded, 129
+# packed, B = 3), beside t30_150M's cases, and each is timed padded.
+FAMILY_SHAPES = ((16, 512, 20, 16), (16, 512, 20, 24), (16, 512, 20, 64), (8, 512, 40, 64),
+                 (4, 512, 40, 128))
+# The head dims whose planted faults must each fail a case of their own
+FAULT_HEAD_DIMS = (16, 24, 64, 128)
 # K1 vs its plain version, both bf16 out: |err| <= ATOL_RMS * rms(ref) +
 # RTOL * |ref|. The kernel normalises after P.V and the plain version before
 # the bf16 cast of P, so they differ by bf16 rounding of P (the absolute
@@ -464,9 +508,20 @@ FAULTS = {   # name: (header, line, patched line, kernels built)
                         INFONCE_PARTIAL_LINE.replace("tiles_of(B)", "B / kTile"), ("infonce",)),
 }
 FAULT_DIR = build.BUILD_ROOT / "fault"
-# int8 training: a fixture of 1100 families gives 770 train pairs, three
-# steps at global batch 256, and 20 eval batches of 16.
-INT8_FIXTURE_FAMILIES = 1100
+# ESM-2 t33_650M (33 layers, hidden 1280, 20 heads of 64): served, trained
+# packed (frozen and finetune) on the smaller fixture, its step checks at a
+# global batch of 32 (the plain attention's (B, NH, T, T) f32 tensors of 33
+# layers fit beside the step there).
+T33 = "t33_650M"
+T33_ATTENTION = (20, 64)              # its NH and DH
+T33_CHECK_BATCH = 32
+# The other families through esm2.forward: (family, layers; None: full depth)
+FAMILY_RUNS = (("t6_8M", None), ("t12_35M", None), ("t36_3B", 2), ("t48_15B", 2))
+# The smaller fixture: 1100 families give 770 train pairs, three steps at
+# global batch 256, and 20 eval batches of 16. The one-bucket finetune and
+# LoRA runs, the int8 run and the t33_650M runs train on it.
+SMALL_FIXTURE_FAMILIES = INT8_FIXTURE_FAMILIES = 1100
+SMALL_DATA = "small_data"
 # int8 against bf16 served embeddings, per row (no JAX reading at t30_150M:
 # the sandbox that holds JAX runs no full-size model).
 INT8_COSINE_MIN = 0.99
@@ -556,10 +611,10 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
 # Phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def qkv(B: int, T: int, gen: torch.Generator):
+def qkv(B: int, T: int, gen: torch.Generator, nh: int = NH, dh: int = DH):
     def r(scale):
-        return (scale * torch.randn(B, T, NH, DH, device="cuda", generator=gen)).bfloat16()
-    return r(DH ** -0.5), r(1.0), r(1.0)
+        return (scale * torch.randn(B, T, nh, dh, device="cuda", generator=gen)).bfloat16()
+    return r(dh ** -0.5), r(1.0), r(1.0)
 
 
 def padded_segments(B: int, T: int) -> torch.Tensor:
@@ -586,7 +641,7 @@ def packed_segments(B: int, T: int) -> torch.Tensor:
     return seg.cuda()
 
 
-def path_segments() -> list[tuple[str, bool, torch.Tensor]]:
+def path_segments(family: str = "t30_150M") -> list[tuple[str, bool, torch.Tensor]]:
     """(kind, on the packed unfrozen path, segment ids) of the chunks K1 and
     K5 take on the packed paths, as derive_segments gives them: the last
     chunk of each side of ``cli.main --packed``'s first global batch on the
@@ -597,17 +652,22 @@ def path_segments() -> list[tuple[str, bool, torch.Tensor]]:
     unfrozen step's constant-token rule); and the last receptor chunk of
     tools/bench_train's first standard draw ((16, 512)) and of its second
     long-tail draw ((28, 2048)). The rec (16, 256) chunk is on both
-    paths."""
-    data_dir = WORK / "train_data"
+    paths. For t33_650M, the chunks of its runs (run_t33_train_phase): the
+    same three of the first batch on the smaller fixture."""
+    if family == T33:
+        data_dir, families = WORK / SMALL_DATA, SMALL_FIXTURE_FAMILIES
+    else:
+        data_dir, families = WORK / "train_data", FIXTURE_FAMILIES
     if not (data_dir / "receptor.fasta").exists():
-        write_fixture(data_dir, n_families=FIXTURE_FAMILIES, seed=42)
+        write_fixture(data_dir, n_families=families, seed=42)
     train, _, _ = epoch_loaders(data_dir)
     fixture = packed_engine.tokenize_packed(common.make_tokenizer(),
                                             *next(clip_engine._accumulate(train, 16)))
-    draws = (("bench_train standard draw 1",
-              bench_train.make_batches(np.random.default_rng(42), 1, "standard")[0]),
-             ("bench_train long-tail draw 2",
-              bench_train.make_batches(np.random.default_rng(42), 2, "longtail")[1]))
+    draws = () if family == T33 else (
+        ("bench_train standard draw 1",
+         bench_train.make_batches(np.random.default_rng(42), 1, "standard")[0]),
+        ("bench_train long-tail draw 2",
+         bench_train.make_batches(np.random.default_rng(42), 2, "longtail")[1]))
     out = []
 
     def last_chunk(what, path, batch, side, rows, pads_needed=False):
@@ -618,27 +678,53 @@ def path_segments() -> list[tuple[str, bool, torch.Tensor]]:
             raise AssertionError(f"the last {side} chunk {tuple(chunk.shape)} has no <pad> row")
         out.append((f"packed, {what} {side} chunk, {pad_rows} rows all <pad>", path, chunk))
 
+    run = "cli.main" if family != T33 else f"cli.main --esm-config {T33}"
     for side in ("pep", "rec"):
-        last_chunk("cli.main --packed", side == "rec", fixture, side,
+        last_chunk(f"{run} --packed", side == "rec", fixture, side,
                    chunk_rows(fixture[f"{side}_ids"].shape[0]), pads_needed=True)
-    last_chunk("cli.main --packed --finetune", True, fixture, "pep",
+    last_chunk(f"{run} --packed --finetune", True, fixture, "pep",
                unfrozen_chunk_shapes(fixture)[0][0])
     for what, batch in draws:
         last_chunk(what, True, batch, "rec", unfrozen_chunk_shapes(batch)[1][0])
     return out
 
 
-def attention_cases(gen: torch.Generator, segments: list) -> list:
+def family_segments() -> list[tuple[int, int, str, torch.Tensor]]:
+    """(NH, DH, kind, segments) of the other families' cases (FAMILY_SHAPES):
+    padded, padded with a row of no valid token, packed, and at odd T."""
+    out = []
+    for B, T, nh, dh in FAMILY_SHAPES:
+        fully = padded_segments(B, T)
+        fully[B // 2] = 0
+        out += [(nh, dh, "padded", padded_segments(B, T)),
+                (nh, dh, "padded, one row fully padded", fully),
+                (nh, dh, "packed", packed_segments(B, T)),
+                (nh, dh, "padded", padded_segments(3, 65)),
+                (nh, dh, "packed", packed_segments(3, 129))]
+    return out
+
+
+def attention_cases(gen: torch.Generator, segments: list, t33_segments: list) -> list:
     """(B, T, kind, on the unfrozen path, q, k, v, segments) for K1: padded
     rows (fully padded query rows included) at KERNEL_SHAPES, synthetic
     packed rows at three shapes, and the packed paths' own ``segments``
-    (path_segments)."""
+    (path_segments), at t30_150M's NH 20 and DH 32; t33_650M's packed
+    chunks (``t33_segments``) at its NH 20 and DH 64; then the other
+    families' (family_segments)."""
     cases = [(B, T, "padded", False, padded_segments(B, T)) for B, T in KERNEL_SHAPES]
     cases += [(4, 512, "packed", False, packed_segments(4, 512)),
               (2, 129, "packed", False, packed_segments(2, 129)),
               (1, 2048, "packed", False, packed_segments(1, 2048))]
     cases += [(*seg.shape, kind, path, seg) for kind, path, seg in segments]
-    return [(B, T, kind, path, *qkv(B, T, gen), seg) for B, T, kind, path, seg in cases]
+    out = [(B, T, kind, path, *qkv(B, T, gen), seg) for B, T, kind, path, seg in cases]
+    out += [(*seg.shape, kind, path, *qkv(*seg.shape, gen, *T33_ATTENTION), seg)
+            for kind, path, seg in t33_segments]
+    return out + [(*seg.shape, kind, False, *qkv(*seg.shape, gen, nh, dh), seg)
+                  for nh, dh, kind, seg in family_segments()]
+
+
+def case_name(B: int, T: int, kind: str, q: torch.Tensor) -> str:
+    return f"B={B} T={T} NH={q.shape[2]} DH={q.shape[3]} {kind}"
 
 
 def by_rows(fn, q, *tensors):
@@ -679,8 +765,9 @@ def k1_readings(cases: list) -> list[dict]:
         lse_err = (float((lse[~pad] - want[~pad]).abs().max()) if bool((~pad).any()) else 0.0)
         if not torch.equal(torch.isinf(lse), pad):
             lse_err = math.inf
-        rows.append({"case": f"B={B} T={T} {kind}", "packed": kind.startswith("packed"),
-                     "path": path, "max_abs_err": err, "need": need, "lse_err": lse_err})
+        rows.append({"case": case_name(B, T, kind, q), "dh": q.shape[3],
+                     "packed": kind.startswith("packed"), "path": path, "max_abs_err": err,
+                     "need": need, "lse_err": lse_err})
     return rows
 
 
@@ -692,7 +779,7 @@ def check_attention(cases: list) -> float:
     for row in k1_readings(cases):
         ok = row["need"] <= ATOL_RMS and row["lse_err"] <= LSE_ATOL
         worst = max(worst, row["max_abs_err"])
-        log(f"[kernels] attention_fwd {row['case']} NH={NH}: max|err| {row['max_abs_err']:.6g}; "
+        log(f"[kernels] attention_fwd {row['case']}: max|err| {row['max_abs_err']:.6g}; "
             f"least passing atol {row['need']:.6g} rms(ref) (tolerance {ATOL_RMS:g} rms(ref) + "
             f"{RTOL}*|ref|); lse max|err| {row['lse_err']:.3g} (tolerance {LSE_ATOL:g}) "
             f"{'ok' if ok else 'FAIL'}")
@@ -701,12 +788,14 @@ def check_attention(cases: list) -> float:
     return worst
 
 
-def bwd_cases(gen: torch.Generator, segments: list) -> list:
+def bwd_cases(gen: torch.Generator, segments: list, t33_segments: list) -> list:
     """(B, T, kind, on the unfrozen path, q, k, v, dO, segments) for K5:
     padded rows everywhere (with one row of no valid token where B > 1,
     whose queries are all uniform), synthetic packed rows at three shapes,
     and the chunks of ``segments`` (path_segments) on the packed unfrozen
-    path."""
+    path, at t30_150M's NH 20 and DH 32; those of ``t33_segments`` at
+    t33_650M's NH 20 and DH 64; then the other families'
+    (family_segments)."""
     cases = []
     for B, T in K5_SHAPES:
         kinds = ["padded"] + (["packed"] if T in (192, 200, 2048) else [])
@@ -719,11 +808,15 @@ def bwd_cases(gen: torch.Generator, segments: list) -> list:
                     seg[B // 2] = 0
                     kind = "padded, one row fully padded"
             cases.append((B, T, kind, False, seg))
-    cases += [(*seg.shape, kind, True, seg) for kind, path, seg in segments if path]
+    cases = [(NH, DH, *case) for case in cases]
+    cases += [(NH, DH, *seg.shape, kind, True, seg) for kind, path, seg in segments if path]
+    cases += [(*T33_ATTENTION, *seg.shape, kind, True, seg)
+              for kind, path, seg in t33_segments if path]
+    cases += [(nh, dh, *seg.shape, kind, False, seg) for nh, dh, kind, seg in family_segments()]
     out = []
-    for B, T, kind, path, seg in cases:
-        q, k, v = qkv(B, T, gen)
-        do = torch.randn(B, T, NH, DH, device="cuda", generator=gen).bfloat16()
+    for nh, dh, B, T, kind, path, seg in cases:
+        q, k, v = qkv(B, T, gen, nh, dh)
+        do = torch.randn(B, T, nh, dh, device="cuda", generator=gen).bfloat16()
         out.append((B, T, kind, path, q, k, v, do, seg))
     return out
 
@@ -739,8 +832,9 @@ def k5_readings(cases: list) -> list[dict]:
         torch.cuda.synchronize()
         want = by_rows(attention.attention_reference_bwd, q, k, v, seg, do)
         errs = [least_atol(g, w) for g, w in zip(got, want)]
-        rows.append({"case": f"B={B} T={T} {kind}", "packed": kind.startswith("packed"),
-                     "path": path, "max_abs_err": max(e for e, _ in errs),
+        rows.append({"case": case_name(B, T, kind, q), "dh": q.shape[3],
+                     "packed": kind.startswith("packed"), "path": path,
+                     "max_abs_err": max(e for e, _ in errs),
                      "needs": dict(zip(("dq", "dk", "dv"), (n for _, n in errs)))})
     return rows
 
@@ -755,7 +849,7 @@ def check_attention_bwd(cases: list) -> float:
     for row in k5_readings(cases):
         ok = max(row["needs"].values()) <= ATOL_RMS
         worst = max(worst, row["max_abs_err"])
-        log(f"[kernels] attention_bwd {row['case']} NH={NH}: max|err| {row['max_abs_err']:.6g}; "
+        log(f"[kernels] attention_bwd {row['case']}: max|err| {row['max_abs_err']:.6g}; "
             f"least passing atol " + ", ".join(f"{k} {v:.6g}" for k, v in row["needs"].items())
             + f" rms(ref) (tolerance {ATOL_RMS:g} rms(ref) + {RTOL}*|ref|) "
             + ("ok" if ok else "FAIL"))
@@ -1172,13 +1266,22 @@ def check_attention_faults(libs: dict, k1_cases: list, k5_cases: list) -> dict:
             packed_missed = [r["case"] for r, x in zip(rows, ratios) if r["packed"] and x <= 1]
             path_missed = [r["case"] for r, x in zip(rows, ratios) if r["path"] and x <= 1]
             path = [x for r, x in zip(rows, ratios) if r["path"]]
+            by_dh = {dh: sum(r["dh"] == dh and x > 1 for r, x in zip(rows, ratios))
+                     for dh in FAULT_HEAD_DIMS}
+            worst_dh = {dh: max(x for r, x in zip(rows, ratios) if r["dh"] == dh)
+                        for dh in FAULT_HEAD_DIMS}
             out[f"{kernel}_{name}"] = {"worst_ratio": max(ratios), "cases_failed": len(failed),
-                                       "cases": len(rows), "least_ratio_unfrozen_path": min(path)}
+                                       "cases": len(rows), "least_ratio_unfrozen_path": min(path),
+                                       "cases_failed_by_head_dim": by_dh,
+                                       "worst_ratio_by_head_dim": worst_dh}
             log(f"[kernels] planted fault {name} ({'last tile of the swept loop dropped' if name == 'swept_tiles' else 'skip predicate off by one at a segment boundary'}): "
                 f"{kernel} fails {len(failed)} of {len(rows)} cases, worst at {max(ratios):.4g} x "
                 f"its tolerance; on the packed unfrozen path's {len(path)} chunks at least "
-                f"{min(path):.4g} x; packed cases it passes: {packed_missed or 'none'}")
-            if not failed or path_missed or (name == "skip" and packed_missed):
+                f"{min(path):.4g} x; packed cases it passes: {packed_missed or 'none'}; cases "
+                f"failed at head dims {', '.join(f'{dh}: {n}' for dh, n in by_dh.items())} "
+                f"(worst {', '.join(f'{dh}: {x:.4g} x' for dh, x in worst_dh.items())})")
+            if (not failed or path_missed or (name == "skip" and packed_missed)
+                    or not all(by_dh.values())):
                 raise AssertionError(f"the {kernel} check does not see the planted fault {name}")
     return out
 
@@ -1734,16 +1837,18 @@ def run_train(name: str, data_dir: Path, batch_size: int) -> dict:
         **{k: v[0] for k, v in counts.items()}}, "bwd": {k: v[1] for k, v in counts.items()}}
 
 
-def run_unfrozen(name: str, data_dir: Path, mode_args: list[str], engine) -> dict:
+def run_unfrozen(name: str, data_dir: Path, mode_args: list[str], engine,
+                 families: int = FIXTURE_FAMILIES) -> dict:
     """cli.main --finetune or --lora-rank for one epoch at the defaults
-    (global batch 256 in one pad bucket, 16 chunks, remat); checks the
-    artifacts and every kernel's launch count against the loaders."""
+    (global batch 256 in one pad bucket, 16 chunks, remat) on a fixture of
+    ``families``; checks the artifacts and every kernel's launch count
+    against the loaders."""
     runs = WORK / f"runs_{name}"
     t0 = time.perf_counter()
     with counted_forwards() as forwards, timed_steps(engine) as ends:
         reset_counts()
         train_cli.main(["--synthetic-fixture", "--data-dir", str(data_dir), "--fixture-families",
-                        str(FIXTURE_FAMILIES), "--epochs", "1", "--runs-dir", str(runs)]
+                        str(families), "--epochs", "1", "--runs-dir", str(runs)]
                        + mode_args)
         k1 = attention.fused_attention.launches
         k5 = attention.fused_attention_bwd.launches
@@ -1777,10 +1882,10 @@ def run_unfrozen(name: str, data_dir: Path, mode_args: list[str], engine) -> dic
         **{k: v[0] for k, v in counts.items()}}}
 
 
-def embed_check(path: Path, recs: list[str], what: str) -> None:
+def embed_check(path: Path, recs: list[str], what: str, family: str = "t30_150M") -> None:
     fasta = WORK / "train_embed.fasta"
     fasta.write_text("".join(f">r{i}\n{s}\n" for i, s in enumerate(recs[:8])))
-    embed.main(["--checkpoint", str(path), "--fasta", str(fasta),
+    embed.main(["--esm-config", family, "--checkpoint", str(path), "--fasta", str(fasta),
                 "--side", "rec", "--out", str(WORK / "train_embed.npz")])
     with np.load(WORK / "train_embed.npz") as index:
         emb = index["embeddings"]
@@ -1800,12 +1905,18 @@ def run_train_phase() -> dict:
                       f"{max(map(len, peps))} aa")
     log(f"[train] fixture: {FIXTURE_FAMILIES} families, {out['profile']}")
     embed_check(out["k2"]["run"] / "best_model.npz", recs, "run 1's best_model.npz")
-    out["finetune"] = run_unfrozen("train_finetune", data_dir, ["--finetune"], finetune)
+    # the one-bucket unfrozen runs on the smaller fixture: 3 steps of 8 s each
+    small = WORK / SMALL_DATA
+    out["finetune"] = run_unfrozen("train_finetune", small, ["--finetune"], finetune,
+                                   SMALL_FIXTURE_FAMILIES)
     embed_check(out["finetune"]["run"] / "best_model.npz", recs,
                 "the finetune run's best_model.npz (its own backbone)")
-    out["lora"] = run_unfrozen("train_lora", data_dir, ["--lora-rank", str(LORA_RANK)], lora)
+    out["lora"] = run_unfrozen("train_lora", small, ["--lora-rank", str(LORA_RANK)], lora,
+                               SMALL_FIXTURE_FAMILIES)
     embed_check(out["lora"]["run"] / "best_model.npz", recs,
                 "the LoRA run's best_model.npz (adapters merged into the base)")
+    for run in ("finetune", "lora"):
+        out[run]["profile"] = f"{SMALL_FIXTURE_FAMILIES} families"
     return out
 
 
@@ -1868,39 +1979,43 @@ def packed_epoch_chunks(data_dir: Path, step_chunks=packed_chunks) -> tuple[list
     return steps, evals
 
 
-def run_packed_train(data_dir: Path) -> dict:
-    """cli.main --packed for one epoch at the defaults (global batch 256,
-    flat packing, 16 rows a chunk); checks the artifacts and every kernel's
-    launch count against the chunks the loaders' batches take."""
-    runs = WORK / "runs_train_packed"
+def run_packed_train(data_dir: Path, family: str = "t30_150M",
+                     families: int = FIXTURE_FAMILIES, name: str = "train_packed") -> dict:
+    """cli.main --packed (--esm-config family) for one epoch at the defaults
+    (global batch 256, flat packing, 16 rows a chunk) on a fixture of
+    ``families``; checks the artifacts and every kernel's launch count (K1
+    once a layer per chunk forward) against the chunks the loaders' batches
+    take."""
+    runs = WORK / f"runs_{name}"
+    layers = common.esm_config(family, "bfloat16").num_layers
     t0 = time.perf_counter()
     with counted_forwards() as forwards, timed_steps() as ends:
         reset_counts()
         train_cli.main(["--synthetic-fixture", "--data-dir", str(data_dir), "--fixture-families",
-                        str(FIXTURE_FAMILIES), "--epochs", "1", "--runs-dir", str(runs),
-                        "--packed"])
+                        str(families), "--epochs", "1", "--runs-dir", str(runs),
+                        "--esm-config", family, "--packed"])
         k1 = attention.fused_attention.launches
         counts = infonce_counts()
-        check_default_path("train_packed")
+        check_default_path(name)
     wall = time.perf_counter() - t0
     run = check_run_dir(runs)
     steps, evals = packed_epoch_chunks(data_dir)
     want_forwards = [c for chunks in steps + evals for c in chunks]
     want = {"infonce": (len(steps) + len(evals), len(steps)), "infonce_tiled": (0, 0)}
     if (len(ends), sorted(forwards), k1) != (len(steps), sorted(want_forwards),
-                                             30 * len(want_forwards)):
-        raise AssertionError(f"train_packed: {len(ends)} steps (want {len(steps)}), "
+                                             layers * len(want_forwards)):
+        raise AssertionError(f"{name}: {len(ends)} steps (want {len(steps)}), "
                              f"{len(forwards)} chunk forwards (want {len(want_forwards)}), "
-                             f"attention_fwd {k1} (want {30 * len(want_forwards)})")
+                             f"attention_fwd {k1} (want {layers * len(want_forwards)})")
     if counts != want:
-        raise AssertionError(f"train_packed: InfoNCE (forward, backward) calls {counts}, "
+        raise AssertionError(f"{name}: InfoNCE (forward, backward) calls {counts}, "
                              f"want {want}")
     metrics = json.loads((run / "metrics.jsonl").read_text().splitlines()[0])
     per_step = sum(map(len, steps)) / len(steps)
-    log(f"[train] train_packed: global batch 256 packed, {len(steps)} steps, {len(evals)} eval "
-        f"batches of 16; train loss {metrics['train_loss']:.6f}, val loss "
+    log(f"[train] {name} ({family}): global batch 256 packed, {len(steps)} steps, "
+        f"{len(evals)} eval batches of 16; train loss {metrics['train_loss']:.6f}, val loss "
         f"{metrics['val_loss']:.6f}; chunk forwards (rows, L) of the first step {steps[0]}, "
-        f"{per_step:.2f} a step (the grouped step: 32); attention_fwd {k1} = 30 per chunk "
+        f"{per_step:.2f} a step (the grouped step: 32); attention_fwd {k1} = {layers} per chunk "
         f"forward; InfoNCE (forward, backward) calls {counts}; epoch {metrics['seconds']:.2f} s, "
         f"cli.main {wall:.2f} s")
     return {"run": run, "steps": len(steps), "ends": ends, "chunks_per_step": per_step,
@@ -1910,10 +2025,11 @@ def run_packed_train(data_dir: Path) -> dict:
             "bwd": {k: v[1] for k, v in counts.items()}}
 
 
-def packed_setup(n: int = 256):
-    """t30_150M bf16 with the seeded weights of the train runs, CLIP heads
-    (seed SEED, dropout 0.1), and the first n training pairs of the fixture."""
-    cfg_esm = common.esm_config("t30_150M", "bfloat16")
+def packed_setup(n: int = 256, family: str = "t30_150M"):
+    """The family (t30_150M) in bf16 with the seeded weights of the train
+    runs, CLIP heads (seed SEED, dropout 0.1), and the first n training pairs
+    of the fixture."""
+    cfg_esm = common.esm_config(family, "bfloat16")
     mcfg = clip.CLIPConfig(input_dim=cfg_esm.hidden_size, esm=cfg_esm)
     esm_params = esm2.init_params(cfg_esm, torch.Generator(device="cuda").manual_seed(0),
                                   dtype=torch.bfloat16, device="cuda")
@@ -1971,11 +2087,15 @@ def check_packed_paths() -> dict:
     return {"cos_min": cos_min, "k1_embed": k1_packed, "deterministic": same}
 
 
-def launches_per_step(packed: bool, engine=None) -> dict:
+def launches_per_step(packed: bool, engine=None, family: str = "t30_150M") -> dict:
     """Kernel launches, device busy time and peak memory of one train step
-    at global batch 256 under torch.profiler: frozen (packed, or 4 length
-    groups), or with ``engine`` (finetune) the packed unfrozen step."""
-    mcfg, esm_params, heads0, peps, recs = packed_setup()
+    of the family (t30_150M) at global batch 256 under torch.profiler:
+    frozen (packed, or 4 length groups), or with ``engine`` (finetune) the
+    packed unfrozen step. The peak is the step's own: what the process
+    held before its weights were made is taken off."""
+    gc.collect()
+    base = torch.cuda.memory_allocated()
+    mcfg, esm_params, heads0, peps, recs = packed_setup(family=family)
     cfg = clip_engine.EngineConfig(model=mcfg, packed=packed, length_groups=4)
     batch = to_device(clip_engine._prepare(common.make_tokenizer(), cfg)(peps, recs), "cuda")
     if engine is finetune:
@@ -2001,9 +2121,9 @@ def launches_per_step(packed: bool, engine=None) -> dict:
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     out = {"launches": sum(e.count for e in kernels), "busy_ms": busy_ms,
            "busy_share": busy_ms / (1e3 * wall),
-           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+           "peak_memory_gb": (torch.cuda.max_memory_allocated() - base) / 1e9}
     what = ("packed finetune" if engine is finetune else "packed" if packed else "grouped")
-    log(f"[packed] one {what} step under torch.profiler: {out['launches']} kernel launches, "
+    log(f"[packed] one {family} {what} step under torch.profiler: {out['launches']} kernel launches, "
         f"device busy {busy_ms:.4f} ms of {1e3 * wall:.4f} ms "
         f"({100 * out['busy_share']:.2f}%); peak memory {out['peak_memory_gb']:.4f} GB")
     return out
@@ -2019,22 +2139,25 @@ def run_packed_phase() -> dict:
     return out
 
 
-def run_packed_unfrozen(name: str, data_dir: Path, mode_args: list[str], engine) -> dict:
-    """cli.main --packed --finetune or --lora-rank for one epoch at the
-    defaults (global batch 256, flat packing, remat); checks the artifacts,
-    the chunk forwards of each pass against those the loaders' batches take
-    when packed again here by the unfrozen rule (unfrozen_chunks), and every
-    kernel's launch count: per step K1 30 times per pass-1 chunk and 60 per
-    pass-2 chunk (forward and remat recompute), K5 30 per pass-2 chunk, K2
-    once forward and once backward; per eval batch K1 30 per chunk forward
-    (the frozen rule) and K2 once."""
+def run_packed_unfrozen(name: str, data_dir: Path, mode_args: list[str], engine,
+                        family: str = "t30_150M", families: int = FIXTURE_FAMILIES) -> dict:
+    """cli.main --packed --finetune or --lora-rank (--esm-config family) for
+    one epoch at the defaults (global batch 256, flat packing, remat) on a
+    fixture of ``families``; checks the artifacts, the chunk forwards of
+    each pass against those the loaders' batches take when packed again
+    here by the unfrozen rule (unfrozen_chunks), and every kernel's launch
+    count: per step K1 once a layer per pass-1 chunk and twice per pass-2
+    chunk (forward and remat recompute), K5 once a layer per pass-2 chunk,
+    K2 once forward and once backward; per eval batch K1 once a layer per
+    chunk forward (the frozen rule) and K2 once."""
     runs = WORK / f"runs_{name}"
+    L = common.esm_config(family, "bfloat16").num_layers
     t0 = time.perf_counter()
     with counted_forwards() as forwards, timed_steps(engine) as ends:
         reset_counts()
         train_cli.main(["--synthetic-fixture", "--data-dir", str(data_dir), "--fixture-families",
-                        str(FIXTURE_FAMILIES), "--epochs", "1", "--runs-dir", str(runs),
-                        "--packed"] + mode_args)
+                        str(families), "--epochs", "1", "--runs-dir", str(runs),
+                        "--esm-config", family, "--packed"] + mode_args)
         k1 = attention.fused_attention.launches
         k5 = attention.fused_attention_bwd.launches
         counts = infonce_counts()
@@ -2045,8 +2168,8 @@ def run_packed_unfrozen(name: str, data_dir: Path, mode_args: list[str], engine)
     step_chunks = [c for chunks in steps for c in chunks]
     eval_chunks = [c for chunks in evals for c in chunks]
     want_forwards = 2 * step_chunks + eval_chunks             # pass 1, pass 2, eval
-    want_k1 = 90 * len(step_chunks) + 30 * len(eval_chunks)
-    want_k5 = 30 * len(step_chunks)
+    want_k1 = 3 * L * len(step_chunks) + L * len(eval_chunks)
+    want_k5 = L * len(step_chunks)
     want = {"infonce": (len(steps) + len(evals), len(steps)), "infonce_tiled": (0, 0)}
     if (len(ends), sorted(forwards), k1, k5) != (len(steps), sorted(want_forwards), want_k1,
                                                  want_k5):
@@ -2057,13 +2180,13 @@ def run_packed_unfrozen(name: str, data_dir: Path, mode_args: list[str], engine)
         raise AssertionError(f"{name}: InfoNCE (forward, backward) calls {counts}, want {want}")
     metrics = json.loads((run / "metrics.jsonl").read_text().splitlines()[0])
     per_pass = len(step_chunks) / len(steps)
-    log(f"[train] {name}: global batch 256 packed, {len(steps)} steps, {len(evals)} eval "
-        f"batches of 16; train loss {metrics['train_loss']:.6f}, val loss "
+    log(f"[train] {name} ({family}): global batch 256 packed, {len(steps)} steps, "
+        f"{len(evals)} eval batches of 16; train loss {metrics['train_loss']:.6f}, val loss "
         f"{metrics['val_loss']:.6f}; chunk forwards (rows, L) of the first step's pass "
         f"{steps[0]}, {per_pass:.2f} a pass (the one-bucket step: 32); {len(forwards)} backbone "
-        f"forwards; attention_fwd {k1} (30 per pass-1 chunk, 60 per pass-2 chunk, 30 per eval "
-        f"chunk), attention_bwd {k5} (30 per pass-2 chunk); InfoNCE (forward, backward) calls "
-        f"{counts}; epoch {metrics['seconds']:.2f} s, cli.main {wall:.2f} s")
+        f"forwards; attention_fwd {k1} ({L} per pass-1 chunk, {2 * L} per pass-2 chunk, {L} per "
+        f"eval chunk), attention_bwd {k5} ({L} per pass-2 chunk); InfoNCE (forward, backward) "
+        f"calls {counts}; epoch {metrics['seconds']:.2f} s, cli.main {wall:.2f} s")
     return {"run": run, "steps": len(steps), "ends": ends, "chunks_per_pass": per_pass,
             "launches": {"attention_fwd": k1, "attention_bwd": k5,
                          "filip_maxsim": maxsim.filip_similarity_fused.launches,
@@ -3065,7 +3188,7 @@ def clone_tree(tree):
     return {k: clone_tree(v) for k, v in tree.items()} if isinstance(tree, dict) else tree.clone()
 
 
-def step_readings(pool: int, packed: bool = False) -> dict:
+def step_readings(pool: int, packed: bool = False, family: str = "t30_150M") -> dict:
     """One frozen train step at global batch ``pool`` through K2 or K3 (by
     clip_engine's rule) and through the plain loss, from the same heads and
     batch (4 length groups, or with ``packed`` one packed batch): the loss
@@ -3074,8 +3197,9 @@ def step_readings(pool: int, packed: bool = False) -> dict:
     moves by dg it moves by at most 2 lr |dg| / (max|g| + eps), which near
     g = 0 turns f32 noise into up to lr; each updated parameter is held to
     that bound plus 1e-6, and the count beyond a flat 1e-5 is printed.
-    Returns the readings and whether they are within the limits ("ok")."""
-    cfg_esm = common.esm_config("t30_150M", "bfloat16")
+    Returns the readings and whether they are within the limits ("ok").
+    The backbone is ``family`` (t30_150M) in bf16."""
+    cfg_esm = common.esm_config(family, "bfloat16")
     mcfg = clip.CLIPConfig(input_dim=cfg_esm.hidden_size, dropout=0.0, esm=cfg_esm)
     cfg = clip_engine.EngineConfig(model=mcfg, batch_size=pool // 16, accumulated_batches=16,
                                    length_groups=4, packed=packed)
@@ -3116,8 +3240,8 @@ def step_readings(pool: int, packed: bool = False) -> dict:
         over_flat += int((d > 1e-5).sum())
         n += d.numel()
     ok = loss_err <= 1e-5 and grad_err <= 1e-5 and over_bound == 0
-    log(f"[step] global batch {pool}{' packed' if packed else ''} through {kernel} vs the "
-        f"plain loss (dropout 0, Adam "
+    log(f"[step] {family} global batch {pool}{' packed' if packed else ''} through {kernel} vs "
+        f"the plain loss (dropout 0, Adam "
         f"lr {TRAIN_LR:g}): loss {lk:.6f} vs {lp:.6f}, relative |err| {loss_err:.3g} (tolerance "
         f"1e-5); gradients max |err| / leaf max {grad_err:.3g} (tolerance 1e-5); updated "
         f"params max |err| {param_err:.3g}, {over_bound} of {n} past Adam's bound, {over_flat} "
@@ -3126,9 +3250,9 @@ def step_readings(pool: int, packed: bool = False) -> dict:
             "param_max_abs_err": param_err, "over_bound": over_bound, "ok": ok}
 
 
-def check_step(pool: int, packed: bool = False) -> dict:
+def check_step(pool: int, packed: bool = False, family: str = "t30_150M") -> dict:
     """step_readings, which must be within their limits."""
-    r = step_readings(pool, packed)
+    r = step_readings(pool, packed, family)
     if not r["ok"]:
         raise AssertionError(f"the {'packed ' if packed else ''}train step through "
                              f"{r['kernel']} disagrees with the plain loss")
@@ -3166,11 +3290,13 @@ def attention_function(forward, backward):
         saved[1].launches = stand_in.launches
 
 
-def finetune_step_runs(fault_libs: dict, packed: bool = False) -> dict:
-    """One finetune step at global batch 256 (one pad bucket in 16 chunks,
-    or with ``packed`` the packed step over the same pairs; remat, dropout
-    0, the two-group Adam) from the same f32 master weights and batch, once
-    per attention path: {name: (loss, {leaf: gradient})}.
+def finetune_step_runs(fault_libs: dict, packed: bool = False, family: str = "t30_150M",
+                       pool: int = 256, names: tuple | None = None) -> dict:
+    """One finetune step of ``family`` (t30_150M) at global batch ``pool``
+    (256; one pad bucket in 16 chunks, or with ``packed`` the packed step
+    over the same pairs; remat, dropout 0, the two-group Adam) from the same
+    f32 master weights and batch, once per attention path (``names``, by
+    default all below that apply): {name: (loss, {leaf: gradient})}.
     "kernel" runs K1 and K5; "k1_plain_bwd" K1 and K5's plain version;
     "plain_fwd_k5" K1's plain version and K5; "plain" both plain versions
     (the TPU kernels' semantics, rounding where they round); "fault" K1
@@ -3179,14 +3305,16 @@ def finetune_step_runs(fault_libs: dict, packed: bool = False) -> dict:
     attention_impl="eager" (plain attention through autograd) with a bf16
     and an f32 backbone. The packed step runs "kernel" twice ("again")
     and leaves out "plain_fwd_k5" and "plain"."""
-    base = common.esm_config("t30_150M", "bfloat16")
+    base = common.esm_config(family, "bfloat16")
+    L = base.num_layers
     esm0 = esm2.init_params(base, torch.Generator(device="cuda").manual_seed(0),
                             dtype=torch.bfloat16, device="cuda")
     data_dir = WORK / "train_data"
     if not (data_dir / "receptor.fasta").exists():
         write_fixture(data_dir, n_families=FIXTURE_FAMILIES, seed=42)
     train_ds, _, _ = dataset.generate_datasets(data_dir, seed=42)
-    peps, recs = next(clip_engine._accumulate(dataset.PairLoader(train_ds, 16, seed=SEED), 16))
+    peps, recs = next(clip_engine._accumulate(dataset.PairLoader(train_ds, pool // 16,
+                                                                 seed=SEED), 16))
     tokenize = packed_engine.tokenize_packed if packed else clip_engine.tokenize_pair_batch
     batch = to_device(tokenize(common.make_tokenizer(), peps, recs), "cuda")
     heads0 = clip.init_params(clip.CLIPConfig(input_dim=base.hidden_size, esm=base),
@@ -3194,15 +3322,17 @@ def finetune_step_runs(fault_libs: dict, packed: bool = False) -> dict:
     k1, k5 = attention._forward, attention.fused_attention_bwd
     plain_fwd, plain_bwd = plain_forward, plain_backward
     c = len(unfrozen_chunks(batch)) if packed else 2 * 16       # chunks per pass
-    runs = (("kernel", "fused", torch.bfloat16, k1, k5, (90 * c, 30 * c)),
-            ("again", "fused", torch.bfloat16, k1, k5, (90 * c, 30 * c)),
-            ("k1_plain_bwd", "fused", torch.bfloat16, k1, plain_bwd, (90 * c, 0)),
-            ("plain_fwd_k5", "fused", torch.bfloat16, plain_fwd, k5, (0, 30 * c)),
+    runs = (("kernel", "fused", torch.bfloat16, k1, k5, (3 * L * c, L * c)),
+            ("again", "fused", torch.bfloat16, k1, k5, (3 * L * c, L * c)),
+            ("k1_plain_bwd", "fused", torch.bfloat16, k1, plain_bwd, (3 * L * c, 0)),
+            ("plain_fwd_k5", "fused", torch.bfloat16, plain_fwd, k5, (0, L * c)),
             ("plain", "fused", torch.bfloat16, plain_fwd, plain_bwd, (0, 0)),
-            ("fault", "fused", torch.bfloat16, k1, k5, (90 * c, 30 * c)),
+            ("fault", "fused", torch.bfloat16, k1, k5, (3 * L * c, L * c)),
             ("eager", "eager", torch.bfloat16, k1, k5, (0, 0)),
             ("eager_f32", "eager", torch.float32, k1, k5, (0, 0)))
     skipped = ("plain_fwd_k5", "plain") if packed else ("again",)
+    if names is not None:
+        skipped = tuple(run[0] for run in runs if run[0] not in names)
     out = {"shapes": (unfrozen_chunks(batch) if packed else
                       (tuple(batch["pep_ids"].shape), tuple(batch["rec_ids"].shape)))}
     for name, impl, dtype, fwd, bwd, want in runs:
@@ -3211,7 +3341,7 @@ def finetune_step_runs(fault_libs: dict, packed: bool = False) -> dict:
         esm_cfg = dataclasses.replace(base, attention_impl=impl, compute_dtype=dtype)
         cfg = clip_engine.EngineConfig(
             model=clip.CLIPConfig(input_dim=base.hidden_size, dropout=0.0, esm=esm_cfg),
-            packed=packed)
+            batch_size=pool // 16, accumulated_batches=16, packed=packed)
         params = finetune.init_params(esm0, clone_tree(heads0))
         state = capturing(finetune.make_optimizer(cfg).init(params), params)
         before = (attention.fused_attention.launches, k5.launches)
@@ -3226,6 +3356,7 @@ def finetune_step_runs(fault_libs: dict, packed: bool = False) -> dict:
                                  f"attention_bwd) launches {calls}, want {want}")
         out[name] = (float(loss), state.grads)
         del params, state
+        gc.collect()   # capturing() closes a cycle through the state: free it now
     return out
 
 
@@ -3342,6 +3473,201 @@ def check_finetune_step(fault_libs: dict, packed: bool = False) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 7c: ESM-2 t33_650M (head dim 64) at full width and depth, and the
+# other families through the model
+# ---------------------------------------------------------------------------
+
+def run_t33_serve_phase(rng: np.random.Generator, gpu: str) -> dict:
+    """cli.serve --esm-config t33_650M over seeded random weights and CLIP
+    heads written as npz: an index of 64 sequences by cli.embed, /healthz,
+    single-sequence /embed at buckets 64 and 512 on both sides and a
+    32-sequence /embed; K1 33 times per backbone forward; the embeddings
+    against eager attention (cosine >= COSINE_MIN per row); /embed p50 and
+    batch-32 seqs/s. The server stops at the end of the phase."""
+    cfg = common.esm_config(T33, "bfloat16")
+    mcfg = clip.CLIPConfig(input_dim=cfg.hidden_size, esm=cfg)
+    work = WORK / T33
+    work.mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    esm_params = esm2.init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED),
+                                  dtype=torch.bfloat16, device="cuda")
+    heads = clip.init_params(mcfg, torch.Generator().manual_seed(SEED), device="cuda")
+    export_npz(work / "esm.npz", esm_params)
+    export_npz(work / "best_model.npz", heads)
+    fasta = work / "corpus.fasta"
+    fasta.write_text("".join(f">seq{i}\n{s}\n" for i, s in
+                             enumerate(synthetic_seqs(rng, rng.integers(30, 500, 64)))))
+    log(f"[t33] {T33} bf16 random weights (seed {SEED}) and heads written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    model_args = ["--esm-config", T33, "--checkpoint", str(work / "best_model.npz"),
+                  "--esm-weights", str(work / "esm.npz"), "--batch-size", "32"]
+    with counted_forwards() as forwards:
+        reset_counts()
+        embed.main(model_args + ["--fasta", str(fasta), "--side", "rec",
+                                 "--out", str(work / "index.npz")])
+        server = serve.make_server(serve.build_argparser().parse_args(
+            model_args + ["--index", str(work / "index.npz"), "--port", "0"]))
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        ctx = {"base": base, "server": server, "thread": thread, "mcfg": mcfg,
+               "esm_params": esm_params, "heads": heads}
+        try:
+            health = json.loads(call(base, "/healthz")[1])
+            if not (health["status"] == "ok" and health["index_size"] == 64
+                    and health["model"] == T33):
+                raise AssertionError(f"{T33} /healthz {health}")
+            singles = {}
+            for bucket, n in ((64, 40), (512, 400)):
+                seq = synthetic_seqs(rng, [n])[0]
+                for side in ("pep", "rec"):
+                    singles[(side, bucket)] = (seq, embed_json(base, [seq], side)[0])
+            batch32 = synthetic_seqs(rng, rng.integers(50, 300, 32))
+            ctx.update(singles=singles, batch32=batch32, emb32=embed_json(base, batch32, "rec"))
+            launches = attention.fused_attention.launches
+            check_default_path(f"{T33} serve")
+            if not forwards or launches != cfg.num_layers * len(forwards):
+                raise AssertionError(f"{T33} serve: attention_fwd launched {launches} times for "
+                                     f"{len(forwards)} forwards; want {cfg.num_layers} each")
+            log(f"[t33] /healthz {health}; /embed of 4 single sequences and of 32: "
+                f"{len(forwards)} backbone forwards, attention_fwd {launches} = "
+                f"{cfg.num_layers} per forward")
+            ctx["cos_min"] = check_end_to_end(ctx)
+            ctx["times"] = time_serving(ctx, rng, gpu, f"{T33} bf16")
+        finally:
+            stop(ctx)
+    ctx["launches"] = {"attention_fwd": launches}
+    return ctx
+
+
+def run_families_phase() -> dict:
+    """esm2.forward in bf16 through K1 for the other families (FAMILY_RUNS:
+    t6_8M and t12_35M at full depth, t36_3B and t48_15B at full width and 2
+    layers) with seeded random weights, on padded rows (8 sequences of
+    30-500 aa) and on the same sequences packed (derive_segments' segments
+    and positions): K1 once a layer per forward, and the valid tokens'
+    hidden states against attention_impl="eager" at cosine >= COSINE_MIN."""
+    rng = np.random.default_rng(SEED)
+    tok = common.make_tokenizer()
+    seqs = synthetic_seqs(rng, rng.integers(30, 500, 8))
+    ids = torch.from_numpy(tok(seqs)["input_ids"]).cuda()
+    packed = packed_engine.tokenize_packed(tok, seqs, seqs)
+    pids, pseg, ppos = packed_engine.derive_segments(packed["rec_ids"].cuda())
+    batches = {"padded": (ids, (ids != 1).to(torch.int32), {}),
+               "packed": (pids, (pseg > 0).to(torch.int32),
+                          {"segment_ids": pseg, "positions": ppos})}
+    out = {}
+    for family, layers in FAMILY_RUNS:
+        cfg = common.esm_config(family, "bfloat16")
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        params = esm2.init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED),
+                                  dtype=torch.bfloat16, device="cuda")
+        eager = dataclasses.replace(cfg, attention_impl="eager")
+        row = {"head_dim": cfg.head_dim, "layers": cfg.num_layers}
+        for kind, (x, mask, kw) in batches.items():
+            reset_counts()
+            with torch.inference_mode():
+                got = esm2.forward(params, x, mask, cfg, **kw)
+                k1 = attention.fused_attention.launches
+                want = esm2.forward(params, x, mask, eager, **kw)
+            valid = mask > 0
+            cos = float(torch.nn.functional.cosine_similarity(
+                got[valid].float(), want[valid].float(), dim=-1).min())
+            ok = k1 == cfg.num_layers and cos >= COSINE_MIN and bool(torch.isfinite(got).all())
+            log(f"[families] {family} (DH {cfg.head_dim}, {cfg.num_layers} layers) {kind} "
+                f"{tuple(x.shape)}: attention_fwd {k1} launches, min cosine against eager "
+                f"{cos:.6f} (need >= {COSINE_MIN}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{family} {kind} forward through K1")
+            row[kind] = {"shape": list(x.shape), "launches": k1, "cos_min": cos}
+        out[family] = row
+        del params, got, want
+    return out
+
+
+def check_packed_embeddings_vs_plain(family: str, n: int = 256) -> float:
+    """The first n training pairs' pooled embeddings through embed_packed
+    (K1 on packed segments) against the same through K1's plain version:
+    cosine >= COSINE_MIN per row on both sides."""
+    mcfg, esm_params, heads0, peps, recs = packed_setup(n, family)
+    packed = to_device(packed_engine.tokenize_packed(common.make_tokenizer(), peps, recs), "cuda")
+    got = packed_engine.embed_packed(heads0, esm_params, packed, mcfg)
+    with attention_function(plain_forward, plain_backward):
+        want = packed_engine.embed_packed(heads0, esm_params, packed, mcfg)
+    cos = min(float(row_cosines(g.cpu().numpy(), w.cpu().numpy()).min())
+              for g, w in zip(got, want))
+    log(f"[t33] {family} packed embeddings of {n} pairs through K1 against K1's plain version: "
+        f"min cosine {cos:.6f} (need >= {COSINE_MIN})")
+    if cos < COSINE_MIN:
+        raise AssertionError(f"{family} packed embeddings through K1 drift from the plain form")
+    return cos
+
+
+def check_t33_finetune_step(fault_libs: dict) -> dict:
+    """The packed finetune step of t33_650M at global batch T33_CHECK_BATCH
+    through K1/K5 against the same step through K1 and K5's plain version
+    (check_finetune_step's first check: every leaf within FT_K5_TOL of its
+    largest entry, the loss within FT_LOSS_TOL), the swept-tile fault past
+    it, and the step run twice equal to the bit."""
+    out = finetune_step_runs(fault_libs, packed=True, family=T33, pool=T33_CHECK_BATCH,
+                             names=("kernel", "again", "k1_plain_bwd", "fault"))
+    (lk, gk), (lp, gp) = out["kernel"], out["k1_plain_bwd"]
+    tight = {k: v[0] / FT_K5_TOL for k, v in leaf_gaps(gk, gp).items()}
+    fault = {k: v[0] / FT_K5_TOL for k, v in leaf_gaps(out["fault"][1], gp).items()}
+    worst, worst_fault = max(tight, key=tight.get), max(fault, key=fault.get)
+    loss_rel = abs(lk - lp) / abs(lp)
+    same = out["again"][0] == lk and all(torch.equal(out["again"][1][k], gk[k]) for k in gk)
+    ok = tight[worst] <= 1.0 and loss_rel <= FT_LOSS_TOL
+    log(f"[step] {T33} packed finetune step at global batch {T33_CHECK_BATCH} (chunk forwards a "
+        f"pass {out['shapes']}; dropout 0): K5 against its plain version in the step: loss "
+        f"relative {loss_rel:.3g} (tolerance {FT_LOSS_TOL:g}), largest max|err|/leaf max over "
+        f"the tolerance {FT_K5_TOL:g}: {tight[worst]:.4g} ({worst}); the planted fault (K5 "
+        f"built to drop the last query tile of dk/dv): {fault[worst_fault]:.4g} ({worst_fault}) "
+        f"{'ok' if ok else 'FAIL'}; run twice: loss and gradients "
+        f"{'equal' if same else 'DIFFER'} to the bit")
+    if not ok:
+        raise AssertionError(f"K5 in the {T33} packed finetune step disagrees with its plain "
+                             "version")
+    if fault[worst_fault] <= 1.0:
+        raise AssertionError(f"the {T33} step check does not see a K5 that drops a query tile")
+    if not same:
+        raise AssertionError(f"the {T33} packed finetune step is not deterministic")
+    return {"loss_rel_err": loss_rel, "grad_ratio": tight[worst], "grad_leaf": worst,
+            "fault_ratio": fault[worst_fault], "fault_leaf": worst_fault}
+
+
+def run_t33_train_phase(fault_libs: dict) -> dict:
+    """t33_650M training at full width and depth on the smaller fixture:
+    cli.main --esm-config t33_650M --packed and --packed --finetune for one
+    epoch each (launch counts against the loaders' chunks, 33 K1 a chunk
+    forward, 99 K1 and 33 K5 a pass-2 chunk), cli.embed with each
+    checkpoint; the packed embeddings against K1's plain version; the
+    packed step through K2 against the plain loss (check_step) and the
+    packed finetune step through K5 against its plain version
+    (check_t33_finetune_step), both at global batch T33_CHECK_BATCH; one
+    packed finetune step at 256 under torch.profiler (launches, busy share,
+    peak memory)."""
+    data_dir = WORK / SMALL_DATA
+    recs = sequences_only(WORK / "train_data" / "receptor.fasta")
+    out = {"packed": run_packed_train(data_dir, T33, SMALL_FIXTURE_FAMILIES, "t33_train_packed")}
+    embed_check(out["packed"]["run"] / "best_model.npz", recs,
+                f"the {T33} packed run's best_model.npz", T33)
+    out["finetune_packed"] = run_packed_unfrozen("t33_train_finetune_packed", data_dir,
+                                                 ["--finetune"], finetune, T33,
+                                                 SMALL_FIXTURE_FAMILIES)
+    embed_check(out["finetune_packed"]["run"] / "best_model.npz", recs,
+                f"the {T33} packed finetune run's best_model.npz", T33)
+    for run in ("packed", "finetune_packed"):
+        out[run].update(family=T33, profile=f"{SMALL_FIXTURE_FAMILIES} families")
+    out["embeddings_cos_min"] = check_packed_embeddings_vs_plain(T33)
+    out["step_check"] = check_step(T33_CHECK_BATCH, packed=True, family=T33)
+    out["finetune_step_check"] = check_t33_finetune_step(fault_libs)
+    out["per_step"] = launches_per_step(True, finetune, T33)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 9: times
 # ---------------------------------------------------------------------------
 
@@ -3364,7 +3690,8 @@ def attention_work(seg: torch.Tensor) -> dict:
             "padded_rows_tokens": T * int((pads > 0).sum())}
 
 
-def attention_bound(seg: torch.Tensor, backward: bool, clock_hz: float) -> dict:
+def attention_bound(seg: torch.Tensor, backward: bool, clock_hz: float, nh: int = NH,
+                    dh: int = DH) -> dict:
     """K1's (or K5's) bound on this run's segments, one head's work times
     NH. Operations: bf16 tensor-core FLOPs over the allowed pairs (K1: S and
     P.V; K5: S, dP, dq, dk, dv), and f32 adds for the pad queries' closed
@@ -3376,26 +3703,27 @@ def attention_bound(seg: torch.Tensor, backward: bool, clock_hz: float) -> dict:
     of valid tokens and dO of every token and writes dq, dk and dv; both
     read the segments. No statistics: the TPU-form function has none.
     Beside them the exponential floor: one exp per allowed pair at 16 ex2
-    per clock on each of the 132 SMs, at clocks.max.sm."""
+    per clock on each of the 132 SMs, at clocks.max.sm. At nh heads of dh
+    (the function's own dh: 24, not the kernels' 32-wide tiles)."""
     B, T = seg.shape
     w = attention_work(seg)
-    row = NH * DH * 2                              # bytes of one token's heads
+    row = nh * dh * 2                              # bytes of one token's heads
     if backward:
-        flops = NH * 5 * 2 * DH * w["pairs"]
-        adds = NH * DH * (w["pads"] + w["padded_rows_tokens"])
+        flops = nh * 5 * 2 * dh * w["pairs"]
+        adds = nh * dh * (w["pads"] + w["padded_rows_tokens"])
         nbytes = row * (3 * w["valid"] + 4 * B * T) + B * T * 4
     else:
-        flops = NH * 2 * 2 * DH * w["pairs"]
-        adds = NH * DH * w["padded_rows_tokens"]
+        flops = nh * 2 * 2 * dh * w["pairs"]
+        adds = nh * dh * w["padded_rows_tokens"]
         nbytes = row * (2 * w["valid"] + 2 * B * T) + B * T * 4
     t_ops = flops / H100_BF16_FLOPS + adds / H100_F32_FLOPS
     t_bytes = nbytes / H100_BYTES_PER_S
-    exp_ms = 1e3 * NH * w["pairs"] / (132 * 16 * clock_hz)
+    exp_ms = 1e3 * nh * w["pairs"] / (132 * 16 * clock_hz)
     return {"bound_ms": 1e3 * max(t_ops, t_bytes),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "exp_floor_ms": exp_ms, "allowed_share": w["pairs"] / (B * T * T),
             "counts": f"{flops / 1e9:.4f} GFLOP bf16 and {adds / 1e6:.4f} M f32 adds, "
-                      f"{nbytes / 1e6:.4f} MB, {NH * w['pairs'] / 1e6:.4f} M exponentials at "
+                      f"{nbytes / 1e6:.4f} MB, {nh * w['pairs'] / 1e6:.4f} M exponentials at "
                       f"{clock_hz / 1e9:.3f} GHz"}
 
 
@@ -3407,7 +3735,9 @@ def time_attention(gen: torch.Generator, gpu: str) -> dict:
     """K1 (as serving calls it, without statistics), K1 with its statistics,
     its plain version and torch's scaled_dot_product_attention with the same
     boolean mask, at B=16, T=512, NH=20: padded rows, then every token in
-    one segment (the dense row, where no tile is skipped)."""
+    one segment (the dense row, where no tile is skipped); in device time
+    by kernel_times, K1's CUDA events beside it (a call's host work, some
+    50 us, can outlast K1's device time)."""
     B, T = 16, 512
     clock = sm_clock_hz()
     rows = {}
@@ -3423,14 +3753,20 @@ def time_attention(gen: torch.Generator, gpu: str) -> dict:
             torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=allowed,
                                                              scale=1.0)
 
-        row = {"shape": [B, T, NH, DH], "segments": kind,
-               "ms": cuda_ms(lambda: attention.fused_attention(*next(cycle), seg), 100),
-               "with_lse_ms": cuda_ms(lambda: attention._forward(*next(cycle), seg, True), 100),
-               "plain_ms": cuda_ms(lambda: attention.attention_reference(*next(cycle), seg), 10),
-               "library_ms": cuda_ms(library, 50), **attention_bound(seg, False, clock)}
+        k1 = kernel_times(lambda: attention.fused_attention(*next(cycle), seg), 100)
+        row = {"shape": [B, T, NH, DH], "segments": kind, "ms": k1["device_ms"],
+               "wall_ms": k1["events_ms"], "records": k1["records"],
+               "with_lse_ms": kernel_times(lambda: attention._forward(*next(cycle), seg, True),
+                                           100)["device_ms"],
+               "plain_ms": kernel_times(lambda: attention.attention_reference(*next(cycle), seg),
+                                        10)["device_ms"],
+               "library_ms": kernel_times(library, 50)["device_ms"],
+               **attention_bound(seg, False, clock)}
         counts = row.pop("counts")
-        log(f"[time] attention_fwd B={B} T={T} NH={NH} {kind}: kernel {row['ms']:.6f} ms "
-            f"({row['with_lse_ms']:.6f} ms writing its statistics), plain {row['plain_ms']:.6f} "
+        log(f"[time] attention_fwd B={B} T={T} NH={NH} {kind}, device time: kernel "
+            f"{row['ms']:.6f} ms ({row['records']:g} kernel records kept a call; CUDA events "
+            f"{row['wall_ms']:.6f} ms; {row['with_lse_ms']:.6f} ms writing its statistics), "
+            f"plain {row['plain_ms']:.6f} "
             f"ms, library (scaled_dot_product_attention) {row['library_ms']:.6f} ms, bound "
             f"{row['bound_ms']:.6f} ms ({row['bound_by']}: {counts}; allowed pairs "
             f"{row['allowed_share']:.4f} of T^2), exponential floor {row['exp_floor_ms']:.6f} ms "
@@ -3444,9 +3780,10 @@ def time_attention_bwd(gen: torch.Generator, gpu: str, packed: list = ()) -> lis
     of torch's scaled_dot_product_attention with the same boolean mask (a
     yardstick: torch.autograd.grad on a saved graph), at K5_TIME_SHAPES
     padded, at (16, 512) dense and on the packed chunks ``packed`` ((kind,
-    segments) pairs), in device time summed by torch.profiler: at the chunk
-    shapes the wrapper's host work (checks, allocations, ctypes) outlasts
-    the kernels."""
+    segments) pairs), in device time by kernel_times (torch.profiler's
+    records, each kernel's mean times its launches, beside the records
+    kept, CUDA events and the SM clock): at the chunk shapes the wrapper's
+    host work (checks, allocations, ctypes) outlasts the kernels."""
     rows = []
     clock = sm_clock_hz()
     shapes = ([(padded_segments(B, T), "padded") for B, T in K5_TIME_SHAPES]
@@ -3480,18 +3817,105 @@ def time_attention_bwd(gen: torch.Generator, gpu: str, packed: list = ()) -> lis
             out, inputs, do = next(cycle)[5]
             torch.autograd.grad(out, inputs, do, retain_graph=True)
 
-        row = {"shape": [B, T, NH, DH], "segments": kind, "ms": device_ms(kernel, 100),
-               "wall_ms": cuda_ms(kernel, 100), "plain_ms": device_ms(plain, 10),
-               "library_ms": device_ms(library, 100), **attention_bound(seg, True, clock)}
+        k5, k5_plain, sdpa = (kernel_times(kernel, 100), kernel_times(plain, 10),
+                              kernel_times(library, 100))
+        row = {"shape": [B, T, NH, DH], "segments": kind, "ms": k5["device_ms"],
+               "wall_ms": k5["events_ms"], "records": k5["records"],
+               "kept_ms": k5["kept_ms"], "clock_mhz": k5["clock_mhz"],
+               "plain_ms": k5_plain["device_ms"], "plain_records": k5_plain["records"],
+               "library_ms": sdpa["device_ms"], "library_records": sdpa["records"],
+               **attention_bound(seg, True, clock)}
         counts = row.pop("counts")
         log(f"[time] attention_bwd B={B} T={T} NH={NH} {kind}, device time: kernel "
-            f"{row['ms']:.6f} ms ({row['wall_ms']:.6f} ms per call with the host), plain "
-            f"{row['plain_ms']:.6f} ms, library (scaled_dot_product_attention backward) "
-            f"{row['library_ms']:.6f} ms, bound {row['bound_ms']:.6f} ms ({row['bound_by']}: "
+            f"{row['ms']:.6f} ms ({row['records']:g} kernel records kept a call, "
+            f"{row['kept_ms']:.6f} ms their sum; {row['wall_ms']:.6f} ms per call with the host; "
+            f"SM clock {row['clock_mhz']} MHz), plain {row['plain_ms']:.6f} ms "
+            f"({row['plain_records']:g} records a call), library "
+            f"(scaled_dot_product_attention backward) {row['library_ms']:.6f} ms "
+            f"({row['library_records']:g} records a call), bound {row['bound_ms']:.6f} ms ({row['bound_by']}: "
             f"{counts}; allowed pairs {row['allowed_share']:.4f} of T^2) = "
             f"{100 * row['bound_ms'] / row['ms']:.2f}% of the bound, exponential floor "
             f"{row['exp_floor_ms']:.6f} ms | {gpu}")
         rows.append(row)
+    return rows
+
+
+def time_attention_families(gen: torch.Generator, gpu: str) -> list[dict]:
+    """K1 and K5 at t30_150M's (16, 512, 20, 32), the baseline measured in
+    the same loop, and at each other family's attention shape
+    (FAMILY_SHAPES), padded: K1 (its output alone, as serving calls it),
+    its plain version and scaled_dot_product_attention with the same
+    boolean mask; K5 fed K1's statistics, its plain version and SDPA's
+    backward; all in device time by kernel_times (as time_attention,
+    time_attention_bwd and tools/probe_attention.py time them: each
+    kernel's mean record times its launches, beside the records kept, CUDA
+    events and the SM clock); each beside its bound on the run's segments
+    at the function's head dim."""
+    clock = sm_clock_hz()
+    rows = []
+    for B, T, nh, dh in ((16, 512, NH, DH),) + FAMILY_SHAPES:
+        seg = padded_segments(B, T)
+        allowed = ((seg[:, None, :, None] == seg[:, None, None, :])
+                   & (seg[:, None, None, :] > 0))
+        sets = []
+        for _ in range(4):      # successive calls miss the 50 MB L2
+            q, k, v = qkv(B, T, gen, nh, dh)
+            do = torch.randn(B, T, nh, dh, device="cuda", generator=gen).bfloat16()
+            lse = attention._forward(q, k, v, seg, with_lse=True)[1]
+            lq, lk, lv = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+            out = torch.nn.functional.scaled_dot_product_attention(lq, lk, lv, attn_mask=allowed,
+                                                                   scale=1.0)
+            sets.append((q, k, v, do, lse, (out, (lq, lk, lv), do.transpose(1, 2))))
+        cycle = itertools.cycle(sets)
+
+        def sdpa():
+            q, k, v = (x.transpose(1, 2) for x in next(cycle)[:3])
+            torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=allowed,
+                                                             scale=1.0)
+
+        def k5():
+            q, k, v, do, lse, _ = next(cycle)
+            attention.fused_attention_bwd(q, k, v, seg, do, lse)
+
+        def k5_plain():
+            q, k, v, do, _, _ = next(cycle)
+            attention.attention_reference_bwd(q, k, v, seg, do)
+
+        def sdpa_bwd():
+            out, inputs, do = next(cycle)[5]
+            torch.autograd.grad(out, inputs, do, retain_graph=True)
+
+        k1_t = kernel_times(lambda: attention.fused_attention(*next(cycle)[:3], seg), 100)
+        fwd = {"ms": k1_t["device_ms"], "records": k1_t["records"],
+               "events_ms": k1_t["events_ms"],
+               "plain_ms": kernel_times(lambda: attention.attention_reference(*next(cycle)[:3],
+                                                                            seg),
+                                        10)["device_ms"],
+               "library_ms": kernel_times(sdpa, 50)["device_ms"],
+               **attention_bound(seg, False, clock, nh, dh)}
+        k5_t, plain_t, sdpa_t = (kernel_times(k5, 100), kernel_times(k5_plain, 10),
+                                 kernel_times(sdpa_bwd, 50))
+        bwd = {"ms": k5_t["device_ms"], "records": k5_t["records"], "kept_ms": k5_t["kept_ms"],
+               "events_ms": k5_t["events_ms"], "clock_mhz": k5_t["clock_mhz"],
+               "plain_ms": plain_t["device_ms"], "plain_records": plain_t["records"],
+               "library_ms": sdpa_t["device_ms"], "library_records": sdpa_t["records"],
+               **attention_bound(seg, True, clock, nh, dh)}
+        for name, row in (("attention_fwd", fwd), ("attention_bwd", bwd)):
+            counts = row.pop("counts")
+            how = (f" ({row['records']:g} kernel records kept a call; CUDA events "
+                   f"{row['events_ms']:.6f} ms)" if name == "attention_fwd" else
+                   f" ({row['records']:g} kernel records kept a call, {row['kept_ms']:.6f} ms "
+                   f"their sum; CUDA events {row['events_ms']:.6f} ms; SM clock "
+                   f"{row['clock_mhz']} MHz; plain {row['plain_records']:g} and library "
+                   f"{row['library_records']:g} records a call)")
+            log(f"[time] {name} B={B} T={T} NH={nh} DH={dh} padded: kernel {row['ms']:.6f} ms{how}, "
+                f"plain {row['plain_ms']:.6f} ms, library (scaled_dot_product_attention"
+                f"{' backward' if name == 'attention_bwd' else ''}) {row['library_ms']:.6f} ms, "
+                f"bound {row['bound_ms']:.6f} ms ({row['bound_by']}: {counts}; allowed pairs "
+                f"{row['allowed_share']:.4f} of T^2) = {100 * row['bound_ms'] / row['ms']:.2f}% "
+                f"of the bound, exponential floor {row['exp_floor_ms']:.6f} ms | {gpu}")
+        rows.append({"shape": [B, T, nh, dh], "segments": "padded", "attention_fwd": fwd,
+                     "attention_bwd": bwd})
     return rows
 
 
@@ -3806,9 +4230,10 @@ def time_train_steps(tctx: dict, run: str, what: str, gpu: str, pairs: int = 256
     ends = tctx[run]["ends"]
     dts = [a.elapsed_time(b) / 1e3 for a, b in zip(ends, ends[1:])]
     rate = pairs / statistics.median(dts)
-    log(f"[time] {what} at global batch {pairs} (t30_150M): {rate:.4f} pairs/s, "
-        f"median of {len(dts)} steps after the first ({1e3 * min(dts):.2f}-"
-        f"{1e3 * max(dts):.2f} ms per step, by CUDA events); fixture {tctx['profile']} | {gpu}")
+    log(f"[time] {what} at global batch {pairs} ({tctx[run].get('family', 't30_150M')}): "
+        f"{rate:.4f} pairs/s, median of {len(dts)} steps after the first ({1e3 * min(dts):.2f}-"
+        f"{1e3 * max(dts):.2f} ms per step, by CUDA events); fixture "
+        f"{tctx[run].get('profile') or tctx['profile']} | {gpu}")
     return rate
 
 
@@ -3915,7 +4340,7 @@ def run_int8_train() -> dict:
     (16 chunks, 4 length groups) and the eval batches; finite losses; P1
     six times a layer per backbone forward, 32 forwards per step, 8 per
     eval batch; K2 once forward and once backward per step."""
-    data_dir, runs = WORK / "int8_data", WORK / "runs_int8"
+    data_dir, runs = WORK / SMALL_DATA, WORK / "runs_int8"
     t0 = time.perf_counter()
     with counted_forwards() as forwards, timed_steps() as ends:
         reset_counts()
@@ -4106,27 +4531,43 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+    seconds: dict[str, float] = {}
+    mark = [t_start]
+
+    def phase_done(name: str) -> None:
+        now = time.perf_counter()
+        seconds[name] = now - mark[0]
+        mark[0] = now
+        log(f"[timing] phase {name}: {seconds[name]:.1f} s ({now - t_start:.1f} s in all)")
+
     gpu = gpu_line()
     log(f"[build] {gpu}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
+
+    def timed_build(name: str) -> tuple[str, float]:
+        start = time.perf_counter()
+        return build.build(name), time.perf_counter() - start
+
     with concurrent.futures.ThreadPoolExecutor(len(KERNELS) + 1) as pool:
         faults = pool.submit(build_faults)
-        reports = list(pool.map(build.build, KERNELS))
+        reports = list(pool.map(timed_build, KERNELS))
         fault_libs = faults.result()
-    for name, report in zip(KERNELS, reports):
-        log(f"[build] {name}: {build.library_path(name)}\n{report.strip()}")
+    for name, (report, took) in zip(KERNELS, reports):
+        log(f"[build] {name}: nvcc {took:.1f} s (all builds at once), "
+            f"{build.library_path(name)}\n{report.strip()}")
     log(f"[build] done in {time.perf_counter() - t0:.1f} s (and the planted-fault copies "
         f"{', '.join(f'{k}: {sorted(v)}' for k, v in fault_libs.items())} under {FAULT_DIR})")
+    phase_done("build")
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    segments = path_segments()
-    k1_cases = attention_cases(gen, segments)
+    segments, t33_segments = path_segments(), path_segments(T33)
+    k1_cases = attention_cases(gen, segments, t33_segments)
     max_err = check_attention(k1_cases)
     k4_cases = maxsim_cases(gen)
     k4_err = check_maxsim(k4_cases)
     nce_cases = infonce_cases(gen)
     nce_err = check_infonce(nce_cases)
-    k5_cases = bwd_cases(gen, segments)
+    k5_cases = bwd_cases(gen, segments, t33_segments)
     k5_err = check_attention_bwd(k5_cases)
     p1_err = check_dense_mm(gen)
     k6_err = check_ffn(gen)
@@ -4135,6 +4576,7 @@ def main() -> int:
     fault_reads.update(check_maxsim_faults(fault_libs, k4_cases))
     fault_reads.update(check_infonce_faults(fault_libs, nce_cases))
     del k1_cases, k5_cases, k4_cases, nce_cases
+    phase_done("kernels")
     rng = np.random.default_rng(SEED)
     ctx = run_serve_phase(rng)
     try:
@@ -4142,11 +4584,19 @@ def main() -> int:
         fctx = run_filip_phase(ctx, rng)
         try:
             check_filip_end_to_end(ctx, fctx)
+            phase_done("serve, filip serve")
+            t33ctx = run_t33_serve_phase(rng, gpu)
+            families = run_families_phase()
+            phase_done(f"{T33} serve, families")
             tctx = run_train_phase()
             pctx = run_packed_phase()
             uctx = run_packed_unfrozen_phase()
+            phase_done("train, packed, packed unfrozen")
+            t33train = run_t33_train_phase(fault_libs)
+            phase_done(f"{T33} train")
             ftctx = run_filip_train_phase(fault_libs, gen)
             fmctx = run_filip_more_phase(fault_libs, gen)
+            phase_done("filip train")
             steps = {"k2": check_step(256), "k3": check_step(1024),
                      "packed": check_step(256, packed=True),
                      "finetune": check_finetune_step(fault_libs),
@@ -4156,14 +4606,17 @@ def main() -> int:
                                                              fault_libs),
                      "filip_unfrozen": check_filip_unfrozen_step(fmctx["runs"],
                                                                  WORK / "filip_data", fault_libs)}
+            phase_done("step checks")
             ictx = run_int8_serve_phase(ctx)
             try:
                 i8train = run_int8_train()
                 k6ctx = run_k6_serve_phase(ctx)
+                phase_done("int8, K6 gate")
                 times = time_attention(gen, gpu)
                 k5_times = time_attention_bwd(gen, gpu, [
                     (kind, seg) for kind, path, seg in segments
                     if path and seg.shape in ((16, 256), (28, 2048))])
+                family_times = time_attention_families(gen, gpu)
                 k4_times = time_maxsim(gen, gpu)
                 nce_times = time_infonce(gen, gpu)
                 dispatch = time_dispatch(gen, gpu)
@@ -4191,6 +4644,11 @@ def main() -> int:
                 pairs_per_s["int8"] = time_train_steps(
                     {"int8": i8train, "profile": f"{INT8_FIXTURE_FAMILIES} families"}, "int8",
                     "int8 w8a8 frozen train step (4 length groups)", gpu)
+                pairs_per_s.update({f"{T33}_{run}": time_train_steps(t33train, run, what, gpu)
+                                    for run, what in (
+                    ("packed", "packed frozen train step (flat packing)"),
+                    ("finetune_packed", "packed finetune step (flat packing, remat)"))})
+                phase_done("times")
             finally:
                 stop(ictx)
         finally:
@@ -4210,7 +4668,13 @@ def main() -> int:
              **{f"train_{name}": run["launches"] for name, run in ftctx["runs"].items()},
              **{f"train_{name}": run["launches"] for name, run in fmctx["runs"].items()},
              "int8_serve": ictx["launches"],
-             "int8_train": i8train["launches"], "k6_serve": k6ctx["launches"]}
+             "int8_train": i8train["launches"], "k6_serve": k6ctx["launches"],
+             f"{T33}_serve": t33ctx["launches"],
+             f"{T33}_train_packed": t33train["packed"]["launches"],
+             f"{T33}_train_finetune_packed": t33train["finetune_packed"]["launches"],
+             **{f"{name}_forwards": {"attention_fwd": sum(row[kind]["launches"]
+                                                          for kind in ("padded", "packed"))}
+                for name, row in families.items()}}
     by_path = {name: {path: counts.get(name, 0) for path, counts in paths.items()}
                for name in ("attention_fwd", "attention_bwd", "filip_maxsim", "infonce",
                             "infonce_tiled", "dense_mm", "ffn_gelu")}
@@ -4231,6 +4695,15 @@ def main() -> int:
                              **{name: {"launches": run["launches"]["attention_fwd"],
                                        "chunk_forwards_per_step": run["chunks_per_step"]}
                                 for name, run in fmctx["runs"].items()}},
+        "head_dims": [{"shape": row["shape"], **row["attention_fwd"]} for row in family_times],
+        T33: {"serve_launches": t33ctx["launches"]["attention_fwd"],
+              "serve_cos_min": t33ctx["cos_min"], "serving": t33ctx["times"],
+              "train_packed": {"launches": t33train["packed"]["launches"]["attention_fwd"],
+                               "chunk_forwards_per_step": t33train["packed"]["chunks_per_step"],
+                               "pairs_per_s": pairs_per_s[f"{T33}_packed"],
+                               "embeddings_cos_min_vs_plain": t33train["embeddings_cos_min"],
+                               "step_check": t33train["step_check"]}},
+        "families": families,
     }, {
         "name": "attention_bwd", "phase": "train_finetune", "route": "cuda",
         "source": "protein_clip_tpu_torch/csrc/attention_bwd.cu",
@@ -4247,6 +4720,14 @@ def main() -> int:
                                   "pairs_per_s": pairs_per_s["finetune_packed"],
                                   "lora_pairs_per_s": pairs_per_s["lora_packed"],
                                   "launches_per_step": uctx["per_step"]},
+        "head_dims": [{"shape": row["shape"], **row["attention_bwd"]} for row in family_times],
+        f"{T33}_train_finetune_packed": {
+            "launches": t33train["finetune_packed"]["launches"]["attention_bwd"],
+            "attention_fwd_launches": t33train["finetune_packed"]["launches"]["attention_fwd"],
+            "chunk_forwards_per_pass": t33train["finetune_packed"]["chunks_per_pass"],
+            "step_check": t33train["finetune_step_check"],
+            "pairs_per_s": pairs_per_s[f"{T33}_finetune_packed"],
+            "launches_per_step": t33train["per_step"]},
         "train_filip_unfrozen": {"path_chunks_max_abs_err": fmctx["chunks"]["attention_bwd"],
                                  "step_check": steps["filip_unfrozen"],
                                  **{name: {"launches": run["launches"]["attention_bwd"],
@@ -4330,7 +4811,8 @@ def main() -> int:
         "cos_min": k6ctx["cos_min"],
         "serving": serving["k6"],
     }]
-    log(f"[done] {time.perf_counter() - t_start:.1f} s")
+    log(f"[done] {time.perf_counter() - t_start:.1f} s; by phase: "
+        + ", ".join(f"{name} {sec:.1f} s" for name, sec in seconds.items()))
     print(gpu_line(), flush=True)
     print(json.dumps({"kernels": measured_only(kernels)}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

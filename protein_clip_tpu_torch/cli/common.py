@@ -187,9 +187,10 @@ def ensure_data(args, prefix_a: str, prefix_b: str) -> Path:
 def esm_config(name: str, dtype_name: str, fast_gelu: bool = False,
                exact_gelu: bool = False) -> esm2.ESM2Config:
     """The named family with ``fused`` attention. On CUDA the attention
-    kernel takes bf16 at head_dim 32 (t30_150M) only: ``load_esm`` refuses
-    the other families (head_dim 16, 24, 64 or 128) and float32 there.
-    int8 quantises the weights (``load_esm``); activations stay bf16.
+    kernels take every family in bf16 (head_dim 16, 24, 32, 64 or 128);
+    ``load_esm`` refuses float32 there. int8 quantises the weights
+    (``load_esm``); activations stay bf16 and attention runs the bf16
+    kernels.
 
     The gelu resolves as in the TPU package: int8 implies tanh unless
     --exact-gelu; --exact-gelu gives erf; then --fast-gelu gives tanh; with
@@ -212,7 +213,7 @@ def load_esm(args, cfg: esm2.ESM2Config, device: torch.device) -> dict:
     ``tools/convert_esm_weights.py`` (or the port's ``export_npz``);
     ``--esm-dtype int8`` quantises them after the load
     (``esm2.quantize_params``). Raises before loading when the attention
-    kernel does not take the config."""
+    kernels do not take the config: float32 on CUDA."""
     if device.type == "cuda" and cfg.attention_impl == "fused":
         attention.check_config(cfg.compute_dtype, cfg.head_dim)
     dtype = cfg.compute_dtype

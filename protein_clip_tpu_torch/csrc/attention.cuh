@@ -1,20 +1,35 @@
 // What the attention kernels K1 (attention_fwd.cu) and K5 (attention_bwd.cu)
 // share on Hopper (sm_90a): the block's layout and its ring of tiles, the
 // per-tile segment ranges that decide which tile pairs are computed, the
-// copies that fill the ring, and the two wgmma shapes.
+// copies that fill the ring, and the wgmma shapes. The kernels are templates
+// on HD, the head dim, a compile-time constant in every address and loop:
+// ESM-2's 16 (t6_8M), 24 (t12_35M), 32 (t30_150M), 64 (t33_650M, t36_3B)
+// and 128 (t48_15B). The layout is a template on DH = kWidth<HD>, the
+// tile's width: HD, or 32 for HD 24, whose producer copies three 16-byte
+// chunks a row and zero-fills the fourth, so q.k^T is unchanged, the
+// products' last 8 columns come out 0, and the epilogues write 24 columns.
 //
-// Layout. Every tensor is (B, T, NH, 32) bf16, so one token's head is one
-// 64-byte row. A tile is 64 such rows of one (row b, head h), 4 KB in shared
-// memory with the 64-byte swizzle (16-byte chunk c of row r at
-// c ^ ((r / 2) % 4)), the layout wgmma reads as
+// Layout. Every tensor is (B, T, NH, HD) bf16, so one token's head is one
+// row of 2 HD bytes. A tile is 64 such rows of one (row b, head h) in
+// shared memory, swizzled for wgmma by the row's width: 16-byte chunk c of
+// row r lies at
+//   - DH 16, 32-byte rows, the 32-byte swizzle: c ^ ((r / 4) % 2);
+//   - DH 32, 64-byte rows, the 64-byte swizzle: c ^ ((r / 2) % 4);
+//   - DH 64, 128-byte rows, the 128-byte swizzle: c ^ (r % 8);
+//   - DH 128: a 256-byte row is wider than any swizzle atom, so the tile is
+//     two 64-column halves, each laid out as a DH 64 tile (chunk c of row r
+//     in half c / 8 at (c % 8) ^ (r % 8)).
+// wgmma reads a tile
 //   - K-major (the product's depth along the row: q, k, v, dO as the A or B
-//     of a score product S = X . Y^T), descriptor SBO 512 (8-row groups), a
-//     16-deep step advancing the start by 32 bytes;
+//     of a score product S = X . Y^T): the descriptor's SBO is 8 rows, a
+//     16-deep step advances the start by 32 bytes (at DH 128 steps 4-7 in
+//     the second half);
 //   - MN-major (the B of O = P . V, dq = dS . k, dv = P^T . dO,
 //     dk = dS^T . q, whose depth runs over the rows), with wgmma's transpose
-//     bit: SBO 512, a 16-deep step advancing 16 rows (1024 bytes).
+//     bit: SBO 8 rows, a 16-deep step advancing 16 rows, and at DH 128 the
+//     LBO stepping from one 64-column half to the other.
 // So no tile is transposed or copied twice: the kernels read every operand
-// as the (B, T, NH, 32) layout stores it.
+// as the (B, T, NH, HD) layout stores it.
 //
 // Block: one consumer warpgroup (warps 0-3) owns 64 rows (queries, or keys
 // in K5's dk/dv launch), keeps its two resident tiles for the whole block
@@ -49,6 +64,7 @@
 #include <cfloat>
 #include <climits>
 #include <cstdint>
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -57,24 +73,40 @@ namespace pct_attn {
 using namespace pct_hopper;
 using bf16 = __nv_bfloat16;
 
-constexpr int kHeadDim = 32;
 constexpr int kTile = 64;                        // rows per tile
-constexpr int kTileBytes = kTile * kHeadDim * 2;  // 4096
 constexpr int kVecBytes = kTile * 4;             // 64 f32 or int32 per tile
-// A stage: two tiles and three per-row vectors (segments, then K5's lse and
-// delta), rounded up to the 512-byte swizzle period.
-constexpr int kStageBytes = 2 * kTileBytes + 4 * kVecBytes;  // 9216
+constexpr int kHalfBytes = kTile * 128;          // a 64-column half of a DH 128 tile
 constexpr int kStages = 3;
-constexpr int kResidentBytes = 2 * kTileBytes;
 constexpr int kConsumers = 128;                  // one warpgroup
 constexpr int kThreads = kConsumers + 32;        // and one producer warp
 constexpr int kMaxT = 65536;                     // 1024 tile ranges in shared memory
 constexpr float kLog2e = 1.4426950408889634f;
-static_assert(kStageBytes % 512 == 0 && kResidentBytes % 512 == 0, "swizzle period");
 
-// Dynamic shared memory of a block for rows of n tiles.
+// The tile width of head dim HD.
+template <int HD>
+constexpr int kWidth = HD == 24 ? 32 : HD;
+
+// The swizzle's period, to which the tiles align: 256, 512 or 1024 bytes.
+template <int DH>
+constexpr int kAlign = DH >= 64 ? 1024 : 16 * DH;
+
+// A tile of DH columns; a stage: two tiles and three per-row vectors
+// (segments, then K5's lse and delta), a multiple of kAlign.
+template <int DH>
+constexpr int kTileBytes = kTile * DH * 2;
+template <int DH>
+constexpr int kStageBytes = 2 * kTileBytes<DH> + 4 * kVecBytes;
+template <int DH>
+constexpr int kResidentBytes = 2 * kTileBytes<DH>;
+
+// Dynamic shared memory of a block for rows of n tiles: 148 KB at DH 128
+// and the longest row.
+template <int DH>
 __host__ __device__ constexpr int smem_bytes(int n) {
-  return 512 + kResidentBytes + kStages * kStageBytes + 16 * n;
+  static_assert(DH == 16 || DH == 32 || DH == 64 || DH == 128, "the kernels' head dims");
+  static_assert(kStageBytes<DH> % kAlign<DH> == 0 && kResidentBytes<DH> % kAlign<DH> == 0,
+                "swizzle period");
+  return kAlign<DH> + kResidentBytes<DH> + kStages * kStageBytes<DH> + 16 * n;
 }
 
 // The tiles a row of T tokens has.
@@ -115,17 +147,45 @@ __device__ __forceinline__ float quad_sum(float x) {
 }
 
 // ---------------------------------------------------------------------------
-// wgmma
+// The tile layout and wgmma
 // ---------------------------------------------------------------------------
 
-// Shared-memory descriptors of a tile: K-major at 16-deep step ks (0, 1),
-// MN-major at 16-row step kk (0-3).
-__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int ks) {
-  return smem_desc(tile + 32 * ks, 16, 512, kSwizzle64);
+// Byte offset in a DH-wide tile of 16-byte chunk c of row r.
+template <int DH>
+__device__ __forceinline__ uint32_t chunk_offset(int r, int c) {
+  if constexpr (DH == 16) {
+    return r * 32 + ((c ^ ((r >> 2) & 1)) << 4);
+  } else if constexpr (DH == 32) {
+    return r * 64 + ((c ^ ((r >> 1) & 3)) << 4);
+  } else {
+    return (c >> 3) * kHalfBytes + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+  }
 }
 
+// K-major descriptor of a DH-wide tile at 16-deep step ks (0 .. DH/16 - 1).
+template <int DH>
+__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int ks) {
+  if constexpr (DH == 16) {
+    return smem_desc(tile, 16, 256, kSwizzle32);
+  } else if constexpr (DH == 32) {
+    return smem_desc(tile + 32 * ks, 16, 512, kSwizzle64);
+  } else {
+    return smem_desc(tile + (ks >> 2) * kHalfBytes + 32 * (ks & 3), 16, 1024, kSwizzle128);
+  }
+}
+
+// MN-major descriptor of 16 rows (step kk, 0-3) of a tile read N columns
+// wide: N = 128 spans both halves of a DH 128 tile (LBO: the half's
+// stride), N = 64 one half or a DH 64 tile.
+template <int N>
 __device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int kk) {
-  return smem_desc(tile + 1024 * kk, kTileBytes, 512, kSwizzle64);
+  if constexpr (N == 16) {
+    return smem_desc(tile + 512 * kk, kTileBytes<16>, 256, kSwizzle32);
+  } else if constexpr (N == 32) {
+    return smem_desc(tile + 1024 * kk, kTileBytes<32>, 512, kSwizzle64);
+  } else {
+    return smem_desc(tile + 2048 * kk, kHalfBytes, 1024, kSwizzle128);
+  }
 }
 
 // d (64 x 64) = A . B^T + (scale_d ? d : 0): A and B 64 x 16 bf16, K-major
@@ -145,8 +205,22 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b,
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
-// d (64 x 32) = A . B + (scale_d ? d : 0): A 64 x 16 bf16 from registers
-// (fragments as to_a makes them), B 16 x 32 bf16 MN-major in shared memory.
+// d (64 x N) = A . B + (scale_d ? d : 0) for N = 16, 32, 64, 128 (d holds
+// N / 2 floats a thread): A 64 x 16 bf16 from registers (fragments as to_a
+// makes them), B 16 x N bf16 MN-major in shared memory.
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t (&a)[4], uint64_t b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
 __device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t b,
                                          int scale_d) {
   asm volatile(
@@ -157,6 +231,44 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4],
       "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
@@ -173,21 +285,23 @@ __device__ __forceinline__ void to_a(const float (&x)[32], uint32_t (&a)[4][4]) 
   }
 }
 
-// acc (64 x 32) = bf16(x) . tile over four 16-row steps, tile MN-major;
-// acc is overwritten when first is true.
-__device__ __forceinline__ void accumulate(float (&acc)[16], const float (&x)[32], uint32_t tile,
-                                           bool first) {
+// acc (64 x N) = bf16(x) . tile over four 16-row steps, tile MN-major and
+// read N columns wide; acc is overwritten when first is true.
+template <int N>
+__device__ __forceinline__ void accumulate(float (&acc)[N / 2], const float (&x)[32],
+                                           uint32_t tile, bool first) {
   uint32_t a[4][4];
   to_a(x, a);
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) wgmma_rs(acc, a[kk], mnmajor(tile, kk), !first || kk > 0);
+  for (int kk = 0; kk < 4; ++kk) wgmma_rs(acc, a[kk], mnmajor<N>(tile, kk), !first || kk > 0);
 }
 
-// s (64 x 64) = resident A tile . stage B tile^T (both K-major, 32 deep).
+// s (64 x 64) = resident A tile . stage B tile^T (both K-major, DH deep).
+template <int DH>
 __device__ __forceinline__ void scores(float (&s)[32], uint32_t a, uint32_t b) {
-  wgmma_ss(s, kmajor(a, 0), kmajor(b, 0), 0);
-  wgmma_ss(s, kmajor(a, 1), kmajor(b, 1), 1);
+#pragma unroll
+  for (int ks = 0; ks < DH / 16; ++ks) wgmma_ss(s, kmajor<DH>(a, ks), kmajor<DH>(b, ks), ks > 0);
 }
 
 // The accumulator element i of this thread: fragment row (0: g, 1: g + 8)
@@ -199,19 +313,21 @@ __device__ __forceinline__ int acc_col(int i, int tig) { return 8 * (i >> 2) + 2
 // The block: its (row, head), shared memory and ring
 // ---------------------------------------------------------------------------
 
+template <int HD>
 struct Head {
   int64_t base;      // element offset of (b, 0, h, 0)
-  int64_t tok;       // elements between tokens: NH * 32
+  int64_t tok;       // elements between tokens: NH * HD
   int64_t vec;       // offset of (b, h, 0) in a (B, NH, T) vector
   const int32_t* seg_row;
   __device__ Head(const int32_t* seg, int T, int NH)
-      : base(static_cast<int64_t>(blockIdx.z) * T * NH * kHeadDim +
-             static_cast<int64_t>(blockIdx.y) * kHeadDim),
-        tok(static_cast<int64_t>(NH) * kHeadDim),
+      : base(static_cast<int64_t>(blockIdx.z) * T * NH * HD +
+             static_cast<int64_t>(blockIdx.y) * HD),
+        tok(static_cast<int64_t>(NH) * HD),
         vec((static_cast<int64_t>(blockIdx.z) * NH + blockIdx.y) * T),
         seg_row(seg + static_cast<int64_t>(blockIdx.z) * T) {}
 };
 
+template <int DH>
 struct Ring {
   uint32_t resident;   // two resident tiles
   uint32_t stages;     // kStages stages
@@ -219,10 +335,10 @@ struct Ring {
   const int4* ranges;  // per tile of the row
   uint32_t full, empty, ready;
 
-  __device__ uint32_t stage(int it) const { return stages + (it % kStages) * kStageBytes; }
+  __device__ uint32_t stage(int it) const { return stages + (it % kStages) * kStageBytes<DH>; }
   __device__ const int32_t* vec(int it, int i) const {
-    return reinterpret_cast<const int32_t*>(stage_ptr + (it % kStages) * kStageBytes +
-                                            2 * kTileBytes + i * kVecBytes);
+    return reinterpret_cast<const int32_t*>(stage_ptr + (it % kStages) * kStageBytes<DH> +
+                                            2 * kTileBytes<DH> + i * kVecBytes);
   }
 };
 
@@ -232,16 +348,18 @@ struct Ring {
 // empty: 4 consumer warps; ready: 32) and reduces the segments of every
 // tile of the row to its range, while those copies fly. Ends with the
 // kernel's only block-wide barrier.
-template <class LoadResident>
-__device__ __forceinline__ Ring setup(uint8_t* smem_raw, uint64_t* bars, const int32_t* seg_row,
-                                      int T, LoadResident load_resident) {
+template <int DH, class LoadResident>
+__device__ __forceinline__ Ring<DH> setup(uint8_t* smem_raw, uint64_t* bars,
+                                          const int32_t* seg_row, int T,
+                                          LoadResident load_resident) {
   const uint32_t raw = smem_u32(smem_raw);
-  uint8_t* base = smem_raw + ((512 - (raw & 511)) & 511);
-  Ring r;
+  uint8_t* base = smem_raw + ((kAlign<DH> - (raw & (kAlign<DH> - 1))) & (kAlign<DH> - 1));
+  Ring<DH> r;
   r.resident = smem_u32(base);
-  r.stages = r.resident + kResidentBytes;
-  r.stage_ptr = base + kResidentBytes;
-  int4* ranges = reinterpret_cast<int4*>(base + kResidentBytes + kStages * kStageBytes);
+  r.stages = r.resident + kResidentBytes<DH>;
+  r.stage_ptr = base + kResidentBytes<DH>;
+  int4* ranges =
+      reinterpret_cast<int4*>(base + kResidentBytes<DH> + kStages * kStageBytes<DH>);
   r.ranges = ranges;
   r.full = smem_u32(bars);
   r.empty = r.full + 8 * kStages;
@@ -281,18 +399,28 @@ __device__ __forceinline__ Ring setup(uint8_t* smem_raw, uint64_t* bars, const i
   return r;
 }
 
-// Producer: rows [t0, t0 + 64) of a (B, T, NH, 32) tensor into a tile,
-// zeros past T; 8 chunks of 16 bytes per lane.
-__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src, const Head& hd, int t0,
-                                          int T, int lane) {
+// Producer: rows [t0, t0 + 64) of a (B, T, NH, HD) tensor into a tile,
+// zeros past T (and past HD in a wider tile); DH / 8 16-byte chunks a row,
+// DH / 4 per lane, neighbouring lanes on neighbouring chunks of a row.
+template <int HD>
+__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src, const Head<HD>& hd,
+                                          int t0, int T, int lane) {
+  constexpr int DH = kWidth<HD>;
+  constexpr int kChunks = DH / 8;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int c = lane + 32 * i;
-    const int r = c >> 2;
-    const int ch = c & 3;
-    const bool ok = t0 + r < T;
-    const bf16* p = src + hd.base + (ok ? t0 + r : 0) * hd.tok + ch * 8;
-    cp_async16(dst + r * 64 + ((ch ^ ((r >> 1) & 3)) << 4), p, ok);
+  for (int i = 0; i < kChunks * kTile / 32; ++i) {
+    const unsigned c = lane + 32 * i;
+    const int r = c / kChunks;
+    const int ch = c % kChunks;
+    if constexpr (HD == DH) {
+      const bool ok = t0 + r < T;
+      cp_async16(dst + chunk_offset<DH>(r, ch),
+                 src + hd.base + (ok ? t0 + r : 0) * hd.tok + ch * 8, ok);
+    } else {
+      const bool ok = t0 + r < T && 8 * ch < HD;
+      cp_async16(dst + chunk_offset<DH>(r, ch),
+                 src + hd.base + (ok ? (t0 + r) * hd.tok + ch * 8 : 0), ok);
+    }
   }
 }
 
@@ -310,32 +438,37 @@ __device__ __forceinline__ void load_vec(uint32_t dst, const void* src, int64_t 
 
 // Producer: the stage for the it-th visited tile, once the consumers have
 // released it.
-__device__ __forceinline__ uint32_t claim(const Ring& r, int it) {
+template <int DH>
+__device__ __forceinline__ uint32_t claim(const Ring<DH>& r, int it) {
   mbar_wait(r.empty + 8 * (it % kStages), ((it / kStages) & 1) ^ 1);
   return r.stage(it);
 }
 
 // Producer: the stage's copies are issued; its full barrier completes when
 // they land.
-__device__ __forceinline__ void fill(const Ring& r, int it) {
+template <int DH>
+__device__ __forceinline__ void fill(const Ring<DH>& r, int it) {
   cp_async_arrive(r.full + 8 * (it % kStages));
 }
 
 // Consumer: waits for the it-th visited tile.
-__device__ __forceinline__ uint32_t take(const Ring& r, int it) {
+template <int DH>
+__device__ __forceinline__ uint32_t take(const Ring<DH>& r, int it) {
   mbar_wait(r.full + 8 * (it % kStages), (it / kStages) & 1);
   fence_proxy_async();  // cp.async's writes before wgmma's reads
   return r.stage(it);
 }
 
 // Consumer: this warp is done with the stage (its wgmma groups waited for).
-__device__ __forceinline__ void release(const Ring& r, int it) {
+template <int DH>
+__device__ __forceinline__ void release(const Ring<DH>& r, int it) {
   __syncwarp();
   if ((threadIdx.x & 31) == 0) mbar_arrive(r.empty + 8 * (it % kStages));
 }
 
 // Consumer: waits for the resident tiles.
-__device__ __forceinline__ void take_resident(const Ring& r) {
+template <int DH>
+__device__ __forceinline__ void take_resident(const Ring<DH>& r) {
   mbar_wait(r.ready, 0);
   fence_proxy_async();
 }
@@ -345,47 +478,74 @@ __device__ __forceinline__ float pad_weight(int T) {
   return __bfloat162float(__float2bfloat16_rn(__frcp_rn(static_cast<float>(T))));
 }
 
-// Consumer warpgroup: out[d] = the f32 sum over the rows t < T of a
-// (B, T, NH, 32) tensor's head, every row or (pads_only) those whose
-// segment is <= 0, read straight from global memory (one 16-byte chunk a
-// row per thread, 32 rows at a time). scratch: 128 floats. out is visible
-// to the whole warpgroup on return.
+// Consumer warpgroup: out[d] (d < DH = kWidth<HD>) = the f32 sum over the
+// rows t < T of a (B, T, NH, HD) tensor's head, every row or (pads_only)
+// those whose segment is <= 0, read straight from global memory: DH / 8
+// threads a row, one 16-byte chunk each (chunks past HD sum 0), 128 /
+// (DH / 8) rows at a time; then the threads of a chunk across each warp,
+// then the four warps, always in the same order. scratch: 4 DH floats. out
+// is visible to the whole warpgroup on return.
+template <int HD>
 __device__ __forceinline__ void column_sum(float* out, float* scratch, const bf16* src,
-                                           const Head& hd, int T, bool pads_only) {
+                                           const Head<HD>& hd, int T, bool pads_only) {
+  constexpr int DH = kWidth<HD>;
+  constexpr int kChunks = DH / 8;
   const int tid = threadIdx.x;
-  const int ch = tid & 3;  // dims 8 ch .. 8 ch + 7
+  const int ch = tid & (kChunks - 1);  // dims 8 ch .. 8 ch + 7
   float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  for (int t = tid >> 2; t < T; t += kConsumers / 4) {
-    if (pads_only && hd.seg_row[t] > 0) continue;
-    const uint4 raw = *reinterpret_cast<const uint4*>(src + hd.base + t * hd.tok + 8 * ch);
-    const __nv_bfloat162* pair = reinterpret_cast<const __nv_bfloat162*>(&raw);
+  if (8 * ch < HD) {
+    for (int t = tid / kChunks; t < T; t += kConsumers / kChunks) {
+      if (pads_only && hd.seg_row[t] > 0) continue;
+      const uint4 raw = *reinterpret_cast<const uint4*>(src + hd.base + t * hd.tok + 8 * ch);
+      const __nv_bfloat162* pair = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float2 f = __bfloat1622float2(pair[e]);
-      acc[2 * e] += f.x;
-      acc[2 * e + 1] += f.y;
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __bfloat1622float2(pair[e]);
+        acc[2 * e] += f.x;
+        acc[2 * e + 1] += f.y;
+      }
     }
   }
 #pragma unroll
   for (int e = 0; e < 8; ++e) {
 #pragma unroll
-    for (int off = 4; off < 32; off *= 2) acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], off);
+    for (int off = kChunks; off < 32; off *= 2) acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], off);
   }
   const int lane = tid & 31;
-  if (lane < 4) {
+  if (lane < kChunks) {
 #pragma unroll
-    for (int e = 0; e < 8; ++e) scratch[(tid >> 5) * 32 + lane * 8 + e] = acc[e];
+    for (int e = 0; e < 8; ++e) scratch[(tid >> 5) * DH + lane * 8 + e] = acc[e];
   }
   named_barrier(1, kConsumers);
-  if (tid < 32) out[tid] = scratch[tid] + scratch[32 + tid] + scratch[64 + tid] + scratch[96 + tid];
+  if (tid < DH) out[tid] = scratch[tid] + scratch[DH + tid] + scratch[2 * DH + tid] + scratch[3 * DH + tid];
   named_barrier(1, kConsumers);
 }
 
 // Host: lets a kernel use the dynamic shared memory of the longest row.
-template <class Kernel>
+template <int DH, class Kernel>
 inline cudaError_t allow_smem(Kernel kernel) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              smem_bytes(tiles_of(kMaxT)));
+                              smem_bytes<DH>(tiles_of(kMaxT)));
+}
+
+// Host: launch(std::integral_constant<int, HD>()) for head dim hd;
+// cudaErrorInvalidValue for a head dim the kernels do not take.
+template <class Launch>
+inline int by_head_dim(int hd, Launch launch) {
+  switch (hd) {
+    case 16:
+      return launch(std::integral_constant<int, 16>());
+    case 24:
+      return launch(std::integral_constant<int, 24>());
+    case 32:
+      return launch(std::integral_constant<int, 32>());
+    case 64:
+      return launch(std::integral_constant<int, 64>());
+    case 128:
+      return launch(std::integral_constant<int, 128>());
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace pct_attn

@@ -1,4 +1,5 @@
-// Segment-masked attention backward (K5) for ESM-2's head_dim=32 (bf16), Hopper.
+// Segment-masked attention backward (K5) for ESM-2's head dims (16, 24, 32, 64,
+// 128; bf16), Hopper.
 //
 // Replaces protein_clip_tpu/ops/attention_pallas.py::_bwd_kernel / _bwd_row
 // (launched by _attention_bwd_call as the VJP of fused_attention). Same
@@ -13,16 +14,17 @@
 // so P = 2^(round(s log2(e)) - lse), one multiply, one subtract and one
 // ex2.approx per score (a query with one allowed key gets P = 1 exactly).
 //
-// Bound on an H100 SXM (989 TF/s bf16, 3.35 TB/s): five (T x T x 32)
-// products per (row, head) (S, dP, dq, dk, dv), 5 * 2*B*NH*T^2*32 FLOPs;
+// Bound on an H100 SXM (989 TF/s bf16, 3.35 TB/s): five (T x T x dh)
+// products per (row, head) (S, dP, dq, dk, dv), 5 * 2*B*NH*T^2*dh FLOPs;
 // q, k, v and dO in and dq, dk, dv out once (the function reads no
 // statistics: K1's lse is the port's own); one exp per score. At B=16,
-// T=512, NH=20 dense: 26.8 GFLOP (0.0271 ms) against 73.4 MB (0.0219 ms)
-// and 0.0201 ms of exponentials. Padded and packed rows need the products
-// and exponentials of their allowed pairs only, q, k and v of valid tokens
-// (dO of every token: the pads' feeds dv) and (pads + T)*32 adds per (row,
-// head) for the pads' dv: at chip_smoke.py's padded (16, 512), 59.6 MB
-// (0.0178 ms, the bound) and 0.0078 ms of exponentials.
+// T=512, NH=20, dh 32 dense: 26.8 GFLOP (0.0271 ms) against 73.4 MB
+// (0.0219 ms) and 0.0201 ms of exponentials. Padded and packed rows need
+// the products and exponentials of their allowed pairs only, q, k and v of
+// valid tokens (dO of every token: the pads' feeds dv) and (pads + T)*dh
+// adds per (row, head) for the pads' dv: at chip_smoke.py's padded (16,
+// 512), dh 32, 59.6 MB (0.0178 ms, the bound) and 0.0078 ms of
+// exponentials.
 //
 // Design (attention.cuh has the layout, ring and skipping). Each output has
 // one owner and no sums cross blocks (no atomics: two runs are bit-equal).
@@ -30,17 +32,19 @@
 // with a 3-stage cp.async ring:
 //   1. per (row b, head h, 64 queries), q and dO resident, two sweeps over
 //      the key tiles the query tile meets, each computing S = q.k^T and
-//      dP = dO.v^T (four wgmma m64n64k16 from shared memory) and P from lse:
+//      dP = dO.v^T (DH/8 wgmma m64n64k16 from shared memory) and P from lse:
 //      the first sums delta = rowsum(P * dP) in f32 and writes it as scratch
 //      for launch 2; the second forms dS and dq += bf16(dS).k (wgmma
-//      m64n32k16, dS from registers, k read MN-major as stored). Pad queries
+//      m64n{DH}k16, dS from registers, k read MN-major as stored). Pad queries
 //      get dq = 0 and visit no tile.
 //   2. per (row b, head h, 64 keys), k and v resident; for each query tile
 //      that meets the key tile: S^T = k.q^T, dP^T = v.dO^T, P^T from the
 //      stage's lse, dv += bf16(P^T).dO and dk += bf16(dS^T).q, in f32
 //      registers; then every key's dv += bf16(1/T) times the sum of the pad
 //      queries' dO (their uniform P, in closed form: no tile is visited
-//      for them).
+//      for them). At DH 128 the two 64 x 128 f32 accumulators take 128
+//      registers a thread beside S^T, dP^T and their A fragments: ptxas
+//      fits the launch in 254 registers without spills, one block an SM.
 // 9 products and 3 exponentials per computed score, against 5 and 1 that
 // the function needs. delta from K1's bf16 output, rowsum(dO * O), would
 // save launch 1's first sweep, but O's bf16 rounding moves delta by more
@@ -49,7 +53,7 @@
 // key-bias gradient (the sum of dk over tokens, which softmax makes nearly
 // cancel) moves by 1.3-1.8% of max|dk| against at most 0.06% with the
 // f32 sum (tests/test_torch_attention_bwd.py prints both). What limits it
-// now (9.4 times its bound at B=16, T=512 padded): the two sweeps,
+// now (9.4 times its bound at B=16, T=512 padded, dh 32): the two sweeps,
 // and as in K1 one warpgroup waiting for each product group before its
 // elementwise work.
 //
@@ -63,14 +67,19 @@ namespace {
 
 using namespace pct_attn;
 
-__device__ __forceinline__ void store_rows(bf16* dst, const Head& hd, const int (&row)[2], int T,
-                                           const float (&acc)[16], bool any, int tig) {
+// 64 rows of dq, dk or dv from an m64n{DH} accumulator, bf16, the HD
+// columns of the head.
+template <int HD>
+__device__ __forceinline__ void store_rows(bf16* dst, const Head<HD>& hd, const int (&row)[2],
+                                           int T, const float (&acc)[kWidth<HD> / 2], bool any,
+                                           int tig) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (row[h] >= T) continue;
     bf16* out = dst + hd.base + row[h] * hd.tok;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < kWidth<HD> / 8; ++j) {
+      if (8 * j >= HD) continue;  // HD 24: the tile's last 8 columns
       *reinterpret_cast<uint32_t*>(out + 8 * j + 2 * tig) =
           pack_bf16x2(any ? acc[4 * j + 2 * h] : 0.f, any ? acc[4 * j + 2 * h + 1] : 0.f);
     }
@@ -78,21 +87,23 @@ __device__ __forceinline__ void store_rows(bf16* dst, const Head& hd, const int 
 }
 
 // Launch 1. grid (ceil(T / 64), NH, B), kThreads threads. q, k, v, dout,
-// dq: (B, T, NH, 32) bf16, contiguous; seg: (B, T) int32; lse (read) and
+// dq: (B, T, NH, HD) bf16, contiguous; seg: (B, T) int32; lse (read) and
 // delta (written): (B, NH, T) f32.
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
 attention_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v, const int32_t* __restrict__ seg,
                         const bf16* __restrict__ dout, const float* __restrict__ lse,
                         bf16* __restrict__ dq, float* __restrict__ delta_out, int T, int NH) {
+  constexpr int DH = kWidth<HD>;
   extern __shared__ __align__(16) uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[2 * kStages + 1];
-  const Head hd(seg, T, NH);
+  const Head<HD> hd(seg, T, NH);
   const int q0 = blockIdx.x * kTile;
   const int lane = threadIdx.x & 31;
-  const Ring ring = setup(smem_raw, bars, hd.seg_row, T, [&](uint32_t dst) {
+  const Ring<DH> ring = setup<DH>(smem_raw, bars, hd.seg_row, T, [&](uint32_t dst) {
     load_tile(dst, q, hd, q0, T, lane);
-    load_tile(dst + kTileBytes, dout, hd, q0, T, lane);
+    load_tile(dst + kTileBytes<DH>, dout, hd, q0, T, lane);
   });
   const int4 own = ring.ranges[blockIdx.x];
   const int n = tiles_of(T);
@@ -105,8 +116,8 @@ attention_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         if (!overlaps(own, ring.ranges[j])) continue;
         const uint32_t st = claim(ring, it);
         load_tile(st, k, hd, j * kTile, T, lane);
-        load_tile(st + kTileBytes, v, hd, j * kTile, T, lane);
-        load_vec(st + 2 * kTileBytes, hd.seg_row, 0, j * kTile, T, lane);
+        load_tile(st + kTileBytes<DH>, v, hd, j * kTile, T, lane);
+        load_vec(st + 2 * kTileBytes<DH>, hd.seg_row, 0, j * kTile, T, lane);
         fill(ring, it++);
       }
     }
@@ -126,7 +137,7 @@ attention_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     sq[h] = in ? hd.seg_row[row[h]] : -1;  // past T: no key
     lse_q[h] = in ? lse[hd.vec + row[h]] : 0.f;
   }
-  float acc[16];
+  float acc[DH / 2];
   bool any = false;
   take_resident(ring);
 
@@ -139,8 +150,8 @@ attention_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const int32_t* segk = ring.vec(it, 0);
       float s[32], dp[32];
       wgmma_fence();
-      scores(s, ring.resident, st);                            // q . k^T
-      scores(dp, ring.resident + kTileBytes, st + kTileBytes);  // dO . v^T
+      scores<DH>(s, ring.resident, st);                                    // q . k^T
+      scores<DH>(dp, ring.resident + kTileBytes<DH>, st + kTileBytes<DH>);  // dO . v^T
       wgmma_commit();
       wgmma_wait<0>();
       fence_operands(s);
@@ -158,7 +169,7 @@ attention_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         }
       }
       if (pass == 1) {
-        accumulate(acc, s, st, !any);  // dq += bf16(dS) . k
+        accumulate<DH>(acc, s, st, !any);  // dq += bf16(dS) . k
         wgmma_commit();
         wgmma_wait<0>();
         fence_operands(acc);
@@ -179,14 +190,19 @@ attention_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 // Launch 2's consumer warpgroup, once setup() has returned the ring: the
 // query tiles that meet the block's 64 keys (resident k and v) against
-// them, then dk and dv out.
-__device__ __forceinline__ void dkdv_consume(const Ring& ring, const Head& hd, int4 own, int sweep,
-                                             int k0, const bf16* __restrict__ dout,
+// them, then dk and dv out: one sweep at every head dim (at HD 128, two
+// sweeps of one 64-column half each took 12-19% more device time on an
+// H100, PERF.md).
+template <int HD>
+__device__ __forceinline__ void dkdv_consume(const Ring<kWidth<HD>>& ring, const Head<HD>& hd,
+                                             int4 own, int sweep, int k0,
+                                             const bf16* __restrict__ dout,
                                              bf16* __restrict__ dk, bf16* __restrict__ dv,
                                              int T) {
+  constexpr int DH = kWidth<HD>;
   const int lane = threadIdx.x & 31;
   // The pad queries' part of dv, the same for every key: bf16(1/T) sum dO.
-  __shared__ float do_sum[kHeadDim], scratch[kConsumers];
+  __shared__ float do_sum[DH], scratch[4 * DH];
   bool pads = false;
   for (int j = 0; j < tiles_of(T); ++j) pads |= ring.ranges[j].z != 0;
   if (pads) column_sum(do_sum, scratch, dout, hd, T, true);
@@ -199,7 +215,7 @@ __device__ __forceinline__ void dkdv_consume(const Ring& ring, const Head& hd, i
     row[h] = k0 + warp * 16 + g + 8 * h;
     sk[h] = row[h] < T ? hd.seg_row[row[h]] : 0;  // past T: allowed for no query
   }
-  float dk_acc[16], dv_acc[16];
+  float dk_acc[DH / 2], dv_acc[DH / 2];
   bool any = false;
   take_resident(ring);
 
@@ -212,8 +228,8 @@ __device__ __forceinline__ void dkdv_consume(const Ring& ring, const Head& hd, i
     const float* delta_q = reinterpret_cast<const float*>(ring.vec(it, 2));
     float p[32], ds[32];  // P^T and dS^T: keys are rows, queries columns
     wgmma_fence();
-    scores(p, ring.resident, st);                             // k . q^T
-    scores(ds, ring.resident + kTileBytes, st + kTileBytes);  // v . dO^T
+    scores<DH>(p, ring.resident, st);                                    // k . q^T
+    scores<DH>(ds, ring.resident + kTileBytes<DH>, st + kTileBytes<DH>);  // v . dO^T
     wgmma_commit();
     wgmma_wait<0>();
     fence_operands(p);
@@ -233,11 +249,11 @@ __device__ __forceinline__ void dkdv_consume(const Ring& ring, const Head& hd, i
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {  // dv += bf16(P^T) . dO
-      wgmma_rs(dv_acc, ap[kk], mnmajor(st + kTileBytes, kk), any || kk > 0);
+      wgmma_rs(dv_acc, ap[kk], mnmajor<DH>(st + kTileBytes<DH>, kk), any || kk > 0);
     }
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {  // dk += bf16(dS^T) . q
-      wgmma_rs(dk_acc, ad[kk], mnmajor(st, kk), any || kk > 0);
+      wgmma_rs(dk_acc, ad[kk], mnmajor<DH>(st, kk), any || kk > 0);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -249,7 +265,7 @@ __device__ __forceinline__ void dkdv_consume(const Ring& ring, const Head& hd, i
   if (pads) {
     const float w_pad = pad_weight(T);
 #pragma unroll
-    for (int i = 0; i < 16; ++i) {
+    for (int i = 0; i < DH / 2; ++i) {
       const float pad_part = w_pad * do_sum[acc_col(i, tig)];
       dv_acc[i] = any ? dv_acc[i] + pad_part : pad_part;
     }
@@ -260,25 +276,27 @@ __device__ __forceinline__ void dkdv_consume(const Ring& ring, const Head& hd, i
 
 // Launch 2. grid (ceil(T / 64), NH, B), kThreads threads; the block owns 64
 // keys. lse and delta: (B, NH, T) f32 from K1 and launch 1.
-// No register cap: ptxas fits it in 127 registers, three blocks an SM; a
-// cap for three (__launch_bounds__(kThreads, 3)) leaves 128 and makes
-// ptxas serialise the wgmmas (C7512), 4% slower on an H100
+// No register cap: at HD 32 ptxas fits it in 127 registers, three blocks
+// an SM; a cap for three (__launch_bounds__(kThreads, 3)) leaves 128 and
+// makes ptxas serialise the wgmmas (C7512), 4% slower on an H100
 // (tools/probe_attention.py). A change that takes it past 128 registers
 // drops it to two blocks an SM: read ptxas's report.
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
 attention_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                           const bf16* __restrict__ v, const int32_t* __restrict__ seg,
                           const bf16* __restrict__ dout, const float* __restrict__ lse,
                           const float* __restrict__ delta, bf16* __restrict__ dk,
                           bf16* __restrict__ dv, int T, int NH) {
+  constexpr int DH = kWidth<HD>;
   extern __shared__ __align__(16) uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[2 * kStages + 1];
-  const Head hd(seg, T, NH);
+  const Head<HD> hd(seg, T, NH);
   const int k0 = blockIdx.x * kTile;
   const int lane = threadIdx.x & 31;
-  const Ring ring = setup(smem_raw, bars, hd.seg_row, T, [&](uint32_t dst) {
+  const Ring<DH> ring = setup<DH>(smem_raw, bars, hd.seg_row, T, [&](uint32_t dst) {
     load_tile(dst, k, hd, k0, T, lane);
-    load_tile(dst + kTileBytes, v, hd, k0, T, lane);
+    load_tile(dst + kTileBytes<DH>, v, hd, k0, T, lane);
   });
   const int4 own = ring.ranges[blockIdx.x];
   const int sweep = swept_tiles(T);
@@ -290,10 +308,10 @@ attention_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
       if (!overlaps(ring.ranges[j], own)) continue;
       const uint32_t st = claim(ring, it);
       load_tile(st, q, hd, j * kTile, T, lane);
-      load_tile(st + kTileBytes, dout, hd, j * kTile, T, lane);
-      load_vec(st + 2 * kTileBytes, hd.seg_row, 0, j * kTile, T, lane);
-      load_vec(st + 2 * kTileBytes + kVecBytes, lse, hd.vec, j * kTile, T, lane);
-      load_vec(st + 2 * kTileBytes + 2 * kVecBytes, delta, hd.vec, j * kTile, T, lane);
+      load_tile(st + kTileBytes<DH>, dout, hd, j * kTile, T, lane);
+      load_vec(st + 2 * kTileBytes<DH>, hd.seg_row, 0, j * kTile, T, lane);
+      load_vec(st + 2 * kTileBytes<DH> + kVecBytes, lse, hd.vec, j * kTile, T, lane);
+      load_vec(st + 2 * kTileBytes<DH> + 2 * kVecBytes, delta, hd.vec, j * kTile, T, lane);
       fill(ring, it++);
     }
     cp_async_wait_all();
@@ -306,32 +324,38 @@ attention_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 }  // namespace
 
 // Launches both kernels on `stream` (a cudaStream_t) and returns
-// cudaGetLastError(): 0 when both launches were accepted. lse: K1's
-// (B, NH, T) statistics; delta: B*NH*T f32 of scratch.
+// cudaGetLastError(): 0 when both launches were accepted,
+// cudaErrorInvalidValue for a head dim the kernels do not take (16, 24, 32,
+// 64 and 128 they take). lse: K1's (B, NH, T) statistics; delta: B*NH*T
+// f32 of scratch.
 extern "C" int pct_attention_bwd(const void* q, const void* k, const void* v,
                                  const void* segments, const void* dout, const void* lse,
                                  void* dq, void* dk, void* dv, void* delta, int B, int T, int NH,
-                                 void* stream) {
-  static const cudaError_t allowed[2] = {allow_smem(attention_bwd_dq_kernel),
-                                         allow_smem(attention_bwd_dkdv_kernel)};
-  for (const cudaError_t e : allowed) {
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const dim3 grid(tiles_of(T), NH, B);
-  const int smem = smem_bytes(tiles_of(T));
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* qp = static_cast<const bf16*>(q);
-  const auto* kp = static_cast<const bf16*>(k);
-  const auto* vp = static_cast<const bf16*>(v);
-  const auto* sp = static_cast<const int32_t*>(segments);
-  const auto* dp = static_cast<const bf16*>(dout);
-  const auto* lp = static_cast<const float*>(lse);
-  auto* dl = static_cast<float*>(delta);
-  attention_bwd_dq_kernel<<<grid, kThreads, smem, s>>>(qp, kp, vp, sp, dp, lp,
-                                                      static_cast<bf16*>(dq), dl, T, NH);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  attention_bwd_dkdv_kernel<<<grid, kThreads, smem, s>>>(
-      qp, kp, vp, sp, dp, lp, dl, static_cast<bf16*>(dk), static_cast<bf16*>(dv), T, NH);
-  return static_cast<int>(cudaGetLastError());
+                                 int head_dim, void* stream) {
+  return by_head_dim(head_dim, [&](auto head) {
+    constexpr int HD = decltype(head)::value;
+    constexpr int DH = kWidth<HD>;
+    static const cudaError_t allowed[2] = {allow_smem<DH>(attention_bwd_dq_kernel<HD>),
+                                           allow_smem<DH>(attention_bwd_dkdv_kernel<HD>)};
+    for (const cudaError_t e : allowed) {
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    const dim3 grid(tiles_of(T), NH, B);
+    const int smem = smem_bytes<DH>(tiles_of(T));
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const auto* qp = static_cast<const bf16*>(q);
+    const auto* kp = static_cast<const bf16*>(k);
+    const auto* vp = static_cast<const bf16*>(v);
+    const auto* sp = static_cast<const int32_t*>(segments);
+    const auto* dp = static_cast<const bf16*>(dout);
+    const auto* lp = static_cast<const float*>(lse);
+    auto* dl = static_cast<float*>(delta);
+    attention_bwd_dq_kernel<HD><<<grid, kThreads, smem, s>>>(
+        qp, kp, vp, sp, dp, lp, static_cast<bf16*>(dq), dl, T, NH);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    attention_bwd_dkdv_kernel<HD><<<grid, kThreads, smem, s>>>(
+        qp, kp, vp, sp, dp, lp, dl, static_cast<bf16*>(dk), static_cast<bf16*>(dv), T, NH);
+    return static_cast<int>(cudaGetLastError());
+  });
 }

@@ -217,10 +217,12 @@ __device__ __forceinline__ void wgmma_tf32_n32(float (&d)[16], const uint32_t (&
 // wgmma shared-memory descriptor: start, leading and stride byte offsets in
 // 16-byte units, and the swizzle (kSwizzle128: 16-byte chunk q of 128-byte
 // row r at q ^ (r % 8); kSwizzle64: chunk q of 64-byte row r at
-// q ^ ((r / 2) % 4)), whose pattern repeats every 1024 or 512 bytes from an
-// address aligned to that.
+// q ^ ((r / 2) % 4); kSwizzle32: chunk q of 32-byte row r at
+// q ^ ((r / 4) % 2)), whose pattern repeats every 1024, 512 or 256 bytes
+// from an address aligned to that.
 constexpr uint64_t kSwizzle128 = 1ull << 62;
 constexpr uint64_t kSwizzle64 = 2ull << 62;
+constexpr uint64_t kSwizzle32 = 3ull << 62;
 
 __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
                                               uint64_t swizzle = kSwizzle128) {

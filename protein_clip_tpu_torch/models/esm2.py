@@ -16,9 +16,9 @@ Under ``PCT_FFN_PALLAS=1`` the FFN's wi + gelu runs as the fused kernel K6
 
 Attention: with ``attention_impl="fused"`` on CUDA tensors each layer calls
 the hand-written kernels (``ops/attention.fused_attention``: K1 forward, K5
-backward), for every sequence length; the kernels take bf16 at head_dim 32,
-and ``forward`` raises on CUDA for any other config unless it asks for
-``attention_impl="eager"``. Otherwise the eager form runs: f32 scores plus an
+backward), for every sequence length; the kernels take bf16 at every ESM-2
+head dim (16, 24, 32, 64, 128), and ``forward`` raises on CUDA for float32
+(or another head dim) unless it asks for ``attention_impl="eager"``. Otherwise the eager form runs: f32 scores plus an
 additive f32-min key mask, f32 softmax, probabilities cast to the compute
 dtype, P.V in f32. The two differ only at pad query rows (the kernel's are
 a uniform average, the eager ones attend to the valid keys), which pooling
@@ -56,8 +56,8 @@ class ESM2Config:
     # dtype of the matmul operands and activations; accumulation is f32.
     compute_dtype: torch.dtype = torch.float32
     # "fused": the CUDA kernel K1 on CUDA tensors, which takes bf16 at
-    # head_dim 32 and raises on anything else; "eager": einsum + masked
-    # softmax, the plain version, on any device.
+    # every family's head_dim and raises on float32; "eager": einsum +
+    # masked softmax, the plain version, on any device.
     attention_impl: str = "fused"
     # FFN gelu: "erf" (ESM's exact form, the parity contract) or "tanh".
     # The PCT_GELU A/B knob is read once, here at construction, as in the

@@ -1,13 +1,14 @@
-"""Segment-masked attention for ESM-2's head_dim=32: forward (kernel K1) and
-backward (kernel K5).
+"""Segment-masked attention for ESM-2's head dims (16, 24, 32, 64, 128), in
+bf16: forward (kernel K1) and backward (kernel K5).
 
 ``fused_attention`` is a ``torch.autograd.Function`` over two hand-written
 CUDA kernels: ``csrc/attention_fwd.cu`` (K1), which replaces the TPU kernel
 ``protein_clip_tpu/ops/attention_pallas.py::_kernel``, and
 ``csrc/attention_bwd.cu`` (K5), which replaces ``_bwd_kernel``; both share
 ``csrc/attention.cuh`` (wgmma on a cp.async tile ring, exact tile skipping
-by segment ranges). Each kernel's note gives its bound on an H100 and what
-its design does about it. When a gradient is wanted, K1 also returns the
+by segment ranges), each instantiated at head dims 16, 24, 32, 64 and 128
+(24 in 32-wide tiles). Each kernel's note gives its bound on an H100 and
+what its design does about it. When a gradient is wanted, K1 also returns the
 base-2 log-sum-exp of each query's masked scores (``attention_reference_lse``
 is its plain version), and the Function saves it beside q, k, v and the
 segments: K5 takes P from it, where the TPU ``custom_vjp`` saves q, k, v
@@ -34,20 +35,25 @@ import torch
 
 from ..kernels import build
 
-HEAD_DIM = 32
+# ESM-2's head dims: t6_8M, t12_35M, t30_150M, t33_650M and t36_3B, t48_15B
+HEAD_DIMS = (16, 24, 32, 64, 128)
 MAX_T = 65536               # the kernels keep one segment range per 64-token tile
 _NEG = torch.finfo(torch.float32).min
 _LOG2E = 1.4426950408889634
 
 
+def _refusal(dtype, head_dim: int) -> NotImplementedError:
+    return NotImplementedError(
+        f"the CUDA attention kernels take bfloat16 at head_dim {', '.join(map(str, HEAD_DIMS))}, "
+        f"not {dtype} at head_dim {head_dim} (ROADMAP queue 2 A1: K1 and K5 in float32); "
+        "attention_impl='eager' runs the plain form")
+
+
 def check_config(dtype: torch.dtype, head_dim: int) -> None:
-    """Raise unless the kernel takes a backbone of this compute dtype and
-    head_dim: bf16 at head_dim 32 (ESM-2 t30_150M)."""
-    if dtype != torch.bfloat16 or head_dim != HEAD_DIM:
-        raise NotImplementedError(
-            f"the CUDA attention kernel takes bfloat16 at head_dim {HEAD_DIM}, not "
-            f"{dtype} at head_dim {head_dim} (ROADMAP queue 2: K1 for other head "
-            "dims and float32); attention_impl='eager' runs the plain form")
+    """Raise unless the kernels take a backbone of this compute dtype and
+    head_dim: bf16 at every ESM-2 head dim (HEAD_DIMS)."""
+    if dtype != torch.bfloat16 or head_dim not in HEAD_DIMS:
+        raise _refusal(dtype, head_dim)
 
 
 _POINTERS = {"attention_fwd": 6, "attention_bwd": 10}
@@ -55,9 +61,10 @@ _POINTERS = {"attention_fwd": 6, "attention_bwd": 10}
 
 def bind(lib: ctypes.CDLL, name: str):
     """Kernel ``name``'s C entry point in ``lib``: its pointers (q, k, v,
-    segments, then inputs, outputs and scratch), B, T, NH and the stream."""
+    segments, then inputs, outputs and scratch), B, T, NH, the head dim and
+    the stream."""
     fn = getattr(lib, f"pct_{name}")
-    fn.argtypes = [ctypes.c_void_p] * _POINTERS[name] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * _POINTERS[name] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -130,10 +137,15 @@ def attention_reference_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _check(segments, *tensors) -> None:
+    """Raise unless the kernels take these CUDA-shaped operands: q, k, v
+    (and dO) bf16 (B, T, NH, dh) at a head dim of HEAD_DIMS, contiguous,
+    16-byte aligned, on one device; segments (B, T) int32."""
     q = tensors[0]
-    if q.dim() != 4 or q.shape[-1] != HEAD_DIM:
-        raise ValueError(f"q must be (B, T, NH, {HEAD_DIM}), got {tuple(q.shape)}")
-    B, T, NH, _ = q.shape
+    if q.dim() != 4:
+        raise ValueError(f"q must be (B, T, NH, head_dim), got {tuple(q.shape)}")
+    B, T, NH, dh = q.shape
+    if dh not in HEAD_DIMS:
+        raise _refusal(q.dtype, dh)
     names = ("q", "k", "v", "do")
     for name, t in zip(names[1:], tensors[1:]):
         if t.shape != q.shape:
@@ -170,13 +182,13 @@ def _forward(q, k, v, segments, with_lse: bool = False):
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention runs on cpu or cuda, not {q.device}")
     _check(segments, q, k, v)
-    B, T, NH, _ = q.shape
+    B, T, NH, dh = q.shape
     launch = _launcher("attention_fwd")
     out = torch.empty_like(q)
     lse = torch.empty(B, NH, T, dtype=torch.float32, device=q.device) if with_lse else None
     with torch.cuda.device(q.device):
         err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), segments.data_ptr(),
-                     out.data_ptr(), lse.data_ptr() if with_lse else None, B, T, NH,
+                     out.data_ptr(), lse.data_ptr() if with_lse else None, B, T, NH, dh,
                      _stream(q.device))
     if err != 0:
         raise RuntimeError(f"attention_fwd launch failed: cudaError_t {err}")
@@ -188,7 +200,7 @@ def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         segments: torch.Tensor, do: torch.Tensor,
                         lse: torch.Tensor | None) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of ``fused_attention`` for the cotangent ``do``, all
-    (B, T, NH, 32), given the forward's statistics ``lse`` ((B, NH, T)
+    (B, T, NH, dh), given the forward's statistics ``lse`` ((B, NH, T)
     f32, ``_forward(..., with_lse=True)``). On CPU tensors this is
     ``attention_reference_bwd``, which recomputes them (``lse`` may be
     None); on CUDA tensors it launches K5 (two launches: delta and dq, then
@@ -199,7 +211,7 @@ def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"fused_attention_bwd runs on cpu or cuda, not {q.device}")
     do = do.to(q.dtype).contiguous()
     _check(segments, q, k, v, do)
-    B, T, NH, _ = q.shape
+    B, T, NH, dh = q.shape
     if (lse is None or lse.shape != (B, NH, T) or lse.dtype != torch.float32
             or lse.device != q.device or not lse.is_contiguous()):
         got = "None" if lse is None else f"{lse.dtype} {tuple(lse.shape)} on {lse.device}"
@@ -211,7 +223,7 @@ def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(q.device):
         err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), segments.data_ptr(),
                      do.data_ptr(), lse.data_ptr(), dq.data_ptr(),
-                     dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), B, T, NH,
+                     dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), B, T, NH, dh,
                      _stream(q.device))
     if err != 0:
         raise RuntimeError(f"attention_bwd launch failed: cudaError_t {err}")
@@ -242,10 +254,10 @@ class _FusedAttention(torch.autograd.Function):
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     segments: torch.Tensor) -> torch.Tensor:
-    """(B, T, NH, 32) q, k, v (q already scaled and rotated), (B, T) int32
-    segments -> (B, T, NH, 32), differentiable in q, k and v. On CPU tensors
-    the plain versions; on CUDA tensors K1 (and K5 in the backward) or an
-    error."""
+    """(B, T, NH, dh) q, k, v (q already scaled and rotated), (B, T) int32
+    segments -> (B, T, NH, dh), differentiable in q, k and v. On CPU tensors
+    the plain versions, at any dh and dtype; on CUDA tensors K1 (and K5 in
+    the backward) in bf16 at a head dim of HEAD_DIMS, or an error."""
     want_grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
     return _FusedAttention.apply(q, k, v, segments, want_grad)
 

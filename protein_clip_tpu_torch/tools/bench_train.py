@@ -8,8 +8,11 @@ of the TPU package's ``bench.py`` (its ``main``, ``bench_finetune``,
     PCT_BENCH_MODE=lora PCT_LORA_RANK=8 python -m protein_clip_tpu_torch.tools.bench_train
     PCT_BENCH_MODE=filip python -m protein_clip_tpu_torch.tools.bench_train
     PCT_BENCH_MODE=finetune_filip python -m protein_clip_tpu_torch.tools.bench_train
+    PCT_ESM_CONFIG=t33_650M PCT_BENCH_MODE=finetune python -m protein_clip_tpu_torch.tools.bench_train
 
-ESM-2 t30_150M with seeded random weights (seed 0), CLIP heads (seed 1),
+ESM-2 ``PCT_ESM_CONFIG`` (default t30_150M, as ``bench.py`` reads it; every
+family runs on the card in bf16) with seeded random weights (seed 0), CLIP
+heads (seed 1),
 global batch 256 packed (``cfg.packed``, 16 rows a chunk). The mode
 (``PCT_BENCH_MODE``) picks the step:
 
@@ -35,7 +38,7 @@ Global batches of synthetic pairs are drawn from
 receptors. They are tokenized into the packed wire and staged on the card.
 One warm step, then the timed steps (10 for CLIP) with the losses left on
 the card until the end, as ``train_gc`` runs them; the wall clock stops
-when every loss has been read. Prints one JSON line: pairs/s, the step
+when every loss has been read. Prints one JSON line: the family, pairs/s, the step
 time, K1, K4 and K5 launches (the wrappers' counts: a K5 call runs two
 kernels) and InfoNCE calls per step, the peak of
 ``torch.cuda.max_memory_allocated`` over the timed steps, each timed
@@ -104,10 +107,15 @@ def make_filip_batches(rng: np.random.Generator, n: int, profile: str, batch: in
     return out
 
 
+def esm_family() -> str:
+    """The backbone family, ``PCT_ESM_CONFIG`` (default t30_150M)."""
+    return os.environ.get("PCT_ESM_CONFIG", "t30_150M")
+
+
 def build_filip(mode: str, device, batch: int, scatter_tiers: int) -> tuple:
     """(params, optimizer state, esm_params, step) of a FILIP mode's packed
     step, as ``bench_filip`` and ``bench_finetune_filip`` configure it."""
-    esm_cfg = common.esm_config("t30_150M", "bfloat16")
+    esm_cfg = common.esm_config(esm_family(), "bfloat16")
     mcfg = filip.FILIPConfig(input_dim=esm_cfg.hidden_size, esm=esm_cfg)
     heads = filip.init_params(mcfg, torch.Generator().manual_seed(1), device=device)
     cfg = clip_engine.EngineConfig(model=mcfg, batch_size=batch, accumulated_batches=1,
@@ -128,7 +136,7 @@ def build_filip(mode: str, device, batch: int, scatter_tiers: int) -> tuple:
 def build(mode: str, device) -> tuple:
     """(params, optimizer state, esm_params, step) of ``mode``'s packed step,
     configured as ``bench.py`` configures it."""
-    esm_cfg = common.esm_config("t30_150M", "bfloat16")
+    esm_cfg = common.esm_config(esm_family(), "bfloat16")
     mcfg = clip.CLIPConfig(input_dim=esm_cfg.hidden_size, esm=esm_cfg)
     heads = clip.init_params(mcfg, torch.Generator().manual_seed(1), device=device)
     cfg = clip_engine.EngineConfig(model=mcfg, batch_size=16,
@@ -195,7 +203,7 @@ def main() -> int:
     packs = {side: [list(b[f"{side}_ids"].shape) for b in host[1:]] for side in ("pep", "rec")}
     print(json.dumps({
         "metric": "pairs_per_sec", "value": steps * pairs / dt, "unit": "pairs/s",
-        "mode": mode, "step_ms": 1e3 * dt / steps, "global_batch": pairs,
+        "mode": mode, "esm_config": esm_family(), "step_ms": 1e3 * dt / steps, "global_batch": pairs,
         "scatter_tiers": tiers, "steps": steps, "profile": profile, "packs": packs,
         "k1_launches_per_step": (attention.fused_attention.launches - k1) / steps,
         "k4_launches_per_step": (maxsim.filip_similarity_fused.launches - k4) / steps,

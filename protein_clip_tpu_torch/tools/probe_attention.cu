@@ -1,7 +1,7 @@
 // A probe, not a kernel of the port: K5's dk/dv launch (csrc/attention_bwd.cu)
-// with its ring filled by TMA instead of cp.async, so that the two routes
-// are weighed on the card (protein_clip_tpu_torch/tools/probe_attention.py
-// builds and runs it).
+// at head dim 32 with its ring filled by TMA instead of cp.async, so that
+// the two routes are weighed on the card
+// (protein_clip_tpu_torch/tools/probe_attention.py builds and runs it).
 //
 // The TMA route: one 4-D tensor map per (B, T, NH, 32) tensor (q, k, v,
 // dO), dims (32, NH, T, B), box (32, 1, 64, 1) = one 64-row tile with the
@@ -20,6 +20,8 @@
 namespace {
 
 using namespace pct_attn;
+
+constexpr int kHeadDim = 32;   // t30_150M's, the shapes the routes were weighed at
 
 struct Maps {
   CUtensorMap q, k, v, dout;
@@ -49,19 +51,19 @@ dkdv_tma_kernel(const __grid_constant__ Maps maps, const int32_t* __restrict__ s
                 int T, int NH) {
   extern __shared__ __align__(16) uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[2 * kStages + 1];
-  const Head hd(seg, T, NH);
+  const Head<kHeadDim> hd(seg, T, NH);
   const int k0 = blockIdx.x * kTile;
   const int lane = threadIdx.x & 31;
   // the resident tiles wait for the barriers: TMA completes on them
-  const Ring ring = setup(smem_raw, bars, hd.seg_row, T, [](uint32_t) {});
+  const Ring<kHeadDim> ring = setup<kHeadDim>(smem_raw, bars, hd.seg_row, T, [](uint32_t) {});
   const int4 own = ring.ranges[blockIdx.x];
   const int sweep = swept_tiles(T);
 
   if (threadIdx.x >= kConsumers) {  // the producer warp
     if (lane == 0) {
-      mbar_expect(ring.ready, 2 * kTileBytes);
+      mbar_expect(ring.ready, 2 * kTileBytes<kHeadDim>);
       tma_tile(ring.resident, &maps.k, k0, ring.ready);
-      tma_tile(ring.resident + kTileBytes, &maps.v, k0, ring.ready);
+      tma_tile(ring.resident + kTileBytes<kHeadDim>, &maps.v, k0, ring.ready);
     }
     cp_async_arrive(ring.ready);
     int it = 0;
@@ -70,13 +72,13 @@ dkdv_tma_kernel(const __grid_constant__ Maps maps, const int32_t* __restrict__ s
       const uint32_t st = claim(ring, it);
       const uint32_t full = ring.full + 8 * (it % kStages);
       if (lane == 0) {
-        mbar_expect(full, 2 * kTileBytes);
+        mbar_expect(full, 2 * kTileBytes<kHeadDim>);
         tma_tile(st, &maps.q, j * kTile, full);
-        tma_tile(st + kTileBytes, &maps.dout, j * kTile, full);
+        tma_tile(st + kTileBytes<kHeadDim>, &maps.dout, j * kTile, full);
       }
-      load_vec(st + 2 * kTileBytes, hd.seg_row, 0, j * kTile, T, lane);
-      load_vec(st + 2 * kTileBytes + kVecBytes, lse, hd.vec, j * kTile, T, lane);
-      load_vec(st + 2 * kTileBytes + 2 * kVecBytes, delta, hd.vec, j * kTile, T, lane);
+      load_vec(st + 2 * kTileBytes<kHeadDim>, hd.seg_row, 0, j * kTile, T, lane);
+      load_vec(st + 2 * kTileBytes<kHeadDim> + kVecBytes, lse, hd.vec, j * kTile, T, lane);
+      load_vec(st + 2 * kTileBytes<kHeadDim> + 2 * kVecBytes, delta, hd.vec, j * kTile, T, lane);
       fill(ring, it++);
     }
     cp_async_wait_all();
@@ -113,10 +115,11 @@ bool encode_maps(Maps* maps, const void* q, const void* k, const void* v, const 
 extern "C" int pct_probe_delta(const void* q, const void* k, const void* v, const void* segments,
                                const void* dout, const void* lse, void* dq, void* delta, int B,
                                int T, int NH, void* stream) {
-  static const cudaError_t allowed = allow_smem(attention_bwd_dq_kernel);
+  static const cudaError_t allowed = allow_smem<kHeadDim>(attention_bwd_dq_kernel<kHeadDim>);
   if (allowed != cudaSuccess) return static_cast<int>(allowed);
-  attention_bwd_dq_kernel<<<dim3(tiles_of(T), NH, B), kThreads, smem_bytes(tiles_of(T)),
-                            static_cast<cudaStream_t>(stream)>>>(
+  attention_bwd_dq_kernel<kHeadDim><<<dim3(tiles_of(T), NH, B), kThreads,
+                                     smem_bytes<kHeadDim>(tiles_of(T)),
+                                     static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const int32_t*>(segments), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<bf16*>(dq), static_cast<float*>(delta), T, NH);
@@ -129,11 +132,12 @@ extern "C" int pct_probe_dkdv(int tma, const void* q, const void* k, const void*
                               const void* segments, const void* dout, const void* lse,
                               const void* delta, void* dk, void* dv, int B, int T, int NH,
                               void* stream) {
-  static const cudaError_t allowed[2] = {allow_smem(attention_bwd_dkdv_kernel),
-                                         allow_smem(dkdv_tma_kernel)};
+  static const cudaError_t allowed[2] = {
+      allow_smem<kHeadDim>(attention_bwd_dkdv_kernel<kHeadDim>),
+      allow_smem<kHeadDim>(dkdv_tma_kernel)};
   if (allowed[tma != 0] != cudaSuccess) return static_cast<int>(allowed[tma != 0]);
   const dim3 grid(tiles_of(T), NH, B);
-  const int smem = smem_bytes(tiles_of(T));
+  const int smem = smem_bytes<kHeadDim>(tiles_of(T));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* sp = static_cast<const int32_t*>(segments);
   const auto* dp = static_cast<const bf16*>(dout);
@@ -145,7 +149,7 @@ extern "C" int pct_probe_dkdv(int tma, const void* q, const void* k, const void*
     dkdv_tma_kernel<<<grid, kThreads, smem, s>>>(maps, sp, dp, lp, dl, static_cast<bf16*>(dk),
                                                  static_cast<bf16*>(dv), T, NH);
   } else {
-    attention_bwd_dkdv_kernel<<<grid, kThreads, smem, s>>>(
+    attention_bwd_dkdv_kernel<kHeadDim><<<grid, kThreads, smem, s>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), sp,
         dp, lp, dl, static_cast<bf16*>(dk), static_cast<bf16*>(dv), T, NH);
   }

@@ -15,8 +15,11 @@ Prints the card's name and power limit first, then:
    (``cuTensorMapEncodeTiled``, host clock).
 2. The register caps. K5 and K1 as shipped against builds from patched
    copies of ``csrc/`` (under ``_build/probe/``): K5's dk/dv launch capped
-   for three blocks an SM, and K1 capped for five. Device time per
-   call (K1 by CUDA events, K5's two launches by ``torch.profiler``) at
+   for three blocks an SM, and K1 capped for five, at head dim 32 (the
+   shapes timed; a cap for five leaves the head-dim-128 K1 too few
+   registers to compile). Device time per call (K1 by CUDA events, K5's
+   two launches by ``timing.kernel_times``: ``torch.profiler`` with its
+   kernel records a call, CUDA events and the SM clock beside it) at
    (16, 512) padded and dense, in the order shipped, variants, variants
    reversed, shipped, and each variant's largest difference from the
    shipped build's outputs.
@@ -42,6 +45,7 @@ import torch
 
 from ..kernels import build
 from ..ops import attention
+from .timing import kernel_times
 
 NH, DH = 20, 32
 PROBE_SRC = Path(__file__).resolve().parent / "probe_attention.cu"
@@ -50,10 +54,12 @@ PROBE_DIR = build.BUILD_ROOT / "probe"
 VARIANTS = {
     "k5_dkdv_capped_3": ("attention_bwd.cu", "__global__ void __launch_bounds__(kThreads)\n"
                          "attention_bwd_dkdv_kernel",
-                         "__global__ void __launch_bounds__(kThreads, 3)\nattention_bwd_dkdv_kernel"),
+                         "__global__ void __launch_bounds__(kThreads, HD == 32 ? 3 : 1)\n"
+                         "attention_bwd_dkdv_kernel"),
     "k1_capped_5": ("attention_fwd.cu", "__global__ void __launch_bounds__(kThreads)\n"
                     "attention_fwd_kernel",
-                    "__global__ void __launch_bounds__(kThreads, 5)\nattention_fwd_kernel"),
+                    "__global__ void __launch_bounds__(kThreads, HD == 32 ? 5 : 1)\n"
+                    "attention_fwd_kernel"),
 }
 ROUTE_SHAPES = ((16, 512, "padded"), (16, 512, "dense"), (16, 192, "padded"), (16, 32, "padded"))
 
@@ -94,22 +100,6 @@ def events_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def profiled_ms(fn, iters: int, warmup: int = 3) -> float:
-    """Device time of fn() per call: the kernels' self time summed by
-    torch.profiler (host gaps between launches left out)."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages())
-    if total_us <= 0:
-        raise RuntimeError("torch.profiler recorded no device time")
-    return total_us / 1e3 / iters
-
-
 def host_us(fn, iters: int = 2000) -> float:
     """Host microseconds per call of fn() (launches only; the card is
     synchronised before and after)."""
@@ -145,7 +135,8 @@ def build_all() -> tuple[ctypes.CDLL, dict]:
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
         reports = list(pool.map(lambda job: build.compile_library(*job), jobs))
     for (_, src, lib), report in zip(jobs, reports):
-        regs = [ln.strip() for ln in report.splitlines() if "registers" in ln]
+        regs = [ln.strip() for ln in report.splitlines()
+                if any(w in ln for w in ("registers", "spill", "Compiling entry", "arning"))]
         print(f"[build] {lib.parent.name}/{lib.name} ({src.name}): {' | '.join(regs)}", flush=True)
     probe = ctypes.CDLL(str(PROBE_DIR / "libprobe_attention.so"))
     for fn, n_ptr in ((probe.pct_probe_delta, 8), (probe.pct_probe_dkdv, 9)):
@@ -224,7 +215,8 @@ def cap_readings(libs: dict, gen: torch.Generator, gpu: str) -> list[dict]:
     for B, T, kind in ((16, 512, "padded"), (16, 512, "dense")):
         sets = [inputs(B, T, kind, gen) for _ in range(4)]
         want = None
-        times = {name: {"k1_ms": [], "k5_ms": []} for name in names}
+        times = {name: {"k1_ms": [], "k5_ms": [], "k5_records": [], "k5_kept_ms": [],
+                        "k5_events_ms": [], "clock_mhz": []} for name in names}
         diff = {}
         for name in names + names[:0:-1] + names[:1]:
             with launching(None if name == "shipped" else libs[name]):
@@ -248,13 +240,22 @@ def cap_readings(libs: dict, gen: torch.Generator, gpu: str) -> list[dict]:
                 diff[name] = max(float((a.float() - b.float()).abs().max())
                                  for a, b in zip(got, want))
                 times[name]["k1_ms"].append(events_ms(k1, 100))
-                times[name]["k5_ms"].append(profiled_ms(k5, 100))
+                k5_t = kernel_times(k5, 100)
+                times[name]["k5_ms"].append(k5_t["device_ms"])
+                times[name]["k5_records"].append(k5_t["records"])
+                times[name]["k5_kept_ms"].append(k5_t["kept_ms"])
+                times[name]["k5_events_ms"].append(k5_t["events_ms"])
+                times[name]["clock_mhz"].append(k5_t["clock_mhz"])
         for name in names:
             t = times[name]
             print(f"[caps] {name} B={B} T={T} NH={NH} {kind}: K1 "
                   f"{', '.join(f'{v:.6f}' for v in t['k1_ms'])} ms; K5 "
-                  f"{', '.join(f'{v:.6f}' for v in t['k5_ms'])} ms of device time; max|diff| "
-                  f"from shipped {diff[name]:.3g} | {gpu}", flush=True)
+                  f"{', '.join(f'{v:.6f}' for v in t['k5_ms'])} ms of device time "
+                  f"({', '.join(f'{v:g}' for v in t['k5_records'])} kernel records kept a "
+                  f"call, {', '.join(f'{v:.6f}' for v in t['k5_kept_ms'])} ms their sum; "
+                  f"CUDA events {', '.join(f'{v:.6f}' for v in t['k5_events_ms'])} ms; SM clock "
+                  f"{t['clock_mhz']} MHz); max|diff| from shipped {diff[name]:.3g} | {gpu}",
+                  flush=True)
             rows.append({"variant": name, "shape": [B, T, NH, DH], "segments": kind, **t,
                          "max_abs_diff": diff[name]})
     return rows

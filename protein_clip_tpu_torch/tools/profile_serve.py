@@ -1,9 +1,11 @@
 """Where the time of one serving request goes, on the card.
 
     python -m protein_clip_tpu_torch.tools.profile_serve [--esm-dtype int8]
+        [--esm-config t33_650M]
     PCT_FFN_PALLAS=1 python -m protein_clip_tpu_torch.tools.profile_serve
 
-Builds ESM-2 t30_150M in bf16 (with ``--esm-dtype int8``, its w8a8
+Builds ESM-2 ``--esm-config`` (default t30_150M) in bf16 (with
+``--esm-dtype int8``, its w8a8
 quantisation, whose linear layers run P1) with seeded random weights and
 CLIP heads on the GPU, then for two requests (one 100-residue sequence;
 32 sequences of 50-299 residues) measures the host wall time of
@@ -87,14 +89,17 @@ def profile_request(name: str, seqs: list[str], encode, top: int = 12) -> None:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--esm-dtype", default="bfloat16", choices=["bfloat16", "int8"])
+    p.add_argument("--esm-config", default="t30_150M",
+                   choices=["t30_150M", "t6_8M", "t12_35M", "t33_650M", "t36_3B", "t48_15B", "tiny"])
     args = p.parse_args(argv)
     device = resolve_device("cuda")
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip()
-    print(f"card: {gpu}; torch {torch.__version__}; --esm-dtype {args.esm_dtype}, "
+    print(f"card: {gpu}; torch {torch.__version__}; --esm-config {args.esm_config}, "
+          f"--esm-dtype {args.esm_dtype}, "
           f"PCT_FFN_PALLAS={os.environ.get('PCT_FFN_PALLAS', '')!r}")
-    cfg = common.esm_config("t30_150M", args.esm_dtype)
+    cfg = common.esm_config(args.esm_config, args.esm_dtype)
     mcfg = clip.CLIPConfig(input_dim=cfg.hidden_size, esm=cfg)
     esm_params = esm2.init_params(cfg, torch.Generator(device=device).manual_seed(0),
                                   dtype=torch.bfloat16, device=device)

@@ -4,12 +4,13 @@ bucket (the frozen step: length groups) or over packed rows (``--packed``);
 or the FILIP step (``--filip``), frozen, packed or unfrozen alike.
 
     python -m protein_clip_tpu_torch.tools.profile_train [--batch-size 16]
-        [--packed] [--finetune | --lora-rank 8]
+        [--packed] [--finetune | --lora-rank 8] [--esm-config t33_650M]
     python -m protein_clip_tpu_torch.tools.profile_train --filip [--batch-size 10]
         [--length-groups 1] [--num-chunks 1] [--use-dcl] [--packed [--scatter-tiers 4]]
         [--finetune | --lora-rank 8]
 
-Builds ESM-2 t30_150M in bf16 with seeded random weights and CLIP heads on
+Builds ESM-2 ``--esm-config`` (default t30_150M; every family runs in
+bf16) with seeded random weights and CLIP heads on
 the GPU, and global batches of batch-size x 16 pairs drawn from the seeded
 synthetic corpus of 3000 families (receptors 60-180 aa, peptides 8-30 aa),
 tokenized as ``cli.main`` does: into 4 length groups for the frozen step,
@@ -105,6 +106,8 @@ def main(argv=None) -> int:
     p.add_argument("--num-chunks", type=int, default=1, help="with --filip")
     p.add_argument("--use-dcl", action="store_true", help="with --filip")
     p.add_argument("--scatter-tiers", type=int, default=4, help="with --filip --packed")
+    p.add_argument("--esm-config", default="t30_150M",
+                   choices=["t30_150M", "t6_8M", "t12_35M", "t33_650M", "t36_3B", "t48_15B", "tiny"])
     p.add_argument("--filip", action="store_true",
                    help="the FILIP step (train/filip_engine.py; with --finetune or --lora-rank "
                         "train/filip_finetune.py or train/filip_lora.py)")
@@ -120,8 +123,8 @@ def main(argv=None) -> int:
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip()
-    print(f"card: {gpu}; torch {torch.__version__}")
-    esm_cfg = common.esm_config("t30_150M", "bfloat16")
+    print(f"card: {gpu}; torch {torch.__version__}; --esm-config {args.esm_config}")
+    esm_cfg = common.esm_config(args.esm_config, "bfloat16")
     if args.filip:
         engine = (filip_finetune if args.finetune else filip_lora if args.lora_rank
                   else filip_engine)

@@ -4,7 +4,9 @@ Pallas kernel in interpret mode and its ``_eager_reference``.
 
 Same numpy inputs, float32, every position compared (fully padded query
 rows included: they softmax to a uniform average of v). Tolerance 1e-5
-absolute: the same float32 algorithm, summed in another order.
+absolute: the same float32 algorithm, summed in another order. The kernel
+comparisons run at every ESM-2 head dim (t30_150M's 32, and 16, 24, 64,
+128: the other families'), which the CUDA kernels take.
 
 Below them, K1's second output and its tile arithmetic before the card
 sees them: ``attention_reference_lse`` against JAX's logsumexp of the
@@ -26,6 +28,23 @@ from protein_clip_tpu.ops.attention_pallas import _eager_reference, fused_attent
 from protein_clip_tpu_torch.ops import attention
 
 ATOL = 1e-5
+# ESM-2's head dims, t30_150M's first: its cases keep the ids they had
+# before the kernels took the others.
+HEAD_DIMS = (32, 16, 24, 64, 128)
+
+
+def over_head_dims(names: str, cases, short=None) -> pytest.MarkDecorator:
+    """parametrize ``names`` and ``dh`` over cases x HEAD_DIMS (the cases
+    ``short`` takes at the other head dims: the rest are slow in interpret
+    mode): a case at head dim 32 keeps its own id, the others add
+    "-dh<n>"."""
+    params = []
+    for case in cases:
+        case = case if isinstance(case, tuple) else (case,)
+        base = "-".join(map(str, case))
+        params += [pytest.param(*case, dh, id=base if dh == 32 else f"{base}-dh{dh}")
+                   for dh in HEAD_DIMS if dh == 32 or short is None or short(*case)]
+    return pytest.mark.parametrize(f"{names},dh", params)
 
 
 def _qkv(rng, B, T, NH=4, DH=32):
@@ -58,10 +77,10 @@ def _both(q, k, v, seg):
     return got, [jnp.asarray(a) for a in (q, k, v, seg)]
 
 
-@pytest.mark.parametrize("kind", sorted(CASES))
-def test_plain_matches_pallas_kernel_interpret(kind):
+@over_head_dims("kind", sorted(CASES))
+def test_plain_matches_pallas_kernel_interpret(kind, dh):
     rng = np.random.default_rng(0)
-    q, k, v = _qkv(rng, 2, 128)
+    q, k, v = _qkv(rng, 2, 128, DH=dh)
     seg = CASES[kind](2, 128)
     got, jargs = _both(q, k, v, seg)
     np.testing.assert_allclose(got, np.asarray(jax_fused(*jargs)), atol=ATOL)
@@ -191,8 +210,8 @@ def emulate_k1(q, k, v, seg, skip=True):
     O / l in bf16 and lse = m log2(e) + log2(l). A pad query takes the
     closed form bf16(1/T) times the column sum of v, and lse -inf.
     ``skip=False`` visits every key tile."""
-    B, T, NH, _ = q.shape
-    out = torch.zeros(B, T, NH, 32)
+    B, T, NH, DH = q.shape
+    out = torch.zeros(B, T, NH, DH)
     lse = torch.zeros(B, NH, T)
     for b in range(B):
         ranges = _tile_ranges(seg[b].numpy(), T)
@@ -202,7 +221,7 @@ def emulate_k1(q, k, v, seg, skip=True):
             pad = sq <= 0
             m = torch.full((NH, len(sq)), -math.inf)
             l = torch.zeros(NH, len(sq))
-            acc = torch.zeros(NH, len(sq), 32)
+            acc = torch.zeros(NH, len(sq), DH)
             for j, k0 in enumerate(range(0, T, TILE)):
                 if skip and not _overlaps(ranges[i], ranges[j]):
                     continue

@@ -3,7 +3,8 @@ what the backward of ``fused_attention`` runs on CPU tensors) against the
 VJP of the JAX package's Pallas ``fused_attention``, whose backward kernel
 runs in interpret mode on the CPU.
 
-Same numpy inputs, float32, head_dim 32, NH = 4, every position compared:
+Same numpy inputs, float32, at every ESM-2 head dim (32, and 16, 24, 64,
+128), NH = 4, every position compared:
 padded rows, rows with every query fully padded (each with a nonzero
 cotangent: their uniform softmax feeds dv but, after the re-mask of dS,
 neither dq nor dk), and packed segments with gap zeros. Tolerance 1e-5
@@ -26,12 +27,13 @@ import torch
 import chip_smoke
 from protein_clip_tpu.ops.attention_pallas import fused_attention as jax_fused
 from protein_clip_tpu_torch.ops import attention
+from test_torch_attention import over_head_dims
 
 ATOL = 1e-5
 B, NH, DH = 2, 4, 32
 
 
-def _inputs(T, kind, seed):
+def _inputs(T, kind, seed, DH=DH):
     rng = np.random.default_rng(seed)
     q, k = (rng.normal(size=(B, T, NH, DH)).astype(np.float32) * 0.3 for _ in range(2))
     v, do = (rng.normal(size=(B, T, NH, DH)).astype(np.float32) for _ in range(2))
@@ -59,10 +61,9 @@ def _jax_grads(q, k, v, seg, do):
 KINDS = ["padded", "fully_padded", "packed"]
 
 
-@pytest.mark.parametrize("kind", KINDS)
-@pytest.mark.parametrize("T", [64, 128, 200])
-def test_plain_bwd_matches_pallas_bwd_interpret(T, kind):
-    q, k, v, seg, do = _inputs(T, kind, T)
+@over_head_dims("T,kind", [(T, kind) for T in (64, 128, 200) for kind in KINDS])
+def test_plain_bwd_matches_pallas_bwd_interpret(T, kind, dh):
+    q, k, v, seg, do = _inputs(T, kind, T, dh)
     got = attention.attention_reference_bwd(*(torch.from_numpy(a) for a in (q, k, v, seg, do)))
     for name, g, w in zip(("dq", "dk", "dv"), got, _jax_grads(q, k, v, seg, do)):
         np.testing.assert_allclose(g.numpy(), w, atol=ATOL, err_msg=name)
@@ -127,8 +128,8 @@ def emulate_k5(q, k, v, seg, do, lse, skip=True, out=None):
     it: dv += bf16(P^T) . dO and dk += dS^T . q; then every key's dv +=
     bf16(1/T) times the pad queries' sum of dO (their uniform P in closed
     form). ``skip=False`` visits every tile pair."""
-    B, T, NH, _ = q.shape
-    dq, dk, dv = (torch.zeros(B, T, NH, 32) for _ in range(3))
+    B, T, NH, DH = q.shape
+    dq, dk, dv = (torch.zeros(B, T, NH, DH) for _ in range(3))
     delta = torch.zeros(B, NH, T)
     tiles = [slice(j, min(T, j + TILE)) for j in range(0, T, TILE)]
     for b in range(B):
@@ -156,7 +157,7 @@ def emulate_k5(q, k, v, seg, do, lse, skip=True, out=None):
     return dq.bfloat16(), dk.bfloat16(), dv.bfloat16()
 
 
-def _bf16_inputs(T, kind, seed):
+def _bf16_inputs(T, kind, seed, DH=DH):
     rng = np.random.default_rng(seed)
     q, k = (torch.from_numpy(rng.normal(size=(B, T, NH, DH)).astype(np.float32) * 0.3).bfloat16()
             for _ in range(2))
@@ -172,14 +173,14 @@ def _least_atol(got, want):
     return chip_smoke.least_atol(got, want)[1]
 
 
-@pytest.mark.parametrize("kind", ["padded", "fully_padded", "packed"])
-@pytest.mark.parametrize("T", [1, 63, 64, 65, 200])
-def test_k5_tile_arithmetic_matches_plain_and_pallas(kind, T):
+@over_head_dims("T,kind", [(T, kind) for T in (1, 63, 64, 65, 200) for kind in KINDS],
+                short=lambda T, kind: T < 200)
+def test_k5_tile_arithmetic_matches_plain_and_pallas(kind, T, dh):
     """The emulation of K5 against ``attention_reference_bwd`` and against
     the VJP through JAX's Pallas ``_bwd_kernel`` in interpret mode, both on
     bf16 inputs, with K5's card tolerance; tile skipping equal to visiting
     every tile pair, to the bit."""
-    q, k, v, seg, do, lse = _bf16_inputs(T, kind, 30 + T)
+    q, k, v, seg, do, lse = _bf16_inputs(T, kind, 30 + T, dh)
     f = [x.float() for x in (q, k, v)]
     got = emulate_k5(*f, seg, do.float(), lse)
     plain = attention.attention_reference_bwd(q, k, v, seg, do)

@@ -1,5 +1,5 @@
 """The port's CUDA kernels on the card: K1 (and its statistics) and its
-backward K5 fed them, K4, the
+backward K5 fed them, at every ESM-2 head dim (16, 24, 32, 64, 128), K4, the
 InfoNCE kernels K2 and K3 (forward and backward), the dense product P1 (s8
 and bf16) and the fused FFN K6 against their plain versions at odd shapes,
 each tolerance against a planted fault, the wrappers' refusals, their
@@ -53,10 +53,10 @@ def dev():
     return torch.device("cuda")
 
 
-def _inputs(B, T, NH, dev, seed=0):
+def _inputs(B, T, NH, dev, seed=0, dh=32):
     g = torch.Generator(device=dev).manual_seed(seed)
-    q, k, v = ((s * torch.randn(B, T, NH, 32, device=dev, generator=g)).bfloat16()
-               for s in (32 ** -0.5, 1.0, 1.0))
+    q, k, v = ((s * torch.randn(B, T, NH, dh, device=dev, generator=g)).bfloat16()
+               for s in (dh ** -0.5, 1.0, 1.0))
     return q, k, v
 
 
@@ -110,6 +110,32 @@ def test_kernel_statistics_match_plain(dev, B, T, NH, kind):
     torch.testing.assert_close(out, attention.fused_attention(q, k, v, seg), rtol=0, atol=0)
 
 
+# The other ESM-2 head dims: t6_8M 16, t12_35M 24 (in the 32-wide tiles),
+# t33_650M and t36_3B 64, t48_15B 128, each tile layout at odd T, padded
+# (with fully padded rows) and packed, output and statistics.
+OTHER_HEAD_DIMS = (16, 24, 64, 128)
+
+
+@pytest.mark.parametrize("kind", ["padded", "fully_padded", "packed"])
+@pytest.mark.parametrize("B,T,NH", [(1, 1, 1), (2, 65, 3), (3, 129, 20), (2, 200, 5),
+                                    (1, 1000, 4)])
+@pytest.mark.parametrize("dh", OTHER_HEAD_DIMS)
+def test_kernel_matches_plain_at_every_head_dim(dev, dh, B, T, NH, kind):
+    q, k, v = _inputs(B, T, NH, dev, dh=dh)
+    seg = _bwd_segments(B, T, kind, dev)
+    out, lse = attention._forward(q, k, v, seg, with_lse=True)
+    torch.cuda.synchronize()
+    ref = attention.attention_reference(q, k, v, seg).float()
+    assert torch.isfinite(out).all()
+    err = (out.float() - ref).abs()
+    atol = ATOL_RMS * float(ref.square().mean().sqrt())
+    assert (err <= atol + RTOL * ref.abs()).all(), float(err.max())
+    want = attention.attention_reference_lse(q, k, seg)
+    pad = torch.isinf(want)
+    assert torch.equal(torch.isinf(lse), pad)
+    torch.testing.assert_close(lse[~pad], want[~pad], rtol=0, atol=1e-4)
+
+
 def test_launch_count(dev):
     q, k, v = _inputs(1, 64, 2, dev)
     seg = _segments(1, 64, "padded", dev)
@@ -126,7 +152,10 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(dev):
         attention.fused_attention(q.float(), k.float(), v.float(), seg)
     with pytest.raises(TypeError, match="int32"):
         attention.fused_attention(q, k, v, seg.long())
-    with pytest.raises(ValueError, match="32"):
+    with pytest.raises(NotImplementedError, match="head_dim 48"):
+        x = torch.zeros(1, 64, 2, 48, dtype=torch.bfloat16, device=dev)
+        attention.fused_attention(x, x, x, seg)
+    with pytest.raises(ValueError, match="contiguous"):
         attention.fused_attention(q[..., :16], k[..., :16], v[..., :16], seg)
     with pytest.raises(ValueError, match="contiguous"):
         attention.fused_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
@@ -140,7 +169,7 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(dev):
         attention.fused_attention_bwd(q, k, v, seg, q, lse[:, :1])
 
 
-@pytest.mark.parametrize("over", [dict(hidden_size=256, num_heads=4),       # head_dim 64
+@pytest.mark.parametrize("over", [dict(hidden_size=192, num_heads=4),       # head_dim 48
                                   dict(compute_dtype=torch.float32)])
 def test_esm_forward_refuses_configs_the_kernel_does_not_take(dev, over):
     """Fused attention on CUDA never falls back to the plain form."""
@@ -155,6 +184,37 @@ def test_esm_forward_refuses_configs_the_kernel_does_not_take(dev, over):
     with torch.inference_mode(), pytest.raises(NotImplementedError, match="head_dim"):
         esm2.forward(params, ids, mask, cfg)
     assert attention.fused_attention.launches == before
+
+
+@pytest.mark.parametrize("hidden,heads", [(64, 4), (96, 4), (256, 4), (256, 2)],
+                         ids=["dh16", "dh24", "dh64", "dh128"])
+def test_esm_forward_runs_the_kernel_at_every_head_dim(dev, hidden, heads):
+    """Two bf16 layers at each other head dim, padded and packed rows: K1
+    once a layer, the valid tokens at cosine >= 0.999 against eager."""
+    cfg = esm2.ESM2Config(hidden_size=hidden, num_layers=2, num_heads=heads,
+                          intermediate_size=2 * hidden, compute_dtype=torch.bfloat16)
+    params = esm2.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                              dtype=torch.bfloat16, device=dev)
+    ids = torch.randint(4, 24, (2, 130), device=dev)
+    mask = torch.ones(2, 130, dtype=torch.int32, device=dev)
+    mask[1, 70:] = 0
+    ids[1, 70:] = 1
+    seg = mask.clone()
+    seg[0, 50:] = 2                       # row 0 packed: two sequences
+    positions = torch.arange(130, device=dev).repeat(2, 1)
+    positions[0, 50:] -= 50
+    for packed in (False, True):
+        kw = dict(segment_ids=seg, positions=positions) if packed else {}
+        before = attention.fused_attention.launches
+        with torch.inference_mode():
+            fused = esm2.forward(params, ids, mask, cfg, **kw)
+            eager = esm2.forward(params, ids, mask,
+                                 dataclasses.replace(cfg, attention_impl="eager"), **kw)
+        assert attention.fused_attention.launches == before + cfg.num_layers
+        valid = mask > 0
+        cos = torch.nn.functional.cosine_similarity(fused[valid].float(), eager[valid].float(),
+                                                    dim=-1)
+        assert float(cos.min()) >= 0.999
 
 
 def test_esm_forward_runs_the_kernel_in_every_layer(dev):
@@ -205,6 +265,19 @@ def _k5(q, k, v, seg, do):
     """K5 fed K1's output and statistics, as the Function's backward is."""
     lse = attention._forward(q, k, v, seg, with_lse=True)[1]
     return attention.fused_attention_bwd(q, k, v, seg, do, lse)
+
+
+@pytest.mark.parametrize("kind", ["padded", "fully_padded", "packed"])
+@pytest.mark.parametrize("T", [1, 65, 129, 200, 512])
+@pytest.mark.parametrize("dh", OTHER_HEAD_DIMS)
+def test_attention_bwd_kernel_matches_plain_at_every_head_dim(dev, dh, T, kind):
+    B, NH = 3, 4
+    q, k, v = _inputs(B, T, NH, dev, dh=dh)
+    do = _inputs(B, T, NH, dev, seed=1, dh=dh)[2]
+    seg = _bwd_segments(B, T, kind, dev)
+    got = _k5(q, k, v, seg, do)
+    torch.cuda.synchronize()
+    _assert_bwd_close(got, attention.attention_reference_bwd(q, k, v, seg, do))
 
 
 @pytest.mark.parametrize("kind", ["padded", "fully_padded", "packed"])
@@ -633,10 +706,10 @@ def _clone(tree):
     return {k: _clone(v) for k, v in tree.items()} if isinstance(tree, dict) else tree.clone()
 
 
-def _tiny_t30_like(dev):
-    """Two layers at t30_150M's head_dim 32 in bf16, which K1 takes."""
-    esm_cfg = esm2.ESM2Config(hidden_size=128, num_layers=2, num_heads=4, intermediate_size=256,
-                              compute_dtype=torch.bfloat16)
+def _tiny_t30_like(dev, heads=4):
+    """Two layers at t30_150M's head_dim 32 in bf16 (heads=2: t33_650M's 64)."""
+    esm_cfg = esm2.ESM2Config(hidden_size=128, num_layers=2, num_heads=heads,
+                              intermediate_size=256, compute_dtype=torch.bfloat16)
     mcfg = clip.CLIPConfig(input_dim=128, embedding_dim=64, dropout=0.0, esm=esm_cfg)
     esm_params = esm2.init_params(esm_cfg, torch.Generator(device=dev).manual_seed(0),
                                   dtype=torch.bfloat16, device=dev)
@@ -836,7 +909,8 @@ def _packed_unfrozen_batch(dev, pool=32, seed=3):
     return to_device(packed_engine.tokenize_packed(EsmTokenizer(), peps, recs), dev)
 
 
-def _packed_unfrozen_steps(dev, mode: str, names=("kernel", "plain_bwd", "fault", "again")):
+def _packed_unfrozen_steps(dev, mode: str, names=("kernel", "plain_bwd", "fault", "again"),
+                           heads=4):
     """One packed finetune or LoRA step (rank 4; 4 rows a chunk: the peptide
     rows take chunks of 8, the receptor rows of 4; remat) from the same
     weights and batch per attention path, as _finetune_steps: {name: (loss,
@@ -844,7 +918,7 @@ def _packed_unfrozen_steps(dev, mode: str, names=("kernel", "plain_bwd", "fault"
     from protein_clip_tpu_torch.train import finetune, lora
 
     fault = chip_smoke.build_faults(("swept_tiles",))["swept_tiles"] if "fault" in names else {}
-    mcfg, esm_params = _tiny_t30_like(dev)
+    mcfg, esm_params = _tiny_t30_like(dev, heads)
     batch = _packed_unfrozen_batch(dev)
     heads0 = clip.init_params(mcfg, torch.Generator().manual_seed(1), device=dev)
     adapters0 = lora.init_lora(torch.Generator(device=dev).manual_seed(2), esm_params, 4)
@@ -900,6 +974,21 @@ def test_packed_unfrozen_step_runs_k1_and_k5_and_matches_k5s_plain_version(dev, 
     assert abs(lk - lp) <= FT_LOSS_TOL * abs(lp)
     assert _worst_gap(gk, gp) <= tol
     assert _worst_gap(out["fault"][1], gp) > tol
+    assert lk == out["again"][0]
+    assert all(torch.equal(a, b) for a, b in zip(gk, out["again"][1]))
+
+
+def test_packed_finetune_step_at_head_dim_64_matches_k5s_plain_version(dev):
+    """The packed finetune step's check above at t33_650M's head dim 64 (two
+    heads of 64): K1 and K5 counts, every leaf within FT_K5_TOL of the step
+    through K5's plain version, the swept-tile fault past it, to the bit."""
+    out = _packed_unfrozen_steps(dev, "finetune", heads=2)
+    chunks, layers = out["chunks"], 2
+    assert out["kernel"][2] == (3 * chunks * layers, chunks * layers)
+    (lk, gk, _), (lp, gp, _) = out["kernel"], out["plain_bwd"]
+    assert abs(lk - lp) <= FT_LOSS_TOL * abs(lp)
+    assert _worst_gap(gk, gp) <= chip_smoke.FT_K5_TOL
+    assert _worst_gap(out["fault"][1], gp) > chip_smoke.FT_K5_TOL
     assert lk == out["again"][0]
     assert all(torch.equal(a, b) for a, b in zip(gk, out["again"][1]))
 

@@ -254,14 +254,15 @@ def test_library_entry_points_default_to_cuda(tmp_path, entry):
                                     "t48_15B", "tiny"])
 def test_esm_config_keeps_the_kernel_and_refuses_what_it_does_not_take(family, dtype_name):
     """esm_config never swaps in the eager attention: every family keeps
-    attention_impl='fused', and the kernel's config check (which load_esm
-    and esm2.forward run on CUDA) passes bf16 at head_dim 32 only."""
+    attention_impl='fused', and the kernels' config check (which load_esm
+    and esm2.forward run on CUDA) passes every family in bf16 (head dims 16,
+    24, 32, 64, 128) and refuses float32."""
     from protein_clip_tpu_torch.cli import common
     from protein_clip_tpu_torch.ops import attention
 
     cfg = common.esm_config(family, dtype_name)
     assert cfg.attention_impl == "fused"
-    if family == "t30_150M" and dtype_name == "bfloat16":
+    if dtype_name == "bfloat16":
         attention.check_config(cfg.compute_dtype, cfg.head_dim)
     else:
         with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
