@@ -12,13 +12,13 @@ and a nonzero exit code, and no result line:
                 beside them the planted faults (FAULTS), each built from a
                 patched copy under _build/fault/<name>/, never loaded by
                 the package: dense_mm and ffn_gelu whose shared main loop
-                drops its last k-tile; attention_fwd and attention_bwd whose
-                swept loop (K1's keys, K5's dk/dv queries) drops its last
-                tile; attention_fwd and attention_bwd whose skip predicate
-                is off by one at a segment boundary; filip_maxsim whose
-                b-tile skip predicate misses a tile's first token, and
-                filip_maxsim in plain TF32 (the two correction products
-                dropped); infonce in plain TF32, and infonce whose
+                drops its last k-tile; attention_fwd and attention_bwd (and
+                their f32 kernels) whose swept loop (K1's keys, K5's dk/dv
+                queries) drops its last tile; the same four whose skip
+                predicate is off by one at a segment boundary;
+                filip_maxsim whose b-tile skip predicate misses a tile's
+                first token, and filip_maxsim in plain TF32 (the two
+                correction products dropped); infonce in plain TF32, and infonce whose
                 cross-block sums of the forward's partials drop the last,
                 partial tile; print the card's name and power limit.
 2. kernels      K1 (segment-masked attention forward) against
@@ -55,7 +55,14 @@ and a nonzero exit code, and no result line:
                 192), at K1's timing shape and at odd T, NH=20, bf16, with
                 padded, fully padded and packed rows, and on the packed
                 unfrozen path's four chunks above, fed K1's statistics; and
-                at the other families' shapes as K1. P1 (dense_mm) s8 ->
+                at the other families' shapes as K1. K1-f32 and K5-f32
+                (attention_fwd_f32, attention_bwd_f32) against the same
+                plain versions on f32 inputs (F32_ATOL_RMS, F32_RTOL) at
+                (16, 512) with a fully padded row, odd T, every packed
+                path chunk of path_segments (tools/bench_train's (16, 512)
+                and (28, 2048) receptor chunks among them) and each
+                family's shapes; both attention faults must fail them as
+                they fail K1 and K5. P1 (dense_mm) s8 ->
                 s32 against ops.dense_mm.mm_reference to the bit at the
                 probe's (8192, 2560, 2560), at N in {1, 128, 1000, 3072,
                 10240} tokens through t30_150M's three layer shapes, at the
@@ -110,6 +117,19 @@ and a nonzero exit code, and no result line:
                 t36_3B and t48_15B at full width and 2 layers) through
                 esm2.forward on padded and packed rows: K1 once a layer,
                 valid tokens at cosine >= 0.999 against eager.
+6c. hf, f32     t30_150M as an EsmForMaskedLM directory of seeded f32
+                weights (write_hf_dir: config.json and a model.safetensors
+                written by hand, the MLM and contact heads and the rotary
+                inv_freq beside the esm.-prefixed backbone): the reader
+                returns the backbone and nothing else, load_esm --esm-dtype
+                float32 places every array to the bit, and the port's
+                convert_esm_weights writes an npz that loads to the same
+                tree. cli.serve --esm-dtype float32 --esm-weights <that
+                directory> over phase 3's heads and index: /embed of one
+                sequence and of 32; K1-f32 30 times per forward, no bf16
+                K1; cosine >= F32_COSINE_MIN per row against eager f32
+                attention on the same weights; a server of the npz answers
+                the same requests equal to the bit.
 7. train        cli.main twice on one synthetic fixture of 3000 families
                 (written and clustered once), t30_150M bf16 with seeded
                 random weights, one epoch: the defaults (16 x 16 = global
@@ -153,8 +173,9 @@ and a nonzero exit code, and no result line:
                 once backward; per eval batch K1 30 per chunk forward and
                 K2 once; cli.embed with each run's best_model.npz; one
                 packed finetune step under torch.profiler: launches, busy
-                share and peak memory. (The one-bucket finetune and LoRA
-                runs train on the 1100-family fixture, SMALL_DATA.)
+                share and peak memory. (The one-bucket and the packed
+                finetune and LoRA runs train on the 1100-family fixture,
+                SMALL_DATA.)
                 Then t33_650M on the 1100-family fixture: cli.main
                 --esm-config t33_650M --packed and --packed --finetune for
                 one epoch each, their chunk forwards and launches against
@@ -168,6 +189,14 @@ and a nonzero exit code, and no result line:
                 past it, to the bit), both at global batch 32; one packed
                 finetune step at 256 under torch.profiler (launches, busy
                 share, peak memory).
+                Then f32: cli.main --packed --finetune --esm-dtype float32
+                on the 1100-family fixture (K1-f32 and K5-f32 in K1's and
+                K5's counts, no bf16 attention, peak memory), one packed
+                frozen f32 step at 256 (K1-f32 30 per chunk forward), and
+                the f32 packed finetune step at 256 through K1-f32/K5-f32
+                against the step through K5-f32's plain version (every leaf
+                within F32_FT_TOL of its largest; K5-f32's swept-tile fault
+                past it).
                 Then FILIP training: cli.main_2protein_filip for one epoch
                 on a fixture of 1100 families (protein1/protein2), at its
                 defaults (batch 10, one pad bucket, 1 chunk) and at its
@@ -313,7 +342,11 @@ and a nonzero exit code, and no result line:
                 the bound on their masks; one packed frozen and one packed
                 finetune FILIP step under torch.profiler: launches, busy
                 share, peak memory. t33_650M's packed and packed finetune
-                epochs in pairs/s by the same events.
+                epochs in pairs/s by the same events. K1-f32 and K5-f32,
+                their plain versions and SDPA on f32 (TF32 off) at (16,
+                512, 20, 32) padded and dense and at each FAMILY_SHAPES,
+                beside their bounds (f32 on the CUDA cores); the f32 packed
+                finetune epoch in pairs/s.
 
 Each phase's seconds are printed ([timing]) and summed at the end ([done]).
 The last three lines of standard output are the card's name and power
@@ -360,7 +393,7 @@ from protein_clip_tpu_torch.models import clip, esm2, filip
 from protein_clip_tpu_torch.models import heads as head_mod
 from protein_clip_tpu_torch.ops import attention, dense_mm, ffn, infonce
 from protein_clip_tpu_torch.ops import filip as maxsim
-from protein_clip_tpu_torch.tools import bench_train
+from protein_clip_tpu_torch.tools import bench_train, convert_esm_weights
 from protein_clip_tpu_torch.tools.timing import kernel_times
 from protein_clip_tpu_torch.train import (checkpoint, clip_engine, filip_engine, filip_finetune,
                                           filip_lora, filip_packed, finetune, lora, optimizer,
@@ -416,7 +449,35 @@ H100_F32_FLOPS = 67e12                # f32 on the CUDA cores (no tensor cores),
 H100_TF32_FLOPS = 495e12              # dense tensor-core peak, SXM, 700 W
 H100_BYTES_PER_S = 3.35e12
 H100_INT8_OPS = 1979e12               # dense tensor-core peak, SXM, 700 W
-KERNELS = ("attention_fwd", "attention_bwd", "filip_maxsim", "infonce", "dense_mm", "ffn_gelu")
+KERNELS = ("attention_fwd", "attention_bwd", "attention_fwd_f32", "attention_bwd_f32",
+           "filip_maxsim", "infonce", "dense_mm", "ffn_gelu")
+F32_KERNELS = ("attention_fwd_f32", "attention_bwd_f32")
+# K1-f32 and K5-f32 against their plain versions, all f32 (TF32 off): the
+# same form as bf16's, |err| <= F32_ATOL_RMS * rms(ref) + F32_RTOL * |ref|.
+# Both sides compute the same f32 products and exponentials; they differ
+# by the order of f32 sums (64-key tiles and an online max against one
+# softmax), ex2.approx (2^-22 relative) and, in K5-f32, delta as dO . O
+# against rowsum(P * dP): up to 3.2e-5 rms(ref) on an H100 at (16, 512,
+# NH 20) and below 1e-5 on shorter rows (a first call before the limit was
+# set). The limit is 2^-12 (2.4e-4); the planted faults miss whole tiles,
+# which moves outputs by O(rms(ref)). A query whose segment is one token
+# long has dq and dk exactly 0 in the plain version, which rms(ref) cannot
+# scale; K5-f32 gives them exactly 0 too (its P is 1 and delta = dP to the
+# bit there), and the cases with such segments, T = 1 included, hold it.
+F32_ATOL_RMS, F32_RTOL = 2 ** -12, 2 ** -12
+# f32 serving (K1-f32) against eager f32 attention on the same weights, per
+# row: the two differ by f32 sums in another order (and at pad rows, which
+# pooling drops).
+F32_COSINE_MIN = 1 - 1e-6
+# The f32 packed finetune step through K1-f32/K5-f32 against the same step
+# through K5-f32's plain version: per leaf max|g_kernel - g_plain| <=
+# F32_FT_TOL max|g_plain|. No bf16 rounding flips here, only f32 sums in
+# another order carried through 30 layers of backward: the key bias read
+# 9.985e-07 of its largest entry on an H100 (the next leaves 7.6e-07 and
+# 7.0e-07), against bf16's 2^-6 = 1.6e-02. The limit, 2^-16 (1.5e-05), was
+# set after that reading; K5-f32 built to drop the last query tile of dk/dv
+# reads 0.73 (the v bias), 48 000 times the limit.
+F32_FT_TOL = 2 ** -16
 # K2/K3 against their plain version, both f32 (3xTF32 products on the
 # tensor cores against cuBLAS f32 and logsumexp: the same sums in another
 # order, over up to 4096 terms): |loss - ref| <= 1e-5 max(1, |ref|),
@@ -494,9 +555,9 @@ INFONCE_PARTIAL_LINE = ("__device__ __forceinline__ int summed_tiles(int B) "
 FAULTS = {   # name: (header, line, patched line, kernels built)
     "main_loop": ("mma_gemm.cuh", FAULT_LINE, FAULT_LINE[:-1] + " - 1;", ("dense_mm", "ffn_gelu")),
     "swept_tiles": ("attention.cuh", SWEEP_FAULT_LINE, SWEEP_FAULT_LINE[:-1] + " - 1;",
-                    ("attention_fwd", "attention_bwd")),
+                    ("attention_fwd", "attention_bwd", *F32_KERNELS)),
     "skip": ("attention.cuh", SKIP_FAULT_LINE, SKIP_FAULT_LINE.replace("q.x <=", "q.x <"),
-             ("attention_fwd", "attention_bwd")),
+             ("attention_fwd", "attention_bwd", *F32_KERNELS)),
     "maxsim_skip": ("filip_maxsim.cu", MAXSIM_SKIP_LINE,
                     MAXSIM_SKIP_LINE.replace("(mbv.x | mbv.y)", "((lane ? mbv.x : 0) | mbv.y)"),
                     ("filip_maxsim",)),
@@ -611,10 +672,16 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
 # Phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def qkv(B: int, T: int, gen: torch.Generator, nh: int = NH, dh: int = DH):
+def qkv(B: int, T: int, gen: torch.Generator, nh: int = NH, dh: int = DH,
+        dtype: torch.dtype = torch.bfloat16):
     def r(scale):
-        return (scale * torch.randn(B, T, nh, dh, device="cuda", generator=gen)).bfloat16()
+        return (scale * torch.randn(B, T, nh, dh, device="cuda", generator=gen)).to(dtype)
     return r(dh ** -0.5), r(1.0), r(1.0)
+
+
+def tolerance(dtype: torch.dtype) -> tuple[float, float]:
+    """(atol in rms(ref) units, rtol) of the attention checks in ``dtype``."""
+    return (F32_ATOL_RMS, F32_RTOL) if dtype == torch.float32 else (ATOL_RMS, RTOL)
 
 
 def padded_segments(B: int, T: int) -> torch.Tensor:
@@ -641,6 +708,21 @@ def packed_segments(B: int, T: int) -> torch.Tensor:
     return seg.cuda()
 
 
+def one_token_segments(B: int, T: int) -> torch.Tensor:
+    """Packed rows whose segments are one token long every other time
+    (lengths 1 and 2-9 in turn, gap zeros between some)."""
+    rng = np.random.default_rng(SEED)
+    seg = torch.zeros(B, T, dtype=torch.int32)
+    for b in range(B):
+        pos, sid = b % 2, 1
+        while pos < T:
+            n = 1 if sid % 2 else int(rng.integers(2, 10))
+            seg[b, pos:min(T, pos + n)] = sid
+            pos += n + int(rng.integers(0, 2))   # gap of 0-1 zeros
+            sid += 1
+    return seg.cuda()
+
+
 def path_segments(family: str = "t30_150M") -> list[tuple[str, bool, torch.Tensor]]:
     """(kind, on the packed unfrozen path, segment ids) of the chunks K1 and
     K5 take on the packed paths, as derive_segments gives them: the last
@@ -649,20 +731,23 @@ def path_segments(family: str = "t30_150M") -> list[tuple[str, bool, torch.Tenso
     one gap at its end, and the all-<pad> rows that _row_multiple_for adds,
     which these chunks hold; it raises if they do not); the last pep chunk
     of ``cli.main --packed --finetune``'s first batch ((48, 128): the
-    unfrozen step's constant-token rule); and the last receptor chunk of
-    tools/bench_train's first standard draw ((16, 512)) and of its second
-    long-tail draw ((28, 2048)). The rec (16, 256) chunk is on both
-    paths. For t33_650M, the chunks of its runs (run_t33_train_phase): the
-    same three of the first batch on the smaller fixture."""
-    if family == T33:
-        data_dir, families = WORK / SMALL_DATA, SMALL_FIXTURE_FAMILIES
-    else:
-        data_dir, families = WORK / "train_data", FIXTURE_FAMILIES
-    if not (data_dir / "receptor.fasta").exists():
-        write_fixture(data_dir, n_families=families, seed=42)
-    train, _, _ = epoch_loaders(data_dir)
-    fixture = packed_engine.tokenize_packed(common.make_tokenizer(),
-                                            *next(clip_engine._accumulate(train, 16)))
+    unfrozen step's constant-token rule; that run trains on the smaller
+    fixture); and the last receptor chunk of tools/bench_train's first
+    standard draw ((16, 512)) and of its second long-tail draw ((28, 2048)),
+    rows packed first-fit-decreasing from bench.py's length draws. The rec
+    (16, 256) chunk is on both paths. For t33_650M, the chunks of its runs
+    (run_t33_train_phase): the same three of the first batch on the smaller
+    fixture."""
+
+    def first_batch(data_dir, families):
+        if not (data_dir / "receptor.fasta").exists():
+            write_fixture(data_dir, n_families=families, seed=42)
+        train, _, _ = epoch_loaders(data_dir)
+        return packed_engine.tokenize_packed(common.make_tokenizer(),
+                                             *next(clip_engine._accumulate(train, 16)))
+
+    small = first_batch(WORK / SMALL_DATA, SMALL_FIXTURE_FAMILIES)
+    fixture = small if family == T33 else first_batch(WORK / "train_data", FIXTURE_FAMILIES)
     draws = () if family == T33 else (
         ("bench_train standard draw 1",
          bench_train.make_batches(np.random.default_rng(42), 1, "standard")[0]),
@@ -682,8 +767,8 @@ def path_segments(family: str = "t30_150M") -> list[tuple[str, bool, torch.Tenso
     for side in ("pep", "rec"):
         last_chunk(f"{run} --packed", side == "rec", fixture, side,
                    chunk_rows(fixture[f"{side}_ids"].shape[0]), pads_needed=True)
-    last_chunk(f"{run} --packed --finetune", True, fixture, "pep",
-               unfrozen_chunk_shapes(fixture)[0][0])
+    last_chunk(f"{run} --packed --finetune", True, small, "pep",
+               unfrozen_chunk_shapes(small)[0][0])
     for what, batch in draws:
         last_chunk(what, True, batch, "rec", unfrozen_chunk_shapes(batch)[1][0])
     return out
@@ -723,8 +808,51 @@ def attention_cases(gen: torch.Generator, segments: list, t33_segments: list) ->
                   for nh, dh, kind, seg in family_segments()]
 
 
+def f32_segments(segments: list) -> list[tuple[int, int, str, bool, torch.Tensor]]:
+    """(NH, DH, kind, on the unfrozen path, segments) of the f32 cases:
+    (16, 512) padded with a row of no valid token, odd T padded and packed,
+    and the packed paths' chunks (path_segments: the fixture's, and
+    tools/bench_train's (16, 512) and (28, 2048) receptor chunks of rows
+    packed first-fit-decreasing from bench.py's length draws) at
+    t30_150M's NH 20 and DH 32; then each family's head dim
+    (family_segments); then at every head dim, rows with one-token
+    segments (one_token_segments) at (3, 129) and at T = 1, a pad row
+    among them."""
+    fully = padded_segments(16, 512)
+    fully[8] = 0
+    out = [(NH, DH, "padded, one row fully padded", False, fully),
+           (NH, DH, "padded", False, padded_segments(3, 65)),
+           (NH, DH, "packed", False, packed_segments(2, 129))]
+    out += [(NH, DH, kind, path, seg) for kind, path, seg in segments]
+    out += [(nh, dh, kind, False, seg) for nh, dh, kind, seg in family_segments()]
+    for nh, dh in dict.fromkeys([(NH, DH)] + [(nh, dh) for _, _, nh, dh in FAMILY_SHAPES]):
+        t1 = torch.tensor([[1], [1], [0], [3]], dtype=torch.int32, device="cuda")
+        out += [(nh, dh, "packed, one-token segments", False, one_token_segments(3, 129)),
+                (nh, dh, "T = 1, one pad row", False, t1)]
+    return out
+
+
+def attention_cases_f32(gen: torch.Generator, segments: list) -> list:
+    """K1-f32's cases, in attention_cases' form, on f32 q, k, v
+    (f32_segments)."""
+    return [(*seg.shape, kind, path, *qkv(*seg.shape, gen, nh, dh, torch.float32), seg)
+            for nh, dh, kind, path, seg in f32_segments(segments)]
+
+
+def bwd_cases_f32(gen: torch.Generator, segments: list) -> list:
+    """K5-f32's cases, in bwd_cases' form, on f32 q, k, v and dO
+    (f32_segments)."""
+    out = []
+    for nh, dh, kind, path, seg in f32_segments(segments):
+        q, k, v = qkv(*seg.shape, gen, nh, dh, torch.float32)
+        do = torch.randn(*seg.shape, nh, dh, device="cuda", generator=gen)
+        out.append((*seg.shape, kind, path, q, k, v, do, seg))
+    return out
+
+
 def case_name(B: int, T: int, kind: str, q: torch.Tensor) -> str:
-    return f"B={B} T={T} NH={q.shape[2]} DH={q.shape[3]} {kind}"
+    dtype = " f32" if q.dtype == torch.float32 else ""
+    return f"B={B} T={T} NH={q.shape[2]} DH={q.shape[3]}{dtype} {kind}"
 
 
 def by_rows(fn, q, *tensors):
@@ -741,13 +869,13 @@ def by_rows(fn, q, *tensors):
     return torch.cat(parts)
 
 
-def least_atol(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
+def least_atol(got: torch.Tensor, want: torch.Tensor, rtol: float = RTOL) -> tuple[float, float]:
     """(max|err|, the least atol in units of rms(want) that passes
-    |err| <= atol + RTOL |want|; inf where got is not finite)."""
+    |err| <= atol + rtol |want|; inf where got is not finite)."""
     w = want.float()
     err = (got.float() - w).abs()
     rms = w.square().mean().sqrt().item()
-    need = (err - RTOL * w.abs()).max().item() / max(rms, 1e-30)
+    need = (err - rtol * w.abs()).max().item() / max(rms, 1e-30)
     return err.max().item(), need if bool(torch.isfinite(got).all()) else math.inf
 
 
@@ -759,7 +887,8 @@ def k1_readings(cases: list) -> list[dict]:
     for B, T, kind, path, q, k, v, seg in cases:
         out, lse = attention._forward(q, k, v, seg, with_lse=True)
         torch.cuda.synchronize()
-        err, need = least_atol(out, by_rows(attention.attention_reference, q, k, v, seg))
+        atol, rtol = tolerance(q.dtype)
+        err, need = least_atol(out, by_rows(attention.attention_reference, q, k, v, seg), rtol)
         want = by_rows(attention.attention_reference_lse, q, k, seg)
         pad = torch.isinf(want)
         lse_err = (float((lse[~pad] - want[~pad]).abs().max()) if bool((~pad).any()) else 0.0)
@@ -767,24 +896,25 @@ def k1_readings(cases: list) -> list[dict]:
             lse_err = math.inf
         rows.append({"case": case_name(B, T, kind, q), "dh": q.shape[3],
                      "packed": kind.startswith("packed"), "path": path, "max_abs_err": err,
-                     "need": need, "lse_err": lse_err})
+                     "need": need, "atol": atol, "rtol": rtol, "lse_err": lse_err})
     return rows
 
 
-def check_attention(cases: list) -> float:
-    """K1 against its plain version: every output within ATOL_RMS * rms(ref)
-    + RTOL |ref|, its statistics within LSE_ATOL of attention_reference_lse
-    (and -inf at the same pad queries)."""
+def check_attention(cases: list, name: str = "attention_fwd") -> float:
+    """K1 (or K1-f32, ``name``) against its plain version: every output
+    within atol * rms(ref) + rtol |ref| (ATOL_RMS and RTOL, in f32
+    F32_ATOL_RMS and F32_RTOL), its statistics within LSE_ATOL of
+    attention_reference_lse (and -inf at the same pad queries)."""
     worst = 0.0
     for row in k1_readings(cases):
-        ok = row["need"] <= ATOL_RMS and row["lse_err"] <= LSE_ATOL
+        ok = row["need"] <= row["atol"] and row["lse_err"] <= LSE_ATOL
         worst = max(worst, row["max_abs_err"])
-        log(f"[kernels] attention_fwd {row['case']}: max|err| {row['max_abs_err']:.6g}; "
-            f"least passing atol {row['need']:.6g} rms(ref) (tolerance {ATOL_RMS:g} rms(ref) + "
-            f"{RTOL}*|ref|); lse max|err| {row['lse_err']:.3g} (tolerance {LSE_ATOL:g}) "
-            f"{'ok' if ok else 'FAIL'}")
+        log(f"[kernels] {name} {row['case']}: max|err| {row['max_abs_err']:.6g}; "
+            f"least passing atol {row['need']:.6g} rms(ref) (tolerance {row['atol']:g} rms(ref) "
+            f"+ {row['rtol']:g}*|ref|); lse max|err| {row['lse_err']:.3g} (tolerance "
+            f"{LSE_ATOL:g}) {'ok' if ok else 'FAIL'}")
         if not ok:
-            raise AssertionError(f"attention_fwd disagrees with its plain version ({row['case']})")
+            raise AssertionError(f"{name} disagrees with its plain version ({row['case']})")
     return worst
 
 
@@ -827,34 +957,36 @@ def k5_readings(cases: list) -> list[dict]:
     and dv."""
     rows = []
     for B, T, kind, path, q, k, v, do, seg in cases:
-        lse = attention._forward(q, k, v, seg, with_lse=True)[1]
-        got = attention.fused_attention_bwd(q, k, v, seg, do, lse)
+        out, lse = attention._forward(q, k, v, seg, with_lse=True)
+        got = attention.fused_attention_bwd(q, k, v, seg, do, lse, out)
         torch.cuda.synchronize()
         want = by_rows(attention.attention_reference_bwd, q, k, v, seg, do)
-        errs = [least_atol(g, w) for g, w in zip(got, want)]
+        atol, rtol = tolerance(q.dtype)
+        errs = [least_atol(g, w, rtol) for g, w in zip(got, want)]
         rows.append({"case": case_name(B, T, kind, q), "dh": q.shape[3],
                      "packed": kind.startswith("packed"), "path": path,
-                     "max_abs_err": max(e for e, _ in errs),
+                     "max_abs_err": max(e for e, _ in errs), "atol": atol, "rtol": rtol,
                      "needs": dict(zip(("dq", "dk", "dv"), (n for _, n in errs)))})
     return rows
 
 
-def check_attention_bwd(cases: list) -> float:
-    """K5 against attention_reference_bwd, each of dq, dk, dv held to K1's
-    form |err| <= ATOL_RMS * rms(ref) + RTOL * |ref|: both round P and dS to
-    bf16 for the products, from f32 values that differ by the order of
-    their sums and by ex2.approx, and round the outputs to bf16 (2^-8
-    relative, within RTOL)."""
+def check_attention_bwd(cases: list, name: str = "attention_bwd") -> float:
+    """K5 (or K5-f32, ``name``) against attention_reference_bwd, each of
+    dq, dk, dv held to K1's form |err| <= atol * rms(ref) + rtol * |ref|:
+    in bf16 both round P and dS to bf16 for the products, from f32 values
+    that differ by the order of their sums and by ex2.approx, and round the
+    outputs to bf16 (2^-8 relative, within RTOL); in f32 F32_ATOL_RMS and
+    F32_RTOL say why."""
     worst = 0.0
     for row in k5_readings(cases):
-        ok = max(row["needs"].values()) <= ATOL_RMS
+        ok = max(row["needs"].values()) <= row["atol"]
         worst = max(worst, row["max_abs_err"])
-        log(f"[kernels] attention_bwd {row['case']}: max|err| {row['max_abs_err']:.6g}; "
+        log(f"[kernels] {name} {row['case']}: max|err| {row['max_abs_err']:.6g}; "
             f"least passing atol " + ", ".join(f"{k} {v:.6g}" for k, v in row["needs"].items())
-            + f" rms(ref) (tolerance {ATOL_RMS:g} rms(ref) + {RTOL}*|ref|) "
+            + f" rms(ref) (tolerance {row['atol']:g} rms(ref) + {row['rtol']:g}*|ref|) "
             + ("ok" if ok else "FAIL"))
         if not ok:
-            raise AssertionError(f"attention_bwd disagrees with its plain version ({row['case']})")
+            raise AssertionError(f"{name} disagrees with its plain version ({row['case']})")
     return worst
 
 
@@ -1233,7 +1365,7 @@ def fault_kernels(libs: dict):
 
 
 @contextlib.contextmanager
-def attention_kernels(libs: dict, names=("attention_fwd", "attention_bwd")):
+def attention_kernels(libs: dict, names=("attention_fwd", "attention_bwd", *F32_KERNELS)):
     """ops.attention launches the planted-fault builds of ``names`` while
     the block runs, and its own builds of the others."""
     saved = attention._launcher
@@ -1245,22 +1377,25 @@ def attention_kernels(libs: dict, names=("attention_fwd", "attention_bwd")):
         attention._launcher = saved
 
 
-def check_attention_faults(libs: dict, k1_cases: list, k5_cases: list) -> dict:
-    """K1's and K5's checks against each attention fault, on the same
-    inputs, each kernel's fault alone (K5 is fed the sound K1's
-    statistics): each must fail the check, the skip fault every packed case
-    of it, and both faults every case on the packed unfrozen path. Returns
+def check_attention_faults(libs: dict, k1_cases: list, k5_cases: list,
+                           dtype: torch.dtype = torch.bfloat16) -> dict:
+    """K1's and K5's checks (in ``dtype``: K1-f32's and K5-f32's in f32)
+    against each attention fault, on the same inputs, each kernel's fault
+    alone (K5 is fed the sound K1's statistics): each must fail the check,
+    the skip fault every packed case of it, and both faults every case on
+    the packed unfrozen path and a case at each of FAULT_HEAD_DIMS. Returns
     the worst ratio to the tolerance per check, how many cases failed and
     the least ratio on the packed unfrozen path."""
     out = {}
+    fwd, bwd = attention._kernel("attention_fwd", dtype), attention._kernel("attention_bwd", dtype)
     for name in ("swept_tiles", "skip"):
-        with attention_kernels(libs[name], ("attention_fwd",)):
+        with attention_kernels(libs[name], (fwd,)):
             k1 = k1_readings(k1_cases)
-        with attention_kernels(libs[name], ("attention_bwd",)):  # fed the sound K1's lse
+        with attention_kernels(libs[name], (bwd,)):  # fed the sound K1's lse
             k5 = k5_readings(k5_cases)
         for kernel, rows, ratio in (
-                ("attention_fwd", k1, lambda r: max(r["need"] / ATOL_RMS, r["lse_err"] / LSE_ATOL)),
-                ("attention_bwd", k5, lambda r: max(r["needs"].values()) / ATOL_RMS)):
+                (fwd, k1, lambda r: max(r["need"] / r["atol"], r["lse_err"] / LSE_ATOL)),
+                (bwd, k5, lambda r: max(r["needs"].values()) / r["atol"])):
             ratios = [ratio(r) for r in rows]
             failed = [r["case"] for r, x in zip(rows, ratios) if x > 1]
             packed_missed = [r["case"] for r, x in zip(rows, ratios) if r["packed"] and x <= 1]
@@ -1350,8 +1485,7 @@ def counted_forwards():
 
 
 def reset_counts() -> None:
-    attention.fused_attention.launches = 0
-    attention.fused_attention_bwd.launches = 0
+    attention.launches.update(dict.fromkeys(attention.launches, 0))
     maxsim.filip_similarity_fused.launches = 0
     for fn in (infonce.fused_infonce, infonce.fused_infonce_tiled):
         fn.launches = fn.bwd_launches = 0
@@ -1360,10 +1494,13 @@ def reset_counts() -> None:
 
 
 def check_default_path(what: str) -> None:
-    """The default bf16 paths launch neither P1 nor K6."""
-    if dense_mm.mm.launches or ffn.dense_gelu.launches:
-        raise AssertionError(f"{what}: dense_mm launched {dense_mm.mm.launches} and ffn_gelu "
-                             f"{ffn.dense_gelu.launches} times on the default path")
+    """The default bf16 paths launch neither P1, K6 nor the f32 attention
+    kernels."""
+    f32 = attention.launches["attention_fwd_f32"] + attention.launches["attention_bwd_f32"]
+    if dense_mm.mm.launches or ffn.dense_gelu.launches or f32:
+        raise AssertionError(f"{what}: dense_mm launched {dense_mm.mm.launches}, ffn_gelu "
+                             f"{ffn.dense_gelu.launches} and the f32 attention kernels {f32} "
+                             "times on the default path")
 
 
 def infonce_counts() -> dict:
@@ -1507,7 +1644,7 @@ def run_serve_phase(rng: np.random.Generator) -> dict:
         metrics = json.loads(call(base, "/metrics")[1])
         log(f"[serve] /metrics {metrics}")
 
-        launches = attention.fused_attention.launches
+        launches = attention.launches["attention_fwd"]
         k4_launches = maxsim.filip_similarity_fused.launches
         check_default_path("serve")
     if not forwards or launches != cfg.num_layers * len(forwards):
@@ -1709,7 +1846,7 @@ def run_filip_phase(ctx: dict, rng: np.random.Generator) -> dict:
                        [sc for _, sc in row], clip_scores[q], clip_ids)
         log(f"[filip] retrieve (CLIP mode) against the 256-sequence CLIP index: ok")
 
-        k1 = attention.fused_attention.launches
+        k1 = attention.launches["attention_fwd"]
         k4 = maxsim.filip_similarity_fused.launches
     if not forwards or k1 != cfg.num_layers * len(forwards):
         raise AssertionError(f"attention_fwd launched {k1} times for {len(forwards)} "
@@ -1807,7 +1944,7 @@ def run_train(name: str, data_dir: Path, batch_size: int) -> dict:
         train_cli.main(["--synthetic-fixture", "--data-dir", str(data_dir), "--fixture-families",
                         str(FIXTURE_FAMILIES), "--epochs", "1", "--runs-dir", str(runs),
                         "--batch-size", str(batch_size), "--accumulated-batches", "16"])
-        k1 = attention.fused_attention.launches
+        k1 = attention.launches["attention_fwd"]
         counts = infonce_counts()
         check_default_path(name)
     wall = time.perf_counter() - t0
@@ -1850,8 +1987,8 @@ def run_unfrozen(name: str, data_dir: Path, mode_args: list[str], engine,
         train_cli.main(["--synthetic-fixture", "--data-dir", str(data_dir), "--fixture-families",
                         str(families), "--epochs", "1", "--runs-dir", str(runs)]
                        + mode_args)
-        k1 = attention.fused_attention.launches
-        k5 = attention.fused_attention_bwd.launches
+        k1 = attention.launches["attention_fwd"]
+        k5 = attention.launches["attention_bwd"]
         counts = infonce_counts()
     wall = time.perf_counter() - t0
     run = check_run_dir(runs)
@@ -1994,7 +2131,7 @@ def run_packed_train(data_dir: Path, family: str = "t30_150M",
         train_cli.main(["--synthetic-fixture", "--data-dir", str(data_dir), "--fixture-families",
                         str(families), "--epochs", "1", "--runs-dir", str(runs),
                         "--esm-config", family, "--packed"])
-        k1 = attention.fused_attention.launches
+        k1 = attention.launches["attention_fwd"]
         counts = infonce_counts()
         check_default_path(name)
     wall = time.perf_counter() - t0
@@ -2034,6 +2171,8 @@ def packed_setup(n: int = 256, family: str = "t30_150M"):
     esm_params = esm2.init_params(cfg_esm, torch.Generator(device="cuda").manual_seed(0),
                                   dtype=torch.bfloat16, device="cuda")
     heads0 = clip.init_params(mcfg, torch.Generator().manual_seed(SEED), device="cuda")
+    if not (WORK / "train_data" / "receptor.fasta").exists():
+        write_fixture(WORK / "train_data", n_families=FIXTURE_FAMILIES, seed=42)
     train_ds, _, _ = dataset.generate_datasets(WORK / "train_data", seed=42)
     peps, recs = next(clip_engine._accumulate(dataset.PairLoader(train_ds, n // 16, seed=SEED),
                                               16))
@@ -2049,10 +2188,10 @@ def check_packed_paths() -> dict:
     the bit."""
     mcfg, esm_params, heads0, peps, recs = packed_setup()
     tok = common.make_tokenizer()
-    before = attention.fused_attention.launches
+    before = attention.launches["attention_fwd"]
     packed = to_device(packed_engine.tokenize_packed(tok, peps, recs), "cuda")
     got = packed_engine.embed_packed(heads0, esm_params, packed, mcfg)
-    k1_packed = attention.fused_attention.launches - before
+    k1_packed = attention.launches["attention_fwd"] - before
     order = sorted(range(len(recs)), key=lambda i: len(recs[i]))   # tokenize_grouped's order
     with torch.inference_mode():
         pairs = [clip.forward(heads0, esm_params, clip_engine.expand_batch(to_device(b, "cuda")),
@@ -2140,7 +2279,8 @@ def run_packed_phase() -> dict:
 
 
 def run_packed_unfrozen(name: str, data_dir: Path, mode_args: list[str], engine,
-                        family: str = "t30_150M", families: int = FIXTURE_FAMILIES) -> dict:
+                        family: str = "t30_150M", families: int = FIXTURE_FAMILIES,
+                        dtype: torch.dtype = torch.bfloat16) -> dict:
     """cli.main --packed --finetune or --lora-rank (--esm-config family) for
     one epoch at the defaults (global batch 256, flat packing, remat) on a
     fixture of ``families``; checks the artifacts, the chunk forwards of
@@ -2149,20 +2289,37 @@ def run_packed_unfrozen(name: str, data_dir: Path, mode_args: list[str], engine,
     count: per step K1 once a layer per pass-1 chunk and twice per pass-2
     chunk (forward and remat recompute), K5 once a layer per pass-2 chunk,
     K2 once forward and once backward; per eval batch K1 once a layer per
-    chunk forward (the frozen rule) and K2 once."""
+    chunk forward (the frozen rule) and K2 once. With ``dtype`` float32
+    (``--esm-dtype float32``) K1-f32 and K5-f32 in their place, and no bf16
+    attention launch. The peak device memory is the run's own: the
+    process's peak over the run less what it held before."""
     runs = WORK / f"runs_{name}"
+    f32 = dtype == torch.float32
     L = common.esm_config(family, "bfloat16").num_layers
     t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     with counted_forwards() as forwards, timed_steps(engine) as ends:
         reset_counts()
         train_cli.main(["--synthetic-fixture", "--data-dir", str(data_dir), "--fixture-families",
                         str(families), "--epochs", "1", "--runs-dir", str(runs),
-                        "--esm-config", family, "--packed"] + mode_args)
-        k1 = attention.fused_attention.launches
-        k5 = attention.fused_attention_bwd.launches
+                        "--esm-config", family, "--packed"] + mode_args
+                       + (["--esm-dtype", "float32"] if f32 else []))
+        k1 = attention.launches["attention_fwd"]
+        k5 = attention.launches["attention_bwd"]
+        if f32:
+            if k1 or k5 or dense_mm.mm.launches or ffn.dense_gelu.launches:
+                raise AssertionError(f"{name}: bf16 attention_fwd {k1}, attention_bwd {k5}, "
+                                     f"dense_mm {dense_mm.mm.launches}, ffn_gelu "
+                                     f"{ffn.dense_gelu.launches} launches on the f32 path")
+            k1 = attention.launches["attention_fwd_f32"]
+            k5 = attention.launches["attention_bwd_f32"]
         counts = infonce_counts()
-        check_default_path(name)
+        if not f32:
+            check_default_path(name)
     wall = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
     run = check_run_dir(runs)
     steps, evals = packed_epoch_chunks(data_dir, unfrozen_chunks)
     step_chunks = [c for chunks in steps for c in chunks]
@@ -2184,11 +2341,14 @@ def run_packed_unfrozen(name: str, data_dir: Path, mode_args: list[str], engine,
         f"{len(evals)} eval batches of 16; train loss {metrics['train_loss']:.6f}, val loss "
         f"{metrics['val_loss']:.6f}; chunk forwards (rows, L) of the first step's pass "
         f"{steps[0]}, {per_pass:.2f} a pass (the one-bucket step: 32); {len(forwards)} backbone "
-        f"forwards; attention_fwd {k1} ({L} per pass-1 chunk, {2 * L} per pass-2 chunk, {L} per "
-        f"eval chunk), attention_bwd {k5} ({L} per pass-2 chunk); InfoNCE (forward, backward) "
-        f"calls {counts}; epoch {metrics['seconds']:.2f} s, cli.main {wall:.2f} s")
+        f"forwards; {attention._kernel('attention_fwd', dtype)} {k1} ({L} per pass-1 chunk, {2 * L} "
+        f"per pass-2 chunk, {L} per eval chunk), {attention._kernel('attention_bwd', dtype)} {k5} ({L} "
+        f"per pass-2 chunk); InfoNCE (forward, backward) calls {counts}; epoch "
+        f"{metrics['seconds']:.2f} s, cli.main {wall:.2f} s; peak device memory {peak:.4f} GB")
     return {"run": run, "steps": len(steps), "ends": ends, "chunks_per_pass": per_pass,
-            "launches": {"attention_fwd": k1, "attention_bwd": k5,
+            "peak_memory_gb": peak, "seconds": wall,
+            "launches": {attention._kernel("attention_fwd", dtype): k1,
+                         attention._kernel("attention_bwd", dtype): k5,
                          "filip_maxsim": maxsim.filip_similarity_fused.launches,
                          **{k: v[0] for k, v in counts.items()}}}
 
@@ -2196,15 +2356,19 @@ def run_packed_unfrozen(name: str, data_dir: Path, mode_args: list[str], engine,
 def run_packed_unfrozen_phase() -> dict:
     """cli.main --packed --finetune and --packed --lora-rank 8, each then
     embedding with its best_model.npz; one packed finetune step's launches,
-    busy share and peak memory."""
-    data_dir = WORK / "train_data"
+    busy share and peak memory. The runs train on the 1100-family fixture
+    (3 steps each)."""
+    data_dir = WORK / SMALL_DATA
     recs = sequences_only(data_dir / "receptor.fasta")
     out = {"finetune": run_packed_unfrozen("train_finetune_packed", data_dir, ["--finetune"],
-                                           finetune)}
+                                           finetune, families=SMALL_FIXTURE_FAMILIES)}
     embed_check(out["finetune"]["run"] / "best_model.npz", recs,
                 "the packed finetune run's best_model.npz")
     out["lora"] = run_packed_unfrozen("train_lora_packed", data_dir,
-                                      ["--lora-rank", str(LORA_RANK)], lora)
+                                      ["--lora-rank", str(LORA_RANK)], lora,
+                                      families=SMALL_FIXTURE_FAMILIES)
+    for run in ("finetune", "lora"):
+        out[run]["profile"] = f"{SMALL_FIXTURE_FAMILIES} families"
     embed_check(out["lora"]["run"] / "best_model.npz", recs,
                 "the packed LoRA run's best_model.npz")
     out["per_step"] = launches_per_step(True, finetune)
@@ -2246,9 +2410,9 @@ def run_filip_train(name: str, data_dir: Path, extra: list[str]) -> dict:
     with counted_forwards() as forwards, timed_steps(filip_engine) as ends:
         reset_counts()
         filip_cli.main(argv)
-        k1 = attention.fused_attention.launches
+        k1 = attention.launches["attention_fwd"]
         k4 = maxsim.filip_similarity_fused.launches
-        k5 = attention.fused_attention_bwd.launches
+        k5 = attention.launches["attention_bwd"]
         counts = infonce_counts()
         check_default_path(name)
     wall = time.perf_counter() - t0
@@ -2702,8 +2866,8 @@ def run_filip_more(name: str, data_dir: Path, extra: list[str], engine) -> dict:
     with counted_forwards() as forwards, timed_steps(engine) as ends:
         reset_counts()
         filip_cli.main(argv)
-        got = {"attention_fwd": attention.fused_attention.launches,
-               "attention_bwd": attention.fused_attention_bwd.launches,
+        got = {"attention_fwd": attention.launches["attention_fwd"],
+               "attention_bwd": attention.launches["attention_bwd"],
                "filip_maxsim": maxsim.filip_similarity_fused.launches}
         counts = infonce_counts()
         check_default_path(name)
@@ -2984,14 +3148,14 @@ def filip_finetune_steps(cfg, batch, paths: tuple, fault_libs: dict) -> dict:
                 filip_k4_blocks(batch))
         params = finetune.init_params(esm0, clone_tree(heads0))
         state = capturing(filip_finetune.make_optimizer(run_cfg).init(params), params)
-        before = (attention.fused_attention.launches, k5.launches,
+        before = (attention.launches["attention_fwd"], attention.launches["attention_bwd"],
                   maxsim.filip_similarity_fused.launches)
         faulty = (attention_kernels(fault_libs["swept_tiles"], ("attention_bwd",))
                   if path == "fault" else contextlib.nullcontext())
         with attention_function(k1, plain_backward if path == "k1_plain_bwd" else k5), faulty:
             _, _, loss = filip_finetune.make_train_step(run_cfg)(params, state, {}, batch, None)
         torch.cuda.synchronize()
-        calls = (attention.fused_attention.launches - before[0], k5.launches - before[1],
+        calls = (attention.launches["attention_fwd"] - before[0], attention.launches["attention_bwd"] - before[1],
                  maxsim.filip_similarity_fused.launches - before[2])
         if calls != want:
             raise AssertionError(f"FILIP finetune step ({path}): (attention_fwd, attention_bwd, "
@@ -3265,33 +3429,27 @@ def plain_forward(q, k, v, segments, with_lse=False):
     return (out, attention.attention_reference_lse(q, k, segments)) if with_lse else out
 
 
-def plain_backward(q, k, v, segments, do, lse):
-    """K5's plain version in K5's place: it recomputes what lse holds."""
+def plain_backward(q, k, v, segments, do, lse, out=None):
+    """K5's plain version in K5's place: it recomputes what lse (and, in
+    f32, out) holds."""
     return attention.attention_reference_bwd(q, k, v, segments, do)
 
 
 @contextlib.contextmanager
 def attention_function(forward, backward):
     """The fused attention Function with another forward (K1's place) and
-    backward (K5's place) while the block runs. K5 counts its launches on
-    the module's name fused_attention_bwd, so the stand-in there carries
-    the count meanwhile and hands it back."""
+    backward (K5's place) while the block runs."""
     saved = attention._forward, attention.fused_attention_bwd
-
-    def stand_in(*args):
-        return backward(*args)
-
-    stand_in.launches = saved[1].launches
-    attention._forward, attention.fused_attention_bwd = forward, stand_in
+    attention._forward, attention.fused_attention_bwd = forward, backward
     try:
         yield
     finally:
         attention._forward, attention.fused_attention_bwd = saved
-        saved[1].launches = stand_in.launches
 
 
 def finetune_step_runs(fault_libs: dict, packed: bool = False, family: str = "t30_150M",
-                       pool: int = 256, names: tuple | None = None) -> dict:
+                       pool: int = 256, names: tuple | None = None,
+                       dtype: torch.dtype = torch.bfloat16) -> dict:
     """One finetune step of ``family`` (t30_150M) at global batch ``pool``
     (256; one pad bucket in 16 chunks, or with ``packed`` the packed step
     over the same pairs; remat, dropout 0, the two-group Adam) from the same
@@ -3304,11 +3462,14 @@ def finetune_step_runs(fault_libs: dict, packed: bool = False, family: str = "t3
     the last query tile); "eager" and "eager_f32"
     attention_impl="eager" (plain attention through autograd) with a bf16
     and an f32 backbone. The packed step runs "kernel" twice ("again")
-    and leaves out "plain_fwd_k5" and "plain"."""
-    base = common.esm_config(family, "bfloat16")
+    and leaves out "plain_fwd_k5" and "plain". With ``dtype`` float32 the
+    fused runs take an f32 backbone through K1-f32 and K5-f32 (their plain
+    versions, their fault)."""
+    f32 = dtype == torch.float32
+    base = common.esm_config(family, "float32" if f32 else "bfloat16")
     L = base.num_layers
     esm0 = esm2.init_params(base, torch.Generator(device="cuda").manual_seed(0),
-                            dtype=torch.bfloat16, device="cuda")
+                            dtype=dtype, device="cuda")
     data_dir = WORK / "train_data"
     if not (data_dir / "receptor.fasta").exists():
         write_fixture(data_dir, n_families=FIXTURE_FAMILIES, seed=42)
@@ -3322,12 +3483,12 @@ def finetune_step_runs(fault_libs: dict, packed: bool = False, family: str = "t3
     k1, k5 = attention._forward, attention.fused_attention_bwd
     plain_fwd, plain_bwd = plain_forward, plain_backward
     c = len(unfrozen_chunks(batch)) if packed else 2 * 16       # chunks per pass
-    runs = (("kernel", "fused", torch.bfloat16, k1, k5, (3 * L * c, L * c)),
-            ("again", "fused", torch.bfloat16, k1, k5, (3 * L * c, L * c)),
-            ("k1_plain_bwd", "fused", torch.bfloat16, k1, plain_bwd, (3 * L * c, 0)),
-            ("plain_fwd_k5", "fused", torch.bfloat16, plain_fwd, k5, (0, L * c)),
-            ("plain", "fused", torch.bfloat16, plain_fwd, plain_bwd, (0, 0)),
-            ("fault", "fused", torch.bfloat16, k1, k5, (3 * L * c, L * c)),
+    runs = (("kernel", "fused", dtype, k1, k5, (3 * L * c, L * c)),
+            ("again", "fused", dtype, k1, k5, (3 * L * c, L * c)),
+            ("k1_plain_bwd", "fused", dtype, k1, plain_bwd, (3 * L * c, 0)),
+            ("plain_fwd_k5", "fused", dtype, plain_fwd, k5, (0, L * c)),
+            ("plain", "fused", dtype, plain_fwd, plain_bwd, (0, 0)),
+            ("fault", "fused", dtype, k1, k5, (3 * L * c, L * c)),
             ("eager", "eager", torch.bfloat16, k1, k5, (0, 0)),
             ("eager_f32", "eager", torch.float32, k1, k5, (0, 0)))
     skipped = ("plain_fwd_k5", "plain") if packed else ("again",)
@@ -3344,13 +3505,15 @@ def finetune_step_runs(fault_libs: dict, packed: bool = False, family: str = "t3
             batch_size=pool // 16, accumulated_batches=16, packed=packed)
         params = finetune.init_params(esm0, clone_tree(heads0))
         state = capturing(finetune.make_optimizer(cfg).init(params), params)
-        before = (attention.fused_attention.launches, k5.launches)
-        faulty = (attention_kernels(fault_libs["swept_tiles"], ("attention_bwd",))
+        counted = [attention._kernel(n, dtype) for n in ("attention_fwd", "attention_bwd")]
+        before = [attention.launches[n] for n in counted]
+        faulty = (attention_kernels(fault_libs["swept_tiles"],
+                                    (attention._kernel("attention_bwd", dtype),))
                   if name == "fault" else contextlib.nullcontext())
         with attention_function(fwd, bwd), faulty:
             _, _, loss = finetune.make_train_step(cfg)(params, state, {}, batch, None)
         torch.cuda.synchronize()
-        calls = (attention.fused_attention.launches - before[0], k5.launches - before[1])
+        calls = tuple(attention.launches[n] - b for n, b in zip(counted, before))
         if calls != want:
             raise AssertionError(f"finetune step check ({name}): (attention_fwd, "
                                  f"attention_bwd) launches {calls}, want {want}")
@@ -3473,6 +3636,394 @@ def check_finetune_step(fault_libs: dict, packed: bool = False) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 7d: pretrained ESM-2 from a HF directory, f32 serving and training
+# ---------------------------------------------------------------------------
+
+def write_safetensors(path: Path, tensors: dict[str, np.ndarray]) -> None:
+    """A .safetensors file of f32 arrays: the 8-byte little-endian header
+    length, the JSON header ({name: {dtype, shape, data_offsets}}) padded
+    with spaces to 8 bytes, then the arrays' little-endian bytes in order."""
+    header, offset = {}, 0
+    for key, arr in tensors.items():
+        header[key] = {"dtype": "F32", "shape": list(arr.shape),
+                       "data_offsets": [offset, offset + arr.nbytes]}
+        offset += arr.nbytes
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(len(raw).to_bytes(8, "little"))
+        f.write(raw)
+        for arr in tensors.values():
+            f.write(np.ascontiguousarray(arr, "<f4").tobytes())
+
+
+def write_hf_dir(path: Path, cfg: esm2.ESM2Config, seed: int) -> dict[str, np.ndarray]:
+    """An EsmForMaskedLM-style checkpoint directory of ``cfg`` with seeded
+    f32 weights (numpy): config.json and a model.safetensors holding the
+    backbone under ``esm.``-prefixed keys beside what the reader must skip
+    (the MLM head, the contact head, each layer's rotary inv_freq). Returns
+    the backbone's arrays by key without the prefix."""
+    rng = np.random.default_rng(seed)
+    backbone = {}
+    for key, shape in esm2.hf_shapes(cfg).items():
+        if "LayerNorm.weight" in key or "layer_norm_after.weight" in key:
+            backbone[key] = (1.0 + 0.02 * rng.standard_normal(shape)).astype(np.float32)
+        else:
+            backbone[key] = (0.02 * rng.standard_normal(shape)).astype(np.float32)
+    H, V = cfg.hidden_size, cfg.vocab_size
+    skipped = {"lm_head.dense.weight": (H, H), "lm_head.dense.bias": (H,),
+               "lm_head.layer_norm.weight": (H,), "lm_head.layer_norm.bias": (H,),
+               "lm_head.bias": (V,),
+               "esm.contact_head.regression.weight": (1, cfg.num_layers * cfg.num_heads),
+               "esm.contact_head.regression.bias": (1,)}
+    tensors = {f"esm.{k}": v for k, v in backbone.items()}
+    tensors.update({k: rng.standard_normal(shape).astype(np.float32)
+                    for k, shape in skipped.items()})
+    inv_freq = (1.0 / 10000.0 ** (np.arange(0, cfg.head_dim, 2) / cfg.head_dim)).astype(np.float32)
+    tensors.update({f"esm.encoder.layer.{i}.attention.self.rotary_embeddings.inv_freq": inv_freq
+                    for i in range(cfg.num_layers)})
+    path.mkdir(parents=True, exist_ok=True)
+    (path / "config.json").write_text(json.dumps({
+        "architectures": ["EsmForMaskedLM"], "model_type": "esm", "hidden_size": H,
+        "num_hidden_layers": cfg.num_layers, "num_attention_heads": cfg.num_heads,
+        "intermediate_size": cfg.intermediate_size, "vocab_size": V,
+        "position_embedding_type": "rotary", "token_dropout": True, "pad_token_id": 1,
+        "mask_token_id": 32, "layer_norm_eps": cfg.layer_norm_eps, "torch_dtype": "float32"}))
+    write_safetensors(path / "model.safetensors", tensors)
+    return backbone
+
+
+def run_hf_phase(gpu: str) -> dict:
+    """t30_150M as an EsmForMaskedLM directory of seeded weights
+    (write_hf_dir): the reader (checkpoint.read_hf_checkpoint) returns the
+    backbone's arrays and nothing else, to the bit; load_esm's f32 tree on
+    the card holds each written array where the TPU layout puts it (linear
+    weights transposed, layers stacked), to the bit; the port's
+    convert_esm_weights writes an npz that loads to the same tree."""
+    cfg = common.esm_config("t30_150M", "float32")
+    hf_dir, npz = WORK / "hf_t30_150M", WORK / "esm_t30_150M_from_hf.npz"
+    t0 = time.perf_counter()
+    written = write_hf_dir(hf_dir, cfg, SEED + 5)
+    t_write = time.perf_counter() - t0
+    sd = checkpoint.read_hf_checkpoint(hf_dir)
+    t_read = time.perf_counter() - t0 - t_write
+    if set(sd) != set(written) or not all(np.array_equal(sd[k], written[k]) for k in written):
+        raise AssertionError("read_hf_checkpoint does not return the written backbone")
+    args = argparse.Namespace(esm_weights=str(hf_dir), esm_dtype="float32")
+    tree = common.load_esm(args, cfg, torch.device("cuda"))
+    for path, name, transpose in esm2._HF_LAYER_LEAVES:
+        got = tree["layers"][path[0]][path[1]][path[2]].cpu().numpy()
+        for i in range(cfg.num_layers):
+            want = written[f"encoder.layer.{i}.{name}"]
+            if not np.array_equal(got[i], want.T if transpose else want):
+                raise AssertionError(f"layer {i} {name} is not the written array")
+    for got, key in ((tree["embed"]["word"], "embeddings.word_embeddings.weight"),
+                     (tree["final_ln"]["w"], "encoder.emb_layer_norm_after.weight"),
+                     (tree["final_ln"]["b"], "encoder.emb_layer_norm_after.bias")):
+        if not np.array_equal(got.cpu().numpy(), written[key]):
+            raise AssertionError(f"{key} is not the written array")
+    convert_esm_weights.main(["--hf", str(hf_dir), "--out", str(npz), "--config", "t30_150M"])
+    from_npz = common.load_esm(argparse.Namespace(esm_weights=str(npz), esm_dtype="float32"),
+                               cfg, torch.device("cuda"))
+    flat, flat_npz = checkpoint._flatten(tree), checkpoint._flatten(from_npz)
+    if flat.keys() != flat_npz.keys() or not all(torch.equal(flat[k], flat_npz[k]) for k in flat):
+        raise AssertionError("convert_esm_weights' npz does not load to the directory's tree")
+    del from_npz, flat_npz
+    peaks = hf_load_peaks(hf_dir, npz)
+    size = (hf_dir / "model.safetensors").stat().st_size
+    log(f"[hf] t30_150M EsmForMaskedLM directory of seeded f32 weights ({size / 1e6:.1f} MB "
+        f"safetensors, {len(written)} backbone tensors beside the MLM and contact heads and "
+        f"{cfg.num_layers} inv_freq) written in {t_write:.1f} s, read by hand in {t_read:.1f} s: "
+        f"the backbone's arrays and nothing else, to the bit; load_esm --esm-dtype float32 on "
+        f"the card: every leaf the written array (transposed, stacked) to the bit; "
+        f"convert_esm_weights -> {npz.name} loads to the same tree to the bit")
+    return {"dir": hf_dir, "npz": npz, "esm_params": tree, "cfg": cfg,
+            "safetensors_mb": size / 1e6, "read_s": t_read, "bf16_load_peaks": peaks}
+
+
+def hf_load_peaks(hf_dir: Path, npz: Path) -> dict:
+    """load_esm --esm-dtype bfloat16 of the f32 HF directory and of its f32
+    npz: the same tree to the bit, and the card's peak allocation during
+    the directory's load no higher than during the npz's (both cast on the
+    host and move the bf16 tree once)."""
+    cfg = common.esm_config("t30_150M", "bfloat16")
+    out, trees = {}, {}
+    for name, path in (("hf_dir", hf_dir), ("npz", npz)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        trees[name] = checkpoint._flatten(common.load_esm(
+            argparse.Namespace(esm_weights=str(path), esm_dtype="bfloat16"), cfg,
+            torch.device("cuda")))
+        torch.cuda.synchronize()
+        out[name] = torch.cuda.max_memory_allocated() - base
+    tree_bytes = sum(t.numel() * t.element_size() for t in trees["npz"].values())
+    same = trees["hf_dir"].keys() == trees["npz"].keys() and all(
+        torch.equal(trees["hf_dir"][k], trees["npz"][k]) for k in trees["npz"])
+    log(f"[hf] load_esm --esm-dtype bfloat16: the card's peak allocation during the load "
+        f"{out['hf_dir'] / 1e6:.3f} MB from the HF directory, {out['npz'] / 1e6:.3f} MB from "
+        f"its npz (the bf16 tree {tree_bytes / 1e6:.3f} MB); trees "
+        f"{'equal' if same else 'DIFFERENT'} to the bit")
+    if not same or out["hf_dir"] > out["npz"]:
+        raise AssertionError("the bf16 load of the HF directory differs from, or holds more "
+                             "on the card than, the load of its npz")
+    return {**out, "tree_bytes": tree_bytes}
+
+
+def embed_wire(base: str, seqs: list[str], side: str) -> np.ndarray:
+    """/embed through the binary wire: the served f32 bytes."""
+    headers, body = call(base, "/embed", {"sequences": seqs, "side": side},
+                         {"Accept": "application/octet-stream"})
+    shape = tuple(int(d) for d in headers["X-Shape"].split(","))
+    return np.frombuffer(body, "<f4").reshape(shape)
+
+
+def start_server(argv: list[str]) -> dict:
+    server = serve.make_server(serve.build_argparser().parse_args(argv))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    return {"base": f"http://127.0.0.1:{server.server_address[1]}", "server": server,
+            "thread": thread}
+
+
+def run_f32_serve_phase(ctx: dict, hctx: dict, rng: np.random.Generator, gpu: str) -> dict:
+    """cli.serve --esm-dtype float32 --esm-weights <the HF directory> with
+    phase 3's heads and index: /healthz, /embed of one sequence and of 32
+    (50-299 aa); K1-f32 30 times per backbone forward and no bf16 K1; the
+    embeddings against the same sequences encoded in f32 with
+    attention_impl="eager" on the same weights (cosine >= F32_COSINE_MIN
+    per row); then the same requests to a server of the converted npz:
+    equal to the bit. /embed p50 and batch-32 seqs/s."""
+    cfg = hctx["cfg"]
+    mcfg = clip.CLIPConfig(input_dim=cfg.hidden_size, esm=cfg)
+    common_args = ["--checkpoint", str(WORK / "best_model.npz"), "--esm-dtype", "float32",
+                   "--batch-size", "32", "--index", str(WORK / "index.npz"), "--port", "0"]
+    one, batch32 = synthetic_seqs(rng, [100]), ctx["batch32"]
+    with counted_forwards() as forwards:
+        reset_counts()
+        sctx = start_server(common_args + ["--esm-weights", str(hctx["dir"])])
+        try:
+            health = json.loads(call(sctx["base"], "/healthz")[1])
+            if not (health["status"] == "ok" and health["index_size"] == 256):
+                raise AssertionError(f"f32 /healthz {health}")
+            got = {"one": embed_wire(sctx["base"], one, "rec"),
+                   "batch32": embed_wire(sctx["base"], batch32, "rec")}
+            k1, k1_bf16 = attention.launches["attention_fwd_f32"], attention.launches["attention_fwd"]
+            n_forwards = len(forwards)
+            if (not forwards or k1 != cfg.num_layers * n_forwards or k1_bf16
+                    or dense_mm.mm.launches or ffn.dense_gelu.launches):
+                raise AssertionError(f"f32 serve: attention_fwd_f32 {k1} for {n_forwards} "
+                                     f"forwards (want {cfg.num_layers} each), attention_fwd "
+                                     f"{k1_bf16}, dense_mm {dense_mm.mm.launches}, ffn_gelu "
+                                     f"{ffn.dense_gelu.launches}")
+            heads = checkpoint.load_npz(WORK / "best_model.npz", clip.abstract_params(mcfg))
+            eager = dataclasses.replace(mcfg, esm=dataclasses.replace(cfg, attention_impl="eager"))
+            tok = common.make_tokenizer()
+            cos = np.concatenate([row_cosines(got[key], embed.embed_sequences(
+                heads, hctx["esm_params"], seqs, "rec", eager, tok, torch.device("cuda"),
+                batch_size=32, pad_batch=True)) for key, seqs in (("one", one),
+                                                                 ("batch32", batch32))])
+            cos_min = float(cos.min())
+            log(f"[f32 serve] /healthz {health}; /embed of 1 and of 32 sequences: {n_forwards} "
+                f"backbone forwards, attention_fwd_f32 {k1} = {cfg.num_layers} per forward, bf16 "
+                f"attention_fwd 0; against eager f32 attention on the same weights, 33 rows: "
+                f"min cosine {cos_min:.9f}, 1 - min {1 - cos_min:.3g} (need <= "
+                f"{1 - F32_COSINE_MIN:g})")
+            if not 1 - cos_min <= 1 - F32_COSINE_MIN:
+                raise AssertionError(f"f32 serving drifts from eager f32: cosine {cos_min}")
+            times = time_serving({**sctx, "heads": heads, "esm_params": hctx["esm_params"],
+                                  "mcfg": mcfg, "batch32": batch32}, rng, gpu, "f32 (HF dir)")
+        finally:
+            stop(sctx)
+        nctx = start_server(common_args + ["--esm-weights", str(hctx["npz"])])
+        try:
+            same = all(np.array_equal(embed_wire(nctx["base"], seqs, "rec"), got[key])
+                       for key, seqs in (("one", one), ("batch32", batch32)))
+        finally:
+            stop(nctx)
+    log(f"[f32 serve] the same /embed requests to a server of the converted npz: "
+        f"{'equal' if same else 'DIFFERENT'} to the bit")
+    if not same:
+        raise AssertionError("/embed from the HF directory and from its npz differ")
+    return {"launches": {"attention_fwd_f32": k1}, "forwards": n_forwards,
+            "cos_min": cos_min, "times": times}
+
+
+def f32_frozen_step() -> dict:
+    """One packed frozen train step at global batch 256 over an f32
+    backbone (dropout 0.1): K1-f32 once a layer per chunk forward, no K5,
+    no bf16 attention; a finite loss."""
+    mcfg, _, heads0, peps, recs = packed_setup()
+    cfg_esm = common.esm_config("t30_150M", "float32")
+    mcfg = dataclasses.replace(mcfg, esm=cfg_esm)
+    esm_params = esm2.init_params(cfg_esm, torch.Generator(device="cuda").manual_seed(0),
+                                  dtype=torch.float32, device="cuda")
+    cfg = clip_engine.EngineConfig(model=mcfg, packed=True)
+    batch = to_device(packed_engine.tokenize_packed(common.make_tokenizer(), peps, recs), "cuda")
+    params = clone_tree(heads0)
+    state = optimizer.adam(TRAIN_LR).init(params)
+    reset_counts()
+    _, _, loss = clip_engine.make_train_step(cfg)(
+        params, state, esm_params, batch, torch.Generator(device="cuda").manual_seed(1))
+    torch.cuda.synchronize()
+    want = cfg_esm.num_layers * len(packed_chunks(batch))
+    got = (attention.launches["attention_fwd_f32"], attention.launches["attention_bwd_f32"],
+           attention.launches["attention_fwd"])
+    log(f"[f32 train] one packed frozen step (256 pairs, {len(packed_chunks(batch))} chunk "
+        f"forwards): loss {float(loss):.6f}; attention_fwd_f32 {got[0]} (want {want}), "
+        f"attention_bwd_f32 {got[1]}, bf16 attention_fwd {got[2]}")
+    if got != (want, 0, 0) or not math.isfinite(float(loss)):
+        raise AssertionError(f"the packed frozen f32 step: launches {got}, loss {float(loss)}")
+    return {"loss": float(loss), "attention_fwd_f32": got[0]}
+
+
+def check_f32_finetune_step(fault_libs: dict) -> dict:
+    """The packed finetune step at global batch 256 over an f32 backbone
+    (dropout 0) through K1-f32/K5-f32 against the same step through K1-f32
+    and K5-f32's plain version, and through K5-f32's swept-tile fault build:
+    every leaf within F32_FT_TOL of its largest entry, the loss within
+    FT_LOSS_TOL relative; the fault past it."""
+    out = finetune_step_runs(fault_libs, packed=True, names=("kernel", "k1_plain_bwd", "fault"),
+                             dtype=torch.float32)
+    (lk, gk), (lp, gp), (_, gf) = out["kernel"], out["k1_plain_bwd"], out["fault"]
+    tight = {k: v[0] for k, v in leaf_gaps(gk, gp).items()}
+    fault = {k: v[0] for k, v in leaf_gaps(gf, gp).items()}
+    worst, worst_fault = max(tight, key=tight.get), max(fault, key=fault.get)
+    top3 = sorted(tight.items(), key=lambda kv: -kv[1])[:3]
+    loss_rel = abs(lk - lp) / abs(lp)
+    ok = tight[worst] <= F32_FT_TOL and loss_rel <= FT_LOSS_TOL
+    log(f"[f32 train] packed finetune step at 256 in f32 (chunk forwards a pass "
+        f"{out['shapes']}; dropout 0): loss through K1-f32/K5-f32 {lk:.9f}, through K5-f32's "
+        f"plain version {lp:.9f}, relative {loss_rel:.3g} (tolerance {FT_LOSS_TOL:g}); largest "
+        f"max|err|/leaf max {tight[worst]:.4g} ({worst}; next "
+        + ", ".join(f"{k} {v:.4g}" for k, v in top3[1:])
+        + f"; tolerance {F32_FT_TOL:g}); the planted fault (K5-f32 built to drop the last "
+        f"query tile of dk/dv): {fault[worst_fault]:.4g} ({worst_fault}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("K5-f32 in the f32 packed finetune step disagrees with its plain "
+                             "version")
+    if fault[worst_fault] <= F32_FT_TOL:
+        raise AssertionError("the f32 finetune step check does not see a K5-f32 that drops a "
+                             "query tile")
+    return {"loss_rel_err": loss_rel, "grad_rel_err": tight[worst], "grad_leaf": worst,
+            "fault_rel_err": fault[worst_fault], "fault_leaf": worst_fault,
+            "tolerance": F32_FT_TOL}
+
+
+def run_f32_train_phase(fault_libs: dict) -> dict:
+    """cli.main --packed --finetune --esm-dtype float32 for one epoch on the
+    1100-family fixture (run_packed_unfrozen's checks with K1-f32 and
+    K5-f32), one packed frozen f32 step, and the f32 finetune step check."""
+    data_dir = WORK / SMALL_DATA
+    out = {"finetune_packed": run_packed_unfrozen(
+        "train_finetune_packed_f32", data_dir, ["--finetune"], finetune,
+        families=SMALL_FIXTURE_FAMILIES, dtype=torch.float32)}
+    out["finetune_packed"]["profile"] = f"{SMALL_FIXTURE_FAMILIES} families"
+    out["frozen_step"] = f32_frozen_step()
+    out["step_check"] = check_f32_finetune_step(fault_libs)
+    return out
+
+
+def f32_attention_bound(seg: torch.Tensor, backward: bool, nh: int, dh: int) -> dict:
+    """K1-f32's (or K5-f32's) bound on this run's segments: attention_work's
+    counts as attention_bound takes them, with f32 operands (4 bytes) and
+    each product kept at f32 accuracy as three TF32 products on the tensor
+    cores (at H100_TF32_FLOPS, as infonce_bound and maxsim_bound take K2, K3
+    and K4); beside it the ceiling of the FFMA design the kernels run, the
+    same products at the f32 rate of the CUDA cores (H100_F32_FLOPS)."""
+    B, T = seg.shape
+    w = attention_work(seg)
+    row = nh * dh * 4
+    if backward:
+        flops = nh * 5 * 2 * dh * w["pairs"] + nh * dh * (w["pads"] + w["padded_rows_tokens"])
+        nbytes = row * (3 * w["valid"] + 4 * B * T) + B * T * 4
+    else:
+        flops = nh * 2 * 2 * dh * w["pairs"] + nh * dh * w["padded_rows_tokens"]
+        nbytes = row * (2 * w["valid"] + 2 * B * T) + B * T * 4
+    t_ops, t_bytes = 3 * flops / H100_TF32_FLOPS, nbytes / H100_BYTES_PER_S
+    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "ffma_ceiling_ms": 1e3 * max(flops / H100_F32_FLOPS, t_bytes),
+            "allowed_share": w["pairs"] / (B * T * T),
+            "counts": f"{3 * flops / 1e9:.4f} GFLOP TF32 (3 x {flops / 1e9:.4f} GFLOP f32), "
+                      f"{nbytes / 1e6:.4f} MB"}
+
+
+def time_attention_f32(gen: torch.Generator, gpu: str) -> list[dict]:
+    """K1-f32 and K5-f32 at t30_150M's (16, 512, 20, 32) padded and dense,
+    and at each other family's attention shape (FAMILY_SHAPES) padded, with
+    TF32 off: K1-f32, its plain version and scaled_dot_product_attention on
+    f32 with the same boolean mask; K5-f32 fed K1-f32's output and
+    statistics, its plain version and SDPA's backward; in device time by
+    kernel_times, each beside its bound on the run's segments."""
+    rows = []
+    shapes = ([(padded_segments(16, 512), NH, DH, "padded"),
+               (dense_segments(16, 512), NH, DH, "dense")]
+              + [(padded_segments(B, T), nh, dh, "padded") for B, T, nh, dh in FAMILY_SHAPES])
+    for seg, nh, dh, kind in shapes:
+        B, T = seg.shape
+        allowed = ((seg[:, None, :, None] == seg[:, None, None, :])
+                   & (seg[:, None, None, :] > 0))
+        sets = []
+        for _ in range(2):      # 2 x 84 MB: successive calls miss the 50 MB L2
+            q, k, v = qkv(B, T, gen, nh, dh, torch.float32)
+            do = torch.randn(B, T, nh, dh, device="cuda", generator=gen)
+            out, lse = attention._forward(q, k, v, seg, with_lse=True)
+            lq, lk, lv = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+            sdpa_out = torch.nn.functional.scaled_dot_product_attention(
+                lq, lk, lv, attn_mask=allowed, scale=1.0)
+            sets.append((q, k, v, do, lse, out, (sdpa_out, (lq, lk, lv), do.transpose(1, 2))))
+        cycle = itertools.cycle(sets)
+
+        def sdpa():
+            q, k, v = (x.transpose(1, 2) for x in next(cycle)[:3])
+            torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=allowed,
+                                                             scale=1.0)
+
+        def k5():
+            q, k, v, do, lse, out, _ = next(cycle)
+            attention.fused_attention_bwd(q, k, v, seg, do, lse, out)
+
+        def k5_plain():
+            q, k, v, do = next(cycle)[:4]
+            by_rows(attention.attention_reference_bwd, q, k, v, seg, do)
+
+        def sdpa_bwd():
+            o, inputs, do = next(cycle)[6]
+            torch.autograd.grad(o, inputs, do, retain_graph=True)
+
+        k1_t = kernel_times(lambda: attention.fused_attention(*next(cycle)[:3], seg), 50)
+        fwd = {"ms": k1_t["device_ms"], "records": k1_t["records"],
+               "events_ms": k1_t["events_ms"],
+               "plain_ms": kernel_times(lambda: by_rows(attention.attention_reference,
+                                                        *next(cycle)[:3], seg), 5)["device_ms"],
+               "library_ms": kernel_times(sdpa, 20)["device_ms"],
+               **f32_attention_bound(seg, False, nh, dh)}
+        k5_t = kernel_times(k5, 50)
+        bwd = {"ms": k5_t["device_ms"], "records": k5_t["records"],
+               "events_ms": k5_t["events_ms"],
+               "plain_ms": kernel_times(k5_plain, 5)["device_ms"],
+               "library_ms": kernel_times(sdpa_bwd, 20)["device_ms"],
+               **f32_attention_bound(seg, True, nh, dh)}
+        for name, row in (("attention_fwd_f32", fwd), ("attention_bwd_f32", bwd)):
+            counts = row.pop("counts")
+            log(f"[time] {name} B={B} T={T} NH={nh} DH={dh} {kind}: kernel {row['ms']:.6f} ms "
+                f"({row['records']:g} kernel records kept a call; CUDA events "
+                f"{row['events_ms']:.6f} ms), plain {row['plain_ms']:.6f} ms, library "
+                f"(scaled_dot_product_attention{' backward' if 'bwd' in name else ''}, f32, "
+                f"TF32 off) {row['library_ms']:.6f} ms, bound {row['bound_ms']:.6f} ms "
+                f"({row['bound_by']}: {counts}; allowed pairs {row['allowed_share']:.4f} of "
+                f"T^2; TF32 peak {H100_TF32_FLOPS / 1e12:g} TFLOP/s) = "
+                f"{100 * row['bound_ms'] / row['ms']:.2f}% of the bound; the FFMA design's "
+                f"ceiling (f32 {H100_F32_FLOPS / 1e12:g} TFLOP/s on the CUDA cores) "
+                f"{row['ffma_ceiling_ms']:.6f} ms | {gpu}")
+        rows.append({"shape": [B, T, nh, dh], "segments": kind, "attention_fwd_f32": fwd,
+                     "attention_bwd_f32": bwd})
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # Phase 7c: ESM-2 t33_650M (head dim 64) at full width and depth, and the
 # other families through the model
 # ---------------------------------------------------------------------------
@@ -3524,7 +4075,7 @@ def run_t33_serve_phase(rng: np.random.Generator, gpu: str) -> dict:
                     singles[(side, bucket)] = (seq, embed_json(base, [seq], side)[0])
             batch32 = synthetic_seqs(rng, rng.integers(50, 300, 32))
             ctx.update(singles=singles, batch32=batch32, emb32=embed_json(base, batch32, "rec"))
-            launches = attention.fused_attention.launches
+            launches = attention.launches["attention_fwd"]
             check_default_path(f"{T33} serve")
             if not forwards or launches != cfg.num_layers * len(forwards):
                 raise AssertionError(f"{T33} serve: attention_fwd launched {launches} times for "
@@ -3569,7 +4120,7 @@ def run_families_phase() -> dict:
             reset_counts()
             with torch.inference_mode():
                 got = esm2.forward(params, x, mask, cfg, **kw)
-                k1 = attention.fused_attention.launches
+                k1 = attention.launches["attention_fwd"]
                 want = esm2.forward(params, x, mask, eager, **kw)
             valid = mask > 0
             cos = float(torch.nn.functional.cosine_similarity(
@@ -4293,7 +4844,7 @@ def run_int8_serve_phase(ctx: dict) -> dict:
         out: dict = {"base": base, "server": server, "thread": thread}
         got = serve_requests(base, ctx, "int8 serve")
         launches = {"dense_mm": dense_mm.mm.launches,
-                    "attention_fwd": attention.fused_attention.launches,
+                    "attention_fwd": attention.launches["attention_fwd"],
                     "ffn_gelu": ffn.dense_gelu.launches}
     cfg = common.esm_config("t30_150M", "int8")
     n = len(forwards)
@@ -4347,7 +4898,7 @@ def run_int8_train() -> dict:
         train_cli.main(["--synthetic-fixture", "--data-dir", str(data_dir), "--fixture-families",
                         str(INT8_FIXTURE_FAMILIES), "--epochs", "1", "--runs-dir", str(runs),
                         "--esm-dtype", "int8"])
-        p1, k1 = dense_mm.mm.launches, attention.fused_attention.launches
+        p1, k1 = dense_mm.mm.launches, attention.launches["attention_fwd"]
         counts = infonce_counts()
     wall = time.perf_counter() - t0
     run = check_run_dir(runs)
@@ -4388,7 +4939,7 @@ def run_k6_serve_phase(ctx: dict) -> dict:
         reset_counts()
         got = serve_requests(ctx["base"], ctx, "K6 serve")
         launches = {"ffn_gelu": ffn.dense_gelu.launches,
-                    "attention_fwd": attention.fused_attention.launches,
+                    "attention_fwd": attention.launches["attention_fwd"],
                     "dense_mm": dense_mm.mm.launches}
     layers = ctx["mcfg"].esm.num_layers
     n = len(forwards)
@@ -4569,13 +5120,19 @@ def main() -> int:
     nce_err = check_infonce(nce_cases)
     k5_cases = bwd_cases(gen, segments, t33_segments)
     k5_err = check_attention_bwd(k5_cases)
+    f32_k1_cases = attention_cases_f32(gen, segments)
+    f32_k1_err = check_attention(f32_k1_cases, "attention_fwd_f32")
+    f32_k5_cases = bwd_cases_f32(gen, segments)
+    f32_k5_err = check_attention_bwd(f32_k5_cases, "attention_bwd_f32")
     p1_err = check_dense_mm(gen)
     k6_err = check_ffn(gen)
     fault_reads = check_faults(fault_libs["main_loop"], gen)
     fault_reads.update(check_attention_faults(fault_libs, k1_cases, k5_cases))
+    fault_reads.update(check_attention_faults(fault_libs, f32_k1_cases, f32_k5_cases,
+                                              torch.float32))
     fault_reads.update(check_maxsim_faults(fault_libs, k4_cases))
     fault_reads.update(check_infonce_faults(fault_libs, nce_cases))
-    del k1_cases, k5_cases, k4_cases, nce_cases
+    del k1_cases, k5_cases, k4_cases, nce_cases, f32_k1_cases, f32_k5_cases
     phase_done("kernels")
     rng = np.random.default_rng(SEED)
     ctx = run_serve_phase(rng)
@@ -4588,12 +5145,18 @@ def main() -> int:
             t33ctx = run_t33_serve_phase(rng, gpu)
             families = run_families_phase()
             phase_done(f"{T33} serve, families")
+            hctx = run_hf_phase(gpu)
+            f32s = run_f32_serve_phase(ctx, hctx, rng, gpu)
+            hctx.pop("esm_params")
+            phase_done("hf, f32 serve")
             tctx = run_train_phase()
             pctx = run_packed_phase()
             uctx = run_packed_unfrozen_phase()
             phase_done("train, packed, packed unfrozen")
             t33train = run_t33_train_phase(fault_libs)
             phase_done(f"{T33} train")
+            f32train = run_f32_train_phase(fault_libs)
+            phase_done("f32 train")
             ftctx = run_filip_train_phase(fault_libs, gen)
             fmctx = run_filip_more_phase(fault_libs, gen)
             phase_done("filip train")
@@ -4617,6 +5180,7 @@ def main() -> int:
                     (kind, seg) for kind, path, seg in segments
                     if path and seg.shape in ((16, 256), (28, 2048))])
                 family_times = time_attention_families(gen, gpu)
+                f32_times = time_attention_f32(gen, gpu)
                 k4_times = time_maxsim(gen, gpu)
                 nce_times = time_infonce(gen, gpu)
                 dispatch = time_dispatch(gen, gpu)
@@ -4644,6 +5208,9 @@ def main() -> int:
                 pairs_per_s["int8"] = time_train_steps(
                     {"int8": i8train, "profile": f"{INT8_FIXTURE_FAMILIES} families"}, "int8",
                     "int8 w8a8 frozen train step (4 length groups)", gpu)
+                pairs_per_s["f32_finetune_packed"] = time_train_steps(
+                    f32train, "finetune_packed", "f32 packed finetune step (flat packing, remat)",
+                    gpu)
                 pairs_per_s.update({f"{T33}_{run}": time_train_steps(t33train, run, what, gpu)
                                     for run, what in (
                     ("packed", "packed frozen train step (flat packing)"),
@@ -4674,10 +5241,14 @@ def main() -> int:
              f"{T33}_train_finetune_packed": t33train["finetune_packed"]["launches"],
              **{f"{name}_forwards": {"attention_fwd": sum(row[kind]["launches"]
                                                           for kind in ("padded", "packed"))}
-                for name, row in families.items()}}
+                for name, row in families.items()},
+             "f32_serve": f32s["launches"],
+             "f32_train_finetune_packed": f32train["finetune_packed"]["launches"],
+             "f32_train_frozen_step": {"attention_fwd_f32":
+                                       f32train["frozen_step"]["attention_fwd_f32"]}}
     by_path = {name: {path: counts.get(name, 0) for path, counts in paths.items()}
-               for name in ("attention_fwd", "attention_bwd", "filip_maxsim", "infonce",
-                            "infonce_tiled", "dense_mm", "ffn_gelu")}
+               for name in ("attention_fwd", "attention_bwd", *F32_KERNELS, "filip_maxsim",
+                            "infonce", "infonce_tiled", "dense_mm", "ffn_gelu")}
     kernels = [{
         "name": "attention_fwd", "phase": "serve", "route": "cuda",
         "source": "protein_clip_tpu_torch/csrc/attention_fwd.cu",
@@ -4736,6 +5307,39 @@ def main() -> int:
                                     for name, run in fmctx["runs"].items()
                                     if name not in ("filip_packed_128",
                                                     "filip_packed_128_flat")}},
+    }, {
+        "name": "attention_fwd_f32", "phase": "f32_serve", "route": "cuda",
+        "source": "protein_clip_tpu_torch/csrc/attention_fwd_f32.cu",
+        "replaces": "protein_clip_tpu/ops/attention_pallas.py:105",
+        "launches": f32s["launches"]["attention_fwd_f32"],
+        "launches_by_path": by_path["attention_fwd_f32"], "max_abs_err": f32_k1_err,
+        "shape": f32_times[0]["shape"], **f32_times[0]["attention_fwd_f32"],
+        "dense": {"shape": f32_times[1]["shape"], **f32_times[1]["attention_fwd_f32"]},
+        "head_dims": [{"shape": row["shape"], **row["attention_fwd_f32"]}
+                      for row in f32_times[2:]],
+        "fault": {k: fault_reads[k] for k in ("attention_fwd_f32_swept_tiles",
+                                              "attention_fwd_f32_skip")},
+        "serve_cos_min_vs_eager_f32": f32s["cos_min"], "serving": f32s["times"],
+        "hf_safetensors_mb": hctx["safetensors_mb"], "hf_read_s": hctx["read_s"],
+    }, {
+        "name": "attention_bwd_f32", "phase": "f32_train_finetune_packed", "route": "cuda",
+        "source": "protein_clip_tpu_torch/csrc/attention_bwd_f32.cu",
+        "replaces": "protein_clip_tpu/ops/attention_pallas.py:287",
+        "launches": f32train["finetune_packed"]["launches"]["attention_bwd_f32"],
+        "launches_by_path": by_path["attention_bwd_f32"], "max_abs_err": f32_k5_err,
+        "shape": f32_times[0]["shape"], **f32_times[0]["attention_bwd_f32"],
+        "dense": {"shape": f32_times[1]["shape"], **f32_times[1]["attention_bwd_f32"]},
+        "head_dims": [{"shape": row["shape"], **row["attention_bwd_f32"]}
+                      for row in f32_times[2:]],
+        "fault": {k: fault_reads[k] for k in ("attention_bwd_f32_swept_tiles",
+                                              "attention_bwd_f32_skip")},
+        "step_check": f32train["step_check"],
+        "train_finetune_packed": {
+            "pairs_per_s": pairs_per_s["f32_finetune_packed"],
+            "peak_memory_gb": f32train["finetune_packed"]["peak_memory_gb"],
+            "chunk_forwards_per_pass": f32train["finetune_packed"]["chunks_per_pass"],
+            "attention_fwd_f32_launches":
+                f32train["finetune_packed"]["launches"]["attention_fwd_f32"]},
     }, {
         "name": "filip_maxsim", "phase": "filip_serve", "route": "cuda",
         "source": "protein_clip_tpu_torch/csrc/filip_maxsim.cu",

@@ -20,7 +20,7 @@ import torch
 from ..data.synthetic import write_fixture
 from ..data.tokenizer import EsmTokenizer
 from ..models import clip, esm2
-from ..ops import attention
+from ..ops import attention, ffn
 from ..train import checkpoint, finetune, lora
 
 ESM_FAMILIES = ("t30_150M", "t6_8M", "t12_35M", "t33_650M", "t36_3B", "t48_15B", "tiny")
@@ -39,8 +39,9 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
                    help="head FFN activation")
     p.add_argument("--esm-config", default="t30_150M", choices=ESM_FAMILIES)
     p.add_argument("--esm-weights", default=None,
-                   help="npz from tools/convert_esm_weights.py; omit for random "
-                        "init (smoke runs)")
+                   help="npz from tools/convert_esm_weights.py, or a HF checkpoint "
+                        "directory (model.safetensors or pytorch_model.bin); omit for "
+                        "random init (smoke runs)")
     p.add_argument("--fast-gelu", action="store_true",
                    help="tanh-approximate FFN gelu in the backbone")
     p.add_argument("--exact-gelu", action="store_true",
@@ -187,10 +188,9 @@ def ensure_data(args, prefix_a: str, prefix_b: str) -> Path:
 def esm_config(name: str, dtype_name: str, fast_gelu: bool = False,
                exact_gelu: bool = False) -> esm2.ESM2Config:
     """The named family with ``fused`` attention. On CUDA the attention
-    kernels take every family in bf16 (head_dim 16, 24, 32, 64 or 128);
-    ``load_esm`` refuses float32 there. int8 quantises the weights
-    (``load_esm``); activations stay bf16 and attention runs the bf16
-    kernels.
+    kernels take every family in bf16 and in f32 (head_dim 16, 24, 32, 64 or
+    128). int8 quantises the weights (``load_esm``); activations stay bf16
+    and attention runs the bf16 kernels.
 
     The gelu resolves as in the TPU package: int8 implies tanh unless
     --exact-gelu; --exact-gelu gives erf; then --fast-gelu gives tanh; with
@@ -209,13 +209,21 @@ def esm_config(name: str, dtype_name: str, fast_gelu: bool = False,
 
 def load_esm(args, cfg: esm2.ESM2Config, device: torch.device) -> dict:
     """Backbone parameters on ``device`` in the compute dtype: random init
-    (seed 0, like the TPU package) or an npz from
-    ``tools/convert_esm_weights.py`` (or the port's ``export_npz``);
-    ``--esm-dtype int8`` quantises them after the load
-    (``esm2.quantize_params``). Raises before loading when the attention
-    kernels do not take the config: float32 on CUDA."""
+    (seed 0, like the TPU package), an npz from
+    ``tools/convert_esm_weights.py`` (or the port's ``export_npz``), or a HF
+    checkpoint directory, read (``checkpoint.read_hf_checkpoint``), converted
+    (``esm2.convert_hf_state_dict``, f32) and cast to the compute dtype on
+    the host, as the TPU package's ``load_esm`` does, then moved to
+    ``device``; ``--esm-dtype int8`` quantises them
+    after the load (``esm2.quantize_params``). Raises before loading when
+    the kernels do not take the config on CUDA: a head dim the attention
+    kernels lack, or float32 under ``PCT_FFN_PALLAS=1`` (K6 takes bf16)."""
     if device.type == "cuda" and cfg.attention_impl == "fused":
         attention.check_config(cfg.compute_dtype, cfg.head_dim)
+    if device.type == "cuda" and ffn.enabled() and cfg.compute_dtype == torch.float32:
+        raise NotImplementedError(
+            "PCT_FFN_PALLAS=1 with --esm-dtype float32: the fused FFN kernel K6 takes bf16 "
+            "on CUDA (ROADMAP queue 2: K6 in f32); unset the gate or use --esm-dtype bfloat16")
     dtype = cfg.compute_dtype
 
     def finish(params):
@@ -229,11 +237,20 @@ def load_esm(args, cfg: esm2.ESM2Config, device: torch.device) -> dict:
         gen = torch.Generator(device=device).manual_seed(0)
         return finish(esm2.init_params(cfg, gen, dtype=dtype, device=device))
     path = Path(args.esm_weights)
-    if path.suffix != ".npz":
-        raise NotImplementedError(f"--esm-weights {path}: only .npz is read; HF "
-                                  "checkpoint directories are not ported yet "
-                                  "(ROADMAP queue 1: HF-directory loader)")
-    return finish(checkpoint.load_npz(path, esm2.abstract_params(cfg, dtype), device))
+    if path.suffix == ".npz":
+        return finish(checkpoint.load_npz(path, esm2.abstract_params(cfg, dtype), device))
+    # a HF checkpoint directory, converted on the fly
+    print(f"[esm] HF checkpoint {path}")
+    sd = checkpoint.read_hf_checkpoint(path)
+    unread = sorted(set(sd) - set(esm2.hf_shapes(cfg)))
+    if unread:
+        print(f"[esm] {len(unread)} tensors of {path} the backbone does not read: "
+              f"{unread[:4]}{' ...' if len(unread) > 4 else ''}")
+    # converted in f32 on the host and cast there, each leaf moved once in
+    # the compute dtype: the card holds what the npz branch's load holds
+    params = esm2.convert_hf_state_dict(sd, cfg)
+    del sd
+    return finish(checkpoint.from_numpy_tree(params, device, dtype))
 
 
 def load_clip_checkpoint(path, mcfg: clip.CLIPConfig, esm_params: dict,

@@ -342,6 +342,35 @@ struct Ring {
   }
 };
 
+// Every warp of a block of `threads` threads: the range of each tile of a
+// row of T segment ids, (smallest nonzero id, largest id, has a pad), into
+// ranges[tiles_of(T)], one warp a tile. The caller syncs before reading.
+__device__ __forceinline__ void tile_ranges(int4* ranges, const int32_t* seg_row, int T,
+                                            int threads) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  for (int j = warp; j < tiles_of(T); j += threads / 32) {
+    int lo = INT_MAX, hi = 0, pad = 0;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int t = j * kTile + lane + 32 * i;
+      if (t < T) {
+        const int s = seg_row[t];
+        if (s > 0) {
+          lo = min(lo, s);
+          hi = max(hi, s);
+        } else {
+          pad = 1;
+        }
+      }
+    }
+    lo = __reduce_min_sync(0xffffffffu, lo);
+    hi = __reduce_max_sync(0xffffffffu, hi);
+    pad = __reduce_or_sync(0xffffffffu, pad);
+    if (lane == 0) ranges[j] = make_int4(lo, hi, pad, 0);
+  }
+}
+
 // Carves the dynamic shared memory, has the producer warp start its
 // resident tiles' copies (load_resident(address); their arrival on ready
 // comes later), initialises the barriers (full: 32 producer arrivals;
@@ -373,28 +402,7 @@ __device__ __forceinline__ Ring<DH> setup(uint8_t* smem_raw, uint64_t* bars,
     mbar_init(r.ready, 32);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  for (int j = warp; j < tiles_of(T); j += kThreads / 32) {
-    int lo = INT_MAX, hi = 0, pad = 0;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int t = j * kTile + lane + 32 * i;
-      if (t < T) {
-        const int s = seg_row[t];
-        if (s > 0) {
-          lo = min(lo, s);
-          hi = max(hi, s);
-        } else {
-          pad = 1;
-        }
-      }
-    }
-    lo = __reduce_min_sync(0xffffffffu, lo);
-    hi = __reduce_max_sync(0xffffffffu, hi);
-    pad = __reduce_or_sync(0xffffffffu, pad);
-    if (lane == 0) ranges[j] = make_int4(lo, hi, pad, 0);
-  }
+  tile_ranges(ranges, seg_row, T, kThreads);
   __syncthreads();
   return r;
 }

@@ -3,10 +3,12 @@
 Parameters are a nested dict of tensors in the TPU package's layout (layers
 stacked on a leading layer axis, linear weights ``(in, out)``), so
 ``train/checkpoint.from_numpy_tree`` carries that package's weights over as
-they are. The precision contract is the same: bf16 (or f32) operands with
-f32 accumulation in the matmuls, LayerNorm and softmax in f32, q scaled by
-dh^-0.5 before RoPE, ESM's exact-erf GELU by default, and token dropout
-rescaled by the observed mask ratio over each sequence's true length.
+they are, and ``convert_hf_state_dict`` maps a HF ``EsmModel`` /
+``EsmForMaskedLM`` state dict onto it. The precision contract is the same:
+bf16 (or f32) operands with f32 accumulation in the matmuls, LayerNorm and
+softmax in f32, q scaled by dh^-0.5 before RoPE, ESM's exact-erf GELU by
+default, and token dropout rescaled by the observed mask ratio over each
+sequence's true length.
 
 Linear layers: ``{"w", "b"}`` leaves run in the compute dtype;
 ``{"w_q", "w_s", "b"}`` leaves from ``quantize_params`` (``--esm-dtype
@@ -16,9 +18,10 @@ Under ``PCT_FFN_PALLAS=1`` the FFN's wi + gelu runs as the fused kernel K6
 
 Attention: with ``attention_impl="fused"`` on CUDA tensors each layer calls
 the hand-written kernels (``ops/attention.fused_attention``: K1 forward, K5
-backward), for every sequence length; the kernels take bf16 at every ESM-2
-head dim (16, 24, 32, 64, 128), and ``forward`` raises on CUDA for float32
-(or another head dim) unless it asks for ``attention_impl="eager"``. Otherwise the eager form runs: f32 scores plus an
+backward), for every sequence length; the kernels take bf16 and f32 at
+every ESM-2 head dim (16, 24, 32, 64, 128), and ``forward`` raises on CUDA
+for another head dim unless it asks for ``attention_impl="eager"``.
+Otherwise the eager form runs: f32 scores plus an
 additive f32-min key mask, f32 softmax, probabilities cast to the compute
 dtype, P.V in f32. The two differ only at pad query rows (the kernel's are
 a uniform average, the eager ones attend to the valid keys), which pooling
@@ -55,9 +58,9 @@ class ESM2Config:
     token_dropout: bool = True
     # dtype of the matmul operands and activations; accumulation is f32.
     compute_dtype: torch.dtype = torch.float32
-    # "fused": the CUDA kernel K1 on CUDA tensors, which takes bf16 at
-    # every family's head_dim and raises on float32; "eager": einsum +
-    # masked softmax, the plain version, on any device.
+    # "fused": the CUDA kernel K1 on CUDA tensors, which takes bf16 and
+    # f32 at every family's head_dim; "eager": einsum + masked softmax, the
+    # plain version, on any device.
     attention_impl: str = "fused"
     # FFN gelu: "erf" (ESM's exact form, the parity contract) or "tanh".
     # The PCT_GELU A/B knob is read once, here at construction, as in the
@@ -213,6 +216,100 @@ def quantize_params(params: Params) -> Params:
             "ffn": {k: q(v) if k in ("wi", "wo") else v for k, v in layers["ffn"].items()},
         },
         "final_ln": params["final_ln"],
+    }
+
+
+# ---------------------------------------------------------------------------
+# HF weight conversion
+# ---------------------------------------------------------------------------
+
+_HF_LAYER = "encoder.layer.{i}."
+# (our leaf path, HF name within a layer, transposed to (in, out))
+_HF_LAYER_LEAVES = (
+    (("attn", "q", "w"), "attention.self.query.weight", True),
+    (("attn", "q", "b"), "attention.self.query.bias", False),
+    (("attn", "k", "w"), "attention.self.key.weight", True),
+    (("attn", "k", "b"), "attention.self.key.bias", False),
+    (("attn", "v", "w"), "attention.self.value.weight", True),
+    (("attn", "v", "b"), "attention.self.value.bias", False),
+    (("attn", "o", "w"), "attention.output.dense.weight", True),
+    (("attn", "o", "b"), "attention.output.dense.bias", False),
+    (("attn", "ln", "w"), "attention.LayerNorm.weight", False),
+    (("attn", "ln", "b"), "attention.LayerNorm.bias", False),
+    (("ffn", "wi", "w"), "intermediate.dense.weight", True),
+    (("ffn", "wi", "b"), "intermediate.dense.bias", False),
+    (("ffn", "wo", "w"), "output.dense.weight", True),
+    (("ffn", "wo", "b"), "output.dense.bias", False),
+    (("ffn", "ln", "w"), "LayerNorm.weight", False),
+    (("ffn", "ln", "b"), "LayerNorm.bias", False),
+)
+
+
+def hf_shapes(cfg: ESM2Config) -> dict[str, tuple[int, ...]]:
+    """The backbone's tensors in a HF ESM-2 state dict (without the ``esm.``
+    prefix) and their shapes for ``cfg``: torch's (out, in) for linear
+    weights."""
+    spec = _param_spec(cfg)
+    shapes = {"embeddings.word_embeddings.weight": spec["embed"]["word"][0],
+              "encoder.emb_layer_norm_after.weight": spec["final_ln"]["w"][0],
+              "encoder.emb_layer_norm_after.bias": spec["final_ln"]["b"][0]}
+    for path, name, transpose in _HF_LAYER_LEAVES:
+        shape = spec["layers"][path[0]][path[1]][path[2]][0][1:]
+        for i in range(cfg.num_layers):
+            shapes[_HF_LAYER.format(i=i) + name] = shape[::-1] if transpose else shape
+    return shapes
+
+
+def _out(arr: np.ndarray, device):
+    return arr if device is None else torch.from_numpy(np.ascontiguousarray(arr)).to(
+        resolve_device(device))
+
+
+def convert_hf_state_dict(state_dict: dict[str, np.ndarray], cfg: ESM2Config,
+                          dtype=np.float32, device=None) -> Params:
+    """Map a HF EsmModel / EsmForMaskedLM state dict (numpy arrays; the
+    ``esm.`` prefix stripped) onto the stacked tree, as the TPU package's
+    ``convert_hf_state_dict``: linear weights transposed from torch's (out,
+    in) to (in, out), each per-layer tensor stacked over the layers, every
+    leaf in ``dtype``. Keys the backbone does not read are ignored. A missing
+    key, or a tensor whose shape is not ``cfg``'s, raises naming the key.
+    The leaves are numpy arrays, or with ``device`` tensors there."""
+    sd = {k.removeprefix("esm."): v for k, v in state_dict.items()}
+    for key, shape in hf_shapes(cfg).items():
+        if key not in sd:
+            raise KeyError(f"HF state dict has no {key} (needed by {cfg.num_layers}-layer "
+                           f"hidden-{cfg.hidden_size} ESM-2)")
+        if tuple(sd[key].shape) != tuple(shape):
+            raise ValueError(f"HF tensor {key} has shape {tuple(sd[key].shape)}, the ESM-2 "
+                             f"config wants {tuple(shape)}")
+
+    def leaf(key, transpose=False):
+        a = np.asarray(sd[key], dtype=dtype)
+        return a.T if transpose else a
+
+    layers: Params = {}
+    for (part, name, wb), hf_name, transpose in _HF_LAYER_LEAVES:
+        stacked = np.stack([leaf(_HF_LAYER.format(i=i) + hf_name, transpose)
+                            for i in range(cfg.num_layers)])
+        layers.setdefault(part, {}).setdefault(name, {})[wb] = _out(stacked, device)
+    return {
+        "embed": {"word": _out(leaf("embeddings.word_embeddings.weight"), device)},
+        "layers": layers,
+        "final_ln": {"w": _out(leaf("encoder.emb_layer_norm_after.weight"), device),
+                     "b": _out(leaf("encoder.emb_layer_norm_after.bias"), device)},
+    }
+
+
+def convert_hf_lm_head(state_dict: dict[str, np.ndarray], device=None) -> Params:
+    """The MLM head of a HF EsmForMaskedLM state dict, as the TPU package's
+    ``convert_hf_lm_head``: {dense {w (in, out), b}, ln {w, b}, bias}."""
+    sd = {k: np.asarray(v) for k, v in state_dict.items()}
+    return {
+        "dense": {"w": _out(sd["lm_head.dense.weight"].T, device),
+                  "b": _out(sd["lm_head.dense.bias"], device)},
+        "ln": {"w": _out(sd["lm_head.layer_norm.weight"], device),
+               "b": _out(sd["lm_head.layer_norm.bias"], device)},
+        "bias": _out(sd["lm_head.bias"], device),
     }
 
 

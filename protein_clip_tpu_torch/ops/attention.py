@@ -1,18 +1,27 @@
 """Segment-masked attention for ESM-2's head dims (16, 24, 32, 64, 128), in
-bf16: forward (kernel K1) and backward (kernel K5).
+bf16 or f32: forward (kernel K1) and backward (kernel K5).
 
-``fused_attention`` is a ``torch.autograd.Function`` over two hand-written
-CUDA kernels: ``csrc/attention_fwd.cu`` (K1), which replaces the TPU kernel
-``protein_clip_tpu/ops/attention_pallas.py::_kernel``, and
-``csrc/attention_bwd.cu`` (K5), which replaces ``_bwd_kernel``; both share
-``csrc/attention.cuh`` (wgmma on a cp.async tile ring, exact tile skipping
-by segment ranges), each instantiated at head dims 16, 24, 32, 64 and 128
-(24 in 32-wide tiles). Each kernel's note gives its bound on an H100 and
-what its design does about it. When a gradient is wanted, K1 also returns the
-base-2 log-sum-exp of each query's masked scores (``attention_reference_lse``
-is its plain version), and the Function saves it beside q, k, v and the
-segments: K5 takes P from it, where the TPU ``custom_vjp`` saves q, k, v
-and the segments alone and recomputes the softmax statistics.
+``fused_attention`` is a ``torch.autograd.Function`` over hand-written CUDA
+kernels that replace the TPU kernels
+``protein_clip_tpu/ops/attention_pallas.py::_kernel`` (K1) and
+``_bwd_kernel`` (K5), which take q's dtype, bf16 or f32:
+
+- bf16: ``csrc/attention_fwd.cu`` (K1) and ``csrc/attention_bwd.cu`` (K5),
+  sharing ``csrc/attention.cuh`` (wgmma on a cp.async tile ring, exact tile
+  skipping by segment ranges), each instantiated at head dims 16, 24, 32,
+  64 and 128 (24 in 32-wide tiles);
+- f32 (``--esm-dtype float32``): ``csrc/attention_fwd_f32.cu`` (K1-f32) and
+  ``csrc/attention_bwd_f32.cu`` (K5-f32), sharing ``csrc/attention_f32.cuh``
+  (exact f32 products by FFMA on the CUDA cores) and ``attention.cuh``'s
+  segment logic, at the same head dims.
+
+Each kernel's note gives its bound on an H100 and what its design does
+about it. When a gradient is wanted, K1 also returns the base-2 log-sum-exp
+of each query's masked scores (``attention_reference_lse`` is its plain
+version), and the Function saves it beside q, k, v and the segments (and,
+in f32, K1's output, from which K5-f32 forms rowsum(dO * O)): K5 takes P
+from it, where the TPU ``custom_vjp`` saves q, k, v and the segments alone
+and recomputes the softmax statistics.
 
 ``segments`` is (B, T) int32: 0 marks pads and gaps, and tokens attend iff
 their nonzero ids match, so a plain 0/1 attention mask is the one-segment
@@ -23,7 +32,7 @@ uniform row still feeds dv, but the re-mask of dS gives it no dq or dk.
 
 On CPU tensors both directions run the plain versions
 (``attention_reference``, ``attention_reference_bwd``); on CUDA tensors
-they launch the kernels or raise.
+they launch the kernels of the tensors' dtype or raise.
 """
 
 from __future__ import annotations
@@ -37,6 +46,7 @@ from ..kernels import build
 
 # ESM-2's head dims: t6_8M, t12_35M, t30_150M, t33_650M and t36_3B, t48_15B
 HEAD_DIMS = (16, 24, 32, 64, 128)
+DTYPES = (torch.bfloat16, torch.float32)
 MAX_T = 65536               # the kernels keep one segment range per 64-token tile
 _NEG = torch.finfo(torch.float32).min
 _LOG2E = 1.4426950408889634
@@ -44,25 +54,27 @@ _LOG2E = 1.4426950408889634
 
 def _refusal(dtype, head_dim: int) -> NotImplementedError:
     return NotImplementedError(
-        f"the CUDA attention kernels take bfloat16 at head_dim {', '.join(map(str, HEAD_DIMS))}, "
-        f"not {dtype} at head_dim {head_dim} (ROADMAP queue 2 A1: K1 and K5 in float32); "
+        f"the CUDA attention kernels take bfloat16 or float32 at head_dim "
+        f"{', '.join(map(str, HEAD_DIMS))}, not {dtype} at head_dim {head_dim}; "
         "attention_impl='eager' runs the plain form")
 
 
 def check_config(dtype: torch.dtype, head_dim: int) -> None:
     """Raise unless the kernels take a backbone of this compute dtype and
-    head_dim: bf16 at every ESM-2 head dim (HEAD_DIMS)."""
-    if dtype != torch.bfloat16 or head_dim not in HEAD_DIMS:
+    head_dim: bf16 or f32 at every ESM-2 head dim (HEAD_DIMS)."""
+    if dtype not in DTYPES or head_dim not in HEAD_DIMS:
         raise _refusal(dtype, head_dim)
 
 
-_POINTERS = {"attention_fwd": 6, "attention_bwd": 10}
+_POINTERS = {"attention_fwd": 6, "attention_bwd": 10,
+             "attention_fwd_f32": 6, "attention_bwd_f32": 11}
 
 
 def bind(lib: ctypes.CDLL, name: str):
     """Kernel ``name``'s C entry point in ``lib``: its pointers (q, k, v,
     segments, then inputs, outputs and scratch), B, T, NH, the head dim and
-    the stream."""
+    the stream. ``name`` is one of ``_POINTERS``: K1 and K5 in bf16, and
+    with ``_f32`` their f32 kernels."""
     fn = getattr(lib, f"pct_{name}")
     fn.argtypes = [ctypes.c_void_p] * _POINTERS[name] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -138,8 +150,9 @@ def attention_reference_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _check(segments, *tensors) -> None:
     """Raise unless the kernels take these CUDA-shaped operands: q, k, v
-    (and dO) bf16 (B, T, NH, dh) at a head dim of HEAD_DIMS, contiguous,
-    16-byte aligned, on one device; segments (B, T) int32."""
+    (and dO) (B, T, NH, dh) at a head dim of HEAD_DIMS, all bf16 or all
+    f32, contiguous, 16-byte aligned, on one device; segments (B, T)
+    int32."""
     q = tensors[0]
     if q.dim() != 4:
         raise ValueError(f"q must be (B, T, NH, head_dim), got {tuple(q.shape)}")
@@ -159,9 +172,11 @@ def _check(segments, *tensors) -> None:
             raise ValueError(f"{name} must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
-    for name, t in zip(names, tensors):
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{name} must be bfloat16 on CUDA, got {t.dtype}")
+    if q.dtype not in DTYPES:
+        raise TypeError(f"q must be bfloat16 or float32 on CUDA, got {q.dtype}")
+    for name, t in zip(names[1:], tensors[1:]):
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} must be {q.dtype} like q on CUDA, got {t.dtype}")
     if segments.dtype != torch.int32:
         raise TypeError(f"segments must be int32, got {segments.dtype}")
     if T < 1 or T > MAX_T or NH < 1 or NH > 65535 or B < 1 or B > 65535:
@@ -170,6 +185,18 @@ def _check(segments, *tensors) -> None:
 
 def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def _kernel(name: str, dtype: torch.dtype) -> str:
+    """The kernel ``name`` (attention_fwd, attention_bwd) of ``dtype``."""
+    return name if dtype == torch.bfloat16 else f"{name}_f32"
+
+
+# Kernel launches since the counts were last set to 0 (chip_smoke.py reads
+# them), by kernel: K1 calls of the forward and K5 calls of the backward, in
+# bf16 (attention_fwd, attention_bwd) and in f32 (the same names with _f32).
+launches = {_kernel(name, dtype): 0 for dtype in DTYPES
+            for name in ("attention_fwd", "attention_bwd")}
 
 
 def _forward(q, k, v, segments, with_lse: bool = False):
@@ -183,7 +210,8 @@ def _forward(q, k, v, segments, with_lse: bool = False):
         raise ValueError(f"fused_attention runs on cpu or cuda, not {q.device}")
     _check(segments, q, k, v)
     B, T, NH, dh = q.shape
-    launch = _launcher("attention_fwd")
+    name = _kernel("attention_fwd", q.dtype)
+    launch = _launcher(name)
     out = torch.empty_like(q)
     lse = torch.empty(B, NH, T, dtype=torch.float32, device=q.device) if with_lse else None
     with torch.cuda.device(q.device):
@@ -191,20 +219,22 @@ def _forward(q, k, v, segments, with_lse: bool = False):
                      out.data_ptr(), lse.data_ptr() if with_lse else None, B, T, NH, dh,
                      _stream(q.device))
     if err != 0:
-        raise RuntimeError(f"attention_fwd launch failed: cudaError_t {err}")
-    fused_attention.launches += 1
+        raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
+    launches[name] += 1
     return (out, lse) if with_lse else out
 
 
 def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         segments: torch.Tensor, do: torch.Tensor,
-                        lse: torch.Tensor | None) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                        lse: torch.Tensor | None, out: torch.Tensor | None = None
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of ``fused_attention`` for the cotangent ``do``, all
     (B, T, NH, dh), given the forward's statistics ``lse`` ((B, NH, T)
-    f32, ``_forward(..., with_lse=True)``). On CPU tensors this is
-    ``attention_reference_bwd``, which recomputes them (``lse`` may be
-    None); on CUDA tensors it launches K5 (two launches: delta and dq, then
-    dk and dv) or raises."""
+    f32, ``_forward(..., with_lse=True)``) and, for f32 operands, its output
+    ``out``. On CPU tensors this is ``attention_reference_bwd``, which
+    recomputes them (``lse`` and ``out`` may be None); on CUDA tensors it
+    launches K5 in q's dtype (two launches: delta and dq, then dk and dv) or
+    raises."""
     if q.device.type == "cpu":
         return attention_reference_bwd(q, k, v, segments, do)
     if q.device.type != "cuda":
@@ -217,23 +247,32 @@ def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         got = "None" if lse is None else f"{lse.dtype} {tuple(lse.shape)} on {lse.device}"
         raise ValueError(f"lse must be contiguous float32 (B, NH, T) = {(B, NH, T)} on "
                          f"{q.device}, got {got}")
-    launch = _launcher("attention_bwd")
+    f32 = q.dtype == torch.float32
+    if f32:  # K5-f32 forms delta = rowsum(dO * O) from K1-f32's output
+        if (out is None or out.shape != q.shape or out.dtype != q.dtype
+                or out.device != q.device or not out.is_contiguous() or out.data_ptr() % 16):
+            got = "None" if out is None else f"{out.dtype} {tuple(out.shape)} on {out.device}"
+            raise ValueError(f"out (the forward's output) must be contiguous, 16-byte aligned "
+                             f"and like q for the float32 backward, got {got}")
+    name = _kernel("attention_bwd", q.dtype)
+    launch = _launcher(name)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     delta = torch.empty(B, NH, T, dtype=torch.float32, device=q.device)  # rowsum(P * dP)
+    ins = (q, k, v, segments, *((out,) if f32 else ()), do, lse)
     with torch.cuda.device(q.device):
-        err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), segments.data_ptr(),
-                     do.data_ptr(), lse.data_ptr(), dq.data_ptr(),
-                     dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), B, T, NH, dh,
+        err = launch(*(t.data_ptr() for t in (*ins, dq, dk, dv, delta)), B, T, NH, dh,
                      _stream(q.device))
     if err != 0:
-        raise RuntimeError(f"attention_bwd launch failed: cudaError_t {err}")
-    fused_attention_bwd.launches += 1
+        raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
+    launches[name] += 1
     return dq, dk, dv
 
 
 class _FusedAttention(torch.autograd.Function):
     """K1 forward, K5 backward; the plain versions on CPU tensors. K1 writes
-    its statistics only when the caller wants a gradient."""
+    its statistics only when the caller wants a gradient; in f32 the
+    Function also saves K1's output for K5-f32 (the o projection keeps it
+    alive anyway)."""
 
     @staticmethod
     def forward(ctx, q, k, v, segments, want_grad):
@@ -243,13 +282,14 @@ class _FusedAttention(torch.autograd.Function):
             out, lse = _forward(q, k, v, segments), None
         else:
             out, lse = _forward(q, k, v, segments, with_lse=True)
-        ctx.save_for_backward(q, k, v, segments, lse)
+        saved_out = out if q.dtype == torch.float32 and q.device.type == "cuda" else None
+        ctx.save_for_backward(q, k, v, segments, lse, saved_out)
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, segments, lse = ctx.saved_tensors
-        return (*fused_attention_bwd(q, k, v, segments, do, lse), None, None)
+        q, k, v, segments, lse, out = ctx.saved_tensors
+        return (*fused_attention_bwd(q, k, v, segments, do, lse, out), None, None)
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -257,12 +297,8 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(B, T, NH, dh) q, k, v (q already scaled and rotated), (B, T) int32
     segments -> (B, T, NH, dh), differentiable in q, k and v. On CPU tensors
     the plain versions, at any dh and dtype; on CUDA tensors K1 (and K5 in
-    the backward) in bf16 at a head dim of HEAD_DIMS, or an error."""
+    the backward) in bf16 or f32 at a head dim of HEAD_DIMS, or an error."""
     want_grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
     return _FusedAttention.apply(q, k, v, segments, want_grad)
 
 
-# Kernel launches since the counts were last set to 0 (chip_smoke.py reads
-# them): K1 calls of the forward, K5 calls of the backward.
-fused_attention.launches = 0
-fused_attention_bwd.launches = 0

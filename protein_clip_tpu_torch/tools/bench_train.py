@@ -187,8 +187,8 @@ def main() -> int:
     params, state, loss = step(params, state, esm_params, batches[0], gen)
     float(loss)
     torch.cuda.reset_peak_memory_stats()
-    k1 = attention.fused_attention.launches
-    k5 = attention.fused_attention_bwd.launches
+    k1 = attention.launches["attention_fwd"]
+    k5 = attention.launches["attention_bwd"]
     k4 = maxsim.filip_similarity_fused.launches
     nce = infonce.fused_infonce.launches + infonce.fused_infonce_tiled.launches
     losses = []
@@ -205,9 +205,9 @@ def main() -> int:
         "metric": "pairs_per_sec", "value": steps * pairs / dt, "unit": "pairs/s",
         "mode": mode, "esm_config": esm_family(), "step_ms": 1e3 * dt / steps, "global_batch": pairs,
         "scatter_tiers": tiers, "steps": steps, "profile": profile, "packs": packs,
-        "k1_launches_per_step": (attention.fused_attention.launches - k1) / steps,
+        "k1_launches_per_step": (attention.launches["attention_fwd"] - k1) / steps,
         "k4_launches_per_step": (maxsim.filip_similarity_fused.launches - k4) / steps,
-        "k5_launches_per_step": (attention.fused_attention_bwd.launches - k5) / steps,
+        "k5_launches_per_step": (attention.launches["attention_bwd"] - k5) / steps,
         "infonce_calls_per_step": (infonce.fused_infonce.launches
                                    + infonce.fused_infonce_tiled.launches - nce) / steps,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,

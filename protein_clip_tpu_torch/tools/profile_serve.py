@@ -1,12 +1,13 @@
 """Where the time of one serving request goes, on the card.
 
-    python -m protein_clip_tpu_torch.tools.profile_serve [--esm-dtype int8]
+    python -m protein_clip_tpu_torch.tools.profile_serve [--esm-dtype int8 | float32]
         [--esm-config t33_650M]
     PCT_FFN_PALLAS=1 python -m protein_clip_tpu_torch.tools.profile_serve
 
 Builds ESM-2 ``--esm-config`` (default t30_150M) in bf16 (with
-``--esm-dtype int8``, its w8a8
-quantisation, whose linear layers run P1) with seeded random weights and
+``--esm-dtype int8``, its w8a8 quantisation, whose linear layers run P1;
+with ``--esm-dtype float32`` in f32, attention through K1-f32) with seeded
+random weights and
 CLIP heads on the GPU, then for two requests (one 100-residue sequence;
 32 sequences of 50-299 residues) measures the host wall time of
 ``cli.embed.embed_sequences`` (median of 10, after warm-up) and profiles 5
@@ -15,9 +16,10 @@ busy share of the wall time, and kernel launches per call. Then the same
 for FILIP's /topk without HTTP (``embed_sequences_tokens`` for one
 100-residue query, then ``filip_score_matrix_ragged`` over a ragged index
 of 256 sequences of 30-499 residues). Under ``PCT_FFN_PALLAS=1`` every
-FFN's wi + gelu runs K6. Each request's line names the launches of K1, K4,
-P1 and K6 per call and the share of the device time of each. Prints the
-card's name and power limit beside the numbers.
+FFN's wi + gelu runs K6. Each request's line names the launches of K1 (in
+the backbone's dtype, bf16 or f32), K4, P1 and K6 per call and the share of
+the device time of each. Prints the card's name and power limit beside the
+numbers.
 """
 
 from __future__ import annotations
@@ -42,7 +44,8 @@ from ..utils.device import resolve_device
 AAS = "LAGVSERTIDPKQNFYMHWC"
 
 
-def profile_request(name: str, seqs: list[str], encode, top: int = 12) -> None:
+def profile_request(name: str, seqs: list[str], encode, dtype: torch.dtype,
+                    top: int = 12) -> None:
     for _ in range(3):
         encode(seqs)
     walls = []
@@ -53,9 +56,11 @@ def profile_request(name: str, seqs: list[str], encode, top: int = 12) -> None:
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     n = 5
-    counters = {"K1": attention.fused_attention, "K4": maxsim.filip_similarity_fused,
-                "P1": dense_mm.mm, "K6": ffn.dense_gelu}
-    before = {k: fn.launches for k, fn in counters.items()}
+    k1 = attention._kernel("attention_fwd", dtype)
+    counters = {"K1": lambda: attention.launches[k1],
+                "K4": lambda: maxsim.filip_similarity_fused.launches,
+                "P1": lambda: dense_mm.mm.launches, "K6": lambda: ffn.dense_gelu.launches}
+    before = {k: count() for k, count in counters.items()}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -63,7 +68,7 @@ def profile_request(name: str, seqs: list[str], encode, top: int = 12) -> None:
             encode(seqs)
         torch.cuda.synchronize()
         window = time.perf_counter() - t0
-    calls = {k: (fn.launches - before[k]) // n for k, fn in counters.items()}
+    calls = {k: (count() - before[k]) // n for k, count in counters.items()}
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
     busy_us = sum(e.self_device_time_total for e in kernels)
@@ -71,7 +76,7 @@ def profile_request(name: str, seqs: list[str], encode, top: int = 12) -> None:
     # P1 and K6 are one kernel template (csrc/mma_gemm.cuh's gemm_kernel),
     # told apart by their epilogue types
     shares = {k: sum(e.self_device_time_total for e in kernels if sym in e.key)
-              for k, sym in (("K1", "attention_fwd_kernel"), ("K4", "filip_maxsim_kernel"),
+              for k, sym in (("K1", "attention_fwd"), ("K4", "filip_maxsim_kernel"),
                              ("P1", "DenseMmOut"), ("K6", "FfnGeluOut"))}
     print(f"[{name}] wall p50 {1e3 * statistics.median(walls):.4f} ms (10 calls); "
           f"profiled {n} calls: device busy {busy_us / n / 1e3:.4f} ms per call = "
@@ -88,7 +93,7 @@ def profile_request(name: str, seqs: list[str], encode, top: int = 12) -> None:
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--esm-dtype", default="bfloat16", choices=["bfloat16", "int8"])
+    p.add_argument("--esm-dtype", default="bfloat16", choices=["bfloat16", "float32", "int8"])
     p.add_argument("--esm-config", default="t30_150M",
                    choices=["t30_150M", "t6_8M", "t12_35M", "t33_650M", "t36_3B", "t48_15B", "tiny"])
     args = p.parse_args(argv)
@@ -102,7 +107,7 @@ def main(argv=None) -> int:
     cfg = common.esm_config(args.esm_config, args.esm_dtype)
     mcfg = clip.CLIPConfig(input_dim=cfg.hidden_size, esm=cfg)
     esm_params = esm2.init_params(cfg, torch.Generator(device=device).manual_seed(0),
-                                  dtype=torch.bfloat16, device=device)
+                                  dtype=cfg.compute_dtype, device=device)
     if args.esm_dtype == "int8":
         esm_params = esm2.quantize_params(esm_params)
     heads = clip.init_params(mcfg, torch.Generator().manual_seed(0), device=device)
@@ -116,8 +121,8 @@ def main(argv=None) -> int:
         return embed.embed_sequences(heads, esm_params, batch, "rec", mcfg, tok, device,
                                      batch_size=32, pad_batch=True)
 
-    profile_request("1 seq, 100 aa", seqs([100]), encode)
-    profile_request("32 seqs, 50-299 aa", seqs(rng.integers(50, 300, 32)), encode)
+    profile_request("1 seq, 100 aa", seqs([100]), encode, cfg.compute_dtype)
+    profile_request("32 seqs, 50-299 aa", seqs(rng.integers(50, 300, 32)), encode, cfg.compute_dtype)
 
     fcfg = embed.filip_config(mcfg)
     fheads = filip.init_params(fcfg, torch.Generator().manual_seed(1), device=device)
@@ -131,7 +136,7 @@ def main(argv=None) -> int:
         return retrieval.filip_score_matrix_ragged(q_t, q_m, flat, lengths,
                                                    fheads["temperature"], device=device)
 
-    profile_request("FILIP /topk, 1 query of 100 aa over 256 seqs", seqs([100]), topk)
+    profile_request("FILIP /topk, 1 query of 100 aa over 256 seqs", seqs([100]), topk, cfg.compute_dtype)
     return 0
 
 

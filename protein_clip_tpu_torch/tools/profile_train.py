@@ -5,12 +5,14 @@ or the FILIP step (``--filip``), frozen, packed or unfrozen alike.
 
     python -m protein_clip_tpu_torch.tools.profile_train [--batch-size 16]
         [--packed] [--finetune | --lora-rank 8] [--esm-config t33_650M]
+        [--esm-dtype float32]
     python -m protein_clip_tpu_torch.tools.profile_train --filip [--batch-size 10]
         [--length-groups 1] [--num-chunks 1] [--use-dcl] [--packed [--scatter-tiers 4]]
         [--finetune | --lora-rank 8]
 
 Builds ESM-2 ``--esm-config`` (default t30_150M; every family runs in
-bf16) with seeded random weights and CLIP heads on
+bf16, or with ``--esm-dtype float32`` in f32 through K1-f32 and K5-f32)
+with seeded random weights and CLIP heads on
 the GPU, and global batches of batch-size x 16 pairs drawn from the seeded
 synthetic corpus of 3000 families (receptors 60-180 aa, peptides 8-30 aa),
 tokenized as ``cli.main`` does: into 4 length groups for the frozen step,
@@ -108,6 +110,8 @@ def main(argv=None) -> int:
     p.add_argument("--scatter-tiers", type=int, default=4, help="with --filip --packed")
     p.add_argument("--esm-config", default="t30_150M",
                    choices=["t30_150M", "t6_8M", "t12_35M", "t33_650M", "t36_3B", "t48_15B", "tiny"])
+    p.add_argument("--esm-dtype", default="bfloat16", choices=["bfloat16", "float32"],
+                   help="the backbone's compute dtype")
     p.add_argument("--filip", action="store_true",
                    help="the FILIP step (train/filip_engine.py; with --finetune or --lora-rank "
                         "train/filip_finetune.py or train/filip_lora.py)")
@@ -123,8 +127,9 @@ def main(argv=None) -> int:
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip()
-    print(f"card: {gpu}; torch {torch.__version__}; --esm-config {args.esm_config}")
-    esm_cfg = common.esm_config(args.esm_config, "bfloat16")
+    print(f"card: {gpu}; torch {torch.__version__}; --esm-config {args.esm_config}, "
+          f"--esm-dtype {args.esm_dtype}")
+    esm_cfg = common.esm_config(args.esm_config, args.esm_dtype)
     if args.filip:
         engine = (filip_finetune if args.finetune else filip_lora if args.lora_rank
                   else filip_engine)
@@ -436,8 +441,10 @@ def main(argv=None) -> int:
         f"{n} {ms:.4f} ms ({100 * ms / layers.sum():.2f}%)" for n, ms in zip(names, layers)))
 
     n = 1 if unfrozen else 2
-    k1 = attention.fused_attention.launches
-    k5 = attention.fused_attention_bwd.launches
+
+    k1_name, k5_name = (attention._kernel(name, esm_cfg.compute_dtype)
+                        for name in ("attention_fwd", "attention_bwd"))
+    k1, k5 = attention.launches[k1_name], attention.launches[k5_name]
     k2 = infonce.fused_infonce.launches + infonce.fused_infonce_tiled.launches
     k4 = maxsim.filip_similarity_fused.launches
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -447,8 +454,8 @@ def main(argv=None) -> int:
             train_step()
         torch.cuda.synchronize()
         window = time.perf_counter() - t0
-    k1 = (attention.fused_attention.launches - k1) // n
-    k5 = (attention.fused_attention_bwd.launches - k5) // n
+    k1 = (attention.launches[k1_name] - k1) // n
+    k5 = (attention.launches[k5_name] - k5) // n
     k2 = (infonce.fused_infonce.launches + infonce.fused_infonce_tiled.launches - k2) // n
     k4 = (maxsim.filip_similarity_fused.launches - k4) // n
     kernels = [e for e in prof.key_averages()

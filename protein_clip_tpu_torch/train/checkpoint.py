@@ -1,4 +1,5 @@
-"""Flat-npz checkpoints, and the carry of the TPU package's parameters.
+"""Flat-npz checkpoints, HF checkpoint directories, and the carry of the
+TPU package's parameters.
 
 Parameters are nested dicts of tensors with the TPU package's layout: ESM-2
 layers stacked on a leading layer axis, linear weights ``(in, out)``, CLIP
@@ -8,10 +9,17 @@ its ``/``-joined key path (``pep/aa_ffn/blocks/w``), the TPU package's
 load in the other. numpy has no bfloat16: bf16 tensors are written as
 float32, and a bfloat16 array that the TPU package wrote (two-byte void
 dtype without ``ml_dtypes``) is read back bit for bit.
+
+``read_hf_checkpoint`` reads the tensors of a HF ESM-2 checkpoint directory
+(``model.safetensors`` or ``pytorch_model.bin``, either sharded) without the
+``transformers`` and ``safetensors`` packages.
 """
 
 from __future__ import annotations
 
+import json
+import re
+import struct
 from pathlib import Path
 from typing import Any
 
@@ -49,7 +57,8 @@ def _to_numpy(leaf) -> np.ndarray:
 
 def to_tensor(arr: np.ndarray, device, dtype: torch.dtype | None = None) -> torch.Tensor:
     """numpy -> tensor on ``device``; floating arrays take ``dtype`` when it
-    is given."""
+    is given, cast on the host, so the device holds the leaf once and in
+    ``dtype`` only."""
     arr = np.asarray(arr)
     if arr.dtype.name == "bfloat16" or (arr.dtype.kind == "V" and arr.dtype.itemsize == 2):
         # ml_dtypes.bfloat16, or its raw bits as numpy reads them without it
@@ -58,8 +67,9 @@ def to_tensor(arr: np.ndarray, device, dtype: torch.dtype | None = None) -> torc
         if not (arr.flags.writeable and arr.flags.c_contiguous):
             arr = np.array(arr, order="C")  # e.g. a read-only view of a JAX array
         t = torch.from_numpy(arr)
-    t = t.to(device)
-    return t.to(dtype) if dtype is not None and t.is_floating_point() else t
+    if dtype is not None and t.is_floating_point():
+        t = t.to(dtype)
+    return t.to(device)
 
 
 def export_npz(path: str | Path, tree: Any) -> None:
@@ -104,3 +114,94 @@ def from_numpy_tree(tree: Any, device="cuda", dtype: torch.dtype | None = None) 
         return to_tensor(node, device, dtype)
 
     return carry(tree)
+
+
+# ---------------------------------------------------------------------------
+# HF checkpoint directories
+# ---------------------------------------------------------------------------
+
+# Tensors of a HF ESM-2 checkpoint that the backbone does not read (keys
+# without the ``esm.`` prefix): the MLM and contact heads, a pooler, the
+# rotary tables (recomputed) and the position ids.
+HF_IGNORED = re.compile(r"^(lm_head\.|contact_head\.|pooler\.|embeddings\.position_ids$)"
+                        r"|\.rotary_embeddings\.inv_freq$")
+# the floating dtypes of a checkpoint's tensors (BF16 is read through torch)
+_SAFETENSORS_DTYPES = {"F32": np.float32, "F16": np.float16, "BF16": None}
+
+
+def _wanted(key: str, lm_head: bool) -> bool:
+    return not HF_IGNORED.search(key) or (lm_head and key.startswith("lm_head."))
+
+
+def read_safetensors(path: str | Path, keep=lambda key: True) -> dict[str, np.ndarray]:
+    """The tensors of a ``.safetensors`` file whose names ``keep`` takes, as
+    numpy arrays in their stored dtype (bf16 as float32, exactly); a kept
+    tensor of another dtype than F32, F16 or BF16 raises. The file is an
+    8-byte little-endian header length, a JSON header ({name: {dtype, shape,
+    data_offsets}}, offsets from the end of the header) and the raw
+    little-endian bytes."""
+    out = {}
+    with open(path, "rb") as f:
+        (n,) = struct.unpack("<Q", f.read(8))
+        header = json.loads(f.read(n))
+        start = 8 + n
+        for key, info in header.items():
+            if key == "__metadata__" or not keep(key):
+                continue
+            if info["dtype"] not in _SAFETENSORS_DTYPES:
+                raise ValueError(f"{path}: {key} has dtype {info['dtype']}, not a float one")
+            lo, hi = info["data_offsets"]
+            f.seek(start + lo)
+            raw = bytearray(f.read(hi - lo))
+            if info["dtype"] == "BF16":
+                arr = torch.frombuffer(raw, dtype=torch.int16).view(torch.bfloat16).float().numpy()
+            else:
+                arr = np.frombuffer(raw, dtype=np.dtype(_SAFETENSORS_DTYPES[info["dtype"]])
+                                    .newbyteorder("<"))
+            out[key] = arr.reshape(info["shape"])
+    return out
+
+
+def _read_bin(path: Path, keep) -> dict[str, np.ndarray]:
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    return {k: v.float().numpy() for k, v in sd.items() if keep(k)}
+
+
+def _checkpoint_files(path: Path) -> list[Path]:
+    """The weight files of a HF checkpoint directory: safetensors before
+    ``pytorch_model.bin`` (``from_pretrained``'s order), one file or the
+    shards its ``*.index.json`` maps."""
+    for name in ("model.safetensors", "pytorch_model.bin"):
+        index = path / f"{name}.index.json"
+        if index.exists():
+            weight_map = json.loads(index.read_text())["weight_map"]
+            return [path / f for f in dict.fromkeys(weight_map.values())]
+        if (path / name).exists():
+            return [path / name]
+    raise FileNotFoundError(f"{path} holds no model.safetensors or pytorch_model.bin "
+                            "(nor a sharded index of either): not a HF checkpoint directory")
+
+
+def read_hf_checkpoint(path: str | Path, lm_head: bool = False) -> dict[str, np.ndarray]:
+    """The state dict a HF ESM-2 checkpoint directory holds, as
+    ``EsmModel.from_pretrained(path, add_pooling_layer=False).state_dict()``
+    gives it to the TPU package's ``load_esm``: keys without the ``esm.``
+    prefix, floating tensors in f32 (stored bf16 and f16 upcast). Tensors
+    the backbone does not read (``HF_IGNORED``) are left out, the MLM head's
+    kept with ``lm_head``. Reads ``model.safetensors`` by hand and
+    ``pytorch_model.bin`` with ``torch.load(weights_only=True)``, sharded or
+    not; neither ``transformers`` nor ``safetensors`` is needed."""
+    path = Path(path)
+    if not path.is_dir():
+        raise FileNotFoundError(f"{path} is not a HF checkpoint directory")
+
+    def keep(key):
+        return _wanted(key.removeprefix("esm."), lm_head)
+
+    out: dict[str, np.ndarray] = {}
+    for f in _checkpoint_files(path):
+        part = read_safetensors(f, keep) if f.suffix == ".safetensors" else _read_bin(f, keep)
+        # stored bf16 and f16 upcast, as from_pretrained loads them into an f32 model
+        out.update({k.removeprefix("esm."): v.astype(np.float32, copy=False)
+                    for k, v in part.items()})
+    return out

@@ -137,9 +137,9 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
     rng = np.random.default_rng(4)
     q, k, v = (torch.from_numpy(a) for a in _qkv(rng, 1, 8))
     seg = torch.ones(1, 8, dtype=torch.int32)
-    before = attention.fused_attention.launches
+    before = attention.launches["attention_fwd"]
     out = attention.fused_attention(q, k, v, seg)
-    assert attention.fused_attention.launches == before
+    assert attention.launches["attention_fwd"] == before
     torch.testing.assert_close(out, attention.attention_reference(q, k, v, seg),
                                rtol=0, atol=0)
 

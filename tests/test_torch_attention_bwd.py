@@ -1,10 +1,15 @@
 """The plain version of kernel K5 (``ops.attention.attention_reference_bwd``,
 what the backward of ``fused_attention`` runs on CPU tensors) against the
 VJP of the JAX package's Pallas ``fused_attention``, whose backward kernel
-runs in interpret mode on the CPU.
+runs in interpret mode on the CPU: ``_attention_bwd_call``, the call its
+``custom_vjp`` backward makes (equal to the bit to ``jax.vjp`` of
+``fused_attention``, which test_function_backward_on_cpu_is_the_plain_bwd
+runs whole; the forward kernel it would run first costs as much again in
+interpret mode).
 
 Same numpy inputs, float32, at every ESM-2 head dim (32, and 16, 24, 64,
-128), NH = 4, every position compared:
+128), NH = 2 (two heads share one lane group of the Pallas grid at every
+head dim but 128, which takes two groups), every position compared:
 padded rows, rows with every query fully padded (each with a nonzero
 cotangent: their uniform softmax feeds dv but, after the re-mask of dS,
 neither dq nor dk), and packed segments with gap zeros. Tolerance 1e-5
@@ -25,12 +30,13 @@ import pytest
 import torch
 
 import chip_smoke
+from protein_clip_tpu.ops.attention_pallas import _attention_bwd_call
 from protein_clip_tpu.ops.attention_pallas import fused_attention as jax_fused
 from protein_clip_tpu_torch.ops import attention
 from test_torch_attention import over_head_dims
 
 ATOL = 1e-5
-B, NH, DH = 2, 4, 32
+B, NH, DH = 2, 2, 32
 
 
 def _inputs(T, kind, seed, DH=DH):
@@ -52,10 +58,22 @@ def _inputs(T, kind, seed, DH=DH):
     return q, k, v, seg, do
 
 
-def _jax_grads(q, k, v, seg, do):
+def _jax_vjp_grads(q, k, v, seg, do):
     _, vjp = jax.vjp(lambda a, b, c: jax_fused(a, b, c, jnp.asarray(seg)),
                      *(jnp.asarray(x) for x in (q, k, v)))
     return [np.asarray(g) for g in vjp(jnp.asarray(do))]
+
+
+# jitted, so the cases of one shape (padded, fully padded, packed) share a
+# compile of the interpret-mode kernel
+_pallas_bwd = jax.jit(_attention_bwd_call)
+
+
+def _jax_grads(q, k, v, seg, do, dtype=jnp.float32):
+    """The Pallas backward kernel's (dq, dk, dv), as the custom_vjp calls it."""
+    q, k, v, do = (jnp.asarray(x, dtype) for x in (q, k, v, do))
+    return [np.asarray(g.astype(jnp.float32))
+            for g in _pallas_bwd(q, k, v, jnp.asarray(seg), do)]
 
 
 KINDS = ["padded", "fully_padded", "packed"]
@@ -86,12 +104,12 @@ def test_function_backward_on_cpu_is_the_plain_bwd(kind):
     the JAX gradients, with no kernel launched in either direction."""
     q, k, v, seg, do = _inputs(128, kind, 7)
     tq, tk, tv = (torch.from_numpy(a).requires_grad_(True) for a in (q, k, v))
-    launches = (attention.fused_attention.launches, attention.fused_attention_bwd.launches)
+    launches = (attention.launches["attention_fwd"], attention.launches["attention_bwd"])
     out = attention.fused_attention(tq, tk, tv, torch.from_numpy(seg))
     grads = torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(do))
-    assert (attention.fused_attention.launches,
-            attention.fused_attention_bwd.launches) == launches
-    for name, g, w in zip(("dq", "dk", "dv"), grads, _jax_grads(q, k, v, seg, do)):
+    assert (attention.launches["attention_fwd"],
+            attention.launches["attention_bwd"]) == launches
+    for name, g, w in zip(("dq", "dk", "dv"), grads, _jax_vjp_grads(q, k, v, seg, do)):
         np.testing.assert_allclose(g.numpy(), w, atol=ATOL, err_msg=name)
 
 
@@ -157,7 +175,7 @@ def emulate_k5(q, k, v, seg, do, lse, skip=True, out=None):
     return dq.bfloat16(), dk.bfloat16(), dv.bfloat16()
 
 
-def _bf16_inputs(T, kind, seed, DH=DH):
+def _bf16_inputs(T, kind, seed, DH=DH, NH=NH):
     rng = np.random.default_rng(seed)
     q, k = (torch.from_numpy(rng.normal(size=(B, T, NH, DH)).astype(np.float32) * 0.3).bfloat16()
             for _ in range(2))
@@ -184,10 +202,8 @@ def test_k5_tile_arithmetic_matches_plain_and_pallas(kind, T, dh):
     f = [x.float() for x in (q, k, v)]
     got = emulate_k5(*f, seg, do.float(), lse)
     plain = attention.attention_reference_bwd(q, k, v, seg, do)
-    _, vjp = jax.vjp(lambda a, b, c: jax_fused(a, b, c, jnp.asarray(seg.numpy())),
-                     *(jnp.asarray(x.float().numpy(), jnp.bfloat16) for x in (q, k, v)))
-    pallas = [torch.from_numpy(np.array(g.astype(jnp.float32)))
-              for g in vjp(jnp.asarray(do.float().numpy(), jnp.bfloat16))]
+    pallas = [torch.from_numpy(g) for g in _jax_grads(
+        *(x.float().numpy() for x in (q, k, v)), seg.numpy(), do.float().numpy(), jnp.bfloat16)]
     for name, g, w, j in zip(("dq", "dk", "dv"), got, plain, pallas):
         assert _least_atol(g, w) <= ATOL_RMS, name
         assert _least_atol(g, j) <= ATOL_RMS, name
@@ -205,10 +221,11 @@ def test_delta_from_the_bf16_output_breaks_the_tolerance():
     plain version's| over the largest |dk| (a per-query error e in delta
     adds -e P to dS, whose row sums then miss 0: the key bias, which
     softmax ignores, loses its cancellation). The f32 form passes every
-    case; the bf16 form fails at least one."""
+    case; the bf16 form fails at least one. At 4 heads, the reading's
+    width (no Pallas call here)."""
     worst = {"f32": 0.0, "bf16": 0.0}
     for T, kind in ((1, "padded"), (64, "padded"), (65, "packed"), (200, "packed")):
-        q, k, v, seg, do, lse = _bf16_inputs(T, kind, 40 + T)
+        q, k, v, seg, do, lse = _bf16_inputs(T, kind, 40 + T, NH=4)
         f = [x.float() for x in (q, k, v)]
         out = attention.attention_reference(q, k, v, seg).float()
         plain = attention.attention_reference_bwd(q, k, v, seg, do)

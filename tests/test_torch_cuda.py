@@ -21,6 +21,7 @@ JAX it runs as
     python -m pytest tests/test_torch_cuda.py --noconftest -q -p no:cacheprovider
 """
 
+import argparse
 import contextlib
 import dataclasses
 import functools
@@ -30,12 +31,13 @@ import pytest
 import torch
 
 import chip_smoke
+from protein_clip_tpu_torch.cli import common
 from protein_clip_tpu_torch.data.prefetch import to_device
 from protein_clip_tpu_torch.data.tokenizer import EsmTokenizer
 from protein_clip_tpu_torch.eval import retrieval
 from protein_clip_tpu_torch.models import clip, esm2
 from protein_clip_tpu_torch.ops import attention, dense_mm, ffn, filip, infonce
-from protein_clip_tpu_torch.train import clip_engine, optimizer, packed_engine
+from protein_clip_tpu_torch.train import checkpoint, clip_engine, optimizer, packed_engine
 
 pytestmark = pytest.mark.cuda
 
@@ -53,9 +55,9 @@ def dev():
     return torch.device("cuda")
 
 
-def _inputs(B, T, NH, dev, seed=0, dh=32):
+def _inputs(B, T, NH, dev, seed=0, dh=32, dtype=torch.bfloat16):
     g = torch.Generator(device=dev).manual_seed(seed)
-    q, k, v = ((s * torch.randn(B, T, NH, dh, device=dev, generator=g)).bfloat16()
+    q, k, v = ((s * torch.randn(B, T, NH, dh, device=dev, generator=g)).to(dtype)
                for s in (dh ** -0.5, 1.0, 1.0))
     return q, k, v
 
@@ -139,17 +141,19 @@ def test_kernel_matches_plain_at_every_head_dim(dev, dh, B, T, NH, kind):
 def test_launch_count(dev):
     q, k, v = _inputs(1, 64, 2, dev)
     seg = _segments(1, 64, "padded", dev)
-    before = attention.fused_attention.launches
+    before = attention.launches["attention_fwd"]
     for _ in range(3):
         attention.fused_attention(q, k, v, seg)
-    assert attention.fused_attention.launches == before + 3
+    assert attention.launches["attention_fwd"] == before + 3
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take(dev):
     q, k, v = _inputs(1, 64, 2, dev)
     seg = _segments(1, 64, "padded", dev)
-    with pytest.raises(TypeError, match="bfloat16"):
-        attention.fused_attention(q.float(), k.float(), v.float(), seg)
+    with pytest.raises(TypeError, match="like q"):
+        attention.fused_attention(q.float(), k, v, seg)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        attention.fused_attention(q.half(), k.half(), v.half(), seg)
     with pytest.raises(TypeError, match="int32"):
         attention.fused_attention(q, k, v, seg.long())
     with pytest.raises(NotImplementedError, match="head_dim 48"):
@@ -167,10 +171,14 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(dev):
         attention.fused_attention_bwd(q, k, v, seg, q[:, :10].contiguous(), lse)
     with pytest.raises(ValueError, match="lse"):
         attention.fused_attention_bwd(q, k, v, seg, q, lse[:, :1])
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    with pytest.raises(ValueError, match="out"):     # K5-f32 needs K1-f32's output
+        attention.fused_attention_bwd(q32, k32, v32, seg, q32, lse)
 
 
 @pytest.mark.parametrize("over", [dict(hidden_size=192, num_heads=4),       # head_dim 48
-                                  dict(compute_dtype=torch.float32)])
+                                  dict(hidden_size=192, num_heads=4,
+                                       compute_dtype=torch.float32)])
 def test_esm_forward_refuses_configs_the_kernel_does_not_take(dev, over):
     """Fused attention on CUDA never falls back to the plain form."""
     cfg = esm2.ESM2Config(**{**dict(hidden_size=128, num_layers=1, num_heads=4,
@@ -180,10 +188,10 @@ def test_esm_forward_refuses_configs_the_kernel_does_not_take(dev, over):
                               dtype=cfg.compute_dtype, device=dev)
     ids = torch.randint(4, 24, (1, 16), device=dev)
     mask = torch.ones(1, 16, dtype=torch.int32, device=dev)
-    before = attention.fused_attention.launches
+    before = attention.launches["attention_fwd"]
     with torch.inference_mode(), pytest.raises(NotImplementedError, match="head_dim"):
         esm2.forward(params, ids, mask, cfg)
-    assert attention.fused_attention.launches == before
+    assert attention.launches["attention_fwd"] == before
 
 
 @pytest.mark.parametrize("hidden,heads", [(64, 4), (96, 4), (256, 4), (256, 2)],
@@ -205,12 +213,12 @@ def test_esm_forward_runs_the_kernel_at_every_head_dim(dev, hidden, heads):
     positions[0, 50:] -= 50
     for packed in (False, True):
         kw = dict(segment_ids=seg, positions=positions) if packed else {}
-        before = attention.fused_attention.launches
+        before = attention.launches["attention_fwd"]
         with torch.inference_mode():
             fused = esm2.forward(params, ids, mask, cfg, **kw)
             eager = esm2.forward(params, ids, mask,
                                  dataclasses.replace(cfg, attention_impl="eager"), **kw)
-        assert attention.fused_attention.launches == before + cfg.num_layers
+        assert attention.launches["attention_fwd"] == before + cfg.num_layers
         valid = mask > 0
         cos = torch.nn.functional.cosine_similarity(fused[valid].float(), eager[valid].float(),
                                                     dim=-1)
@@ -226,12 +234,12 @@ def test_esm_forward_runs_the_kernel_in_every_layer(dev):
     mask = torch.ones(2, 70, dtype=torch.int32, device=dev)
     mask[1, 40:] = 0
     ids[1, 40:] = 1
-    before = attention.fused_attention.launches
+    before = attention.launches["attention_fwd"]
     with torch.inference_mode():
         fused = esm2.forward(params, ids, mask, cfg)
         eager = esm2.forward(params, ids, mask,
                              dataclasses.replace(cfg, attention_impl="eager"))
-    assert attention.fused_attention.launches == before + cfg.num_layers
+    assert attention.launches["attention_fwd"] == before + cfg.num_layers
     valid = mask.bool()
     cos = torch.nn.functional.cosine_similarity(fused[valid].float(), eager[valid].float(),
                                                 dim=-1)
@@ -246,6 +254,15 @@ def test_esm_forward_runs_the_kernel_in_every_layer(dev):
 def _bwd_segments(B, T, kind, dev):
     if kind == "packed":
         return _segments(B, T, "packed", dev)
+    if kind == "one_token":  # segments of one token every other time, gaps between
+        seg = torch.zeros(B, T, dtype=torch.int32)
+        for b in range(B):
+            pos, sid = b % 2, 1
+            while pos < T:
+                n = 1 if sid % 2 else 2 + (sid + b) % 7
+                seg[b, pos:pos + n] = sid
+                pos, sid = pos + n + sid % 3 // 2, sid + 1
+        return seg.to(dev)
     seg = _segments(B, T, "padded", dev)
     if kind == "fully_padded":
         seg[-1] = 0    # a row with no valid token: every one of its queries is uniform
@@ -298,10 +315,10 @@ def test_attention_bwd_is_deterministic_and_counts_launches(dev):
     do = _inputs(16, 200, 20, dev, seed=1)[2]
     seg = _bwd_segments(16, 200, "packed", dev)
     lse = attention._forward(q, k, v, seg, with_lse=True)[1]
-    before = attention.fused_attention_bwd.launches
+    before = attention.launches["attention_bwd"]
     a = attention.fused_attention_bwd(q, k, v, seg, do, lse)
     b = attention.fused_attention_bwd(q, k, v, seg, do, lse)
-    assert attention.fused_attention_bwd.launches == before + 2
+    assert attention.launches["attention_bwd"] == before + 2
     for x, y in zip(a, b):
         assert torch.equal(x, y)
 
@@ -313,11 +330,11 @@ def test_fused_attention_function_runs_k1_then_k5(dev):
     q, k, v = (t.requires_grad_(True) for t in _inputs(3, 130, 20, dev))
     do = _inputs(3, 130, 20, dev, seed=1)[2]
     seg = _bwd_segments(3, 130, "padded", dev)
-    k1, k5 = attention.fused_attention.launches, attention.fused_attention_bwd.launches
+    k1, k5 = attention.launches["attention_fwd"], attention.launches["attention_bwd"]
     out = attention.fused_attention(q, k, v, seg)
     grads = torch.autograd.grad(out, (q, k, v), do)
     torch.cuda.synchronize()
-    assert (attention.fused_attention.launches, attention.fused_attention_bwd.launches) == (
+    assert (attention.launches["attention_fwd"], attention.launches["attention_bwd"]) == (
         k1 + 1, k5 + 1)
     _assert_bwd_close(grads, attention.attention_reference_bwd(
         q.detach(), k.detach(), v.detach(), seg, do))
@@ -328,8 +345,176 @@ def test_fused_attention_function_runs_k1_then_k5(dev):
         out = attention.fused_attention(q, k, v, seg)
     torch.cuda.synchronize()
     assert torch.cuda.memory_allocated(dev) - before == out.numel() * out.element_size()
-    assert attention.fused_attention.launches == k1 + 2
-    assert attention.fused_attention_bwd.launches == k5 + 1
+    assert attention.launches["attention_fwd"] == k1 + 2
+    assert attention.launches["attention_bwd"] == k5 + 1
+
+
+# K1-f32 and K5-f32 against their plain versions, all f32 (TF32 off, as
+# chip_smoke.py runs them): chip_smoke.F32_ATOL_RMS and F32_RTOL, which it
+# states the margin of. A one-token segment's dq and dk are exactly 0 in
+# both (the one_token cases, and T = 1).
+F32_ATOL_RMS, F32_RTOL = chip_smoke.F32_ATOL_RMS, chip_smoke.F32_RTOL
+
+
+@pytest.fixture
+def no_tf32(dev):
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield dev
+    torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def _assert_f32_close(got, want, name="out"):
+    assert torch.isfinite(got).all(), name
+    err = (got - want).abs()
+    atol = F32_ATOL_RMS * float(want.square().mean().sqrt())
+    assert (err <= atol + F32_RTOL * want.abs()).all(), (name, float(err.max()))
+
+
+@pytest.mark.parametrize("kind", ["padded", "fully_padded", "packed", "one_token"])
+@pytest.mark.parametrize("B,T,NH", [(4, 1, 3), (2, 65, 3), (3, 129, 20), (2, 200, 5),
+                                    (16, 512, 4), (1, 1000, 4)])
+@pytest.mark.parametrize("dh", attention.HEAD_DIMS)
+def test_f32_kernel_matches_plain_at_every_head_dim(no_tf32, dh, B, T, NH, kind):
+    dev = no_tf32
+    q, k, v = _inputs(B, T, NH, dev, dh=dh, dtype=torch.float32)
+    seg = _bwd_segments(B, T, kind, dev)
+    before = (attention.launches["attention_fwd"], attention.launches["attention_fwd_f32"])
+    out, lse = attention._forward(q, k, v, seg, with_lse=True)
+    torch.cuda.synchronize()
+    assert (attention.launches["attention_fwd"], attention.launches["attention_fwd_f32"]) == (
+        before[0], before[1] + 1)
+    assert out.dtype == torch.float32
+    _assert_f32_close(out, attention.attention_reference(q, k, v, seg))
+    want = attention.attention_reference_lse(q, k, seg)
+    pad = torch.isinf(want)
+    assert torch.equal(torch.isinf(lse), pad)
+    torch.testing.assert_close(lse[~pad], want[~pad], rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("kind", ["padded", "fully_padded", "packed", "one_token"])
+@pytest.mark.parametrize("T", [1, 65, 129, 200, 512])
+@pytest.mark.parametrize("dh", attention.HEAD_DIMS)
+def test_f32_bwd_kernel_matches_plain_at_every_head_dim(no_tf32, dh, T, kind):
+    dev, B, NH = no_tf32, 3, 4
+    q, k, v = _inputs(B, T, NH, dev, dh=dh, dtype=torch.float32)
+    do = _inputs(B, T, NH, dev, seed=1, dh=dh, dtype=torch.float32)[2]
+    seg = _bwd_segments(B, T, kind, dev)
+    out, lse = attention._forward(q, k, v, seg, with_lse=True)
+    before = (attention.launches["attention_bwd"], attention.launches["attention_bwd_f32"])
+    got = attention.fused_attention_bwd(q, k, v, seg, do, lse, out)
+    torch.cuda.synchronize()
+    assert (attention.launches["attention_bwd"],
+            attention.launches["attention_bwd_f32"]) == (before[0], before[1] + 1)
+    want = attention.attention_reference_bwd(q, k, v, seg, do)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        _assert_f32_close(g, w, name)
+
+
+def test_f32_function_runs_k1_f32_then_k5_f32_and_repeats(no_tf32):
+    """Through autograd in f32: K1-f32 forward and K5-f32 backward, no bf16
+    launch, the plain backward's gradients, and the same gradients again to
+    the bit."""
+    dev = no_tf32
+    q, k, v = (t.requires_grad_(True) for t in _inputs(3, 130, 20, dev, dtype=torch.float32))
+    do = _inputs(3, 130, 20, dev, seed=1, dtype=torch.float32)[2]
+    seg = _bwd_segments(3, 130, "packed", dev)
+    counts = dict(attention.launches)
+    runs = [torch.autograd.grad(attention.fused_attention(q, k, v, seg), (q, k, v), do)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert attention.launches == {**counts, "attention_fwd_f32": counts["attention_fwd_f32"] + 2,
+                                  "attention_bwd_f32": counts["attention_bwd_f32"] + 2}
+    want = attention.attention_reference_bwd(q.detach(), k.detach(), v.detach(), seg, do)
+    for name, g, w in zip(("dq", "dk", "dv"), runs[0], want):
+        _assert_f32_close(g, w, name)
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("hidden,heads", [(64, 4), (96, 4), (128, 4), (256, 4), (256, 2)],
+                         ids=["dh16", "dh24", "dh32", "dh64", "dh128"])
+def test_esm_forward_runs_the_f32_kernel_at_every_head_dim(no_tf32, hidden, heads):
+    """Two f32 layers, padded and packed rows: K1-f32 once a layer, the
+    valid tokens at cosine >= chip_smoke.F32_COSINE_MIN against eager f32."""
+    dev = no_tf32
+    cfg = esm2.ESM2Config(hidden_size=hidden, num_layers=2, num_heads=heads,
+                          intermediate_size=2 * hidden, compute_dtype=torch.float32)
+    params = esm2.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    ids = torch.randint(4, 24, (2, 130), device=dev)
+    mask = torch.ones(2, 130, dtype=torch.int32, device=dev)
+    mask[1, 70:] = 0
+    ids[1, 70:] = 1
+    seg = mask.clone()
+    seg[0, 50:] = 2
+    positions = torch.arange(130, device=dev).repeat(2, 1)
+    positions[0, 50:] -= 50
+    for packed in (False, True):
+        kw = dict(segment_ids=seg, positions=positions) if packed else {}
+        before = attention.launches["attention_fwd_f32"]
+        with torch.inference_mode():
+            fused = esm2.forward(params, ids, mask, cfg, **kw)
+            eager = esm2.forward(params, ids, mask,
+                                 dataclasses.replace(cfg, attention_impl="eager"), **kw)
+        assert attention.launches["attention_fwd_f32"] == before + cfg.num_layers
+        valid = mask > 0
+        cos = torch.nn.functional.cosine_similarity(fused[valid], eager[valid], dim=-1)
+        assert float(cos.min()) >= chip_smoke.F32_COSINE_MIN
+
+
+@pytest.mark.parametrize("esm_dtype", ["bfloat16", "int8"])
+def test_hf_dir_load_peaks_no_higher_than_its_npz(dev, tmp_path, esm_dtype):
+    """load_esm of a HF directory of f32 weights holds no more on the card
+    at its peak than the load of the same weights as an f32 npz (both cast
+    on the host and move the compute-dtype tree once), and gives the same
+    tree to the bit."""
+    cfg = esm2.ESM2Config(hidden_size=256, num_layers=4, num_heads=8, intermediate_size=1024,
+                          compute_dtype=torch.bfloat16)
+    chip_smoke.write_hf_dir(tmp_path / "hf", cfg, 0)
+    checkpoint.export_npz(tmp_path / "esm.npz", esm2.convert_hf_state_dict(
+        checkpoint.read_hf_checkpoint(tmp_path / "hf"), cfg))
+    peaks, trees = {}, {}
+    for path in (tmp_path / "hf", tmp_path / "esm.npz"):
+        torch.cuda.synchronize(dev)
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        args = argparse.Namespace(esm_weights=str(path), esm_dtype=esm_dtype)
+        trees[path.name] = checkpoint._flatten(common.load_esm(args, cfg, dev))
+        torch.cuda.synchronize(dev)
+        peaks[path.name] = torch.cuda.max_memory_allocated(dev) - base
+    assert peaks["hf"] <= peaks["esm.npz"], peaks
+    assert trees["hf"].keys() == trees["esm.npz"].keys()
+    assert all(torch.equal(trees["hf"][k], trees["esm.npz"][k]) for k in trees["hf"])
+
+
+@pytest.fixture(scope="module")
+def attention_fault_libs():
+    """The attention kernels built with their swept loop's last tile
+    dropped and with the skip predicate off by one (chip_smoke.FAULTS)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    return chip_smoke.build_faults(("swept_tiles", "skip"))
+
+
+@pytest.mark.parametrize("fault", ["swept_tiles", "skip"])
+def test_f32_checks_see_the_planted_faults(no_tf32, attention_fault_libs, fault):
+    """Each planted fault fails the f32 forward and backward checks on
+    packed rows (the skip fault needs a segment boundary)."""
+    dev = no_tf32
+    q, k, v = _inputs(2, 200, 4, dev, dtype=torch.float32)
+    do = _inputs(2, 200, 4, dev, seed=1, dtype=torch.float32)[2]
+    seg = _bwd_segments(2, 200, "packed", dev)
+    out, lse = attention._forward(q, k, v, seg, with_lse=True)
+    want = attention.attention_reference_bwd(q, k, v, seg, do)
+    with chip_smoke.attention_kernels(attention_fault_libs[fault], chip_smoke.F32_KERNELS):
+        bad_out = attention._forward(q, k, v, seg)
+        bad = attention.fused_attention_bwd(q, k, v, seg, do, lse, out)
+    torch.cuda.synchronize()
+    with pytest.raises(AssertionError):
+        _assert_f32_close(bad_out, attention.attention_reference(q, k, v, seg))
+    with pytest.raises(AssertionError):
+        for name, g, w in zip(("dq", "dk", "dv"), bad, want):
+            _assert_f32_close(g, w, name)
 
 
 # K4: 3xTF32 products on the tensor cores against the plain version's f32
@@ -799,10 +984,10 @@ def test_packed_embeddings_match_the_grouped_path_and_repeat(dev):
     peps, recs = _pairs(48, seed=2)
     heads = clip.init_params(mcfg, torch.Generator().manual_seed(1), device=dev)
     batch = to_device(packed_engine.tokenize_packed(EsmTokenizer(), peps, recs), dev)
-    before = attention.fused_attention.launches
+    before = attention.launches["attention_fwd"]
     got = packed_engine.embed_packed(heads, esm_params, batch, mcfg, rows_per_chunk=4)
     chunks = sum(batch[f"{s}_ids"].shape[0] // 4 for s in ("pep", "rec"))
-    assert attention.fused_attention.launches - before == 2 * chunks
+    assert attention.launches["attention_fwd"] - before == 2 * chunks
     again = packed_engine.embed_packed(heads, esm_params, batch, mcfg, rows_per_chunk=4)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     with torch.inference_mode():
@@ -853,14 +1038,14 @@ def _finetune_steps(dev):
                                        batch_size=32, accumulated_batches=1, num_chunks=4)
         params = finetune.init_params(esm_params, _clone(heads0))
         state = _capturing(finetune.make_optimizer(cfg).init(params))
-        before = (attention.fused_attention.launches, k5.launches)
+        before = (attention.launches["attention_fwd"], attention.launches["attention_bwd"])
         faulty = (chip_smoke.attention_kernels(fault, ("attention_bwd",))
                   if name == "fault" else contextlib.nullcontext())
         with chip_smoke.attention_function(fwd, bwd), faulty:
             _, _, loss = finetune.make_train_step(cfg)(params, state, {}, batch, None)
         torch.cuda.synchronize()
         out[name] = (float(loss), state.grads,
-                     (attention.fused_attention.launches - before[0], k5.launches - before[1]))
+                     (attention.launches["attention_fwd"] - before[0], attention.launches["attention_bwd"] - before[1]))
     return out
 
 
@@ -938,7 +1123,7 @@ def _packed_unfrozen_steps(dev, mode: str, names=("kernel", "plain_bwd", "fault"
             params = lora.init_params(_clone(adapters0), _clone(heads0))
             esm, view, engine = esm_params, lora.esm_view(cfg), lora
         state = _capturing(engine.make_optimizer(cfg).init(params))
-        before = (attention.fused_attention.launches, k5.launches)
+        before = (attention.launches["attention_fwd"], attention.launches["attention_bwd"])
         faulty = (chip_smoke.attention_kernels(fault, ("attention_bwd",))
                   if name == "fault" else contextlib.nullcontext())
         step = finetune.make_train_step_packed(cfg, rows_per_chunk=4, view=view)
@@ -946,7 +1131,7 @@ def _packed_unfrozen_steps(dev, mode: str, names=("kernel", "plain_bwd", "fault"
             _, _, loss = step(params, state, esm, batch, None)
         torch.cuda.synchronize()
         out[name] = (float(loss), state.grads,
-                     (attention.fused_attention.launches - before[0], k5.launches - before[1]))
+                     (attention.launches["attention_fwd"] - before[0], attention.launches["attention_bwd"] - before[1]))
     out["chunks"] = batch["pep_ids"].shape[0] // 8 + batch["rec_ids"].shape[0] // 4
     return out
 
@@ -1257,10 +1442,10 @@ def test_int8_forward_runs_p1_six_times_a_layer_and_equals_plain_mm(dev, monkeyp
     cfg, params, ids, mask = _t30_width(dev)
     cfg = dataclasses.replace(cfg, gelu="tanh")
     q = esm2.quantize_params(params)
-    before = (dense_mm.mm.launches, attention.fused_attention.launches)
+    before = (dense_mm.mm.launches, attention.launches["attention_fwd"])
     with torch.inference_mode():
         got = esm2.forward(q, ids, mask, cfg)
-    assert (dense_mm.mm.launches - before[0], attention.fused_attention.launches - before[1]) \
+    assert (dense_mm.mm.launches - before[0], attention.launches["attention_fwd"] - before[1]) \
         == (6 * cfg.num_layers, cfg.num_layers)
     monkeypatch.setattr(dense_mm, "mm", dense_mm.mm_reference)
     with torch.inference_mode():
@@ -1464,7 +1649,7 @@ def test_filip_finetune_step_runs_k5_and_matches_k5s_plain_version(dev, packed):
     for name in ("kernel", "plain_bwd", "fault", "again"):
         params = filip_finetune.init_params(esm_params, _clone(heads0))
         state = _capturing(filip_finetune.make_optimizer(cfg).init(params))
-        before = (attention.fused_attention.launches, k5.launches)
+        before = (attention.launches["attention_fwd"], attention.launches["attention_bwd"])
         faulty = (chip_smoke.attention_kernels(fault, ("attention_bwd",))
                   if name == "fault" else contextlib.nullcontext())
         step = (filip_finetune.make_train_step_packed(cfg, rows_per_chunk=4) if packed
@@ -1474,7 +1659,7 @@ def test_filip_finetune_step_runs_k5_and_matches_k5s_plain_version(dev, packed):
             _, _, loss = step(params, state, {}, batch, None)
         torch.cuda.synchronize()
         out[name] = (float(loss), [g for g in state.grads if g is not None],
-                     (attention.fused_attention.launches - before[0], k5.launches - before[1]))
+                     (attention.launches["attention_fwd"] - before[0], attention.launches["attention_bwd"] - before[1]))
     layers = 2
     assert out["kernel"][2] == out["again"][2] == (3 * chunks * layers, chunks * layers)
     assert out["plain_bwd"][2] == (3 * chunks * layers, 0)

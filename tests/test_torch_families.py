@@ -2,9 +2,9 @@
 the attention kernels' config check at each head dim, and the forward and
 the packed finetune step at the families' widths against JAX's on the CPU.
 
-The CUDA kernels K1 and K5 take bf16 at head dims 16 (t6_8M, tiny), 24
-(t12_35M, in the 32-wide tiles), 32 (t30_150M), 64 (t33_650M, t36_3B) and
-128 (t48_15B); float32 and any other head dim raise. On the CPU both
+The CUDA kernels K1 and K5 take bf16 and float32 at head dims 16 (t6_8M,
+tiny), 24 (t12_35M, in the 32-wide tiles), 32 (t30_150M), 64 (t33_650M,
+t36_3B) and 128 (t48_15B); any other head dim or dtype raises. On the CPU both
 packages run the eager attention, so the comparisons here hold the port's
 model code at each width: 2-layer backbones at the widths of t6_8M, t12_35M
 and t33_650M and a head-dim-128 one (hidden 256, 2 heads), float32, weights
@@ -12,7 +12,8 @@ carried across as numpy; padded rows and packed rows (segments, gaps,
 per-segment positions). Tolerance 2e-5 absolute on the final hidden states
 (float32 matmuls summed in other orders), as tests/test_torch_esm2.py. The
 packed finetune step at head dim 64 (hidden 128, 2 heads) is held to JAX's
-over three steps as tests/test_torch_finetune.py holds it at head dim 16.
+over two steps as tests/test_torch_finetune.py holds it at head dim 16 over
+three.
 """
 
 import jax
@@ -61,15 +62,22 @@ def test_check_config_takes_bf16_at_every_kernel_head_dim(dh):
     attention.check_config(torch.bfloat16, dh)
 
 
-@pytest.mark.parametrize("dtype,dh", [(torch.float32, 64), (torch.float32, 32),
+@pytest.mark.parametrize("dh", attention.HEAD_DIMS)
+def test_check_config_takes_float32_at_every_kernel_head_dim(dh):
+    attention.check_config(torch.float32, dh)
+
+
+@pytest.mark.parametrize("dtype,dh", [(torch.float32, 48), (torch.float16, 32),
                                       (torch.bfloat16, 48), (torch.bfloat16, 8)])
 def test_check_config_refuses_float32_and_other_head_dims(dtype, dh):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2 A1"):
+    """Float32 and bf16 at a head dim the kernels lack, and another dtype at
+    one they take."""
+    with pytest.raises(NotImplementedError, match=f"not {dtype} at head_dim {dh}"):
         attention.check_config(dtype, dh)
 
 
-def _operands(dh, B=2, T=70, NH=3):
-    q = torch.zeros(B, T, NH, dh, dtype=torch.bfloat16)
+def _operands(dh, B=2, T=70, NH=3, dtype=torch.bfloat16):
+    q = torch.zeros(B, T, NH, dh, dtype=dtype)
     return torch.ones(B, T, dtype=torch.int32), q, q.clone(), q.clone()
 
 
@@ -86,6 +94,20 @@ def test_the_wrappers_check_refuses_an_unknown_head_dim(dh):
 def test_the_wrappers_check_takes_every_kernel_head_dim(dh):
     seg, q, k, v = _operands(dh)
     attention._check(seg, q, k, v, q.clone())
+
+
+@pytest.mark.parametrize("dh", attention.HEAD_DIMS)
+def test_the_wrappers_check_takes_float32_at_every_kernel_head_dim(dh):
+    seg, q, k, v = _operands(dh, dtype=torch.float32)
+    attention._check(seg, q, k, v, q.clone())
+
+
+def test_the_wrappers_check_refuses_mixed_dtypes():
+    seg, q, k, v = _operands(32, dtype=torch.float32)
+    with pytest.raises(TypeError, match="v must be torch.float32 like q"):
+        attention._check(seg, q, k, v.bfloat16())
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        attention._check(seg, *(t.half() for t in (q, k, v)))
 
 
 def _configs(width: str):
@@ -139,11 +161,12 @@ def test_forward_matches_jax_at_the_family_width(width, kind):
 
 
 def test_packed_finetune_steps_at_head_dim_64_match_jax():
-    """Three packed finetune steps (4 rows a chunk) on a 2-layer backbone of
+    """Two packed finetune steps (4 rows a chunk) on a 2-layer backbone of
     two heads of 64, t33_650M's head dim, against JAX's make_train_step_packed
-    (tests/test_torch_finetune.py's check at the tiny config's head dim 16):
-    losses within 1e-5 relative, the first step's gradients within 1e-5 of
-    each leaf's largest, the parameters within Adam's bound."""
+    (tests/test_torch_finetune.py's check at the tiny config's head dim 16,
+    over three): losses within 1e-5 relative, the first step's gradients
+    within 1e-5 of each leaf's largest, the parameters within Adam's bound
+    after the second step."""
     kw = dict(hidden_size=128, num_layers=2, num_heads=2, intermediate_size=256)
     heads = dict(input_dim=128, embedding_dim=16, h1=2, h2=2, dropout=0.0)
     jmcfg = jclip.CLIPConfig(esm=jesm2.ESM2Config(**kw), **heads)
@@ -159,7 +182,7 @@ def test_packed_finetune_steps_at_head_dim_64_match_jax():
     params = port_params(jesm, jheads)
     params, grads, losses, jp, jgrads, jlosses = run_packed_steps(
         jstep, step, jp, tx.init(jp), params, Capturing(finetune.make_optimizer(cfg), params),
-        {}, {}, 60)
+        {}, {}, 60, steps=2)
     np.testing.assert_allclose(losses, jlosses, rtol=1e-5)
     assert_grads_close(grads[0], jgrads[0])
     esm_moved = max(float(np.abs(g).max()) for g in jax.tree.leaves(np_tree(jgrads[0]["esm"])))

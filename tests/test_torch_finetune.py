@@ -382,11 +382,11 @@ def packed_cfgs(jmcfg, mcfg, **kw):
     return jengine.EngineConfig(model=jmcfg, **kw), clip_engine.EngineConfig(model=mcfg, **kw)
 
 
-def run_packed_steps(jstep, step, jp, jstate, params, state, esm, jesm, seed0):
-    """Three steps of each package's packed step from the same weights:
+def run_packed_steps(jstep, step, jp, jstate, params, state, esm, jesm, seed0, steps=3):
+    """``steps`` steps of each package's packed step from the same weights:
     (params, port gradients, losses, JAX params, JAX gradients, JAX losses)."""
     losses, jlosses, jgrads = [], [], []
-    for s in range(3):
+    for s in range(steps):
         jb, b = packed_wire(seed0 + s)
         assert b["pep_ids"].shape[1] == 128 and b["rec_ids"].shape[1] == 256
         jp, jstate, jloss = jstep(jp, jstate, jesm, jb, jax.random.key(s))

@@ -436,11 +436,11 @@ def test_packed_steps_refuse_other_batches_and_tiers(tiny):
 
 
 def test_packed_fit_matches_jax(tiny, tmp_path):
-    """Two epochs of packed training on one synthetic fixture through both
-    packages' fit: per-epoch train and validation losses, the test loss and
-    the best heads agree."""
+    """Two epochs of packed training on one synthetic fixture (40 families: 3
+    steps an epoch) through both packages' fit: per-epoch train and
+    validation losses, the test loss and the best heads agree."""
     jmcfg, mcfg, jesm, esm, jheads = tiny
-    write_fixture(tmp_path / "data", n_families=60, seed=4)
+    write_fixture(tmp_path / "data", n_families=40, seed=4)
 
     def loaders(ds_mod):
         tr, va, te = ds_mod.generate_datasets(tmp_path / "data", seed=4)

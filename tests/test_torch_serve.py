@@ -200,6 +200,8 @@ def test_combined_checkpoint_serves_its_own_backbone(tmp_path, model_files):
     (["--esm-weights", "some_hf_dir"], "HF"),
 ])
 def test_unported_or_unavailable_options_raise(model_files, extra, match):
+    """A CUDA device where there is none, and a HF checkpoint directory that
+    is not there (tests/test_torch_hf_weights.py loads real ones)."""
     from protein_clip_tpu_torch.cli import serve
 
     argv = TINY + ["--checkpoint", str(model_files["dir"] / "best_model.npz"), "--port", "0"]
@@ -208,7 +210,7 @@ def test_unported_or_unavailable_options_raise(model_files, extra, match):
         import torch
         if torch.cuda.is_available():
             pytest.skip("this host has a CUDA device")
-    with pytest.raises((RuntimeError, NotImplementedError), match=match):
+    with pytest.raises((RuntimeError, NotImplementedError, FileNotFoundError), match=match):
         serve.make_server(args)
 
 
@@ -255,18 +257,18 @@ def test_library_entry_points_default_to_cuda(tmp_path, entry):
 def test_esm_config_keeps_the_kernel_and_refuses_what_it_does_not_take(family, dtype_name):
     """esm_config never swaps in the eager attention: every family keeps
     attention_impl='fused', and the kernels' config check (which load_esm
-    and esm2.forward run on CUDA) passes every family in bf16 (head dims 16,
-    24, 32, 64, 128) and refuses float32."""
+    and esm2.forward run on CUDA) passes every family in bf16 and in f32
+    (head dims 16, 24, 32, 64, 128) and refuses a head dim of 48 in the same
+    dtype."""
     from protein_clip_tpu_torch.cli import common
     from protein_clip_tpu_torch.ops import attention
 
     cfg = common.esm_config(family, dtype_name)
     assert cfg.attention_impl == "fused"
-    if dtype_name == "bfloat16":
-        attention.check_config(cfg.compute_dtype, cfg.head_dim)
-    else:
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
-            attention.check_config(cfg.compute_dtype, cfg.head_dim)
+    assert str(cfg.compute_dtype) == f"torch.{dtype_name}"
+    attention.check_config(cfg.compute_dtype, cfg.head_dim)
+    with pytest.raises(NotImplementedError, match="head_dim 48"):
+        attention.check_config(cfg.compute_dtype, 48)
 
 
 def test_lora_checkpoint_raises(tmp_path, model_files):
@@ -305,7 +307,8 @@ def test_lora_checkpoint_raises(tmp_path, model_files):
 
 BLOCKER = """
 import importlib, importlib.abc, pkgutil, sys
-BLOCKED = ("jax", "jaxlib", "protein_clip_tpu", "transformers", "orbax", "matplotlib")
+BLOCKED = ("jax", "jaxlib", "protein_clip_tpu", "transformers", "safetensors", "orbax",
+           "matplotlib")
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path, target=None):
         if name.split(".")[0] in BLOCKED:
@@ -325,14 +328,15 @@ print(" ".join(names))
 
 def test_port_and_chip_smoke_import_no_jax():
     """Every port module and chip_smoke.py import with jax and the JAX
-    package (and transformers, orbax, matplotlib) blocked."""
+    package (and transformers, safetensors, orbax, matplotlib) blocked."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", BLOCKER], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
     names = set(out.stdout.strip().splitlines()[-1].split())
     assert len(names) >= 18
-    for mod in ("train.filip_engine", "cli.main_2protein_filip"):
+    for mod in ("train.filip_engine", "cli.main_2protein_filip", "tools.convert_esm_weights",
+                "train.checkpoint"):
         assert f"protein_clip_tpu_torch.{mod}" in names
 
 

@@ -43,6 +43,13 @@ from protein_clip_tpu_torch.train.gradcache import encode_hidden_chunked
 REPO = Path(__file__).resolve().parent.parent
 RTOL = ATOL = 1e-5
 AAS = list("LAGVSERTIDPKQNFYMHWC")
+
+# Under pytest-xdist each worker collects every test file, so this runs in
+# every worker: the workers share the host's cores, and torch's CPU threads
+# (one per core by default in each worker) would oversubscribe them several
+# times over. Each worker takes its share of the cores instead.
+torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                          // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 TINY = ["--esm-config", "tiny", "--esm-dtype", "float32", "--device", "cpu"]
 SMALL_RUN = ["--batch-size", "4", "--accumulated-batches", "2", "--num-chunks", "2",
              "--fixture-families", "60"]
@@ -163,12 +170,13 @@ def _fixture_loaders(pkg, data_dir, seed):
 
 @pytest.mark.parametrize("use_gradcache", [True, False])
 def test_fit_matches_jax(tiny, tmp_path, use_gradcache):
-    """Two epochs on one synthetic fixture: per-epoch losses, the test loss
-    and best_model.npz agree; the CSV and metrics.jsonl follow the contract."""
+    """Two epochs on one synthetic fixture (40 families: 3 steps an epoch,
+    one validation and one test batch): per-epoch losses, the test loss and
+    best_model.npz agree; the CSV and metrics.jsonl follow the contract."""
     from protein_clip_tpu_torch.data.synthetic import write_fixture
 
     jmcfg, mcfg, jesm, esm, jheads = tiny
-    write_fixture(tmp_path / "data", n_families=60, seed=4)
+    write_fixture(tmp_path / "data", n_families=40, seed=4)
     kw = dict(batch_size=4, accumulated_batches=2, num_chunks=2,
               length_groups=2 if use_gradcache else 1)
     jres = jloop.fit(tmp_path / "jax", jengine.EngineConfig(model=jmcfg, **kw), jheads, jesm,
