@@ -12,6 +12,7 @@ and a nonzero exit code, and no result line:
                 beside them the planted faults (FAULTS), each built from a
                 patched copy under _build/fault/<name>/, never loaded by
                 the package: dense_mm and ffn_gelu whose shared main loop
+                drops its last k-tile, and ffn_gelu_f32 whose k-loop
                 drops its last k-tile; attention_fwd and attention_bwd (and
                 their f32 kernels) whose swept loop (K1's keys, K5's dk/dv
                 queries) drops its last tile; the same four whose skip
@@ -76,9 +77,16 @@ and a nonzero exit code, and no result line:
                 H=640, M=2560, erf and tanh, and at the edges (erf):
                 FFN_ULPS bf16 ulps per output and at most FFN_SHARE of them
                 off; the plain version with either epilogue rounding skipped
-                must fail that. Then each check against its planted faults,
+                must fail that. K6-f32 (ffn_gelu_f32) against
+                dense_gelu_reference in f32 (TF32 off; F32_ATOL_RMS,
+                F32_RTOL) at t30_150M's wi for K6_ROWS tokens, erf and
+                tanh, at the edges (EDGE_SHAPES and K6_F32_EDGES, where the
+                128 x 128 tile has a partial last row and column tile) and
+                at each family's wi (FFN_WIDTHS) for K6_F32_FAMILY_ROWS
+                tokens. Then each check against its planted faults,
                 which must fail it (by how much is printed): P1 and K6
-                against their main loop's, K1 and K5 against the swept-loop
+                against their main loop's, K6-f32 against its k-loop's
+                (every case), K1 and K5 against the swept-loop
                 and the skip faults (the skip fault every packed case,
                 both faults every chunk of the packed unfrozen path and a
                 case at each head dim of FAULT_HEAD_DIMS), K4
@@ -129,7 +137,12 @@ and a nonzero exit code, and no result line:
                 sequence and of 32; K1-f32 30 times per forward, no bf16
                 K1; cosine >= F32_COSINE_MIN per row against eager f32
                 attention on the same weights; a server of the npz answers
-                the same requests equal to the bit.
+                the same requests equal to the bit. Then PCT_FFN_PALLAS=1
+                cli.serve --esm-dtype float32 of the same directory
+                (load_esm takes the gate in f32): the same requests,
+                K6-f32 and K1-f32 30 times each per forward, no bf16 K6,
+                K1 or P1, cosine >= F32_COSINE_MIN per row against the
+                gate-off f32 server; /embed p50 and batch-32 seqs/s.
 7. train        cli.main twice on one synthetic fixture of 3000 families
                 (written and clustered once), t30_150M bf16 with seeded
                 random weights, one epoch: the defaults (16 x 16 = global
@@ -174,8 +187,9 @@ and a nonzero exit code, and no result line:
                 K2 once; cli.embed with each run's best_model.npz; one
                 packed finetune step under torch.profiler: launches, busy
                 share and peak memory. (The one-bucket and the packed
-                finetune and LoRA runs train on the 1100-family fixture,
-                SMALL_DATA.)
+                finetune and LoRA runs train on a 1000-family fixture,
+                ONE_BUCKET_DATA, two steps each; the packed ones on the
+                1100-family fixture, SMALL_DATA.)
                 Then t33_650M on the 1100-family fixture: cli.main
                 --esm-config t33_650M --packed and --packed --finetune for
                 one epoch each, their chunk forwards and launches against
@@ -191,12 +205,19 @@ and a nonzero exit code, and no result line:
                 share, peak memory).
                 Then f32: cli.main --packed --finetune --esm-dtype float32
                 on the 1100-family fixture (K1-f32 and K5-f32 in K1's and
-                K5's counts, no bf16 attention, peak memory), one packed
-                frozen f32 step at 256 (K1-f32 30 per chunk forward), and
-                the f32 packed finetune step at 256 through K1-f32/K5-f32
-                against the step through K5-f32's plain version (every leaf
-                within F32_FT_TOL of its largest; K5-f32's swept-tile fault
-                past it).
+                K5's counts, no bf16 attention, peak memory), and the same
+                under PCT_FFN_PALLAS=1 (K6-f32 as often as K1-f32: 30 per
+                pass-1 chunk, 60 per pass-2 chunk, 30 per eval chunk; no
+                bf16 K6); one packed frozen f32 step at 256 with the gate
+                off and on (K1-f32 30 per chunk forward, K6-f32 as many
+                under the gate; the gated loss within
+                K6_F32_STEP_LOSS_TOL of the gate-off one), and the f32
+                packed finetune step at 256 through K1-f32/K5-f32 against
+                the step through K5-f32's plain version (every leaf within
+                F32_FT_TOL of its largest; K5-f32's swept-tile fault past
+                it), and against it the same step under the gate (K6-f32;
+                F32_FT_TOL, K6-f32's k-tile fault past it, run twice equal
+                to the bit).
                 Then FILIP training: cli.main_2protein_filip for one epoch
                 on a fixture of 1100 families (protein1/protein2), at its
                 defaults (batch 10, one pad bucket, 1 chunk) and at its
@@ -320,9 +341,12 @@ and a nonzero exit code, and no result line:
                 against torch._int_mm (W k-major), P1 bf16 at (8192, 2560, 2560)
                 against torch.matmul, K6 at (10240, 640, 2560) against
                 torch.addmm + gelu, each with its plain version and bound;
-                P1 s8 and K6 at 128 tokens through the three layer shapes
-                (device time by torch.profiler: a call there is shorter than
-                its host side) beside the same library calls and bounds.
+                K6-f32 at (10240, 640, 2560) against its plain version and
+                torch.addmm + gelu in f32, beside its 3xTF32 bound and the
+                FFMA ceiling; P1 s8, K6 and K6-f32 at 128 tokens through
+                the three layer shapes (device time by
+                tools/timing.kernel_times: a call there is shorter than its
+                host side) beside the same library calls and bounds.
                 /embed p50 for one sequence, the same encode called without
                 HTTP, and seqs/s at batch 32, for bf16, int8 and
                 PCT_FFN_PALLAS=1; FILIP /topk p50 for one query, and its
@@ -346,7 +370,7 @@ and a nonzero exit code, and no result line:
                 their plain versions and SDPA on f32 (TF32 off) at (16,
                 512, 20, 32) padded and dense and at each FAMILY_SHAPES,
                 beside their bounds (f32 on the CUDA cores); the f32 packed
-                finetune epoch in pairs/s.
+                finetune epoch in pairs/s, with the gate off and on.
 
 Each phase's seconds are printed ([timing]) and summed at the end ([done]).
 The last three lines of standard output are the card's name and power
@@ -394,7 +418,7 @@ from protein_clip_tpu_torch.models import heads as head_mod
 from protein_clip_tpu_torch.ops import attention, dense_mm, ffn, infonce
 from protein_clip_tpu_torch.ops import filip as maxsim
 from protein_clip_tpu_torch.tools import bench_train, convert_esm_weights
-from protein_clip_tpu_torch.tools.timing import kernel_times
+from protein_clip_tpu_torch.tools.timing import graph_ms, kernel_times
 from protein_clip_tpu_torch.train import (checkpoint, clip_engine, filip_engine, filip_finetune,
                                           filip_lora, filip_packed, finetune, lora, optimizer,
                                           packed_engine)
@@ -450,7 +474,7 @@ H100_TF32_FLOPS = 495e12              # dense tensor-core peak, SXM, 700 W
 H100_BYTES_PER_S = 3.35e12
 H100_INT8_OPS = 1979e12               # dense tensor-core peak, SXM, 700 W
 KERNELS = ("attention_fwd", "attention_bwd", "attention_fwd_f32", "attention_bwd_f32",
-           "filip_maxsim", "infonce", "dense_mm", "ffn_gelu")
+           "filip_maxsim", "infonce", "dense_mm", "ffn_gelu", "ffn_gelu_f32")
 F32_KERNELS = ("attention_fwd_f32", "attention_bwd_f32")
 # K1-f32 and K5-f32 against their plain versions, all f32 (TF32 off): the
 # same form as bf16's, |err| <= F32_ATOL_RMS * rms(ref) + F32_RTOL * |ref|.
@@ -534,9 +558,31 @@ MM_BF16_TOL = 1e-5
 # the bias without rounding the sum, changes 23-26% of them.
 K6_ROWS = (64, 128, 3072, 10240)
 FFN_ULPS, FFN_SHARE = 4, 1e-3
+# K6-f32 (ffn_gelu_f32) against its plain version, both f32 (TF32 off), in
+# K1-f32's form: |err| <= F32_ATOL_RMS * rms(ref) + F32_RTOL * |ref|. Both
+# compute the same f32 products, the bias add and the gelu; they differ by
+# the order of the k sums (one FFMA chain an output against cuBLAS's) and
+# erff against torch's erf. Readings near 1e-6 of rms(ref) were expected
+# before the first; an H100 read 0 at N >= 3072 for every width but H =
+# 2560 (cuBLAS's f32 GEMM sums in the kernel's order there; 1.7e-5 at H =
+# 2560) and up to 2.7e-5 at 128 tokens (the most at H = 5120), 0.11 of the
+# limit. A k-loop that drops its last k-tile of 16 moves an output by about
+# sqrt(16 / H) of rms(ref) (0.06 at H = 5120), and TF32 products by about
+# 1e-3 relative: both past the limit.
+# Cases: t30_150M's wi at K6_ROWS tokens, erf and tanh; the edges
+# (EDGE_SHAPES, and K6_F32_EDGES where the large 128 x 128 tile runs with a
+# partial last row and column tile); each family's wi (FFN_WIDTHS: t6_8M,
+# t12_35M, t30_150M, t33_650M, t36_3B, t48_15B) at K6_F32_FAMILY_ROWS.
+FFN_WIDTHS = ((320, 1280), (480, 1920), (640, 2560), (1280, 5120), (2560, 10240),
+              (5120, 20480))
+K6_F32_FAMILY_ROWS = (128, 3072)
+K6_F32_EDGES = ((3073, 640, 2568), (1031, 1280, 5128))
+# The gated f32 frozen step's loss against the gate-off step's (relative)
+K6_F32_STEP_LOSS_TOL = 1e-5
 # The planted faults, each a patched copy of csrc/ built under
 # _build/fault/<name>/ and never loaded by the package: P1 and K6's shared
-# main loop (csrc/mma_gemm.cuh) drops its last k-tile; K1's key loop and
+# main loop (csrc/mma_gemm.cuh) drops its last k-tile, and so does K6-f32's
+# k-loop (csrc/ffn_gelu_f32.cu); K1's key loop and
 # K5's dk/dv query loop (csrc/attention.cuh) drop their last tile; the
 # attention kernels' skip predicate misses a pair of tiles whose segment
 # ranges meet at one id (the query tile's smallest, the key tile's largest);
@@ -547,6 +593,7 @@ FFN_ULPS, FFN_SHARE = 4, 1e-3
 FAULT_LINE = "  const int n_tiles = (K * Op::kEltBytes + kTileBytes - 1) / kTileBytes;"
 SWEEP_FAULT_LINE = "  return (T + kTile - 1) / kTile;"
 SKIP_FAULT_LINE = "  return q.x <= k.y && k.x <= q.y;"
+FFN_F32_FAULT_LINE = "  const int n_tiles = K / kBK;"
 MAXSIM_SKIP_LINE = ("          if (!__any_sync(0xffffffffu, (mbv.x | mbv.y) != 0)) continue;  "
                     "// an empty b-tile")
 MAXSIM_TF32_LINE = "constexpr int kProducts = 3;  // TF32 products per k-step: hi.hi, hi.lo, lo.hi"
@@ -554,6 +601,8 @@ INFONCE_PARTIAL_LINE = ("__device__ __forceinline__ int summed_tiles(int B) "
                         "{ return tiles_of(B); }")
 FAULTS = {   # name: (header, line, patched line, kernels built)
     "main_loop": ("mma_gemm.cuh", FAULT_LINE, FAULT_LINE[:-1] + " - 1;", ("dense_mm", "ffn_gelu")),
+    "ffn_f32_k_tile": ("ffn_gelu_f32.cu", FFN_F32_FAULT_LINE, FFN_F32_FAULT_LINE[:-1] + " - 1;",
+                       ("ffn_gelu_f32",)),
     "swept_tiles": ("attention.cuh", SWEEP_FAULT_LINE, SWEEP_FAULT_LINE[:-1] + " - 1;",
                     ("attention_fwd", "attention_bwd", *F32_KERNELS)),
     "skip": ("attention.cuh", SKIP_FAULT_LINE, SKIP_FAULT_LINE.replace("q.x <=", "q.x <"),
@@ -579,10 +628,14 @@ T33_CHECK_BATCH = 32
 # The other families through esm2.forward: (family, layers; None: full depth)
 FAMILY_RUNS = (("t6_8M", None), ("t12_35M", None), ("t36_3B", 2), ("t48_15B", 2))
 # The smaller fixture: 1100 families give 770 train pairs, three steps at
-# global batch 256, and 20 eval batches of 16. The one-bucket finetune and
-# LoRA runs, the int8 run and the t33_650M runs train on it.
+# global batch 256, and 20 eval batches of 16. The packed unfrozen runs,
+# the int8 run, the t33_650M runs and the f32 runs train on it.
 SMALL_FIXTURE_FAMILIES = INT8_FIXTURE_FAMILIES = 1100
 SMALL_DATA = "small_data"
+# The one-bucket finetune and LoRA runs (8 s a step on an H100) train on
+# 1000 families: two steps at global batch 256, one step interval to time.
+ONE_BUCKET_FIXTURE_FAMILIES = 1000
+ONE_BUCKET_DATA = "one_bucket_data"
 # int8 against bf16 served embeddings, per row (no JAX reading at t30_150M:
 # the sandbox that holds JAX runs no full-size model).
 INT8_COSINE_MIN = 0.99
@@ -1326,6 +1379,88 @@ def check_ffn(gen: torch.Generator) -> float:
     return worst
 
 
+def ffn_f32_inputs(N: int, H: int, M: int, seed: int):
+    """f32 x, W at unit output scale and a bias of half that scale, from
+    their own seed (the planted fault reads the same inputs)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return (torch.randn(N, H, generator=gen, device="cuda"),
+            torch.randn(H, M, generator=gen, device="cuda") / H ** 0.5,
+            0.5 * torch.randn(M, generator=gen, device="cuda"))
+
+
+def ffn_f32_cases() -> list[tuple[int, int, int, str]]:
+    """K6-f32's (N, H, M, mode) cases: t30_150M's wi at K6_ROWS tokens, erf
+    and tanh; the main loop's edges (bf16's H) and K6_F32_EDGES; each
+    family's wi at K6_F32_FAMILY_ROWS tokens."""
+    cases = [(N, 640, 2560, mode) for N in K6_ROWS for mode in ("erf", "tanh")]
+    cases += [(n, k // 2, m, "erf") for n, k, m in EDGE_SHAPES]
+    cases += [(n, h, m, "erf") for n, h, m in K6_F32_EDGES]
+    cases += [(n, h, m, "erf") for h, m in FFN_WIDTHS for n in K6_F32_FAMILY_ROWS]
+    return cases
+
+
+def k6_f32_readings(cases: list) -> list[dict]:
+    """K6-f32 (or whatever ops.ffn launches for f32) against
+    dense_gelu_reference on each case's inputs: the largest error over its
+    tolerance (ratio), and in rms(ref) units (rel_rms); ffn_gelu_f32 must
+    launch once a case and ffn_gelu never."""
+    rows = []
+    for i, (N, H, M, mode) in enumerate(cases):
+        x, w, b = ffn_f32_inputs(N, H, M, SEED + i)
+        before = dict(ffn.launches)
+        got = ffn.dense_gelu(x, w, b, mode)
+        ref = ffn.dense_gelu_reference(x, w, b, mode)
+        torch.cuda.synchronize()
+        if ffn.launches != {**before, "ffn_gelu_f32": before["ffn_gelu_f32"] + 1}:
+            raise AssertionError(f"ffn_gelu_f32 at {(N, H, M)}: launches {ffn.launches}, "
+                                 f"before {before}")
+        err = (got - ref).abs()
+        rms = float(ref.square().mean().sqrt())
+        finite = bool(torch.isfinite(got).all())
+        rows.append({"case": (N, H, M, mode), "finite": finite,
+                     "ratio": float((err / (F32_ATOL_RMS * rms + F32_RTOL * ref.abs())).max())
+                     if finite else math.inf,
+                     "rel_rms": float(err.max()) / rms, "max_abs_err": float(err.max())})
+        del x, w, b, got, ref, err
+    return rows
+
+
+def check_ffn_f32(cases: list) -> float:
+    """K6-f32 against dense_gelu_reference at every case of ffn_f32_cases:
+    finite and within F32_ATOL_RMS * rms(ref) + F32_RTOL * |ref|. Returns
+    the largest absolute error."""
+    rows = k6_f32_readings(cases)
+    for r in rows:
+        log(f"[kernels] ffn_gelu_f32 (N, H, M, mode) = {r['case']}: max |err| "
+            f"{r['max_abs_err']:.6g} = {r['rel_rms']:.3g} rms(ref) ({r['ratio']:.4g} x the "
+            f"tolerance {F32_ATOL_RMS:g} rms(ref) + {F32_RTOL:g} |ref|) "
+            f"{'ok' if r['finite'] and r['ratio'] <= 1 else 'FAIL'}")
+        if not (r["finite"] and r["ratio"] <= 1):
+            raise AssertionError(f"ffn_gelu_f32 disagrees with its plain version at {r['case']}")
+    worst = max(rows, key=lambda r: r["rel_rms"])
+    log(f"[kernels] ffn_gelu_f32: {len(rows)} cases, worst {worst['rel_rms']:.3g} rms(ref) at "
+        f"{worst['case']} (limit {F32_ATOL_RMS:g} rms(ref))")
+    return max(r["max_abs_err"] for r in rows)
+
+
+def check_ffn_f32_fault(libs: dict, cases: list) -> dict:
+    """K6-f32's check against its planted fault (the k-loop drops its last
+    k-tile): it must fail every case."""
+    with ffn_kernels(libs["ffn_f32_k_tile"]):
+        rows = k6_f32_readings(cases)
+    passed = [r["case"] for r in rows if r["ratio"] <= 1]
+    least = min(rows, key=lambda r: r["ratio"])
+    log(f"[kernels] planted fault ffn_f32_k_tile (K6-f32's k-loop drops its last k-tile): fails "
+        f"{len(rows) - len(passed)} of {len(rows)} cases, at least {least['ratio']:.4g} x the "
+        f"tolerance ({least['case']}), worst "
+        f"{max(r['ratio'] for r in rows):.4g} x; cases it passes: {passed or 'none'}")
+    if passed:
+        raise AssertionError("the ffn_gelu_f32 check does not see the planted k-tile fault")
+    return {"ffn_gelu_f32_k_tile": {"cases": len(rows), "cases_failed": len(rows),
+                                    "least_ratio": least["ratio"],
+                                    "worst_ratio": max(r["ratio"] for r in rows)}}
+
+
 def build_faults(names=tuple(FAULTS)) -> dict:
     """The planted faults ``names`` of FAULTS, each kernel of one built from
     its own patched copy of csrc/ under _build/fault/<name>/: {name:
@@ -1352,16 +1487,30 @@ def build_faults(names=tuple(FAULTS)) -> dict:
 
 
 @contextlib.contextmanager
-def fault_kernels(libs: dict):
-    """The wrappers launch the planted-fault builds while the block runs."""
-    saved = dense_mm._launchers, ffn._launcher
-    faulty_mm = dense_mm.bind(ctypes.CDLL(str(libs["dense_mm"])))
-    faulty_ffn = ffn.bind(ctypes.CDLL(str(libs["ffn_gelu"])))
-    dense_mm._launchers, ffn._launcher = (lambda: faulty_mm), (lambda: faulty_ffn)
+def ffn_kernels(libs: dict):
+    """ops.ffn launches the planted-fault builds in ``libs`` ({kernel:
+    library}) while the block runs, and its own builds of the others."""
+    saved = ffn._launcher
+    faulty = {name: ffn.bind(ctypes.CDLL(str(lib)), name) for name, lib in libs.items()}
+    ffn._launcher = lambda name: faulty[name] if name in faulty else saved(name)
     try:
         yield
     finally:
-        dense_mm._launchers, ffn._launcher = saved
+        ffn._launcher = saved
+
+
+@contextlib.contextmanager
+def fault_kernels(libs: dict):
+    """The wrappers launch the main-loop planted-fault builds of P1 and K6
+    while the block runs."""
+    saved = dense_mm._launchers
+    faulty_mm = dense_mm.bind(ctypes.CDLL(str(libs["dense_mm"])))
+    dense_mm._launchers = lambda: faulty_mm
+    try:
+        with ffn_kernels({"ffn_gelu": libs["ffn_gelu"]}):
+            yield
+    finally:
+        dense_mm._launchers = saved
 
 
 @contextlib.contextmanager
@@ -1490,17 +1639,16 @@ def reset_counts() -> None:
     for fn in (infonce.fused_infonce, infonce.fused_infonce_tiled):
         fn.launches = fn.bwd_launches = 0
     dense_mm.mm.launches = 0
-    ffn.dense_gelu.launches = 0
+    ffn.launches.update(dict.fromkeys(ffn.launches, 0))
 
 
 def check_default_path(what: str) -> None:
-    """The default bf16 paths launch neither P1, K6 nor the f32 attention
-    kernels."""
-    f32 = attention.launches["attention_fwd_f32"] + attention.launches["attention_bwd_f32"]
-    if dense_mm.mm.launches or ffn.dense_gelu.launches or f32:
-        raise AssertionError(f"{what}: dense_mm launched {dense_mm.mm.launches}, ffn_gelu "
-                             f"{ffn.dense_gelu.launches} and the f32 attention kernels {f32} "
-                             "times on the default path")
+    """The default bf16 paths launch neither P1, K6 (bf16 or f32) nor the
+    f32 attention kernels."""
+    off = {name: attention.launches[name] for name in F32_KERNELS}
+    off.update(ffn.launches, dense_mm=dense_mm.mm.launches)
+    if any(off.values()):
+        raise AssertionError(f"{what}: launches {off} on the default path")
 
 
 def infonce_counts() -> dict:
@@ -2042,18 +2190,18 @@ def run_train_phase() -> dict:
                       f"{max(map(len, peps))} aa")
     log(f"[train] fixture: {FIXTURE_FAMILIES} families, {out['profile']}")
     embed_check(out["k2"]["run"] / "best_model.npz", recs, "run 1's best_model.npz")
-    # the one-bucket unfrozen runs on the smaller fixture: 3 steps of 8 s each
-    small = WORK / SMALL_DATA
+    # the one-bucket unfrozen runs on a fixture of their own: 2 steps of 8 s
+    small = WORK / ONE_BUCKET_DATA
     out["finetune"] = run_unfrozen("train_finetune", small, ["--finetune"], finetune,
-                                   SMALL_FIXTURE_FAMILIES)
+                                   ONE_BUCKET_FIXTURE_FAMILIES)
     embed_check(out["finetune"]["run"] / "best_model.npz", recs,
                 "the finetune run's best_model.npz (its own backbone)")
     out["lora"] = run_unfrozen("train_lora", small, ["--lora-rank", str(LORA_RANK)], lora,
-                               SMALL_FIXTURE_FAMILIES)
+                               ONE_BUCKET_FIXTURE_FAMILIES)
     embed_check(out["lora"]["run"] / "best_model.npz", recs,
                 "the LoRA run's best_model.npz (adapters merged into the base)")
     for run in ("finetune", "lora"):
-        out[run]["profile"] = f"{SMALL_FIXTURE_FAMILIES} families"
+        out[run]["profile"] = f"{ONE_BUCKET_FIXTURE_FAMILIES} families"
     return out
 
 
@@ -2280,7 +2428,7 @@ def run_packed_phase() -> dict:
 
 def run_packed_unfrozen(name: str, data_dir: Path, mode_args: list[str], engine,
                         family: str = "t30_150M", families: int = FIXTURE_FAMILIES,
-                        dtype: torch.dtype = torch.bfloat16) -> dict:
+                        dtype: torch.dtype = torch.bfloat16, gated: bool = False) -> dict:
     """cli.main --packed --finetune or --lora-rank (--esm-config family) for
     one epoch at the defaults (global batch 256, flat packing, remat) on a
     fixture of ``families``; checks the artifacts, the chunk forwards of
@@ -2291,8 +2439,11 @@ def run_packed_unfrozen(name: str, data_dir: Path, mode_args: list[str], engine,
     K2 once forward and once backward; per eval batch K1 once a layer per
     chunk forward (the frozen rule) and K2 once. With ``dtype`` float32
     (``--esm-dtype float32``) K1-f32 and K5-f32 in their place, and no bf16
-    attention launch. The peak device memory is the run's own: the
-    process's peak over the run less what it held before."""
+    attention launch; with ``gated`` (f32 under PCT_FFN_PALLAS=1, set by
+    the caller) K6-f32 as often as K1-f32, once a layer per chunk forward
+    and remat recompute, and no bf16 K6; else no K6 at all. The peak device
+    memory is the run's own: the process's peak over the run less what it
+    held before."""
     runs = WORK / f"runs_{name}"
     f32 = dtype == torch.float32
     L = common.esm_config(family, "bfloat16").num_layers
@@ -2308,11 +2459,12 @@ def run_packed_unfrozen(name: str, data_dir: Path, mode_args: list[str], engine,
                        + (["--esm-dtype", "float32"] if f32 else []))
         k1 = attention.launches["attention_fwd"]
         k5 = attention.launches["attention_bwd"]
+        k6 = ffn.launches["ffn_gelu_f32"]
         if f32:
-            if k1 or k5 or dense_mm.mm.launches or ffn.dense_gelu.launches:
+            if k1 or k5 or dense_mm.mm.launches or ffn.launches["ffn_gelu"] or (k6 and not gated):
                 raise AssertionError(f"{name}: bf16 attention_fwd {k1}, attention_bwd {k5}, "
-                                     f"dense_mm {dense_mm.mm.launches}, ffn_gelu "
-                                     f"{ffn.dense_gelu.launches} launches on the f32 path")
+                                     f"dense_mm {dense_mm.mm.launches}, ffn {ffn.launches} "
+                                     f"launches on the f32 path (gated: {gated})")
             k1 = attention.launches["attention_fwd_f32"]
             k5 = attention.launches["attention_bwd_f32"]
         counts = infonce_counts()
@@ -2328,11 +2480,13 @@ def run_packed_unfrozen(name: str, data_dir: Path, mode_args: list[str], engine,
     want_k1 = 3 * L * len(step_chunks) + L * len(eval_chunks)
     want_k5 = L * len(step_chunks)
     want = {"infonce": (len(steps) + len(evals), len(steps)), "infonce_tiled": (0, 0)}
-    if (len(ends), sorted(forwards), k1, k5) != (len(steps), sorted(want_forwards), want_k1,
-                                                 want_k5):
+    want_k6 = want_k1 if gated else 0
+    if (len(ends), sorted(forwards), k1, k5, k6) != (len(steps), sorted(want_forwards), want_k1,
+                                                     want_k5, want_k6):
         raise AssertionError(f"{name}: {len(ends)} steps (want {len(steps)}), {len(forwards)} "
                              f"chunk forwards (want {len(want_forwards)}), attention_fwd {k1} "
-                             f"(want {want_k1}), attention_bwd {k5} (want {want_k5})")
+                             f"(want {want_k1}), attention_bwd {k5} (want {want_k5}), "
+                             f"ffn_gelu_f32 {k6} (want {want_k6})")
     if counts != want:
         raise AssertionError(f"{name}: InfoNCE (forward, backward) calls {counts}, want {want}")
     metrics = json.loads((run / "metrics.jsonl").read_text().splitlines()[0])
@@ -2343,14 +2497,15 @@ def run_packed_unfrozen(name: str, data_dir: Path, mode_args: list[str], engine,
         f"{steps[0]}, {per_pass:.2f} a pass (the one-bucket step: 32); {len(forwards)} backbone "
         f"forwards; {attention._kernel('attention_fwd', dtype)} {k1} ({L} per pass-1 chunk, {2 * L} "
         f"per pass-2 chunk, {L} per eval chunk), {attention._kernel('attention_bwd', dtype)} {k5} ({L} "
-        f"per pass-2 chunk); InfoNCE (forward, backward) calls {counts}; epoch "
+        f"per pass-2 chunk); ffn_gelu_f32 {k6}{' (as attention_fwd_f32)' if gated else ''}; "
+        f"InfoNCE (forward, backward) calls {counts}; epoch "
         f"{metrics['seconds']:.2f} s, cli.main {wall:.2f} s; peak device memory {peak:.4f} GB")
     return {"run": run, "steps": len(steps), "ends": ends, "chunks_per_pass": per_pass,
             "peak_memory_gb": peak, "seconds": wall,
             "launches": {attention._kernel("attention_fwd", dtype): k1,
                          attention._kernel("attention_bwd", dtype): k5,
                          "filip_maxsim": maxsim.filip_similarity_fused.launches,
-                         **{k: v[0] for k, v in counts.items()}}}
+                         "ffn_gelu_f32": k6, **{k: v[0] for k, v in counts.items()}}}
 
 
 def run_packed_unfrozen_phase() -> dict:
@@ -2359,6 +2514,8 @@ def run_packed_unfrozen_phase() -> dict:
     busy share and peak memory. The runs train on the 1100-family fixture
     (3 steps each)."""
     data_dir = WORK / SMALL_DATA
+    if not (data_dir / "receptor.fasta").exists():   # as cli.main --synthetic-fixture writes it
+        write_fixture(data_dir, n_families=SMALL_FIXTURE_FAMILIES, seed=42)
     recs = sequences_only(data_dir / "receptor.fasta")
     out = {"finetune": run_packed_unfrozen("train_finetune_packed", data_dir, ["--finetune"],
                                            finetune, families=SMALL_FIXTURE_FAMILIES)}
@@ -3461,7 +3618,11 @@ def finetune_step_runs(fault_libs: dict, packed: bool = False, family: str = "t3
     and the swept_tiles planted-fault build of K5 (its dk/dv loop drops
     the last query tile); "eager" and "eager_f32"
     attention_impl="eager" (plain attention through autograd) with a bf16
-    and an f32 backbone. The packed step runs "kernel" twice ("again")
+    and an f32 backbone; "gated", "gated_again" and "gated_fault" run
+    "kernel" under PCT_FFN_PALLAS=1 (K6 in the backbone's dtype once a layer
+    per chunk forward and remat recompute; "gated_fault" through the
+    ffn_f32_k_tile planted-fault build of K6-f32), and are run only when
+    ``names`` asks for them. The packed step runs "kernel" twice ("again")
     and leaves out "plain_fwd_k5" and "plain". With ``dtype`` float32 the
     fused runs take an f32 backbone through K1-f32 and K5-f32 (their plain
     versions, their fault)."""
@@ -3490,8 +3651,12 @@ def finetune_step_runs(fault_libs: dict, packed: bool = False, family: str = "t3
             ("plain", "fused", dtype, plain_fwd, plain_bwd, (0, 0)),
             ("fault", "fused", dtype, k1, k5, (3 * L * c, L * c)),
             ("eager", "eager", torch.bfloat16, k1, k5, (0, 0)),
-            ("eager_f32", "eager", torch.float32, k1, k5, (0, 0)))
-    skipped = ("plain_fwd_k5", "plain") if packed else ("again",)
+            ("eager_f32", "eager", torch.float32, k1, k5, (0, 0)),
+            ("gated", "fused", dtype, k1, k5, (3 * L * c, L * c)),
+            ("gated_again", "fused", dtype, k1, k5, (3 * L * c, L * c)),
+            ("gated_fault", "fused", dtype, k1, k5, (3 * L * c, L * c)))
+    gated = ("gated", "gated_again", "gated_fault")
+    skipped = ("plain_fwd_k5", "plain", *gated) if packed else ("again", *gated)
     if names is not None:
         skipped = tuple(run[0] for run in runs if run[0] not in names)
     out = {"shapes": (unfrozen_chunks(batch) if packed else
@@ -3507,16 +3672,25 @@ def finetune_step_runs(fault_libs: dict, packed: bool = False, family: str = "t3
         state = capturing(finetune.make_optimizer(cfg).init(params), params)
         counted = [attention._kernel(n, dtype) for n in ("attention_fwd", "attention_bwd")]
         before = [attention.launches[n] for n in counted]
+        ffn_before = dict(ffn.launches)
         faulty = (attention_kernels(fault_libs["swept_tiles"],
                                     (attention._kernel("attention_bwd", dtype),))
-                  if name == "fault" else contextlib.nullcontext())
-        with attention_function(fwd, bwd), faulty:
+                  if name == "fault" else
+                  ffn_kernels(fault_libs["ffn_f32_k_tile"]) if name == "gated_fault"
+                  else contextlib.nullcontext())
+        with attention_function(fwd, bwd), faulty, \
+                ffn_gate() if name in gated else contextlib.nullcontext():
             _, _, loss = finetune.make_train_step(cfg)(params, state, {}, batch, None)
         torch.cuda.synchronize()
         calls = tuple(attention.launches[n] - b for n, b in zip(counted, before))
-        if calls != want:
+        k6 = {n: ffn.launches[n] - b for n, b in ffn_before.items()}
+        want_k6 = dict.fromkeys(ffn.launches, 0)
+        if name in gated:
+            want_k6[ffn.KERNELS[dtype]] = want[0]
+        if calls != want or k6 != want_k6:
             raise AssertionError(f"finetune step check ({name}): (attention_fwd, "
-                                 f"attention_bwd) launches {calls}, want {want}")
+                                 f"attention_bwd) launches {calls}, want {want}; ffn {k6}, "
+                                 f"want {want_k6}")
         out[name] = (float(loss), state.grads)
         del params, state
         gc.collect()   # capturing() closes a cycle through the state: free it now
@@ -3811,11 +3985,11 @@ def run_f32_serve_phase(ctx: dict, hctx: dict, rng: np.random.Generator, gpu: st
             k1, k1_bf16 = attention.launches["attention_fwd_f32"], attention.launches["attention_fwd"]
             n_forwards = len(forwards)
             if (not forwards or k1 != cfg.num_layers * n_forwards or k1_bf16
-                    or dense_mm.mm.launches or ffn.dense_gelu.launches):
+                    or dense_mm.mm.launches or any(ffn.launches.values())):
                 raise AssertionError(f"f32 serve: attention_fwd_f32 {k1} for {n_forwards} "
                                      f"forwards (want {cfg.num_layers} each), attention_fwd "
-                                     f"{k1_bf16}, dense_mm {dense_mm.mm.launches}, ffn_gelu "
-                                     f"{ffn.dense_gelu.launches}")
+                                     f"{k1_bf16}, dense_mm {dense_mm.mm.launches}, ffn "
+                                     f"{ffn.launches}")
             heads = checkpoint.load_npz(WORK / "best_model.npz", clip.abstract_params(mcfg))
             eager = dataclasses.replace(mcfg, esm=dataclasses.replace(cfg, attention_impl="eager"))
             tok = common.make_tokenizer()
@@ -3846,13 +4020,68 @@ def run_f32_serve_phase(ctx: dict, hctx: dict, rng: np.random.Generator, gpu: st
     if not same:
         raise AssertionError("/embed from the HF directory and from its npz differ")
     return {"launches": {"attention_fwd_f32": k1}, "forwards": n_forwards,
-            "cos_min": cos_min, "times": times}
+            "cos_min": cos_min, "times": times, "requests": {"one": one, "batch32": batch32},
+            "embeddings": got}
+
+
+def run_f32_k6_serve_phase(hctx: dict, f32s: dict, rng: np.random.Generator, gpu: str) -> dict:
+    """PCT_FFN_PALLAS=1 cli.serve --esm-dtype float32 --esm-weights <the HF
+    directory> (load_esm takes the gate with float32), the f32 server's
+    requests: K6-f32 and K1-f32 30 times each per backbone forward, no bf16
+    K6, K1 or P1; the embeddings against the gate-off f32 server's at cosine
+    >= F32_COSINE_MIN per row. /embed p50 and batch-32 seqs/s."""
+    cfg = hctx["cfg"]
+    mcfg = clip.CLIPConfig(input_dim=cfg.hidden_size, esm=cfg)
+    argv = ["--checkpoint", str(WORK / "best_model.npz"), "--esm-dtype", "float32",
+            "--batch-size", "32", "--index", str(WORK / "index.npz"), "--port", "0",
+            "--esm-weights", str(hctx["dir"])]
+    with ffn_gate(), counted_forwards() as forwards:
+        reset_counts()
+        sctx = start_server(argv)
+        try:
+            got = {key: embed_wire(sctx["base"], seqs, "rec")
+                   for key, seqs in f32s["requests"].items()}
+            n = len(forwards)
+            launches = {"ffn_gelu_f32": ffn.launches["ffn_gelu_f32"],
+                        "attention_fwd_f32": attention.launches["attention_fwd_f32"],
+                        "ffn_gelu": ffn.launches["ffn_gelu"],
+                        "attention_fwd": attention.launches["attention_fwd"],
+                        "dense_mm": dense_mm.mm.launches}
+            want = {"ffn_gelu_f32": cfg.num_layers * n, "attention_fwd_f32": cfg.num_layers * n,
+                    "ffn_gelu": 0, "attention_fwd": 0, "dense_mm": 0}
+            if not forwards or launches != want:
+                raise AssertionError(f"gated f32 serve: launches {launches} over {n} forwards, "
+                                     f"want {want}")
+            cos = np.concatenate([row_cosines(got[key], f32s["embeddings"][key]) for key in got])
+            diff = max(float(np.abs(got[key] - f32s["embeddings"][key]).max()) for key in got)
+            cos_min = float(cos.min())
+            log(f"[f32 K6 serve] PCT_FFN_PALLAS=1 --esm-dtype float32 from the HF directory: "
+                f"/embed of 1 and of 32 sequences, {n} backbone forwards, ffn_gelu_f32 "
+                f"{launches['ffn_gelu_f32']} and attention_fwd_f32 "
+                f"{launches['attention_fwd_f32']} = {cfg.num_layers} each per forward, bf16 "
+                f"ffn_gelu, attention_fwd and dense_mm 0; against the gate-off f32 server, "
+                f"{len(cos)} rows: min cosine {cos_min:.9f}, 1 - min {1 - cos_min:.3g} (need <= "
+                f"{1 - F32_COSINE_MIN:g}), max |difference| {diff:.6g}")
+            if not 1 - cos_min <= 1 - F32_COSINE_MIN:
+                raise AssertionError(f"gated f32 serving drifts from the gate off: cosine "
+                                     f"{cos_min}")
+            heads = checkpoint.load_npz(WORK / "best_model.npz", clip.abstract_params(mcfg))
+            times = time_serving({**sctx, "heads": heads, "esm_params": hctx["esm_params"],
+                                  "mcfg": mcfg, "batch32": f32s["requests"]["batch32"]}, rng,
+                                 gpu, "f32 PCT_FFN_PALLAS=1")
+        finally:
+            stop(sctx)
+    return {"launches": launches, "forwards": n, "cos_min": cos_min, "max_abs_diff": diff,
+            "times": times}
 
 
 def f32_frozen_step() -> dict:
     """One packed frozen train step at global batch 256 over an f32
-    backbone (dropout 0.1): K1-f32 once a layer per chunk forward, no K5,
-    no bf16 attention; a finite loss."""
+    backbone (dropout 0.1), from the same heads and generator seed with
+    PCT_FFN_PALLAS off and on: K1-f32 once a layer per chunk forward, no K5,
+    no bf16 attention; K6-f32 as often as K1-f32 under the gate and never
+    without; finite losses, the gated one within K6_F32_STEP_LOSS_TOL
+    (relative) of the gate-off one."""
     mcfg, _, heads0, peps, recs = packed_setup()
     cfg_esm = common.esm_config("t30_150M", "float32")
     mcfg = dataclasses.replace(mcfg, esm=cfg_esm)
@@ -3860,21 +4089,35 @@ def f32_frozen_step() -> dict:
                                   dtype=torch.float32, device="cuda")
     cfg = clip_engine.EngineConfig(model=mcfg, packed=True)
     batch = to_device(packed_engine.tokenize_packed(common.make_tokenizer(), peps, recs), "cuda")
-    params = clone_tree(heads0)
-    state = optimizer.adam(TRAIN_LR).init(params)
-    reset_counts()
-    _, _, loss = clip_engine.make_train_step(cfg)(
-        params, state, esm_params, batch, torch.Generator(device="cuda").manual_seed(1))
-    torch.cuda.synchronize()
     want = cfg_esm.num_layers * len(packed_chunks(batch))
-    got = (attention.launches["attention_fwd_f32"], attention.launches["attention_bwd_f32"],
-           attention.launches["attention_fwd"])
-    log(f"[f32 train] one packed frozen step (256 pairs, {len(packed_chunks(batch))} chunk "
-        f"forwards): loss {float(loss):.6f}; attention_fwd_f32 {got[0]} (want {want}), "
-        f"attention_bwd_f32 {got[1]}, bf16 attention_fwd {got[2]}")
-    if got != (want, 0, 0) or not math.isfinite(float(loss)):
-        raise AssertionError(f"the packed frozen f32 step: launches {got}, loss {float(loss)}")
-    return {"loss": float(loss), "attention_fwd_f32": got[0]}
+    losses = {}
+    for gated in (False, True):
+        params = clone_tree(heads0)
+        state = optimizer.adam(TRAIN_LR).init(params)
+        reset_counts()
+        with ffn_gate() if gated else contextlib.nullcontext():
+            _, _, loss = clip_engine.make_train_step(cfg)(
+                params, state, esm_params, batch, torch.Generator(device="cuda").manual_seed(1))
+        torch.cuda.synchronize()
+        got = (attention.launches["attention_fwd_f32"], attention.launches["attention_bwd_f32"],
+               attention.launches["attention_fwd"], ffn.launches["ffn_gelu_f32"],
+               ffn.launches["ffn_gelu"])
+        what = "PCT_FFN_PALLAS=1" if gated else "gate off"
+        log(f"[f32 train] one packed frozen step ({what}; 256 pairs, {len(packed_chunks(batch))} "
+            f"chunk forwards): loss {float(loss):.9f}; attention_fwd_f32 {got[0]} (want {want}), "
+            f"attention_bwd_f32 {got[1]}, bf16 attention_fwd {got[2]}, ffn_gelu_f32 {got[3]} "
+            f"(want {want if gated else 0}), bf16 ffn_gelu {got[4]}")
+        if got != (want, 0, 0, want if gated else 0, 0) or not math.isfinite(float(loss)):
+            raise AssertionError(f"the packed frozen f32 step ({what}): launches {got}, loss "
+                                 f"{float(loss)}")
+        losses[gated] = float(loss)
+    rel = abs(losses[True] - losses[False]) / abs(losses[False])
+    log(f"[f32 train] the gated frozen f32 step's loss against the gate-off one: relative "
+        f"{rel:.3g} (tolerance {K6_F32_STEP_LOSS_TOL:g})")
+    if not rel <= K6_F32_STEP_LOSS_TOL:
+        raise AssertionError(f"the gated frozen f32 step's loss is {rel} from the gate off")
+    return {"loss": losses[False], "gated_loss": losses[True], "gated_loss_rel_err": rel,
+            "attention_fwd_f32": want, "ffn_gelu_f32": want}
 
 
 def check_f32_finetune_step(fault_libs: dict) -> dict:
@@ -3882,9 +4125,11 @@ def check_f32_finetune_step(fault_libs: dict) -> dict:
     (dropout 0) through K1-f32/K5-f32 against the same step through K1-f32
     and K5-f32's plain version, and through K5-f32's swept-tile fault build:
     every leaf within F32_FT_TOL of its largest entry, the loss within
-    FT_LOSS_TOL relative; the fault past it."""
-    out = finetune_step_runs(fault_libs, packed=True, names=("kernel", "k1_plain_bwd", "fault"),
-                             dtype=torch.float32)
+    FT_LOSS_TOL relative; the fault past it. Then the same step under
+    PCT_FFN_PALLAS=1 against it (check_f32_gated_step)."""
+    out = finetune_step_runs(fault_libs, packed=True,
+                             names=("kernel", "k1_plain_bwd", "fault", "gated", "gated_again",
+                                    "gated_fault"), dtype=torch.float32)
     (lk, gk), (lp, gp), (_, gf) = out["kernel"], out["k1_plain_bwd"], out["fault"]
     tight = {k: v[0] for k, v in leaf_gaps(gk, gp).items()}
     fault = {k: v[0] for k, v in leaf_gaps(gf, gp).items()}
@@ -3908,18 +4153,55 @@ def check_f32_finetune_step(fault_libs: dict) -> dict:
                              "query tile")
     return {"loss_rel_err": loss_rel, "grad_rel_err": tight[worst], "grad_leaf": worst,
             "fault_rel_err": fault[worst_fault], "fault_leaf": worst_fault,
-            "tolerance": F32_FT_TOL}
+            "tolerance": F32_FT_TOL, "k6_gate": check_f32_gated_step(out)}
+
+
+def check_f32_gated_step(out: dict) -> dict:
+    """The f32 packed finetune step under PCT_FFN_PALLAS=1 (K6-f32 in the
+    forward, plain_composition's f32 GEMMs in the backward) against the
+    same step with the gate off, both through K1-f32/K5-f32: every leaf
+    within F32_FT_TOL of its largest entry, the loss within FT_LOSS_TOL
+    relative; K6-f32's planted k-tile fault past it; run twice, equal to the
+    bit."""
+    (lk, gk), (lg, gg), (lga, gga), (_, gf) = (out[k] for k in (
+        "kernel", "gated", "gated_again", "gated_fault"))
+    tight = {k: v[0] for k, v in leaf_gaps(gg, gk).items()}
+    fault = {k: v[0] for k, v in leaf_gaps(gf, gk).items()}
+    worst, worst_fault = max(tight, key=tight.get), max(fault, key=fault.get)
+    loss_rel = abs(lg - lk) / abs(lk)
+    same = lg == lga and all(torch.equal(gg[k], gga[k]) for k in gg)
+    ok = tight[worst] <= F32_FT_TOL and loss_rel <= FT_LOSS_TOL
+    log(f"[f32 train] packed finetune step at 256 in f32 under PCT_FFN_PALLAS=1 (K6-f32) "
+        f"against the gate off: loss {lg:.9f} vs {lk:.9f}, relative {loss_rel:.3g} (tolerance "
+        f"{FT_LOSS_TOL:g}); largest max|err|/leaf max {tight[worst]:.4g} ({worst}; tolerance "
+        f"{F32_FT_TOL:g}); the planted fault (K6-f32's k-loop drops its last k-tile): "
+        f"{fault[worst_fault]:.4g} ({worst_fault}); run twice: "
+        f"{'equal' if same else 'DIFFERENT'} to the bit {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the gated f32 finetune step disagrees with the gate off")
+    if fault[worst_fault] <= F32_FT_TOL:
+        raise AssertionError("the gated f32 step check does not see K6-f32's k-tile fault")
+    if not same:
+        raise AssertionError("the gated f32 finetune step is not repeatable to the bit")
+    return {"loss_rel_err": loss_rel, "grad_rel_err": tight[worst], "grad_leaf": worst,
+            "fault_rel_err": fault[worst_fault], "fault_leaf": worst_fault,
+            "deterministic": same, "tolerance": F32_FT_TOL}
 
 
 def run_f32_train_phase(fault_libs: dict) -> dict:
     """cli.main --packed --finetune --esm-dtype float32 for one epoch on the
     1100-family fixture (run_packed_unfrozen's checks with K1-f32 and
-    K5-f32), one packed frozen f32 step, and the f32 finetune step check."""
+    K5-f32), with the gate off and under PCT_FFN_PALLAS=1 (K6-f32 as often
+    as K1-f32), one packed frozen f32 step with the gate off and on, and the
+    f32 finetune step check (the gated step's included)."""
     data_dir = WORK / SMALL_DATA
-    out = {"finetune_packed": run_packed_unfrozen(
-        "train_finetune_packed_f32", data_dir, ["--finetune"], finetune,
-        families=SMALL_FIXTURE_FAMILIES, dtype=torch.float32)}
-    out["finetune_packed"]["profile"] = f"{SMALL_FIXTURE_FAMILIES} families"
+    out = {}
+    for name, gated in (("finetune_packed", False), ("finetune_packed_k6", True)):
+        with ffn_gate() if gated else contextlib.nullcontext():
+            out[name] = run_packed_unfrozen(
+                f"train_{name}_f32", data_dir, ["--finetune"], finetune,
+                families=SMALL_FIXTURE_FAMILIES, dtype=torch.float32, gated=gated)
+        out[name]["profile"] = f"{SMALL_FIXTURE_FAMILIES} families"
     out["frozen_step"] = f32_frozen_step()
     out["step_check"] = check_f32_finetune_step(fault_libs)
     return out
@@ -4627,7 +4909,8 @@ def device_ms(fn, iters: int, warmup: int = 3, kernel: str = "") -> float:
     """Device time of fn() per call: the CUDA kernels' self time summed by
     torch.profiler over iters calls (only those whose name holds `kernel`).
     Host work between launches (autograd, allocation, ctypes) is left out;
-    cuda_ms includes it."""
+    cuda_ms includes it. Where no session keeps a record, the whole call's
+    device time by graph replay (tools/timing.graph_ms), which the log says."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -4642,7 +4925,10 @@ def device_ms(fn, iters: int, warmup: int = 3, kernel: str = "") -> float:
         total_us = sum(e.self_device_time_total for e in prof.key_averages() if kernel in e.key)
         if total_us > 0:
             return total_us / 1e3 / iters
-    raise AssertionError("torch.profiler recorded no device time in 3 sessions")
+    ms = graph_ms(fn, iters)
+    log(f"[time] torch.profiler recorded no device time{f' of {kernel}' if kernel else ''} in "
+        f"3 sessions: the whole call's device time by graph replay, {ms:.6f} ms")
+    return ms
 
 
 def infonce_bound(B: int, D: int) -> tuple[float, str, str]:
@@ -4687,14 +4973,17 @@ def device_kernels(fn, first: str, iters: int = 20) -> tuple[float, float]:
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-    calls = sum(e.count for e in events if first in e.key)
-    if calls == 0:
-        raise AssertionError(f"torch.profiler recorded no {first} kernel")
+    for _ in range(3):  # a session that keeps no record is taken again, at most twice
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+        calls = sum(e.count for e in events if first in e.key)
+        if calls:
+            break
+    else:
+        raise AssertionError(f"torch.profiler recorded no {first} kernel in 3 sessions")
     return (sum(e.count for e in events if "pct_infonce" in e.key) / calls,
             sum(e.count for e in events) / calls)
 
@@ -4844,12 +5133,11 @@ def run_int8_serve_phase(ctx: dict) -> dict:
         out: dict = {"base": base, "server": server, "thread": thread}
         got = serve_requests(base, ctx, "int8 serve")
         launches = {"dense_mm": dense_mm.mm.launches,
-                    "attention_fwd": attention.launches["attention_fwd"],
-                    "ffn_gelu": ffn.dense_gelu.launches}
+                    "attention_fwd": attention.launches["attention_fwd"], **ffn.launches}
     cfg = common.esm_config("t30_150M", "int8")
     n = len(forwards)
     want = {"dense_mm": 6 * cfg.num_layers * n, "attention_fwd": cfg.num_layers * n,
-            "ffn_gelu": 0}
+            **dict.fromkeys(ffn.launches, 0)}
     if not forwards or launches != want:
         raise AssertionError(f"int8 serve: launches {launches} over {n} forwards, want {want}")
     log(f"[int8 serve] {n} backbone forwards: dense_mm {launches['dense_mm']} = "
@@ -4938,12 +5226,12 @@ def run_k6_serve_phase(ctx: dict) -> dict:
     with ffn_gate(), counted_forwards() as forwards:
         reset_counts()
         got = serve_requests(ctx["base"], ctx, "K6 serve")
-        launches = {"ffn_gelu": ffn.dense_gelu.launches,
-                    "attention_fwd": attention.launches["attention_fwd"],
+        launches = {**ffn.launches, "attention_fwd": attention.launches["attention_fwd"],
                     "dense_mm": dense_mm.mm.launches}
     layers = ctx["mcfg"].esm.num_layers
     n = len(forwards)
-    want = {"ffn_gelu": layers * n, "attention_fwd": layers * n, "dense_mm": 0}
+    want = {"ffn_gelu": layers * n, "ffn_gelu_f32": 0, "attention_fwd": layers * n,
+            "dense_mm": 0}
     if not forwards or launches != want:
         raise AssertionError(f"K6 serve: launches {launches} over {n} forwards, want {want}")
     cos = cosines_against(got, ctx)
@@ -5030,26 +5318,79 @@ def ffn_bound(N: int, H: int, M: int) -> tuple[float, str, str]:
             f"{flops / 1e9:.4f} GFLOP, {nbytes / 1e6:.4f} MB")
 
 
+def ffn_f32_bound(N: int, H: int, M: int) -> tuple[float, str, str, float]:
+    """(bound ms, what bounds it, the counts, the FFMA ceiling ms) of
+    K6-f32: 2NHM FLOP, each product f32-exact as three TF32 products at the
+    TF32 peak, against x, W, b read and the f32 output written once; beside
+    it the FFMA design's ceiling, the 2NHM FLOP at the f32 CUDA-core peak."""
+    flops = 2 * N * H * M
+    nbytes = 4 * (N * H + H * M + M + N * M)
+    t_ops, t_bytes = 3 * flops / H100_TF32_FLOPS, nbytes / H100_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes), "bytes" if t_bytes >= t_ops else "operations",
+            f"{flops / 1e9:.4f} GFLOP, {3 * flops / 1e9:.4f} GFLOP TF32, {nbytes / 1e6:.4f} MB",
+            1e3 * flops / H100_F32_FLOPS)
+
+
+def time_ffn_f32(N: int, H: int, M: int, gpu: str) -> dict:
+    """K6-f32, its plain version and torch.addmm followed by gelu (two
+    calls: no single PyTorch call computes it), all f32 with TF32 off, by
+    device time (tools/timing.kernel_times), four input sets each so that
+    calls miss the L2, beside the 3xTF32 bound and the FFMA ceiling."""
+    sets = [ffn_f32_inputs(N, H, M, SEED + 100 + i) for i in range(4)]
+    cycle = itertools.cycle(sets)
+
+    def two_calls():
+        x, w, b = next(cycle)
+        torch.nn.functional.gelu(torch.addmm(b, x, w))
+
+    iters = 50 if N * H * M <= 1 << 30 else 20
+    k6 = kernel_times(lambda: ffn.dense_gelu(*next(cycle), "erf"), iters)
+    plain = kernel_times(lambda: ffn.dense_gelu_reference(*next(cycle), "erf"), iters)
+    lib = kernel_times(two_calls, iters)
+    row = {"shape": [N, H, M], "ms": k6["device_ms"], "events_ms": k6["events_ms"],
+           "records": k6["records"], "clock_mhz": k6["clock_mhz"],
+           "plain_ms": plain["device_ms"], "library_ms": None,
+           "addmm_gelu_ms": lib["device_ms"]}
+    row["bound_ms"], row["bound_by"], counts, row["ffma_ceiling_ms"] = ffn_f32_bound(N, H, M)
+    log(f"[time] ffn_gelu_f32 {(N, H, M)} erf (device time): kernel {row['ms']:.6f} ms (CUDA "
+        f"events {row['events_ms']:.6f}, {row['records']:g} records a call, SM clock "
+        f"{row['clock_mhz']} MHz), plain {row['plain_ms']:.6f} ms, library none (torch.addmm + "
+        f"gelu, f32, TF32 off: {row['addmm_gelu_ms']:.6f} ms), bound {row['bound_ms']:.6f} ms "
+        f"({row['bound_by']}: {counts}) = {100 * row['bound_ms'] / row['ms']:.2f}% of the "
+        f"bound, the FFMA ceiling (67 TFLOP/s f32) {row['ffma_ceiling_ms']:.6f} ms = "
+        f"{row['ms'] / row['ffma_ceiling_ms']:.3f} x it | {gpu}")
+    return row
+
+
 def time_short_products(gen: torch.Generator, gpu: str) -> dict:
-    """P1 s8 and K6 at 128 tokens (a one-sequence request) through t30_150M's
-    three layer shapes, beside torch._int_mm (W k-major) and torch.addmm +
-    gelu, by device time (torch.profiler): at this size a call's host side
-    outlasts its kernel, so CUDA events around back-to-back calls would read
-    the host."""
-    rows = {"s8": [], "ffn": []}
+    """P1 s8, K6 and K6-f32 at 128 tokens (a one-sequence request) through
+    t30_150M's three layer shapes, beside torch._int_mm (W k-major) and
+    torch.addmm + gelu (bf16; f32 with TF32 off), by device time
+    (tools/timing.kernel_times: each kernel's mean record times its launches
+    a call, so records that torch.profiler loses in this long process do
+    not shorten it): at this size a call's host side outlasts its kernel,
+    so CUDA events around back-to-back calls would read the host. Beside
+    each, the same calls by graph replay (tools/timing.graph_ms), which
+    needs no profiler record: `graph_ms` for the kernel, `library_graph_ms`
+    for its library or addmm + gelu."""
+    rows = {"s8": [], "ffn": [], "ffn_f32": []}
     N = 128
     for K, M in T30_LAYERS:
         sets = [s8_pair(N, K, M, gen) for _ in range(4)]
         cycle = itertools.cycle(sets)
         lib = itertools.cycle([(x, w.t().contiguous().t()) for x, w in sets])
-        row = {"shape": [N, K, M],
-               "ms": device_ms(lambda: dense_mm.mm(*next(cycle), torch.int32), 50),
-               "library_ms": device_ms(lambda: torch._int_mm(*next(lib)), 50)}
+        got = kernel_times(lambda: dense_mm.mm(*next(cycle), torch.int32), 50)
+        row = {"shape": [N, K, M], "ms": got["device_ms"], "records": got["records"],
+               "library_ms": kernel_times(lambda: torch._int_mm(*next(lib)), 50)["device_ms"]}
+        row["graph_ms"] = graph_ms(lambda: dense_mm.mm(*next(cycle), torch.int32), 50)
+        row["library_graph_ms"] = graph_ms(lambda: torch._int_mm(*next(lib)), 50)
         row["bound_ms"], row["bound_by"], counts = dense_bound(N, K, M, True)
         rows["s8"].append(row)
-        log(f"[time] dense_mm s8 {(N, K, M)} (device time): kernel {row['ms']:.6f} ms, library "
-            f"(torch._int_mm, W k-major) {row['library_ms']:.6f} ms, bound "
-            f"{row['bound_ms']:.6f} ms ({row['bound_by']}: {counts}) | {gpu}")
+        log(f"[time] dense_mm s8 {(N, K, M)} (device time): kernel {row['ms']:.6f} ms "
+            f"({row['records']:g} records a call; graph replay {row['graph_ms']:.6f}), library "
+            f"(torch._int_mm, W k-major) {row['library_ms']:.6f} ms (graph replay "
+            f"{row['library_graph_ms']:.6f}), bound {row['bound_ms']:.6f} ms ({row['bound_by']}: "
+            f"{counts}) | {gpu}")
         fsets = [ffn_inputs(N, K, M, gen) for _ in range(4)]
         fcycle = itertools.cycle(fsets)
 
@@ -5057,14 +5398,30 @@ def time_short_products(gen: torch.Generator, gpu: str) -> dict:
             x, w, b = next(fcycle)
             torch.nn.functional.gelu(torch.addmm(b, x, w))
 
-        row = {"shape": [N, K, M],
-               "ms": device_ms(lambda: ffn.dense_gelu(*next(fcycle), "erf"), 50),
-               "library_ms": None, "addmm_gelu_ms": device_ms(two_calls, 50)}
+        got = kernel_times(lambda: ffn.dense_gelu(*next(fcycle), "erf"), 50)
+        row = {"shape": [N, K, M], "ms": got["device_ms"], "records": got["records"],
+               "library_ms": None, "addmm_gelu_ms": kernel_times(two_calls, 50)["device_ms"]}
+        row["graph_ms"] = graph_ms(lambda: ffn.dense_gelu(*next(fcycle), "erf"), 50)
+        row["library_graph_ms"] = graph_ms(two_calls, 50)
         row["bound_ms"], row["bound_by"], counts = ffn_bound(N, K, M)
         rows["ffn"].append(row)
-        log(f"[time] ffn_gelu {(N, K, M)} erf (device time): kernel {row['ms']:.6f} ms, "
-            f"library none (torch.addmm + gelu: {row['addmm_gelu_ms']:.6f} ms), bound "
-            f"{row['bound_ms']:.6f} ms ({row['bound_by']}: {counts}) | {gpu}")
+        log(f"[time] ffn_gelu {(N, K, M)} erf (device time): kernel {row['ms']:.6f} ms "
+            f"({row['records']:g} records a call; graph replay {row['graph_ms']:.6f}), library "
+            f"none (torch.addmm + gelu: {row['addmm_gelu_ms']:.6f} ms; graph replay "
+            f"{row['library_graph_ms']:.6f}), bound {row['bound_ms']:.6f} ms ({row['bound_by']}: "
+            f"{counts}) | {gpu}")
+        row = time_ffn_f32(N, K, M, gpu)
+        f32cycle = itertools.cycle([ffn_f32_inputs(N, K, M, SEED + 100 + i) for i in range(4)])
+
+        def two_calls_f32():
+            x, w, b = next(f32cycle)
+            torch.nn.functional.gelu(torch.addmm(b, x, w))
+
+        row["graph_ms"] = graph_ms(lambda: ffn.dense_gelu(*next(f32cycle), "erf"), 50)
+        row["library_graph_ms"] = graph_ms(two_calls_f32, 50)
+        log(f"[time] ffn_gelu_f32 {(N, K, M)} erf by graph replay: kernel {row['graph_ms']:.6f} "
+            f"ms, torch.addmm + gelu in f32 {row['library_graph_ms']:.6f} ms | {gpu}")
+        rows["ffn_f32"].append(row)
     return rows
 
 
@@ -5126,7 +5483,10 @@ def main() -> int:
     f32_k5_err = check_attention_bwd(f32_k5_cases, "attention_bwd_f32")
     p1_err = check_dense_mm(gen)
     k6_err = check_ffn(gen)
+    k6_f32_cases = ffn_f32_cases()
+    k6_f32_err = check_ffn_f32(k6_f32_cases)
     fault_reads = check_faults(fault_libs["main_loop"], gen)
+    fault_reads.update(check_ffn_f32_fault(fault_libs, k6_f32_cases))
     fault_reads.update(check_attention_faults(fault_libs, k1_cases, k5_cases))
     fault_reads.update(check_attention_faults(fault_libs, f32_k1_cases, f32_k5_cases,
                                               torch.float32))
@@ -5147,8 +5507,9 @@ def main() -> int:
             phase_done(f"{T33} serve, families")
             hctx = run_hf_phase(gpu)
             f32s = run_f32_serve_phase(ctx, hctx, rng, gpu)
+            f32k6 = run_f32_k6_serve_phase(hctx, f32s, rng, gpu)
             hctx.pop("esm_params")
-            phase_done("hf, f32 serve")
+            phase_done("hf, f32 serve, f32 K6 serve")
             tctx = run_train_phase()
             pctx = run_packed_phase()
             uctx = run_packed_unfrozen_phase()
@@ -5186,6 +5547,7 @@ def main() -> int:
                 dispatch = time_dispatch(gen, gpu)
                 p1_times = time_dense_mm(gen, gpu)
                 k6_times = time_ffn(gen, gpu)
+                k6_f32_times = time_ffn_f32(10240, 640, 2560, gpu)
                 short_times = time_short_products(gen, gpu)
                 serving = {"bf16": time_serving(ctx, rng, gpu),
                            "int8": time_serving(ictx, rng, gpu, "int8")}
@@ -5211,6 +5573,9 @@ def main() -> int:
                 pairs_per_s["f32_finetune_packed"] = time_train_steps(
                     f32train, "finetune_packed", "f32 packed finetune step (flat packing, remat)",
                     gpu)
+                pairs_per_s["f32_k6_finetune_packed"] = time_train_steps(
+                    f32train, "finetune_packed_k6",
+                    "f32 packed finetune step under PCT_FFN_PALLAS=1 (K6-f32)", gpu)
                 pairs_per_s.update({f"{T33}_{run}": time_train_steps(t33train, run, what, gpu)
                                     for run, what in (
                     ("packed", "packed frozen train step (flat packing)"),
@@ -5245,10 +5610,15 @@ def main() -> int:
              "f32_serve": f32s["launches"],
              "f32_train_finetune_packed": f32train["finetune_packed"]["launches"],
              "f32_train_frozen_step": {"attention_fwd_f32":
-                                       f32train["frozen_step"]["attention_fwd_f32"]}}
+                                       f32train["frozen_step"]["attention_fwd_f32"]},
+             "f32_k6_serve": f32k6["launches"],
+             "f32_k6_train_finetune_packed": f32train["finetune_packed_k6"]["launches"],
+             "f32_k6_train_frozen_step": {
+                 "attention_fwd_f32": f32train["frozen_step"]["attention_fwd_f32"],
+                 "ffn_gelu_f32": f32train["frozen_step"]["ffn_gelu_f32"]}}
     by_path = {name: {path: counts.get(name, 0) for path, counts in paths.items()}
                for name in ("attention_fwd", "attention_bwd", *F32_KERNELS, "filip_maxsim",
-                            "infonce", "infonce_tiled", "dense_mm", "ffn_gelu")}
+                            "infonce", "infonce_tiled", "dense_mm", "ffn_gelu", "ffn_gelu_f32")}
     kernels = [{
         "name": "attention_fwd", "phase": "serve", "route": "cuda",
         "source": "protein_clip_tpu_torch/csrc/attention_fwd.cu",
@@ -5414,6 +5784,25 @@ def main() -> int:
         "fault": {k: fault_reads[k] for k in ("ffn_gelu", "ffn_gelu_small")},
         "cos_min": k6ctx["cos_min"],
         "serving": serving["k6"],
+    }, {
+        "name": "ffn_gelu_f32", "phase": "f32_k6_serve", "route": "cuda",
+        "source": "protein_clip_tpu_torch/csrc/ffn_gelu_f32.cu",
+        "replaces": "protein_clip_tpu/ops/ffn_pallas.py:99",
+        "launches": f32k6["launches"]["ffn_gelu_f32"],
+        "launches_by_path": by_path["ffn_gelu_f32"], "max_abs_err": k6_f32_err, **k6_f32_times,
+        "at_128_tokens": short_times["ffn_f32"],
+        "fault": fault_reads["ffn_gelu_f32_k_tile"],
+        "cos_min_vs_gate_off": f32k6["cos_min"], "max_abs_diff_vs_gate_off": f32k6["max_abs_diff"],
+        "serving": f32k6["times"], "gate_off_serving": f32s["times"],
+        "train_frozen_step": {k: f32train["frozen_step"][k]
+                              for k in ("loss", "gated_loss", "gated_loss_rel_err")},
+        "step_check": f32train["step_check"]["k6_gate"],
+        "train_finetune_packed": {
+            "launches": f32train["finetune_packed_k6"]["launches"]["ffn_gelu_f32"],
+            "pairs_per_s": pairs_per_s["f32_k6_finetune_packed"],
+            "gate_off_pairs_per_s": pairs_per_s["f32_finetune_packed"],
+            "peak_memory_gb": f32train["finetune_packed_k6"]["peak_memory_gb"],
+            "chunk_forwards_per_pass": f32train["finetune_packed_k6"]["chunks_per_pass"]},
     }]
     log(f"[done] {time.perf_counter() - t_start:.1f} s; by phase: "
         + ", ".join(f"{name} {sec:.1f} s" for name, sec in seconds.items()))

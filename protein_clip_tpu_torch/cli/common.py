@@ -20,7 +20,7 @@ import torch
 from ..data.synthetic import write_fixture
 from ..data.tokenizer import EsmTokenizer
 from ..models import clip, esm2
-from ..ops import attention, ffn
+from ..ops import attention
 from ..train import checkpoint, finetune, lora
 
 ESM_FAMILIES = ("t30_150M", "t6_8M", "t12_35M", "t33_650M", "t36_3B", "t48_15B", "tiny")
@@ -216,14 +216,11 @@ def load_esm(args, cfg: esm2.ESM2Config, device: torch.device) -> dict:
     the host, as the TPU package's ``load_esm`` does, then moved to
     ``device``; ``--esm-dtype int8`` quantises them
     after the load (``esm2.quantize_params``). Raises before loading when
-    the kernels do not take the config on CUDA: a head dim the attention
-    kernels lack, or float32 under ``PCT_FFN_PALLAS=1`` (K6 takes bf16)."""
+    the attention kernels lack the config's head dim on CUDA. Under
+    ``PCT_FFN_PALLAS=1`` the FFN's wi runs K6 in the compute dtype, bf16 or
+    f32 (K6-f32), on every family."""
     if device.type == "cuda" and cfg.attention_impl == "fused":
         attention.check_config(cfg.compute_dtype, cfg.head_dim)
-    if device.type == "cuda" and ffn.enabled() and cfg.compute_dtype == torch.float32:
-        raise NotImplementedError(
-            "PCT_FFN_PALLAS=1 with --esm-dtype float32: the fused FFN kernel K6 takes bf16 "
-            "on CUDA (ROADMAP queue 2: K6 in f32); unset the gate or use --esm-dtype bfloat16")
     dtype = cfg.compute_dtype
 
     def finish(params):

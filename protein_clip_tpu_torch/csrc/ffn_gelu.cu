@@ -10,7 +10,8 @@
 // result rounded to bf16. Both roundings before the gelu are kept: dropping
 // either one changes the output. gelu is erf (CUDA's erff; the TPU kernel
 // carried Eigen's polynomial only because Mosaic has no erf) or, for
-// mode 1, 0.5 a (1 + tanh(sqrt(2/pi) (a + 0.044715 a^3))) in f32.
+// mode 1, 0.5 a (1 + tanh(sqrt(2/pi) (a + 0.044715 a^3))) in f32 (gelu.cuh,
+// which K6-f32, ffn_gelu_f32.cu, shares).
 //
 // Bound on an H100 SXM (989 TFLOP/s bf16, 3.35 TB/s): 2NHM FLOP against x,
 // W, b read and out written once (2 bytes each). At t30_150M's wi for a batch
@@ -36,25 +37,16 @@
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // and bound with ctypes (plain C interface below).
 
+#include "gelu.cuh"
 #include "mma_gemm.cuh"
 
 namespace {
 
 using namespace pct_gemm;
+using pct_ffn::gelu;
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// gelu of the bf16 pre-activation a, in f32.
-__device__ __forceinline__ float gelu(float a, int mode) {
-  if (mode == 1) {
-    const float kBeta = 0.7978845608028654f;  // sqrt(2 / pi)
-    const float kKappa = 0.044715f;
-    const float cube = a * a * a;
-    return 0.5f * a * (1.0f + tanhf(kBeta * (a + kKappa * cube)));
-  }
-  return a * 0.5f * (1.0f + erff(a * 0.7071067811865476f));
 }
 
 // round(gelu(round(round(acc) + b))) for the pair at columns col, col + 1.

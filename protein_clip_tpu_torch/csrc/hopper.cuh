@@ -4,7 +4,8 @@
 // block of the cluster), wgmma's fences, groups and shared-memory
 // descriptors, the TF32 conversion, split and product, and the host's
 // tensor-map encoder. Included by mma_gemm.cuh (P1 and K6), attention.cuh
-// (K1 and K5), filip_maxsim.cu (K4) and infonce.cu (K2 and K3).
+// (K1 and K5), filip_maxsim.cu (K4), infonce.cu (K2 and K3) and
+// ffn_gelu_f32.cu (K6-f32).
 
 #pragma once
 
@@ -252,6 +253,17 @@ __device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Closes this thread's group of cp.async issued since the last commit.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Returns once at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda).

@@ -14,7 +14,7 @@ Linear layers: ``{"w", "b"}`` leaves run in the compute dtype;
 ``{"w_q", "w_s", "b"}`` leaves from ``quantize_params`` (``--esm-dtype
 int8``) run w8a8 through the s8 tensor-core kernel P1 (``ops/dense_mm``).
 Under ``PCT_FFN_PALLAS=1`` the FFN's wi + gelu runs as the fused kernel K6
-(``ops/ffn``).
+(``ops/ffn``), in bf16 or f32.
 
 Attention: with ``attention_impl="fused"`` on CUDA tensors each layer calls
 the hand-written kernels (``ops/attention.fused_attention``: K1 forward, K5
@@ -421,9 +421,11 @@ def _ffn_block(x, p, cfg: ESM2Config):
 def _wi_gelu(h, wi, cfg: ESM2Config):
     """wi and the gelu. Under PCT_FFN_PALLAS=1 a compute-dtype wi (never the
     int8 tree) runs as the fused K6 in ``cfg.gelu``'s mode, so the gate
-    changes speed only. On the card every shape goes to K6, whose wrapper
-    raises on one it does not take; a CPU tensor of a shape the kernel does
-    not take gets the product then the gelu, as without the gate."""
+    changes speed only: on the card K6 in bf16 (``csrc/ffn_gelu.cu``) or in
+    f32 (K6-f32, ``csrc/ffn_gelu_f32.cu``), by the compute dtype. On the card
+    every shape goes to K6, whose wrapper raises on one it does not take; a
+    CPU tensor of a shape the kernel does not take gets the product then the
+    gelu, as without the gate."""
     if ffn.enabled() and "w" in wi:
         B, T, H = h.shape
         M = wi["w"].shape[1]

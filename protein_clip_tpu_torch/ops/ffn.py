@@ -1,22 +1,32 @@
 """The FFN input projection with its gelu fused in (kernel K6), under
-``PCT_FFN_PALLAS=1``: gelu(x W + b).
+``PCT_FFN_PALLAS=1``: gelu(x W + b), in bf16 or f32.
 
-The port of ``protein_clip_tpu/ops/ffn_pallas.py``. ``dense_gelu`` is a
-``torch.autograd.Function``: its forward is the hand-written CUDA kernel
-``csrc/ffn_gelu.cu`` (replacing the TPU kernel ``ffn_pallas._kernel``; its
-note gives the bound on an H100 and the design) on CUDA tensors, and the
-plain ``dense_gelu_reference`` on CPU tensors. Its backward, as the TPU
-``_bwd`` replays ``_eager``, is autograd through ``plain_composition``
-recomputed from (x, W, b): the gate-off path's arithmetic, so the kernel is
-a forward-path optimisation and, on bf16 inputs, the backward's products are
-bf16 GEMMs with f32 accumulation (as JAX's VJP of ``_eager``:
-``dot_general`` of the f32 cast of a bf16 cotangent with a bf16 operand,
-``preferred_element_type=f32``, rounded to bf16).
+The port of ``protein_clip_tpu/ops/ffn_pallas.py``, whose kernel
+``ffn_pallas._kernel`` runs in the compute dtype. ``dense_gelu`` is a
+``torch.autograd.Function`` whose forward is a hand-written CUDA kernel on
+CUDA tensors of the operands' dtype, x, W and b all bf16 or all f32:
 
-Shapes the kernel takes (``fits``): any N up to 65535 * 256 rows, H a
-multiple of 16, M a multiple of 8. Every t30_150M serving and training shape
-fits (H = 640, M = 2560, N = B * T of any bucket); a hidden size that is no
-multiple of 16 (none of the ESM-2 families) takes the plain path.
+- bf16: ``csrc/ffn_gelu.cu`` (K6; wgmma on ``csrc/mma_gemm.cuh``'s TMA
+  ring, P1's loop);
+- f32 (``--esm-dtype float32``): ``csrc/ffn_gelu_f32.cu`` (K6-f32; exact
+  f32 products by FFMA on the CUDA cores, no TF32).
+
+Both share ``csrc/gelu.cuh``, and each kernel's note gives its bound on an
+H100 and its design. On CPU tensors the forward is the plain
+``dense_gelu_reference``. Its backward, as the TPU ``_bwd`` replays
+``_eager``, is autograd through ``plain_composition`` recomputed from (x, W,
+b): the gate-off path's arithmetic, so the kernel is a forward-path
+optimisation and, on bf16 inputs, the backward's products are bf16 GEMMs
+with f32 accumulation (as JAX's VJP of ``_eager``: ``dot_general`` of the
+f32 cast of a bf16 cotangent with a bf16 operand,
+``preferred_element_type=f32``, rounded to bf16); on f32 inputs they are
+f32 GEMMs (cuBLAS with TF32 off, torch's default for matmul), as JAX's
+``_bwd`` replays ``_eager`` in f32.
+
+Shapes the kernels take (``fits``): any N up to 65535 * 256 rows, H a
+multiple of 16, M a multiple of 8. Every ESM-2 family's wi fits at every N
+(H = 320 ... 5120, M = 4H); a hidden size that is no multiple of 16 (none
+of the families) takes the plain path on the CPU and raises on the card.
 """
 
 from __future__ import annotations
@@ -33,7 +43,12 @@ from ..kernels import build
 
 MODES = {"erf": 0, "tanh": 1}
 H_MULTIPLE, M_MULTIPLE = 16, 8   # a wgmma k-step (bf16) and 8 columns (16 bytes)
-MAX_ROWS = 65535 * 256           # grid.y blocks of 256 rows
+MAX_ROWS = 65535 * 256           # grid.y blocks of 256 rows (bf16; f32's rows are unbounded)
+# The kernel of each dtype the operands may have
+KERNELS = {torch.bfloat16: "ffn_gelu", torch.float32: "ffn_gelu_f32"}
+# Kernel launches since the counts were last set to 0 (chip_smoke.py reads
+# them), by kernel: ffn_gelu (K6, bf16) and ffn_gelu_f32 (K6-f32)
+launches = dict.fromkeys(KERNELS.values(), 0)
 
 
 def enabled() -> bool:
@@ -70,19 +85,19 @@ def plain_composition(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return _gelu_f32(z.float(), mode).to(x.dtype)
 
 
-def bind(lib: ctypes.CDLL):
-    """The C entry point of a loaded ffn_gelu library: x, w, b, out, N, H,
-    M, mode and the stream."""
-    fn = lib.pct_ffn_gelu
+def bind(lib: ctypes.CDLL, name: str):
+    """The C entry point of kernel ``name`` (ffn_gelu, ffn_gelu_f32) in a
+    loaded library: x, w, b, out, N, H, M, mode and the stream."""
+    fn = getattr(lib, f"pct_{name}")
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 @functools.cache
-def _launcher():
-    """The kernel's entry point, built and loaded at first use."""
-    return bind(build.load("ffn_gelu"))
+def _launcher(name: str):
+    """Kernel ``name``'s entry point, built and loaded at first use."""
+    return bind(build.load(name), name)
 
 
 def _check(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, mode: str) -> None:
@@ -92,11 +107,13 @@ def _check(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, mode: str) -> None
                          f"{tuple(w.shape)} and {tuple(b.shape)}")
     if mode not in MODES:
         raise ValueError(f"gelu mode {mode!r} is not one of {sorted(MODES)}")
+    if x.dtype not in KERNELS:
+        raise TypeError(f"x must be bfloat16 or float32 on CUDA, got {x.dtype}")
     for name, t in (("x", x), ("w", w), ("b", b)):
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{name} must be bfloat16 on CUDA, got {t.dtype}")
+        if t.dtype != x.dtype:
+            raise TypeError(f"{name} must have x's dtype ({x.dtype}) on CUDA, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if t.data_ptr() % 16:
@@ -114,13 +131,15 @@ def _forward(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, mode: str) -> to
     _check(x, w, b, mode)
     N, H = x.shape
     M = w.shape[1]
+    name = KERNELS[x.dtype]
+    launch = _launcher(name)
     out = torch.empty(N, M, dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
-        err = _launcher()(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), N, H, M,
-                          MODES[mode], torch.cuda.current_stream(x.device).cuda_stream)
+        err = launch(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), N, H, M,
+                     MODES[mode], torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"ffn_gelu launch failed: cudaError_t {err}")
-    dense_gelu.launches += 1
+        raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
+    launches[name] += 1
     return out
 
 
@@ -150,7 +169,3 @@ def dense_gelu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, mode: str) -> 
     ``enabled`` first."""
     return _DenseGelu.apply(x, w, b, mode)
 
-
-# Forward calls that launched the kernel since the count was last set to 0
-# (chip_smoke.py reads it).
-dense_gelu.launches = 0

@@ -2,7 +2,7 @@
 
     python -m protein_clip_tpu_torch.tools.profile_serve [--esm-dtype int8 | float32]
         [--esm-config t33_650M]
-    PCT_FFN_PALLAS=1 python -m protein_clip_tpu_torch.tools.profile_serve
+    PCT_FFN_PALLAS=1 python -m protein_clip_tpu_torch.tools.profile_serve [--esm-dtype float32]
 
 Builds ESM-2 ``--esm-config`` (default t30_150M) in bf16 (with
 ``--esm-dtype int8``, its w8a8 quantisation, whose linear layers run P1;
@@ -16,9 +16,10 @@ busy share of the wall time, and kernel launches per call. Then the same
 for FILIP's /topk without HTTP (``embed_sequences_tokens`` for one
 100-residue query, then ``filip_score_matrix_ragged`` over a ragged index
 of 256 sequences of 30-499 residues). Under ``PCT_FFN_PALLAS=1`` every
-FFN's wi + gelu runs K6. Each request's line names the launches of K1 (in
-the backbone's dtype, bf16 or f32), K4, P1 and K6 per call and the share of
-the device time of each. Prints the card's name and power limit beside the
+FFN's wi + gelu runs K6 (K6-f32 with ``--esm-dtype float32``). Each
+request's line names the launches of K1 and K6 (in the backbone's dtype,
+bf16 or f32: K1-f32, K6-f32), K4 and P1 per call and the share of the
+device time of each. Prints the card's name and power limit beside the
 numbers.
 """
 
@@ -57,9 +58,11 @@ def profile_request(name: str, seqs: list[str], encode, dtype: torch.dtype,
         walls.append(time.perf_counter() - t0)
     n = 5
     k1 = attention._kernel("attention_fwd", dtype)
-    counters = {"K1": lambda: attention.launches[k1],
+    k6 = ffn.KERNELS[dtype]
+    sfx = "-f32" if dtype == torch.float32 else ""
+    counters = {f"K1{sfx}": lambda: attention.launches[k1],
                 "K4": lambda: maxsim.filip_similarity_fused.launches,
-                "P1": lambda: dense_mm.mm.launches, "K6": lambda: ffn.dense_gelu.launches}
+                "P1": lambda: dense_mm.mm.launches, f"K6{sfx}": lambda: ffn.launches[k6]}
     before = {k: count() for k, count in counters.items()}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
@@ -74,10 +77,11 @@ def profile_request(name: str, seqs: list[str], encode, dtype: torch.dtype,
     busy_us = sum(e.self_device_time_total for e in kernels)
     n_launch = sum(e.count for e in kernels) / n
     # P1 and K6 are one kernel template (csrc/mma_gemm.cuh's gemm_kernel),
-    # told apart by their epilogue types
+    # told apart by their epilogue types; K6-f32 is a kernel of its own
     shares = {k: sum(e.self_device_time_total for e in kernels if sym in e.key)
-              for k, sym in (("K1", "attention_fwd"), ("K4", "filip_maxsim_kernel"),
-                             ("P1", "DenseMmOut"), ("K6", "FfnGeluOut"))}
+              for k, sym in ((f"K1{sfx}", "attention_fwd"), ("K4", "filip_maxsim_kernel"),
+                             ("P1", "DenseMmOut"),
+                             (f"K6{sfx}", "ffn_gelu_f32_kernel" if sfx else "FfnGeluOut"))}
     print(f"[{name}] wall p50 {1e3 * statistics.median(walls):.4f} ms (10 calls); "
           f"profiled {n} calls: device busy {busy_us / n / 1e3:.4f} ms per call = "
           f"{100 * busy_us / 1e6 / window:.2f}% of the wall time; "

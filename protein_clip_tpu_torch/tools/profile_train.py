@@ -6,6 +6,8 @@ or the FILIP step (``--filip``), frozen, packed or unfrozen alike.
     python -m protein_clip_tpu_torch.tools.profile_train [--batch-size 16]
         [--packed] [--finetune | --lora-rank 8] [--esm-config t33_650M]
         [--esm-dtype float32]
+    PCT_FFN_PALLAS=1 python -m protein_clip_tpu_torch.tools.profile_train --packed
+        --finetune --esm-dtype float32
     python -m protein_clip_tpu_torch.tools.profile_train --filip [--batch-size 10]
         [--length-groups 1] [--num-chunks 1] [--use-dcl] [--packed [--scatter-tiers 4]]
         [--finetune | --lora-rank 8]
@@ -37,8 +39,10 @@ f32 master backbone or rank-R adapters):
   (pooling, loss and their backward), pass 2 (each chunk's token sums with
   a graph and their backward), and the optimizer;
 - steps under ``torch.profiler`` (2 frozen, 1 unfrozen): the device's busy
-  share of the wall time, kernel launches per step, K1 and K5 launches and
-  their shares of the device time, and device time by kernel.
+  share of the wall time, kernel launches per step, K1, K5, K4 and K6
+  launches (each in the backbone's dtype: K1-f32, K5-f32 and K6-f32 in f32;
+  K6 only under ``PCT_FFN_PALLAS=1``) and their shares of the device time,
+  and device time by kernel.
 
 With ``--filip`` the step is ``train/filip_engine``'s over one batch of
 ``--batch-size`` pairs (no x 16; default 10, the FILIP CLI's), in
@@ -75,7 +79,7 @@ from ..cli import common
 from ..data.prefetch import to_device
 from ..data.synthetic import make_pair_corpus
 from ..models import clip, esm2, filip, heads
-from ..ops import attention, infonce
+from ..ops import attention, ffn, infonce
 from ..ops import filip as maxsim
 from ..ops.infonce import filip_loss
 from ..train import (clip_engine, filip_engine, filip_finetune, filip_lora, filip_packed,
@@ -444,7 +448,9 @@ def main(argv=None) -> int:
 
     k1_name, k5_name = (attention._kernel(name, esm_cfg.compute_dtype)
                         for name in ("attention_fwd", "attention_bwd"))
+    k6_name = ffn.KERNELS[esm_cfg.compute_dtype]
     k1, k5 = attention.launches[k1_name], attention.launches[k5_name]
+    k6 = ffn.launches[k6_name]
     k2 = infonce.fused_infonce.launches + infonce.fused_infonce_tiled.launches
     k4 = maxsim.filip_similarity_fused.launches
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -458,6 +464,7 @@ def main(argv=None) -> int:
     k5 = (attention.launches[k5_name] - k5) // n
     k2 = (infonce.fused_infonce.launches + infonce.fused_infonce_tiled.launches - k2) // n
     k4 = (maxsim.filip_similarity_fused.launches - k4) // n
+    k6 = (ffn.launches[k6_name] - k6) // n
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
     busy_us = sum(e.self_device_time_total for e in kernels)
@@ -468,10 +475,12 @@ def main(argv=None) -> int:
 
     print(f"[profile] {n} step(s): device busy {busy_us / n / 1e3:.4f} ms per step = "
           f"{100 * busy_us / 1e6 / window:.2f}% of the wall time; "
-          f"{sum(e.count for e in kernels) / n:.0f} kernel launches per step ({k1} K1, "
-          f"{k5} K5 calls of 2 launches, {k2} InfoNCE forward calls, {k4} K4); K1 "
-          f"{share('attention_fwd')}, K5 {share('attention_bwd')}, K4 "
-          f"{share('filip_maxsim')} of the device time")
+          f"{sum(e.count for e in kernels) / n:.0f} kernel launches per step ({k1} {k1_name}, "
+          f"{k5} {k5_name} calls of 2 launches, {k2} InfoNCE forward calls, {k4} K4, {k6} "
+          f"{k6_name}); K1 {share('attention_fwd')}, K5 {share('attention_bwd')}, K4 "
+          f"{share('filip_maxsim')}, K6 "
+          f"{share('ffn_gelu_f32_kernel' if k6_name == 'ffn_gelu_f32' else 'FfnGeluOut')} "
+          "of the device time")
     for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:14]:
         us = e.self_device_time_total
         print(f"[profile]   {100 * us / busy_us:6.2f}%  {us / n / 1e3:9.4f} ms/step  "

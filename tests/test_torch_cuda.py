@@ -11,7 +11,11 @@ packed embeddings against the grouped ones, finetune steps
 through K1 and K5 (one pad bucket, and packed: finetune and LoRA), K5 on a
 packed step's own segments, and under the K6 gate; K4 on packed FILIP's
 scatter-tier blocks (phantom rows included), a packed FILIP step through
-K4 and FILIP finetune steps through K5 against their plain versions.
+K4 and FILIP finetune steps through K5 against their plain versions; K6 in
+f32 (K6-f32 at each family's wi and the edges, its planted fault, its
+backward), the f32 forward and finetune step under the K6 gate, and
+load_esm taking the gate in f32; and tools/timing's graph replay, which
+times the short products where the profiler keeps no kernel record.
 
 These tests need an NVIDIA GPU and nvcc; elsewhere they skip. This file
 imports torch, the port and chip_smoke.py (whose planted faults and plain
@@ -1364,10 +1368,11 @@ def _ffn_gap(x, w, b, got, mode):
                                    (33, 48, 40)])
 def test_ffn_gelu_matches_plain(dev, N, H, M, mode):
     x, w, b = _ffn_inputs(N, H, M, dev)
-    before = ffn.dense_gelu.launches
+    before = dict(ffn.launches)
     got = ffn.dense_gelu(x, w, b, mode)
     torch.cuda.synchronize()
-    assert ffn.dense_gelu.launches == before + 1 and got.dtype == torch.bfloat16
+    assert ffn.launches == {**before, "ffn_gelu": before["ffn_gelu"] + 1}
+    assert got.dtype == torch.bfloat16
     ulps, share = _ffn_gap(x, w, b, got, mode)
     assert ulps <= FFN_ULPS and share <= FFN_SHARE, (ulps, share)
     fault = ffn.dense_gelu(_drop_last_k_tile(x, BF16_TILE), w, b, mode)
@@ -1406,13 +1411,27 @@ def test_ffn_gelu_backward_is_the_plain_composition(dev):
 
 
 def test_ffn_gelu_refuses_what_the_kernel_does_not_take(dev):
+    """bf16 and f32 launch their kernels (K6, K6-f32); f16, mixed dtypes, a
+    shape outside fits and an unknown mode raise, and launch nothing."""
     x, w, b = _ffn_inputs(8, 64, 64, dev)
-    with pytest.raises(TypeError, match="bfloat16"):
-        ffn.dense_gelu(x.float(), w.float(), b.float(), "erf")
+    before = dict(ffn.launches)
+    ffn.dense_gelu(x.float(), w.float(), b.float(), "erf")
+    torch.cuda.synchronize()
+    assert ffn.launches == {**before, "ffn_gelu_f32": before["ffn_gelu_f32"] + 1}
+    before = dict(ffn.launches)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        ffn.dense_gelu(x.half(), w.half(), b.half(), "erf")
+    with pytest.raises(TypeError, match="x's dtype"):
+        ffn.dense_gelu(x.float(), w, b.float(), "erf")
+    with pytest.raises(TypeError, match="x's dtype"):
+        ffn.dense_gelu(x, w, b.float(), "erf")
     with pytest.raises(ValueError, match="fits"):
         ffn.dense_gelu(x[:, :40].contiguous(), w[:40].contiguous(), b, "erf")
+    with pytest.raises(ValueError, match="fits"):
+        ffn.dense_gelu(x[:, :40].float(), w[:40].float(), b.float(), "erf")
     with pytest.raises(ValueError, match="mode"):
         ffn.dense_gelu(x, w, b, "relu")
+    assert ffn.launches == before
 
 
 def test_ffn_gate_raises_on_a_shape_the_kernel_does_not_take(dev, monkeypatch):
@@ -1421,16 +1440,16 @@ def test_ffn_gate_raises_on_a_shape_the_kernel_does_not_take(dev, monkeypatch):
     monkeypatch.setenv("PCT_FFN_PALLAS", "1")
     cfg = esm2.ESM2Config.tiny()
     x, w, b = _ffn_inputs(8, 40, 64, dev)
-    before = ffn.dense_gelu.launches
+    before = dict(ffn.launches)
     with pytest.raises(ValueError, match="fits"):
         esm2._wi_gelu(x.view(2, 4, 40), {"w": w, "b": b}, cfg)
-    assert ffn.dense_gelu.launches == before
+    assert ffn.launches == before
 
 
-def _t30_width(dev, layers=2):
-    cfg = esm2.ESM2Config(num_layers=layers, compute_dtype=torch.bfloat16)
+def _t30_width(dev, layers=2, dtype=torch.bfloat16):
+    cfg = esm2.ESM2Config(num_layers=layers, compute_dtype=dtype)
     params = esm2.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
-                              dtype=torch.bfloat16, device=dev)
+                              dtype=dtype, device=dev)
     ids = torch.randint(4, 24, (3, 100), device=dev)
     mask = torch.ones(3, 100, dtype=torch.int32, device=dev)
     mask[2, 60:] = 0
@@ -1458,9 +1477,9 @@ def test_ffn_gate_runs_k6_once_a_layer(dev, monkeypatch):
     with torch.inference_mode():
         off = esm2.forward(params, ids, mask, cfg)
         monkeypatch.setenv("PCT_FFN_PALLAS", "1")
-        before = ffn.dense_gelu.launches
+        before = dict(ffn.launches)
         on = esm2.forward(params, ids, mask, cfg)
-    assert ffn.dense_gelu.launches - before == cfg.num_layers
+    assert ffn.launches == {**before, "ffn_gelu": before["ffn_gelu"] + cfg.num_layers}
     valid = mask.bool()
     cos = torch.nn.functional.cosine_similarity(on[valid].float(), off[valid].float(), dim=-1)
     assert float(cos.min()) >= 0.999
@@ -1500,10 +1519,10 @@ def test_finetune_step_under_the_ffn_gate(dev, monkeypatch):
         monkeypatch.setattr(ffn, "_forward", forward)
         params = finetune.init_params(esm_params, _clone(heads0))
         state = _capturing(finetune.make_optimizer(cfg).init(params))
-        before = ffn.dense_gelu.launches
+        before = ffn.launches["ffn_gelu"]
         _, _, loss = finetune.make_train_step(cfg)(params, state, {}, batch, None)
         torch.cuda.synchronize()
-        out[name] = (float(loss), state.grads, ffn.dense_gelu.launches - before)
+        out[name] = (float(loss), state.grads, ffn.launches["ffn_gelu"] - before)
     # pass 1: 1 per layer per chunk; pass 2: forward and remat recompute
     assert out["off"][2] == 0 and out["on"][2] == 3 * 2 * 4 * mcfg.esm.num_layers
     loss_gap = abs(out["on"][0] - out["off"][0]) / abs(out["off"][0])
@@ -1511,6 +1530,158 @@ def test_finetune_step_under_the_ffn_gate(dev, monkeypatch):
     print(f"K6 gate finetune step: loss gap {loss_gap:.3g}, worst leaf {gap:.4g}, "
           f"planted fault {fault_gap:.4g} (tolerance 0: to the bit)")
     assert loss_gap == 0 and gap == 0 < fault_gap
+
+
+# K6-f32 (ffn_gelu_f32) against its plain version, both f32 with TF32 off,
+# in K1-f32's form (_assert_f32_close; chip_smoke.py states the margin):
+# each family's wi at 1, 128 and 1000 tokens, the main loop's edges (bf16's
+# H) and chip_smoke.K6_F32_EDGES, where the 128 x 128 tile runs with a
+# partial last row and column tile. The k-loop's tile is 16 columns of x.
+F32_K_TILE = 16
+FFN_F32_SHAPES = ([(n, h, m) for h, m in chip_smoke.FFN_WIDTHS for n in (1, 128, 1000)]
+                  + [(n, k // 2, m) for n in EDGE_N for k, m in EDGE_KM]
+                  + list(chip_smoke.K6_F32_EDGES))
+
+
+@pytest.mark.parametrize("mode", ["erf", "tanh"])
+@pytest.mark.parametrize("N,H,M", FFN_F32_SHAPES)
+def test_ffn_gelu_f32_matches_plain(no_tf32, N, H, M, mode):
+    x, w, b = chip_smoke.ffn_f32_inputs(N, H, M, N + H)
+    before = dict(ffn.launches)
+    got = ffn.dense_gelu(x, w, b, mode)
+    torch.cuda.synchronize()
+    assert ffn.launches == {**before, "ffn_gelu_f32": before["ffn_gelu_f32"] + 1}
+    assert got.dtype == torch.float32
+    want = ffn.dense_gelu_reference(x, w, b, mode)
+    _assert_f32_close(got, want)
+    fault = ffn.dense_gelu(_drop_last_k_tile(x, F32_K_TILE), w, b, mode)
+    with pytest.raises(AssertionError):
+        _assert_f32_close(fault, want)
+
+
+@pytest.fixture(scope="module")
+def ffn_f32_fault_lib():
+    """K6-f32 built with its k-loop dropping the last k-tile
+    (chip_smoke.FAULTS["ffn_f32_k_tile"])."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    return chip_smoke.build_faults(("ffn_f32_k_tile",))["ffn_f32_k_tile"]
+
+
+@pytest.mark.parametrize("N,H,M", [(128, 640, 2560), (1031, 1280, 5128), (1, 16, 8)])
+def test_ffn_gelu_f32_check_sees_the_planted_fault(no_tf32, ffn_f32_fault_lib, N, H, M):
+    x, w, b = chip_smoke.ffn_f32_inputs(N, H, M, 7)
+    with chip_smoke.ffn_kernels(ffn_f32_fault_lib):
+        bad = ffn.dense_gelu(x, w, b, "erf")
+    torch.cuda.synchronize()
+    with pytest.raises(AssertionError):
+        _assert_f32_close(bad, ffn.dense_gelu_reference(x, w, b, "erf"))
+
+
+def test_ffn_gelu_f32_backward_is_the_plain_composition(no_tf32):
+    """K6-f32's backward is autograd's through plain_composition (cuBLAS
+    f32 GEMMs with TF32 off), to the bit."""
+    dev = no_tf32
+    x, w, b = (t.requires_grad_(True) for t in chip_smoke.ffn_f32_inputs(256, 640, 2560, 1))
+    g = torch.randn(256, 2560, device=dev, generator=torch.Generator(device=dev).manual_seed(2))
+    got = torch.autograd.grad(ffn.dense_gelu(x, w, b, "erf"), (x, w, b), g)
+    want = torch.autograd.grad(ffn.plain_composition(x, w, b, "erf"), (x, w, b), g)
+    for a, c in zip(got, want):
+        assert a.dtype == torch.float32 and torch.equal(a, c)
+
+
+def test_ffn_gate_runs_k6_f32_once_a_layer(no_tf32, monkeypatch):
+    """Two f32 layers at t30_150M's width, the gate off and on: K6-f32 once
+    a layer under the gate (no bf16 K6), and the valid tokens at cosine >=
+    chip_smoke.F32_COSINE_MIN against the gate off."""
+    cfg, params, ids, mask = _t30_width(no_tf32, dtype=torch.float32)
+    with torch.inference_mode():
+        off = esm2.forward(params, ids, mask, cfg)
+        monkeypatch.setenv("PCT_FFN_PALLAS", "1")
+        before = dict(ffn.launches)
+        on = esm2.forward(params, ids, mask, cfg)
+    assert ffn.launches == {**before, "ffn_gelu_f32": before["ffn_gelu_f32"] + cfg.num_layers}
+    valid = mask.bool()
+    cos = torch.nn.functional.cosine_similarity(on[valid], off[valid], dim=-1)
+    assert float(cos.min()) >= chip_smoke.F32_COSINE_MIN
+
+
+def test_f32_finetune_step_under_the_ffn_gate(no_tf32, monkeypatch):
+    """One finetune step of a 2-layer f32 backbone (K1-f32/K5-f32) with
+    PCT_FFN_PALLAS=1 against the gate off, from the same weights and batch:
+    K6-f32 in the forward, the plain composition's f32 GEMMs in the
+    backward. Every leaf within chip_smoke.F32_FT_TOL of its largest entry,
+    the loss within chip_smoke.FT_LOSS_TOL; run twice, equal to the bit; a
+    K6-f32 whose k-loop drops its last k-tile (emulated by zeroing x's last
+    16 columns) past the limit."""
+    from protein_clip_tpu_torch.train import finetune
+
+    dev = no_tf32
+    mcfg, _ = _tiny_t30_like(dev)
+    mcfg = dataclasses.replace(mcfg, esm=dataclasses.replace(mcfg.esm,
+                                                             compute_dtype=torch.float32))
+    esm_params = esm2.init_params(mcfg.esm, torch.Generator(device=dev).manual_seed(0),
+                                  dtype=torch.float32, device=dev)
+    rng = np.random.default_rng(2)
+    aas = list("LAGVSERTIDPKQNFYMHWC")
+    peps = ["".join(rng.choice(aas, int(n))) for n in rng.integers(8, 30, 32)]
+    recs = ["".join(rng.choice(aas, int(n))) for n in rng.integers(30, 90, 32)]
+    batch = {k: v.to(dev) for k, v in
+             clip_engine.tokenize_pair_batch(EsmTokenizer(), peps, recs).items()}
+    heads0 = clip.init_params(mcfg, torch.Generator().manual_seed(1), device=dev)
+    cfg = clip_engine.EngineConfig(model=mcfg, batch_size=32, accumulated_batches=1,
+                                   num_chunks=4)
+    kernel_forward = ffn._forward
+
+    def fault(x, w, b, mode):
+        return kernel_forward(_drop_last_k_tile(x, F32_K_TILE), w, b, mode)
+
+    out = {}
+    for name, gate, forward in (("off", "0", kernel_forward), ("on", "1", kernel_forward),
+                                ("again", "1", kernel_forward), ("fault", "1", fault)):
+        monkeypatch.setenv("PCT_FFN_PALLAS", gate)
+        monkeypatch.setattr(ffn, "_forward", forward)
+        params = finetune.init_params(esm_params, _clone(heads0))
+        state = _capturing(finetune.make_optimizer(cfg).init(params))
+        before = ffn.launches["ffn_gelu_f32"]
+        _, _, loss = finetune.make_train_step(cfg)(params, state, {}, batch, None)
+        torch.cuda.synchronize()
+        out[name] = (float(loss), state.grads, ffn.launches["ffn_gelu_f32"] - before)
+    # pass 1: 1 per layer per chunk; pass 2: forward and remat recompute
+    assert out["off"][2] == 0 and out["on"][2] == 3 * 2 * 4 * mcfg.esm.num_layers
+    loss_gap = abs(out["on"][0] - out["off"][0]) / abs(out["off"][0])
+    gap, fault_gap = (_worst_gap(out[k][1], out["off"][1]) for k in ("on", "fault"))
+    print(f"K6-f32 gate finetune step: loss gap {loss_gap:.3g}, worst leaf {gap:.4g}, planted "
+          f"fault {fault_gap:.4g} (tolerance {chip_smoke.F32_FT_TOL:g})")
+    assert loss_gap <= chip_smoke.FT_LOSS_TOL and gap <= chip_smoke.F32_FT_TOL < fault_gap
+    assert out["again"][0] == out["on"][0]
+    assert all(torch.equal(a, c) for a, c in zip(out["again"][1], out["on"][1]))
+
+
+@pytest.mark.parametrize("weights", ["random", "hf_dir"])
+def test_load_esm_takes_the_ffn_gate_in_float32(no_tf32, monkeypatch, tmp_path, weights):
+    """load_esm with PCT_FFN_PALLAS=1 and float32 on CUDA loads (random
+    init, or a HF directory of f32 weights) an f32 tree on the card, and its
+    forward runs K6-f32 once a layer."""
+    dev = no_tf32
+    monkeypatch.setenv("PCT_FFN_PALLAS", "1")
+    cfg = common.esm_config("tiny", "float32")
+    path = None
+    if weights == "hf_dir":
+        path = tmp_path / "hf"
+        chip_smoke.write_hf_dir(path, cfg, 0)
+    args = argparse.Namespace(esm_weights=None if path is None else str(path),
+                              esm_dtype="float32")
+    params = common.load_esm(args, cfg, dev)
+    leaves = checkpoint._flatten(params).values()
+    assert all(t.dtype == torch.float32 and t.device.type == "cuda" for t in leaves)
+    ids = torch.randint(4, 24, (2, 40), device=dev)
+    mask = torch.ones(2, 40, dtype=torch.int32, device=dev)
+    before = dict(ffn.launches)
+    with torch.inference_mode():
+        out = esm2.forward(params, ids, mask, cfg)
+    assert ffn.launches == {**before, "ffn_gelu_f32": before["ffn_gelu_f32"] + cfg.num_layers}
+    assert out.dtype == torch.float32 and bool(torch.isfinite(out).all())
 
 
 def _filip_packed_batch(dev, pool=24, seed=5):
@@ -1669,3 +1840,67 @@ def test_filip_finetune_step_runs_k5_and_matches_k5s_plain_version(dev, packed):
     assert _worst_gap(out["fault"][1], gp) > chip_smoke.FT_K5_TOL
     assert lk == out["again"][0]
     assert all(torch.equal(a, b) for a, b in zip(gk, out["again"][1]))
+
+
+def _short_product(name: str):
+    """One of chip_smoke.time_short_products' calls at 128 tokens through
+    t30_150M's wi shape (640, 2560), as a function of no argument."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    N, K, M = 128, 640, 2560
+    if name in ("p1_s8", "int_mm"):
+        x, w = chip_smoke.s8_pair(N, K, M, gen)
+        if name == "p1_s8":
+            return lambda: dense_mm.mm(x, w, torch.int32)
+        wk = w.t().contiguous().t()
+        return lambda: torch._int_mm(x, wk)
+    if name == "k6_f32":
+        x, w, b = chip_smoke.ffn_f32_inputs(N, K, M, 3)
+    else:
+        x, w, b = chip_smoke.ffn_inputs(N, K, M, gen)
+    if name == "addmm_gelu":
+        return lambda: torch.nn.functional.gelu(torch.addmm(b, x, w))
+    return lambda: ffn.dense_gelu(x, w, b, "erf")
+
+
+class _KeepsNoRecord:
+    """A torch.profiler.profile whose sessions keep no kernel record, as
+    sessions late in chip_smoke.py's long process now and then do."""
+
+    def __init__(self, *args, **kwargs):
+        pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def key_averages(self):
+        return []
+
+
+SHORT_PRODUCTS = ["p1_s8", "int_mm", "k6", "k6_f32", "addmm_gelu"]
+
+
+@pytest.mark.parametrize("name", SHORT_PRODUCTS)
+def test_kernel_times_takes_graph_replay_when_the_profiler_keeps_nothing(no_tf32, monkeypatch,
+                                                                         name):
+    from protein_clip_tpu_torch.tools import timing
+    fn = _short_product(name)
+    monkeypatch.setattr(torch.profiler, "profile", _KeepsNoRecord)
+    got = timing.kernel_times(fn, 20)
+    assert got["method"] == "graph" and got["records"] == 0
+    assert 0 < got["device_ms"] < got["events_ms"] + 1.0
+
+
+@pytest.mark.parametrize("name", SHORT_PRODUCTS)
+def test_graph_replay_reads_the_profilers_device_time(no_tf32, name):
+    """graph_ms against the profiler's device time of the same calls: the
+    graph adds a gap of about a microsecond between kernels, so it may read
+    up to 25% and 3 microseconds a call above, and no more than 20% below."""
+    from protein_clip_tpu_torch.tools import timing
+    fn = _short_product(name)
+    prof = timing.kernel_times(fn, 50)
+    assert prof["method"] == "profiler"
+    graph = timing.graph_ms(fn, 50)
+    assert 0.8 * prof["device_ms"] <= graph <= 1.25 * prof["device_ms"] + 0.003, (graph, prof)
