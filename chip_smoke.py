@@ -11,9 +11,10 @@ and a nonzero exit code, and no result line:
                 nvcc for sm_90a, one nvcc per source, all at once, and
                 beside them the planted faults (FAULTS), each built from a
                 patched copy under _build/fault/<name>/, never loaded by
-                the package: dense_mm and ffn_gelu whose shared main loop
-                drops its last k-tile, and ffn_gelu_f32 whose k-loop
-                drops its last k-tile; attention_fwd and attention_bwd (and
+                the package: dense_mm, ffn_gelu and ffn_gelu_f32 whose
+                shared main loop drops its last k-tile, and ffn_gelu_f32
+                with one TF32 product a k-step; attention_fwd and
+                attention_bwd (and
                 their f32 kernels) whose swept loop (K1's keys, K5's dk/dv
                 queries) drops its last tile; the same four whose skip
                 predicate is off by one at a segment boundary;
@@ -85,8 +86,9 @@ and a nonzero exit code, and no result line:
                 at each family's wi (FFN_WIDTHS) for K6_F32_FAMILY_ROWS
                 tokens. Then each check against its planted faults,
                 which must fail it (by how much is printed): P1 and K6
-                against their main loop's, K6-f32 against its k-loop's
-                (every case), K1 and K5 against the swept-loop
+                against their main loop's, K6-f32 against the same loop's
+                and against plain TF32 (each every case), K1 and K5
+                against the swept-loop
                 and the skip faults (the skip fault every packed case,
                 both faults every chunk of the packed unfrozen path and a
                 case at each head dim of FAULT_HEAD_DIMS), K4
@@ -215,9 +217,12 @@ and a nonzero exit code, and no result line:
                 packed finetune step at 256 through K1-f32/K5-f32 against
                 the step through K5-f32's plain version (every leaf within
                 F32_FT_TOL of its largest; K5-f32's swept-tile fault past
-                it), and against it the same step under the gate (K6-f32;
-                F32_FT_TOL, K6-f32's k-tile fault past it, run twice equal
-                to the bit).
+                it), and against it the same step under the gate (K6-f32):
+                with ReLU heads the loss within FT_LOSS_TOL, run twice equal
+                to the bit, its leaves beside the same step with the wi
+                product in exact f32 in another order; with
+                F32_SMOOTH_HEADS every leaf within F32_FT_TOL, K6-f32's
+                k-tile and plain-TF32 faults past it.
                 Then FILIP training: cli.main_2protein_filip for one epoch
                 on a fixture of 1100 families (protein1/protein2), at its
                 defaults (batch 10, one pad bucket, 1 chunk) and at its
@@ -502,6 +507,16 @@ F32_COSINE_MIN = 1 - 1e-6
 # set after that reading; K5-f32 built to drop the last query tile of dk/dv
 # reads 0.73 (the v bias), 48 000 times the limit.
 F32_FT_TOL = 2 ** -16
+# The gated f32 finetune step (K6-f32) holds every leaf to F32_FT_TOL of the
+# gate-off step with the heads' FFN activation F32_SMOOTH_HEADS (one of
+# CLIPConfig's); with the default ReLU heads it holds the loss. A ReLU input
+# that sits within an f32 rounding of 0 flips its gradient path under any
+# change of the wi product's roundings: on an H100 the step with wi in exact
+# f32 summed in another order (cuBLAS over the two halves of H) read 9.99e-05
+# of the heads' aa_ffn/blocks/w leaf against the gate off, as did K6-f32,
+# and 2.1e-04 to 4.4e-04 in its variants: whole flips, the same with any
+# product that is not cuBLAS's to the bit.
+F32_SMOOTH_HEADS = "gelu"
 # K2/K3 against their plain version, both f32 (3xTF32 products on the
 # tensor cores against cuBLAS f32 and logsumexp: the same sums in another
 # order, over up to 4096 terms): |loss - ref| <= 1e-5 max(1, |ref|),
@@ -559,16 +574,18 @@ MM_BF16_TOL = 1e-5
 K6_ROWS = (64, 128, 3072, 10240)
 FFN_ULPS, FFN_SHARE = 4, 1e-3
 # K6-f32 (ffn_gelu_f32) against its plain version, both f32 (TF32 off), in
-# K1-f32's form: |err| <= F32_ATOL_RMS * rms(ref) + F32_RTOL * |ref|. Both
-# compute the same f32 products, the bias add and the gelu; they differ by
-# the order of the k sums (one FFMA chain an output against cuBLAS's) and
-# erff against torch's erf. Readings near 1e-6 of rms(ref) were expected
-# before the first; an H100 read 0 at N >= 3072 for every width but H =
-# 2560 (cuBLAS's f32 GEMM sums in the kernel's order there; 1.7e-5 at H =
-# 2560) and up to 2.7e-5 at 128 tokens (the most at H = 5120), 0.11 of the
-# limit. A k-loop that drops its last k-tile of 16 moves an output by about
-# sqrt(16 / H) of rms(ref) (0.06 at H = 5120), and TF32 products by about
-# 1e-3 relative: both past the limit.
+# K1-f32's form: |err| <= F32_ATOL_RMS * rms(ref) + F32_RTOL * |ref|. The
+# kernel's products are 3xTF32 (each operand split into TF32 hi and lo,
+# hi.hi + hi.lo + lo.hi; lo.lo, 2^-22 relative, left out), each k-tile's
+# sum promoted to f32 registers, in another order than cuBLAS's f32 GEMM;
+# and erff against torch's erf. The limit was set for the FFMA kernel this
+# one replaced (up to 2.7e-5 of rms(ref)); 3xTF32 reads up to 2.6e-5 on
+# an H100 (the most at H = 5120), 0.042 of the limit (tools/probe_ffn_f32.py),
+# and 0.008 of it in the CPU emulation (tests/test_torch_ffn_f32.py).
+# A main loop that drops its last k-tile of 32 moves an output by about
+# sqrt(32 / H) of rms(ref), and plain TF32 (one product) by about 1e-3
+# relative (4.4-4.8 times the limit in the emulation at 256 tokens): both
+# past the limit.
 # Cases: t30_150M's wi at K6_ROWS tokens, erf and tanh; the edges
 # (EDGE_SHAPES, and K6_F32_EDGES where the large 128 x 128 tile runs with a
 # partial last row and column tile); each family's wi (FFN_WIDTHS: t6_8M,
@@ -580,9 +597,10 @@ K6_F32_EDGES = ((3073, 640, 2568), (1031, 1280, 5128))
 # The gated f32 frozen step's loss against the gate-off step's (relative)
 K6_F32_STEP_LOSS_TOL = 1e-5
 # The planted faults, each a patched copy of csrc/ built under
-# _build/fault/<name>/ and never loaded by the package: P1 and K6's shared
-# main loop (csrc/mma_gemm.cuh) drops its last k-tile, and so does K6-f32's
-# k-loop (csrc/ffn_gelu_f32.cu); K1's key loop and
+# _build/fault/<name>/ and never loaded by the package: P1, K6 and K6-f32's
+# shared main loop (csrc/mma_gemm.cuh) drops its last k-tile (main_loop;
+# K6-f32's build of it is also ffn_f32_k_tile, built once), and K6-f32 drops
+# its two correction products (plain TF32, ffn_f32_tf32); K1's key loop and
 # K5's dk/dv query loop (csrc/attention.cuh) drop their last tile; the
 # attention kernels' skip predicate misses a pair of tiles whose segment
 # ranges meet at one id (the query tile's smallest, the key tile's largest);
@@ -593,16 +611,17 @@ K6_F32_STEP_LOSS_TOL = 1e-5
 FAULT_LINE = "  const int n_tiles = (K * Op::kEltBytes + kTileBytes - 1) / kTileBytes;"
 SWEEP_FAULT_LINE = "  return (T + kTile - 1) / kTile;"
 SKIP_FAULT_LINE = "  return q.x <= k.y && k.x <= q.y;"
-FFN_F32_FAULT_LINE = "  const int n_tiles = K / kBK;"
 MAXSIM_SKIP_LINE = ("          if (!__any_sync(0xffffffffu, (mbv.x | mbv.y) != 0)) continue;  "
                     "// an empty b-tile")
 MAXSIM_TF32_LINE = "constexpr int kProducts = 3;  // TF32 products per k-step: hi.hi, hi.lo, lo.hi"
 INFONCE_PARTIAL_LINE = ("__device__ __forceinline__ int summed_tiles(int B) "
                         "{ return tiles_of(B); }")
 FAULTS = {   # name: (header, line, patched line, kernels built)
-    "main_loop": ("mma_gemm.cuh", FAULT_LINE, FAULT_LINE[:-1] + " - 1;", ("dense_mm", "ffn_gelu")),
-    "ffn_f32_k_tile": ("ffn_gelu_f32.cu", FFN_F32_FAULT_LINE, FFN_F32_FAULT_LINE[:-1] + " - 1;",
-                       ("ffn_gelu_f32",)),
+    "main_loop": ("mma_gemm.cuh", FAULT_LINE, FAULT_LINE[:-1] + " - 1;",
+                  ("dense_mm", "ffn_gelu", "ffn_gelu_f32")),
+    "ffn_f32_k_tile": ("mma_gemm.cuh", FAULT_LINE, FAULT_LINE[:-1] + " - 1;", ("ffn_gelu_f32",)),
+    "ffn_f32_tf32": ("mma_gemm.cuh", MAXSIM_TF32_LINE, MAXSIM_TF32_LINE.replace("3;", "1;"),
+                     ("ffn_gelu_f32",)),
     "swept_tiles": ("attention.cuh", SWEEP_FAULT_LINE, SWEEP_FAULT_LINE[:-1] + " - 1;",
                     ("attention_fwd", "attention_bwd", *F32_KERNELS)),
     "skip": ("attention.cuh", SKIP_FAULT_LINE, SKIP_FAULT_LINE.replace("q.x <=", "q.x <"),
@@ -1443,29 +1462,37 @@ def check_ffn_f32(cases: list) -> float:
     return max(r["max_abs_err"] for r in rows)
 
 
+FFN_F32_FAULTS = {"ffn_f32_k_tile": "K6-f32's k-loop drops its last k-tile",
+                  "ffn_f32_tf32": "K6-f32 in plain TF32, one product a k-step"}
+
+
 def check_ffn_f32_fault(libs: dict, cases: list) -> dict:
-    """K6-f32's check against its planted fault (the k-loop drops its last
-    k-tile): it must fail every case."""
-    with ffn_kernels(libs["ffn_f32_k_tile"]):
-        rows = k6_f32_readings(cases)
-    passed = [r["case"] for r in rows if r["ratio"] <= 1]
-    least = min(rows, key=lambda r: r["ratio"])
-    log(f"[kernels] planted fault ffn_f32_k_tile (K6-f32's k-loop drops its last k-tile): fails "
-        f"{len(rows) - len(passed)} of {len(rows)} cases, at least {least['ratio']:.4g} x the "
-        f"tolerance ({least['case']}), worst "
-        f"{max(r['ratio'] for r in rows):.4g} x; cases it passes: {passed or 'none'}")
-    if passed:
-        raise AssertionError("the ffn_gelu_f32 check does not see the planted k-tile fault")
-    return {"ffn_gelu_f32_k_tile": {"cases": len(rows), "cases_failed": len(rows),
-                                    "least_ratio": least["ratio"],
-                                    "worst_ratio": max(r["ratio"] for r in rows)}}
+    """K6-f32's check against its planted faults (FFN_F32_FAULTS): each must
+    fail every case."""
+    out = {}
+    for name, what in FFN_F32_FAULTS.items():
+        with ffn_kernels(libs[name]):
+            rows = k6_f32_readings(cases)
+        passed = [r["case"] for r in rows if r["ratio"] <= 1]
+        least = min(rows, key=lambda r: r["ratio"])
+        log(f"[kernels] planted fault {name} ({what}): fails {len(rows) - len(passed)} of "
+            f"{len(rows)} cases, at least {least['ratio']:.4g} x the tolerance "
+            f"({least['case']}), worst {max(r['ratio'] for r in rows):.4g} x; cases it passes: "
+            f"{passed or 'none'}")
+        if passed:
+            raise AssertionError(f"the ffn_gelu_f32 check does not see the planted fault {name}")
+        out[name.replace("ffn_f32", "ffn_gelu_f32")] = {
+            "cases": len(rows), "cases_failed": len(rows), "least_ratio": least["ratio"],
+            "worst_ratio": max(r["ratio"] for r in rows)}
+    return out
 
 
 def build_faults(names=tuple(FAULTS)) -> dict:
     """The planted faults ``names`` of FAULTS, each kernel of one built from
     its own patched copy of csrc/ under _build/fault/<name>/: {name:
-    {kernel: library path}}. All builds run at once."""
-    jobs = []
+    {kernel: library path}}; a kernel that two faults patch alike is built
+    once, for the first. All builds run at once."""
+    jobs, libs, built = [], {}, {}
     for name in names:
         header, line, patched, kernels = FAULTS[name]
         shutil.rmtree(FAULT_DIR / name, ignore_errors=True)
@@ -1476,13 +1503,14 @@ def build_faults(names=tuple(FAULTS)) -> dict:
             raise AssertionError(f"the planted fault's line ({name}) is not in csrc/{header} once")
         (src / header).write_text(text.replace(line, patched))
         cmd = [build._nvcc(), *build.NVCC_FLAGS, "-I", str(src)]
-        jobs += [(name, kernel, cmd, src / f"{kernel}.cu",
-                  FAULT_DIR / name / f"lib{kernel}_fault.so") for kernel in kernels]
+        for kernel in kernels:
+            lib = built.setdefault((header, line, patched, kernel),
+                                   FAULT_DIR / name / f"lib{kernel}_fault.so")
+            libs.setdefault(name, {})[kernel] = lib
+            if lib.parent.name == name:
+                jobs.append((cmd, src / f"{kernel}.cu", lib))
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
-        list(pool.map(lambda job: build.compile_library(*job[2:]), jobs))
-    libs = {}
-    for name, kernel, _, _, lib in jobs:
-        libs.setdefault(name, {})[kernel] = lib
+        list(pool.map(lambda job: build.compile_library(*job), jobs))
     return libs
 
 
@@ -1497,6 +1525,29 @@ def ffn_kernels(libs: dict):
         yield
     finally:
         ffn._launcher = saved
+
+
+def reordered_dense_gelu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                         mode: str) -> torch.Tensor:
+    """dense_gelu's plain version in exact f32 summed in another order (the
+    two halves of H through cuBLAS, TF32 off, then added): how far the f32
+    steps move when only the wi product's f32 roundings change."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"reordered_dense_gelu takes f32, got {x.dtype}")
+    h = x.shape[1] // 2
+    z = torch.matmul(x[:, :h], w[:h]) + torch.matmul(x[:, h:], w[h:]) + b
+    return ffn._gelu_f32(z, mode)
+
+
+@contextlib.contextmanager
+def ffn_forward(fn):
+    """ops.ffn's forward is ``fn`` while the block runs (under the gate)."""
+    saved = ffn._forward
+    ffn._forward = fn
+    try:
+        yield
+    finally:
+        ffn._forward = saved
 
 
 @contextlib.contextmanager
@@ -3606,7 +3657,7 @@ def attention_function(forward, backward):
 
 def finetune_step_runs(fault_libs: dict, packed: bool = False, family: str = "t30_150M",
                        pool: int = 256, names: tuple | None = None,
-                       dtype: torch.dtype = torch.bfloat16) -> dict:
+                       dtype: torch.dtype = torch.bfloat16, activation: str = "relu") -> dict:
     """One finetune step of ``family`` (t30_150M) at global batch ``pool``
     (256; one pad bucket in 16 chunks, or with ``packed`` the packed step
     over the same pairs; remat, dropout 0, the two-group Adam) from the same
@@ -3618,11 +3669,14 @@ def finetune_step_runs(fault_libs: dict, packed: bool = False, family: str = "t3
     and the swept_tiles planted-fault build of K5 (its dk/dv loop drops
     the last query tile); "eager" and "eager_f32"
     attention_impl="eager" (plain attention through autograd) with a bf16
-    and an f32 backbone; "gated", "gated_again" and "gated_fault" run
-    "kernel" under PCT_FFN_PALLAS=1 (K6 in the backbone's dtype once a layer
-    per chunk forward and remat recompute; "gated_fault" through the
-    ffn_f32_k_tile planted-fault build of K6-f32), and are run only when
-    ``names`` asks for them. The packed step runs "kernel" twice ("again")
+    and an f32 backbone; "gated", "gated_again", "gated_fault" and
+    "gated_tf32" run "kernel" under PCT_FFN_PALLAS=1 (K6 in the backbone's
+    dtype once a layer per chunk forward and remat recompute; "gated_fault"
+    and "gated_tf32" through the ffn_f32_k_tile and ffn_f32_tf32
+    planted-fault builds of K6-f32); "gated_reordered" runs the gate with
+    reordered_dense_gelu in place of the kernel (no K6 launch). They are run
+    only when ``names`` asks for them. ``activation`` is the heads' FFN
+    activation (CLIPConfig's; relu by default). The packed step runs "kernel" twice ("again")
     and leaves out "plain_fwd_k5" and "plain". With ``dtype`` float32 the
     fused runs take an f32 backbone through K1-f32 and K5-f32 (their plain
     versions, their fault)."""
@@ -3654,8 +3708,11 @@ def finetune_step_runs(fault_libs: dict, packed: bool = False, family: str = "t3
             ("eager_f32", "eager", torch.float32, k1, k5, (0, 0)),
             ("gated", "fused", dtype, k1, k5, (3 * L * c, L * c)),
             ("gated_again", "fused", dtype, k1, k5, (3 * L * c, L * c)),
-            ("gated_fault", "fused", dtype, k1, k5, (3 * L * c, L * c)))
-    gated = ("gated", "gated_again", "gated_fault")
+            ("gated_fault", "fused", dtype, k1, k5, (3 * L * c, L * c)),
+            ("gated_tf32", "fused", dtype, k1, k5, (3 * L * c, L * c)),
+            ("gated_reordered", "fused", dtype, k1, k5, (3 * L * c, L * c)))
+    gated = ("gated", "gated_again", "gated_fault", "gated_tf32", "gated_reordered")
+    gated_faults = {"gated_fault": "ffn_f32_k_tile", "gated_tf32": "ffn_f32_tf32"}
     skipped = ("plain_fwd_k5", "plain", *gated) if packed else ("again", *gated)
     if names is not None:
         skipped = tuple(run[0] for run in runs if run[0] not in names)
@@ -3666,7 +3723,8 @@ def finetune_step_runs(fault_libs: dict, packed: bool = False, family: str = "t3
             continue
         esm_cfg = dataclasses.replace(base, attention_impl=impl, compute_dtype=dtype)
         cfg = clip_engine.EngineConfig(
-            model=clip.CLIPConfig(input_dim=base.hidden_size, dropout=0.0, esm=esm_cfg),
+            model=clip.CLIPConfig(input_dim=base.hidden_size, dropout=0.0,
+                                  activation=activation, esm=esm_cfg),
             batch_size=pool // 16, accumulated_batches=16, packed=packed)
         params = finetune.init_params(esm0, clone_tree(heads0))
         state = capturing(finetune.make_optimizer(cfg).init(params), params)
@@ -3676,7 +3734,8 @@ def finetune_step_runs(fault_libs: dict, packed: bool = False, family: str = "t3
         faulty = (attention_kernels(fault_libs["swept_tiles"],
                                     (attention._kernel("attention_bwd", dtype),))
                   if name == "fault" else
-                  ffn_kernels(fault_libs["ffn_f32_k_tile"]) if name == "gated_fault"
+                  ffn_kernels(fault_libs[gated_faults[name]]) if name in gated_faults
+                  else ffn_forward(reordered_dense_gelu) if name == "gated_reordered"
                   else contextlib.nullcontext())
         with attention_function(fwd, bwd), faulty, \
                 ffn_gate() if name in gated else contextlib.nullcontext():
@@ -3685,7 +3744,7 @@ def finetune_step_runs(fault_libs: dict, packed: bool = False, family: str = "t3
         calls = tuple(attention.launches[n] - b for n, b in zip(counted, before))
         k6 = {n: ffn.launches[n] - b for n, b in ffn_before.items()}
         want_k6 = dict.fromkeys(ffn.launches, 0)
-        if name in gated:
+        if name in gated and name != "gated_reordered":
             want_k6[ffn.KERNELS[dtype]] = want[0]
         if calls != want or k6 != want_k6:
             raise AssertionError(f"finetune step check ({name}): (attention_fwd, "
@@ -4129,7 +4188,10 @@ def check_f32_finetune_step(fault_libs: dict) -> dict:
     PCT_FFN_PALLAS=1 against it (check_f32_gated_step)."""
     out = finetune_step_runs(fault_libs, packed=True,
                              names=("kernel", "k1_plain_bwd", "fault", "gated", "gated_again",
-                                    "gated_fault"), dtype=torch.float32)
+                                    "gated_reordered"), dtype=torch.float32)
+    smooth = finetune_step_runs(fault_libs, packed=True,
+                                names=("kernel", "gated", "gated_fault", "gated_tf32"),
+                                dtype=torch.float32, activation=F32_SMOOTH_HEADS)
     (lk, gk), (lp, gp), (_, gf) = out["kernel"], out["k1_plain_bwd"], out["fault"]
     tight = {k: v[0] for k, v in leaf_gaps(gk, gp).items()}
     fault = {k: v[0] for k, v in leaf_gaps(gf, gp).items()}
@@ -4153,38 +4215,65 @@ def check_f32_finetune_step(fault_libs: dict) -> dict:
                              "query tile")
     return {"loss_rel_err": loss_rel, "grad_rel_err": tight[worst], "grad_leaf": worst,
             "fault_rel_err": fault[worst_fault], "fault_leaf": worst_fault,
-            "tolerance": F32_FT_TOL, "k6_gate": check_f32_gated_step(out)}
+            "tolerance": F32_FT_TOL, "k6_gate": check_f32_gated_step(out, smooth)}
 
 
-def check_f32_gated_step(out: dict) -> dict:
+def worst_leaf(a: dict, b: dict) -> tuple[str, float]:
+    """The leaf of the largest max|a - b| / max|b| and that ratio."""
+    gaps = {k: v[0] for k, v in leaf_gaps(a, b).items()}
+    leaf = max(gaps, key=gaps.get)
+    return leaf, gaps[leaf]
+
+
+def check_f32_gated_step(out: dict, smooth: dict) -> dict:
     """The f32 packed finetune step under PCT_FFN_PALLAS=1 (K6-f32 in the
     forward, plain_composition's f32 GEMMs in the backward) against the
-    same step with the gate off, both through K1-f32/K5-f32: every leaf
-    within F32_FT_TOL of its largest entry, the loss within FT_LOSS_TOL
-    relative; K6-f32's planted k-tile fault past it; run twice, equal to the
-    bit."""
-    (lk, gk), (lg, gg), (lga, gga), (_, gf) = (out[k] for k in (
-        "kernel", "gated", "gated_again", "gated_fault"))
-    tight = {k: v[0] for k, v in leaf_gaps(gg, gk).items()}
-    fault = {k: v[0] for k, v in leaf_gaps(gf, gk).items()}
-    worst, worst_fault = max(tight, key=tight.get), max(fault, key=fault.get)
+    same step with the gate off, both through K1-f32/K5-f32. With the
+    default ReLU heads (``out``): the loss within FT_LOSS_TOL relative, run
+    twice equal to the bit, and every leaf's gap printed beside the gap of
+    the same step with the wi product in exact f32 summed in another order
+    (gated_reordered), which ReLU flips set (F32_SMOOTH_HEADS). With
+    F32_SMOOTH_HEADS (``smooth``): every leaf within F32_FT_TOL of its
+    largest entry, the loss within FT_LOSS_TOL; K6-f32's planted faults
+    (FFN_F32_FAULTS) each past F32_FT_TOL in a leaf."""
+    (lk, gk), (lg, gg), (lga, gga), (lr, gr) = (out[k] for k in (
+        "kernel", "gated", "gated_again", "gated_reordered"))
+    relu_leaf, relu_gap = worst_leaf(gg, gk)
+    floor_leaf, floor_gap = worst_leaf(gr, gk)
     loss_rel = abs(lg - lk) / abs(lk)
     same = lg == lga and all(torch.equal(gg[k], gga[k]) for k in gg)
-    ok = tight[worst] <= F32_FT_TOL and loss_rel <= FT_LOSS_TOL
+    (sk, gsk), (sg, gsg) = smooth["kernel"], smooth["gated"]
+    smooth_leaf, smooth_gap = worst_leaf(gsg, gsk)
+    smooth_loss = abs(sg - sk) / abs(sk)
+    ok = loss_rel <= FT_LOSS_TOL and smooth_loss <= FT_LOSS_TOL and smooth_gap <= F32_FT_TOL
+    faults = {}
+    for run, name in (("gated_fault", "ffn_f32_k_tile"), ("gated_tf32", "ffn_f32_tf32")):
+        lf, gf = smooth[run]
+        leaf, gap = worst_leaf(gf, gsk)
+        faults[name] = {"loss_rel_err": abs(lf - sk) / abs(sk), "grad_rel_err": gap,
+                        "grad_leaf": leaf}
     log(f"[f32 train] packed finetune step at 256 in f32 under PCT_FFN_PALLAS=1 (K6-f32) "
-        f"against the gate off: loss {lg:.9f} vs {lk:.9f}, relative {loss_rel:.3g} (tolerance "
-        f"{FT_LOSS_TOL:g}); largest max|err|/leaf max {tight[worst]:.4g} ({worst}; tolerance "
-        f"{F32_FT_TOL:g}); the planted fault (K6-f32's k-loop drops its last k-tile): "
-        f"{fault[worst_fault]:.4g} ({worst_fault}); run twice: "
-        f"{'equal' if same else 'DIFFERENT'} to the bit {'ok' if ok else 'FAIL'}")
+        f"against the gate off, ReLU heads: loss {lg:.9f} vs {lk:.9f}, relative "
+        f"{loss_rel:.3g} (tolerance {FT_LOSS_TOL:g}); largest max|err|/leaf max {relu_gap:.4g} "
+        f"({relu_leaf}), with the wi product in exact f32 in another order "
+        f"{floor_gap:.4g} ({floor_leaf}; loss {abs(lr - lk) / abs(lk):.3g}); run twice: "
+        f"{'equal' if same else 'DIFFERENT'} to the bit. {F32_SMOOTH_HEADS} heads: loss "
+        f"{smooth_loss:.3g}, largest max|err|/leaf max {smooth_gap:.4g} ({smooth_leaf}; "
+        f"tolerance {F32_FT_TOL:g}); the planted faults: "
+        + "; ".join(f"{name} ({FFN_F32_FAULTS[name]}) loss {f['loss_rel_err']:.3g}, "
+                    f"{f['grad_rel_err']:.4g} ({f['grad_leaf']})" for name, f in faults.items())
+        + f" {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("the gated f32 finetune step disagrees with the gate off")
-    if fault[worst_fault] <= F32_FT_TOL:
-        raise AssertionError("the gated f32 step check does not see K6-f32's k-tile fault")
+    for name, f in faults.items():
+        if f["grad_rel_err"] <= F32_FT_TOL:
+            raise AssertionError(f"the gated f32 step check does not see K6-f32's fault {name}")
     if not same:
         raise AssertionError("the gated f32 finetune step is not repeatable to the bit")
-    return {"loss_rel_err": loss_rel, "grad_rel_err": tight[worst], "grad_leaf": worst,
-            "fault_rel_err": fault[worst_fault], "fault_leaf": worst_fault,
+    return {"loss_rel_err": loss_rel, "relu_grad_rel_err": relu_gap, "relu_grad_leaf": relu_leaf,
+            "reordered_f32_grad_rel_err": floor_gap, "reordered_f32_grad_leaf": floor_leaf,
+            "smooth_heads": F32_SMOOTH_HEADS, "smooth_loss_rel_err": smooth_loss,
+            "grad_rel_err": smooth_gap, "grad_leaf": smooth_leaf, "faults": faults,
             "deterministic": same, "tolerance": F32_FT_TOL}
 
 
@@ -5791,7 +5880,7 @@ def main() -> int:
         "launches": f32k6["launches"]["ffn_gelu_f32"],
         "launches_by_path": by_path["ffn_gelu_f32"], "max_abs_err": k6_f32_err, **k6_f32_times,
         "at_128_tokens": short_times["ffn_f32"],
-        "fault": fault_reads["ffn_gelu_f32_k_tile"],
+        "fault": {k: fault_reads[k] for k in ("ffn_gelu_f32_k_tile", "ffn_gelu_f32_tf32")},
         "cos_min_vs_gate_off": f32k6["cos_min"], "max_abs_diff_vs_gate_off": f32k6["max_abs_diff"],
         "serving": f32k6["times"], "gate_off_serving": f32s["times"],
         "train_frozen_step": {k: f32train["frozen_step"][k]

@@ -8,11 +8,13 @@ CUDA tensors of the operands' dtype, x, W and b all bf16 or all f32:
 
 - bf16: ``csrc/ffn_gelu.cu`` (K6; wgmma on ``csrc/mma_gemm.cuh``'s TMA
   ring, P1's loop);
-- f32 (``--esm-dtype float32``): ``csrc/ffn_gelu_f32.cu`` (K6-f32; exact
-  f32 products by FFMA on the CUDA cores, no TF32).
+- f32 (``--esm-dtype float32``): ``csrc/ffn_gelu_f32.cu`` (K6-f32;
+  3xTF32 on wgmma on the same ring: each operand split into TF32 hi and
+  lo, hi.hi + hi.lo + lo.hi summed in f32, f32-accurate as K4, K2 and K3
+  are, not exact f32).
 
-Both share ``csrc/gelu.cuh``, and each kernel's note gives its bound on an
-H100 and its design. On CPU tensors the forward is the plain
+Both share ``csrc/gelu.cuh`` and ``csrc/mma_gemm.cuh``, and each kernel's
+note gives its bound on an H100 and its design. On CPU tensors the forward is the plain
 ``dense_gelu_reference``. Its backward, as the TPU ``_bwd`` replays
 ``_eager``, is autograd through ``plain_composition`` recomputed from (x, W,
 b): the gate-off path's arithmetic, so the kernel is a forward-path
@@ -43,7 +45,7 @@ from ..kernels import build
 
 MODES = {"erf": 0, "tanh": 1}
 H_MULTIPLE, M_MULTIPLE = 16, 8   # a wgmma k-step (bf16) and 8 columns (16 bytes)
-MAX_ROWS = 65535 * 256           # grid.y blocks of 256 rows (bf16; f32's rows are unbounded)
+MAX_ROWS = 65535 * 256           # grid.y blocks of 256 rows (bf16; f32's run along grid.x)
 # The kernel of each dtype the operands may have
 KERNELS = {torch.bfloat16: "ffn_gelu", torch.float32: "ffn_gelu_f32"}
 # Kernel launches since the counts were last set to 0 (chip_smoke.py reads

@@ -76,12 +76,12 @@ def profile_request(name: str, seqs: list[str], encode, dtype: torch.dtype,
                if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
     busy_us = sum(e.self_device_time_total for e in kernels)
     n_launch = sum(e.count for e in kernels) / n
-    # P1 and K6 are one kernel template (csrc/mma_gemm.cuh's gemm_kernel),
-    # told apart by their epilogue types; K6-f32 is a kernel of its own
+    # P1, K6 and K6-f32 are one kernel template (csrc/mma_gemm.cuh's
+    # gemm_kernel), told apart by their epilogue types
     shares = {k: sum(e.self_device_time_total for e in kernels if sym in e.key)
               for k, sym in ((f"K1{sfx}", "attention_fwd"), ("K4", "filip_maxsim_kernel"),
                              ("P1", "DenseMmOut"),
-                             (f"K6{sfx}", "ffn_gelu_f32_kernel" if sfx else "FfnGeluOut"))}
+                             (f"K6{sfx}", "FfnGeluF32Out" if sfx else "FfnGeluOut"))}
     print(f"[{name}] wall p50 {1e3 * statistics.median(walls):.4f} ms (10 calls); "
           f"profiled {n} calls: device busy {busy_us / n / 1e3:.4f} ms per call = "
           f"{100 * busy_us / 1e6 / window:.2f}% of the wall time; "

@@ -479,7 +479,7 @@ def main(argv=None) -> int:
           f"{k5} {k5_name} calls of 2 launches, {k2} InfoNCE forward calls, {k4} K4, {k6} "
           f"{k6_name}); K1 {share('attention_fwd')}, K5 {share('attention_bwd')}, K4 "
           f"{share('filip_maxsim')}, K6 "
-          f"{share('ffn_gelu_f32_kernel' if k6_name == 'ffn_gelu_f32' else 'FfnGeluOut')} "
+          f"{share('FfnGeluF32Out' if k6_name == 'ffn_gelu_f32' else 'FfnGeluOut')} "
           "of the device time")
     for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:14]:
         us = e.self_device_time_total

@@ -1244,7 +1244,7 @@ def _s8(shape, dev, seed):
     return torch.randint(-128, 128, shape, generator=g, device=dev, dtype=torch.int8)
 
 
-# The main loop's k-tile: 128 bytes, 128 s8 or 64 bf16 columns of x.
+# The main loop's k-tile: 128 bytes, 128 s8 or 64 bf16 columns of x (32 f32).
 S8_TILE, BF16_TILE = 128, 64
 
 
@@ -1536,8 +1536,9 @@ def test_finetune_step_under_the_ffn_gate(dev, monkeypatch):
 # in K1-f32's form (_assert_f32_close; chip_smoke.py states the margin):
 # each family's wi at 1, 128 and 1000 tokens, the main loop's edges (bf16's
 # H) and chip_smoke.K6_F32_EDGES, where the 128 x 128 tile runs with a
-# partial last row and column tile. The k-loop's tile is 16 columns of x.
-F32_K_TILE = 16
+# partial last row and column tile. The main loop's k-tile is 128 bytes,
+# 32 f32 columns of x.
+F32_K_TILE = 32
 FFN_F32_SHAPES = ([(n, h, m) for h, m in chip_smoke.FFN_WIDTHS for n in (1, 128, 1000)]
                   + [(n, k // 2, m) for n in EDGE_N for k, m in EDGE_KM]
                   + list(chip_smoke.K6_F32_EDGES))
@@ -1560,18 +1561,19 @@ def test_ffn_gelu_f32_matches_plain(no_tf32, N, H, M, mode):
 
 
 @pytest.fixture(scope="module")
-def ffn_f32_fault_lib():
-    """K6-f32 built with its k-loop dropping the last k-tile
-    (chip_smoke.FAULTS["ffn_f32_k_tile"])."""
+def ffn_f32_fault_libs():
+    """K6-f32 built with its k-loop dropping the last k-tile and in plain
+    TF32 (chip_smoke.FAULTS["ffn_f32_k_tile"], ["ffn_f32_tf32"])."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
-    return chip_smoke.build_faults(("ffn_f32_k_tile",))["ffn_f32_k_tile"]
+    return chip_smoke.build_faults(tuple(chip_smoke.FFN_F32_FAULTS))
 
 
+@pytest.mark.parametrize("fault", list(chip_smoke.FFN_F32_FAULTS))
 @pytest.mark.parametrize("N,H,M", [(128, 640, 2560), (1031, 1280, 5128), (1, 16, 8)])
-def test_ffn_gelu_f32_check_sees_the_planted_fault(no_tf32, ffn_f32_fault_lib, N, H, M):
+def test_ffn_gelu_f32_check_sees_the_planted_fault(no_tf32, ffn_f32_fault_libs, N, H, M, fault):
     x, w, b = chip_smoke.ffn_f32_inputs(N, H, M, 7)
-    with chip_smoke.ffn_kernels(ffn_f32_fault_lib):
+    with chip_smoke.ffn_kernels(ffn_f32_fault_libs[fault]):
         bad = ffn.dense_gelu(x, w, b, "erf")
     torch.cuda.synchronize()
     with pytest.raises(AssertionError):
@@ -1613,7 +1615,7 @@ def test_f32_finetune_step_under_the_ffn_gate(no_tf32, monkeypatch):
     backward. Every leaf within chip_smoke.F32_FT_TOL of its largest entry,
     the loss within chip_smoke.FT_LOSS_TOL; run twice, equal to the bit; a
     K6-f32 whose k-loop drops its last k-tile (emulated by zeroing x's last
-    16 columns) past the limit."""
+    F32_K_TILE columns) past the limit."""
     from protein_clip_tpu_torch.train import finetune
 
     dev = no_tf32

@@ -29,8 +29,15 @@ Tolerances, float32 on both sides (sums in other orders):
   the f32 embed;
 - one packed finetune and one packed LoRA step: the loss within 1e-5
   relative and every gradient within 1e-5 of its leaf's largest entry, as
-  ``tests/test_torch_finetune.py`` holds the packed steps.
+  ``tests/test_torch_finetune.py`` holds the packed steps;
+- the card kernel's arithmetic (3xTF32: ``csrc/mma_gemm.cuh``'s F32
+  operand type), emulated in numpy, against JAX's kernel in f32 within
+  chip_smoke.py's limit for K6-f32 on the card, F32_ATOL_RMS rms(ref) +
+  F32_RTOL |ref| (2^-12 each), at each ESM-2 family's wi; the same
+  emulation with one TF32 product (plain TF32) must fail that limit.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -51,6 +58,7 @@ from protein_clip_tpu_torch.cli import embed
 from protein_clip_tpu_torch.models import clip, esm2
 from protein_clip_tpu_torch.ops import ffn
 from protein_clip_tpu_torch.train import checkpoint, clip_engine, finetune, lora
+from chip_smoke import F32_ATOL_RMS, F32_RTOL, FFN_WIDTHS
 from test_torch_finetune import (RTOL, Capturing, assert_grads_close, jax_capture, np_tree,
                                  port_params, run_packed_steps)
 
@@ -243,3 +251,72 @@ def test_gated_f32_packed_lora_ffn_step_matches_jax(gate):
     _assert_step_matches(gate, out)
     assert max(float(g.abs().max()) for k, g in out[1][0].items()
                if k.startswith("lora/ffn/wi")) > 1e-8
+
+
+# K6-f32's arithmetic on the card, emulated: EMU_N tokens (JAX's kernel
+# takes N in blocks of 256) through each family's wi, its first EMU_M
+# output columns (each column's sum is its own: H, not M, is what the
+# arithmetic sees).
+EMU_N, EMU_M = 256, 1024
+K_TILE = 32   # the main loop's k-tile: 128 bytes of f32
+
+
+def _tf32(x):
+    """f32 -> tf32 as the kernel rounds (tf32_rna: to nearest, ties away
+    from zero, on the magnitude's bits), in f32 with the low 13 bits
+    cleared."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xffffe000)).view(np.float32)
+
+
+def _emulated_k6_f32(x, w, b, mode, products=3):
+    """K6-f32's arithmetic in numpy: x and W each split into hi = tf32(v)
+    and lo = tf32(v - hi); per k-tile of K_TILE, hi.hi + hi.lo + lo.hi
+    (products=3), or hi.hi alone (plain TF32), summed in f32 into a fresh
+    partial that is then added to the f32 sum; the bias, then gelu in f32
+    (the plain version's, as ``csrc/gelu.cuh``)."""
+    xh, wh = _tf32(x), _tf32(w)
+    xl, wl = _tf32(x - xh), _tf32(w - wh)
+    acc = np.zeros((x.shape[0], w.shape[1]), np.float32)
+    for k in range(0, x.shape[1], K_TILE):
+        s = slice(k, k + K_TILE)
+        part = xh[:, s] @ wh[s]
+        if products == 3:
+            part = part + xh[:, s] @ wl[s] + xl[:, s] @ wh[s]
+        acc = acc + part
+    return ffn._gelu_f32(torch.from_numpy(acc + b), mode).numpy()
+
+
+@functools.cache
+def _wi_case(H, M, mode):
+    """(x, W, b) at EMU_N tokens and the first EMU_M columns of a (H, M)
+    wi, and JAX's f32 output: its Pallas kernel in interpret mode where
+    ``ffn_pallas.fits`` takes the shape, else ``_eager``, the composition
+    the kernel stands for."""
+    m = min(M, EMU_M)
+    arrays = _xwb(H + m, EMU_N, H, m)
+    fn = ffn_pallas._call if ffn_pallas.fits(EMU_N, H, m) else ffn_pallas._eager
+    return arrays, np.asarray(fn(*(jnp.asarray(a) for a in arrays), mode))
+
+
+def _over_limit(got, want):
+    """The largest |got - want| over chip_smoke.py's K6-f32 limit."""
+    limit = F32_ATOL_RMS * np.sqrt(np.mean(np.square(want))) + F32_RTOL * np.abs(want)
+    return float((np.abs(got - want) / limit).max())
+
+
+@pytest.mark.parametrize("mode", ["erf", "tanh"])
+@pytest.mark.parametrize("H,M", FFN_WIDTHS,
+                         ids=["t6_8M", "t12_35M", "t30_150M", "t33_650M", "t36_3B", "t48_15B"])
+def test_emulated_3xtf32_matches_the_pallas_kernel(H, M, mode):
+    arrays, want = _wi_case(H, M, mode)
+    got = _emulated_k6_f32(*arrays, mode)
+    assert got.dtype == np.float32 and np.isfinite(got).all()
+    assert _over_limit(got, want) <= 1
+
+
+@pytest.mark.parametrize("H,M", FFN_WIDTHS,
+                         ids=["t6_8M", "t12_35M", "t30_150M", "t33_650M", "t36_3B", "t48_15B"])
+def test_emulated_plain_tf32_fails_the_limit(H, M):
+    arrays, want = _wi_case(H, M, "erf")
+    assert _over_limit(_emulated_k6_f32(*arrays, "erf", products=1), want) > 1
