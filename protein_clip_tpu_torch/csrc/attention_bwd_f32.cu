@@ -4,42 +4,58 @@
 // Replaces protein_clip_tpu/ops/attention_pallas.py::_bwd_kernel / _bwd_row
 // (launched by _attention_bwd_call as the VJP of fused_attention) for f32
 // q, k, v and dO. Same function as K5 (attention_bwd.cu) with no rounding
-// to bf16: P = softmax of the masked scores in f32; dP = dO.v^T;
+// to bf16: P = softmax of the masked scores; dP = dO.v^T;
 // delta = rowsum(P * dP); dS = P * (dP - delta) where allowed, else 0 (a
 // pad query row's uniform P feeds dv but gives no dq or dk); dq = dS.k,
-// dk = dS^T.q, dv = P^T.dO, in f32. P comes from K1-f32's statistics,
+// dk = dS^T.q, dv = P^T.dO. P comes from K1-f32's statistics,
 // P = 2^(round(s log2(e)) - lse), and delta from K1-f32's output:
-// rowsum(P * dP) = dO . (P.V) = dO . O, exact in f32 up to the order of
-// the sums (in bf16 O's rounding made this form too coarse, attention_bwd.cu
-// says why; here O is f32). delta is summed over the columns in the order
-// score_tile sums dP, so a query with one allowed key, whose P is 1 and O
-// is v to the bit (attention_fwd_f32.cu), gets delta = dP to the bit and
-// dq = dk = 0 exactly, as the softmax's gradient is.
+// rowsum(P * dP) = dO . (P.V) = dO . O, one f32 FMA chain a query.
 //
 // Bound on an H100 SXM (495 TFLOP/s TF32 on the tensor cores, 3.35 TB/s):
 // five (T x T x dh) products per (row, head) (S, dP, dq, dk, dv),
-// 10*B*NH*T^2*dh FLOPs, each as three TF32 products (3xTF32, f32-exact);
-// q, k, v, O and dO in and dq, dk, dv out once (32*B*T*NH*dh bytes). At
-// B=16, T=512, NH=20, dh 32 dense: 80.5 GFLOP of TF32 (0.163 ms) against
-// 168 MB (0.050 ms); this FFMA design's ceiling, the products at 67 TFLOP/s
-// f32, is 0.401 ms. Padded and packed rows need the products of their
-// allowed pairs.
+// 10*B*NH*T^2*dh FLOPs, each as three TF32 products (3xTF32); q, k, v, O
+// and dO in and dq, dk, dv out once (32*B*T*NH*dh bytes). At B=16, T=512,
+// NH=20, dh 32 dense: 80.5 GFLOP of TF32 (0.163 ms) against 168 MB
+// (0.050 ms). Padded and packed rows need the products of their allowed
+// pairs.
 //
-// Design (attention_f32.cuh has the tiles and products). Two launches of
-// 256-thread blocks, each output with one owner (no atomics: two runs are
-// bit-equal):
-//   1. per (row b, head h, 64 queries), q and dO tiles resident: delta =
-//      dO . O per query (one thread a query), written as scratch for
-//      launch 2; then for each key tile that meets the query tile, S = q.k^T
-//      and dP = dO.v^T by FFMA, P from lse, dS to shared memory and
-//      dq += dS.k. Pad queries get dq = 0.
-//   2. per (row b, head h, 64 keys), k and v tiles resident: for each query
-//      tile that meets the key tile, S^T = k.q^T and dP^T = v.dO^T, P^T and
-//      dS^T from the query tile's lse and delta, dv += P^T.dO and
+// Design (attention_f32.cuh has the tiles, products and producer). Two
+// launches, each output with one owner (no atomics: two runs are
+// bit-equal), every product 3xTF32 on wgmma, WGS consumer warpgroups of
+// 64 rows a block (two at head dims up to 32, one above) and a producer
+// warpgroup:
+//   1. per (row b, head h, 64 WGS queries), q and dO resident as raw f32:
+//      delta = dO . O per query first; the producer streams each key tile
+//      that meets a query tile as k natural and transposed and v natural;
+//      S = q.k^T and dP = dO.v^T (the A operands split in registers), P
+//      from lse, dS = P * (dP - delta) in registers and dq += dS.k (dS as
+//      A, k's transposed tile as B). Pad queries get dq = 0.
+//   2. per (row b, head h, 64 WGS keys), k and v resident: for each query
+//      tile that meets a key tile, streamed as q and dO natural and
+//      transposed with the stage's lse and delta, S^T = k.q^T and
+//      dP^T = v.dO^T, P^T and dS^T in registers, dv += P^T.dO and
 //      dk += dS^T.q; then every key's dv += f32(1/T) times the sum of the
-//      pad queries' dO (their uniform P, in closed form).
+//      pad queries' dO (their uniform P, in closed form), which the
+//      producer sums once it has filled the ring's last stage.
 // 7 products per computed score against the 5 the function needs (S and
-// dP in both launches).
+// dP in both launches). Two consumer warpgroups a block took 0.391 ms
+// against one's 0.536 at (16, 512, NH 20, DH 32) padded on an H100 (the
+// streamed tiles split once for 128 rows: launch 2's producer splits four
+// tiles a stage); at head dims 64 and 128 one warpgroup holds 239-242
+// registers, more than a 384-thread block gives each thread.
+// What limits it now (6.2 times its bound at that shape): as K1-f32, the
+// blocks' fixed work with one block an SM (0.165 ms of the 0.391 with no
+// products, loads or stores), the products (the value products 0.138, the
+// score products 0.070: each warpgroup waits for each of its four product
+// groups a stage) and the producer's loads, split and stores (0.048)
+// (tools/probe_attention_f32.py).
+//
+// Exact zeros. A query with one allowed key (itself) has P = 1 for it and
+// dq = dk = 0 in the plain version (delta = dP there). The tensor cores'
+// dP and the FMA chain's delta differ in their roundings, so the kernel
+// does not rely on their difference: launch 1 counts each query's allowed
+// keys, as K1-f32 does, and for a query with one it writes dq = 0 and its
+// delta as +inf, which launch 2 reads as dS = 0 for the whole query.
 //
 // Built by protein_clip_tpu_torch/kernels/build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -54,185 +70,265 @@ using pct_attn::overlaps;
 using pct_attn::swept_tiles;
 using pct_attn::tile_ranges;
 
-// Dynamic shared memory for rows of n tiles: four tiles, one or two
-// 64 x 64 products, three per-row vectors and the tile ranges (170 KB at DH
-// 128 and the longest row, launch 2).
-template <int DW>
-constexpr int bwd_smem(int n) {
-  return 4 * (4 * kTileFloats<DW> + 2 * kPFloats + 3 * kTile) + 16 * n;
-}
-
-// Launch 1. grid (ceil(T / 64), NH, B), kThreads threads. q, k, v, o,
-// dout, dq: (B, T, NH, HD) f32, contiguous; seg: (B, T) int32; lse (read)
-// and delta (written): (B, NH, T) f32.
+// Launch 1's stage: k natural and transposed, v natural, the key segments.
 template <int HD>
-__global__ void __launch_bounds__(kThreads)
+using DqStage = Stage<HD, true, true, true, false, 1>;
+// Launch 2's stage: q and dO natural and transposed; the query segments,
+// lse and delta.
+template <int HD>
+using DkdvStage = Stage<HD, true, true, true, true, 3>;
+// Consumer warpgroups a block, each over its own 64 rows: two at head dims
+// up to 32 (at most 168 registers a thread), one above.
+template <int HD>
+constexpr int kWGS = HD <= 32 ? 2 : 1;
+// Two resident tiles a warpgroup: q and dO (launch 1), k and v (launch 2).
+template <int HD, int WGS>
+using DqLayout = Layout<DqStage<HD>, 2 * WGS>;
+template <int HD, int WGS>
+using DkdvLayout = Layout<DkdvStage<HD>, 2 * WGS>;
+
+// Launch 1. grid (ceil(T / (64 WGS)), NH, B), 128 WGS + kProducer threads. q, k,
+// v, o, dout, dq: (B, T, NH, HD) f32, contiguous; seg: (B, T) int32; lse
+// (read) and delta (written; +inf at a query with one allowed key):
+// (B, NH, T) f32.
+template <int HD, int WGS>
+__global__ void __launch_bounds__(128 * WGS + kProducer, 1)
 attention_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                             const float* __restrict__ v, const int32_t* __restrict__ seg,
                             const float* __restrict__ o, const float* __restrict__ dout,
                             const float* __restrict__ lse, float* __restrict__ dq,
                             float* __restrict__ delta_out, int T, int NH) {
-  constexpr int DW = kWidth<HD>;
-  constexpr int NC = kCols<DW>;
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem;
-  float* dos = qs + kTileFloats<DW>;
-  float* ks = dos + kTileFloats<DW>;
-  float* vs = ks + kTileFloats<DW>;
-  float* dss = vs + kTileFloats<DW>;
-  float* delta_s = dss + 2 * kPFloats;
-  int32_t* segk = reinterpret_cast<int32_t*>(delta_s + kTile);
-  int4* ranges = reinterpret_cast<int4*>(segk + 2 * kTile);
+  using St = DqStage<HD>;
+  using L = DqLayout<HD, WGS>;
+  constexpr int DW = St::DW;
+  constexpr int KS = St::KS;
+  constexpr int S = L::kStages;
+  constexpr int kConsumers = 128 * WGS;
+  constexpr int kThreads = kConsumers + kProducer;
+  constexpr int kTileBytes = kTile * DW * 4;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[2 * S + 1];
+  __shared__ float delta_s[kTile * WGS];
 
   const Head<HD> hd(seg, T, NH);
-  const int q0 = blockIdx.x * kTile;
-  tile_ranges(ranges, hd.seg_row, T, kThreads);
-  load_tile<HD>(qs, q, hd, q0, T);
-  load_tile<HD>(dos, dout, hd, q0, T);
-  if (threadIdx.x < kTile) {  // delta = dO . O, one FMA chain a query in score_tile's order
-    const int t = q0 + threadIdx.x;
+  const int tile0 = blockIdx.x * WGS;
+  const int q0 = tile0 * kTile;  // the block's first query
+  const Ring ring = carve<L, St, WGS>(smem_raw, bars);
+  if (threadIdx.x >= kConsumers) {  // q and dO of warpgroup w at resident tiles 2 w, 2 w + 1
+    for (int w = 0; w < WGS; ++w) {
+      load_resident<HD>(ring.resident + 2 * w * kTileBytes, q, hd, q0 + w * kTile, T,
+                        threadIdx.x - kConsumers);
+      load_resident<HD>(ring.resident + (2 * w + 1) * kTileBytes, dout, hd, q0 + w * kTile, T,
+                        threadIdx.x - kConsumers);
+    }
+  }
+  tile_ranges(ring.ranges, hd.seg_row, T, kThreads);
+  __syncthreads();
+  int4 own[WGS];
+  owned(own, ring.ranges, tile0, T);
+  const int n = tiles_of(T);
+  const int4* ranges = ring.ranges;
+  auto visit = [&](int j) {
+    bool any = false;
+#pragma unroll
+    for (int w = 0; w < WGS; ++w) any |= overlaps(own[w], ranges[j]);
+    return any;
+  };
+
+  if (threadIdx.x >= kConsumers) {  // the producer warpgroup
+    cp_async_arrive(ring.ready);
+    const uint32_t* const vec[3] = {reinterpret_cast<const uint32_t*>(hd.seg_row), nullptr,
+                                    nullptr};
+    produce<HD, St, S>(k, v, vec, hd, T, n, visit, ring, threadIdx.x - kConsumers);
+    cp_async_wait_all();
+    return;
+  }
+
+  if (threadIdx.x < kTile * WGS) {  // delta = dO . O, one FMA chain a query
+    const int r = q0 + threadIdx.x;
     float d = 0.f;
-    if (t < T) {
-      const float* orow = o + hd.base + t * hd.tok;
-      const float* drow = dout + hd.base + t * hd.tok;
+    if (r < T) {
+      const float* orow = o + hd.base + r * hd.tok;
+      const float* drow = dout + hd.base + r * hd.tok;
       for (int c = 0; c < HD; ++c) d = fmaf(drow[c], orow[c], d);
-      delta_out[hd.vec + t] = d;
     }
     delta_s[threadIdx.x] = d;
   }
-  __syncthreads();
-  const int4 own = ranges[blockIdx.x];
-
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  int sq[4];
-  float lse_q[4], delta[4], acc[4][NC];
+  named_barrier(1, kConsumers);
+  const int wg = threadIdx.x >> 7;
+  const int4 mine = own[wg];
+  const uint32_t q_tile = ring.resident + 2 * wg * kTileBytes;
+  const uint32_t do_tile = q_tile + kTileBytes;
+  const int t = threadIdx.x & 3;
+  int row[2], sq[2];
+  own_rows(row, q0 + wg * kTile);
+  float lse_q[2], delta[2];
+  int cnt[2] = {0, 0};  // allowed keys of each of the thread's two queries
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty + 16 * i;
-    const bool in = r < T;
-    sq[i] = in ? hd.seg_row[r] : -1;  // past T: no key
-    lse_q[i] = in ? lse[hd.vec + r] : 0.f;
-    delta[i] = delta_s[ty + 16 * i];
-#pragma unroll
-    for (int n = 0; n < NC; ++n) acc[i][n] = 0.f;
+  for (int h = 0; h < 2; ++h) {
+    const bool in = row[h] < T;
+    sq[h] = in ? hd.seg_row[row[h]] : -1;  // past T: no key
+    lse_q[h] = in ? lse[hd.vec + row[h]] : 0.f;
+    delta[h] = delta_s[row[h] - q0];
   }
+  float acc[DW / 2];
+#pragma unroll
+  for (int i = 0; i < DW / 2; ++i) acc[i] = 0.f;
+  mbar_wait(ring.ready, 0);
 
-  const int n_tiles = tiles_of(T);
-  for (int j = 0; j < n_tiles; ++j) {
-    if (!overlaps(own, ranges[j])) continue;
-    __syncthreads();  // the last tile's k, v and dS are read
-    load_tile<HD>(ks, k, hd, j * kTile, T);
-    load_tile<HD>(vs, v, hd, j * kTile, T);
-    load_vec(segk, hd.seg_row, j * kTile, T);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    score_tile<DW>(s, qs, ks, tx, ty);    // q . k^T
-    score_tile<DW>(dp, dos, vs, tx, ty);  // dO . v^T
+  int it = 0;
+  for (int j = 0; j < n; ++j) {
+    if (!visit(j)) continue;
+    const bool meets = overlaps(mine, ranges[j]);
+    for (int u = 0; u < St::kParts; ++u, ++it) {
+      const uint32_t st = take<St, S>(ring, it);
+      if (meets) {
+        const int32_t* segk = stage_vec<St, S, int32_t>(ring, it, 0);
+        float s[KS / 2], dp[KS / 2];
+        scores<DW, KS>(s, q_tile, st + St::kNatA_);    // q . k^T, as K1-f32 computes it
+        scores<DW, KS>(dp, do_tile, st + St::kNatB_);  // dO . v^T
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int sk = segk[tx + 16 * jj];
-        const bool ok = sk > 0 && sk == sq[i];
-        const float p = ok ? pct_attn::ex2(__fmul_rn(s[i][jj], kLog2e) - lse_q[i]) : 0.f;
-        dss[(ty + 16 * i) * kPStride + tx + 16 * jj] = p * (dp[i][jj] - delta[i]);
+        for (int i = 0; i < KS / 2; ++i) {
+          const int sk = segk[acc_col(i, t)];
+          const int h = acc_row(i);
+          const bool ok = sk > 0 && sk == sq[h];
+          cnt[h] += ok;
+          // dS, 0 where not allowed
+          dp[i] = ok ? ex2(__fmul_rn(s[i], kLog2e) - lse_q[h]) * (dp[i] - delta[h]) : 0.f;
+        }
+        accumulate<DW, KS>(acc, dp, st + St::kTransA_);  // dq += dS . k
       }
+      release<S>(ring, it);
     }
-    __syncwarp();
-    accumulate<DW>(acc, dss, ks, tx, ty);  // dq += dS . k
   }
-  const float one[4] = {1.f, 1.f, 1.f, 1.f};
-  store_rows<HD>(dq, hd, q0, T, acc, one, tx, ty);
+  bool one[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    one[h] = quad_sum(static_cast<float>(cnt[h])) == 1.f;  // the query itself alone
+    if (t == 0 && row[h] < T) delta_out[hd.vec + row[h]] = one[h] ? INFINITY : delta[h];
+  }
+  store_rows<HD>(dq, hd, row, T, [&](int h, int, int i) {
+    return one[h] ? make_float2(0.f, 0.f) : make_float2(acc[i], acc[i + 1]);
+  });
 }
 
-// Launch 2. grid (ceil(T / 64), NH, B), kThreads threads; the block owns 64
-// keys. lse and delta: (B, NH, T) f32 from K1-f32 and launch 1.
-template <int HD>
-__global__ void __launch_bounds__(kThreads)
+// Launch 2. grid (ceil(T / (64 WGS)), NH, B), 128 WGS + kProducer threads; each
+// consumer warpgroup owns 64 keys. lse and delta: (B, NH, T) f32 from
+// K1-f32 and launch 1.
+template <int HD, int WGS>
+__global__ void __launch_bounds__(128 * WGS + kProducer, 1)
 attention_bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                               const float* __restrict__ v, const int32_t* __restrict__ seg,
                               const float* __restrict__ dout, const float* __restrict__ lse,
                               const float* __restrict__ delta, float* __restrict__ dk,
                               float* __restrict__ dv, int T, int NH) {
-  constexpr int DW = kWidth<HD>;
-  constexpr int NC = kCols<DW>;
-  extern __shared__ __align__(16) float smem[];
-  float* ks = smem;
-  float* vs = ks + kTileFloats<DW>;
-  float* qs = vs + kTileFloats<DW>;
-  float* dos = qs + kTileFloats<DW>;
-  float* pts = dos + kTileFloats<DW>;
-  float* dsts = pts + kPFloats;
-  float* lse_s = dsts + kPFloats;
-  float* delta_s = lse_s + kTile;
-  int32_t* segq = reinterpret_cast<int32_t*>(delta_s + kTile);
-  int4* ranges = reinterpret_cast<int4*>(segq + kTile);
-  __shared__ float do_sum[DW], scratch[kThreads];
+  using St = DkdvStage<HD>;
+  using L = DkdvLayout<HD, WGS>;
+  constexpr int DW = St::DW;
+  constexpr int KS = St::KS;
+  constexpr int S = L::kStages;
+  constexpr int kConsumers = 128 * WGS;
+  constexpr int kThreads = kConsumers + kProducer;
+  constexpr int kTileBytes = kTile * DW * 4;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[2 * S + 1];
+  __shared__ float do_sum[DW], scratch[4 * DW];
 
   const Head<HD> hd(seg, T, NH);
-  const int k0 = blockIdx.x * kTile;
-  tile_ranges(ranges, hd.seg_row, T, kThreads);
-  load_tile<HD>(ks, k, hd, k0, T);
-  load_tile<HD>(vs, v, hd, k0, T);
+  const int tile0 = blockIdx.x * WGS;
+  const int k0 = tile0 * kTile;  // the block's first key
+  const Ring ring = carve<L, St, WGS>(smem_raw, bars);
+  if (threadIdx.x >= kConsumers) {  // k and v of warpgroup w at resident tiles 2 w, 2 w + 1
+    for (int w = 0; w < WGS; ++w) {
+      load_resident<HD>(ring.resident + 2 * w * kTileBytes, k, hd, k0 + w * kTile, T,
+                        threadIdx.x - kConsumers);
+      load_resident<HD>(ring.resident + (2 * w + 1) * kTileBytes, v, hd, k0 + w * kTile, T,
+                        threadIdx.x - kConsumers);
+    }
+  }
+  tile_ranges(ring.ranges, hd.seg_row, T, kThreads);
   __syncthreads();
-  const int4 own = ranges[blockIdx.x];
-  // The pad queries' part of dv, the same for every key: f32(1/T) sum dO.
-  bool pads = false;
-  for (int j = 0; j < tiles_of(T); ++j) pads |= ranges[j].z != 0;
-  if (pads) column_sum<HD>(do_sum, scratch, dout, hd, T, true);
-
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  int sk[4];
-  float dk_acc[4][NC], dv_acc[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = k0 + ty + 16 * i;
-    sk[i] = r < T ? hd.seg_row[r] : 0;  // past T: allowed for no query
-#pragma unroll
-    for (int n = 0; n < NC; ++n) dk_acc[i][n] = dv_acc[i][n] = 0.f;
-  }
-
+  int4 own[WGS];
+  owned(own, ring.ranges, tile0, T);
+  bool pads = false;  // a pad query in the row: the pads' dO sum wanted
+  for (int j = 0; j < tiles_of(T); ++j) pads |= ring.ranges[j].z != 0;
   const int sweep = swept_tiles(T);
+  const int4* ranges = ring.ranges;
+  auto visit = [&](int j) {
+    bool any = false;
+#pragma unroll
+    for (int w = 0; w < WGS; ++w) any |= overlaps(ranges[j], own[w]);
+    return any;
+  };
+
+  if (threadIdx.x >= kConsumers) {  // the producer warpgroup
+    const int p = threadIdx.x - kConsumers;
+    cp_async_arrive(ring.ready);
+    const uint32_t* const vec[3] = {reinterpret_cast<const uint32_t*>(hd.seg_row),
+                                    reinterpret_cast<const uint32_t*>(lse + hd.vec),
+                                    reinterpret_cast<const uint32_t*>(delta + hd.vec)};
+    produce<HD, St, S>(q, dout, vec, hd, T, sweep, visit, ring, p);
+    // the pad queries' part of dv, the same for every key: f32(1/T) sum dO,
+    // while the consumers finish their last stages
+    if (pads) {
+      column_sum<HD>(do_sum, scratch, dout, hd, T, true, p);
+      named_barrier(2, kThreads);
+    }
+    cp_async_wait_all();
+    return;
+  }
+
+  const int wg = threadIdx.x >> 7;
+  const int4 mine = own[wg];
+  const uint32_t k_tile = ring.resident + 2 * wg * kTileBytes;
+  const uint32_t v_tile = k_tile + kTileBytes;
+  const int t = threadIdx.x & 3;
+  int row[2], sk[2];
+  own_rows(row, k0 + wg * kTile);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) sk[h] = row[h] < T ? hd.seg_row[row[h]] : 0;  // past T: no query
+  float dk_acc[DW / 2], dv_acc[DW / 2];
+#pragma unroll
+  for (int i = 0; i < DW / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  mbar_wait(ring.ready, 0);
+
+  int it = 0;
   for (int j = 0; j < sweep; ++j) {
-    if (!overlaps(ranges[j], own)) continue;
-    __syncthreads();  // the last tile's q, dO, P^T and dS^T are read
-    load_tile<HD>(qs, q, hd, j * kTile, T);
-    load_tile<HD>(dos, dout, hd, j * kTile, T);
-    load_vec(segq, hd.seg_row, j * kTile, T);
-    load_vec(lse_s, lse + hd.vec, j * kTile, T);
-    load_vec(delta_s, delta + hd.vec, j * kTile, T);
-    __syncthreads();
-    float p[4][4], ds[4][4];  // P^T and dS^T: keys are rows, queries columns
-    score_tile<DW>(p, ks, qs, tx, ty);    // k . q^T
-    score_tile<DW>(ds, vs, dos, tx, ty);  // v . dO^T
+    if (!visit(j)) continue;
+    const bool meets = overlaps(ranges[j], mine);
+    for (int u = 0; u < St::kParts; ++u, ++it) {
+      const uint32_t st = take<St, S>(ring, it);
+      if (meets) {
+        const int32_t* segq = stage_vec<St, S, int32_t>(ring, it, 0);
+        const float* lse_q = stage_vec<St, S, float>(ring, it, 1);
+        const float* delta_q = stage_vec<St, S, float>(ring, it, 2);
+        float p[KS / 2], ds[KS / 2];  // P^T and dS^T: keys are rows, queries columns
+        scores<DW, KS>(p, k_tile, st + St::kNatA_);   // k . q^T
+        scores<DW, KS>(ds, v_tile, st + St::kNatB_);  // v . dO^T
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int c = tx + 16 * jj;
-        const bool ok = sk[i] > 0 && segq[c] == sk[i];
-        const float e = pct_attn::ex2(__fmul_rn(p[i][jj], kLog2e) - lse_s[c]);
-        pts[(ty + 16 * i) * kPStride + c] = ok ? e : 0.f;
-        dsts[(ty + 16 * i) * kPStride + c] = ok ? e * (ds[i][jj] - delta_s[c]) : 0.f;
+        for (int i = 0; i < KS / 2; ++i) {
+          const int c = acc_col(i, t);
+          const int h = acc_row(i);
+          const bool ok = sk[h] > 0 && segq[c] == sk[h];
+          const float e = ex2(__fmul_rn(p[i], kLog2e) - lse_q[c]);
+          const float dl = delta_q[c];
+          p[i] = ok ? e : 0.f;
+          ds[i] = ok && dl != INFINITY ? e * (ds[i] - dl) : 0.f;
+        }
+        accumulate<DW, KS>(dv_acc, p, st + St::kTransB_);   // dv += P^T . dO
+        accumulate<DW, KS>(dk_acc, ds, st + St::kTransA_);  // dk += dS^T . q
       }
-    }
-    __syncwarp();
-    accumulate<DW>(dv_acc, pts, dos, tx, ty);  // dv += P^T . dO
-    accumulate<DW>(dk_acc, dsts, qs, tx, ty);  // dk += dS^T . q
-  }
-  if (pads) {
-    const float w_pad = __frcp_rn(static_cast<float>(T));
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int n = 0; n < NC; ++n) dv_acc[i][n] += w_pad * do_sum[out_col<DW>(n, tx)];
+      release<S>(ring, it);
     }
   }
-  const float one[4] = {1.f, 1.f, 1.f, 1.f};
-  store_rows<HD>(dk, hd, k0, T, dk_acc, one, tx, ty);
-  store_rows<HD>(dv, hd, k0, T, dv_acc, one, tx, ty);
+  if (pads) named_barrier(2, kThreads);  // do_sum is in
+  const float w_pad = __frcp_rn(static_cast<float>(T));
+  store_rows<HD>(dk, hd, row, T,
+                 [&](int, int, int i) { return make_float2(dk_acc[i], dk_acc[i + 1]); });
+  store_rows<HD>(dv, hd, row, T, [&](int, int col, int i) {
+    return pads ? make_float2(dv_acc[i] + w_pad * do_sum[col], dv_acc[i + 1] + w_pad * do_sum[col + 1])
+                : make_float2(dv_acc[i], dv_acc[i + 1]);
+  });
 }
 
 }  // namespace
@@ -248,15 +344,17 @@ extern "C" int pct_attention_bwd_f32(const void* q, const void* k, const void* v
                                      int B, int T, int NH, int head_dim, void* stream) {
   return pct_attn::by_head_dim(head_dim, [&](auto head) {
     constexpr int HD = decltype(head)::value;
-    constexpr int DW = kWidth<HD>;
-    const int most = bwd_smem<DW>(tiles_of(pct_attn::kMaxT));
-    static const cudaError_t allowed[2] = {allow_smem(attention_bwd_dq_f32_kernel<HD>, most),
-                                           allow_smem(attention_bwd_dkdv_f32_kernel<HD>, most)};
+    constexpr int WGS = kWGS<HD>;
+    using L1 = DqLayout<HD, WGS>;
+    using L2 = DkdvLayout<HD, WGS>;
+    static const cudaError_t allowed[2] = {
+        allow_smem(attention_bwd_dq_f32_kernel<HD, WGS>, L1::bytes(tiles_of(kMaxT))),
+        allow_smem(attention_bwd_dkdv_f32_kernel<HD, WGS>, L2::bytes(tiles_of(kMaxT)))};
     for (const cudaError_t e : allowed) {
       if (e != cudaSuccess) return static_cast<int>(e);
     }
-    const dim3 grid(tiles_of(T), NH, B);
-    const int smem = bwd_smem<DW>(tiles_of(T));
+    const dim3 grid((tiles_of(T) + WGS - 1) / WGS, NH, B);
+    constexpr int kThreads = 128 * WGS + kProducer;
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     const auto* qp = static_cast<const float*>(q);
     const auto* kp = static_cast<const float*>(k);
@@ -265,12 +363,12 @@ extern "C" int pct_attention_bwd_f32(const void* q, const void* k, const void* v
     const auto* dp = static_cast<const float*>(dout);
     const auto* lp = static_cast<const float*>(lse);
     auto* dl = static_cast<float*>(delta);
-    attention_bwd_dq_f32_kernel<HD><<<grid, kThreads, smem, s>>>(
+    attention_bwd_dq_f32_kernel<HD, WGS><<<grid, kThreads, L1::bytes(tiles_of(T)), s>>>(
         qp, kp, vp, sp, static_cast<const float*>(out), dp, lp, static_cast<float*>(dq), dl, T,
         NH);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    attention_bwd_dkdv_f32_kernel<HD><<<grid, kThreads, smem, s>>>(
+    attention_bwd_dkdv_f32_kernel<HD, WGS><<<grid, kThreads, L2::bytes(tiles_of(T)), s>>>(
         qp, kp, vp, sp, dp, lp, dl, static_cast<float*>(dk), static_cast<float*>(dv), T, NH);
     return static_cast<int>(cudaGetLastError());
   });

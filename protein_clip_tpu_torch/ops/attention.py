@@ -12,8 +12,9 @@ kernels that replace the TPU kernels
   64 and 128 (24 in 32-wide tiles);
 - f32 (``--esm-dtype float32``): ``csrc/attention_fwd_f32.cu`` (K1-f32) and
   ``csrc/attention_bwd_f32.cu`` (K5-f32), sharing ``csrc/attention_f32.cuh``
-  (exact f32 products by FFMA on the CUDA cores) and ``attention.cuh``'s
-  segment logic, at the same head dims.
+  (f32-accurate 3xTF32 products on wgmma: each operand split into tf32 hi
+  and lo, the streamed tiles turned K-major and split by a producer
+  warpgroup) and ``attention.cuh``'s segment logic, at the same head dims.
 
 Each kernel's note gives its bound on an H100 and what its design does
 about it. When a gradient is wanted, K1 also returns the base-2 log-sum-exp

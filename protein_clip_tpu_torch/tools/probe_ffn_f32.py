@@ -113,8 +113,10 @@ def compile_all(jobs: list) -> None:
         print(f"[build] {lib.parent.name}/{lib.name}: {' | '.join(regs)}", flush=True)
 
 
-def patched_csrc(name: str, patches: list) -> Path:
-    src = PROBE_DIR / name / "csrc"
+def patched_csrc(name: str, patches: list, root: Path = PROBE_DIR) -> Path:
+    """A copy of csrc/ under root/name/ with each (file, line, patched line)
+    of ``patches`` applied; a line not in its file once raises."""
+    src = root / name / "csrc"
     shutil.rmtree(src.parent, ignore_errors=True)
     shutil.copytree(build.CSRC_DIR, src)
     for file, line, patched in patches:

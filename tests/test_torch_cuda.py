@@ -356,7 +356,8 @@ def test_fused_attention_function_runs_k1_then_k5(dev):
 # K1-f32 and K5-f32 against their plain versions, all f32 (TF32 off, as
 # chip_smoke.py runs them): chip_smoke.F32_ATOL_RMS and F32_RTOL, which it
 # states the margin of. A one-token segment's dq and dk are exactly 0 in
-# both (the one_token cases, and T = 1).
+# both (the one_token cases, and T = 1). T = 40 is one 64-query tile: the
+# block's second warpgroup has no rows.
 F32_ATOL_RMS, F32_RTOL = chip_smoke.F32_ATOL_RMS, chip_smoke.F32_RTOL
 
 
@@ -376,8 +377,8 @@ def _assert_f32_close(got, want, name="out"):
 
 
 @pytest.mark.parametrize("kind", ["padded", "fully_padded", "packed", "one_token"])
-@pytest.mark.parametrize("B,T,NH", [(4, 1, 3), (2, 65, 3), (3, 129, 20), (2, 200, 5),
-                                    (16, 512, 4), (1, 1000, 4)])
+@pytest.mark.parametrize("B,T,NH", [(4, 1, 3), (3, 40, 5), (2, 65, 3), (3, 129, 20),
+                                    (2, 200, 5), (16, 512, 4), (1, 1000, 4)])
 @pytest.mark.parametrize("dh", attention.HEAD_DIMS)
 def test_f32_kernel_matches_plain_at_every_head_dim(no_tf32, dh, B, T, NH, kind):
     dev = no_tf32
@@ -397,7 +398,7 @@ def test_f32_kernel_matches_plain_at_every_head_dim(no_tf32, dh, B, T, NH, kind)
 
 
 @pytest.mark.parametrize("kind", ["padded", "fully_padded", "packed", "one_token"])
-@pytest.mark.parametrize("T", [1, 65, 129, 200, 512])
+@pytest.mark.parametrize("T", [1, 40, 65, 129, 200, 512])
 @pytest.mark.parametrize("dh", attention.HEAD_DIMS)
 def test_f32_bwd_kernel_matches_plain_at_every_head_dim(no_tf32, dh, T, kind):
     dev, B, NH = no_tf32, 3, 4
@@ -494,13 +495,14 @@ def test_hf_dir_load_peaks_no_higher_than_its_npz(dev, tmp_path, esm_dtype):
 @pytest.fixture(scope="module")
 def attention_fault_libs():
     """The attention kernels built with their swept loop's last tile
-    dropped and with the skip predicate off by one (chip_smoke.FAULTS)."""
+    dropped, with the skip predicate off by one, and the f32 kernels in
+    plain TF32 (chip_smoke.FAULTS)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
-    return chip_smoke.build_faults(("swept_tiles", "skip"))
+    return chip_smoke.build_faults(tuple(chip_smoke.ATTENTION_FAULTS))
 
 
-@pytest.mark.parametrize("fault", ["swept_tiles", "skip"])
+@pytest.mark.parametrize("fault", list(chip_smoke.ATTENTION_FAULTS))
 def test_f32_checks_see_the_planted_faults(no_tf32, attention_fault_libs, fault):
     """Each planted fault fails the f32 forward and backward checks on
     packed rows (the skip fault needs a segment boundary)."""
