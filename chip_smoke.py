@@ -33,7 +33,9 @@ and a nonzero exit code, and no result line:
                 and packed rows (several segments, gap zeros), among them
                 the packed paths' own chunks (path_segments): the last
                 chunk of each side of cli.main --packed's first global
-                batch on the fixture, (16, 128) and (16, 256) with their
+                batch on the 3000-family fixture (the packed run trains on
+                1100 families: the same chunk shapes), (16, 128) and
+                (16, 256) with their
                 all-<pad> rows, the last pep chunk of cli.main --packed
                 --finetune's, (48, 128), and a (16, 512) and a (28, 2048)
                 receptor chunk of tools/bench_train's draws; its statistics
@@ -148,13 +150,18 @@ and a nonzero exit code, and no result line:
                 K6-f32 and K1-f32 30 times each per forward, no bf16 K6,
                 K1 or P1, cosine >= F32_COSINE_MIN per row against the
                 gate-off f32 server; /embed p50 and batch-32 seqs/s.
-7. train        cli.main twice on one synthetic fixture of 3000 families
-                (written and clustered once), t30_150M bf16 with seeded
-                random weights, one epoch: the defaults (16 x 16 = global
-                batch 256 in 4 length groups, 16 chunks: K2) and
-                --batch-size 64 (global batch 1024: K3). Each run must write
-                losses_per_epoch.txt (finite), metrics.jsonl and
-                best_model.npz; K1 launches 30 times per backbone forward
+7. train        cli.main twice, t30_150M bf16 with seeded random weights,
+                one epoch: the defaults (16 x 16 = global batch 256 in 4
+                length groups, 16 chunks: K2) on a synthetic fixture of
+                1100 families (SMALL_DATA: three steps, 20 eval batches),
+                and --batch-size 64 (global batch 1024: K3) on one of 3000
+                families (two steps). Each run must write
+                losses_per_epoch.txt (finite), metrics.jsonl,
+                best_model.npz, one train-state snapshot (state/) and the
+                raw and trained heatmaps' matrices (figures/*.npy; their
+                two backbone forwards a heatmap are counted apart, as the
+                "figures" path, count_figures); K1 launches 30 times per
+                backbone forward
                 (32 forwards per step, 8 per eval batch); K2 and K3 once
                 forward and once backward per step and once forward per eval
                 batch, each on its own pools; P1 and K6 never. cli.embed then
@@ -169,7 +176,8 @@ and a nonzero exit code, and no result line:
                 once. cli.embed embeds with each run's best_model.npz (the
                 finetuned backbone; the adapters merged into the base).
                 Then cli.main --packed at the defaults (global batch 256,
-                flat packing, chunks of 16 packed rows) for one epoch: the
+                flat packing, chunks of 16 packed rows) for one epoch on
+                the 1100-family fixture: the
                 artifacts; the backbone's chunk forwards, and K1 30 times
                 each, exactly as many as the loaders' batches take when
                 packed again here (packed_epoch_chunks); K2 once forward
@@ -267,6 +275,32 @@ and a nonzero exit code, and no result line:
                 (MAXSIM_BWD_RTOL). K1 and
                 K5 against their plain versions on the packed FILIP steps'
                 own chunks.
+7c. resume, eval
+                cli.main --packed --finetune on the 1000-family fixture (two
+                steps an epoch) and cli.main_2protein_filip --packed
+                --batch-size 128 on the FILIP fixture (six), each three
+                times: two epochs unbroken, one epoch, and --epochs 2
+                --resume-dir on the one-epoch run's directory; the resumed
+                run's epoch-2 CSV row, metrics.jsonl losses, best_model.npz
+                and final snapshot equal the unbroken run's to the bit, one
+                snapshot is left in state/, and every kernel's launches in
+                the resumed run less its test evaluation equal the unbroken
+                run's less the one-epoch run's (RESUME_RUNS,
+                run_resume_phase). Then cli.topk at --n-candidates 256,
+                padded and --packed with the 256 run's best_model.npz on
+                the 3000-family fixture's val split, and --filip with the
+                batch-10 FILIP run's on the FILIP fixture's train split:
+                the padded and packed embeddings per row at cosine >=
+                COSINE_MIN and their ranks equal but at near-ties (a
+                query's ranks differ by at most its candidates within twice
+                the largest logit difference of its true partner's);
+                --filip's scores within K4_ATOL of the plain max-sim's on
+                the same tokens and its ranks equal theirs but at such
+                near-ties; the printed accuracies those of the ranks.
+                cli.cosine_similarity writes three finite matrices in [-1,
+                1]. K1 30 per backbone forward (32 padded, one per packed
+                chunk, 6 for the heatmaps), K4 once per 64-query block
+                (run_eval_phase).
 8. step check   one default train step with K2 and one with the plain loss
                 from the same heads and batch (dropout 0, Adam lr 1e-3), at
                 256 and, with K3, at 1024, and one packed step with K2 at
@@ -274,9 +308,9 @@ and a nonzero exit code, and no result line:
                 gradients within 1e-5 of each leaf's largest, parameters
                 within the bound Adam's first update puts on them. One
                 finetune step at 256 (dropout 0) from the same weights and
-                batch through K1/K5, through their plain versions in the
-                same autograd Function, through each kernel with the other's
-                plain version, through K5's swept-loop fault build (its
+                batch through K1/K5, through K1 with K5's plain version
+                in the same autograd Function, through K5's swept-loop
+                fault build (its
                 dk/dv loop drops the last query tile), and with
                 attention_impl="eager" in bf16 and f32. Every leaf of the
                 K1/K5 step within FT_K5_TOL of its largest entry of the
@@ -396,6 +430,7 @@ import dataclasses
 import functools
 import gc
 import inspect
+import io
 import itertools
 import json
 import math
@@ -413,7 +448,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from protein_clip_tpu_torch.cli import common, embed, main as train_cli, retrieve, serve
+from protein_clip_tpu_torch.cli import common, cosine_similarity, embed, main as train_cli
+from protein_clip_tpu_torch.cli import retrieve, serve, topk
 from protein_clip_tpu_torch.cli import main_2protein_filip as filip_cli
 from protein_clip_tpu_torch.data import dataset
 from protein_clip_tpu_torch.data.fasta import sequences_only
@@ -431,6 +467,7 @@ from protein_clip_tpu_torch.train import (checkpoint, clip_engine, filip_engine,
                                           filip_lora, filip_packed, finetune, lora, optimizer,
                                           packed_engine)
 from protein_clip_tpu_torch.train.checkpoint import export_npz
+from protein_clip_tpu_torch.viz import plots
 
 ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "_smoke_work"
@@ -730,6 +767,30 @@ AAS = "LAGVSERTIDPKQNFYMHWC"
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def timed(what: str, fn, *args, **kwargs):
+    """fn(*args, **kwargs), its seconds printed as a [timing] line."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    log(f"[timing] {what}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def profiled_step(step) -> tuple[list, float]:
+    """One call of ``step()`` under torch.profiler, CUDA activity only (a
+    step's CPU operator trace, some 10^5 events, takes the profiler tens of
+    seconds to parse): (the kernels' averages that ran on the card, the
+    call's wall seconds)."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0], wall
 
 
 def gpu_line() -> str:
@@ -1747,19 +1808,92 @@ def counted_forwards():
         return plain_forward(params, ids, mask, c, **kw)
 
     esm2.forward = counted_forward
+    ACTIVE_FORWARDS.append(forwards)
     try:
         yield forwards
     finally:
         esm2.forward = plain_forward
+        ACTIVE_FORWARDS[:] = [f for f in ACTIVE_FORWARDS if f is not forwards]
+
+
+# The forward lists counted_forwards is filling; and the training runs'
+# heatmaps (figures), whose backbone forwards and launches are kept apart
+# from their run's (figure_counts)
+ACTIVE_FORWARDS: list[list] = []
+FIGURES = {"heatmaps": 0, "forwards": 0, "launches": {}, "apart": True}
+
+
+def counts() -> dict:
+    """Every kernel wrapper's launch count."""
+    return {**{f"attention:{k}": v for k, v in attention.launches.items()},
+            **{f"ffn:{k}": v for k, v in ffn.launches.items()},
+            "filip_maxsim": maxsim.filip_similarity_fused.launches, "dense_mm": dense_mm.mm.launches,
+            **{f"{name}:{part}": getattr(fn, part) for name, fn in (
+                ("infonce", infonce.fused_infonce), ("infonce_tiled", infonce.fused_infonce_tiled))
+               for part in ("launches", "bwd_launches")}}
+
+
+def set_counts(values: dict) -> None:
+    for key, v in values.items():
+        name, _, part = key.partition(":")
+        if name == "attention":
+            attention.launches[part] = v
+        elif name == "ffn":
+            ffn.launches[part] = v
+        elif name == "filip_maxsim":
+            maxsim.filip_similarity_fused.launches = v
+        elif name == "dense_mm":
+            dense_mm.mm.launches = v
+        else:
+            setattr(infonce.fused_infonce if name == "infonce" else infonce.fused_infonce_tiled,
+                    part, v)
 
 
 def reset_counts() -> None:
-    attention.launches.update(dict.fromkeys(attention.launches, 0))
-    maxsim.filip_similarity_fused.launches = 0
-    for fn in (infonce.fused_infonce, infonce.fused_infonce_tiled):
-        fn.launches = fn.bwd_launches = 0
-    dense_mm.mm.launches = 0
-    ffn.launches.update(dict.fromkeys(ffn.launches, 0))
+    set_counts(dict.fromkeys(counts(), 0))
+
+
+def kernel_counts(values: dict) -> dict:
+    """counts()' forward launches by kernel name (the kernels line's)."""
+    out = {}
+    for key, v in values.items():
+        name, _, part = key.partition(":")
+        if part != "bwd_launches" and v:
+            out[part if name in ("attention", "ffn") else name] = v
+    return out
+
+
+def count_figures(plain):
+    """``plain`` (viz/plots.plot_embedding_cosine_similarities) counting each
+    heatmap the CLIs compute (the training runs' raw and trained ones,
+    cli.cosine_similarity's) in FIGURES, a path of its own: its backbone
+    forwards are taken off the counted_forwards lists and its launches off
+    the wrappers' counts, so each run's counts stay those of its steps and
+    eval batches. A heatmap runs two backbone forwards (both sides of one
+    batch), each launching the attention forward once a layer. With
+    FIGURES["apart"] false the launches stay in the counts (the eval phase
+    counts them)."""
+
+    def counted(*args, **kwargs):
+        before, lengths = counts(), [len(f) for f in ACTIVE_FORWARDS]
+        with counted_forwards() as forwards:
+            out = plain(*args, **kwargs)
+        grew = {k: v - before[k] for k, v in counts().items() if v != before[k]}
+        k1 = sum(v for k, v in grew.items() if k.startswith("attention:attention_fwd"))
+        if len(forwards) != 2 or k1 % 2 or k1 // 2 not in (30, 33):
+            raise AssertionError(f"a heatmap ran {len(forwards)} backbone forwards, launches "
+                                 f"{grew}")
+        if FIGURES["apart"]:
+            FIGURES["heatmaps"] += 1
+            FIGURES["forwards"] += len(forwards)
+            for k, v in grew.items():
+                FIGURES["launches"][k] = FIGURES["launches"].get(k, 0) + v
+            set_counts(before)
+            for f, n in zip(ACTIVE_FORWARDS, lengths):
+                del f[n:]
+        return out
+
+    return counted
 
 
 def check_default_path(what: str) -> None:
@@ -2183,10 +2317,18 @@ def timed_steps(engine=clip_engine):
         engine.make_train_step = plain_make
 
 
-def check_run_dir(runs: Path) -> Path:
+RUN_ARTIFACTS = ["best_model.npz", "figures", "losses_per_epoch.txt", "metrics.jsonl", "state"]
+
+
+def check_run_dir(runs: Path, keep_state: bool = False) -> Path:
+    """A one-epoch run's directory: its artifacts, finite losses, one
+    snapshot (state/epoch_1.pt) and the raw and the two trained heatmaps'
+    matrices (figures/*.npy; no PNG without matplotlib). The snapshot
+    (10.4 GB for t33_650M's finetune run) is removed after the check unless
+    ``keep_state``."""
     (run,) = list(runs.iterdir())
     names = sorted(p.name for p in run.iterdir())
-    if names != ["best_model.npz", "losses_per_epoch.txt", "metrics.jsonl"]:
+    if names != RUN_ARTIFACTS:
         raise AssertionError(f"{run}: artifacts {names}")
     rows = (run / "losses_per_epoch.txt").read_text().splitlines()
     if rows[0] != "Epoch,Train Loss,Validation Loss" or len(rows) != 2:
@@ -2194,6 +2336,14 @@ def check_run_dir(runs: Path) -> Path:
     values = [float(v) for v in rows[1].split(",")[1:]]
     if not all(math.isfinite(v) for v in values):
         raise AssertionError(f"non-finite losses {rows[1]}")
+    snaps = sorted(p.name for p in (run / "state").iterdir())
+    matrices = [np.load(f) for f in sorted((run / "figures").glob("*.npy"))]
+    if snaps != ["epoch_1.pt"] or len(matrices) != 3 or not all(
+            m.ndim == 2 and m.shape[0] == m.shape[1] and np.isfinite(m).all() for m in matrices):
+        raise AssertionError(f"{run}: snapshots {snaps}, heatmaps "
+                             f"{[m.shape for m in matrices]}")
+    if not keep_state:
+        shutil.rmtree(run / "state")
     return run
 
 
@@ -2202,15 +2352,17 @@ def loss_kernel(pool: int) -> str:
     return "infonce" if clip_engine.fused_infonce_fits(pool) else "infonce_tiled"
 
 
-def run_train(name: str, data_dir: Path, batch_size: int) -> dict:
-    """cli.main for one epoch at --batch-size batch_size x 16; checks the
-    artifacts and every kernel's launch count against the loaders."""
+def run_train(name: str, data_dir: Path, batch_size: int,
+              families: int = FIXTURE_FAMILIES) -> dict:
+    """cli.main for one epoch at --batch-size batch_size x 16 on a fixture of
+    ``families``; checks the artifacts and every kernel's launch count
+    against the loaders."""
     runs = WORK / f"runs_{name}"
     t0 = time.perf_counter()
     with counted_forwards() as forwards, timed_steps() as ends:
         reset_counts()
         train_cli.main(["--synthetic-fixture", "--data-dir", str(data_dir), "--fixture-families",
-                        str(FIXTURE_FAMILIES), "--epochs", "1", "--runs-dir", str(runs),
+                        str(families), "--epochs", "1", "--runs-dir", str(runs),
                         "--batch-size", str(batch_size), "--accumulated-batches", "16"])
         k1 = attention.launches["attention_fwd"]
         counts = infonce_counts()
@@ -2300,15 +2452,19 @@ def embed_check(path: Path, recs: list[str], what: str, family: str = "t30_150M"
 
 
 def run_train_phase() -> dict:
+    """cli.main at global batch 256 (K2) on the 1100-family fixture (three
+    steps, 20 eval batches) and at 1024 (K3) on the 3000-family one (two
+    steps); then the one-bucket finetune and LoRA runs."""
     data_dir = WORK / "train_data"
-    out = {"k2": run_train("train_256", data_dir, 16),
+    out = {"k2": run_train("train_256", WORK / SMALL_DATA, 16, SMALL_FIXTURE_FAMILIES),
            "k3": run_train("train_1024", data_dir, 64)}
-    peps = sequences_only(data_dir / "peptide.fasta")
-    recs = sequences_only(data_dir / "receptor.fasta")
-    out["profile"] = (f"{len(recs)} pairs, receptors {min(map(len, recs))}-"
-                      f"{max(map(len, recs))} aa, peptides {min(map(len, peps))}-"
-                      f"{max(map(len, peps))} aa")
-    log(f"[train] fixture: {FIXTURE_FAMILIES} families, {out['profile']}")
+    peps = sequences_only(WORK / SMALL_DATA / "peptide.fasta")
+    recs = sequences_only(WORK / SMALL_DATA / "receptor.fasta")
+    out["profile"] = (f"{SMALL_FIXTURE_FAMILIES} families, {len(recs)} pairs, receptors "
+                      f"{min(map(len, recs))}-{max(map(len, recs))} aa, peptides "
+                      f"{min(map(len, peps))}-{max(map(len, peps))} aa")
+    log(f"[train] fixture of the run at 256: {out['profile']}; the run at 1024 trains on "
+        f"{FIXTURE_FAMILIES} families")
     embed_check(out["k2"]["run"] / "best_model.npz", recs, "run 1's best_model.npz")
     # the one-bucket unfrozen runs on a fixture of their own: 2 steps of 8 s
     small = WORK / ONE_BUCKET_DATA
@@ -2516,15 +2672,7 @@ def launches_per_step(packed: bool, engine=None, family: str = "t30_150M") -> di
     step(params, state, esm_params, batch, gen)                 # warm
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        step(params, state, esm_params, batch, gen)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    kernels, wall = profiled_step(lambda: step(params, state, esm_params, batch, gen))
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     out = {"launches": sum(e.count for e in kernels), "busy_ms": busy_ms,
            "busy_share": busy_ms / (1e3 * wall),
@@ -2537,12 +2685,13 @@ def launches_per_step(packed: bool, engine=None, family: str = "t30_150M") -> di
 
 
 def run_packed_phase() -> dict:
-    data_dir = WORK / "train_data"
-    out = run_packed_train(data_dir)
+    data_dir = WORK / SMALL_DATA
+    out = run_packed_train(data_dir, families=SMALL_FIXTURE_FAMILIES)
     embed_check(out["run"] / "best_model.npz", sequences_only(data_dir / "receptor.fasta"),
                 "the packed run's best_model.npz")
-    out["paths"] = check_packed_paths()
-    out["per_step"] = {"packed": launches_per_step(True), "grouped": launches_per_step(False)}
+    out["paths"] = timed("check_packed_paths", check_packed_paths)
+    out["per_step"] = {"packed": timed("launches_per_step packed", launches_per_step, True),
+                       "grouped": timed("launches_per_step grouped", launches_per_step, False)}
     return out
 
 
@@ -2648,7 +2797,8 @@ def run_packed_unfrozen_phase() -> dict:
         out[run]["profile"] = f"{SMALL_FIXTURE_FAMILIES} families"
     embed_check(out["lora"]["run"] / "best_model.npz", recs,
                 "the packed LoRA run's best_model.npz")
-    out["per_step"] = launches_per_step(True, finetune)
+    out["per_step"] = timed("launches_per_step packed finetune", launches_per_step, True,
+                            finetune)
     return out
 
 
@@ -3045,15 +3195,7 @@ def filip_launches_per_step(run: dict, data_dir: Path) -> dict:
     step(params, state, esm_params, batch, gen)                 # warm
     torch.cuda.synchronize()
     k4 = maxsim.filip_similarity_fused.launches
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        step(params, state, esm_params, batch, gen)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    kernels, wall = profiled_step(lambda: step(params, state, esm_params, batch, gen))
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     k4_ms = sum(e.self_device_time_total for e in kernels if "filip_maxsim" in e.key) / 1e3
     out = {"launches": sum(e.count for e in kernels), "busy_ms": busy_ms,
@@ -3429,9 +3571,12 @@ def filip_finetune_steps(cfg, batch, paths: tuple, fault_libs: dict) -> dict:
                   maxsim.filip_similarity_fused.launches)
         faulty = (attention_kernels(fault_libs["swept_tiles"], ("attention_bwd",))
                   if path == "fault" else contextlib.nullcontext())
+        t0 = time.perf_counter()
         with attention_function(k1, plain_backward if path == "k1_plain_bwd" else k5), faulty:
             _, _, loss = filip_finetune.make_train_step(run_cfg)(params, state, {}, batch, None)
         torch.cuda.synchronize()
+        log(f"[timing] FILIP finetune step run {path} (batch {cfg.batch_size}"
+            f"{', packed' if cfg.packed else ''}): {time.perf_counter() - t0:.1f} s")
         calls = (attention.launches["attention_fwd"] - before[0], attention.launches["attention_bwd"] - before[1],
                  maxsim.filip_similarity_fused.launches - before[2])
         if calls != want:
@@ -3527,15 +3672,7 @@ def filip_step_profile(run: dict, data_dir: Path, engine) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     k4 = maxsim.filip_similarity_fused.launches
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        step(params, state, esm_params, batch, gen)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    kernels, wall = profiled_step(lambda: step(params, state, esm_params, batch, gen))
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
 
     def share(name):
@@ -3604,6 +3741,290 @@ def time_filip_more(fmctx: dict, data_dir: Path, gpu: str, profile: str) -> dict
                                                              data_dir, filip_engine)
     out["filip_finetune_packed"]["per_step"] = filip_step_profile(
         fmctx["runs"]["filip_finetune_packed"], data_dir, filip_finetune)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 7c: resume (train-state snapshots) and the offline evals
+# ---------------------------------------------------------------------------
+
+# (name, CLI, data, fixture families, argv): cli.main --packed --finetune on
+# the 1000-family fixture (two steps an epoch at global batch 256: f32
+# master backbone, two Adam groups, K1/K5/K2) and cli.main_2protein_filip
+# --packed at batch 128 on the FILIP fixture (six steps an epoch: the
+# fixture's val split holds one batch of 128, not of 385; K4 under a
+# gradient)
+RESUME_RUNS = (
+    ("resume_finetune_packed", train_cli, ONE_BUCKET_DATA, ONE_BUCKET_FIXTURE_FAMILIES,
+     ["--packed", "--finetune"]),
+    ("resume_filip_packed", filip_cli, "filip_data", FILIP_FIXTURE_FAMILIES,
+     ["--batch-size", "128", "--packed"]))
+
+
+@contextlib.contextmanager
+def counted_evals():
+    """The wrappers' launches of each clip_engine.evaluate call (fit's
+    validation per epoch, then its test evaluation) while the block runs."""
+    calls: list[dict] = []
+    plain = clip_engine.evaluate
+
+    def counted(*args, **kwargs):
+        before = counts()
+        out = plain(*args, **kwargs)
+        calls.append({k: v - before[k] for k, v in counts().items()})
+        return out
+
+    clip_engine.evaluate = counted
+    try:
+        yield calls
+    finally:
+        clip_engine.evaluate = plain
+
+
+def resume_run(cli, argv: list[str], epochs: int, runs: Path | None = None,
+               resume_dir: Path | None = None) -> dict:
+    """One CLI training run: its run directory, every wrapper's launches,
+    each evaluate call's launches, and its wall seconds."""
+    where = ["--resume-dir", str(resume_dir)] if resume_dir else ["--runs-dir", str(runs)]
+    t0 = time.perf_counter()
+    with counted_evals() as evals:
+        reset_counts()
+        cli.main(argv + ["--epochs", str(epochs)] + where)
+        launches = counts()
+    run = resume_dir or next(iter(runs.iterdir()))
+    return {"run": run, "launches": launches, "evals": evals,
+            "seconds": time.perf_counter() - t0}
+
+
+def run_resume_phase() -> dict:
+    """Each of RESUME_RUNS three times: two epochs unbroken; one epoch; then
+    --epochs 2 --resume-dir on the second run's directory. The resumed run's
+    epoch-2 CSV row, its metrics.jsonl losses, its best_model.npz and its
+    final snapshot must equal the unbroken run's to the bit (the steps
+    repeat to the bit); one snapshot is left in state/; and every kernel's
+    launch count in the resumed run, less its test evaluation, equals the
+    unbroken run's less the one-epoch run's (the resumed epoch's count),
+    the test evaluation the same in all three."""
+    out = {}
+    for name, cli, data, families, extra in RESUME_RUNS:
+        argv = ["--synthetic-fixture", "--data-dir", str(WORK / data), "--fixture-families",
+                str(families)] + extra
+        full = resume_run(cli, argv, 2, WORK / f"runs_{name}_full")
+        first = resume_run(cli, argv, 1, WORK / f"runs_{name}_split")
+        resumed = resume_run(cli, argv, 2, resume_dir=first["run"])
+        rows = [(r["run"] / "losses_per_epoch.txt").read_text().splitlines()
+                for r in (full, resumed)]
+        metrics = [[(m["epoch"], m["train_loss"], m["val_loss"]) for m in map(
+            json.loads, (r["run"] / "metrics.jsonl").read_text().splitlines())]
+            for r in (full, resumed)]
+        best = [checkpoint.read_npz(r["run"] / "best_model.npz") for r in (full, resumed)]
+        snaps = [sorted(p.name for p in (r["run"] / "state").iterdir()) for r in (full, resumed)]
+        states = [checkpoint.load_train_state(r["run"] / "state" / "epoch_2.pt", "cpu")
+                  for r in (full, resumed)]
+        same = {"csv": rows[0] == rows[1] and len(rows[0]) == 3,
+                "metrics": metrics[0] == metrics[1] and len(metrics[0]) == 2,
+                "best_model": best[0].keys() == best[1].keys()
+                and all(np.array_equal(best[0][k], best[1][k]) for k in best[0]),
+                "snapshot": snaps == [["epoch_2.pt"]] * 2 and same_state(*states)}
+        tests = [r["evals"][-1] for r in (full, first, resumed)]
+        epoch2 = {k: full["launches"][k] - first["launches"][k] for k in full["launches"]}
+        grew = {k: resumed["launches"][k] - tests[2][k] for k in epoch2}
+        kernels = {k: v for k, v in epoch2.items() if v}
+        log(f"[resume] {name} ({' '.join(extra)}): unbroken 2 epochs {full['seconds']:.2f} s, "
+            f"1 epoch {first['seconds']:.2f} s, resumed to 2 {resumed['seconds']:.2f} s; epoch 2 "
+            f"rows {rows[0][2]!r} and {rows[1][2]!r}; equal to the bit: {same}; snapshots left "
+            f"{snaps}; launches of epoch 2 (unbroken less one epoch) {kernels}, of the resumed "
+            f"run less its test evaluation "
+            f"{ {k: v for k, v in grew.items() if v} }; test evaluation the same in all three: "
+            f"{tests[0] == tests[1] == tests[2]}")
+        if not all(same.values()):
+            raise AssertionError(f"{name}: the resumed run differs from the unbroken one: {same}")
+        if grew != epoch2 or not (tests[0] == tests[1] == tests[2]) or not kernels:
+            raise AssertionError(f"{name}: the resumed epoch's launches {grew} against {epoch2}")
+        out[name] = {"bitwise_equal": same, "launches": kernel_counts(resumed["launches"]),
+                     "epoch_2_launches": kernel_counts(epoch2), "seconds": {
+                         "unbroken": full["seconds"], "one_epoch": first["seconds"],
+                         "resumed": resumed["seconds"]}}
+        for r in (full, resumed):
+            shutil.rmtree(r["run"] / "state")
+    return out
+
+
+def same_state(a, b) -> bool:
+    """Two train-state snapshots hold the same tensors and numbers."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_state(a[k], b[k]) for k in a)
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    return a == b
+
+
+@contextlib.contextmanager
+def captured(module, name: str):
+    """Keep the arguments and result of each call of module.name while the
+    block runs."""
+    calls: list[tuple] = []
+    plain = getattr(module, name)
+
+    def capture(*args, **kwargs):
+        out = plain(*args, **kwargs)
+        calls.append((args, kwargs, out))
+        return out
+
+    setattr(module, name, capture)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, plain)
+
+
+def run_eval(cli, argv: list[str], runs: Path, capture: tuple = ()) -> dict:
+    """One offline eval CLI call: its printed lines, its run directory,
+    every wrapper's launches, and what ``capture`` (module, name) kept."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        kept = stack.enter_context(captured(*capture)) if capture else None
+        reset_counts()
+        with contextlib.redirect_stdout(buf):
+            cli.main(argv + ["--runs-dir", str(runs)])
+        launches = counts()
+    print(buf.getvalue(), end="", flush=True)
+    printed = {line.split(":")[0]: line for line in buf.getvalue().splitlines()
+               if line.startswith(("top-1 accuracy", "top-10 accuracy", "mean rank"))}
+    return {"printed": printed, "run": next(iter(runs.iterdir())), "kept": kept,
+            "launches": {k: v for k, v in launches.items() if v},
+            "seconds": time.perf_counter() - t0}
+
+
+def near_ties(scores: np.ndarray, eps: float) -> np.ndarray:
+    """Per query, the candidates whose score lies within 2 eps of its true
+    partner's: the only ones whose order against it a difference of eps in
+    every score can change."""
+    gap = np.abs(scores - np.diag(scores)[:, None])
+    np.fill_diagonal(gap, np.inf)
+    return (gap <= 2 * eps).sum(axis=1)
+
+
+def check_printed(got: dict, ranks: np.ndarray, n: int) -> None:
+    """cli.topk's three printed lines against the ranks it was given."""
+    curve = retrieval.topk_curve(ranks, n)
+    want = [f"top-1 accuracy: {curve[0]:.4f}", f"top-10 accuracy: {curve[9]:.4f}",
+            f"mean rank: {ranks.mean():.1f} / {n}"]
+    if sorted(got.values()) != sorted(want):
+        raise AssertionError(f"cli.topk printed {got}, its ranks give {want}")
+
+
+def run_eval_phase(clip_ckpt: Path, filip_ckpt: Path) -> dict:
+    """cli.topk at --n-candidates 256 on the 3000-family fixture's val split
+    with a CLIP run's best_model.npz, padded and --packed, and with --filip
+    on the FILIP fixture's train split with a FILIP run's; then
+    cli.cosine_similarity with the CLIP checkpoint. The padded and packed
+    ranks agree but at near-ties: a query's ranks may differ by at most its
+    candidates within twice the largest logit difference of the two
+    embeddings (which agree per row at cosine >= COSINE_MIN); --filip's
+    ranks, through K4, equal those of the plain max-sim's scores on the
+    same tokens but at such near-ties, and its scores are within K4_ATOL of
+    them. Launches: K1 once a layer per backbone forward (32 padded, one per
+    packed chunk), K4 once per 64-query block, K1 30 per heatmap forward;
+    no other kernel."""
+    n = 256
+    clip_data, filip_data = WORK / "train_data", WORK / "filip_data"
+    clip_argv = ["--checkpoint", str(clip_ckpt), "--synthetic-fixture", "--data-dir",
+                 str(clip_data), "--fixture-families", str(FIXTURE_FAMILIES), "--prefix-a",
+                 "peptide", "--prefix-b", "receptor"]
+    padded = run_eval(topk, clip_argv + ["--n-candidates", str(n)], WORK / "runs_topk",
+                      (retrieval, "encode_candidates"))
+    packed = run_eval(topk, clip_argv + ["--n-candidates", str(n), "--packed"],
+                      WORK / "runs_topk_packed", (retrieval, "encode_candidates"))
+    fil = run_eval(topk, ["--checkpoint", str(filip_ckpt), "--synthetic-fixture", "--data-dir",
+                          str(filip_data), "--fixture-families", str(FILIP_FIXTURE_FAMILIES),
+                          "--split", "train", "--n-candidates", str(n), "--filip"],
+                   WORK / "runs_topk_filip", (retrieval, "filip_score_matrix"))
+    FIGURES["apart"] = False
+    try:
+        cos = run_eval(cosine_similarity, clip_argv, WORK / "runs_cosine")
+    finally:
+        FIGURES["apart"] = True
+    out = {name: {"launches": r["launches"], "seconds": r["seconds"], "printed": r["printed"]}
+           for name, r in (("topk", padded), ("topk_packed", packed), ("topk_filip", fil),
+                           ("cosine_similarity", cos))}
+
+    # padded against packed
+    (_, _, (p1, r1)), = padded["kept"]
+    (_, _, (p2, r2)), = packed["kept"]
+    cos_min = min(float(row_cosines(a, b).min()) for a, b in ((p1, p2), (r1, r2)))
+    l1, l2 = (np.asarray(p, np.float64) @ np.asarray(r, np.float64).T for p, r in ((p1, r1),
+                                                                                   (p2, r2)))
+    eps = float(np.abs(l1 - l2).max())
+    rank1, rank2 = (retrieval.ranks_from_embeddings(p, r) for p, r in ((p1, r1), (p2, r2)))
+    ties = near_ties(l1, eps)
+    moved = np.abs(rank1 - rank2)
+    check_printed(padded["printed"], rank1, n)
+    check_printed(packed["printed"], rank2, n)
+    ok = cos_min >= COSINE_MIN and bool((moved <= ties).all())
+    log(f"[eval] cli.topk padded against --packed on the same {n} pairs: embeddings per row "
+        f"cosine min {cos_min:.6f} (>= {COSINE_MIN}); logits max |difference| {eps:.3g}; "
+        f"{int((moved > 0).sum())} queries ranked apart (by up to {int(moved.max())}), "
+        f"{int((ties > 0).sum())} queries with a candidate within 2x that of the true partner "
+        f"({int(ties.sum())} such candidates); every rank change within them: "
+        f"{bool((moved <= ties).all())}; top-1 {padded['printed']['top-1 accuracy']!r} / "
+        f"{packed['printed']['top-1 accuracy']!r} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("cli.topk --packed ranks disagree with the padded ones past their "
+                             "near-ties")
+    out["topk_packed"].update(cos_min=cos_min, logit_max_abs_diff=eps,
+                              queries_ranked_apart=int((moved > 0).sum()),
+                              near_tie_candidates=int(ties.sum()))
+
+    # --filip through K4 against the plain max-sim
+    (args, kwargs, s_k4), = fil["kept"]
+    ha, ma, hb, mb, temperature = args[:5]
+    sa, sb = maxsim.maxsim_reference(ha, hb, ma, mb)
+    s_plain = ((sa + sb) / 2 / maxsim.clamped_temperature(temperature)).cpu().numpy()
+    eps = float(np.abs(s_k4 - s_plain).max())
+    rank_k4 = 1 + (s_k4 > np.diag(s_k4)[:, None]).sum(axis=1)
+    rank_plain = 1 + (s_plain > np.diag(s_plain)[:, None]).sum(axis=1)
+    ties = near_ties(s_plain, eps)
+    moved = np.abs(rank_k4 - rank_plain)
+    check_printed(fil["printed"], rank_k4, n)
+    ok = eps <= K4_ATOL and bool((moved <= ties).all())
+    log(f"[eval] cli.topk --filip: scores through filip_maxsim against the plain max-sim on "
+        f"the same tokens (256 x 256, TA {ha.shape[1]}, TB {hb.shape[1]}): max |difference| "
+        f"{eps:.3g} (<= {K4_ATOL:g}); {int((moved > 0).sum())} queries ranked apart, "
+        f"{int(ties.sum())} near-tie candidates; every rank change within them: "
+        f"{bool((moved <= ties).all())} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("cli.topk --filip disagrees with the plain max-sim")
+    out["topk_filip"].update(score_max_abs_diff=eps, queries_ranked_apart=int((moved > 0).sum()),
+                             near_tie_candidates=int(ties.sum()))
+
+    # cosine_similarity's matrices
+    matrices = sorted((cos["run"] / "figures").glob("*.npy"))
+    values = [np.load(f) for f in matrices]
+    if len(values) != 3 or not all(np.isfinite(m).all() and np.abs(m).max() <= 1 + 1e-6
+                                   for m in values):
+        raise AssertionError(f"cli.cosine_similarity wrote {[f.name for f in matrices]}")
+    log(f"[eval] cli.cosine_similarity: {[f.name for f in matrices]}, each {values[0].shape}, "
+        f"finite, |value| <= {max(float(np.abs(m).max()) for m in values):.6f} (<= 1 + 1e-6)")
+
+    # launches: the backbone forwards and K4 blocks each path takes
+    train_ds, val_ds, _ = dataset.generate_datasets(clip_data, seed=42)
+    peps, recs = retrieval._collect_pairs(dataset.PairLoader(val_ds, 16, shuffle=False, seed=42),
+                                          n)
+    chunks = len(packed_chunks(packed_engine.tokenize_packed(common.make_tokenizer(), peps,
+                                                             recs)))
+    want = {"topk": {"attention:attention_fwd": 30 * 32},
+            "topk_packed": {"attention:attention_fwd": 30 * chunks},
+            "topk_filip": {"attention:attention_fwd": 30 * 32, "filip_maxsim": n // 64},
+            "cosine_similarity": {"attention:attention_fwd": 30 * 6}}
+    for name, w in want.items():
+        if out[name]["launches"] != w:
+            raise AssertionError(f"{name}: launches {out[name]['launches']}, want {w}")
+    log(f"[eval] launches as the paths predict: " + "; ".join(
+        f"{name} {out[name]['launches']}" for name in want)
+        + f" (cli.topk --packed: {chunks} chunk forwards); seconds: " + ", ".join(
+            f"{name} {out[name]['seconds']:.2f}" for name in want))
     return out
 
 
@@ -3733,8 +4154,7 @@ def finetune_step_runs(fault_libs: dict, packed: bool = False, family: str = "t3
     f32 master weights and batch, once per attention path (``names``, by
     default all below that apply): {name: (loss, {leaf: gradient})}.
     "kernel" runs K1 and K5; "k1_plain_bwd" K1 and K5's plain version;
-    "plain_fwd_k5" K1's plain version and K5; "plain" both plain versions
-    (the TPU kernels' semantics, rounding where they round); "fault" K1
+    "fault" K1
     and the swept_tiles planted-fault build of K5 (its dk/dv loop drops
     the last query tile); "eager" and "eager_f32"
     attention_impl="eager" (plain attention through autograd) with a bf16
@@ -3743,10 +4163,13 @@ def finetune_step_runs(fault_libs: dict, packed: bool = False, family: str = "t3
     dtype once a layer per chunk forward and remat recompute; "gated_fault"
     and "gated_tf32" through the ffn_f32_k_tile and ffn_f32_tf32
     planted-fault builds of K6-f32); "gated_reordered" runs the gate with
-    reordered_dense_gelu in place of the kernel (no K6 launch). They are run
-    only when ``names`` asks for them. ``activation`` is the heads' FFN
-    activation (CLIPConfig's; relu by default). The packed step runs "kernel" twice ("again")
-    and leaves out "plain_fwd_k5" and "plain". With ``dtype`` float32 the
+    reordered_dense_gelu in place of the kernel (no K6 launch); and
+    "plain_fwd_k5" K1's plain version and K5, "plain" both plain versions
+    (the TPU kernels' semantics, rounding where they round), readings that
+    no check holds. These are run only when ``names`` asks for them.
+    ``activation`` is the heads' FFN activation (CLIPConfig's; relu by
+    default). The packed step runs "kernel" twice ("again"). With ``dtype``
+    float32 the
     fused runs take an f32 backbone through K1-f32 and K5-f32 (their plain
     versions, their fault)."""
     f32 = dtype == torch.float32
@@ -3782,7 +4205,7 @@ def finetune_step_runs(fault_libs: dict, packed: bool = False, family: str = "t3
             ("gated_reordered", "fused", dtype, k1, k5, (3 * L * c, L * c)))
     gated = ("gated", "gated_again", "gated_fault", "gated_tf32", "gated_reordered")
     gated_faults = {"gated_fault": "ffn_f32_k_tile", "gated_tf32": "ffn_f32_tf32"}
-    skipped = ("plain_fwd_k5", "plain", *gated) if packed else ("again", *gated)
+    skipped = ("plain_fwd_k5", "plain", *gated) + (() if packed else ("again",))
     if names is not None:
         skipped = tuple(run[0] for run in runs if run[0] not in names)
     out = {"shapes": (unfrozen_chunks(batch) if packed else
@@ -3806,10 +4229,13 @@ def finetune_step_runs(fault_libs: dict, packed: bool = False, family: str = "t3
                   ffn_kernels(fault_libs[gated_faults[name]]) if name in gated_faults
                   else ffn_forward(reordered_dense_gelu) if name == "gated_reordered"
                   else contextlib.nullcontext())
+        t0 = time.perf_counter()
         with attention_function(fwd, bwd), faulty, \
                 ffn_gate() if name in gated else contextlib.nullcontext():
             _, _, loss = finetune.make_train_step(cfg)(params, state, {}, batch, None)
         torch.cuda.synchronize()
+        log(f"[timing] finetune step run {name}{' packed' if packed else ''} ({family}, "
+            f"{pool}): {time.perf_counter() - t0:.1f} s")
         calls = tuple(attention.launches[n] - b for n, b in zip(counted, before))
         k6 = {n: ffn.launches[n] - b for n, b in ffn_before.items()}
         want_k6 = dict.fromkeys(ffn.launches, 0)
@@ -3867,9 +4293,8 @@ def check_finetune_step(fault_libs: dict, packed: bool = False) -> dict:
        beside its sensitivity to the hidden states moves by a third of its
        largest entry between the bf16 and the f32 step: a check of the
        semantics, where 1 checks the kernel.
-    Each path's distance from the f32 step (K1 or its plain version, K5
-    or its plain version, eager) says which rounding point moves the
-    gradients away from the eager step's."""
+    Each path's distance from the f32 step (K1 and K5, K1 and K5's plain
+    version, eager) is printed beside them."""
     out = finetune_step_runs(fault_libs, packed)
     what = "packed finetune" if packed else "finetune"
     grads = {k: v[1] for k, v in out.items() if k != "shapes"}
@@ -4652,10 +5077,13 @@ def run_t33_train_phase(fault_libs: dict) -> dict:
                 f"the {T33} packed finetune run's best_model.npz", T33)
     for run in ("packed", "finetune_packed"):
         out[run].update(family=T33, profile=f"{SMALL_FIXTURE_FAMILIES} families")
-    out["embeddings_cos_min"] = check_packed_embeddings_vs_plain(T33)
-    out["step_check"] = check_step(T33_CHECK_BATCH, packed=True, family=T33)
-    out["finetune_step_check"] = check_t33_finetune_step(fault_libs)
-    out["per_step"] = launches_per_step(True, finetune, T33)
+    out["embeddings_cos_min"] = timed(f"{T33} check_packed_embeddings_vs_plain",
+                                      check_packed_embeddings_vs_plain, T33)
+    out["step_check"] = timed(f"{T33} check_step", check_step, T33_CHECK_BATCH, packed=True,
+                              family=T33)
+    out["finetune_step_check"] = timed("check_t33_finetune_step", check_t33_finetune_step,
+                                       fault_libs)
+    out["per_step"] = timed(f"{T33} launches_per_step", launches_per_step, True, finetune, T33)
     return out
 
 
@@ -5653,6 +6081,8 @@ def main() -> int:
     fault_reads.update(check_infonce_faults(fault_libs, nce_cases))
     del k1_cases, k5_cases, k4_cases, nce_cases, f32_k1_cases, f32_k5_cases
     phase_done("kernels")
+    plots.plot_embedding_cosine_similarities = count_figures(
+        plots.plot_embedding_cosine_similarities)
     rng = np.random.default_rng(SEED)
     ctx = run_serve_phase(rng)
     try:
@@ -5669,53 +6099,65 @@ def main() -> int:
             f32k6 = run_f32_k6_serve_phase(hctx, f32s, rng, gpu)
             hctx.pop("esm_params")
             phase_done("hf, f32 serve, f32 K6 serve")
-            tctx = run_train_phase()
-            pctx = run_packed_phase()
-            uctx = run_packed_unfrozen_phase()
+            tctx = timed("run_train_phase", run_train_phase)
+            pctx = timed("run_packed_phase", run_packed_phase)
+            uctx = timed("run_packed_unfrozen_phase", run_packed_unfrozen_phase)
             phase_done("train, packed, packed unfrozen")
             t33train = run_t33_train_phase(fault_libs)
             phase_done(f"{T33} train")
             f32train = run_f32_train_phase(fault_libs)
             phase_done("f32 train")
-            ftctx = run_filip_train_phase(fault_libs, gen)
-            fmctx = run_filip_more_phase(fault_libs, gen)
+            ftctx = timed("run_filip_train_phase", run_filip_train_phase, fault_libs, gen)
+            fmctx = timed("run_filip_more_phase", run_filip_more_phase, fault_libs, gen)
             phase_done("filip train")
-            steps = {"k2": check_step(256), "k3": check_step(1024),
-                     "packed": check_step(256, packed=True),
-                     "finetune": check_finetune_step(fault_libs),
-                     "finetune_packed": check_finetune_step(fault_libs, packed=True),
-                     "filip": check_filip_step(ftctx["runs"], WORK / "filip_data", fault_libs),
-                     "filip_packed": check_filip_packed_step(fmctx["runs"], WORK / "filip_data",
-                                                             fault_libs),
-                     "filip_unfrozen": check_filip_unfrozen_step(fmctx["runs"],
-                                                                 WORK / "filip_data", fault_libs)}
+            rctx = run_resume_phase()
+            ectx = run_eval_phase(tctx["k2"]["run"] / "best_model.npz",
+                                  ftctx["runs"]["filip_10"]["run"] / "best_model.npz")
+            phase_done("resume, eval")
+            filip_dir = WORK / "filip_data"
+            steps = {"k2": timed("check_step 256", check_step, 256),
+                     "k3": timed("check_step 1024", check_step, 1024),
+                     "packed": timed("check_step 256 packed", check_step, 256, packed=True),
+                     "finetune": timed("check_finetune_step", check_finetune_step, fault_libs),
+                     "finetune_packed": timed("check_finetune_step packed", check_finetune_step,
+                                              fault_libs, packed=True),
+                     "filip": timed("check_filip_step", check_filip_step, ftctx["runs"],
+                                    filip_dir, fault_libs),
+                     "filip_packed": timed("check_filip_packed_step", check_filip_packed_step,
+                                           fmctx["runs"], filip_dir, fault_libs),
+                     "filip_unfrozen": timed("check_filip_unfrozen_step",
+                                             check_filip_unfrozen_step, fmctx["runs"], filip_dir,
+                                             fault_libs)}
             phase_done("step checks")
             ictx = run_int8_serve_phase(ctx)
             try:
                 i8train = run_int8_train()
                 k6ctx = run_k6_serve_phase(ctx)
                 phase_done("int8, K6 gate")
-                times = time_attention(gen, gpu)
-                k5_times = time_attention_bwd(gen, gpu, [
+                times = timed("time_attention", time_attention, gen, gpu)
+                k5_times = timed("time_attention_bwd", time_attention_bwd, gen, gpu, [
                     (kind, seg) for kind, path, seg in segments
                     if path and seg.shape in ((16, 256), (28, 2048))])
-                family_times = time_attention_families(gen, gpu)
-                f32_times = time_attention_f32(gen, gpu)
-                k4_times = time_maxsim(gen, gpu)
-                nce_times = time_infonce(gen, gpu)
-                dispatch = time_dispatch(gen, gpu)
-                p1_times = time_dense_mm(gen, gpu)
-                k6_times = time_ffn(gen, gpu)
-                k6_f32_times = time_ffn_f32(10240, 640, 2560, gpu)
-                short_times = time_short_products(gen, gpu)
-                serving = {"bf16": time_serving(ctx, rng, gpu),
-                           "int8": time_serving(ictx, rng, gpu, "int8")}
+                family_times = timed("time_attention_families", time_attention_families, gen,
+                                     gpu)
+                f32_times = timed("time_attention_f32", time_attention_f32, gen, gpu)
+                k4_times = timed("time_maxsim", time_maxsim, gen, gpu)
+                nce_times = timed("time_infonce", time_infonce, gen, gpu)
+                dispatch = timed("time_dispatch", time_dispatch, gen, gpu)
+                p1_times = timed("time_dense_mm", time_dense_mm, gen, gpu)
+                k6_times = timed("time_ffn", time_ffn, gen, gpu)
+                k6_f32_times = timed("time_ffn_f32", time_ffn_f32, 10240, 640, 2560, gpu)
+                short_times = timed("time_short_products", time_short_products, gen, gpu)
+                serving = {"bf16": timed("time_serving bf16", time_serving, ctx, rng, gpu),
+                           "int8": timed("time_serving int8", time_serving, ictx, rng, gpu,
+                                         "int8")}
                 with ffn_gate():
-                    serving["k6"] = time_serving(ctx, rng, gpu, "PCT_FFN_PALLAS=1")
-                time_filip_serving(ctx, fctx, rng, gpu)
-                filip_times = time_filip_train(ftctx, WORK / "filip_data", gpu)
-                filip_more_times = time_filip_more(fmctx, WORK / "filip_data", gpu,
-                                                   ftctx["profile"])
+                    serving["k6"] = timed("time_serving K6 gate", time_serving, ctx, rng, gpu,
+                                          "PCT_FFN_PALLAS=1")
+                timed("time_filip_serving", time_filip_serving, ctx, fctx, rng, gpu)
+                filip_times = timed("time_filip_train", time_filip_train, ftctx, filip_dir, gpu)
+                filip_more_times = timed("time_filip_more", time_filip_more, fmctx, filip_dir,
+                                         gpu, ftctx["profile"])
                 tctx["packed"] = pctx
                 tctx["finetune_packed"], tctx["lora_packed"] = uctx["finetune"], uctx["lora"]
                 pairs_per_s = {run: time_train_steps(tctx, run, what, gpu) for run, what in (
@@ -5774,7 +6216,10 @@ def main() -> int:
              "f32_k6_train_finetune_packed": f32train["finetune_packed_k6"]["launches"],
              "f32_k6_train_frozen_step": {
                  "attention_fwd_f32": f32train["frozen_step"]["attention_fwd_f32"],
-                 "ffn_gelu_f32": f32train["frozen_step"]["ffn_gelu_f32"]}}
+                 "ffn_gelu_f32": f32train["frozen_step"]["ffn_gelu_f32"]},
+             **{name: run["launches"] for name, run in rctx.items()},
+             **{name: kernel_counts(run["launches"]) for name, run in ectx.items()},
+             "figures": kernel_counts(FIGURES["launches"])}
     by_path = {name: {path: counts.get(name, 0) for path, counts in paths.items()}
                for name in ("attention_fwd", "attention_bwd", *F32_KERNELS, "filip_maxsim",
                             "infonce", "infonce_tiled", "dense_mm", "ffn_gelu", "ffn_gelu_f32")}
@@ -5965,6 +6410,8 @@ def main() -> int:
             "peak_memory_gb": f32train["finetune_packed_k6"]["peak_memory_gb"],
             "chunk_forwards_per_pass": f32train["finetune_packed_k6"]["chunks_per_pass"]},
     }]
+    log(f"[figures] {FIGURES['heatmaps']} heatmaps of the training runs: "
+        f"{FIGURES['forwards']} backbone forwards, launches {kernel_counts(FIGURES['launches'])}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s; by phase: "
         + ", ".join(f"{name} {sec:.1f} s" for name, sec in seconds.items()))
     print(gpu_line(), flush=True)

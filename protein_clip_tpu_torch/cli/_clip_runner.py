@@ -4,29 +4,100 @@ device, for the frozen backbone (length-grouped, or packed with
 ``--packed``) and the unfrozen modes (``--finetune``, ``--lora-rank``),
 which train on one pad bucket (``length_groups`` 1).
 
-The figures of the TPU package's run (``viz/plots.py``: lengths, clusters,
-cosine heatmaps, loss curves) need matplotlib and are not ported: the run
-prints one line saying so and writes the CSV, ``metrics.jsonl`` and
-``best_model.npz``.
+The run writes the CSV, ``metrics.jsonl``, ``best_model.npz``, a
+train-state snapshot after every epoch (``state/``; ``--resume-dir <run
+dir>`` continues from it) and the TPU package's figures (``viz/plots.py``:
+the cluster sizes for ``main_2protein``, the lengths, the raw cosine
+heatmap, per epoch with ``--epoch-figures``, the loss curves and the
+trained heatmaps), drawn where matplotlib is installed; the heatmaps'
+matrices are written as ``figures/figure N.npy`` either way.
 """
 
 from __future__ import annotations
 
+from pathlib import Path
+
+import torch
+
 from . import common
 from ..data.dataset import PairLoader, generate_datasets
-from ..models import clip
+from ..data.prefetch import to_device
+from ..models import clip, esm2
 from ..train import clip_engine, finetune, lora, loop
 from ..utils import prng, rundir
 from ..utils.device import resolve_device
+from ..viz import plots
 
 
-def run_clip_training(args, *, prefix_a: str, prefix_b: str,
+def similarity_fn(params, esm_params, mcfg, tokenizer, device):
+    """(peps, recs) -> the raw cosine matrix (logits de-scaled by
+    exp(-temperature)) of one batch, in eval mode, for the heatmaps."""
+
+    @torch.inference_mode()
+    def compute(peps, recs):
+        batch = clip_engine.expand_batch(
+            to_device(clip_engine.tokenize_pair_batch(tokenizer, peps, recs), device))
+        pep, rec = clip.forward(params, esm_params, batch, mcfg, train=False)
+        return clip.cosine_similarity_matrix(pep, rec, params["temperature"]).cpu().numpy()
+
+    return compute
+
+
+def eval_view(args, mcfg, esm_params):
+    """params -> (head params, backbone params) for the heatmaps, from any
+    mode's trainable tree: a finetune master backbone cast to the compute
+    dtype; LoRA adapters merged into the frozen base ``esm_params``."""
+
+    @torch.inference_mode()
+    def view(params):
+        if args.finetune:
+            return params["heads"], esm2.cast_params(params["esm"], mcfg.esm.compute_dtype)
+        if args.lora_rank:
+            return params["heads"], lora.merge_lora(esm_params, params["lora"],
+                                                    lora.default_alpha(args.lora_rank))
+        return params, esm_params
+
+    return view
+
+
+def figure_hooks(args, run_dir: Path, train_loader, val_loader, tokenizer, similarity):
+    """(epoch_hook for ``loop.fit``, the end-of-run figures): the trained
+    heatmaps on the first train and val batch, per epoch under
+    ``--epoch-figures``; ``similarity(params)`` gives a heatmap's
+    ``compute_fn``."""
+
+    def heatmaps(params, suffix: str = ""):
+        for name, loader in (("Train", train_loader), ("Val", val_loader)):
+            plots.plot_embedding_cosine_similarities(
+                run_dir, f"Trained Embedding Cosine Similarities on {name} Set{suffix}",
+                loader, tokenizer, similarity(params))
+
+    def epoch_hook(epoch, best_params):
+        if args.epoch_figures:
+            heatmaps(best_params, f" - Epoch {epoch + 1}")
+
+    def finish(result, train_batch_size: int):
+        plots.plot_loss_curves(run_dir, result.train_losses, result.val_losses,
+                               train_batch_size, args.batch_size)
+        heatmaps(result.best_params)
+
+    return epoch_hook, finish
+
+
+def run_dir_of(args) -> Path:
+    """``--resume-dir`` when given (the run it continues), else a new
+    timestamped directory under ``--runs-dir``."""
+    run_dir = Path(args.resume_dir) if args.resume_dir else rundir.make_run_dir(args.runs_dir)
+    print(f"All run info will be saved to {run_dir}")
+    return run_dir
+
+
+def run_clip_training(args, *, prefix_a: str, prefix_b: str, plot_cluster: bool = False,
                       max_sequence_length: int | None = None) -> int:
     common.check_train_args(args)
     device = resolve_device(args.device)
     generator = prng.set_seed(args.seed)
-    run_dir = rundir.make_run_dir(args.runs_dir)
-    print(f"All run info will be saved to {run_dir}")
+    run_dir = run_dir_of(args)
 
     esm_cfg = common.esm_config(args.esm_config, args.esm_dtype, fast_gelu=args.fast_gelu,
                                 exact_gelu=args.exact_gelu)
@@ -39,6 +110,10 @@ def run_clip_training(args, *, prefix_a: str, prefix_b: str,
     params, esm_params, engine = common.unfrozen_params(
         args, params, esm_params, device, finetune_engine=finetune, lora_engine=lora)
     unfrozen = engine is not None
+    view = eval_view(args, mcfg, esm_params)
+
+    def similarity(p):
+        return similarity_fn(*view(p), mcfg, tokenizer, device)
 
     data_dir = common.ensure_data(args, prefix_a, prefix_b)
     train_ds, val_ds, test_ds = generate_datasets(data_dir, prefix_a, prefix_b, seed=args.seed,
@@ -49,7 +124,12 @@ def run_clip_training(args, *, prefix_a: str, prefix_b: str,
                             seed=args.seed)
     test_loader = PairLoader(test_ds, args.batch_size, shuffle=False, drop_last=True,
                              seed=args.seed)
-    print("[viz] figures skipped: viz/plots is not ported (ROADMAP queue 1)")
+
+    if plot_cluster:
+        plots.plot_clustering(run_dir, data_dir, prefix=prefix_b)
+    plots.plot_protein_lengths(run_dir, data_dir, prefix1=prefix_a, prefix2=prefix_b)
+    plots.plot_embedding_cosine_similarities(run_dir, "Raw Embedding Cosine Similarities",
+                                             train_loader, tokenizer, similarity(params))
 
     steps_per_epoch = (len(train_loader) if args.no_gradcache
                        else len(train_loader) // args.accumulated_batches)
@@ -61,7 +141,12 @@ def run_clip_training(args, *, prefix_a: str, prefix_b: str,
         backbone_lr=args.backbone_lr, weight_decay=args.weight_decay,
         warmup_steps=args.warmup_steps, lr_schedule=args.lr_schedule, grad_clip=args.grad_clip,
         total_steps=args.epochs * steps_per_epoch)
-    loop.fit(run_dir, cfg, params, esm_params, train_loader, val_loader, tokenizer,
-             args.epochs, seed=args.seed, device=device, use_gradcache=not args.no_gradcache,
-             test_loader=test_loader, engine=engine)
+    epoch_hook, finish = figure_hooks(args, run_dir, train_loader, val_loader, tokenizer,
+                                      similarity)
+    result = loop.fit(run_dir, cfg, params, esm_params, train_loader, val_loader, tokenizer,
+                      args.epochs, seed=args.seed, device=device,
+                      use_gradcache=not args.no_gradcache, test_loader=test_loader,
+                      epoch_hook=epoch_hook, resume=args.resume_dir is not None, engine=engine)
+    finish(result, args.batch_size if args.no_gradcache
+           else args.batch_size * args.accumulated_batches)
     return 0

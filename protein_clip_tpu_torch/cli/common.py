@@ -56,8 +56,9 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
                    help="torch device; 'cpu' runs the plain versions of the kernels")
 
 
-def add_train_args(p: argparse.ArgumentParser) -> None:
-    """The training entry points' arguments beside ``add_common_args``."""
+def add_data_args(p: argparse.ArgumentParser) -> None:
+    """The paired corpus and the run directory: the training entry points'
+    and the offline evals' (``topk``, ``cosine_similarity``)."""
     p.add_argument("--data-dir", default="data",
                    help="directory with the paired FASTAs and the cluster TSV cache")
     p.add_argument("--runs-dir", default="runs")
@@ -68,7 +69,13 @@ def add_train_args(p: argparse.ArgumentParser) -> None:
                    help="synthetic corpus size; must be large enough that the 15%% val "
                         "split fills at least one batch")
     p.add_argument("--num-chunks", type=int, default=16,
-                   help="backbone microbatches per global step")
+                   help="backbone microbatches per global step (per encoded side in the "
+                        "evals)")
+
+
+def add_train_args(p: argparse.ArgumentParser) -> None:
+    """The training entry points' arguments beside ``add_common_args``."""
+    add_data_args(p)
     p.add_argument("--length-groups", type=int, default=4,
                    help="length-sorted encode groups per global batch (1 = one pad bucket)")
     p.add_argument("--lr", type=float, default=1e-3)
@@ -106,7 +113,12 @@ def add_train_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--lora-ffn", action="store_true",
                    help="with --lora-rank: also adapt the FFN wi/wo")
     p.add_argument("--resume-dir", default=None,
-                   help="continue a run from its state snapshot (not ported yet: raises)")
+                   help="continue the run in this run directory from its newest state "
+                        "snapshot (state/epoch_<n>.pt, written after every epoch) up to "
+                        "--epochs; the same flags as the run it continues")
+    p.add_argument("--epoch-figures", action="store_true",
+                   help="per-epoch cosine heatmaps of the best heads (figures/, drawn where "
+                        "matplotlib is installed; the matrices as .npy always)")
 
 
 def add_mesh_args(p: argparse.ArgumentParser) -> None:
@@ -119,9 +131,9 @@ def add_mesh_args(p: argparse.ArgumentParser) -> None:
 
 def check_train_args(args) -> None:
     """Raise on the training options this port does not run yet (--packed
-    with width tiers, resume, a mesh), on --finetune with --lora-rank (as
-    the TPU package does), on either of them with --esm-dtype int8 or with
-    width tiers, before anything is loaded."""
+    with width tiers, a mesh), on --finetune with --lora-rank (as the TPU
+    package does), on either of them with --esm-dtype int8 or with width
+    tiers, before anything is loaded."""
     if args.finetune and args.lora_rank:
         raise SystemExit("--finetune and --lora-rank are mutually exclusive "
                          "(full vs parameter-efficient)")
@@ -139,8 +151,6 @@ def check_train_args(args) -> None:
         (args.packed and args.pack_tiers > 1,
          f"--packed with --pack-tiers {args.pack_tiers}: width-tiered packing (ROADMAP "
          "queue 1: width-tiered packing)"),
-        (args.resume_dir is not None, "--resume-dir: train-state snapshots and resume "
-                                      "(ROADMAP queue 1)"),
         ((args.dp, args.tp, args.pp) != (1, 1, 1), "--dp/--tp/--pp other than 1: "
                                                    "multi-device training (ROADMAP queue 1: "
                                                    "multi-device)"),

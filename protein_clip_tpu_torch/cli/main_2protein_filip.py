@@ -23,26 +23,33 @@ with --packed.
 
 The run writes the CSV, ``metrics.jsonl`` and ``best_model.npz``: the
 FILIP heads and temperature (the CLIP heads' tree, which
-``embed``/``serve``/``retrieve --filip`` read), beside the finetuned
-backbone or the adapters as the CLIP unfrozen modes save them. Runs on
-cuda unless --device cpu.
+``embed``/``serve``/``retrieve``/``topk --filip`` read), beside the
+finetuned backbone or the adapters as the CLIP unfrozen modes save them;
+a train-state snapshot after every epoch (``--resume-dir <run dir>``
+continues from it), and the figures of ``cli/_clip_runner.py`` with the
+direction-averaged FILIP similarity as the heatmaps. Runs on cuda unless
+--device cpu.
 
 Not ported yet, each raising ``NotImplementedError`` before anything
-loads: --pack-tiers > 1, --resume-dir and a mesh; --esm-dtype int8 with an
-unfrozen mode is refused. The figures of the TPU package's run need
-matplotlib and are skipped.
+loads: --pack-tiers > 1 and a mesh; --esm-dtype int8 with an unfrozen mode
+is refused.
 """
 
 from __future__ import annotations
 
 import argparse
 
+import torch
+
 from . import common
+from ._clip_runner import eval_view, figure_hooks, run_dir_of
 from ..data.dataset import PairLoader, generate_datasets
+from ..data.prefetch import to_device
 from ..models import filip
 from ..train import clip_engine, filip_engine, filip_finetune, filip_lora, loop
-from ..utils import prng, rundir
+from ..utils import prng
 from ..utils.device import resolve_device
+from ..viz import plots
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -60,16 +67,28 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--use-dcl", action="store_true",
                    help="diagonal-masked denominator (decoupled contrastive loss; off in the "
                         "reference)")
-    p.add_argument("--epoch-figures", action="store_true",
-                   help="per-epoch cosine heatmaps (figures are not ported: skipped)")
     return p
+
+
+def filip_similarity_viz(params, esm_params, mcfg, tokenizer, device):
+    """(peps, recs) -> the direction-averaged similarity matrix (sim_a +
+    sim_b) / 2 of one batch, in eval mode, for the heatmaps."""
+
+    @torch.inference_mode()
+    def compute(peps, recs):
+        batch = clip_engine.expand_batch(
+            to_device(clip_engine.tokenize_pair_batch(tokenizer, peps, recs), device))
+        sim_a, sim_b = filip.forward(params, esm_params, batch, mcfg, train=False)
+        return ((sim_a + sim_b) / 2.0).cpu().numpy()
+
+    return compute
 
 
 def check_filip_args(args) -> None:
     """The TPU package's mutual exclusions (SystemExit), then the options
     this port does not run yet or refuses (``common.check_train_args``:
-    NotImplementedError for width tiers, resume, a mesh, and int8 with an
-    unfrozen mode), before anything is loaded."""
+    NotImplementedError for width tiers, a mesh, and int8 with an unfrozen
+    mode), before anything is loaded."""
     if args.finetune and args.lora_rank:
         raise SystemExit("--finetune and --lora-rank are mutually exclusive "
                          "(full vs parameter-efficient)")
@@ -87,8 +106,7 @@ def main(argv=None) -> int:
     check_filip_args(args)
     device = resolve_device(args.device)
     generator = prng.set_seed(args.seed)
-    run_dir = rundir.make_run_dir(args.runs_dir)
-    print(f"All run info will be saved to {run_dir}")
+    run_dir = run_dir_of(args)
 
     esm_cfg = common.esm_config(args.esm_config, args.esm_dtype, fast_gelu=args.fast_gelu,
                                 exact_gelu=args.exact_gelu)
@@ -101,6 +119,10 @@ def main(argv=None) -> int:
     params, esm_params, engine = common.unfrozen_params(
         args, params, esm_params, device, finetune_engine=filip_finetune,
         lora_engine=filip_lora, frozen_engine=filip_engine)
+    view = eval_view(args, mcfg, esm_params)
+
+    def similarity(p):
+        return filip_similarity_viz(*view(p), mcfg, tokenizer, device)
 
     data_dir = common.ensure_data(args, "protein1", "protein2")
     train_ds, val_ds, test_ds = generate_datasets(data_dir, "protein1", "protein2",
@@ -112,7 +134,10 @@ def main(argv=None) -> int:
                             seed=args.seed)
     test_loader = PairLoader(test_ds, args.batch_size, shuffle=False, drop_last=True,
                              seed=args.seed)
-    print("[viz] figures skipped: viz/plots is not ported (ROADMAP queue 1)")
+    plots.plot_clustering(run_dir, data_dir, prefix="protein2")
+    plots.plot_protein_lengths(run_dir, data_dir)
+    plots.plot_embedding_cosine_similarities(run_dir, "Raw Embedding Cosine Similarities",
+                                             train_loader, tokenizer, similarity(params))
 
     cfg = clip_engine.EngineConfig(
         model=mcfg, batch_size=args.batch_size, accumulated_batches=1, learning_rate=args.lr,
@@ -122,9 +147,13 @@ def main(argv=None) -> int:
         weight_decay=args.weight_decay, warmup_steps=args.warmup_steps,
         lr_schedule=args.lr_schedule, grad_clip=args.grad_clip,
         total_steps=args.epochs * len(train_loader))
-    loop.fit(run_dir, cfg, params, esm_params, train_loader, val_loader, tokenizer,
-             args.epochs, seed=args.seed, device=device, use_gradcache=False,
-             test_loader=test_loader, engine=engine)
+    epoch_hook, finish = figure_hooks(args, run_dir, train_loader, val_loader, tokenizer,
+                                      similarity)
+    result = loop.fit(run_dir, cfg, params, esm_params, train_loader, val_loader, tokenizer,
+                      args.epochs, seed=args.seed, device=device, use_gradcache=False,
+                      test_loader=test_loader, epoch_hook=epoch_hook,
+                      resume=args.resume_dir is not None, engine=engine)
+    finish(result, args.batch_size)
     return 0
 
 

@@ -1,6 +1,7 @@
 """Throughput of the packed CLIP and FILIP train steps on the card: the port
 of the TPU package's ``bench.py`` (its ``main``, ``bench_finetune``,
-``bench_lora``, ``bench_filip`` and ``bench_finetune_filip``).
+``bench_lora``, ``bench_filip``, ``bench_finetune_filip`` and
+``bench_eval``).
 
     python -m protein_clip_tpu_torch.tools.bench_train
     PCT_BENCH_PROFILE=longtail python -m protein_clip_tpu_torch.tools.bench_train
@@ -9,6 +10,7 @@ of the TPU package's ``bench.py`` (its ``main``, ``bench_finetune``,
     PCT_BENCH_MODE=filip python -m protein_clip_tpu_torch.tools.bench_train
     PCT_BENCH_MODE=finetune_filip python -m protein_clip_tpu_torch.tools.bench_train
     PCT_ESM_CONFIG=t33_650M PCT_BENCH_MODE=finetune python -m protein_clip_tpu_torch.tools.bench_train
+    PCT_BENCH_MODE=eval python -m protein_clip_tpu_torch.tools.bench_train
 
 ESM-2 ``PCT_ESM_CONFIG`` (default t30_150M, as ``bench.py`` reads it; every
 family runs on the card in bf16) with seeded random weights (seed 0), CLIP
@@ -29,7 +31,12 @@ global batch 256 packed (``cfg.packed``, 16 rows a chunk). The mode
   tiers (default 4), remat, Adam at 1e-3, 8 timed steps (``bench_filip``);
 - ``finetune_filip``: the packed FILIP finetune step
   (``train/filip_finetune.py``) at the same batch and tiers, an f32 master
-  backbone at 1e-5, 6 timed steps (``bench_finetune_filip``).
+  backbone at 1e-5, 6 timed steps (``bench_finetune_filip``);
+- ``eval``: the frozen mode's model on its draws, no step: the packed eval
+  step (``make_eval_step``, what ``fit`` validates with under
+  ``--packed``) and the packed retrieval encode (``embed_packed``, what
+  ``cli.topk --packed`` runs), each timed over the 10 batches after a warm
+  one, in pairs/s (``bench_eval``).
 
 Global batches of synthetic pairs are drawn from
 ``numpy.random.default_rng(42)`` as ``bench.py`` draws them: peptides of
@@ -160,8 +167,41 @@ def build(mode: str, device) -> tuple:
             lora.init_lora(torch.Generator(device=device).manual_seed(2), esm_params, rank),
             heads)
         return params, lora.make_optimizer(cfg).init(params), esm_params, lora.make_train_step(cfg)
-    raise ValueError(f"PCT_BENCH_MODE={mode!r}: frozen, finetune, lora, filip or "
-                     "finetune_filip")
+    raise ValueError(f"PCT_BENCH_MODE={mode!r}: frozen, finetune, lora, filip, "
+                     "finetune_filip or eval")
+
+
+def bench_eval(device, profile: str, gpu: str) -> dict:
+    """Pairs/s of the packed eval step and of the packed retrieval encode
+    (``bench.py``'s ``bench_eval``) on the frozen mode's model and draws;
+    each call's outputs are left on the card until the last is read."""
+    heads, _, esm_params, _ = build("frozen", device)
+    esm_cfg = common.esm_config(esm_family(), "bfloat16")
+    mcfg = clip.CLIPConfig(input_dim=esm_cfg.hidden_size, esm=esm_cfg)
+    cfg = clip_engine.EngineConfig(model=mcfg, batch_size=16,
+                                   accumulated_batches=GLOBAL_BATCH // 16, packed=True)
+    eval_step = clip_engine.make_eval_step(cfg)
+    batches = [to_device(b, device)
+               for b in make_batches(np.random.default_rng(42), STEPS + 1, profile)]
+    out = {}
+    for name, fn in (("eval", lambda b: eval_step(heads, esm_params, b)),
+                     ("retrieval_encode",
+                      lambda b: torch.cat(packed_engine.embed_packed(heads, esm_params, b,
+                                                                     mcfg)).sum())):
+        float(fn(batches[0]))
+        k1 = attention.launches["attention_fwd"]
+        t0 = time.perf_counter()
+        values = [float(v) for v in [fn(b) for b in batches[1:]]]
+        dt = time.perf_counter() - t0
+        if not all(np.isfinite(values)):
+            raise RuntimeError(f"non-finite {name} outputs {values}")
+        out[f"{name}_pairs_per_sec"] = STEPS * GLOBAL_BATCH / dt
+        out[f"{name}_ms"] = 1e3 * dt / STEPS
+        out[f"{name}_k1_launches"] = (attention.launches["attention_fwd"] - k1) / STEPS
+    return {"metric": "eval_pairs_per_sec", "value": out["eval_pairs_per_sec"],
+            "unit": "pairs/s", "mode": "eval", "esm_config": esm_family(), "profile": profile,
+            "global_batch": GLOBAL_BATCH, "steps": STEPS, **out,
+            "device": torch.cuda.get_device_name(0), "gpu": gpu}
 
 
 def main() -> int:
@@ -170,6 +210,9 @@ def main() -> int:
     mode = os.environ.get("PCT_BENCH_MODE", "frozen")
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
+    if mode == "eval":
+        print(json.dumps(bench_eval(device, profile, gpu)))
+        return 0
     rng = np.random.default_rng(42)
     if mode in FILIP_STEPS:
         pairs = int(os.environ.get("PCT_FILIP_BATCH", "128"))

@@ -13,11 +13,17 @@ dtype without ``ml_dtypes``) is read back bit for bit.
 ``read_hf_checkpoint`` reads the tensors of a HF ESM-2 checkpoint directory
 (``model.safetensors`` or ``pytorch_model.bin``, either sharded) without the
 ``transformers`` and ``safetensors`` packages.
+
+``save_train_state`` and ``load_train_state`` keep a run's train state for
+``train/loop.fit(resume=True)``: the port's own format (``torch.save``,
+read back with ``weights_only=True``), since the TPU package's Orbax
+snapshots need Orbax; neither package reads the other's.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import re
 import struct
 from pathlib import Path
@@ -27,15 +33,11 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
+from .optimizer import check_layout, tree_items
 
 
-def _flatten(tree: Any, prefix: str = "") -> dict[str, Any]:
-    if isinstance(tree, dict):
-        flat = {}
-        for key in tree:
-            flat.update(_flatten(tree[key], f"{prefix}{key}/"))
-        return flat
-    return {prefix[:-1]: tree}
+def _flatten(tree: Any) -> dict[str, Any]:
+    return dict(tree_items(tree))
 
 
 def _map_like(like: Any, fn, prefix: str = "") -> Any:
@@ -114,6 +116,53 @@ def from_numpy_tree(tree: Any, device="cuda", dtype: torch.dtype | None = None) 
         return to_tensor(node, device, dtype)
 
     return carry(tree)
+
+
+# ---------------------------------------------------------------------------
+# Train-state snapshots
+# ---------------------------------------------------------------------------
+
+def _on_host(tree: Any) -> dict[str, torch.Tensor]:
+    """A tree's tensors by flat key, copied to the host."""
+    return {k: v.detach().to("cpu", copy=True) for k, v in _flatten(tree).items()}
+
+
+def save_train_state(path: str | Path, state: dict) -> None:
+    """Write a train state: ``params`` and ``best_params`` (trees of
+    tensors, saved by flat key), ``opt_state`` (an optimizer state's
+    ``state_dict()``, on the host), ``best_val`` and the loss lists (plain
+    numbers); tensors are copied to the host. The
+    file is written under a temporary name beside ``path`` and renamed into
+    place, so a write cut short never replaces a readable snapshot."""
+    path = Path(path)
+    out = {"params": _on_host(state["params"]), "best_params": _on_host(state["best_params"]),
+           "opt_state": state["opt_state"], "best_val": float(state["best_val"]),
+           "train_losses": [float(v) for v in state["train_losses"]],
+           "val_losses": [float(v) for v in state["val_losses"]]}
+    tmp = path.with_name(path.name + ".tmp")
+    torch.save(out, tmp)
+    os.replace(tmp, path)
+
+
+def load_train_state(path: str | Path, device="cuda") -> dict:
+    """``save_train_state``'s dict with every tensor on ``device``; params
+    and best params by flat key (``load_into`` puts them into a tree)."""
+    return torch.load(path, map_location=resolve_device(device), weights_only=True)
+
+
+def load_into(tree: Any, flat: dict[str, torch.Tensor], what: str = "params") -> None:
+    """Copy ``flat`` (a saved tree by flat key) into ``tree``'s tensors in
+    place; a tree of other keys or shapes raises ValueError naming them."""
+    check_layout(f"saved {what}", {k: list(v.shape) for k, v in _flatten(tree).items()},
+                 {k: list(v.shape) for k, v in flat.items()})
+    with torch.no_grad():
+        for k, leaf in _flatten(tree).items():
+            leaf.copy_(flat[k])
+
+
+def tree_like(tree: Any, flat: dict[str, torch.Tensor]) -> Any:
+    """``tree``'s structure holding ``flat``'s tensors (by flat key)."""
+    return _map_like(tree, lambda key, leaf: flat[key])
 
 
 # ---------------------------------------------------------------------------

@@ -4,14 +4,19 @@ the port of ``protein_clip_tpu/train/loop.py``.
 Per epoch: train (global-batch or per sub-batch) -> validate -> append an
 ``Epoch,Train Loss,Validation Loss`` row to ``losses_per_epoch.txt`` and a
 JSON line to ``metrics.jsonl`` -> on a better validation loss, export the
-heads to ``best_model.npz`` (the flat-npz format both packages read). After
-the last epoch, the test loss of the best heads.
+heads to ``best_model.npz`` (the flat-npz format both packages read) ->
+every ``save_state_every`` epochs a train-state snapshot in
+``state/epoch_<n>.pt`` (only the newest kept) -> ``epoch_hook``. After the
+last epoch, the test loss of the best heads.
 
 Dropout draws from a ``torch.Generator`` on the device seeded from (seed,
 epoch), in place of the TPU package's ``fold_in(rng, epoch)``, and the
 loaders are reseeded per epoch, so an epoch's stream does not depend on the
-ones before it. The TPU package's Orbax state snapshots and ``resume`` are
-not ported (ROADMAP queue 1).
+ones before it: ``resume=True`` restores the newest snapshot (params,
+optimizer state, best params, best validation loss, both loss lists) and
+replays the epochs after it as an unbroken run would. The snapshots are the
+port's own format (``checkpoint.save_train_state``), not the TPU package's
+Orbax ones.
 """
 
 from __future__ import annotations
@@ -45,19 +50,49 @@ def _snapshot(params):
     return params.detach().clone()
 
 
+def _snapshots(state_dir: Path) -> list[Path]:
+    """The state snapshots in ``state_dir``, oldest epoch first (a ``.tmp``
+    file that a cut write left is none)."""
+    return sorted(state_dir.glob("epoch_*.pt"), key=lambda p: int(p.stem.split("_")[1]))
+
+
+def _save_state(state_dir: Path, epoch: int, state: dict) -> None:
+    """Snapshot at ``state_dir/epoch_<n>.pt``; the older ones are removed
+    only once it is in place."""
+    state_dir.mkdir(parents=True, exist_ok=True)
+    path = state_dir / f"epoch_{epoch}.pt"
+    ckpt.save_train_state(path, state)
+    for old in _snapshots(state_dir):
+        if old != path:
+            old.unlink()
+
+
+def _restore_latest_state(state_dir: Path, device) -> tuple[dict, int] | None:
+    """The newest snapshot and its epoch, or None if there is none."""
+    snaps = _snapshots(state_dir) if state_dir.exists() else []
+    if not snaps:
+        return None
+    return ckpt.load_train_state(snaps[-1], device), int(snaps[-1].stem.split("_")[1])
+
+
 def fit(run_dir: str | Path, cfg: clip_engine.EngineConfig, params: Any, esm_params: Any,
         train_loader, val_loader, tokenizer: EsmTokenizer, num_epochs: int, *, seed: int,
         device, use_gradcache: bool = True, test_loader=None,
-        log: Callable[[str], None] = print, resume: bool = False, engine=None) -> FitResult:
+        epoch_hook: Callable[[int, Any], None] | None = None,
+        log: Callable[[str], None] = print, resume: bool = False, engine=None,
+        save_state_every: int = 1) -> FitResult:
     """Train ``params`` (updated in place) for ``num_epochs`` and write the
     run's artifacts into ``run_dir``. ``best_params`` is a copy taken at the
     best validation loss. ``engine`` is a module with ``make_train_step`` and
     ``make_eval_step`` of the ``clip_engine`` signatures (the default), and
     optionally ``make_optimizer`` (``finetune``, ``lora``: two learning-rate
-    groups), which replaces the optimizer of the config's trainer knobs."""
-    if resume:
-        raise NotImplementedError("resuming a run is not ported yet (ROADMAP queue 1: "
-                                  "train-state snapshots and resume)")
+    groups), which replaces the optimizer of the config's trainer knobs.
+
+    ``resume``: continue from the newest snapshot in ``run_dir/state`` (a
+    fresh start when there is none), appending to the CSV and
+    ``metrics.jsonl``; a snapshot of another tree layout (another mode)
+    raises ValueError. ``epoch_hook(epoch, best_params)`` runs after each
+    epoch's snapshot (the runners' ``--epoch-figures``)."""
     device = torch.device(device)
     run_dir = Path(run_dir)
     run_dir.mkdir(parents=True, exist_ok=True)
@@ -71,6 +106,7 @@ def fit(run_dir: str | Path, cfg: clip_engine.EngineConfig, params: Any, esm_par
     losses_path = run_dir / "losses_per_epoch.txt"
     metrics_path = run_dir / "metrics.jsonl"
     model_path = run_dir / "best_model.npz"
+    state_dir = run_dir / "state"
     log(f"Best model will be saved to {model_path}")
     log(f"Losses will be saved to {losses_path}")
 
@@ -78,9 +114,22 @@ def fit(run_dir: str | Path, cfg: clip_engine.EngineConfig, params: Any, esm_par
     val_losses: list[float] = []
     best_val = float("inf")
     best_params = _snapshot(params)
-    with open(losses_path, "w") as f:
-        f.write("Epoch,Train Loss,Validation Loss\n")
-        for epoch in range(num_epochs):
+    start_epoch = 0
+    if resume:
+        restored = _restore_latest_state(state_dir, device)
+        if restored is not None:
+            state, start_epoch = restored
+            ckpt.load_into(params, state["params"])
+            opt_state.load_state_dict(state["opt_state"])
+            best_params = ckpt.tree_like(params, state["best_params"])
+            best_val = state["best_val"]
+            train_losses, val_losses = list(state["train_losses"]), list(state["val_losses"])
+            log(f"Resumed from epoch {start_epoch}")
+    mode = "a" if start_epoch > 0 else "w"
+    with open(losses_path, mode) as f:
+        if mode == "w":
+            f.write("Epoch,Train Loss,Validation Loss\n")
+        for epoch in range(start_epoch, num_epochs):
             t0 = time.perf_counter()
             gen = torch.Generator(device=device).manual_seed(seed * 1_000_003 + epoch)
             for loader in (train_loader, val_loader):
@@ -112,6 +161,13 @@ def fit(run_dir: str | Path, cfg: clip_engine.EngineConfig, params: Any, esm_par
                                      "val_loss": val_loss, "seconds": dt}) + "\n")
             log(f"Epoch {epoch + 1}/{num_epochs} - Train Loss: {train_loss:.4f}, "
                 f"Val Loss: {val_loss:.4f} ({dt:.1f}s)")
+            if (epoch + 1) % save_state_every == 0:
+                _save_state(state_dir, epoch + 1, {
+                    "params": params, "opt_state": opt_state.state_dict(),
+                    "best_params": best_params, "best_val": best_val,
+                    "train_losses": train_losses, "val_losses": val_losses})
+            if epoch_hook is not None:
+                epoch_hook(epoch, best_params)
 
     test_loss = None
     if test_loader is not None:

@@ -34,9 +34,26 @@ import torch
 
 def tree_leaves(tree) -> list[torch.Tensor]:
     """The tensors of a nested dict, in key order."""
+    return [leaf for _, leaf in tree_items(tree)]
+
+
+def tree_items(tree, prefix: str = "") -> list[tuple[str, torch.Tensor]]:
+    """(``/``-joined key path, leaf) of a nested dict's leaves, in key
+    order: the names ``checkpoint.export_npz`` writes."""
     if isinstance(tree, dict):
-        return [leaf for key in tree for leaf in tree_leaves(tree[key])]
-    return [tree]
+        return [item for key in tree for item in tree_items(tree[key], f"{prefix}{key}/")]
+    return [(prefix[:-1], tree)]
+
+
+def check_layout(what: str, have: dict, got: dict) -> None:
+    """Raise ValueError naming the keys (or shapes) of ``got`` that differ
+    from ``have``'s."""
+    if have == got:
+        return
+    missing, extra = sorted(set(have) - set(got)), sorted(set(got) - set(have))
+    shapes = sorted(k for k in set(have) & set(got) if have[k] != got[k])
+    raise ValueError(f"{what} of another tree layout: missing {missing[:6]}, unexpected "
+                     f"{extra[:6]}, other shapes {shapes[:6]}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,11 +104,41 @@ class OptState:
 
     def __init__(self, opt: Optimizer, params):
         self.opt = opt
-        self.leaves = [t.requires_grad_(True) for t in tree_leaves(params)]
+        items = tree_items(params)
+        self.names = [name for name, _ in items]
+        self.leaves = [t.requires_grad_(True) for _, t in items]
         kw = dict(lr=opt.learning_rate(0), betas=(opt.b1, opt.b2), eps=opt.eps)
         self.torch_opt = (torch.optim.AdamW(self.leaves, weight_decay=opt.weight_decay, **kw)
                           if opt.weight_decay else torch.optim.Adam(self.leaves, **kw))
         self.count = 0
+
+    def _shapes(self) -> dict[str, list[int]]:
+        return {name: list(t.shape) for name, t in zip(self.names, self.leaves)}
+
+    def state_dict(self) -> dict:
+        """The updates applied so far (``count``, which the schedule reads)
+        and, by leaf name, Adam's moments and step, copied to the host; a
+        leaf that never had a gradient has no moments. ``shapes`` is the
+        tree's layout, which ``load_state_dict`` checks."""
+        moments = self.torch_opt.state_dict()["state"]
+        return {"count": self.count, "shapes": self._shapes(),
+                "leaves": {self.names[i]: {k: v.detach().to("cpu", copy=True)
+                                           for k, v in st.items()}
+                           for i, st in moments.items()}}
+
+    def load_state_dict(self, state: dict) -> None:
+        """Restore ``state_dict()``'s moments, steps and count (the moments
+        onto their leaves' device); a state of another tree layout raises
+        ValueError naming the keys that differ."""
+        if "shapes" not in state:
+            raise ValueError(f"optimizer state of groups {sorted(state.get('groups', {}))}, "
+                             "want one group")
+        check_layout("optimizer state", self._shapes(), state["shapes"])
+        sd = self.torch_opt.state_dict()
+        index = {name: i for i, name in enumerate(self.names)}
+        sd["state"] = {index[name]: dict(st) for name, st in state["leaves"].items()}
+        self.torch_opt.load_state_dict(sd)
+        self.count = int(state["count"])
 
     def apply(self) -> None:
         """Clip, step at the scheduled lr, and clear the gradients."""
@@ -136,6 +183,21 @@ class MultiOptState:
         self.opt = opt
         self.states = {k: o.init(params[k]) for k, o in opt.groups.items()}
         self.leaves = [t for s in self.states.values() for t in s.leaves]
+
+    def state_dict(self) -> dict:
+        """One ``OptState.state_dict()`` per group."""
+        return {"groups": {k: s.state_dict() for k, s in self.states.items()}}
+
+    def load_state_dict(self, state: dict) -> None:
+        """Each group's state; a state of other groups (or a one-group
+        state) raises ValueError naming them."""
+        groups = state.get("groups")
+        if groups is None or set(groups) != set(self.states):
+            raise ValueError(f"optimizer state of groups "
+                             f"{sorted(groups) if groups is not None else 'none (one group)'}, "
+                             f"want {sorted(self.states)}")
+        for k, s in self.states.items():
+            s.load_state_dict(groups[k])
 
     def apply(self) -> None:
         """Clip the whole tree, then step each group and clear its gradients."""

@@ -14,8 +14,10 @@ scatter-tier blocks (phantom rows included), a packed FILIP step through
 K4 and FILIP finetune steps through K5 against their plain versions; K6 in
 f32 (K6-f32 at each family's wi and the edges, its planted fault, its
 backward), the f32 forward and finetune step under the K6 gate, and
-load_esm taking the gate in f32; and tools/timing's graph replay, which
-times the short products where the profiler keeps no kernel record.
+load_esm taking the gate in f32; tools/timing's graph replay, which times
+the short products where the profiler keeps no kernel record; and a
+resumed packed finetune run against an unbroken one, and cli.topk --filip
+through K4.
 
 These tests need an NVIDIA GPU and nvcc; elsewhere they skip. This file
 imports torch, the port and chip_smoke.py (whose planted faults and plain
@@ -1908,3 +1910,79 @@ def test_graph_replay_reads_the_profilers_device_time(no_tf32, name):
     assert prof["method"] == "profiler"
     graph = timing.graph_ms(fn, 50)
     assert 0.8 * prof["device_ms"] <= graph <= 1.25 * prof["device_ms"] + 0.003, (graph, prof)
+
+
+TINY_RUN = ["--esm-config", "tiny", "--batch-size", "4", "--accumulated-batches", "2",
+            "--num-chunks", "2", "--fixture-families", "60"]
+
+
+def test_resumed_packed_finetune_run_equals_unbroken(dev, tmp_path, monkeypatch):
+    """cli.main --packed --finetune (tiny, bf16) through K1, K5 and K2: a
+    two-epoch run killed once epoch 1's snapshot is written and resumed
+    with --resume-dir equals the unbroken run to the bit (CSV, metrics,
+    best_model.npz, final snapshot), and the resumed epoch launches K1 and
+    K5."""
+    from protein_clip_tpu_torch.cli import main
+    from protein_clip_tpu_torch.train import loop
+
+    argv = TINY_RUN + ["--packed", "--finetune", "--synthetic-fixture", "--data-dir",
+                       str(tmp_path / "data"), "--epochs", "2"]
+    assert main.main(argv + ["--runs-dir", str(tmp_path / "full")]) == 0
+    save = loop._save_state
+
+    def save_then_kill(state_dir, epoch, state):
+        save(state_dir, epoch, state)
+        raise KeyError("killed after the snapshot")
+
+    monkeypatch.setattr(loop, "_save_state", save_then_kill)
+    with pytest.raises(KeyError, match="killed"):
+        main.main(argv + ["--runs-dir", str(tmp_path / "split")])
+    monkeypatch.setattr(loop, "_save_state", save)
+    (full,), (split,) = (list((tmp_path / d).iterdir()) for d in ("full", "split"))
+    chip_smoke.reset_counts()
+    assert main.main(argv + ["--resume-dir", str(split)]) == 0
+    assert attention.launches["attention_fwd"] > 0 and attention.launches["attention_bwd"] > 0
+    for name in ("losses_per_epoch.txt", "metrics.jsonl"):
+        rows = [(run / name).read_text().splitlines() for run in (full, split)]
+        if name == "metrics.jsonl":   # without the seconds
+            rows = [[r.split('"seconds"')[0] for r in rr] for rr in rows]
+        assert rows[0] == rows[1] and len(rows[0]) in (2, 3)
+    a, b = (checkpoint.read_npz(run / "best_model.npz") for run in (full, split))
+    assert all(np.array_equal(a[k], b[k]) for k in a)
+    assert chip_smoke.same_state(*(checkpoint.load_train_state(run / "state" / "epoch_2.pt",
+                                                               "cpu") for run in (full, split)))
+
+
+def test_topk_filip_on_the_card(dev, tmp_path, monkeypatch):
+    """cli.topk --filip (tiny, 64 candidates) ranks through K4, one launch
+    for the 64 queries: its scores within K4_ATOL of the plain max-sim's on
+    the same tokens, its ranks theirs but at near-ties."""
+    from protein_clip_tpu_torch.cli import topk
+    from protein_clip_tpu_torch.models import filip as filip_model
+
+    fcfg = filip_model.FILIPConfig(input_dim=64, embedding_dim=32, esm=esm2.ESM2Config.tiny())
+    checkpoint.export_npz(tmp_path / "heads.npz", filip_model.init_params(
+        fcfg, torch.Generator().manual_seed(0), device=dev))
+    kept = []
+    plain = retrieval.filip_score_matrix
+
+    def capture(*args, **kwargs):
+        kept.append((args, plain(*args, **kwargs)))
+        return kept[-1][1]
+
+    monkeypatch.setattr(retrieval, "filip_score_matrix", capture)
+    chip_smoke.reset_counts()
+    assert topk.main(["--esm-config", "tiny", "--embedding-dim", "32", "--checkpoint",
+                      str(tmp_path / "heads.npz"), "--synthetic-fixture", "--data-dir",
+                      str(tmp_path / "data"), "--fixture-families", "120", "--split", "train",
+                      "--n-candidates", "64", "--batch-size", "4", "--num-chunks", "4",
+                      "--filip", "--runs-dir", str(tmp_path / "runs")]) == 0
+    assert filip.filip_similarity_fused.launches == 1
+    (args, s_k4), = kept
+    ha, ma, hb, mb, t = args[:5]
+    sa, sb = filip.maxsim_reference(ha, hb, ma, mb)
+    s_plain = ((sa + sb) / 2 / filip.clamped_temperature(t)).cpu().numpy()
+    eps = float(np.abs(s_k4 - s_plain).max())
+    assert eps <= chip_smoke.K4_ATOL
+    ranks = [1 + (s > np.diag(s)[:, None]).sum(axis=1) for s in (s_k4, s_plain)]
+    assert (np.abs(ranks[0] - ranks[1]) <= chip_smoke.near_ties(s_plain, eps)).all()

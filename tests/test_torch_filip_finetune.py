@@ -249,8 +249,8 @@ def test_cli_unfrozen_runs_and_its_checkpoint_loads_in_jax(tmp_path, mode_args):
         "--synthetic-fixture", "--data-dir", str(tmp_path / "data"), "--runs-dir",
         str(tmp_path / "runs")]) == 0
     (run,) = list((tmp_path / "runs").iterdir())
-    assert sorted(p.name for p in run.iterdir()) == ["best_model.npz", "losses_per_epoch.txt",
-                                                     "metrics.jsonl"]
+    assert sorted(p.name for p in run.iterdir()) == [
+        "best_model.npz", "figures", "losses_per_epoch.txt", "metrics.jsonl", "state"]
     rows = (run / "losses_per_epoch.txt").read_text().splitlines()
     assert len(rows) == 2 and all(np.isfinite(float(v)) for v in rows[1].split(","))
     part = "esm" if "--finetune" in mode_args else "lora"

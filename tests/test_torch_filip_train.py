@@ -429,8 +429,8 @@ def cli_run(tmp_path_factory):
 
 def test_cli_writes_the_run_contract(cli_run):
     d, run = cli_run
-    assert sorted(p.name for p in run.iterdir()) == ["best_model.npz", "losses_per_epoch.txt",
-                                                     "metrics.jsonl"]
+    assert sorted(p.name for p in run.iterdir()) == [
+        "best_model.npz", "figures", "losses_per_epoch.txt", "metrics.jsonl", "state"]
     rows = run.joinpath("losses_per_epoch.txt").read_text().splitlines()
     assert rows[0] == "Epoch,Train Loss,Validation Loss" and len(rows) == 3
     assert all(np.isfinite(float(v)) for r in rows[1:] for v in r.split(","))
@@ -468,7 +468,6 @@ def test_cli_checkpoint_loads_in_jax_with_the_same_scores(cli_run):
     (["--packed", "--pack-tiers", "2"], NotImplementedError, "width-tiered"),
     (["--finetune", "--esm-dtype", "int8"], NotImplementedError, "int8"),
     (["--lora-rank", "4", "--length-groups", "2"], SystemExit, "length-groups"),
-    (["--resume-dir", "x"], NotImplementedError, "resume"),
     (["--dp", "2"], NotImplementedError, "multi-device"),
     (["--finetune", "--lora-rank", "4"], SystemExit, "mutually exclusive"),
     (["--finetune", "--length-groups", "2"], SystemExit, "length-groups"),

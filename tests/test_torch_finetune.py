@@ -300,8 +300,8 @@ def test_cli_main_finetune(tmp_path):
                                          str(tmp_path / "data"), "--runs-dir",
                                          str(tmp_path / "runs")]) == 0
     (run,) = list((tmp_path / "runs").iterdir())
-    assert sorted(p.name for p in run.iterdir()) == ["best_model.npz", "losses_per_epoch.txt",
-                                                     "metrics.jsonl"]
+    assert sorted(p.name for p in run.iterdir()) == [
+        "best_model.npz", "figures", "losses_per_epoch.txt", "metrics.jsonl", "state"]
     rows = (run / "losses_per_epoch.txt").read_text().splitlines()
     assert len(rows) == 2 and all(np.isfinite(float(v)) for v in rows[1].split(","))
     jmcfg = jclip.CLIPConfig(input_dim=64, esm=jesm2.ESM2Config.tiny())
@@ -510,8 +510,8 @@ def test_cli_main_finetune_packed(tmp_path):
                                          "--data-dir", str(tmp_path / "data"), "--runs-dir",
                                          str(tmp_path / "runs")]) == 0
     (run,) = list((tmp_path / "runs").iterdir())
-    assert sorted(p.name for p in run.iterdir()) == ["best_model.npz", "losses_per_epoch.txt",
-                                                     "metrics.jsonl"]
+    assert sorted(p.name for p in run.iterdir()) == [
+        "best_model.npz", "figures", "losses_per_epoch.txt", "metrics.jsonl", "state"]
     rows = (run / "losses_per_epoch.txt").read_text().splitlines()
     assert len(rows) == 2 and all(np.isfinite(float(v)) for v in rows[1].split(","))
     with np.load(run / "best_model.npz") as ckpt:

@@ -328,7 +328,9 @@ print(" ".join(names))
 
 def test_port_and_chip_smoke_import_no_jax():
     """Every port module and chip_smoke.py import with jax and the JAX
-    package (and transformers, safetensors, orbax, matplotlib) blocked."""
+    package (and transformers, safetensors, orbax, matplotlib) blocked:
+    the evals and the figures among them, which import matplotlib only
+    inside the drawing code."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", BLOCKER], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
@@ -336,7 +338,8 @@ def test_port_and_chip_smoke_import_no_jax():
     names = set(out.stdout.strip().splitlines()[-1].split())
     assert len(names) >= 18
     for mod in ("train.filip_engine", "cli.main_2protein_filip", "tools.convert_esm_weights",
-                "train.checkpoint"):
+                "train.checkpoint", "eval.retrieval", "eval.embed", "eval.pca", "viz.plots",
+                "cli.topk", "cli.cosine_similarity"):
         assert f"protein_clip_tpu_torch.{mod}" in names
 
 

@@ -329,8 +329,8 @@ def cli_run(tmp_path_factory):
 
 def test_cli_main_writes_the_run_contract(cli_run):
     _, run = cli_run
-    assert sorted(p.name for p in run.iterdir()) == ["best_model.npz", "losses_per_epoch.txt",
-                                                     "metrics.jsonl"]
+    assert sorted(p.name for p in run.iterdir()) == [
+        "best_model.npz", "figures", "losses_per_epoch.txt", "metrics.jsonl", "state"]
     rows = run.joinpath("losses_per_epoch.txt").read_text().splitlines()
     assert rows[0] == "Epoch,Train Loss,Validation Loss" and len(rows) == 3
     assert all(np.isfinite(float(v)) for r in rows[1:] for v in r.split(","))
@@ -384,8 +384,8 @@ def test_cli_main_packed(tmp_path):
         "--synthetic-fixture", "--data-dir", str(tmp_path / "d"), "--runs-dir",
         str(tmp_path / "runs"), "--epochs", "1", "--packed"]) == 0
     run = _run_dir(tmp_path / "runs")
-    assert {p.name for p in run.iterdir()} == {"best_model.npz", "losses_per_epoch.txt",
-                                               "metrics.jsonl"}
+    assert {p.name for p in run.iterdir()} == {"best_model.npz", "figures",
+                                               "losses_per_epoch.txt", "metrics.jsonl", "state"}
     (row,) = (run / "losses_per_epoch.txt").read_text().splitlines()[1:]
     assert all(np.isfinite(float(v)) for v in row.split(",")[1:])
 
@@ -400,8 +400,7 @@ def test_cli_main_2protein_packed(tmp_path):
 @pytest.mark.parametrize("extra,match", [
     (["--packed", "--pack-tiers", "2"], "pack-tiers"),
     (["--finetune", "--packed", "--pack-tiers", "2"], "packed"),
-    (["--lora-rank", "4", "--resume-dir", "x"], "resume"),
-    (["--resume-dir", "x"], "resume"), (["--dp", "2"], "multi-device"),
+    (["--dp", "2"], "multi-device"),
     (["--tp", "2"], "multi-device"), (["--pp", "2"], "multi-device"),
     (["--lora-rank", "4", "--packed", "--pack-tiers", "2"], "packed")])
 def test_cli_refuses_what_is_not_ported(tmp_path, extra, match):
@@ -425,15 +424,22 @@ def test_cli_needs_data_or_the_fixture(tmp_path):
 
 def test_engine_refuses_packed_and_resume(tiny, tmp_path):
     """The engine takes flat packing (tests/test_torch_packing.py) and
-    refuses width-tiered packing and resuming."""
+    refuses width-tiered packing, and ``fit`` refuses to resume from a
+    snapshot of another tree layout (tests/test_torch_resume.py resumes)."""
     _, mcfg, _, esm, _ = tiny
     cfg = clip_engine.EngineConfig(model=mcfg, packed=True, packed_tiers=2)
     for make in (clip_engine.make_train_step, clip_engine.make_eval_step):
         with pytest.raises(NotImplementedError, match="packing"):
             make(cfg)
-    with pytest.raises(NotImplementedError, match="resum"):
-        loop.fit(tmp_path, cfg, {}, esm, [], [], EsmTokenizer(), 1, seed=0, device="cpu",
-                 resume=True)
+    other = {"w": torch.zeros(3)}
+    (tmp_path / "state").mkdir()
+    checkpoint.save_train_state(tmp_path / "state" / "epoch_1.pt", {
+        "params": other, "best_params": other, "opt_state": optimizer.adam().init(other)
+        .state_dict(), "best_val": 1.0, "train_losses": [1.0], "val_losses": [1.0]})
+    heads0 = clip.init_params(mcfg, torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(ValueError, match="another tree layout"):
+        loop.fit(tmp_path, clip_engine.EngineConfig(model=mcfg), heads0, esm, [], [],
+                 EsmTokenizer(), 1, seed=0, device="cpu", resume=True)
 
 
 def test_training_modules_import_no_jax():
