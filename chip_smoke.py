@@ -301,6 +301,36 @@ and a nonzero exit code, and no result line:
                 1]. K1 30 per backbone forward (32 padded, one per packed
                 chunk, 6 for the heatmaps), K4 once per 64-query block
                 (run_eval_phase).
+7d. tiers, mlm  width tiers on a fixture of LONGTAIL_PAIRS pairs whose
+                receptors follow bench.py's long-tail lengths (90% of
+                100-399 residues, 10% of 1200-1998): cli.main --packed
+                --pack-tiers 4 for one epoch (global batch 256), its chunk
+                forwards and K1 (30 each) and K2 launches against the
+                loaders' batches packed again here from cleared tier
+                caches; the first batch's (rows, width) per pack and slots
+                against the flat wire; one step on it through K2 against
+                the plain loss (1e-5) and against the flat-packed step on
+                the same pairs (the loss within TIER_STEP_TOL in f32, the
+                bf16 gap printed); K1 against its plain version on the
+                first and last chunk of each pack and on a placeholder
+                pack's all-<pad> chunk, and both attention faults, each of
+                which must fail a chunk. cli.main_2protein_filip --packed
+                --pack-tiers 4 at batch 128 on the same corpus: K1 per
+                chunk forward, K4 once per (pep pack or tier, rec pack)
+                block, against its batches; K4 on the blocks the path
+                forms (phantom rows included) and both K4 faults; one step
+                through K4 against the plain max-sim (FILIP_STEP_TOL).
+                Then cli.mlm_train at --batch-size MLM_BATCH for one epoch
+                on the 1100-family fixture: the LM head alone on padded
+                rows, --packed, and --packed --finetune (K1 30 a forward,
+                60 a finetune step with the remat recompute, K5 30 a
+                finetune step; one forward a batch); on the first packed
+                batch with fixed masks the head step through K1 against
+                K1's plain version (MLM_LOSS_RTOL) and the finetune step
+                through K1/K5 against K5's plain version (FT_LOSS_TOL,
+                FT_K5_TOL, the swept-tile fault past it), with the
+                finetune step's peak memory; cli.mlm_sweep over 200
+                peptides.
 8. step check   one default train step with K2 and one with the plain loss
                 from the same heads and batch (dropout 0, Adam lr 1e-3), at
                 256 and, with K3, at 1024, and one packed step with K2 at
@@ -412,7 +442,9 @@ and a nonzero exit code, and no result line:
                 their plain versions and SDPA on f32 (TF32 off) at (16,
                 512, 20, 32) padded and dense and at each FAMILY_SHAPES,
                 beside their 3xTF32 bounds; the f32 packed
-                finetune epoch in pairs/s, with the gate off and on.
+                finetune epoch in pairs/s, with the gate off and on. K1 on
+                the tier chunks beside its bound; the tiered CLIP and FILIP
+                epochs in pairs/s.
 
 Each phase's seconds are printed ([timing]) and summed at the end ([done]).
 The last three lines of standard output are the card's name and power
@@ -449,10 +481,10 @@ import numpy as np
 import torch
 
 from protein_clip_tpu_torch.cli import common, cosine_similarity, embed, main as train_cli
-from protein_clip_tpu_torch.cli import retrieve, serve, topk
+from protein_clip_tpu_torch.cli import mlm_sweep, mlm_train, retrieve, serve, topk
 from protein_clip_tpu_torch.cli import main_2protein_filip as filip_cli
 from protein_clip_tpu_torch.data import dataset
-from protein_clip_tpu_torch.data.fasta import sequences_only
+from protein_clip_tpu_torch.data.fasta import sequences_only, write_fasta
 from protein_clip_tpu_torch.data.prefetch import to_device
 from protein_clip_tpu_torch.data.synthetic import write_fixture
 from protein_clip_tpu_torch.eval import retrieval
@@ -486,9 +518,17 @@ FAULT_HEAD_DIMS = (16, 24, 64, 128)
 # RTOL * |ref|. The kernel normalises after P.V and the plain version before
 # the bf16 cast of P, so they differ by bf16 rounding of P (the absolute
 # term, which shrinks with the output's scale as T grows) and of the output
-# (a bf16 ulp is 2^-7 relative, within RTOL). Emulating the kernel's
-# rounding on the CPU at these shapes needs an absolute term of 0.016-0.019
-# rms(ref); a kernel that drops the last key tile needs 2.4 rms(ref) or more.
+# (a bf16 ulp is 2^-7 relative, within RTOL). rms(ref) is taken over the
+# outputs of valid queries (segment > 0; all outputs where a chunk holds
+# none): a pad query's output is the mean of v's column, about 1/sqrt(T) of
+# a valid one's, so on a chunk of mostly <pad> rows the chunk-wide rms
+# shrinks while the valid rows' rounding does not. Emulating the kernel's
+# rounding on the CPU (tests/test_torch_attention_pad.py, 40 draws of (16,
+# 256) chunks) needs 0.0159 rms(ref) of the valid outputs with 2 of 16 rows
+# real, 0.0177-0.0179 with 14 and 16, where the chunk-wide rms needed up to
+# 0.0312 with 2 of 16 real (the limit is 0.03125; PR 18's card read 0.0341
+# on such a chunk); a kernel that drops the last key tile needs 2.4
+# rms(ref) or more.
 ATOL_RMS, RTOL = 2 ** -5, 2e-2
 # K1's statistics (base-2 log-sum-exp of a query's masked scores, values of
 # a few units) against attention_reference_lse: the kernel sums
@@ -1005,31 +1045,10 @@ def f32_segments(segments: list) -> list[tuple[int, int, str, bool, torch.Tensor
     return out
 
 
-# The kinds of f32 case that draw from a generator of their own, with its
-# seed (case_generators).
-OWN_DRAWS = {SHORT_KIND: SEED + 1, ONE_TILE_KINDS[0]: SEED + 2, ONE_TILE_KINDS[1]: SEED + 3}
-
-
-def case_generators(gen: torch.Generator):
-    """kind -> the generator of a case's inputs: the kinds of OWN_DRAWS
-    draw from their own, so that the inputs the shared ``gen`` gives every
-    later check are what they were without them.
-
-    A stopgap: bf16 K1's check_filip_chunks failed (0.0340701 rms(ref)
-    against ATOL_RMS 0.03125) on the draw that the 2-8-token cases moved
-    the shared generator to. Pinning the draw hides that fragility, it does
-    not settle it; ROADMAP queue 3 holds the follow-up, which comes before
-    any case is added on the shared generator."""
-    own = {kind: torch.Generator(device="cuda").manual_seed(seed)
-           for kind, seed in OWN_DRAWS.items()}
-    return lambda kind: own.get(kind, gen)
-
-
 def attention_cases_f32(gen: torch.Generator, segments: list) -> list:
     """K1-f32's cases, in attention_cases' form, on f32 q, k, v
     (f32_segments)."""
-    pick = case_generators(gen)
-    return [(*seg.shape, kind, path, *qkv(*seg.shape, pick(kind), nh, dh, torch.float32), seg)
+    return [(*seg.shape, kind, path, *qkv(*seg.shape, gen, nh, dh, torch.float32), seg)
             for nh, dh, kind, path, seg in f32_segments(segments)]
 
 
@@ -1037,10 +1056,9 @@ def bwd_cases_f32(gen: torch.Generator, segments: list) -> list:
     """K5-f32's cases, in bwd_cases' form, on f32 q, k, v and dO
     (f32_segments)."""
     out = []
-    pick = case_generators(gen)
     for nh, dh, kind, path, seg in f32_segments(segments):
-        q, k, v = qkv(*seg.shape, pick(kind), nh, dh, torch.float32)
-        do = torch.randn(*seg.shape, nh, dh, device="cuda", generator=pick(kind))
+        q, k, v = qkv(*seg.shape, gen, nh, dh, torch.float32)
+        do = torch.randn(*seg.shape, nh, dh, device="cuda", generator=gen)
         out.append((*seg.shape, kind, path, q, k, v, do, seg))
     return out
 
@@ -1064,12 +1082,16 @@ def by_rows(fn, q, *tensors):
     return torch.cat(parts)
 
 
-def least_atol(got: torch.Tensor, want: torch.Tensor, rtol: float = RTOL) -> tuple[float, float]:
+def least_atol(got: torch.Tensor, want: torch.Tensor, rtol: float = RTOL,
+               seg: torch.Tensor | None = None) -> tuple[float, float]:
     """(max|err|, the least atol in units of rms(want) that passes
-    |err| <= atol + rtol |want|; inf where got is not finite)."""
+    |err| <= atol + rtol |want|; inf where got is not finite). With
+    ``seg`` ((B, T) segment ids of an attention output (B, T, ...)) the rms
+    is that of the valid queries' outputs (seg > 0), where there are any."""
     w = want.float()
     err = (got.float() - w).abs()
-    rms = w.square().mean().sqrt().item()
+    valid = w[seg > 0] if seg is not None and bool((seg > 0).any()) else w
+    rms = valid.square().mean().sqrt().item()
     need = (err - rtol * w.abs()).max().item() / max(rms, 1e-30)
     return err.max().item(), need if bool(torch.isfinite(got).all()) else math.inf
 
@@ -1083,7 +1105,8 @@ def k1_readings(cases: list) -> list[dict]:
         out, lse = attention._forward(q, k, v, seg, with_lse=True)
         torch.cuda.synchronize()
         atol, rtol = tolerance(q.dtype)
-        err, need = least_atol(out, by_rows(attention.attention_reference, q, k, v, seg), rtol)
+        err, need = least_atol(out, by_rows(attention.attention_reference, q, k, v, seg), rtol,
+                               seg)
         want = by_rows(attention.attention_reference_lse, q, k, seg)
         pad = torch.isinf(want)
         lse_err = (float((lse[~pad] - want[~pad]).abs().max()) if bool((~pad).any()) else 0.0)
@@ -1097,8 +1120,9 @@ def k1_readings(cases: list) -> list[dict]:
 
 def check_attention(cases: list, name: str = "attention_fwd") -> float:
     """K1 (or K1-f32, ``name``) against its plain version: every output
-    within atol * rms(ref) + rtol |ref| (ATOL_RMS and RTOL, in f32
-    F32_ATOL_RMS and F32_RTOL), its statistics within LSE_ATOL of
+    within atol * rms(ref) + rtol |ref|, rms over the valid queries'
+    outputs (ATOL_RMS and RTOL, in f32 F32_ATOL_RMS and F32_RTOL), its
+    statistics within LSE_ATOL of
     attention_reference_lse (and -inf at the same pad queries)."""
     worst = 0.0
     for row in k1_readings(cases):
@@ -1280,15 +1304,15 @@ def maxsim_kernel(lib: Path):
         maxsim._launcher = saved
 
 
-def check_maxsim_faults(libs: dict, cases: list) -> dict:
+def check_maxsim_faults(libs: dict, cases: list, skip_must=None) -> dict:
     """K4's check against its two planted faults, on the same inputs: the
-    skip fault must fail every case with a one-token tile, the plain-TF32
-    fault at least the short ones. Returns the worst ratio to K4_ATOL and the
-    cases failed."""
+    skip fault must fail every case with a one-token tile (or those
+    ``skip_must(reading)`` names), the plain-TF32 fault at least the short
+    ones. Returns the worst ratio to K4_ATOL and the cases failed."""
     out = {}
     for name, what, must in (
             ("maxsim_skip", "b-tile skip predicate misses the tile's first token",
-             lambda r: r["one_token_tile"]),
+             skip_must or (lambda r: r["one_token_tile"])),
             ("maxsim_tf32", "plain TF32, the correction products dropped",
              lambda r: r["short"])):
         with maxsim_kernel(libs[name]["filip_maxsim"]):
@@ -2487,12 +2511,23 @@ def chunk_rows(R: int, rows_per_chunk: int = 16) -> int:
     return R // max([d for d in range(1, R // rows_per_chunk + 1) if R % d == 0], default=1)
 
 
+def wire_packs(batch: dict, side: str) -> list[dict]:
+    """A packed wire's packs of one side: its width tiers, or the flat rows."""
+    return list(batch.get(f"{side}_packs") or ({"ids": batch[f"{side}_ids"]},))
+
+
 def packed_chunks(batch: dict) -> list[tuple[int, int]]:
-    """The (rows, L) of each backbone chunk a packed batch takes."""
+    """The (rows, L) of each backbone chunk a packed batch takes: 16 rows a
+    chunk of a side's widest rows, and more of its narrower width tiers
+    (the same tokens a chunk), by chunk_rows' rule."""
     out = []
     for side in ("pep", "rec"):
-        R, L = batch[f"{side}_ids"].shape
-        out += [(chunk_rows(R), L)] * (R // chunk_rows(R))
+        packs = wire_packs(batch, side)
+        l_max = max(pk["ids"].shape[1] for pk in packs)
+        for pk in packs:
+            R, L = pk["ids"].shape
+            rows = chunk_rows(R, 16 * (l_max // L))
+            out += [(rows, L)] * (R // rows)
     return out
 
 
@@ -2526,27 +2561,39 @@ def epoch_loaders(data_dir: Path) -> tuple:
     return train, val, test
 
 
-def packed_epoch_chunks(data_dir: Path, step_chunks=packed_chunks) -> tuple[list, list]:
-    """The backbone chunks of each step (by ``step_chunks``: the frozen
-    step's, or one pass of the unfrozen step's with unfrozen_chunks) and of
-    each eval batch of ``cli.main --packed``'s first epoch at the
-    defaults."""
+def packed_epoch_batches(data_dir: Path, tiers: int = 1) -> tuple[list, list]:
+    """The host batches of each step and of each eval batch of ``cli.main
+    --packed [--pack-tiers tiers]``'s first epoch at the defaults, packed
+    again here in the run's order from cleared tier caches (so the sticky
+    widths, rows and spills are the run's)."""
     train, val, test = epoch_loaders(data_dir)
     tok = common.make_tokenizer()
-    steps = [step_chunks(packed_engine.tokenize_packed(tok, p, r))
+    packed_engine.clear_tier_width_cache()
+    steps = [packed_engine.tokenize_packed(tok, p, r, tiers=tiers)
              for p, r in clip_engine._accumulate(train, 16)]
-    evals = [packed_chunks(packed_engine.tokenize_packed(tok, p, r))
+    evals = [packed_engine.tokenize_packed(tok, p, r, tiers=tiers)
              for loader in (val, test) for p, r in loader]
     return steps, evals
 
 
+def packed_epoch_chunks(data_dir: Path, step_chunks=packed_chunks,
+                        tiers: int = 1) -> tuple[list, list]:
+    """The backbone chunks of each step (by ``step_chunks``: the frozen
+    step's, or one pass of the unfrozen step's with unfrozen_chunks) and of
+    each eval batch of ``cli.main --packed``'s first epoch at the
+    defaults (``packed_epoch_batches``)."""
+    steps, evals = packed_epoch_batches(data_dir, tiers)
+    return [step_chunks(b) for b in steps], [packed_chunks(b) for b in evals]
+
+
 def run_packed_train(data_dir: Path, family: str = "t30_150M",
-                     families: int = FIXTURE_FAMILIES, name: str = "train_packed") -> dict:
+                     families: int = FIXTURE_FAMILIES, name: str = "train_packed",
+                     tiers: int = 1) -> dict:
     """cli.main --packed (--esm-config family) for one epoch at the defaults
-    (global batch 256, flat packing, 16 rows a chunk) on a fixture of
-    ``families``; checks the artifacts and every kernel's launch count (K1
-    once a layer per chunk forward) against the chunks the loaders' batches
-    take."""
+    (global batch 256, flat packing or ``--pack-tiers tiers``, 16 rows a
+    chunk of a side's widest rows) on a fixture of ``families``; checks the
+    artifacts and every kernel's launch count (K1 once a layer per chunk
+    forward) against the chunks the loaders' batches take."""
     runs = WORK / f"runs_{name}"
     layers = common.esm_config(family, "bfloat16").num_layers
     t0 = time.perf_counter()
@@ -2554,13 +2601,13 @@ def run_packed_train(data_dir: Path, family: str = "t30_150M",
         reset_counts()
         train_cli.main(["--synthetic-fixture", "--data-dir", str(data_dir), "--fixture-families",
                         str(families), "--epochs", "1", "--runs-dir", str(runs),
-                        "--esm-config", family, "--packed"])
+                        "--esm-config", family, "--packed", "--pack-tiers", str(tiers)])
         k1 = attention.launches["attention_fwd"]
         counts = infonce_counts()
         check_default_path(name)
     wall = time.perf_counter() - t0
     run = check_run_dir(runs)
-    steps, evals = packed_epoch_chunks(data_dir)
+    steps, evals = packed_epoch_chunks(data_dir, tiers=tiers)
     want_forwards = [c for chunks in steps + evals for c in chunks]
     want = {"infonce": (len(steps) + len(evals), len(steps)), "infonce_tiled": (0, 0)}
     if (len(ends), sorted(forwards), k1) != (len(steps), sorted(want_forwards),
@@ -2573,7 +2620,8 @@ def run_packed_train(data_dir: Path, family: str = "t30_150M",
                              f"want {want}")
     metrics = json.loads((run / "metrics.jsonl").read_text().splitlines()[0])
     per_step = sum(map(len, steps)) / len(steps)
-    log(f"[train] {name} ({family}): global batch 256 packed, {len(steps)} steps, "
+    log(f"[train] {name} ({family}): global batch 256 packed"
+        f"{f' in {tiers} width tiers' if tiers > 1 else ''}, {len(steps)} steps, "
         f"{len(evals)} eval batches of 16; train loss {metrics['train_loss']:.6f}, val loss "
         f"{metrics['val_loss']:.6f}; chunk forwards (rows, L) of the first step {steps[0]}, "
         f"{per_step:.2f} a step (the grouped step: 32); attention_fwd {k1} = {layers} per chunk "
@@ -2883,11 +2931,12 @@ def filip_first_batch(data_dir: Path, args) -> tuple:
     mcfg, _ = filip_setup()
     cfg = clip_engine.EngineConfig(model=mcfg, batch_size=args.batch_size, accumulated_batches=1,
                                    num_chunks=args.num_chunks, length_groups=args.length_groups,
-                                   packed=args.packed, scatter_tiers=args.scatter_tiers,
-                                   filip_use_dcl=args.use_dcl)
+                                   packed=args.packed, packed_tiers=args.pack_tiers,
+                                   scatter_tiers=args.scatter_tiers, filip_use_dcl=args.use_dcl)
     loader = dataset.PairLoader(filip_data(data_dir)[0], args.batch_size, seed=args.seed)
     loader.reseed_epoch(0)
     peps, recs = next(iter(loader))
+    packed_engine.clear_tier_width_cache()          # the run's first batch: cleared caches
     return cfg, to_device(clip_engine._prepare(common.make_tokenizer(), cfg)(peps, recs), "cuda")
 
 
@@ -3228,11 +3277,16 @@ def filip_loaders(data_dir: Path, batch_size: int) -> tuple:
 
 def filip_k4_blocks(batch: dict) -> int:
     """K4 launches of one FILIP batch: one per (pep tier, rec tier) pair of
-    tiers that hold a sequence (a tier no sequence takes ships no rows and
-    launches nothing), or one without scatter tiers."""
+    tiers that hold a sequence (a scatter tier no sequence takes ships no
+    rows and launches nothing; every width-tier pack, a placeholder too,
+    ships at least 8 rows), or one without tiers."""
     n = 1
     for side in ("pep", "rec"):
-        n *= sum(len(t["operm"]) > 0 for t in batch.get(f"{side}_stiers") or ({"operm": [0]},))
+        if f"{side}_packs" in batch:
+            n *= len(batch[f"{side}_packs"])
+        else:
+            n *= sum(len(t["operm"]) > 0
+                     for t in batch.get(f"{side}_stiers") or ({"operm": [0]},))
     return n
 
 
@@ -3246,8 +3300,10 @@ def filip_epoch_plan(data_dir: Path, args) -> dict:
     train, val, test = filip_loaders(data_dir, args.batch_size)
     mcfg, _ = filip_setup()
     cfg = clip_engine.EngineConfig(model=mcfg, batch_size=args.batch_size, accumulated_batches=1,
-                                   packed=args.packed, scatter_tiers=args.scatter_tiers)
+                                   packed=args.packed, packed_tiers=args.pack_tiers,
+                                   scatter_tiers=args.scatter_tiers)
     prepare = clip_engine._prepare(common.make_tokenizer(), cfg)
+    packed_engine.clear_tier_width_cache()          # the run packs from cleared caches
     unfrozen = bool(args.finetune or args.lora_rank)
     n = filip_engine._snap_chunks(args.batch_size, args.num_chunks)
     layers = mcfg.esm.num_layers
@@ -3351,19 +3407,26 @@ def filip_tier_blocks(run: dict, data_dir: Path) -> list[tuple]:
             if len(a[0]) and len(c[0])]
 
 
-def check_filip_tier_k4(blocks: list, fault_libs: dict, gen: torch.Generator) -> dict:
+def check_filip_tier_k4(blocks: list, fault_libs: dict, gen: torch.Generator,
+                        long_rows: bool = False) -> dict:
     """K4 against its plain version on the packed run's tier-pair blocks
     (filip_path_cases: as the step gives them, with their phantom rows,
     and the variants), on the first block with every a-row and then every
     b-row a sentinel (no valid token: every score 0), then against both
-    planted faults, which must fail their cases."""
+    planted faults, which must fail their cases. With ``long_rows`` (width
+    tiers' rows up to 2048 tokens) the skip fault must fail the case made
+    for it, b-row 0 cut to 65 tokens: a natural row of some 2000 tokens
+    holds a one-token tile whose lone token carries a max only by chance,
+    so the fault can stay under K4_ATOL there (0.0298 x on the long-tail
+    fixture, H100), and those readings are printed."""
     cases = filip_path_cases(blocks, gen)
     ha, hb, ma, mb = blocks[0]
     shape = (ha.shape[0], hb.shape[0], ha.shape[1], hb.shape[1])
     cases += [(shape, (ha, hb, torch.zeros_like(ma), mb), "tier block, a-tier of sentinels only"),
               (shape, (ha, hb, ma, torch.zeros_like(mb)), "tier block, b-tier of sentinels only")]
     err = check_maxsim(cases)
-    faults = check_maxsim_faults(fault_libs, cases)
+    faults = check_maxsim_faults(fault_libs, cases, (lambda r: r["label"].endswith("65 tokens"))
+                                 if long_rows else None)
     phantom = sum(int((m.sum(1) == 0).sum()) for blk in blocks for m in blk[2:])
     log(f"[filip train] K4 on {len(blocks)} tier-pair blocks of the packed run's first batch "
         f"({phantom} all-masked rows among them), {len(cases)} cases: max|err| {err:.3g}")
@@ -5091,6 +5154,431 @@ def run_t33_train_phase(fault_libs: dict) -> dict:
 # Phase 9: times
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# Width tiers and MLM (phase 7d)
+# ---------------------------------------------------------------------------
+
+# The width-tier runs' corpus: bench.py's long-tail receptor lengths, where
+# the width program splits a batch (it keeps one width on the synthetic
+# fixture's 60-180 residues, as the TPU package's does on most mixes)
+LONGTAIL_DATA = "longtail_data"
+LONGTAIL_PAIRS = 1400
+PACK_TIERS = 4
+# The tiered step against the flat step over the same pairs, both through
+# K2 from the same heads (dropout 0): the loss within TIER_STEP_TOL
+# relative, in f32 (K1-f32 on both layouts), where the two differ only by
+# f32 sums in another order; the bf16 gap (bf16 rounding of the backbone,
+# which the row layout moves) is printed beside it.
+TIER_STEP_TOL = 1e-5
+MLM_BATCH = 64
+# The MLM head step through K1 against the same step through K1's plain
+# version (same weights, batch and masks): bf16 attention outputs that
+# differ by P's rounding, through 30 layers, move the mean masked
+# cross-entropy by this much at most (relative).
+MLM_LOSS_RTOL = 2 ** -10
+# The MLM finetune step through K1/K5 against K5's plain version, per leaf
+# as FT_K5_TOL holds CLIP's: the token embedding table, whose gradient
+# through the backbone nearly cancels beside the tied decoder's, reads
+# 1.36 x 2^-6 of its largest entry on an H100 (its other leaves under
+# 2^-6), as FILIP's finetune step reads 1.26-1.64 x 2^-6 there (ROADMAP
+# queue 3); the limit is FILIP_FT_K5_TOL's 2^-4, which K5 built to drop its
+# last query tile passes by 6 times (0.3768).
+MLM_FT_K5_TOL = FILIP_FT_K5_TOL
+MLM_RUNS = (("mlm_head", []), ("mlm_head_packed", ["--packed"]),
+            ("mlm_finetune_packed", ["--packed", "--finetune"]))
+
+
+def write_longtail_fixture(data_dir: Path) -> None:
+    """LONGTAIL_PAIRS pairs from numpy.random.default_rng(42): peptides of
+    8-29 residues and receptors of bench.py's long-tail profile (90% of
+    100-399 residues, 10% of 1200-1998; bench_train.rec_len), written as
+    peptide/receptor (cli.main) and protein1/protein2
+    (cli.main_2protein_filip). The sequences are random: each its own
+    cluster."""
+    if (data_dir / "receptor.fasta").exists():
+        return
+    rng = np.random.default_rng(42)
+    aas = list(AAS)
+    peps = ["".join(rng.choice(aas, rng.integers(8, 30))) for _ in range(LONGTAIL_PAIRS)]
+    recs = ["".join(rng.choice(aas, bench_train.rec_len(rng, "longtail")))
+            for _ in range(LONGTAIL_PAIRS)]
+    data_dir.mkdir(parents=True, exist_ok=True)
+    for names in (("peptide", "receptor"), ("protein1", "protein2")):
+        for name, seqs in zip(names, (peps, recs)):
+            write_fasta(data_dir / f"{name}.fasta", [(f"{name}_{i}", q) for i, q in
+                                                      enumerate(seqs)])
+
+
+def tier_layout(batch: dict) -> dict:
+    """(rows, width) of each pack of each side of a packed host batch."""
+    return {side: [tuple(pk["ids"].shape) for pk in wire_packs(batch, side)]
+            for side in ("pep", "rec")}
+
+
+def tiered_step(batch: dict, esm_params: dict, dtype_name: str, tiers: int,
+                loss_fn=None) -> tuple:
+    """One packed frozen step at global batch 256 from the CLIP heads of
+    seed SEED (dropout 0, Adam lr TRAIN_LR): (loss, gradients, K1 or K1-f32
+    launches)."""
+    cfg_esm = common.esm_config("t30_150M", dtype_name)
+    mcfg = clip.CLIPConfig(input_dim=cfg_esm.hidden_size, dropout=0.0, esm=cfg_esm)
+    cfg = clip_engine.EngineConfig(model=mcfg, packed=True, packed_tiers=tiers)
+    params = clip.init_params(mcfg, torch.Generator().manual_seed(SEED), device="cuda")
+    state = capturing(optimizer.adam(TRAIN_LR).init(params), params)
+    name = attention._kernel("attention_fwd", cfg_esm.compute_dtype)
+    before = attention.launches[name]
+    _, _, loss = clip_engine.make_train_step(cfg, loss_fn)(params, state, esm_params,
+                                                            to_device(batch, "cuda"), None)
+    torch.cuda.synchronize()
+    return float(loss), state.grads, attention.launches[name] - before
+
+
+def check_tiered_step(tiered: dict, flat: dict) -> dict:
+    """The run's first batch in width tiers: one step through K2 against the
+    same step through the plain loss (the loss within 1e-5 relative, every
+    gradient within 1e-5 of the step's largest entry; per leaf, as
+    check_step holds the flat packed step, printed); then against the same
+    pairs flat-packed, through K2, in f32 (the loss within TIER_STEP_TOL)
+    and in bf16 (printed). K1 30 times per chunk forward of each layout."""
+    out = {}
+    for dtype_name in ("bfloat16", "float32"):
+        cfg_esm = common.esm_config("t30_150M", dtype_name)
+        esm_params = esm2.init_params(cfg_esm, torch.Generator(device="cuda").manual_seed(0),
+                                      dtype=cfg_esm.compute_dtype, device="cuda")
+        runs = {"tiered": tiered_step(tiered, esm_params, dtype_name, PACK_TIERS),
+                "flat": tiered_step(flat, esm_params, dtype_name, 1)}
+        if dtype_name == "bfloat16":
+            runs["plain"] = tiered_step(tiered, esm_params, dtype_name, PACK_TIERS,
+                                        infonce.clip_infonce)
+        for name, b in (("tiered", tiered), ("flat", flat)):
+            if runs[name][2] != 30 * len(packed_chunks(b)):
+                raise AssertionError(f"tiered step check ({dtype_name}, {name}): attention "
+                                     f"launches {runs[name][2]}, want 30 x "
+                                     f"{len(packed_chunks(b))} chunk forwards")
+        (lt, gt, _), (lf, gf, _) = runs["tiered"], runs["flat"]
+        out[dtype_name] = {"loss": lt, "flat_loss": lf, "flat_loss_rel_err": abs(lt - lf) / abs(lf),
+                           "flat_grad_rel_err": max(float((gt[k] - gf[k]).abs().max())
+                                                    / float(gf[k].abs().max()) for k in gf)}
+        if "plain" in runs:
+            lp, gp, _ = runs["plain"]
+            scale = max(float(g.abs().max()) for g in gp.values())
+            leaf = {k: float((gt[k] - gp[k]).abs().max()) / float(gp[k].abs().max()) for k in gp}
+            out[dtype_name].update(
+                plain_loss_rel_err=abs(lt - lp) / abs(lp),
+                plain_grad_rel_err=max(float((gt[k] - gp[k]).abs().max()) for k in gp) / scale,
+                plain_leaf_rel_err=max(leaf.values()), plain_worst_leaf=max(leaf, key=leaf.get))
+        del esm_params
+        gc.collect()
+    b16, f32 = out["bfloat16"], out["float32"]
+    ok = (f32["flat_loss_rel_err"] <= TIER_STEP_TOL and b16["plain_loss_rel_err"] <= 1e-5
+          and b16["plain_grad_rel_err"] <= 1e-5)
+    log(f"[tiers] one step at 256 on the run's first batch: in width tiers through K2 vs the "
+        f"plain loss: loss relative |err| {b16['plain_loss_rel_err']:.3g}, gradients "
+        f"{b16['plain_grad_rel_err']:.3g} of the step's largest entry (tolerance 1e-5; of each "
+        f"leaf's own largest {b16['plain_leaf_rel_err']:.3g} at {b16['plain_worst_leaf']}); in "
+        f"tiers vs flat-packed, f32 "
+        f"(K1-f32): loss {f32['loss']:.7f} vs {f32['flat_loss']:.7f}, relative |err| "
+        f"{f32['flat_loss_rel_err']:.3g} (tolerance {TIER_STEP_TOL:g}), gradients "
+        f"{f32['flat_grad_rel_err']:.3g}; bf16: loss {b16['loss']:.7f} vs {b16['flat_loss']:.7f}, "
+        f"relative |err| {b16['flat_loss_rel_err']:.3g}, gradients "
+        f"{b16['flat_grad_rel_err']:.3g} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the tiered step disagrees with the plain loss or the flat step")
+    return out
+
+
+def tier_chunk_segments(steps: list, evals: list) -> list[tuple[str, torch.Tensor]]:
+    """The segment ids of the first and the last chunk of each pack of each
+    side of the run's first batch (a pack's last chunk holds its ratchet
+    rows, all <pad>), and the last chunk of a placeholder pack (every row
+    <pad>) from the epoch's batches, or one of its shape made here if no
+    batch left a width empty."""
+    out = []
+    for side in ("pep", "rec"):
+        packs = wire_packs(steps[0], side)
+        l_max = max(pk["ids"].shape[1] for pk in packs)
+        for pk in packs:
+            R, L = pk["ids"].shape
+            rows = chunk_rows(R, 16 * (l_max // L))
+            seg = packed_engine.derive_segments(pk["ids"].cuda())[1]
+            for where, chunk in (("first", seg[:rows]), ("last", seg[-rows:])):
+                pads = int((chunk.amax(1) == 0).sum())
+                out.append((f"packed, width tier {L} {side} {where} chunk ({R} rows), {pads} "
+                            "rows all <pad>", chunk.contiguous()))
+    holes = [(b, side, pk) for b in steps + evals for side in ("pep", "rec")
+             for pk in b.get(f"{side}_packs", ()) if pk["nmark"].shape[0] == 0]
+    if holes:
+        b, side, pk = holes[0]
+        l_max = max(p["ids"].shape[1] for p in b[f"{side}_packs"])
+        R, L = pk["ids"].shape
+        seg = packed_engine.derive_segments(pk["ids"].cuda())[1][-chunk_rows(R, 16 * (l_max // L)):]
+        what = f"a placeholder pack's chunk ({side}, {len(holes)} placeholder packs in the epoch)"
+    else:
+        seg = torch.zeros(16, 512, dtype=torch.int32, device="cuda")
+        what = "a placeholder pack's chunk (made here: no batch left a width empty)"
+    out.append((f"packed, {what}, every row <pad>", seg.contiguous()))
+    return out
+
+
+def check_tier_chunks(segments: list, fault_libs: dict, gen: torch.Generator) -> dict:
+    """K1 (with its statistics) against its plain version on the tier
+    chunks (check_attention's form: rms(ref) of the valid queries), then
+    both attention faults, each of which must fail a case with a real row."""
+    cases = [(*seg.shape, kind, True, *qkv(*seg.shape, gen), seg) for kind, seg in segments]
+    err = check_attention(cases)
+    fwd = attention._kernel("attention_fwd", torch.bfloat16)
+    faults = {}
+    for name in ("swept_tiles", "skip"):
+        with attention_kernels(fault_libs[name], (fwd,)):
+            rows = k1_readings(cases)
+        ratios = [max(r["need"] / r["atol"], r["lse_err"] / LSE_ATOL) for r in rows]
+        failed = sum(x > 1 for x in ratios)
+        faults[name] = {"cases_failed": failed, "cases": len(rows), "worst_ratio": max(ratios)}
+        log(f"[tiers] planted fault {name}: attention_fwd fails {failed} of {len(rows)} tier "
+            f"chunks, worst at {max(ratios):.4g} x its tolerance")
+        if not failed:
+            raise AssertionError(f"the tier chunks' K1 check does not see the fault {name}")
+    return {"max_abs_err": err, "shapes": [list(seg.shape) for _, seg in segments],
+            "fault": faults}
+
+
+def run_tiers_phase(fault_libs: dict, gen: torch.Generator) -> dict:
+    """cli.main --packed --pack-tiers 4 for one epoch on the long-tail
+    fixture (launches against its batches packed again here), the layout of
+    its first batch against the flat wire, the step check and K1 on its
+    chunks; then cli.main_2protein_filip --packed --pack-tiers 4 at batch
+    128 (K4 once per (pep pack, rec pack) block), K4 on its blocks and its
+    step against the plain max-sim."""
+    data_dir = WORK / LONGTAIL_DATA
+    write_longtail_fixture(data_dir)
+    run = run_packed_train(data_dir, name="train_tiered", tiers=PACK_TIERS)
+    steps, evals = packed_epoch_batches(data_dir, PACK_TIERS)
+    flat_steps, _ = packed_epoch_batches(data_dir, 1)
+    layout, flat = tier_layout(steps[0]), tier_layout(flat_steps[0])
+    if len(layout["rec"]) < 2:
+        raise AssertionError(f"the long-tail fixture's first batch took one width: {layout}")
+    slots = {k: {side: sum(r * w for r, w in v[side]) for side in v}
+             for k, v in (("tiered", layout), ("flat", flat))}
+    holes = sum(pk["nmark"].shape[0] == 0 for b in steps + evals for side in ("pep", "rec")
+                for pk in b.get(f"{side}_packs", ()))
+    log(f"[tiers] first batch (rows, width) a pack: tiered {layout}, flat {flat}; slots tiered "
+        f"{slots['tiered']}, flat {slots['flat']}; chunk forwards tiered "
+        f"{len(packed_chunks(steps[0]))}, flat {len(packed_chunks(flat_steps[0]))}; "
+        f"{holes} placeholder packs over the epoch's {len(steps) + len(evals)} batches")
+    segments = tier_chunk_segments(steps, evals)
+    out = {"run": run, "layout": layout, "flat_layout": flat, "slots": slots,
+           "placeholder_packs": holes, "segments": segments,
+           "step_check": timed("check_tiered_step", check_tiered_step, steps[0], flat_steps[0]),
+           "chunks": check_tier_chunks(segments, fault_libs, gen)}
+    out["filip"] = run_filip_tiered(data_dir, fault_libs, gen)
+    return out
+
+
+def filip_captured_blocks(run: dict, data_dir: Path) -> list[tuple]:
+    """The K4 blocks the packed FILIP similarity scores on a run's first
+    batch (the run's best heads, eval mode), as the path forms them: each
+    (pep pack or tier, rec pack or tier) pair, phantom rows included."""
+    mcfg, esm_params = filip_setup()
+    heads = checkpoint.load_npz(run["run"] / "best_model.npz",
+                                filip.init_params(mcfg, torch.Generator(), device="meta"), "cuda")
+    _, batch = filip_first_batch(data_dir, run["args"])
+    blocks = []
+
+    def capture(ha, hb, ma, mb, t):
+        blocks.append((ha, hb, ma, mb))
+        return maxsim.filip_similarity_fused(ha, hb, ma, mb, t)
+
+    with torch.no_grad():
+        filip_packed.filip_sim_packed(heads, esm_params, batch, mcfg,
+                                      packed_engine.packed_side_count(batch, "pep"),
+                                      similarity_fn=capture)
+    return [blk for blk in blocks if len(blk[0]) and len(blk[1])]
+
+
+def run_filip_tiered(data_dir: Path, fault_libs: dict, gen: torch.Generator) -> dict:
+    run = run_filip_more("filip_tiered_128", data_dir, ["--packed", "--pack-tiers",
+                                                        str(PACK_TIERS), "--batch-size", "128"],
+                         filip_engine)
+    blocks = filip_captured_blocks(run, data_dir)
+    k4 = check_filip_tier_k4(blocks, fault_libs, gen, long_rows=True)
+    mcfg, _ = filip_setup()
+    heads0 = filip.init_params(mcfg, torch.Generator().manual_seed(SEED), device="cuda")
+    cfg, batch = filip_first_batch(data_dir, run["args"])
+    n = filip_k4_blocks(batch)
+    lk, gk, nk = filip_step(cfg, batch, heads0)
+    lp, gp, np_ = filip_step(cfg, batch, heads0, plain_maxsim)
+    scale = max(float(g.abs().max()) for g in gp.values())
+    loss_err = abs(lk - lp) / abs(lp)
+    grad_err = max(float((gk[k] - gp[k]).abs().max()) / scale for k in gp)
+    ok = (nk, np_) == (n, 0) and max(loss_err, grad_err) <= FILIP_STEP_TOL
+    log(f"[tiers] packed FILIP at 128 in width tiers: {len(blocks)} K4 blocks on the first batch "
+        f"({n} launches a step: {tier_layout(batch)}); one step through filip_maxsim vs its plain "
+        f"version: loss {lk:.7f} vs {lp:.7f}, relative |err| {loss_err:.3g}, gradients "
+        f"{grad_err:.3g} of the step's largest (tolerance {FILIP_STEP_TOL:g}); launches {nk}, {np_} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the tiered packed FILIP step disagrees with the plain max-sim")
+    return {**run, "blocks": len(blocks), "k4_launches_per_step": n, "k4": k4,
+            "step_check": {"loss_rel_err": loss_err, "grad_rel_err": grad_err}}
+
+
+def run_mlm(name: str, extra: list[str]) -> dict:
+    """cli.mlm_train for one epoch at --batch-size MLM_BATCH on the
+    1100-family fixture (receptors): the CSV and best_model.npz, and the
+    launches: one backbone forward a batch, K1 30 a forward (60 a
+    --finetune step: forward and remat recompute), K5 30 a --finetune
+    step; no other kernel."""
+    data_dir = WORK / SMALL_DATA
+    runs = WORK / f"runs_{name}"
+    unfrozen = "--finetune" in extra
+    t0 = time.perf_counter()
+    with counted_forwards() as forwards:
+        reset_counts()
+        mlm_train.main(["--synthetic-fixture", "--data-dir", str(data_dir), "--fixture-families",
+                        str(SMALL_FIXTURE_FAMILIES), "--epochs", "1", "--runs-dir", str(runs),
+                        "--batch-size", str(MLM_BATCH)] + extra)
+        got = kernel_counts(counts())
+        check_default_path(name)
+    wall = time.perf_counter() - t0
+    (run,) = list(runs.iterdir())
+    rows = (run / "losses_per_epoch.txt").read_text().splitlines()
+    if (sorted(p.name for p in run.iterdir()) != ["best_model.npz", "losses_per_epoch.txt"]
+            or len(rows) != 2 or not all(math.isfinite(float(v)) for v in rows[1].split(",")[1:])):
+        raise AssertionError(f"{name}: {sorted(p.name for p in run.iterdir())}, {rows}")
+    train_ds, val_ds, _ = dataset.generate_datasets(data_dir, seed=42)
+    steps, evals = len(train_ds) // MLM_BATCH, len(val_ds) // MLM_BATCH
+    want = {"attention_fwd": 30 * (steps + evals) + (30 * steps if unfrozen else 0)}
+    if unfrozen:
+        want["attention_bwd"] = 30 * steps
+    if len(forwards) != steps + evals or got != want:
+        raise AssertionError(f"{name}: {len(forwards)} forwards (want {steps + evals}), "
+                             f"launches {got} (want {want})")
+    log(f"[mlm] {name} ({' '.join(extra) or 'the head alone, padded rows'}): {steps} steps, "
+        f"{evals} eval batches of {MLM_BATCH} receptors; losses {rows[1]}; forwards (rows, L) "
+        f"{forwards[:2]} ...; launches {got}; cli.mlm_train {wall:.2f} s")
+    return {"run": run, "steps": steps, "evals": evals, "launches": got, "seconds": wall}
+
+
+def mlm_batch(packed: bool) -> dict:
+    """The first MLM_BATCH receptors of the fixture's train split, as
+    cli.mlm_train's first batch, on the card (batch_inputs)."""
+    train_ds, _, _ = dataset.generate_datasets(WORK / SMALL_DATA, seed=42)
+    _, recs = next(iter(dataset.PairLoader(train_ds, MLM_BATCH, seed=42)))
+    tok = common.make_tokenizer()
+    if packed:
+        arrs = (packed_engine.tokenize_packed_rows(tok, recs),)
+    else:
+        enc = tok(recs)
+        arrs = (torch.from_numpy(enc["input_ids"]), torch.from_numpy(enc["attention_mask"]))
+    return mlm_train.batch_inputs(to_device(arrs, "cuda"), packed)
+
+
+def mlm_step(mode: str, inputs: dict, masks: tuple, attention_cm=contextlib.nullcontext) -> tuple:
+    """One cli.mlm_train step of ``mode`` (head or finetune, Adam lr 1e-3)
+    from the run's weights (seed 0 backbone, seed 42 head) on fixed masks:
+    (loss, gradients by leaf)."""
+    cfg_esm = common.esm_config("t30_150M", "bfloat16")
+    esm_params = esm2.init_params(cfg_esm, torch.Generator(device="cuda").manual_seed(0),
+                                  dtype=torch.bfloat16, device="cuda")
+    head = esm2.init_lm_head(cfg_esm, torch.Generator().manual_seed(42), device="cuda")
+    args = argparse.Namespace(seed=42, lora_rank=0, lora_ffn=False, lr=1e-3, weight_decay=0.0,
+                              warmup_steps=0, lr_schedule="constant", grad_clip=0.0,
+                              backbone_lr=None)
+    trainable, view, group = mlm_train.trainable_tree(args, mode, head, esm_params, cfg_esm,
+                                                      "cuda")
+    if mode == "finetune":
+        esm_params = {}
+    state = capturing(mlm_train.make_optimizer(args, mode, group, 1).init(trainable), trainable)
+    step, _ = mlm_train.make_steps(cfg_esm, mode, view)
+    with attention_cm():
+        _, _, loss = step(trainable, state, esm_params, inputs, masks)
+    torch.cuda.synchronize()
+    return float(loss), state.grads
+
+
+def check_mlm_steps(fault_libs: dict) -> dict:
+    """On cli.mlm_train's first packed batch with masks fixed by a seeded
+    generator: the head step through K1 against the same step through K1's
+    plain version (loss within MLM_LOSS_RTOL relative); the --finetune
+    step through K1/K5 against K1 and K5's plain version (the loss within
+    FT_LOSS_TOL, every leaf within MLM_FT_K5_TOL of its largest entry),
+    K5's swept-tile fault past that; the finetune step's peak memory (its
+    weights and Adam state included)."""
+    inputs = mlm_batch(packed=True)
+    masks = mlm_train.draw_masks(torch.Generator(device="cuda").manual_seed(SEED), inputs, 0.15)
+    lk, _ = mlm_step("head", inputs, masks)
+    lp, _ = mlm_step("head", inputs, masks, lambda: attention_function(plain_forward,
+                                                                       plain_backward))
+    head_err = abs(lk - lp) / abs(lp)
+    gc.collect()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fk, gk = mlm_step("finetune", inputs, masks)
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    fp, gp = mlm_step("finetune", inputs, masks,
+                      lambda: attention_function(attention._forward, plain_backward))
+    with attention_kernels(fault_libs["swept_tiles"],
+                           (attention._kernel("attention_bwd", torch.bfloat16),)):
+        ff, gf = mlm_step("finetune", inputs, masks)
+    gaps = {k: float((gk[k] - gp[k]).abs().max()) / float(gp[k].abs().max()) for k in gp}
+    fault = max(float((gf[k] - gp[k]).abs().max()) / float(gp[k].abs().max()) for k in gp)
+    worst = max(gaps, key=gaps.get)
+    loss_err = abs(fk - fp) / abs(fp)
+    ok = head_err <= MLM_LOSS_RTOL and loss_err <= FT_LOSS_TOL and gaps[worst] <= MLM_FT_K5_TOL \
+        and fault > MLM_FT_K5_TOL
+    log(f"[mlm] one step on the first packed batch ({tuple(inputs['ids'].shape)}, "
+        f"{int((masks[1] != -100).sum())} masked tokens): the head step through K1 vs K1's plain "
+        f"version: loss {lk:.6f} vs {lp:.6f}, relative |err| {head_err:.3g} (tolerance "
+        f"{MLM_LOSS_RTOL:g}); the finetune step through K1/K5 vs K5's plain version: loss "
+        f"relative |err| {loss_err:.3g} (tolerance {FT_LOSS_TOL:g}), worst leaf {worst} "
+        f"{gaps[worst]:.4g} (tolerance {MLM_FT_K5_TOL:g}), the swept-tile fault {fault:.4g}; peak "
+        f"memory of the finetune step {peak:.4f} GB {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the MLM steps disagree with their plain attention")
+    return {"head_loss_rel_err": head_err, "finetune_loss_rel_err": loss_err,
+            "finetune_worst_leaf": worst, "finetune_leaf_gap": gaps[worst],
+            "fault_leaf_gap": fault, "finetune_peak_memory_gb": peak}
+
+
+def run_mlm_phase(fault_libs: dict) -> dict:
+    """The three cli.mlm_train runs, the step checks and cli.mlm_sweep."""
+    out = {"runs": {name: run_mlm(name, extra) for name, extra in MLM_RUNS}}
+    out["steps"] = timed("check_mlm_steps", check_mlm_steps, fault_libs)
+    runs = WORK / "runs_mlm_sweep"
+    mlm_sweep.main(["--synthetic-fixture", "--data-dir", str(WORK / SMALL_DATA), "--runs-dir",
+                    str(runs), "--n-sequences", "200"])
+    (run,) = list(runs.iterdir())
+    data = np.load(run / "figures" / "figure 1.npy")
+    if data.shape != (6, 200) or not ((0 <= data) & (data <= 1)).all():
+        raise AssertionError(f"cli.mlm_sweep wrote {data.shape}")
+    means = data.mean(1)
+    if not np.all(np.diff(means) > 0):
+        raise AssertionError(f"the sweep's changed fractions do not grow with p: {means}")
+    log(f"[mlm] cli.mlm_sweep over 200 peptides: mean changed fraction {np.round(means, 4)} at "
+        f"p = 0.05 ... 0.5")
+    out["sweep_means"] = means.tolist()
+    return out
+
+
+def time_tier_chunks(segments: list, gen: torch.Generator, gpu: str) -> list[dict]:
+    """K1 (as the backbone calls it in a frozen step: no statistics) on the
+    tier chunks of the tiered run's first batch, in device time by
+    kernel_times, beside its bound on the chunk's own segments."""
+    clock = sm_clock_hz()
+    rows = []
+    for kind, seg in segments:
+        q, k, v = qkv(*seg.shape, gen)
+        t = kernel_times(lambda: attention.fused_attention(q, k, v, seg), 30)
+        row = {"shape": list(seg.shape), "kind": kind, "ms": t["device_ms"],
+               "wall_ms": t["events_ms"], **attention_bound(seg, False, clock)}
+        row.pop("counts")
+        log(f"[time] attention_fwd on the {kind} {tuple(seg.shape)}: {row['ms']:.6f} ms device "
+            f"time (CUDA events {row['wall_ms']:.6f}), bound {row['bound_ms']:.6f} ms "
+            f"({row['bound_by']}) | {gpu}")
+        rows.append(row)
+    return rows
+
+
 def sm_clock_hz() -> float:
     """The card's largest SM clock (nvidia-smi clocks.max.sm)."""
     out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
@@ -6114,6 +6602,9 @@ def main() -> int:
             ectx = run_eval_phase(tctx["k2"]["run"] / "best_model.npz",
                                   ftctx["runs"]["filip_10"]["run"] / "best_model.npz")
             phase_done("resume, eval")
+            tiers = timed("run_tiers_phase", run_tiers_phase, fault_libs, gen)
+            mlmctx = timed("run_mlm_phase", run_mlm_phase, fault_libs)
+            phase_done("tiers, mlm")
             filip_dir = WORK / "filip_data"
             steps = {"k2": timed("check_step 256", check_step, 256),
                      "k3": timed("check_step 1024", check_step, 1024),
@@ -6143,6 +6634,8 @@ def main() -> int:
                 f32_times = timed("time_attention_f32", time_attention_f32, gen, gpu)
                 k4_times = timed("time_maxsim", time_maxsim, gen, gpu)
                 nce_times = timed("time_infonce", time_infonce, gen, gpu)
+                tier_times = timed("time_tier_chunks", time_tier_chunks, tiers["segments"], gen,
+                                   gpu)
                 dispatch = timed("time_dispatch", time_dispatch, gen, gpu)
                 p1_times = timed("time_dense_mm", time_dense_mm, gen, gpu)
                 k6_times = timed("time_ffn", time_ffn, gen, gpu)
@@ -6177,6 +6670,12 @@ def main() -> int:
                 pairs_per_s["f32_k6_finetune_packed"] = time_train_steps(
                     f32train, "finetune_packed_k6",
                     "f32 packed finetune step under PCT_FFN_PALLAS=1 (K6-f32)", gpu)
+                pairs_per_s["tiered"] = time_train_steps(
+                    {"tiered": tiers["run"], "profile": f"long-tail, {LONGTAIL_PAIRS} pairs"},
+                    "tiered", f"packed frozen train step in {PACK_TIERS} width tiers", gpu)
+                pairs_per_s["filip_tiered"] = time_train_steps(
+                    {"tiered": tiers["filip"], "profile": f"long-tail, {LONGTAIL_PAIRS} pairs"},
+                    "tiered", f"packed FILIP step in {PACK_TIERS} width tiers", gpu, 128)
                 pairs_per_s.update({f"{T33}_{run}": time_train_steps(t33train, run, what, gpu)
                                     for run, what in (
                     ("packed", "packed frozen train step (flat packing)"),
@@ -6218,6 +6717,9 @@ def main() -> int:
                  "attention_fwd_f32": f32train["frozen_step"]["attention_fwd_f32"],
                  "ffn_gelu_f32": f32train["frozen_step"]["ffn_gelu_f32"]},
              **{name: run["launches"] for name, run in rctx.items()},
+             "train_tiered": tiers["run"]["launches"],
+             "train_filip_tiered": tiers["filip"]["launches"],
+             **{name: run["launches"] for name, run in mlmctx["runs"].items()},
              **{name: kernel_counts(run["launches"]) for name, run in ectx.items()},
              "figures": kernel_counts(FIGURES["launches"])}
     by_path = {name: {path: counts.get(name, 0) for path, counts in paths.items()}
@@ -6241,6 +6743,17 @@ def main() -> int:
                                        "chunk_forwards_per_step": run["chunks_per_step"]}
                                 for name, run in fmctx["runs"].items()}},
         "head_dims": [{"shape": row["shape"], **row["attention_fwd"]} for row in family_times],
+        "train_tiered": {"launches": tiers["run"]["launches"]["attention_fwd"],
+                         "chunk_forwards_per_step": tiers["run"]["chunks_per_step"],
+                         "layout": tiers["layout"], "flat_layout": tiers["flat_layout"],
+                         "slots": tiers["slots"], "placeholder_packs": tiers["placeholder_packs"],
+                         "path_chunks": tiers["chunks"], "chunk_times": tier_times,
+                         "pairs_per_s": pairs_per_s["tiered"],
+                         "filip_launches": tiers["filip"]["launches"]["attention_fwd"]},
+        "mlm": {name: {"launches": run["launches"]["attention_fwd"], "steps": run["steps"],
+                       "eval_batches": run["evals"], "seconds": run["seconds"]}
+                for name, run in mlmctx["runs"].items()},
+        "mlm_head_step_loss_rel_err_vs_plain": mlmctx["steps"]["head_loss_rel_err"],
         T33: {"serve_launches": t33ctx["launches"]["attention_fwd"],
               "serve_cos_min": t33ctx["cos_min"], "serving": t33ctx["times"],
               "train_packed": {"launches": t33train["packed"]["launches"]["attention_fwd"],
@@ -6273,6 +6786,10 @@ def main() -> int:
             "step_check": t33train["finetune_step_check"],
             "pairs_per_s": pairs_per_s[f"{T33}_finetune_packed"],
             "launches_per_step": t33train["per_step"]},
+        "mlm_finetune_packed": {
+            "launches": mlmctx["runs"]["mlm_finetune_packed"]["launches"]["attention_bwd"],
+            "steps": mlmctx["runs"]["mlm_finetune_packed"]["steps"],
+            "step_check": {k: v for k, v in mlmctx["steps"].items() if k != "head_loss_rel_err"}},
         "train_filip_unfrozen": {"path_chunks_max_abs_err": fmctx["chunks"]["attention_bwd"],
                                  "step_check": steps["filip_unfrozen"],
                                  **{name: {"launches": run["launches"]["attention_bwd"],
@@ -6332,6 +6849,13 @@ def main() -> int:
                                   "steps": run["steps"], "eval_batches": run["evals"],
                                   **filip_times[name]}
                            for name, run in ftctx["runs"].items()}},
+        "train_filip_tiered": {"launches": tiers["filip"]["launches"]["filip_maxsim"],
+                               "steps": tiers["filip"]["steps"], "eval_batches":
+                               tiers["filip"]["evals"],
+                               "launches_per_step": tiers["filip"]["k4_launches_per_step"],
+                               "path_check": tiers["filip"]["k4"],
+                               "step_check": tiers["filip"]["step_check"],
+                               "pairs_per_s": pairs_per_s["filip_tiered"]},
         "train_filip_packed": {"path_check": fmctx["k4"],
                                "backward_on_tier_blocks": fmctx["backward"],
                                "step_check": steps["filip_packed"],
@@ -6350,6 +6874,9 @@ def main() -> int:
         **nce_times["infonce"][0], "step_check": steps["k2"],
         "fault": {k: fault_reads[k] for k in ("infonce_tf32", "infonce_partial")},
         "train_pairs_per_s": pairs_per_s["k2"], "dispatch": dispatch,
+        "train_tiered": {"launches": tiers["run"]["launches"]["infonce"],
+                         "bwd_launches": tiers["run"]["bwd"]["infonce"],
+                         "step_check": tiers["step_check"]},
         "train_packed": {"launches": pctx["launches"]["infonce"],
                          "bwd_launches": pctx["bwd"]["infonce"], "step_check": steps["packed"],
                          "pairs_per_s": pairs_per_s["packed"],

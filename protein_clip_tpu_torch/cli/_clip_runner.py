@@ -1,8 +1,9 @@
 """The CLIP training run behind ``main.py`` and ``main_2protein.py``: the
 port of ``protein_clip_tpu/cli/_clip_runner.run_clip_training`` on one
 device, for the frozen backbone (length-grouped, or packed with
-``--packed``) and the unfrozen modes (``--finetune``, ``--lora-rank``),
-which train on one pad bucket (``length_groups`` 1).
+``--packed``, flat or in ``--pack-tiers`` widths) and the unfrozen modes
+(``--finetune``, ``--lora-rank``), which train on one pad bucket
+(``length_groups`` 1) or flat-packed.
 
 The run writes the CSV, ``metrics.jsonl``, ``best_model.npz``, a
 train-state snapshot after every epoch (``state/``; ``--resume-dir <run
@@ -23,7 +24,7 @@ from . import common
 from ..data.dataset import PairLoader, generate_datasets
 from ..data.prefetch import to_device
 from ..models import clip, esm2
-from ..train import clip_engine, finetune, lora, loop
+from ..train import clip_engine, finetune, lora, loop, packed_engine
 from ..utils import prng, rundir
 from ..utils.device import resolve_device
 from ..viz import plots
@@ -95,6 +96,7 @@ def run_dir_of(args) -> Path:
 def run_clip_training(args, *, prefix_a: str, prefix_b: str, plot_cluster: bool = False,
                       max_sequence_length: int | None = None) -> int:
     common.check_train_args(args)
+    packed_engine.clear_tier_width_cache()      # a run packs from its own first batch
     device = resolve_device(args.device)
     generator = prng.set_seed(args.seed)
     run_dir = run_dir_of(args)

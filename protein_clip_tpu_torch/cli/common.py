@@ -91,11 +91,12 @@ def add_train_args(p: argparse.ArgumentParser) -> None:
                    help="sequence-packed encoding (segment-masked rows; supersedes "
                         "--length-groups; train/packed_engine.py, and with --finetune or "
                         "--lora-rank the packed two-pass step of train/finetune.py, flat "
-                        "packing only); with --no-gradcache it is ignored")
+                        "packing only); with --no-gradcache it is ignored; in cli.mlm_train "
+                        "it packs the training side's sequences")
     p.add_argument("--pack-tiers", type=int, default=1,
                    help="with --packed: >1 packs each side into width-tiered row groups "
                         "(short sequences ride narrower rows, cutting attention cost on "
-                        "long-tailed length distributions); not ported yet: > 1 raises")
+                        "long-tailed length distributions); the frozen steps only")
     p.add_argument("--finetune", action="store_true",
                    help="unfreeze the ESM-2 backbone: end-to-end training via the two-pass "
                         "gradcache and the attention backward K5 (train/finetune.py; the "
@@ -130,10 +131,10 @@ def add_mesh_args(p: argparse.ArgumentParser) -> None:
 
 
 def check_train_args(args) -> None:
-    """Raise on the training options this port does not run yet (--packed
-    with width tiers, a mesh), on --finetune with --lora-rank (as the TPU
-    package does), on either of them with --esm-dtype int8 or with width
-    tiers, before anything is loaded."""
+    """Raise on the training options this port does not run yet (a mesh),
+    on --finetune with --lora-rank and on either of them with --packed
+    --pack-tiers (as the TPU package does), and on either of them with
+    --esm-dtype int8, before anything is loaded."""
     if args.finetune and args.lora_rank:
         raise SystemExit("--finetune and --lora-rank are mutually exclusive "
                          "(full vs parameter-efficient)")
@@ -144,20 +145,18 @@ def check_train_args(args) -> None:
             "backbone, and the int8 tree has no weights to train (the TPU package "
             "fails on it too); train with --esm-dtype bfloat16")
     if args.packed and args.pack_tiers > 1 and flag:
-        raise NotImplementedError(
-            f"{flag} with --packed --pack-tiers {args.pack_tiers}: the packed finetune and "
-            "LoRA steps take flat packing only, as the TPU package's do; drop --pack-tiers")
-    refused = [
-        (args.packed and args.pack_tiers > 1,
-         f"--packed with --pack-tiers {args.pack_tiers}: width-tiered packing (ROADMAP "
-         "queue 1: width-tiered packing)"),
-        ((args.dp, args.tp, args.pp) != (1, 1, 1), "--dp/--tp/--pp other than 1: "
-                                                   "multi-device training (ROADMAP queue 1: "
-                                                   "multi-device)"),
-    ]
-    for hit, what in refused:
-        if hit:
-            raise NotImplementedError(f"not ported yet: {what}")
+        raise SystemExit("--finetune/--lora-rank with --packed support flat packing only "
+                         "(drop --pack-tiers)")
+    check_single_device(args)
+
+
+def check_single_device(args) -> None:
+    """Raise on mesh flags other than 1: multi-device training is not
+    ported yet."""
+    mesh = tuple(getattr(args, k, 1) for k in ("dp", "tp", "pp"))
+    if mesh != (1, 1, 1):
+        raise NotImplementedError("not ported yet: --dp/--tp/--pp other than 1: multi-device "
+                                  "training (ROADMAP queue 1: multi-device)")
 
 
 def unfrozen_params(args, params: dict, esm_params: dict, device: torch.device, *,

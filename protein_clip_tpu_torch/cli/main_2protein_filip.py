@@ -2,8 +2,8 @@
 ``protein_clip_tpu.cli.main_2protein_filip``).
 
     python -m protein_clip_tpu_torch.cli.main_2protein_filip --synthetic-fixture \\
-        --data-dir d2 --epochs 1 [--use-dcl] [--packed [--scatter-tiers 4]]
-        [--finetune | --lora-rank 8] [--device cpu]
+        --data-dir d2 --epochs 1 [--use-dcl] [--packed [--scatter-tiers 4]
+        | --packed --pack-tiers 4] [--finetune | --lora-rank 8] [--device cpu]
 
 The reference recipe: token-level late interaction over the frozen ESM-2
 t30 backbone, batch 10, 10 epochs, no GradCache, one pad bucket; an ingest
@@ -13,7 +13,9 @@ backward, so the batch can grow past 10: raise --num-chunks and
 --length-groups with it (e.g. --batch-size 128 --num-chunks 8
 --length-groups 4), or pack the rows with --packed (train/filip_packed.py:
 flat packing, the tokens scattered into per-length-tier buffers, 4 tiers
-by default, whose rectangular K4 blocks make up the scores).
+by default, whose rectangular K4 blocks make up the scores; with
+--pack-tiers N the rows themselves come in up to N widths, and each (pep
+pack, rec pack) pair is one K4 block).
 
 --finetune (an f32 master backbone at --backbone-lr) and --lora-rank R
 (adapters on the frozen base) train the backbone too, through the
@@ -30,9 +32,10 @@ continues from it), and the figures of ``cli/_clip_runner.py`` with the
 direction-averaged FILIP similarity as the heatmaps. Runs on cuda unless
 --device cpu.
 
-Not ported yet, each raising ``NotImplementedError`` before anything
-loads: --pack-tiers > 1 and a mesh; --esm-dtype int8 with an unfrozen mode
-is refused.
+Not ported yet, raising ``NotImplementedError`` before anything loads: a
+mesh. Refused as in the TPU package: --finetune or --lora-rank with
+--packed --pack-tiers, or with --length-groups; and, where the TPU package
+fails, --esm-dtype int8 with an unfrozen mode.
 """
 
 from __future__ import annotations
@@ -46,7 +49,7 @@ from ._clip_runner import eval_view, figure_hooks, run_dir_of
 from ..data.dataset import PairLoader, generate_datasets
 from ..data.prefetch import to_device
 from ..models import filip
-from ..train import clip_engine, filip_engine, filip_finetune, filip_lora, loop
+from ..train import clip_engine, filip_engine, filip_finetune, filip_lora, loop, packed_engine
 from ..utils import prng
 from ..utils.device import resolve_device
 from ..viz import plots
@@ -87,7 +90,7 @@ def filip_similarity_viz(params, esm_params, mcfg, tokenizer, device):
 def check_filip_args(args) -> None:
     """The TPU package's mutual exclusions (SystemExit), then the options
     this port does not run yet or refuses (``common.check_train_args``:
-    NotImplementedError for width tiers, a mesh, and int8 with an unfrozen
+    NotImplementedError for a mesh, and int8 with an unfrozen
     mode), before anything is loaded."""
     if args.finetune and args.lora_rank:
         raise SystemExit("--finetune and --lora-rank are mutually exclusive "
@@ -104,6 +107,7 @@ def check_filip_args(args) -> None:
 def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
     check_filip_args(args)
+    packed_engine.clear_tier_width_cache()      # a run packs from its own first batch
     device = resolve_device(args.device)
     generator = prng.set_seed(args.seed)
     run_dir = run_dir_of(args)

@@ -163,6 +163,22 @@ def init_params(cfg: ESM2Config, generator: torch.Generator,
     return _map_spec(_param_spec(cfg), make)
 
 
+def init_lm_head(cfg: ESM2Config, generator: torch.Generator, dtype: torch.dtype = torch.float32,
+                 device="cuda") -> Params:
+    """ESM's MLM head, as the TPU package's ``init_lm_head``: dense (H, H)
+    drawn normal with std 0.02 from ``generator`` on its own device, its
+    bias 0, LayerNorm 1 and 0, and the tied decoder's bias (V,) 0; the
+    decoder's weight is the backbone's token embedding (``lm_logits``)."""
+    device = resolve_device(device)
+    H, V = cfg.hidden_size, cfg.vocab_size
+    w = 0.02 * torch.randn((H, H), generator=generator, device=generator.device)
+    return {"dense": {"w": w.to(device=device, dtype=dtype),
+                      "b": torch.zeros(H, dtype=dtype, device=device)},
+            "ln": {"w": torch.ones(H, dtype=dtype, device=device),
+                   "b": torch.zeros(H, dtype=dtype, device=device)},
+            "bias": torch.zeros(V, dtype=dtype, device=device)}
+
+
 def abstract_params(cfg: ESM2Config, dtype: torch.dtype = torch.float32) -> Params:
     """The parameter structure as meta tensors (shapes and dtypes, no data)."""
     return _map_spec(_param_spec(cfg),
@@ -511,3 +527,17 @@ def forward(params: Params, input_ids: torch.Tensor, attention_mask: torch.Tenso
             x = _layer_block(x, lp, mask_bias, segments, cos, sin, cfg)
     return _layer_norm(x, params["final_ln"]["w"], params["final_ln"]["b"],
                        cfg.layer_norm_eps)
+
+
+def lm_logits(params: Params, lm_head: Params, hidden: torch.Tensor,
+              cfg: ESM2Config) -> torch.Tensor:
+    """ESM's MLM head over last_hidden_state, f32 (B, T, V) logits: the
+    dense layer (an f32 product of hidden in its own dtype, rounded to that
+    dtype, plus the f32 bias), gelu, LayerNorm, then the decoder tied to the
+    token embedding, in f32, plus its bias. The 33-wide vocabulary product
+    is a plain matmul, as in the TPU package (no Pallas kernel there)."""
+    h = (hidden.float() @ lm_head["dense"]["w"].float()).to(hidden.dtype) + lm_head["dense"]["b"]
+    h = _gelu(h, cfg.gelu)
+    h = _layer_norm(h, lm_head["ln"]["w"], lm_head["ln"]["b"], cfg.layer_norm_eps)
+    logits = h.float() @ params["embed"]["word"].float().T
+    return logits + lm_head["bias"].float()

@@ -11,6 +11,8 @@ of the TPU package's ``bench.py`` (its ``main``, ``bench_finetune``,
     PCT_BENCH_MODE=finetune_filip python -m protein_clip_tpu_torch.tools.bench_train
     PCT_ESM_CONFIG=t33_650M PCT_BENCH_MODE=finetune python -m protein_clip_tpu_torch.tools.bench_train
     PCT_BENCH_MODE=eval python -m protein_clip_tpu_torch.tools.bench_train
+    PCT_PACK_TIERS=4 PCT_BENCH_PROFILE=longtail python -m protein_clip_tpu_torch.tools.bench_train
+    PCT_BENCH_MODE=mlm PCT_MLM_MODE=finetune PCT_MLM_PACKED=1 python -m protein_clip_tpu_torch.tools.bench_train
 
 ESM-2 ``PCT_ESM_CONFIG`` (default t30_150M, as ``bench.py`` reads it; every
 family runs on the card in bf16) with seeded random weights (seed 0), CLIP
@@ -32,11 +34,22 @@ global batch 256 packed (``cfg.packed``, 16 rows a chunk). The mode
 - ``finetune_filip``: the packed FILIP finetune step
   (``train/filip_finetune.py``) at the same batch and tiers, an f32 master
   backbone at 1e-5, 6 timed steps (``bench_finetune_filip``);
+- ``mlm``: the MLM step of ``cli/mlm_train.py`` (``bench_mlm``): the LM
+  head (seed 1) over the frozen bf16 backbone (``PCT_MLM_MODE=head``, the
+  default) or with the f32 master backbone too (``finetune``, remat; one
+  Adam at 1e-3 over both, as ``bench_mlm`` has it), Adam,
+  ``PCT_MLM_BATCH`` sequences a step (default 64) of receptor lengths,
+  padded or packed into rows (``PCT_MLM_PACKED=1``), 15% masking from a
+  generator seeded 0; 8 timed steps, in real (not pad) tokens a second;
 - ``eval``: the frozen mode's model on its draws, no step: the packed eval
   step (``make_eval_step``, what ``fit`` validates with under
   ``--packed``) and the packed retrieval encode (``embed_packed``, what
   ``cli.topk --packed`` runs), each timed over the 10 batches after a warm
   one, in pairs/s (``bench_eval``).
+
+``PCT_PACK_TIERS`` (default 1) packs the frozen, eval and FILIP modes'
+batches in that many width tiers (``tokenize_packed(tiers=...)``), as
+``bench.py`` reads it.
 
 Global batches of synthetic pairs are drawn from
 ``numpy.random.default_rng(42)`` as ``bench.py`` draws them: peptides of
@@ -66,6 +79,7 @@ import torch
 
 from ..cli import common
 from ..data.prefetch import to_device
+from ..cli import mlm_train
 from ..models import clip, esm2, filip
 from ..ops import attention, infonce
 from ..ops import filip as maxsim
@@ -88,30 +102,46 @@ def rec_len(rng: np.random.Generator, profile: str) -> int:
     return rng.integers(100, 500)
 
 
-def make_batches(rng: np.random.Generator, n: int, profile: str) -> list[dict]:
+def pack_tiers() -> int:
+    """Width tiers of the frozen, eval and FILIP modes' packing,
+    ``PCT_PACK_TIERS`` (default 1: flat), as ``bench.py`` reads it."""
+    return int(os.environ.get("PCT_PACK_TIERS", "1"))
+
+
+def make_batches(rng: np.random.Generator, n: int, profile: str, tiers: int = 1) -> list[dict]:
     """n packed host batches of GLOBAL_BATCH pairs, drawn in ``bench.py``'s
-    order: a batch's peptides, then its receptors."""
+    order: a batch's peptides, then its receptors; in ``tiers`` widths a
+    side (the sticky caches cleared first)."""
     tok = common.make_tokenizer()
+    packed_engine.clear_tier_width_cache()
     out = []
     for _ in range(n):
         peps = ["".join(rng.choice(AAS, rng.integers(8, 30))) for _ in range(GLOBAL_BATCH)]
         recs = ["".join(rng.choice(AAS, rec_len(rng, profile))) for _ in range(GLOBAL_BATCH)]
-        out.append(packed_engine.tokenize_packed(tok, peps, recs))
+        out.append(packed_engine.tokenize_packed(tok, peps, recs, tiers=tiers))
     return out
 
 
 def make_filip_batches(rng: np.random.Generator, n: int, profile: str, batch: int,
-                       scatter_tiers: int) -> list[dict]:
+                       scatter_tiers: int, tiers: int = 1) -> list[dict]:
     """n packed host batches of ``batch`` FILIP pairs, drawn in
     ``bench_filip``'s order: a batch's first sides, then its second, both
-    of receptor lengths."""
+    of receptor lengths; in ``tiers`` widths a side."""
     tok = common.make_tokenizer()
+    packed_engine.clear_tier_width_cache()
     out = []
     for _ in range(n):
         peps = ["".join(rng.choice(AAS, rec_len(rng, profile))) for _ in range(batch)]
         recs = ["".join(rng.choice(AAS, rec_len(rng, profile))) for _ in range(batch)]
-        out.append(packed_engine.tokenize_packed(tok, peps, recs, scatter_tiers=scatter_tiers))
+        out.append(packed_engine.tokenize_packed(tok, peps, recs, tiers=tiers,
+                                                 scatter_tiers=scatter_tiers))
     return out
+
+
+def pack_shapes(batch: dict, side: str) -> list[list[int]]:
+    """(rows, width) of each of a packed batch's packs on one side."""
+    packs = batch.get(f"{side}_packs") or ({"ids": batch[f"{side}_ids"]},)
+    return [list(p["ids"].shape) for p in packs]
 
 
 def esm_family() -> str:
@@ -168,7 +198,7 @@ def build(mode: str, device) -> tuple:
             heads)
         return params, lora.make_optimizer(cfg).init(params), esm_params, lora.make_train_step(cfg)
     raise ValueError(f"PCT_BENCH_MODE={mode!r}: frozen, finetune, lora, filip, "
-                     "finetune_filip or eval")
+                     "finetune_filip, eval or mlm")
 
 
 def bench_eval(device, profile: str, gpu: str) -> dict:
@@ -181,8 +211,8 @@ def bench_eval(device, profile: str, gpu: str) -> dict:
     cfg = clip_engine.EngineConfig(model=mcfg, batch_size=16,
                                    accumulated_batches=GLOBAL_BATCH // 16, packed=True)
     eval_step = clip_engine.make_eval_step(cfg)
-    batches = [to_device(b, device)
-               for b in make_batches(np.random.default_rng(42), STEPS + 1, profile)]
+    batches = [to_device(b, device) for b in
+               make_batches(np.random.default_rng(42), STEPS + 1, profile, pack_tiers())]
     out = {}
     for name, fn in (("eval", lambda b: eval_step(heads, esm_params, b)),
                      ("retrieval_encode",
@@ -204,6 +234,73 @@ def bench_eval(device, profile: str, gpu: str) -> dict:
             "device": torch.cuda.get_device_name(0), "gpu": gpu}
 
 
+MLM_STEPS = 8
+
+
+def bench_mlm(device, profile: str, gpu: str) -> dict:
+    """Real tokens a second of the MLM step (``bench.py``'s ``bench_mlm``):
+    one warm step, then MLM_STEPS timed steps with the losses left on the
+    card until the last is read; K1 and K5 launches a step and the peak of
+    ``torch.cuda.max_memory_allocated`` over the timed steps."""
+    mode = os.environ.get("PCT_MLM_MODE", "head")
+    batch = int(os.environ.get("PCT_MLM_BATCH", "64"))
+    packed = os.environ.get("PCT_MLM_PACKED") == "1"
+    esm_cfg = common.esm_config(esm_family(), "bfloat16")
+    lm_head = esm2.init_lm_head(esm_cfg, torch.Generator().manual_seed(1), device=device)
+    gen0 = torch.Generator(device=device).manual_seed(0)
+    if mode == "finetune":
+        esm_params = {}
+        trainable = {"esm": esm2.init_params(esm_cfg, gen0, dtype=torch.float32, device=device),
+                     "head": lm_head}
+        opt = optimizer.adam(1e-3)
+        view = lambda t, _: finetune._cast_esm(t["esm"], esm_cfg.compute_dtype)  # noqa: E731
+    elif mode == "head":
+        esm_params = esm2.init_params(esm_cfg, gen0, dtype=esm_cfg.compute_dtype, device=device)
+        trainable, opt, view = lm_head, optimizer.adam(1e-3), None
+    else:
+        raise ValueError(f"PCT_MLM_MODE={mode!r}: head or finetune")
+    state = opt.init(trainable)
+    step, _ = mlm_train.make_steps(esm_cfg, mode, view)
+    tok = common.make_tokenizer()
+    rng = np.random.default_rng(42)
+    batches, tokens = [], 0
+    for i in range(MLM_STEPS + 1):
+        seqs = ["".join(rng.choice(AAS, rec_len(rng, profile))) for _ in range(batch)]
+        if packed:
+            arrs = (packed_engine.tokenize_packed_rows(tok, seqs),)
+            real = int((arrs[0] != 1).sum())
+        else:
+            enc = tok(seqs)
+            arrs = (torch.from_numpy(enc["input_ids"]), torch.from_numpy(enc["attention_mask"]))
+            real = int(enc["attention_mask"].sum())
+        tokens += real if i > 0 else 0
+        batches.append(mlm_train.batch_inputs(to_device(arrs, device), packed))
+    mask_gen = torch.Generator(device=device).manual_seed(0)
+    masks = [mlm_train.draw_masks(mask_gen, b, 0.15) for b in batches]
+    trainable, state, loss = step(trainable, state, esm_params, batches[0], masks[0])
+    float(loss)
+    torch.cuda.reset_peak_memory_stats()
+    k1, k5 = attention.launches["attention_fwd"], attention.launches["attention_bwd"]
+    losses = []
+    t0 = time.perf_counter()
+    for b, m in zip(batches[1:], masks[1:]):
+        trainable, state, loss = step(trainable, state, esm_params, b, m)
+        losses.append(loss)
+    values = [float(x) for x in losses]
+    dt = time.perf_counter() - t0
+    if not all(np.isfinite(values)):
+        raise RuntimeError(f"non-finite MLM losses {values}")
+    return {"metric": "mlm_tokens_per_sec", "value": tokens / dt, "unit": "tokens/s",
+            "mode": "mlm", "mlm_mode": mode, "packed": packed, "batch": batch,
+            "esm_config": esm_family(), "profile": profile, "steps": MLM_STEPS,
+            "seqs_per_sec": MLM_STEPS * batch / dt, "step_ms": 1e3 * dt / MLM_STEPS,
+            "rows": [list(b["ids"].shape) for b in batches[1:]],
+            "k1_launches_per_step": (attention.launches["attention_fwd"] - k1) / MLM_STEPS,
+            "k5_launches_per_step": (attention.launches["attention_bwd"] - k5) / MLM_STEPS,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "device": torch.cuda.get_device_name(0), "gpu": gpu}
+
+
 def main() -> int:
     device = resolve_device("cuda")
     profile = os.environ.get("PCT_BENCH_PROFILE", "standard")
@@ -213,17 +310,21 @@ def main() -> int:
     if mode == "eval":
         print(json.dumps(bench_eval(device, profile, gpu)))
         return 0
+    if mode == "mlm":
+        print(json.dumps(bench_mlm(device, profile, gpu)))
+        return 0
     rng = np.random.default_rng(42)
     if mode in FILIP_STEPS:
         pairs = int(os.environ.get("PCT_FILIP_BATCH", "128"))
         tiers = int(os.environ.get("PCT_FILIP_SCATTER_TIERS", "4"))
         steps = FILIP_STEPS[mode]
         params, state, esm_params, step = build_filip(mode, device, pairs, tiers)
-        host = make_filip_batches(rng, steps + 1, profile, pairs, tiers)
+        host = make_filip_batches(rng, steps + 1, profile, pairs, tiers,
+                                  pack_tiers() if mode == "filip" else 1)
     else:
         pairs, tiers, steps = GLOBAL_BATCH, 1, STEPS
         params, state, esm_params, step = build(mode, device)
-        host = make_batches(rng, steps + 1, profile)
+        host = make_batches(rng, steps + 1, profile, pack_tiers() if mode == "frozen" else 1)
     gen = torch.Generator(device=device).manual_seed(0)
     batches = [to_device(b, device) for b in host]
     torch.cuda.synchronize()
@@ -243,11 +344,12 @@ def main() -> int:
     dt = time.perf_counter() - t0
     if not all(np.isfinite(values)):
         raise RuntimeError(f"non-finite losses {values}")
-    packs = {side: [list(b[f"{side}_ids"].shape) for b in host[1:]] for side in ("pep", "rec")}
+    packs = {side: [pack_shapes(b, side) for b in host[1:]] for side in ("pep", "rec")}
     print(json.dumps({
         "metric": "pairs_per_sec", "value": steps * pairs / dt, "unit": "pairs/s",
         "mode": mode, "esm_config": esm_family(), "step_ms": 1e3 * dt / steps, "global_batch": pairs,
-        "scatter_tiers": tiers, "steps": steps, "profile": profile, "packs": packs,
+        "scatter_tiers": tiers, "pack_tiers": pack_tiers() if mode in ("frozen", "filip") else 1,
+        "steps": steps, "profile": profile, "packs": packs,
         "k1_launches_per_step": (attention.launches["attention_fwd"] - k1) / steps,
         "k4_launches_per_step": (maxsim.filip_similarity_fused.launches - k4) / steps,
         "k5_launches_per_step": (attention.launches["attention_bwd"] - k5) / steps,

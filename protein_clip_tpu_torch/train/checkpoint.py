@@ -131,7 +131,9 @@ def save_train_state(path: str | Path, state: dict) -> None:
     """Write a train state: ``params`` and ``best_params`` (trees of
     tensors, saved by flat key), ``opt_state`` (an optimizer state's
     ``state_dict()``, on the host), ``best_val`` and the loss lists (plain
-    numbers); tensors are copied to the host. The
+    numbers), and ``tiers`` when given (the packer's sticky tier caches,
+    ``packed_engine.tier_state``: lists of strings and ints); tensors are
+    copied to the host. The
     file is written under a temporary name beside ``path`` and renamed into
     place, so a write cut short never replaces a readable snapshot."""
     path = Path(path)
@@ -139,6 +141,8 @@ def save_train_state(path: str | Path, state: dict) -> None:
            "opt_state": state["opt_state"], "best_val": float(state["best_val"]),
            "train_losses": [float(v) for v in state["train_losses"]],
            "val_losses": [float(v) for v in state["val_losses"]]}
+    if "tiers" in state:
+        out["tiers"] = state["tiers"]
     tmp = path.with_name(path.name + ".tmp")
     torch.save(out, tmp)
     os.replace(tmp, path)

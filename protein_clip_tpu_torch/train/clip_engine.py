@@ -16,7 +16,8 @@ dropout in place of a JAX key. Losses come back as device tensors, so a
 step does not wait for the card.
 
 With ``cfg.packed`` the steps are ``train/packed_engine``'s, over
-``tokenize_packed`` batches (flat packing). Not ported here:
+``tokenize_packed`` batches (flat, or width-tiered with ``cfg.packed_tiers``
+> 1). Not ported here:
 ``stack_batches`` / ``make_train_step_many``, which amortise a TPU dispatch
 (queued as CUDA graphs).
 """
@@ -81,8 +82,8 @@ class EngineConfig:
     # sequence packing (train/packed_engine.py): about 95% of the tokens
     # filled, against about 80% for length groups; supersedes length_groups
     packed: bool = False
-    # > 1: width-tiered packing, not ported yet (the packed steps raise;
-    # ROADMAP queue 1: width-tiered packing)
+    # > 1: width-tiered packing, at most this many row widths a side
+    # (train/packed_engine.py; the frozen packed steps, CLIP and FILIP)
     packed_tiers: int = 1
     # > 1: packed FILIP's per-length-tier token buffers (train/filip_packed.py)
     scatter_tiers: int = 1

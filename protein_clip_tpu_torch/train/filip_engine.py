@@ -18,7 +18,8 @@ blocks, so negatives span every group and the diagonal stays aligned
 
 With ``cfg.packed`` the steps are ``train/filip_packed``'s, over
 ``tokenize_packed`` batches (flat packing, and with ``cfg.scatter_tiers``
-> 1 the scores assembled from per-length-tier K4 blocks).
+> 1 the scores assembled from per-length-tier K4 blocks; or width-tiered
+packs, ``cfg.packed_tiers`` > 1, scored one K4 block a pack pair).
 
 The steps have ``clip_engine``'s signatures, so ``loop.fit(...,
 use_gradcache=False, engine=filip_engine)`` drives them.

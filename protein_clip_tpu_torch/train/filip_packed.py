@@ -1,5 +1,4 @@
-"""Packed-row FILIP training: the port of ``protein_clip_tpu/train/filip_packed.py``
-for flat packing.
+"""Packed-row FILIP training: the port of ``protein_clip_tpu/train/filip_packed.py``.
 
 The frozen backbone runs over the packed rows of ``packed_engine`` (K1 over
 packed segments on the card, about 95% of the tokens filled); the per-token
@@ -26,8 +25,16 @@ buffer whose last row and column are sliced off. The writes are
 adds nothing with atomics and repeats to the bit. Duplicate writes land
 only in the sliced-off dump slots.
 
-Not ported: the TPU package's width-tiered packs (``{side}_packs``,
-ROADMAP queue 1: width-tiered packing), which raise.
+A side packed in width tiers (``tokenize_packed(tiers > 1)``:
+``{side}_packs``) runs the backbone on each pack at a constant number of
+tokens a chunk, and scatters each pack's tokens by their rank within the
+pack (``local_owner``) into a (n_t, L_t, D) buffer of the pack's own width,
+n_t its operm's length: the pack's operm, global indices padded with the
+sentinel n, places the pack's rows of every block in the (n + 1, n + 1)
+assembly, as a scatter tier's does. A side of one pack (flat, as a narrow
+peptide side often is beside a tiered receptor side) keeps the flat path
+and its scatter tiers; scatter tiers apply to one-pack sides only, as in
+the TPU package.
 """
 
 from __future__ import annotations
@@ -130,35 +137,38 @@ def _sim_from_tiers(tiers_pep: list, tiers_rec: list, temperature, sim_fn: Calla
     return sim_a[:n_seqs, :n_seqs], sim_b[:n_seqs, :n_seqs]
 
 
-def _flat_pack(batch: dict, side: str) -> dict:
-    """A side's expanded flat pack; width-tiered packs raise."""
-    if f"{side}_packs" in batch:
-        raise NotImplementedError(f"packed FILIP over width-tiered packs ({side}_packs, "
-                                  "--pack-tiers) is not ported yet (ROADMAP queue 1: "
-                                  "width-tiered packing)")
-    return {k: batch[f"{side}_{k}"] for k in ("ids", "seg", "pos", "owner")}
-
-
 def filip_sim_packed(params, esm_params, batch: dict, mcfg, n_seqs: int, *,
                      rows_per_chunk: int = 16, train: bool = False,
                      generator: torch.Generator | None = None,
                      similarity_fn: Callable | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """(sim_a, sim_b), each (n, n), of a packed batch: the frozen backbone
-    in chunks of ``rows_per_chunk`` rows with no graph, the token heads
-    (dropout from ``generator`` in train mode, pep then rec), normalised
-    tokens scattered flat or by scatter tiers, and ``similarity_fn``
-    (default ``filip_similarity_fused``: K4 on CUDA tensors)."""
+    in chunks of ``rows_per_chunk`` rows (more rows for packs narrower than
+    the side's widest) with no graph, the token heads (dropout from
+    ``generator`` in train mode, pep then rec, pack by pack), normalised
+    tokens scattered flat, by scatter tiers or by width-tier packs, and
+    ``similarity_fn`` (default ``filip_similarity_fused``: K4 on CUDA
+    tensors) on every block."""
     sim_fn = similarity_fn or filip_similarity_fused
     batch = pe.expand_packed_batch(batch)
     sides = {}
     for side in pe.SIDES:
-        pk = _flat_pack(batch, side)
-        h = pe._encode_packed_chunked(esm_params, pk["ids"], pk["seg"], pk["pos"], mcfg.esm,
-                                      rows_per_chunk)
-        x = heads.encode_tokens(params[side], h.float(), mcfg.activation,
-                                dropout_rate=mcfg.dropout, train=train, generator=generator)
-        sides[side] = _scatter_side(_l2_normalize_tokens(x), pk, batch.get(f"{side}_stiers"),
-                                    n_seqs)
+        packs = pe.side_packs(batch, side)
+        t_out = max(p["ids"].shape[1] for p in packs)
+        tiers = []
+        for pk in packs:
+            L = pk["ids"].shape[1]
+            h = pe._encode_packed_chunked(esm_params, pk["ids"], pk["seg"], pk["pos"], mcfg.esm,
+                                          rows_per_chunk * (t_out // L))
+            x = _l2_normalize_tokens(heads.encode_tokens(
+                params[side], h.float(), mcfg.activation, dropout_rate=mcfg.dropout,
+                train=train, generator=generator))
+            if len(packs) == 1:
+                tiers = _scatter_side(x, pk, batch.get(f"{side}_stiers"), n_seqs)
+            else:
+                n_t = pk["operm"].shape[0]
+                tiers.append((*_scatter_tokens_into(x, pk["seg"], pk["pos"], pk["local_owner"],
+                                                    n_t), pk["operm"]))
+        sides[side] = tiers
     return _sim_from_tiers(sides["pep"], sides["rec"], params["temperature"], sim_fn, n_seqs)
 
 
@@ -167,7 +177,6 @@ def make_train_step_packed_filip(cfg: EngineConfig, similarity_fn: Callable | No
                                  rows_per_chunk: int | None = None):
     """The FILIP step over ``tokenize_packed`` batches of ``cfg.batch_size``
     pairs (FILIP accumulates no batches), with ``filip_engine``'s signature."""
-    pe.check_flat(cfg.packed_tiers)
     use_dcl = cfg.filip_use_dcl if use_dcl is None else use_dcl
     rows_per_chunk = pe._default_rows_per_chunk(rows_per_chunk)
     n_seqs = cfg.batch_size
@@ -187,7 +196,6 @@ def make_eval_step_packed_filip(cfg: EngineConfig, similarity_fn: Callable | Non
                                 rows_per_chunk: int | None = None):
     """The packed train step's scores in eval mode and with no graph; the
     pool is the batch's own sequence count."""
-    pe.check_flat(cfg.packed_tiers)
     use_dcl = cfg.filip_use_dcl if use_dcl is None else use_dcl
     rows_per_chunk = pe._default_rows_per_chunk(rows_per_chunk)
 

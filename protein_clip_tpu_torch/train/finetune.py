@@ -181,7 +181,8 @@ def _default_expand_sides(batch: dict) -> dict[str, dict]:
     """The device-side maps of a flat packed batch, per side."""
     if "pep_packs" in batch or "rec_packs" in batch:
         raise ValueError("the packed finetune and LoRA steps (CLIP and FILIP) take flat "
-                         "packing only (packed_tiers=1)")
+                         "packing only (packed_tiers=1), as the TPU package's do: "
+                         "width-tiered finetune is not wired there")
     batch = pe.expand_packed_batch(batch)
     return {side: {k: batch[f"{side}_{k}"] for k in ("ids", "seg", "pos", "owner")}
             for side in pe.SIDES}
@@ -290,6 +291,7 @@ def make_train_step_packed(cfg: EngineConfig, loss_fn: Callable | None = None,
     the whole gradient of its side's sums, which the chunk's owner product
     restricts to its own sequences. The counts take no gradient."""
     pe.check_clip_packed(cfg)
+    pe.check_flat(cfg.packed_tiers)
     chunk_sums, scan_sums, tail, prepare = _packed_machinery(
         cfg, loss_fn or default_loss_fn(), pe._default_rows_per_chunk(rows_per_chunk),
         view or esm_view(cfg))

@@ -14,9 +14,11 @@ epoch), in place of the TPU package's ``fold_in(rng, epoch)``, and the
 loaders are reseeded per epoch, so an epoch's stream does not depend on the
 ones before it: ``resume=True`` restores the newest snapshot (params,
 optimizer state, best params, best validation loss, both loss lists) and
-replays the epochs after it as an unbroken run would. The snapshots are the
-port's own format (``checkpoint.save_train_state``), not the TPU package's
-Orbax ones.
+replays the epochs after it as an unbroken run would; the snapshot also
+carries the packer's sticky width-tier caches (``packed_engine.tier_state``),
+so a resumed ``--pack-tiers`` run packs its batches as the unbroken run
+does. The snapshots are the port's own format
+(``checkpoint.save_train_state``), not the TPU package's Orbax ones.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from typing import Any, Callable
 import torch
 
 from . import checkpoint as ckpt
-from . import clip_engine, optimizer as opt_mod
+from . import clip_engine, optimizer as opt_mod, packed_engine
 from ..data.tokenizer import EsmTokenizer
 
 
@@ -124,6 +126,8 @@ def fit(run_dir: str | Path, cfg: clip_engine.EngineConfig, params: Any, esm_par
             best_params = ckpt.tree_like(params, state["best_params"])
             best_val = state["best_val"]
             train_losses, val_losses = list(state["train_losses"]), list(state["val_losses"])
+            if "tiers" in state:
+                packed_engine.restore_tier_state(state["tiers"])
             log(f"Resumed from epoch {start_epoch}")
     mode = "a" if start_epoch > 0 else "w"
     with open(losses_path, mode) as f:
@@ -165,7 +169,8 @@ def fit(run_dir: str | Path, cfg: clip_engine.EngineConfig, params: Any, esm_par
                 _save_state(state_dir, epoch + 1, {
                     "params": params, "opt_state": opt_state.state_dict(),
                     "best_params": best_params, "best_val": best_val,
-                    "train_losses": train_losses, "val_losses": val_losses})
+                    "train_losses": train_losses, "val_losses": val_losses,
+                    "tiers": packed_engine.tier_state()})
             if epoch_hook is not None:
                 epoch_hook(epoch, best_params)
 

@@ -1,5 +1,6 @@
 """Packed-row CLIP train step: the port of
-``protein_clip_tpu/train/packed_engine.py`` for flat packing.
+``protein_clip_tpu/train/packed_engine.py`` (flat and width-tiered
+packing; the single-side MLM wire).
 
 Both sides of the global batch are packed (``data/packing.py``) into rows of
 one width; the frozen backbone runs segment-masked (K1 over packed segments
@@ -20,15 +21,26 @@ Row widths follow the batch's longest sequence (a multiple of 128, at most
 counts round up to a multiple that halves as the width doubles
 (``_row_multiple_for``), so batch shapes repeat.
 
+With ``tiers`` > 1 (``--pack-tiers``) or explicit ``tier_widths`` each
+side packs into row groups of several widths, each sequence into the
+narrowest that fits it: the wire carries ``{side}_packs``, one
+{ids, operm, nmark} pack per width. The widths come from a dynamic program
+over 128-multiples that prices each tier by the rows first-fit-decreasing
+would fill (``_tier_widths_data``); they, each tier's row count and its
+operm length stick for the rest of the process (``_STICKY_*``, cleared by
+``clear_tier_width_cache``), so batch shapes repeat: a later batch that
+overflows a tier spills to the next wider one, a width the batch leaves
+empty ships a placeholder pack of all-<pad> rows, row counts ratchet up to
+their high-water mark with all-<pad> rows, and operms pad to a multiple of
+8 with the sentinel n (``nmark``'s length is the real count). The
+backbone runs each pack at a constant number of tokens a chunk, and the
+token sums of every pack add up before one pooled finish (``_pool_packs``).
+
 With ``scatter_tiers`` > 1 (packed FILIP, ``train/filip_packed.py``) the
 backbone rows stay flat-packed and the wire also carries ``{side}_stiers``,
 each sequence's length tier (``_tier_widths``), so FILIP's token buffers
 and max-sim blocks follow true lengths, not the row width. The CLIP packed
 steps pool per sequence and refuse scatter tiers.
-
-Not ported here: width-tiered packing (``tiers > 1``, ``--pack-tiers``;
-ROADMAP queue 1: width-tiered packing), which raises
-``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -76,6 +88,81 @@ def _row_multiple_for(w: int) -> int:
     return m
 
 
+# A slot's backbone cost at row width w is about w + 3H (12 H^2 operations a
+# layer in the linear layers and FFN against 4 w H in attention): 1920 is
+# 3 x 640, t30_150M's H. The chosen widths trade attention against fill
+# only, so the optimum is flat in this constant.
+_TIER_COST_GAMMA = 1920
+
+
+def _ffd_rows(lens: list[int], w: int) -> int:
+    """The rows first-fit-decreasing packing fills at width w (as
+    ``pack_sequences`` packs), which the tier-width program prices."""
+    free: list[int] = []
+    for L in sorted(lens, reverse=True):
+        for i, f in enumerate(free):
+            if f >= L:
+                free[i] = f - L
+                break
+        else:
+            free.append(w - L)
+    return len(free)
+
+
+def _tier_widths_data(lens: list[int], row_len: int, n: int) -> list[int]:
+    """At most n widths, multiples of 128 (and row_len), that minimise the
+    modelled backbone cost sum_t rows_t * w_t * (w_t + _TIER_COST_GAMMA),
+    rows_t being the rows first-fit-decreasing fills at w_t rounded up to
+    ``_row_multiple_for(w_t)``: an exact dynamic program over the buckets
+    between consecutive candidate widths (best[b][k]: the least cost of the
+    buckets up to b in k tiers; a sequence takes the narrowest chosen width
+    that fits it)."""
+    cands = sorted({min(row_len, w) for w in range(128, row_len + 127, 128)} | {row_len})
+    buckets: list[list[int]] = [[] for _ in cands]
+    lo = 0
+    for j, c in enumerate(cands):
+        buckets[j] = [L for L in lens if lo < L <= c]
+        lo = c
+    last = max((j for j, b in enumerate(buckets) if b), default=0)
+    cands = cands[: last + 1]
+    buckets = buckets[: last + 1]
+    m = len(cands)
+
+    def tier_cost(a: int, b: int) -> float:
+        members = [L for bk in buckets[a: b + 1] for L in bk]
+        if not members:
+            return 0.0
+        w = cands[b]
+        mult = _row_multiple_for(w)
+        rows = -(-_ffd_rows(members, w) // mult) * mult
+        return float(rows) * w * (w + _TIER_COST_GAMMA)
+
+    inf = float("inf")
+    best = [[inf] * (n + 1) for _ in range(m)]
+    pick: dict[tuple[int, int], int] = {}
+    for b in range(m):
+        for k in range(1, n + 1):
+            c_full = tier_cost(0, b)
+            if c_full < best[b][k]:
+                best[b][k] = c_full
+                pick[(b, k)] = -1
+            if k > 1:
+                for a in range(b):
+                    c = best[a][k - 1] + tier_cost(a + 1, b)
+                    if c < best[b][k]:
+                        best[b][k] = c
+                        pick[(b, k)] = a
+    widths = []
+    b, k = m - 1, n
+    while b >= 0:
+        a = pick[(b, k)]
+        widths.append(cands[b])
+        if a < 0:
+            break
+        b, k = a, k - 1
+    return sorted(set(widths))
+
+
 def scan_order_operm(packed, idx: np.ndarray) -> np.ndarray:
     """Owner permutation: the ``idx`` entry of each segment in row-major
     (row, segment) scan order, the one map the device-side derivation
@@ -94,19 +181,52 @@ def _pack_one(encs: list[np.ndarray], idx: np.ndarray, row_len: int) -> dict[str
     return {"ids": packed.ids.astype(np.int8), "operm": scan_order_operm(packed, idx)}
 
 
-def check_flat(tiers: int = 1, tier_widths: list[int] | None = None) -> None:
-    """Raise on width-tiered packing, which the port does not run yet."""
-    if tiers > 1 or tier_widths is not None:
-        raise NotImplementedError(
-            f"width-tiered packing (tiers={tiers}, tier_widths={tier_widths}, --pack-tiers) "
-            "is not ported yet (ROADMAP queue 1: width-tiered packing); the packed step "
-            "takes flat packing, tiers=1")
+# The first width choice per (side, row_len, tiers), kept for the rest of
+# the process so batch shapes repeat; the high-water row and operm counts
+# per (side, row_len, tiers, width), up to which every later pack of that
+# width is padded. Written by whoever tokenizes (the loop's prefetch thread,
+# one at a time: an epoch's producer ends before the next loader's starts);
+# each CLI run starts from a clear cache, and the train-state snapshot
+# carries them (``tier_state``), so a resumed run packs as an unbroken one.
+_STICKY_TIER_WIDTHS: dict[tuple[str, int, int], list[int]] = {}
+_STICKY_TIER_ROWS: dict[tuple[str, int, int, int], int] = {}
+_STICKY_TIER_OPERM: dict[tuple[str, int, int, int], int] = {}
+
+
+def clear_tier_width_cache() -> None:
+    """Forget the sticky tier widths, rows and operm lengths."""
+    _STICKY_TIER_WIDTHS.clear()
+    _STICKY_TIER_ROWS.clear()
+    _STICKY_TIER_OPERM.clear()
+
+
+def tier_state() -> dict:
+    """The sticky tier caches as plain lists, for a train-state snapshot."""
+    return {"widths": [[*k, list(v)] for k, v in _STICKY_TIER_WIDTHS.items()],
+            "rows": [[*k, v] for k, v in _STICKY_TIER_ROWS.items()],
+            "operm": [[*k, v] for k, v in _STICKY_TIER_OPERM.items()]}
+
+
+def restore_tier_state(state: dict) -> None:
+    """Replace the sticky tier caches by ``tier_state()``'s."""
+    clear_tier_width_cache()
+    _STICKY_TIER_WIDTHS.update({tuple(e[:3]): list(e[3]) for e in state["widths"]})
+    _STICKY_TIER_ROWS.update({tuple(e[:4]): int(e[4]) for e in state["rows"]})
+    _STICKY_TIER_OPERM.update({tuple(e[:4]): int(e[4]) for e in state["operm"]})
+
+
+def check_flat(tiers: int = 1) -> None:
+    """Raise on width-tiered packing where the TPU package refuses it too:
+    the unfrozen packed steps take flat packing only."""
+    if tiers > 1:
+        raise ValueError(f"the packed finetune and LoRA steps (CLIP and FILIP) take flat packing "
+                         f"only (packed_tiers=1, got {tiers}), as the TPU package's do: "
+                         "width-tiered finetune is not wired there")
 
 
 def check_clip_packed(cfg) -> None:
-    """The CLIP packed steps' options: flat packing, and no scatter tiers,
-    which only FILIP's token max-sim reads."""
-    check_flat(cfg.packed_tiers)
+    """The CLIP packed steps take no scatter tiers, which only FILIP's token
+    max-sim reads."""
     if cfg.scatter_tiers > 1:
         raise NotImplementedError(
             f"scatter_tiers={cfg.scatter_tiers}: scatter tiers lay out FILIP's token max-sim "
@@ -130,6 +250,82 @@ def _scatter_tier_wire(encs: list[np.ndarray], row_len: int, n: int) -> tuple[di
                   "width": w} for w, g in groups.items())
 
 
+def _side_widths(side: str, encs: list[np.ndarray], row_len: int, max_len: int, tiers: int,
+                 tier_widths: list[int] | None) -> list[int]:
+    """The row widths of one side: the explicit ones that fit under row_len
+    (and one to cover the batch when they do not), the sticky data-aware
+    ones (derived again when the batch outgrows the widest), or row_len."""
+    if tier_widths is not None:
+        widths = sorted({w for w in tier_widths if w <= row_len})
+        if not widths or widths[-1] < max_len:
+            widths.append(min(row_len, -(-max_len // 128) * 128))
+        return widths
+    if tiers > 1:
+        key = (side, row_len, tiers)
+        widths = _STICKY_TIER_WIDTHS.get(key)
+        if widths is None or max_len > widths[-1]:
+            widths = _tier_widths_data([len(e) for e in encs], row_len, tiers)
+            _STICKY_TIER_WIDTHS[key] = widths
+        return widths
+    return [row_len]
+
+
+def _spill_to_wider(side: str, row_len: int, tiers: int, widths: list[int], groups: dict,
+                    gidx: dict) -> None:
+    """Once a tier's row count is sticky, the sequences of a later batch
+    that do not fit its rows (first-fit-decreasing) move up to the next
+    wider tier, in place; only the widest tier grows."""
+    for i, w in enumerate(widths[:-1]):
+        cap = _STICKY_TIER_ROWS.get((side, row_len, tiers, w))
+        if cap is None or not groups[w]:
+            continue
+        order = sorted(range(len(groups[w])), key=lambda k: -len(groups[w][k]))
+        free = [w] * cap
+        keep, spill = [], []
+        for k in order:
+            L = len(groups[w][k])
+            for r in range(cap):
+                if free[r] >= L:
+                    free[r] -= L
+                    keep.append(k)
+                    break
+            else:
+                spill.append(k)
+        if spill:
+            wn = widths[i + 1]
+            groups[wn] += [groups[w][k] for k in spill]
+            gidx[wn] += [gidx[w][k] for k in spill]
+            keep = sorted(keep)
+            groups[w] = [groups[w][k] for k in keep]
+            gidx[w] = [gidx[w][k] for k in keep]
+
+
+def _tier_pack(side: str, row_len: int, tiers: int, w: int, encs: list, idx: list,
+               n_total: int) -> dict[str, torch.Tensor]:
+    """One width's pack of the tiered wire: its sequences packed (a
+    placeholder of ``_row_multiple_for(w)`` all-<pad> rows when it has
+    none), rows padded with all-<pad> rows up to the sticky count, the
+    operm padded with the sentinel n_total to a multiple of 8 (at least 8)
+    and the sticky length, and ``nmark``, zeros of the real count's length."""
+    if encs:
+        pk = _pack_one(encs, np.asarray(idx, np.int32), w)
+        op, ids_t = pk["operm"], pk["ids"]
+    else:
+        op = np.zeros((0,), np.int32)
+        ids_t = np.full((_row_multiple_for(w), w), PAD_ID, np.int8)
+    rkey = (side, row_len, tiers, w)
+    rows = max(ids_t.shape[0], _STICKY_TIER_ROWS.get(rkey, 0))
+    _STICKY_TIER_ROWS[rkey] = rows
+    if rows > ids_t.shape[0]:
+        ids_t = np.concatenate([ids_t, np.full((rows - ids_t.shape[0], w), PAD_ID, np.int8)])
+    n_op = max(-(-op.shape[0] // 8) * 8, 8, _STICKY_TIER_OPERM.get(rkey, 0))
+    _STICKY_TIER_OPERM[rkey] = n_op
+    if n_op > op.shape[0]:
+        op = np.concatenate([op, np.full((n_op - op.shape[0],), n_total, np.int32)])
+    return {"ids": torch.from_numpy(ids_t), "operm": torch.from_numpy(op),
+            "nmark": torch.zeros(len(idx), dtype=torch.int8)}
+
+
 def tokenize_packed(tokenizer: EsmTokenizer, peps: list[str], recs: list[str],
                     pep_row_len: int | None = None, rec_row_len: int | None = None,
                     tiers: int = 1, scatter_tiers: int = 1,
@@ -137,16 +333,23 @@ def tokenize_packed(tokenizer: EsmTokenizer, peps: list[str], recs: list[str],
     """Both sides packed into a compact host batch: ``{side}_ids`` (R, L)
     int8 and ``{side}_operm`` (N,) int32, and with ``scatter_tiers`` > 1
     ``{side}_stiers`` (``_scatter_tier_wire``; the rows do not change).
+    With ``tiers`` > 1 or ``tier_widths``, a side of more than one width
+    carries ``{side}_packs`` instead, one ``_tier_pack`` per width (also
+    for a width this batch leaves empty); a side of one width the flat pair.
 
     Row widths follow each side's longest tokenized sequence (a multiple of
-    128, at most MAX_ROW_LEN) unless given. A sequence longer than the row
-    is truncated with its <eos> kept, which happens only past the 2048 cap,
-    beyond the reference's own ingest filter, and is warned about."""
-    check_flat(tiers, tier_widths)
+    128, at most MAX_ROW_LEN) unless given; width tiers cap at MAX_ROW_LEN
+    (or the given width), so the sticky key does not move with the batch.
+    A sequence longer than the row is truncated with its <eos> kept, which
+    happens only past the 2048 cap, beyond the reference's own ingest
+    filter, and is warned about."""
     out: dict[str, torch.Tensor] = {}
+    tiered = tier_widths is not None or tiers > 1
     for side, seqs, explicit in (("pep", peps, pep_row_len), ("rec", recs, rec_row_len)):
         encs = [tokenizer.encode(s) for s in seqs]
-        row_len = _row_len_for(max(len(e) for e in encs), explicit)
+        max_len = max(len(e) for e in encs)
+        row_len = (explicit if tiered and explicit is not None
+                   else MAX_ROW_LEN if tiered else _row_len_for(max_len, explicit))
         clamped = 0
         for j, e in enumerate(encs):
             if len(e) > row_len:  # keep eos, like the bucket clamp
@@ -155,11 +358,23 @@ def tokenize_packed(tokenizer: EsmTokenizer, peps: list[str], recs: list[str],
         if clamped:
             warnings.warn(f"tokenize_packed: {clamped} {side} sequence(s) longer than "
                           f"row_len={row_len} were truncated (eos kept)", stacklevel=2)
-        pk = _pack_one(encs, np.arange(len(encs), dtype=np.int32), row_len)
-        out[f"{side}_ids"] = torch.from_numpy(pk["ids"])
-        out[f"{side}_operm"] = torch.from_numpy(pk["operm"])
-        if scatter_tiers > 1:
-            out[f"{side}_stiers"] = _scatter_tier_wire(encs, row_len, scatter_tiers)
+        widths = _side_widths(side, encs, row_len, max_len, tiers, tier_widths)
+        groups: dict[int, list] = {w: [] for w in widths}
+        gidx: dict[int, list] = {w: [] for w in widths}
+        for j, e in enumerate(encs):
+            w = next(w for w in widths if len(e) <= w)
+            groups[w].append(e)
+            gidx[w].append(j)
+        _spill_to_wider(side, row_len, tiers, widths, groups, gidx)
+        if len(widths) == 1:
+            pk = _pack_one(groups[widths[0]], np.asarray(gidx[widths[0]], np.int32), widths[0])
+            out[f"{side}_ids"] = torch.from_numpy(pk["ids"])
+            out[f"{side}_operm"] = torch.from_numpy(pk["operm"])
+            if scatter_tiers > 1:
+                out[f"{side}_stiers"] = _scatter_tier_wire(encs, row_len, scatter_tiers)
+        else:
+            out[f"{side}_packs"] = tuple(_tier_pack(side, row_len, tiers, w, groups[w], gidx[w],
+                                                    len(encs)) for w in widths)
     return out
 
 
@@ -178,35 +393,81 @@ def derive_segments(ids8: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, tor
     return ids, seg, pos
 
 
+def tokenize_packed_rows(tokenizer: EsmTokenizer, seqs: list[str],
+                         row_len: int | None = None) -> torch.Tensor:
+    """The single-side packed wire of the MLM objective: int8 (R, L) token
+    ids and no owner map (the loss is per token; ``derive_segments`` gives
+    segments and positions on the device). ``tokenize_packed``'s row-length
+    policy: the longest sequence rounded up to 128, at most MAX_ROW_LEN,
+    unless given; a longer sequence is truncated with its <eos> kept, and
+    warned about."""
+    encs = [tokenizer.encode(s) for s in seqs]
+    rl = _row_len_for(max(len(e) for e in encs), row_len)
+    clamped = 0
+    for j, e in enumerate(encs):
+        if len(e) > rl:
+            encs[j] = np.concatenate((e[: rl - 1], [EOS_ID]))
+            clamped += 1
+    if clamped:
+        warnings.warn(f"tokenize_packed_rows: {clamped} sequence(s) longer than "
+                      f"row_len={rl} were truncated (eos kept)", stacklevel=2)
+    packed = pack_sequences(encs, rl, row_multiple=_row_multiple_for(rl))
+    return torch.from_numpy(packed.ids.astype(np.int8))
+
+
 def _expand_pack(ids8: torch.Tensor, operm: torch.Tensor, dump: int) -> dict[str, torch.Tensor]:
     """int32 ids, segment ids, positions and each token's owner for one pack.
-    ``dump`` (the side's sequence count) owns the gap and pad tokens."""
+    ``dump`` (the side's sequence count) owns the gap and pad tokens.
+    ``local_owner`` is a token's sequence rank within the pack (operm's
+    index), the pack's operm length for gap and pad tokens: the tier-local
+    scatter target of packed FILIP over width tiers."""
     ids, seg, pos = derive_segments(ids8)
     n_local = operm.shape[0]
     counts = seg.amax(1)
     offsets = torch.cumsum(counts, 0, dtype=torch.int32) - counts   # segments before the row
     g = (offsets[:, None] + seg - 1).clamp(0, n_local - 1)
     owner = torch.where(seg > 0, operm[g.long()], dump)
-    return {"ids": ids, "seg": seg, "pos": pos, "owner": owner}
+    return {"ids": ids, "seg": seg, "pos": pos, "owner": owner, "operm": operm,
+            "local_owner": torch.where(seg > 0, g, n_local)}
 
 
 def packed_side_count(batch: dict, side: str) -> int:
-    """The number of sequences a packed batch carries for one side."""
+    """The number of sequences a packed batch carries for one side: the sum
+    of its packs' ``nmark`` lengths (their operms pad with sentinels), or
+    the flat operm's length."""
+    if f"{side}_packs" in batch:
+        return sum(p["nmark"].shape[0] if "nmark" in p else p["operm"].shape[0]
+                   for p in batch[f"{side}_packs"])
     return batch[f"{side}_operm"].shape[0]
 
 
 def expand_packed_batch(batch: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
     """The device-side maps of a compact packed batch: ``{side}_ids``
-    (int32), ``_seg``, ``_pos`` and ``_owner``, beside ``{side}_operm``. An
-    expanded batch comes back as it is."""
-    if "pep_seg" in batch:
+    (int32), ``_seg``, ``_pos`` and ``_owner``, beside ``{side}_operm``; or
+    each of ``{side}_packs`` expanded (``_expand_pack``, its ``nmark``
+    kept). An expanded batch comes back as it is."""
+    if "pep_seg" in batch or any(batch.get(f"{s}_packs") and "seg" in batch[f"{s}_packs"][0]
+                                 for s in SIDES):
         return batch
     out = dict(batch)
     for side in SIDES:
-        e = _expand_pack(batch[f"{side}_ids"], batch[f"{side}_operm"],
-                         packed_side_count(batch, side))
-        out.update({f"{side}_{k}": v for k, v in e.items()})
+        n_seqs = packed_side_count(batch, side)
+        if f"{side}_packs" in batch:
+            out[f"{side}_packs"] = tuple({**_expand_pack(p["ids"], p["operm"], n_seqs),
+                                          **({"nmark": p["nmark"]} if "nmark" in p else {})}
+                                         for p in batch[f"{side}_packs"])
+        else:
+            e = _expand_pack(batch[f"{side}_ids"], batch[f"{side}_operm"], n_seqs)
+            out.update({f"{side}_{k}": e[k] for k in ("ids", "seg", "pos", "owner")})
     return out
+
+
+def side_packs(batch: dict, side: str) -> list[dict]:
+    """An expanded batch's packs of one side: ``{side}_packs``, or the flat
+    pair as one pack of ids, seg, pos and owner."""
+    if f"{side}_packs" in batch:
+        return list(batch[f"{side}_packs"])
+    return [{k: batch[f"{side}_{k}"] for k in ("ids", "seg", "pos", "owner")}]
 
 
 def _encode_packed_chunked(esm_params, ids, seg, pos, cfg: esm2.ESM2Config,
@@ -258,6 +519,22 @@ def _pool_packed(head_params, hidden, owner, n_seqs: int, temperature, *, activa
     return _finish_pool(head_params, sums, cnt, temperature, activation=activation, **drop)
 
 
+def _pool_packs(head_params, hiddens: list, packs: list, n_seqs: int, temperature, *,
+                activation: str, dropout_rate: float = 0.0, train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+    """Width tiers' pooling: the token sums and counts of every pack added
+    up, then one ``_finish_pool``: each sequence lives in one pack, so this
+    is the pooling of one flat pack of the same sequences. Dropout draws
+    from ``generator`` for each pack's token FFN in turn, then for the
+    pooled FFN."""
+    drop = dict(dropout_rate=dropout_rate, train=train, generator=generator)
+    parts = [_token_sums(head_params, h, pk["owner"], n_seqs, activation=activation, **drop)
+             for h, pk in zip(hiddens, packs)]
+    sums = sum((p[0] for p in parts[1:]), parts[0][0])
+    cnt = sum((p[1] for p in parts[1:]), parts[0][1])
+    return _finish_pool(head_params, sums, cnt, temperature, activation=activation, **drop)
+
+
 def _finish_pool(head_params, sums, cnt, temperature, *, activation: str, **dropout):
     """Scaled embeddings (n, D) from per-sequence token sums and counts: the
     masked mean, then ``heads.finish_pooled`` (``dropout`` takes its
@@ -275,7 +552,7 @@ def _default_rows_per_chunk(rows_per_chunk: int | None) -> int:
 
 
 def _validate_packed_batch(batch, n_seqs: int | None) -> None:
-    if not isinstance(batch, dict) or "pep_operm" not in batch:
+    if not isinstance(batch, dict) or not any(k in batch for k in ("pep_operm", "pep_packs")):
         raise ValueError("packed step needs tokenize_packed batches (cfg.packed=True pairs "
                          "with the packed tokenizer; got another batch)")
     if n_seqs is not None:
@@ -288,21 +565,32 @@ def _validate_packed_batch(batch, n_seqs: int | None) -> None:
 
 
 def _packs_and_hidden(esm_params, batch, mcfg, rows_per_chunk: int):
-    """The expanded batch and each side's backbone hidden states in f32."""
+    """Each side's expanded packs and their backbone hidden states in f32,
+    as lists over the width tiers (one for flat packing). Every pack runs
+    at the same tokens a chunk: rows narrower than the side's widest take
+    proportionally more rows a chunk."""
     batch = expand_packed_batch(batch)
-    hidden = {side: _encode_packed_chunked(esm_params, batch[f"{side}_ids"],
-                                           batch[f"{side}_seg"], batch[f"{side}_pos"],
-                                           mcfg.esm, rows_per_chunk).float()
-              for side in SIDES}
-    return batch, hidden
+    packs = {side: side_packs(batch, side) for side in SIDES}
+    hidden = {}
+    for side, pks in packs.items():
+        l_max = max(p["ids"].shape[1] for p in pks)
+        hidden[side] = [_encode_packed_chunked(esm_params, p["ids"], p["seg"], p["pos"], mcfg.esm,
+                                               rows_per_chunk * (l_max // p["ids"].shape[1])
+                                               ).float()
+                        for p in pks]
+    return packs, hidden
 
 
-def _pooled_sides(params, batch, hidden, n_seqs: int, mcfg, *, train: bool,
+def _pooled_sides(params, packs, hidden, n_seqs: int, mcfg, *, train: bool,
                   generator: torch.Generator | None = None):
-    """(pep_emb, rec_emb) in the batch's pair order."""
-    return tuple(_pool_packed(params[side], hidden[side], batch[f"{side}_owner"], n_seqs,
-                              params["temperature"], activation=mcfg.activation,
-                              dropout_rate=mcfg.dropout, train=train, generator=generator)
+    """(pep_emb, rec_emb) in the batch's pair order, from
+    ``_packs_and_hidden``'s packs and hidden states."""
+    drop = dict(activation=mcfg.activation, dropout_rate=mcfg.dropout, train=train,
+                generator=generator)
+    return tuple(_pool_packed(params[side], hidden[side][0], packs[side][0]["owner"], n_seqs,
+                              params["temperature"], **drop) if len(packs[side]) == 1
+                 else _pool_packs(params[side], hidden[side], packs[side], n_seqs,
+                                  params["temperature"], **drop)
                  for side in SIDES)
 
 
@@ -320,8 +608,8 @@ def make_train_step_packed(cfg, loss_fn: Callable | None = None,
 
     def step(params, opt_state, esm_params, batch, generator):
         _validate_packed_batch(batch, n_seqs)
-        batch, hidden = _packs_and_hidden(esm_params, batch, cfg.model, rows_per_chunk)
-        pep, rec = _pooled_sides(params, batch, hidden, n_seqs, cfg.model, train=True,
+        packs, hidden = _packs_and_hidden(esm_params, batch, cfg.model, rows_per_chunk)
+        pep, rec = _pooled_sides(params, packs, hidden, n_seqs, cfg.model, train=True,
                                  generator=generator)
         return _update(loss_fn(pep, rec), params, opt_state)
 
@@ -331,8 +619,8 @@ def make_train_step_packed(cfg, loss_fn: Callable | None = None,
 def make_eval_step_packed(cfg, loss_fn: Callable | None = None,
                           rows_per_chunk: int | None = None):
     """The packed eval step: the train step's batch path in eval mode and
-    with no graph. The pool size is the batch's own (``{side}_operm``), so
-    one step serves validation batches of ``cfg.batch_size`` pairs."""
+    with no graph. The pool size is the batch's own (``packed_side_count``),
+    so one step serves validation batches of ``cfg.batch_size`` pairs."""
     from .clip_engine import default_loss_fn
 
     check_clip_packed(cfg)
@@ -352,6 +640,6 @@ def embed_packed(params, esm_params, batch, mcfg, rows_per_chunk: int | None = N
     order."""
     _validate_packed_batch(batch, None)
     n_seqs = packed_side_count(batch, "pep")
-    batch, hidden = _packs_and_hidden(esm_params, batch, mcfg,
+    packs, hidden = _packs_and_hidden(esm_params, batch, mcfg,
                                       _default_rows_per_chunk(rows_per_chunk))
-    return _pooled_sides(params, batch, hidden, n_seqs, mcfg, train=False)
+    return _pooled_sides(params, packs, hidden, n_seqs, mcfg, train=False)

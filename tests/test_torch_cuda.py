@@ -1986,3 +1986,82 @@ def test_topk_filip_on_the_card(dev, tmp_path, monkeypatch):
     assert eps <= chip_smoke.K4_ATOL
     ranks = [1 + (s > np.diag(s)[:, None]).sum(axis=1) for s in (s_k4, s_plain)]
     assert (np.abs(ranks[0] - ranks[1]) <= chip_smoke.near_ties(s_plain, eps)).all()
+
+
+def test_tiered_packed_step_through_k1_and_k2_matches_the_plain_loss(dev):
+    """One packed step over width tiers (receptors in rows of 128 and 256,
+    explicit widths; K1 on every pack's chunks, K2 on the pool of 32)
+    against the same step with the plain loss: the loss within 1e-5
+    relative and each gradient within 1e-5 of its leaf's largest; K1 once a
+    layer per chunk forward of every pack. Against the flat step over the
+    same pairs the pooled loss moves only by the backbone's bf16 rounding
+    (rows of other widths): within 1e-3 relative."""
+    mcfg, esm_params = _tiny_t30_like(dev)
+    peps, recs = _pairs(32, seed=5)
+    recs = recs[:24] + [r * 2 for r in recs[24:]]          # 60-180 residues: the 256 tier
+    cfg = clip_engine.EngineConfig(model=mcfg, batch_size=8, accumulated_batches=4,
+                                   packed=True, packed_tiers=4)
+    tiered = packed_engine.tokenize_packed(EsmTokenizer(), peps, recs, pep_row_len=128,
+                                           rec_row_len=256, tier_widths=[128, 256])
+    assert [p["ids"].shape[1] for p in tiered["rec_packs"]] == [128, 256]
+    tiered = to_device(tiered, dev)
+    heads0 = clip.init_params(mcfg, torch.Generator().manual_seed(1), device=dev)
+    step = functools.partial(packed_engine.make_train_step_packed, rows_per_chunk=4)
+    out = {}
+    for name, batch, loss_fn in (
+            ("kernel", tiered, None), ("plain", tiered, infonce.clip_infonce),
+            ("flat", to_device(packed_engine.tokenize_packed(EsmTokenizer(), peps, recs,
+                                                             pep_row_len=128, rec_row_len=256),
+                               dev), None)):
+        params = _clone(heads0)
+        state = _capturing(optimizer.adam(1e-3).init(params))
+        before = attention.launches["attention_fwd"]
+        _, _, loss = step(cfg, loss_fn)(params, state, esm_params, batch, None)
+        torch.cuda.synchronize()
+        out[name] = (float(loss), state.grads, attention.launches["attention_fwd"] - before)
+    chunks = sum(p["ids"].shape[0] // (4 * (256 // p["ids"].shape[1]))
+                 for p in tiered["rec_packs"]) + tiered["pep_ids"].shape[0] // 4
+    assert out["kernel"][2] == 2 * chunks
+    (lk, gk, _), (lp, gp, _), (lf, _, _) = out["kernel"], out["plain"], out["flat"]
+    assert abs(lk - lp) <= 1e-5 * abs(lp)
+    for a, b in zip(gk, gp):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+    assert abs(lk - lf) <= 1e-3 * abs(lf)
+
+
+def test_mlm_finetune_step_runs_k5_and_matches_k5s_plain_version(dev):
+    """One packed MLM --finetune step (remat) through K1/K5 against K1 and
+    K5's plain version on the same weights, batch and masks: the loss equal
+    within FT_LOSS_TOL relative (the same forward), each leaf within
+    FT_K5_TOL of its largest entry; K1 twice a layer (forward and remat
+    recompute) and K5 once a layer."""
+    from protein_clip_tpu_torch.cli import mlm_train
+
+    mcfg, esm0 = _tiny_t30_like(dev)
+    cfg = mcfg.esm
+    _, recs = _pairs(24, seed=6)
+    inputs = mlm_train.batch_inputs(
+        to_device((packed_engine.tokenize_packed_rows(EsmTokenizer(), recs),), dev), True)
+    masks = mlm_train.draw_masks(torch.Generator(device=dev).manual_seed(0), inputs, 0.3)
+    args = argparse.Namespace(seed=0, lora_rank=0, lora_ffn=False, lr=1e-3, weight_decay=0.0,
+                              warmup_steps=0, lr_schedule="constant", grad_clip=0.0,
+                              backbone_lr=None)
+    out = {}
+    for name, bwd in (("kernel", attention.fused_attention_bwd),
+                      ("plain_bwd", chip_smoke.plain_backward)):
+        head = esm2.init_lm_head(cfg, torch.Generator().manual_seed(1), device=dev)
+        trainable, view, group = mlm_train.trainable_tree(args, "finetune", head, esm0, cfg, dev)
+        state = _capturing(mlm_train.make_optimizer(args, "finetune", group, 1).init(trainable))
+        step, _ = mlm_train.make_steps(cfg, "finetune", view)
+        before = (attention.launches["attention_fwd"], attention.launches["attention_bwd"])
+        with chip_smoke.attention_function(attention._forward, bwd):
+            _, _, loss = step(trainable, state, {}, inputs, masks)
+        torch.cuda.synchronize()
+        out[name] = (float(loss), state.grads,
+                     (attention.launches["attention_fwd"] - before[0],
+                      attention.launches["attention_bwd"] - before[1]))
+    (lk, gk, nk), (lp, gp, np_) = out["kernel"], out["plain_bwd"]
+    assert nk == (2 * cfg.num_layers, cfg.num_layers) and np_ == (2 * cfg.num_layers, 0)
+    assert abs(lk - lp) <= FT_LOSS_TOL * abs(lp)
+    for a, b in zip(gk, gp):
+        assert float((a - b).abs().max()) <= FT_K5_TOL * float(b.abs().max())

@@ -218,10 +218,11 @@ def test_grouped_and_width_tiered_batches_are_refused(tiny):
     with pytest.raises(ValueError, match="grouped FILIP finetune is not wired"):
         filip_finetune.make_train_step(cfg)
     _, cfg = _cfgs(packed=True)
-    with pytest.raises(NotImplementedError, match="width-tiered"):
+    with pytest.raises(ValueError, match="flat packing only.*width-tiered finetune is not wired"):
         filip_lora.make_train_step(_cfgs(packed=True, packed_tiers=2)[1])
     params, esm = _port(*tiny["finetune"])
-    batch = dict(_batches(14, True)[1], pep_packs=())
+    batch = packed_engine.tokenize_packed(EsmTokenizer(), *_pairs(14), tier_widths=[128, 256])
+    assert "rec_packs" in batch
     with pytest.raises(ValueError, match="flat packing only"):
         filip_finetune.make_train_step(cfg)(params, _Capturing(params), esm, batch, None)
 

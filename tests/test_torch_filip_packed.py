@@ -326,12 +326,15 @@ def test_maxsim_backward_in_float64_splits_ties_as_float64_autograd():
 
 
 def test_packed_steps_refuse_width_tiers_and_other_batches(tiny):
+    """Width tiers build and score (each pack pair a block, equal to the
+    flat scores within SIM_ATOL; tests/test_torch_tiers.py holds them
+    against JAX's); a batch of another sequence count or an unpacked
+    batch is refused."""
     _, mcfg, _, esm, jheads = tiny
     cfg = clip_engine.EngineConfig(model=mcfg, batch_size=N, accumulated_batches=1, packed=True)
     params = checkpoint.from_numpy_tree(_np(jheads), "cpu")
     for make in (filip_engine.make_train_step, filip_engine.make_eval_step):
-        with pytest.raises(NotImplementedError, match="width-tiered"):
-            make(clip_engine.EngineConfig(model=mcfg, packed=True, packed_tiers=2))
+        assert callable(make(clip_engine.EngineConfig(model=mcfg, packed=True, packed_tiers=2)))
     step = filip_engine.make_train_step(cfg)
     wrong = packed_engine.tokenize_packed(EsmTokenizer(), *_pairs(7), scatter_tiers=4)
     wrong = {k: v for k, v in wrong.items()}
@@ -341,9 +344,12 @@ def test_packed_steps_refuse_width_tiers_and_other_batches(tiny):
     with pytest.raises(ValueError, match="tokenize_packed"):
         step(params, optimizer.adam().init(params), esm,
              clip_engine.tokenize_pair_batch(EsmTokenizer(), *_pairs(7)), None)
-    tiered = dict(packed_engine.expand_packed_batch(_wire(*_pairs(7), 1)[1]), pep_packs=())
-    with pytest.raises(NotImplementedError, match="width-tiered"):
-        filip_packed.filip_sim_packed(params, esm, tiered, mcfg, N)
+    pairs = _pairs(7)
+    tiered = packed_engine.tokenize_packed(EsmTokenizer(), *pairs, tier_widths=[128, 256])
+    assert "pep_packs" in tiered and "rec_packs" in tiered
+    for t, f in zip(filip_packed.filip_sim_packed(params, esm, tiered, mcfg, N),
+                    filip_packed.filip_sim_packed(params, esm, _wire(*pairs, 1)[1], mcfg, N)):
+        np.testing.assert_allclose(t.detach().numpy(), f.detach().numpy(), atol=SIM_ATOL)
 
 
 # ---------------------------------------------------------------------------

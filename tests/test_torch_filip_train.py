@@ -391,14 +391,13 @@ def test_eval_steps_match_jax(tiny, groups):
 
 def test_engine_refuses_packed_and_a_single_batch_when_grouped(tiny):
     """Packed steps build (train/filip_packed.py, which supersedes the
-    groups); width-tiered packing is refused, and a grouped step refuses a
-    single batch."""
+    groups), width-tiered too (tests/test_torch_tiers.py runs them), and a
+    grouped step refuses a single batch."""
     _, mcfg, _, esm, _ = tiny
     for make in (filip_engine.make_train_step, filip_engine.make_eval_step):
         assert callable(make(clip_engine.EngineConfig(model=mcfg, packed=True, length_groups=2,
                                                       scatter_tiers=4)))
-        with pytest.raises(NotImplementedError, match="width-tiered"):
-            make(clip_engine.EngineConfig(model=mcfg, packed=True, packed_tiers=2))
+        assert callable(make(clip_engine.EngineConfig(model=mcfg, packed=True, packed_tiers=2)))
     grouped = clip_engine.EngineConfig(model=mcfg, length_groups=2)
     one = _batch("port", *_pairs(0, 4), 1)
     with pytest.raises(ValueError, match="tuple"):
@@ -465,7 +464,7 @@ def test_cli_checkpoint_loads_in_jax_with_the_same_scores(cli_run):
 
 
 @pytest.mark.parametrize("extra,error,match", [
-    (["--packed", "--pack-tiers", "2"], NotImplementedError, "width-tiered"),
+    (["--packed", "--pack-tiers", "2", "--tp", "2"], NotImplementedError, "multi-device"),
     (["--finetune", "--esm-dtype", "int8"], NotImplementedError, "int8"),
     (["--lora-rank", "4", "--length-groups", "2"], SystemExit, "length-groups"),
     (["--dp", "2"], NotImplementedError, "multi-device"),

@@ -282,13 +282,14 @@ def test_eval_step_matches_jax(tiny):
 
 def test_grouped_and_packed_steps_are_refused(tiny):
     """Length groups are refused; the packed steps build (flat packing),
-    and width tiers are refused."""
+    and width tiers are refused, as the TPU package refuses them."""
     _, mcfg, _, _ = tiny
     with pytest.raises(ValueError, match="length-grouped"):
         finetune.make_train_step(clip_engine.EngineConfig(model=mcfg, length_groups=2))
     for make in (finetune.make_train_step, finetune.make_train_step_packed):
         assert callable(make(clip_engine.EngineConfig(model=mcfg, packed=True)))
-        with pytest.raises(NotImplementedError, match="width-tiered"):
+        with pytest.raises(ValueError, match="flat packing only.*width-tiered finetune is "
+                                             "not wired"):
             make(clip_engine.EngineConfig(model=mcfg, packed=True, packed_tiers=2))
 
 

@@ -169,7 +169,8 @@ def test_alpha_learning_rates_and_refusals(tiny, monkeypatch):
         lora.make_train_step(clip_engine.EngineConfig(model=mcfg, length_groups=2))
     for make in (lora.make_train_step, lora.make_train_step_packed):
         assert callable(make(clip_engine.EngineConfig(model=mcfg, packed=True)))
-        with pytest.raises(NotImplementedError, match="width-tiered"):
+        with pytest.raises(ValueError, match="flat packing only.*width-tiered finetune is "
+                                             "not wired"):
             make(clip_engine.EngineConfig(model=mcfg, packed=True, packed_tiers=2))
 
 

@@ -424,15 +424,16 @@ def test_packed_steps_refuse_other_batches_and_tiers(tiny):
         step(params, optimizer.adam(LR).init(params), esm, padded, None)
     with pytest.raises(ValueError, match="tokenize_packed"):
         clip_engine.make_eval_step(cfg)(params, esm, padded)
+    # width tiers pack and step (tests/test_torch_tiers.py holds them
+    # against JAX's); scatter tiers are FILIP's and the CLIP steps refuse them
     for kw in ({"tiers": 2}, {"tier_widths": [128]}, {"tiers": 4, "scatter_tiers": 4}):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            packed_engine.tokenize_packed(EsmTokenizer(), *_pairs(34), **kw)
-    for kw, match in (({"packed_tiers": 4}, r"not ported yet \(ROADMAP queue 1: "),
-                      ({"scatter_tiers": 4}, "CLIP packed steps pool per sequence")):
-        tiered = dataclasses.replace(cfg, **kw)
-        for make in (clip_engine.make_train_step, clip_engine.make_eval_step):
-            with pytest.raises(NotImplementedError, match=match):
-                make(tiered)
+        jb, b = _wire(*_pairs(34), **kw)
+        assert sorted(b) == sorted(jb)
+    tiered = dataclasses.replace(cfg, packed_tiers=4)
+    for make in (clip_engine.make_train_step, clip_engine.make_eval_step):
+        assert callable(make(tiered))
+        with pytest.raises(NotImplementedError, match="CLIP packed steps pool per sequence"):
+            make(dataclasses.replace(cfg, scatter_tiers=4))
 
 
 def test_packed_fit_matches_jax(tiny, tmp_path):

@@ -339,7 +339,8 @@ def test_port_and_chip_smoke_import_no_jax():
     assert len(names) >= 18
     for mod in ("train.filip_engine", "cli.main_2protein_filip", "tools.convert_esm_weights",
                 "train.checkpoint", "eval.retrieval", "eval.embed", "eval.pca", "viz.plots",
-                "cli.topk", "cli.cosine_similarity"):
+                "cli.topk", "cli.cosine_similarity", "models.mlm", "cli.mlm_train",
+                "cli.mlm_sweep", "eval.mlm_sweep"):
         assert f"protein_clip_tpu_torch.{mod}" in names
 
 

@@ -398,13 +398,17 @@ def test_cli_main_2protein_packed(tmp_path):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--packed", "--pack-tiers", "2"], "pack-tiers"),
-    (["--finetune", "--packed", "--pack-tiers", "2"], "packed"),
+    (["--packed", "--pack-tiers", "2", "--dp", "2"], "multi-device"),
+    (["--finetune", "--packed", "--pack-tiers", "2"], "flat packing only"),
     (["--dp", "2"], "multi-device"),
     (["--tp", "2"], "multi-device"), (["--pp", "2"], "multi-device"),
-    (["--lora-rank", "4", "--packed", "--pack-tiers", "2"], "packed")])
+    (["--lora-rank", "4", "--packed", "--pack-tiers", "2"], "flat packing only")])
 def test_cli_refuses_what_is_not_ported(tmp_path, extra, match):
-    with pytest.raises(NotImplementedError, match=match):
+    """A mesh is not ported (with --pack-tiers too); --finetune and
+    --lora-rank with --packed --pack-tiers exit as the TPU package's CLI
+    does. Width tiers themselves run: tests/test_torch_tiers.py."""
+    error = NotImplementedError if match == "multi-device" else SystemExit
+    with pytest.raises(error, match=match):
         main.main(TINY + ["--runs-dir", str(tmp_path / "runs")] + extra)
     assert not (tmp_path / "runs").exists()
 
@@ -423,14 +427,16 @@ def test_cli_needs_data_or_the_fixture(tmp_path):
 
 
 def test_engine_refuses_packed_and_resume(tiny, tmp_path):
-    """The engine takes flat packing (tests/test_torch_packing.py) and
-    refuses width-tiered packing, and ``fit`` refuses to resume from a
-    snapshot of another tree layout (tests/test_torch_resume.py resumes)."""
+    """The engine takes flat and width-tiered packing
+    (tests/test_torch_packing.py, tests/test_torch_tiers.py) and refuses
+    FILIP's scatter tiers, and ``fit`` refuses to resume from a snapshot of
+    another tree layout (tests/test_torch_resume.py resumes)."""
     _, mcfg, _, esm, _ = tiny
     cfg = clip_engine.EngineConfig(model=mcfg, packed=True, packed_tiers=2)
     for make in (clip_engine.make_train_step, clip_engine.make_eval_step):
-        with pytest.raises(NotImplementedError, match="packing"):
-            make(cfg)
+        assert callable(make(cfg))
+        with pytest.raises(NotImplementedError, match="packing|pool per sequence"):
+            make(clip_engine.EngineConfig(model=mcfg, packed=True, scatter_tiers=2))
     other = {"w": torch.zeros(3)}
     (tmp_path / "state").mkdir()
     checkpoint.save_train_state(tmp_path / "state" / "epoch_1.pt", {
@@ -469,5 +475,5 @@ print(" ".join(names))
                 "data.dataset", "data.cluster", "data.synthetic", "data.prefetch",
                 "data.native.build", "ops.infonce", "cli.main", "cli.main_2protein",
                 "cli._clip_runner", "utils.rundir", "train.filip_engine",
-                "cli.main_2protein_filip"):
+                "cli.main_2protein_filip", "models.mlm", "cli.mlm_train"):
         assert f"protein_clip_tpu_torch.{mod}" in names
