@@ -331,6 +331,29 @@ and a nonzero exit code, and no result line:
                 FT_K5_TOL, the swept-tile fault past it), with the
                 finetune step's peak memory; cli.mlm_sweep over 200
                 peptides.
+7e. dp          the data-parallel mesh (protein_clip_tpu_torch/parallel,
+                run_dp_phase). (a) In an NCCL world of one rank on the
+                card, one step of each DP_WORLD1_STEPS configuration
+                through parallel/engine.MeshEngine (CLIP frozen one bucket
+                and packed, packed finetune and LoRA; FILIP packed frozen
+                and finetune; t30_150M bf16, dropout 0, CLIP at 64 pairs,
+                FILIP at 32) against the single-device engine's step on the
+                same device batch: equal to the bit (loss, every gradient,
+                every updated leaf); the mesh step's launches, counted from
+                0, equal the single-device step's, with K1, K2, K4 and K5
+                each among them where the path runs it; each step's
+                seconds (a second call) and peak memory beside the
+                single-device step's; pmean_grads timed alone on each
+                step's gradients, with the memory it adds. (b) Two gloo ranks spawned on the
+                one card (the kernels this process built): the packed CLIP
+                frozen step, the padded FILIP frozen step and the packed
+                CLIP finetune step, f32 (K1-f32, K5-f32, K2, K4), 16 pairs
+                a rank, the ranks' losses and gradients equal to the bit,
+                against the single-device step on the same rows within
+                DP_GLOO_TOL (F32_FT_TOL for the finetuned backbone's
+                leaves); both ranks' launches returned. (c)
+                cli.main_2protein --dp 2 exits nonzero before anything
+                loads, naming the one visible card.
 8. step check   one default train step with K2 and one with the plain loss
                 from the same heads and batch (dropout 0, Adam lr 1e-3), at
                 256 and, with K3, at 1024, and one packed step with K2 at
@@ -2643,12 +2666,16 @@ def packed_setup(n: int = 256, family: str = "t30_150M"):
     esm_params = esm2.init_params(cfg_esm, torch.Generator(device="cuda").manual_seed(0),
                                   dtype=torch.bfloat16, device="cuda")
     heads0 = clip.init_params(mcfg, torch.Generator().manual_seed(SEED), device="cuda")
+    return mcfg, esm_params, heads0, *fixture_pairs(n)
+
+
+def fixture_pairs(n: int) -> tuple[list[str], list[str]]:
+    """The first n training pairs of the 3000-family fixture (n a multiple
+    of 16), as a global batch of 16 loader batches."""
     if not (WORK / "train_data" / "receptor.fasta").exists():
         write_fixture(WORK / "train_data", n_families=FIXTURE_FAMILIES, seed=42)
     train_ds, _, _ = dataset.generate_datasets(WORK / "train_data", seed=42)
-    peps, recs = next(clip_engine._accumulate(dataset.PairLoader(train_ds, n // 16, seed=SEED),
-                                              16))
-    return mcfg, esm_params, heads0, peps, recs
+    return next(clip_engine._accumulate(dataset.PairLoader(train_ds, n // 16, seed=SEED), 16))
 
 
 def check_packed_paths() -> dict:
@@ -6500,6 +6527,318 @@ def time_short_products(gen: torch.Generator, gpu: str) -> dict:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 7e: the data-parallel mesh (protein_clip_tpu_torch/parallel)
+# ---------------------------------------------------------------------------
+
+# (a) one step of each through the MeshEngine in an NCCL world of one rank,
+# against the single-device engine's step on the same device batch
+DP_WORLD1_STEPS = (("clip", "frozen", False), ("clip", "frozen", True),
+                   ("clip", "finetune", True), ("clip", "lora", True),
+                   ("filip", "frozen", True), ("filip", "finetune", True))
+DP_PAIRS = {"clip": 64, "filip": 32}
+# (b) two gloo ranks sharing the card, each with its half of the global batch
+DP_GLOO_STEPS = (("clip", "frozen", True), ("filip", "frozen", False),
+                 ("clip", "finetune", True))
+DP_GLOO_LOCAL = 16
+# The mesh steps at world size 1 run the single-device steps' launches in
+# the same order and equal them to the bit. Two ranks against one device (b) run in f32 (--esm-dtype float32: K1-f32,
+# K5-f32, TF32 off): the same rows through the backbone, the pooled sums, the
+# loss and the ranks' gradients added in other orders: the loss within
+# DP_GLOO_TOL relative, each gradient within DP_GLOO_TOL of its leaf's
+# largest (the f32 finetune step's leaves within F32_FT_TOL, as phase 8's f32
+# finetune check holds them).
+DP_GLOO_TOL = 1e-5
+DP_ENGINES = {("clip", "frozen"): clip_engine, ("clip", "finetune"): finetune,
+              ("clip", "lora"): lora, ("filip", "frozen"): filip_engine,
+              ("filip", "finetune"): filip_finetune}
+DP_KERNELS = {("clip", "frozen"): ("attention_fwd", "infonce"),
+              ("clip", "finetune"): ("attention_fwd", "attention_bwd", "infonce"),
+              ("clip", "lora"): ("attention_fwd", "attention_bwd", "infonce"),
+              ("filip", "frozen"): ("attention_fwd", "filip_maxsim"),
+              ("filip", "finetune"): ("attention_fwd", "attention_bwd", "filip_maxsim")}
+
+
+def dp_setup(arch: str, mode: str, n: int, dtype_name: str = "bfloat16"):
+    """(engine config, trainable params, esm slot, peps, recs) of a mesh
+    check: t30_150M with the train runs' seeded weights, CLIP or FILIP heads
+    (seed SEED, dropout 0), LoRA adapters of rank LORA_RANK, and the first n
+    training pairs of the 3000-family fixture; global batch n."""
+    cfg_esm = common.esm_config("t30_150M", dtype_name)
+    kind = filip.FILIPConfig if arch == "filip" else clip.CLIPConfig
+    mcfg = kind(input_dim=cfg_esm.hidden_size, dropout=0.0, esm=cfg_esm)
+    esm_params = esm2.init_params(cfg_esm, torch.Generator(device="cuda").manual_seed(0),
+                                  dtype=cfg_esm.compute_dtype, device="cuda")
+    heads0 = (filip if arch == "filip" else clip).init_params(
+        mcfg, torch.Generator().manual_seed(SEED), device="cuda")
+    peps, recs = fixture_pairs(n)
+    cfg = clip_engine.EngineConfig(model=mcfg, batch_size=n, accumulated_batches=1,
+                                   num_chunks=2, length_groups=1, packed=False)
+    if mode == "finetune":
+        return cfg, finetune.init_params(esm_params, heads0), {}, peps, recs
+    if mode == "lora":
+        adapters = lora.init_lora(torch.Generator(device="cuda").manual_seed(SEED + 1),
+                                  esm_params, LORA_RANK)
+        return cfg, lora.init_params(adapters, heads0), esm_params, peps, recs
+    return cfg, heads0, esm_params, peps, recs
+
+
+def dp_step(step, params, esm, batch) -> dict:
+    """One step from ``params`` (Adam lr TRAIN_LR), the launch counts set
+    to 0 just before and read just after: loss, gradients by leaf (as the
+    optimizer took them: averaged over the ranks), updated params, launches,
+    seconds and the step's peak memory above what was allocated before it
+    (GB: activations, gradients, Adam state, the mesh's gradient buckets)."""
+    state = capturing(optimizer.adam(TRAIN_LR).init(params), params)
+    gc.collect()   # earlier garbage freed inside the step would hide its peak
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_counts()
+    t0 = time.perf_counter()
+    _, _, loss = step(params, state, esm, batch, torch.Generator(device="cuda").manual_seed(1))
+    torch.cuda.synchronize()
+    took = time.perf_counter() - t0
+    return {"loss": float(loss), "grads": state.grads, "seconds": took,
+            "peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
+            "launches": {k: v for k, v in counts().items() if v},
+            "params": {k: t.detach() for k, t in checkpoint._flatten(params).items()}}
+
+
+def time_pmean(grads: dict) -> dict:
+    """pmean_grads alone on a step's gradients (clones on leaves of their
+    shapes), three calls: the gradients' MB, the fastest call's ms and the
+    memory the call adds at its peak (MB)."""
+    from protein_clip_tpu_torch.parallel.distributed import pmean_grads
+
+    leaves = [torch.empty_like(g) for g in grads.values()]
+    for t, g in zip(leaves, grads.values()):
+        t.grad = g.clone()
+    times, added = [], 0
+    for _ in range(3):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        pmean_grads(leaves)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        added = max(added, torch.cuda.max_memory_allocated() - base)
+    return {"grad_mb": sum(g.numel() * g.element_size() for g in grads.values()) / 1e6,
+            "ms": 1e3 * min(times), "added_mb": added / 1e6}
+
+
+def dp_gaps(got: dict, want: dict) -> dict:
+    """Loss relative gap, the worst gradient gap over its leaf's largest,
+    the largest updated-param gap and the entries past Adam's bound."""
+    grad_gap, param_gap, over = 0.0, 0.0, 0
+    for k, g in want["grads"].items():
+        grad_gap = max(grad_gap, float((got["grads"][k] - g).abs().max())
+                       / max(float(g.abs().max()), 1e-30))
+        d = (got["params"][k] - want["params"][k]).abs()
+        bound = 1e-6 + 2 * TRAIN_LR * (got["grads"][k] - g).abs() / (
+            torch.maximum(got["grads"][k].abs(), g.abs()) + 1e-8)
+        param_gap, over = max(param_gap, float(d.max())), over + int((d > bound).sum())
+    return {"loss_rel": abs(got["loss"] - want["loss"]) / abs(want["loss"]),
+            "grad_rel": grad_gap, "param_abs": param_gap, "over_adam_bound": over}
+
+
+def dp_world1() -> dict:
+    """(a): each DP_WORLD1_STEPS configuration, one step through the mesh
+    engine in an NCCL world of one rank on the card and one through the
+    single-device engine, from the same params and device batch (the mesh
+    wire's: a shard of tokenize_packed_sharded is a flat packed batch):
+    equal to the bit (loss, every gradient and updated leaf); the kernels
+    of the path launch in the mesh step, as often as in the single-device
+    one. Each step's peak memory beside the single-device step's, and
+    pmean_grads timed alone on its gradients."""
+    from protein_clip_tpu_torch.parallel import distributed
+    from protein_clip_tpu_torch.parallel.engine import MeshEngine
+
+    distributed.initialize(0, 1, f"tcp://127.0.0.1:{distributed.free_port()}", "nccl",
+                           torch.device("cuda", 0))
+    out, launches = {}, {}
+    try:
+        for arch, mode, packed in DP_WORLD1_STEPS:
+            name = f"{arch}_{mode}{'_packed' if packed else ''}"
+            cfg, params0, esm, peps, recs = dp_setup(arch, mode, DP_PAIRS[arch])
+            cfg = dataclasses.replace(cfg, packed=packed)
+            engine = MeshEngine(data=1, arch=arch, mode=mode, packed=packed)
+            batch = to_device(engine.make_prepare(cfg, common.make_tokenizer())(peps, recs),
+                              "cuda")
+            one = dp_step(DP_ENGINES[arch, mode].make_train_step(cfg), clone_tree(params0), esm,
+                          batch)
+            mesh = dp_step(engine.make_train_step(cfg), clone_tree(params0), esm, batch)
+            # the seconds and peaks of a second pair, mesh first: the first calls
+            # warm both up
+            again = dp_step(engine.make_train_step(cfg), clone_tree(params0), esm, batch)
+            mesh_s, mesh_gb = again["seconds"], again["peak_gb"]
+            again = dp_step(DP_ENGINES[arch, mode].make_train_step(cfg), clone_tree(params0), esm,
+                            batch)
+            one_s, one_gb = again["seconds"], again["peak_gb"]
+            del again
+            del params0
+            for k, v in mesh["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+            ran = kernel_counts(mesh["launches"])
+            if (any(not ran.get(kernel) for kernel in DP_KERNELS[arch, mode])
+                    or mesh["launches"] != one["launches"]):
+                raise AssertionError(f"mesh step {name}: launches {ran}, the single-device "
+                                     f"step's {kernel_counts(one['launches'])}")
+            gaps = dp_gaps(mesh, one)
+            ok = (mesh["loss"] == one["loss"] and mesh["grads"].keys() == one["grads"].keys()
+                  and all(torch.equal(mesh["grads"][k], g) for k, g in one["grads"].items())
+                  and all(torch.equal(mesh["params"][k], p) for k, p in one["params"].items()))
+            pmean = time_pmean(mesh["grads"])
+            log(f"[dp] world 1 (NCCL) {name} at {DP_PAIRS[arch]} pairs: loss {mesh['loss']:.6f} "
+                f"vs one device {one['loss']:.6f}; gaps {gaps}; launches {ran}; step (second "
+                f"call) {mesh_s:.3f} s vs one device {one_s:.3f} s; peak {mesh_gb:.4f} GB vs one "
+                f"device {one_gb:.4f} GB (second calls); pmean_grads alone on "
+                f"{pmean['grad_mb']:.1f} MB of gradients {pmean['ms']:.3f} ms, "
+                f"+{pmean['added_mb']:.1f} MB at its peak {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"mesh step {name} at world size 1 disagrees with the "
+                                     "single-device step")
+            out[name] = {"loss": mesh["loss"], **gaps, "launches": ran, "ms": 1e3 * mesh_s,
+                         "one_device_ms": 1e3 * one_s, "peak_gb": mesh_gb,
+                         "one_device_peak_gb": one_gb, "pmean": pmean}
+            del one, mesh
+    finally:
+        distributed.shutdown()
+    return {"steps": out, "launches": launches}
+
+
+def merged_shards(batch: dict) -> dict:
+    """tokenize_packed_sharded's global wire as one flat packed batch of
+    the same rows (shard-major) with its owners made global: the
+    single-device step over the rows the ranks run."""
+    out = {}
+    for side in packed_engine.SIDES:
+        operm = batch[f"{side}_operm"]
+        offsets = torch.arange(operm.shape[0], dtype=operm.dtype)[:, None] * operm.shape[1]
+        out[f"{side}_ids"] = batch[f"{side}_ids"]
+        out[f"{side}_operm"] = (operm + offsets).reshape(-1)
+    return out
+
+
+def dp_gloo_inputs(arch: str, mode: str, packed: bool, n_ranks: int):
+    """(engine config, params, esm slot, peps, recs) of a two-rank check:
+    f32 t30_150M, global batch n_ranks * DP_GLOO_LOCAL, chunks of
+    DP_GLOO_LOCAL rows (the padded FILIP step: one forward a rank, the same
+    rows as one device's two chunks)."""
+    cfg, params, esm, peps, recs = dp_setup(arch, mode, n_ranks * DP_GLOO_LOCAL, "float32")
+    return dataclasses.replace(cfg, packed=packed, num_chunks=n_ranks), params, esm, peps, recs
+
+
+def dp_gloo_rank(local_rank: int, out_path: str) -> None:
+    """A rank of (b): every DP_GLOO_STEPS step through the mesh engine on
+    its part of the batch; writes rank <r>.pt (loss, gradients, launches)."""
+    from protein_clip_tpu_torch.parallel import distributed
+    from protein_clip_tpu_torch.parallel.engine import MeshEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for arch, mode, packed in DP_GLOO_STEPS:
+        cfg, params, esm, peps, recs = dp_gloo_inputs(arch, mode, packed,
+                                                      distributed.world_size())
+        engine = MeshEngine(data=distributed.world_size(), arch=arch, mode=mode, packed=packed)
+        batch = to_device(engine.make_prepare(cfg, common.make_tokenizer())(peps, recs), "cuda")
+        r = dp_step(engine.make_train_step(cfg), params, esm, batch)
+        out[f"{arch}_{mode}{'_packed' if packed else ''}"] = {
+            "loss": r["loss"], "grads": {k: g.cpu() for k, g in r["grads"].items()},
+            "launches": r["launches"], "seconds": r["seconds"]}
+        del params, r
+    torch.save(out, Path(out_path) / f"rank{distributed.rank()}.pt")
+
+
+def dp_gloo() -> dict:
+    """(b): DP_GLOO_STEPS on two gloo ranks that share the card (spawned
+    once the kernels are built: they load this process's builds), each
+    against the single-device step on the card over the same global batch
+    (packed: the ranks' rows as one batch), DP_GLOO_TOL; both ranks' losses
+    and gradients equal to the bit. gloo takes CUDA tensors for every
+    collective the steps use on torch 2.11 (all_gather_into_tensor,
+    reduce_scatter_tensor, all_reduce, broadcast_object_list, barrier)."""
+    from protein_clip_tpu_torch.parallel import distributed, packed_step
+
+    work = WORK / "dp_gloo"
+    work.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    distributed.spawn(dp_gloo_rank, (str(work),), 2, world=2,
+                      init_method=f"tcp://127.0.0.1:{distributed.free_port()}", backend="gloo",
+                      device_type="cuda", cards=[0, 0])
+    spawned = time.perf_counter() - t0
+    ranks = [torch.load(work / f"rank{r}.pt") for r in range(2)]
+    out, launches = {}, {}
+    for arch, mode, packed in DP_GLOO_STEPS:
+        name = f"{arch}_{mode}{'_packed' if packed else ''}"
+        r0, r1 = ranks[0][name], ranks[1][name]
+        if r0["loss"] != r1["loss"] or any(not torch.equal(g, r1["grads"][k])
+                                           for k, g in r0["grads"].items()):
+            raise AssertionError(f"two-rank {name}: the ranks' losses or gradients differ")
+        cfg, params, esm, peps, recs = dp_gloo_inputs(arch, mode, packed, 2)
+        tok = common.make_tokenizer()
+        batch = (merged_shards(packed_step.tokenize_packed_sharded(tok, peps, recs, 2)) if packed
+                 else clip_engine.tokenize_pair_batch(tok, peps, recs))
+        one = dp_step(DP_ENGINES[arch, mode].make_train_step(cfg), params, esm,
+                      to_device(batch, "cuda"))
+        del params
+        got = {"loss": r0["loss"], "grads": {k: g.cuda() for k, g in r0["grads"].items()}}
+        loss_rel = abs(got["loss"] - one["loss"]) / abs(one["loss"])
+        worst = {k: float((got["grads"][k] - g).abs().max()) / max(float(g.abs().max()), 1e-30)
+                 for k, g in one["grads"].items()}
+        tol = {k: F32_FT_TOL if mode == "finetune" and k.startswith("esm/") else DP_GLOO_TOL
+               for k in worst}
+        both = {k: r0["launches"].get(k, 0) + r1["launches"].get(k, 0)
+                for k in set(r0["launches"]) | set(r1["launches"])}
+        for k, v in both.items():
+            launches[k] = launches.get(k, 0) + v
+        ok = loss_rel <= DP_GLOO_TOL and all(worst[k] <= tol[k] for k in worst)
+        top = max(worst, key=worst.get)
+        log(f"[dp] two gloo ranks on one card, {name} f32 at {2 * DP_GLOO_LOCAL} pairs: loss "
+            f"{got['loss']:.7f} vs one device {one['loss']:.7f} (relative {loss_rel:.3g}, "
+            f"tolerance {DP_GLOO_TOL:g}); worst gradient {top} {worst[top]:.3g} of its leaf's "
+            f"largest (tolerance {tol[top]:.3g}); launches of both ranks {kernel_counts(both)}; "
+            f"rank 0's step {r0['seconds']:.3f} s, one device's {one['seconds']:.3f} s (two "
+            f"ranks on one card through the host: no rate) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"two-rank {name} disagrees with the single-device step")
+        out[name] = {"loss_rel": loss_rel, "grad_rel": worst[top],
+                     "launches": kernel_counts(both), "rank0_ms": 1e3 * r0["seconds"],
+                     "one_device_ms": 1e3 * one["seconds"]}
+        del one
+    log(f"[timing] two-rank spawn and steps: {spawned:.1f} s")
+    return {"steps": out, "launches": launches}
+
+
+def dp_refusal() -> dict:
+    """(c): cli.main_2protein --dp 2 on this one-card machine exits nonzero
+    before anything loads, naming the card count."""
+    data, runs = WORK / "dp_refusal_data", WORK / "dp_refusal_runs"
+    proc = subprocess.run(
+        [sys.executable, "-m", "protein_clip_tpu_torch.cli.main_2protein", "--esm-config",
+         "tiny", "--synthetic-fixture", "--data-dir", str(data), "--fixture-families", "40",
+         "--batch-size", "4", "--accumulated-batches", "2", "--epochs", "1", "--runs-dir",
+         str(runs), "--dp", "2"], capture_output=True, text=True, cwd=ROOT, timeout=300)
+    visible = torch.cuda.device_count()
+    if proc.returncode == 0 or f"{visible} visible" not in proc.stderr or runs.exists():
+        raise AssertionError(f"cli.main_2protein --dp 2 on {visible} card(s): exit "
+                             f"{proc.returncode}, {proc.stderr[-2000:]}")
+    message = proc.stderr.strip().splitlines()[-1]
+    log(f"[dp] cli.main_2protein --dp 2 on {visible} card: exit {proc.returncode}: {message}")
+    return {"exit": proc.returncode, "message": message}
+
+
+def run_dp_phase() -> dict:
+    """Phase 7e: the mesh at world size 1 under NCCL (a), two gloo ranks on
+    the one card (b), the one-card refusal (c)."""
+    world1 = timed("dp world 1 (NCCL)", dp_world1)
+    gloo = timed("dp two gloo ranks", dp_gloo)
+    refusal = timed("dp refusal", dp_refusal)
+    return {"world1": world1, "gloo": gloo, "refusal": refusal}
+
+
 def stop(server_ctx: dict) -> None:
     server_ctx["server"].shutdown()
     server_ctx["server"].server_close()
@@ -6620,6 +6959,8 @@ def main() -> int:
                                              check_filip_unfrozen_step, fmctx["runs"], filip_dir,
                                              fault_libs)}
             phase_done("step checks")
+            dpctx = timed("run_dp_phase", run_dp_phase)
+            phase_done("dp")
             ictx = run_int8_serve_phase(ctx)
             try:
                 i8train = run_int8_train()
@@ -6721,7 +7062,9 @@ def main() -> int:
              "train_filip_tiered": tiers["filip"]["launches"],
              **{name: run["launches"] for name, run in mlmctx["runs"].items()},
              **{name: kernel_counts(run["launches"]) for name, run in ectx.items()},
-             "figures": kernel_counts(FIGURES["launches"])}
+             "figures": kernel_counts(FIGURES["launches"]),
+             "train_dp_world1": kernel_counts(dpctx["world1"]["launches"]),
+             "train_dp_gloo2": kernel_counts(dpctx["gloo"]["launches"])}
     by_path = {name: {path: counts.get(name, 0) for path, counts in paths.items()}
                for name in ("attention_fwd", "attention_bwd", *F32_KERNELS, "filip_maxsim",
                             "infonce", "infonce_tiled", "dense_mm", "ffn_gelu", "ffn_gelu_f32")}
@@ -6762,6 +7105,8 @@ def main() -> int:
                                "embeddings_cos_min_vs_plain": t33train["embeddings_cos_min"],
                                "step_check": t33train["step_check"]}},
         "families": families,
+        "train_dp": {"world1_nccl": dpctx["world1"]["steps"], "gloo2_one_card":
+                     dpctx["gloo"]["steps"], "refusal": dpctx["refusal"]},
     }, {
         "name": "attention_bwd", "phase": "train_finetune", "route": "cuda",
         "source": "protein_clip_tpu_torch/csrc/attention_bwd.cu",

@@ -1,9 +1,13 @@
 """The CLIP training run behind ``main.py`` and ``main_2protein.py``: the
-port of ``protein_clip_tpu/cli/_clip_runner.run_clip_training`` on one
-device, for the frozen backbone (length-grouped, or packed with
-``--packed``, flat or in ``--pack-tiers`` widths) and the unfrozen modes
-(``--finetune``, ``--lora-rank``), which train on one pad bucket
-(``length_groups`` 1) or flat-packed.
+port of ``protein_clip_tpu/cli/_clip_runner.run_clip_training``, for the
+frozen backbone (length-grouped, or packed with ``--packed``, flat or in
+``--pack-tiers`` widths) and the unfrozen modes (``--finetune``,
+``--lora-rank``), which train on one pad bucket (``length_groups`` 1) or
+flat-packed. With ``--dp N`` > 1 it trains on N ranks
+(``parallel/engine.MeshEngine``, started by ``common.launch``), one pad
+bucket or flat-packed, with the TPU package's refusals: ``--no-gradcache``,
+a ``--batch-size`` the data axis does not divide and ``--pack-tiers`` exit,
+and ``--length-groups`` is ignored.
 
 The run writes the CSV, ``metrics.jsonl``, ``best_model.npz``, a
 train-state snapshot after every epoch (``state/``; ``--resume-dir <run
@@ -16,6 +20,7 @@ matrices are written as ``figures/figure N.npy`` either way.
 
 from __future__ import annotations
 
+import functools
 from pathlib import Path
 
 import torch
@@ -24,6 +29,8 @@ from . import common
 from ..data.dataset import PairLoader, generate_datasets
 from ..data.prefetch import to_device
 from ..models import clip, esm2
+from ..parallel import distributed
+from ..parallel.engine import MeshEngine
 from ..train import clip_engine, finetune, lora, loop, packed_engine
 from ..utils import prng, rundir
 from ..utils.device import resolve_device
@@ -78,6 +85,8 @@ def figure_hooks(args, run_dir: Path, train_loader, val_loader, tokenizer, simil
             heatmaps(best_params, f" - Epoch {epoch + 1}")
 
     def finish(result, train_batch_size: int):
+        if not distributed.is_primary():
+            return
         plots.plot_loss_curves(run_dir, result.train_losses, result.val_losses,
                                train_batch_size, args.batch_size)
         heatmaps(result.best_params)
@@ -87,15 +96,70 @@ def figure_hooks(args, run_dir: Path, train_loader, val_loader, tokenizer, simil
 
 def run_dir_of(args) -> Path:
     """``--resume-dir`` when given (the run it continues), else a new
-    timestamped directory under ``--runs-dir``."""
-    run_dir = Path(args.resume_dir) if args.resume_dir else rundir.make_run_dir(args.runs_dir)
-    print(f"All run info will be saved to {run_dir}")
+    timestamped directory under ``--runs-dir``, made by rank 0 and named to
+    every rank."""
+    if args.resume_dir:
+        run_dir = Path(args.resume_dir)
+    else:
+        made = str(rundir.make_run_dir(args.runs_dir)) if distributed.is_primary() else None
+        run_dir = Path(distributed.broadcast_object(made))
+    if distributed.is_primary():
+        print(f"All run info will be saved to {run_dir}")
     return run_dir
+
+
+def check_mesh(args) -> None:
+    """The TPU package's mesh refusals, before anything loads (in the
+    process that starts the ranks too): a --batch-size the data axis does
+    not divide, and --packed --pack-tiers, exit."""
+    dp, tp, pp = common.resolve_mesh_shape(args)
+    if dp * tp * pp == 1:
+        return
+    if args.batch_size % dp:
+        raise SystemExit(f"--batch-size {args.batch_size} must be divisible by --dp {dp} "
+                         "(batches shard over the data axis)")
+    if args.packed and args.pack_tiers > 1:
+        raise SystemExit("mesh --packed training supports flat packing only (drop --pack-tiers)")
+
+
+def mesh_engine_of(args, *, arch: str, packed: bool, ignored: dict):
+    """The mesh engine of a rank, or None on one device. ``ignored`` maps a
+    flag to the value the run would have: the mesh takes one bucket (and
+    FILIP one token buffer a side), and a flag set otherwise is noted on
+    rank 0 and ignored."""
+    dp, tp, pp = common.resolve_mesh_shape(args)
+    if dp * tp * pp == 1:
+        return None
+    for flag, value in ignored.items():
+        if value > 1 and distributed.is_primary():
+            print(f"[mesh] {flag} ignored under a mesh (use --packed for padding-waste cuts)"
+                  if flag == "--length-groups" else
+                  f"[mesh] {flag} ignored under a mesh (flat token buffers per shard)")
+    mode = "finetune" if args.finetune else "lora" if args.lora_rank else "frozen"
+    engine = MeshEngine(data=dp, model=tp, stages=pp, arch=arch, mode=mode, packed=packed)
+    if distributed.is_primary():
+        print(f"[mesh] {arch.upper()} training over {engine.mesh.shape} on "
+              f"{distributed.backend_for(args.device)} ranks")
+    return engine
 
 
 def run_clip_training(args, *, prefix_a: str, prefix_b: str, plot_cluster: bool = False,
                       max_sequence_length: int | None = None) -> int:
     common.check_train_args(args)
+    if common.mesh_size(args) > 1 and args.no_gradcache:
+        raise SystemExit("mesh training (--dp) drives the global-batch gradcache path "
+                         "(drop --no-gradcache)")
+    unfrozen = bool(args.finetune or args.lora_rank)
+    length_groups = 1 if args.no_gradcache or unfrozen else args.length_groups
+    packed = args.packed and not args.no_gradcache
+    check_mesh(args)
+    launched = common.launch(args, functools.partial(
+        run_clip_training, prefix_a=prefix_a, prefix_b=prefix_b, plot_cluster=plot_cluster,
+        max_sequence_length=max_sequence_length))
+    if launched is not None:
+        return launched
+    mesh_engine = mesh_engine_of(args, arch="clip", packed=packed,
+                                 ignored={"--length-groups": length_groups})
     packed_engine.clear_tier_width_cache()      # a run packs from its own first batch
     device = resolve_device(args.device)
     generator = prng.set_seed(args.seed)
@@ -111,15 +175,15 @@ def run_clip_training(args, *, prefix_a: str, prefix_b: str, plot_cluster: bool 
     params = clip.init_params(mcfg, generator, device=device)
     params, esm_params, engine = common.unfrozen_params(
         args, params, esm_params, device, finetune_engine=finetune, lora_engine=lora)
-    unfrozen = engine is not None
     view = eval_view(args, mcfg, esm_params)
 
     def similarity(p):
         return similarity_fn(*view(p), mcfg, tokenizer, device)
 
-    data_dir = common.ensure_data(args, prefix_a, prefix_b)
-    train_ds, val_ds, test_ds = generate_datasets(data_dir, prefix_a, prefix_b, seed=args.seed,
-                                                  max_sequence_length=max_sequence_length)
+    data_dir = common.primary_first(common.ensure_data, args, prefix_a, prefix_b)
+    train_ds, val_ds, test_ds = common.primary_first(
+        generate_datasets, data_dir, prefix_a, prefix_b, seed=args.seed,
+        max_sequence_length=max_sequence_length)
     train_loader = PairLoader(train_ds, args.batch_size, shuffle=True, drop_last=True,
                               seed=args.seed)
     val_loader = PairLoader(val_ds, args.batch_size, shuffle=False, drop_last=True,
@@ -127,19 +191,20 @@ def run_clip_training(args, *, prefix_a: str, prefix_b: str, plot_cluster: bool 
     test_loader = PairLoader(test_ds, args.batch_size, shuffle=False, drop_last=True,
                              seed=args.seed)
 
-    if plot_cluster:
-        plots.plot_clustering(run_dir, data_dir, prefix=prefix_b)
-    plots.plot_protein_lengths(run_dir, data_dir, prefix1=prefix_a, prefix2=prefix_b)
-    plots.plot_embedding_cosine_similarities(run_dir, "Raw Embedding Cosine Similarities",
-                                             train_loader, tokenizer, similarity(params))
+    if distributed.is_primary():
+        if plot_cluster:
+            plots.plot_clustering(run_dir, data_dir, prefix=prefix_b)
+        plots.plot_protein_lengths(run_dir, data_dir, prefix1=prefix_a, prefix2=prefix_b)
+        plots.plot_embedding_cosine_similarities(run_dir, "Raw Embedding Cosine Similarities",
+                                                 train_loader, tokenizer, similarity(params))
 
     steps_per_epoch = (len(train_loader) if args.no_gradcache
                        else len(train_loader) // args.accumulated_batches)
     cfg = clip_engine.EngineConfig(
         model=mcfg, batch_size=args.batch_size, accumulated_batches=args.accumulated_batches,
         learning_rate=args.lr, num_chunks=args.num_chunks,
-        length_groups=1 if args.no_gradcache or unfrozen else args.length_groups,
-        packed=args.packed and not args.no_gradcache, packed_tiers=args.pack_tiers,
+        length_groups=1 if mesh_engine else length_groups, packed=packed,
+        packed_tiers=args.pack_tiers,
         backbone_lr=args.backbone_lr, weight_decay=args.weight_decay,
         warmup_steps=args.warmup_steps, lr_schedule=args.lr_schedule, grad_clip=args.grad_clip,
         total_steps=args.epochs * steps_per_epoch)
@@ -148,7 +213,8 @@ def run_clip_training(args, *, prefix_a: str, prefix_b: str, plot_cluster: bool 
     result = loop.fit(run_dir, cfg, params, esm_params, train_loader, val_loader, tokenizer,
                       args.epochs, seed=args.seed, device=device,
                       use_gradcache=not args.no_gradcache, test_loader=test_loader,
-                      epoch_hook=epoch_hook, resume=args.resume_dir is not None, engine=engine)
+                      epoch_hook=epoch_hook, resume=args.resume_dir is not None,
+                      engine=mesh_engine or engine)
     finish(result, args.batch_size if args.no_gradcache
            else args.batch_size * args.accumulated_batches)
     return 0

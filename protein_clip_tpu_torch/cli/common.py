@@ -5,7 +5,8 @@ the device, the backbone, checkpoint and token-index loaders, the training
 data, and the tokenizer.
 
 Entry points run on ``cuda`` unless ``--device cpu`` is given; asking for
-CUDA where there is none raises, and nothing falls back to the CPU.
+CUDA where there is none raises, and nothing falls back to the CPU. A mesh
+(``--dp`` > 1) runs one rank a device (``launch``), never two on a card.
 """
 
 from __future__ import annotations
@@ -21,6 +22,9 @@ from ..data.synthetic import write_fixture
 from ..data.tokenizer import EsmTokenizer
 from ..models import clip, esm2
 from ..ops import attention
+from ..parallel import distributed
+from ..parallel.distributed import backend_for
+from ..parallel.mesh import rank_device
 from ..train import checkpoint, finetune, lora
 
 ESM_FAMILIES = ("t30_150M", "t6_8M", "t12_35M", "t33_650M", "t36_3B", "t48_15B", "tiny")
@@ -123,18 +127,36 @@ def add_train_args(p: argparse.ArgumentParser) -> None:
 
 
 def add_mesh_args(p: argparse.ArgumentParser) -> None:
-    """The multi-device mesh flags. The port trains on one device: any
-    value other than 1 raises (``check_train_args``)."""
-    p.add_argument("--dp", type=int, default=1, help="data-parallel axis (1 only)")
-    p.add_argument("--tp", type=int, default=1, help="tensor-parallel axis (1 only)")
-    p.add_argument("--pp", type=int, default=1, help="pipeline stages (1 only)")
+    """The mesh flags of the CLIP and FILIP training entry points (the TPU
+    package's): the data axis trains on ``--dp`` ranks, one a device, and
+    ``--dp 1`` (the default) is the single-device path unchanged. --tp, --pp
+    and --pp-microbatches other than 1 raise (``check_single_device``)."""
+    p.add_argument("--dp", type=int, default=1,
+                   help="data-parallel ranks, one a device (parallel/engine.py): each encodes "
+                        "its rows, the embeddings (FILIP: the receptor tokens) are gathered so "
+                        "the negatives span the global batch, the gradients averaged; composes "
+                        "with --packed (flat), --finetune, --lora-rank. Started plainly the CLI "
+                        "starts the ranks itself (gloo on --device cpu, NCCL on CUDA: one card "
+                        "a rank); under torchrun it joins that world. 0 = the ranks the launch "
+                        "provides (WORLD_SIZE, else the visible cards, else 1 on the CPU) over "
+                        "--tp x --pp")
+    p.add_argument("--tp", type=int, default=1, help="tensor-parallel axis (1 only: not ported)")
+    p.add_argument("--pp", type=int, default=1, help="pipeline stages (1 only: not ported)")
+    p.add_argument("--pp-microbatches", type=int, default=None,
+                   help="with --pp: microbatches a step (not ported)")
+    p.add_argument("--coordinator", default=None,
+                   help="host:port of the rendezvous when the ranks span several processes or "
+                        "hosts: every process runs the same command with --num-processes and "
+                        "its --process-id, and starts --dp / --num-processes ranks of its own")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
 
 
 def check_train_args(args) -> None:
-    """Raise on the training options this port does not run yet (a mesh),
-    on --finetune with --lora-rank and on either of them with --packed
-    --pack-tiers (as the TPU package does), and on either of them with
-    --esm-dtype int8, before anything is loaded."""
+    """Raise on the training options this port does not run yet (a mesh
+    beyond the data axis), on --finetune with --lora-rank and on either of
+    them with --packed --pack-tiers (as the TPU package does), and on either
+    of them with --esm-dtype int8, before anything is loaded."""
     if args.finetune and args.lora_rank:
         raise SystemExit("--finetune and --lora-rank are mutually exclusive "
                          "(full vs parameter-efficient)")
@@ -151,12 +173,118 @@ def check_train_args(args) -> None:
 
 
 def check_single_device(args) -> None:
-    """Raise on mesh flags other than 1: multi-device training is not
-    ported yet."""
-    mesh = tuple(getattr(args, k, 1) for k in ("dp", "tp", "pp"))
-    if mesh != (1, 1, 1):
-        raise NotImplementedError("not ported yet: --dp/--tp/--pp other than 1: multi-device "
-                                  "training (ROADMAP queue 1: multi-device)")
+    """Raise on the mesh axes this port does not run yet: --tp, --pp and
+    --pp-microbatches other than 1 (the data axis, --dp, runs)."""
+    if ((getattr(args, "tp", 1), getattr(args, "pp", 1)) != (1, 1)
+            or getattr(args, "pp_microbatches", None) not in (None, 1)):
+        raise NotImplementedError("not ported yet: --tp/--pp/--pp-microbatches other than 1: "
+                                  "multi-device training beyond the data axis (ROADMAP queue "
+                                  "1: multi-device)")
+
+
+def resolve_mesh_shape(args) -> tuple[int, int, int]:
+    """(dp, tp, pp), --dp 0 resolved to the ranks the launch provides
+    (WORLD_SIZE, else the visible cards on CUDA, else 1 on the CPU) over
+    tp x pp."""
+    dp, tp, pp = args.dp, args.tp, args.pp
+    if dp == 0:
+        if "WORLD_SIZE" in os.environ:
+            ranks = int(os.environ["WORLD_SIZE"])
+        elif torch.device(args.device).type == "cuda":
+            ranks = torch.cuda.device_count()
+        else:
+            ranks = 1
+        dp = max(1, ranks // (tp * pp))
+    return dp, tp, pp
+
+
+def mesh_size(args) -> int:
+    dp, tp, pp = resolve_mesh_shape(args)
+    return dp * tp * pp
+
+
+def _check_cards(device: torch.device, n_local: int, n: int) -> None:
+    """One rank a card: fewer visible cards than local ranks raise; the
+    mesh never shares a card, moves to the CPU or drops ranks."""
+    visible = torch.cuda.device_count() if device.type == "cuda" else 0
+    if device.type == "cuda" and visible < n_local:
+        raise RuntimeError(f"a mesh of {n} ranks needs {n_local} CUDA cards on this host, one "
+                           f"rank a card; {visible} visible (pass --device cpu for gloo ranks "
+                           "on the CPU, or --dp 1)")
+
+
+def maybe_init_distributed(args) -> None:
+    """Join the world this process was started into, before anything else
+    (the TPU package's ``jax.distributed`` join): under ``torchrun``
+    (WORLD_SIZE set) with a mesh, as rank RANK at ``env://``, on card
+    LOCAL_RANK; WORLD_SIZE must equal the mesh. Also checks the
+    --coordinator flags. Otherwise a no-op: ``launch`` starts the ranks."""
+    if args.coordinator and (args.num_processes is None or args.process_id is None):
+        raise SystemExit("--coordinator needs --num-processes and --process-id")
+    if "WORLD_SIZE" not in os.environ or distributed.is_initialized():
+        return
+    n, world = mesh_size(args), int(os.environ["WORLD_SIZE"])
+    if n == 1 and world == 1:
+        return
+    if world != n:
+        raise SystemExit(f"torchrun started {world} ranks but --dp x --tp x --pp is {n}")
+    device = torch.device(args.device)
+    local = int(os.environ.get("LOCAL_RANK", "0"))
+    _check_cards(device, local + 1, n)
+    args.device = str(rank_device(device.type, local))
+    distributed.initialize(int(os.environ["RANK"]), world, "env://", backend_for(device),
+                           torch.device(args.device))
+
+
+def _rank_entry(local_rank: int, entry, args) -> None:
+    args = argparse.Namespace(**vars(args))
+    args.device = str(rank_device(torch.device(args.device).type, local_rank))
+    entry(args)
+
+
+def launch(args, entry) -> int | None:
+    """Start the ranks of the mesh the flags ask for when this process is
+    not a rank already: ``entry(args)`` runs on each, with ``args.device``
+    the rank's device. Started plainly, the ranks are this host's (a free
+    localhost port); with --coordinator, process --process-id starts its
+    share, global ranks process-id x share + j, at that address. One local
+    rank runs in this process, more are spawned. Returns 0 once they have
+    all finished (a rank's error is raised), or None when this process
+    trains itself (no mesh, or already a rank)."""
+    n = mesh_size(args)
+    if n == 1 or distributed.is_initialized():
+        return None
+    device = torch.device(args.device)
+    if args.coordinator:
+        if n % args.num_processes:
+            raise SystemExit(f"--num-processes {args.num_processes} does not divide the mesh's "
+                             f"{n} ranks")
+        n_local = n // args.num_processes
+        base, init = args.process_id * n_local, f"tcp://{args.coordinator}"
+    else:
+        n_local, base, init = n, 0, f"tcp://127.0.0.1:{distributed.free_port()}"
+    _check_cards(device, n_local, n)
+    if n_local == 1:
+        args.device = str(rank_device(device.type, 0))
+        distributed.initialize(base, n, init, backend_for(device), torch.device(args.device))
+        try:
+            return entry(args)
+        finally:
+            distributed.shutdown()
+    distributed.spawn(_rank_entry, (entry, args), n_local, world=n, init_method=init,
+                      backend=backend_for(device), device_type=device.type, base_rank=base)
+    return 0
+
+
+def primary_first(fn, *fn_args, **kwargs):
+    """``fn(...)`` on rank 0, then on the other ranks once it is done, so
+    what it writes (a fixture, a cluster cache) is there for them to read."""
+    if distributed.is_primary():
+        out = fn(*fn_args, **kwargs)
+    distributed.barrier()
+    if not distributed.is_primary():
+        out = fn(*fn_args, **kwargs)
+    return out
 
 
 def unfrozen_params(args, params: dict, esm_params: dict, device: torch.device, *,

@@ -32,6 +32,7 @@ def build_argparser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
+    common.maybe_init_distributed(args)
     return run_clip_training(args, prefix_a="peptide", prefix_b="receptor")
 
 

@@ -32,8 +32,13 @@ continues from it), and the figures of ``cli/_clip_runner.py`` with the
 direction-averaged FILIP similarity as the heatmaps. Runs on cuda unless
 --device cpu.
 
-Not ported yet, raising ``NotImplementedError`` before anything loads: a
-mesh. Refused as in the TPU package: --finetune or --lora-rank with
+With --dp N > 1 every mode trains on N ranks (``parallel/engine.py``:
+each rank scores its rows against the gathered receptor tokens), one pad
+bucket or flat-packed; --scatter-tiers and --length-groups are ignored
+there, and a --batch-size the data axis does not divide exits.
+
+Not ported yet, raising ``NotImplementedError`` before anything loads:
+--tp, --pp. Refused as in the TPU package: --finetune or --lora-rank with
 --packed --pack-tiers, or with --length-groups; and, where the TPU package
 fails, --esm-dtype int8 with an unfrozen mode.
 """
@@ -45,10 +50,11 @@ import argparse
 import torch
 
 from . import common
-from ._clip_runner import eval_view, figure_hooks, run_dir_of
+from ._clip_runner import check_mesh, eval_view, figure_hooks, mesh_engine_of, run_dir_of
 from ..data.dataset import PairLoader, generate_datasets
 from ..data.prefetch import to_device
 from ..models import filip
+from ..parallel import distributed
 from ..train import clip_engine, filip_engine, filip_finetune, filip_lora, loop, packed_engine
 from ..utils import prng
 from ..utils.device import resolve_device
@@ -90,7 +96,7 @@ def filip_similarity_viz(params, esm_params, mcfg, tokenizer, device):
 def check_filip_args(args) -> None:
     """The TPU package's mutual exclusions (SystemExit), then the options
     this port does not run yet or refuses (``common.check_train_args``:
-    NotImplementedError for a mesh, and int8 with an unfrozen
+    NotImplementedError for --tp and --pp, and int8 with an unfrozen
     mode), before anything is loaded."""
     if args.finetune and args.lora_rank:
         raise SystemExit("--finetune and --lora-rank are mutually exclusive "
@@ -106,7 +112,19 @@ def check_filip_args(args) -> None:
 
 def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
+    common.maybe_init_distributed(args)
+    return run_filip_training(args)
+
+
+def run_filip_training(args) -> int:
     check_filip_args(args)
+    check_mesh(args)
+    launched = common.launch(args, run_filip_training)
+    if launched is not None:
+        return launched
+    mesh_engine = mesh_engine_of(args, arch="filip", packed=args.packed, ignored={
+        "--length-groups": args.length_groups,
+        "--scatter-tiers": args.scatter_tiers if args.packed else 1})
     packed_engine.clear_tier_width_cache()      # a run packs from its own first batch
     device = resolve_device(args.device)
     generator = prng.set_seed(args.seed)
@@ -128,25 +146,27 @@ def main(argv=None) -> int:
     def similarity(p):
         return filip_similarity_viz(*view(p), mcfg, tokenizer, device)
 
-    data_dir = common.ensure_data(args, "protein1", "protein2")
-    train_ds, val_ds, test_ds = generate_datasets(data_dir, "protein1", "protein2",
-                                                  seed=args.seed,
-                                                  max_sequence_length=args.max_sequence_length)
+    data_dir = common.primary_first(common.ensure_data, args, "protein1", "protein2")
+    train_ds, val_ds, test_ds = common.primary_first(
+        generate_datasets, data_dir, "protein1", "protein2", seed=args.seed,
+        max_sequence_length=args.max_sequence_length)
     train_loader = PairLoader(train_ds, args.batch_size, shuffle=True, drop_last=True,
                               seed=args.seed)
     val_loader = PairLoader(val_ds, args.batch_size, shuffle=False, drop_last=True,
                             seed=args.seed)
     test_loader = PairLoader(test_ds, args.batch_size, shuffle=False, drop_last=True,
                              seed=args.seed)
-    plots.plot_clustering(run_dir, data_dir, prefix="protein2")
-    plots.plot_protein_lengths(run_dir, data_dir)
-    plots.plot_embedding_cosine_similarities(run_dir, "Raw Embedding Cosine Similarities",
-                                             train_loader, tokenizer, similarity(params))
+    if distributed.is_primary():
+        plots.plot_clustering(run_dir, data_dir, prefix="protein2")
+        plots.plot_protein_lengths(run_dir, data_dir)
+        plots.plot_embedding_cosine_similarities(run_dir, "Raw Embedding Cosine Similarities",
+                                                 train_loader, tokenizer, similarity(params))
 
     cfg = clip_engine.EngineConfig(
         model=mcfg, batch_size=args.batch_size, accumulated_batches=1, learning_rate=args.lr,
-        num_chunks=args.num_chunks, length_groups=args.length_groups, packed=args.packed,
-        packed_tiers=args.pack_tiers, scatter_tiers=args.scatter_tiers,
+        num_chunks=args.num_chunks, length_groups=1 if mesh_engine else args.length_groups,
+        packed=args.packed, packed_tiers=args.pack_tiers,
+        scatter_tiers=1 if mesh_engine else args.scatter_tiers,
         filip_use_dcl=args.use_dcl, backbone_lr=args.backbone_lr,
         weight_decay=args.weight_decay, warmup_steps=args.warmup_steps,
         lr_schedule=args.lr_schedule, grad_clip=args.grad_clip,
@@ -156,7 +176,7 @@ def main(argv=None) -> int:
     result = loop.fit(run_dir, cfg, params, esm_params, train_loader, val_loader, tokenizer,
                       args.epochs, seed=args.seed, device=device, use_gradcache=False,
                       test_loader=test_loader, epoch_hook=epoch_hook,
-                      resume=args.resume_dir is not None, engine=engine)
+                      resume=args.resume_dir is not None, engine=mesh_engine or engine)
     finish(result, args.batch_size)
     return 0
 

@@ -78,7 +78,10 @@ def check_mlm_args(args) -> None:
     if args.pack_tiers > 1:
         raise SystemExit("cli.mlm_train packs its rows at one width (tokenize_packed_rows); "
                          "drop --pack-tiers")
-    common.check_single_device(args)
+    if (args.dp, args.tp) != (1, 1):
+        raise NotImplementedError("not ported yet: --dp/--tp other than 1 in cli.mlm_train: "
+                                  "multi-device MLM training (ROADMAP queue 1: multi-device, "
+                                  "MLM's mesh)")
 
 
 def batch_inputs(arrs: tuple, packed: bool) -> dict:

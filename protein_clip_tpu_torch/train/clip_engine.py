@@ -270,11 +270,13 @@ def _mean(losses: list[torch.Tensor]) -> float:
 
 
 def train_gc(params, opt_state, esm_params, loader, tokenizer, step_fn, cfg: EngineConfig,
-             generator: torch.Generator, device) -> tuple[Params, Any, float]:
+             generator: torch.Generator, device, prepare: Callable | None = None
+             ) -> tuple[Params, Any, float]:
     """One epoch of global-batch training: (params, opt_state, mean loss).
-    Tokenization runs on a background thread two batches ahead
-    (``data/prefetch.py``); the losses are read once, at the epoch's end."""
-    prepare = _prepare(tokenizer, cfg)
+    Tokenization (``prepare``, default the config's wire) runs on a
+    background thread two batches ahead (``data/prefetch.py``); the losses
+    are read once, at the epoch's end."""
+    prepare = prepare or _prepare(tokenizer, cfg)
     batches = prefetch_to_device(_accumulate(loader, cfg.accumulated_batches),
                                  lambda pr: prepare(*pr), device)
     losses = []
@@ -288,11 +290,11 @@ def train_gc(params, opt_state, esm_params, loader, tokenizer, step_fn, cfg: Eng
 
 
 def train_plain(params, opt_state, esm_params, loader, tokenizer, step_fn,
-                generator: torch.Generator, device, cfg: EngineConfig | None = None
-                ) -> tuple[Params, Any, float]:
+                generator: torch.Generator, device, cfg: EngineConfig | None = None,
+                prepare: Callable | None = None) -> tuple[Params, Any, float]:
     """Per-sub-batch training (the reference's ``train()``); 0.0 when the
     loader is empty."""
-    prepare = _prepare(tokenizer, cfg)
+    prepare = prepare or _prepare(tokenizer, cfg)
     batches = prefetch_to_device(loader, lambda pr: prepare(*pr), device)
     losses = []
     for batch in batches:
@@ -302,10 +304,10 @@ def train_plain(params, opt_state, esm_params, loader, tokenizer, step_fn,
 
 
 def evaluate(params, esm_params, loader, tokenizer, eval_step, device,
-             cfg: EngineConfig | None = None) -> float:
+             cfg: EngineConfig | None = None, prepare: Callable | None = None) -> float:
     """Mean per-batch loss; NaN for an empty loader (a dataset smaller than
     one batch with drop_last), where the reference would divide by 0."""
-    prepare = _prepare(tokenizer, cfg)
+    prepare = prepare or _prepare(tokenizer, cfg)
     losses = [eval_step(params, esm_params, batch)
               for batch in prefetch_to_device(loader, lambda pr: prepare(*pr), device)]
     return _mean(losses) if losses else float("nan")

@@ -125,21 +125,28 @@ def make_train_step(cfg: EngineConfig, similarity_fn: Callable | None = None,
                                                                   view))
 
     def step(params, opt_state, esm_params, batch, generator):
-        batch, chunks = prepare(batch, generator)
-        with torch.no_grad():
-            H = {side: torch.cat([encode_chunk(params, esm_params, side, c)
-                                  for c in chunks[side]]) for side in pe.SIDES}
-        for h in H.values():
-            h.requires_grad_(True)
-        loss = tail(params, H["pep"], H["rec"], batch)
-        loss.backward()
-        for side in pe.SIDES:
-            for c, g in zip(chunks[side], H[side].grad.split(len(chunks[side][0]["ids"]))):
-                encode_chunk(params, esm_params, side, c).backward(g)
+        loss = token_passes(encode_chunk, tail, params, esm_params, *prepare(batch, generator))
         opt_state.apply()
-        return params, opt_state, loss.detach()
+        return params, opt_state, loss
 
     return step
+
+
+def token_passes(encode_chunk, tail, params, esm_params, batch, chunks) -> torch.Tensor:
+    """The two passes of the one-bucket step over ``_token_machinery``'s
+    pieces and ``prepare``'s (batch, chunks): the gradients accumulate into
+    the parameters' ``.grad``; returns the loss, detached."""
+    with torch.no_grad():
+        H = {side: torch.cat([encode_chunk(params, esm_params, side, c)
+                              for c in chunks[side]]) for side in pe.SIDES}
+    for h in H.values():
+        h.requires_grad_(True)
+    loss = tail(params, H["pep"], H["rec"], batch)
+    loss.backward()
+    for side in pe.SIDES:
+        for c, g in zip(chunks[side], H[side].grad.split(len(chunks[side][0]["ids"]))):
+            encode_chunk(params, esm_params, side, c).backward(g)
+    return loss.detach()
 
 
 def _packed_token_machinery(cfg: EngineConfig, sim_fn: Callable, use_dcl: bool,
@@ -212,21 +219,29 @@ def make_train_step_packed(cfg: EngineConfig, similarity_fn: Callable | None = N
 
     def step(params, opt_state, esm_params, batch, generator):
         pe._validate_packed_batch(batch, cfg.batch_size)
-        sides = prepare(batch, generator)
-        with torch.no_grad():
-            X = _scan_tokens(chunk_tokens, params, esm_params, sides)
-        for x in X.values():
-            x.requires_grad_(True)
-        loss = tail(params, X, sides)
-        loss.backward()
-        for side, (chunks, seeds, _, _) in sides.items():
-            grads = X[side].grad.split([len(c["ids"]) for c in chunks])
-            for chunk, seed, g in zip(chunks, seeds, grads):
-                chunk_tokens(params, esm_params, side, chunk, seed).backward(g)
+        loss = packed_token_passes(chunk_tokens, tail, params, esm_params,
+                                   prepare(batch, generator))
         opt_state.apply()
-        return params, opt_state, loss.detach()
+        return params, opt_state, loss
 
     return step
+
+
+def packed_token_passes(chunk_tokens, tail, params, esm_params, sides) -> torch.Tensor:
+    """The two passes of the packed step over ``_packed_token_machinery``'s
+    pieces and ``prepare``'s sides: the gradients accumulate into the
+    parameters' ``.grad``; returns the loss, detached."""
+    with torch.no_grad():
+        X = _scan_tokens(chunk_tokens, params, esm_params, sides)
+    for x in X.values():
+        x.requires_grad_(True)
+    loss = tail(params, X, sides)
+    loss.backward()
+    for side, (chunks, seeds, _, _) in sides.items():
+        grads = X[side].grad.split([len(c["ids"]) for c in chunks])
+        for chunk, seed, g in zip(chunks, seeds, grads):
+            chunk_tokens(params, esm_params, side, chunk, seed).backward(g)
+    return loss.detach()
 
 
 def make_eval_step(cfg: EngineConfig, similarity_fn: Callable | None = None,

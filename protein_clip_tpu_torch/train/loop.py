@@ -19,12 +19,19 @@ carries the packer's sticky width-tier caches (``packed_engine.tier_state``),
 so a resumed ``--pack-tiers`` run packs its batches as the unbroken run
 does. The snapshots are the port's own format
 (``checkpoint.save_train_state``), not the TPU package's Orbax ones.
+
+On a mesh (``parallel/engine.MeshEngine``: its ``make_prepare`` gives each
+rank its part of every batch) every rank runs the loop, and only rank 0
+writes: the CSV, ``metrics.jsonl``, ``best_model.npz``, the snapshots and
+``epoch_hook``'s figures, as the TPU package's process 0 does; on resume
+every rank restores the same snapshot.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import time
 from pathlib import Path
 from typing import Any, Callable
@@ -34,6 +41,7 @@ import torch
 from . import checkpoint as ckpt
 from . import clip_engine, optimizer as opt_mod, packed_engine
 from ..data.tokenizer import EsmTokenizer
+from ..parallel import distributed
 
 
 @dataclasses.dataclass
@@ -94,16 +102,24 @@ def fit(run_dir: str | Path, cfg: clip_engine.EngineConfig, params: Any, esm_par
     fresh start when there is none), appending to the CSV and
     ``metrics.jsonl``; a snapshot of another tree layout (another mode)
     raises ValueError. ``epoch_hook(epoch, best_params)`` runs after each
-    epoch's snapshot (the runners' ``--epoch-figures``)."""
+    epoch's snapshot (the runners' ``--epoch-figures``). An engine with
+    ``make_prepare(cfg, tokenizer)`` tokenizes every batch with it (the
+    mesh's part of a batch per rank); then only rank 0 writes and logs."""
     device = torch.device(device)
     run_dir = Path(run_dir)
-    run_dir.mkdir(parents=True, exist_ok=True)
+    primary = distributed.is_primary()
+    if primary:
+        run_dir.mkdir(parents=True, exist_ok=True)
+    else:
+        log = lambda _msg: None  # noqa: E731
     engine = engine or clip_engine
     optimizer = (engine.make_optimizer(cfg) if hasattr(engine, "make_optimizer")
                  else opt_mod.from_config(cfg))
     opt_state = optimizer.init(params)
     train_step = engine.make_train_step(cfg)
     eval_step = engine.make_eval_step(cfg)
+    prepare = (engine.make_prepare(cfg, tokenizer) if hasattr(engine, "make_prepare")
+               else None)
 
     losses_path = run_dir / "losses_per_epoch.txt"
     metrics_path = run_dir / "metrics.jsonl"
@@ -130,7 +146,7 @@ def fit(run_dir: str | Path, cfg: clip_engine.EngineConfig, params: Any, esm_par
                 packed_engine.restore_tier_state(state["tiers"])
             log(f"Resumed from epoch {start_epoch}")
     mode = "a" if start_epoch > 0 else "w"
-    with open(losses_path, mode) as f:
+    with open(losses_path if primary else os.devnull, mode) as f:
         if mode == "w":
             f.write("Epoch,Train Loss,Validation Loss\n")
         for epoch in range(start_epoch, num_epochs):
@@ -142,13 +158,13 @@ def fit(run_dir: str | Path, cfg: clip_engine.EngineConfig, params: Any, esm_par
             if use_gradcache:
                 params, opt_state, train_loss = clip_engine.train_gc(
                     params, opt_state, esm_params, train_loader, tokenizer, train_step, cfg,
-                    gen, device)
+                    gen, device, prepare)
             else:
                 params, opt_state, train_loss = clip_engine.train_plain(
                     params, opt_state, esm_params, train_loader, tokenizer, train_step, gen,
-                    device, cfg)
+                    device, cfg, prepare)
             val_loss = clip_engine.evaluate(params, esm_params, val_loader, tokenizer,
-                                            eval_step, device, cfg)
+                                            eval_step, device, cfg, prepare)
             train_losses.append(train_loss)
             val_losses.append(val_loss)
             f.write(f"{epoch + 1},{train_loss:.4f},{val_loss:.4f}\n")
@@ -157,26 +173,28 @@ def fit(run_dir: str | Path, cfg: clip_engine.EngineConfig, params: Any, esm_par
             if val_loss < best_val:
                 best_val = val_loss
                 best_params = _snapshot(params)
-                ckpt.export_npz(model_path, best_params)
+                if primary:
+                    ckpt.export_npz(model_path, best_params)
 
             dt = time.perf_counter() - t0
-            with open(metrics_path, "a") as mf:
-                mf.write(json.dumps({"epoch": epoch + 1, "train_loss": train_loss,
-                                     "val_loss": val_loss, "seconds": dt}) + "\n")
+            if primary:
+                with open(metrics_path, "a") as mf:
+                    mf.write(json.dumps({"epoch": epoch + 1, "train_loss": train_loss,
+                                         "val_loss": val_loss, "seconds": dt}) + "\n")
             log(f"Epoch {epoch + 1}/{num_epochs} - Train Loss: {train_loss:.4f}, "
                 f"Val Loss: {val_loss:.4f} ({dt:.1f}s)")
-            if (epoch + 1) % save_state_every == 0:
+            if (epoch + 1) % save_state_every == 0 and primary:
                 _save_state(state_dir, epoch + 1, {
                     "params": params, "opt_state": opt_state.state_dict(),
                     "best_params": best_params, "best_val": best_val,
                     "train_losses": train_losses, "val_losses": val_losses,
                     "tiers": packed_engine.tier_state()})
-            if epoch_hook is not None:
+            if epoch_hook is not None and primary:
                 epoch_hook(epoch, best_params)
 
     test_loss = None
     if test_loader is not None:
         test_loss = clip_engine.evaluate(best_params, esm_params, test_loader, tokenizer,
-                                         eval_step, device, cfg)
+                                         eval_step, device, cfg, prepare)
         log(f"Test Loss: {test_loss:.4f}")
     return FitResult(train_losses, val_losses, best_val, best_params, params, test_loss)

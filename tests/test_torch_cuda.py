@@ -2065,3 +2065,51 @@ def test_mlm_finetune_step_runs_k5_and_matches_k5s_plain_version(dev):
     assert abs(lk - lp) <= FT_LOSS_TOL * abs(lp)
     for a, b in zip(gk, gp):
         assert float((a - b).abs().max()) <= FT_K5_TOL * float(b.abs().max())
+
+
+@pytest.mark.parametrize("arch,mode,packed", [("clip", "frozen", True),
+                                              ("filip", "finetune", False)],
+                         ids=["clip_frozen_packed", "filip_finetune"])
+def test_mesh_step_at_world_size_one_equals_one_device(dev, arch, mode, packed):
+    """The mesh engine's step in an NCCL world of one rank on the card (K1
+    and K2, or K1, K5 and K4, through the gather and the averaged
+    gradients) equals the single-device engine's step on the same device
+    batch to the bit: the loss, every gradient and every updated leaf; the
+    kernels launch as often in both."""
+    from protein_clip_tpu_torch.models import filip as filip_model
+    from protein_clip_tpu_torch.parallel import distributed
+    from protein_clip_tpu_torch.parallel.engine import MeshEngine
+    from protein_clip_tpu_torch.train import clip_engine as ce
+    from protein_clip_tpu_torch.train import filip_finetune, finetune
+
+    mcfg, esm_params = _tiny_t30_like(dev)
+    if arch == "filip":
+        mcfg = filip_model.FILIPConfig(input_dim=128, embedding_dim=64, dropout=0.0,
+                                       esm=mcfg.esm)
+    heads = (filip_model if arch == "filip" else clip).init_params(
+        mcfg, torch.Generator().manual_seed(0), device=dev)
+    params0, esm = ((finetune.init_params(esm_params, heads), {}) if mode == "finetune"
+                    else (heads, esm_params))
+    cfg = clip_engine.EngineConfig(model=mcfg, batch_size=16, accumulated_batches=1,
+                                   num_chunks=2, length_groups=1, packed=packed)
+    single = {("clip", "frozen"): ce, ("filip", "finetune"): filip_finetune}[arch, mode]
+    distributed.initialize(0, 1, f"tcp://127.0.0.1:{distributed.free_port()}", "nccl",
+                           torch.device(dev))
+    try:
+        engine = MeshEngine(data=1, arch=arch, mode=mode, packed=packed)
+        batch = to_device(engine.make_prepare(cfg, EsmTokenizer())(*_pairs(16, seed=7)), dev)
+        out = []
+        for step in (single.make_train_step(cfg), engine.make_train_step(cfg)):
+            params = chip_smoke.clone_tree(params0)
+            state = _capturing(optimizer.adam(1e-3).init(params))
+            before = chip_smoke.counts()
+            _, _, loss = step(params, state, esm, batch, torch.Generator(device=dev).manual_seed(1))
+            torch.cuda.synchronize()
+            grew = {k: v - before[k] for k, v in chip_smoke.counts().items() if v != before[k]}
+            out.append((float(loss), state.grads, [t.detach() for t in state.leaves], grew))
+    finally:
+        distributed.shutdown()
+    (l1, g1, p1, n1), (l2, g2, p2, n2) = out
+    assert l1 == l2 and n1 == n2 and n2, (l1, l2, n1, n2)
+    assert all((a is None and b is None) or torch.equal(a, b) for a, b in zip(g1, g2))
+    assert all(torch.equal(a, b) for a, b in zip(p1, p2))

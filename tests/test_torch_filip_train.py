@@ -467,7 +467,7 @@ def test_cli_checkpoint_loads_in_jax_with_the_same_scores(cli_run):
     (["--packed", "--pack-tiers", "2", "--tp", "2"], NotImplementedError, "multi-device"),
     (["--finetune", "--esm-dtype", "int8"], NotImplementedError, "int8"),
     (["--lora-rank", "4", "--length-groups", "2"], SystemExit, "length-groups"),
-    (["--dp", "2"], NotImplementedError, "multi-device"),
+    (["--dp", "3"], SystemExit, "divisible by --dp 3"),
     (["--finetune", "--lora-rank", "4"], SystemExit, "mutually exclusive"),
     (["--finetune", "--length-groups", "2"], SystemExit, "length-groups"),
     (["--lora-rank", "4", "--packed", "--pack-tiers", "2"], SystemExit, "flat packing")])

@@ -340,7 +340,9 @@ def test_port_and_chip_smoke_import_no_jax():
     for mod in ("train.filip_engine", "cli.main_2protein_filip", "tools.convert_esm_weights",
                 "train.checkpoint", "eval.retrieval", "eval.embed", "eval.pca", "viz.plots",
                 "cli.topk", "cli.cosine_similarity", "models.mlm", "cli.mlm_train",
-                "cli.mlm_sweep", "eval.mlm_sweep"):
+                "cli.mlm_sweep", "eval.mlm_sweep", "parallel.distributed", "parallel.mesh",
+                "parallel.step", "parallel.packed_step", "parallel.filip_step",
+                "parallel.filip_finetune_step", "parallel.engine"):
         assert f"protein_clip_tpu_torch.{mod}" in names
 
 

@@ -398,18 +398,32 @@ def test_cli_main_2protein_packed(tmp_path):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--packed", "--pack-tiers", "2", "--dp", "2"], "multi-device"),
+    (["--packed", "--pack-tiers", "2", "--dp", "2"], "flat packing only"),
     (["--finetune", "--packed", "--pack-tiers", "2"], "flat packing only"),
-    (["--dp", "2"], "multi-device"),
+    (["--dp", "2", "--no-gradcache"], "gradcache"),
     (["--tp", "2"], "multi-device"), (["--pp", "2"], "multi-device"),
     (["--lora-rank", "4", "--packed", "--pack-tiers", "2"], "flat packing only")])
 def test_cli_refuses_what_is_not_ported(tmp_path, extra, match):
-    """A mesh is not ported (with --pack-tiers too); --finetune and
-    --lora-rank with --packed --pack-tiers exit as the TPU package's CLI
-    does. Width tiers themselves run: tests/test_torch_tiers.py."""
+    """Tensor and pipeline parallelism are not ported; a mesh (--dp) exits
+    with --pack-tiers or --no-gradcache, and --finetune and --lora-rank
+    with --packed --pack-tiers, as the TPU package's CLI does, before
+    anything loads. Width tiers themselves run (tests/test_torch_tiers.py),
+    and --dp trains (tests/test_torch_dp.py)."""
     error = NotImplementedError if match == "multi-device" else SystemExit
     with pytest.raises(error, match=match):
         main.main(TINY + ["--runs-dir", str(tmp_path / "runs")] + extra)
+    assert not (tmp_path / "runs").exists()
+
+
+def test_cli_dp_refuses_too_few_cards(tmp_path):
+    """--dp 2 on CUDA wants two cards, one rank each: with fewer it raises,
+    naming the count, before anything loads; it neither shares a card nor
+    runs on the CPU."""
+    if torch.cuda.device_count() >= 2:
+        pytest.skip("this host has two CUDA devices")
+    with pytest.raises(RuntimeError, match=f"{torch.cuda.device_count()} visible"):
+        main.main(["--esm-config", "tiny", "--device", "cuda", "--dp", "2", "--runs-dir",
+                   str(tmp_path / "runs")])
     assert not (tmp_path / "runs").exists()
 
 
@@ -475,5 +489,7 @@ print(" ".join(names))
                 "data.dataset", "data.cluster", "data.synthetic", "data.prefetch",
                 "data.native.build", "ops.infonce", "cli.main", "cli.main_2protein",
                 "cli._clip_runner", "utils.rundir", "train.filip_engine",
-                "cli.main_2protein_filip", "models.mlm", "cli.mlm_train"):
+                "cli.main_2protein_filip", "models.mlm", "cli.mlm_train",
+                "parallel.distributed", "parallel.mesh", "parallel.step", "parallel.packed_step",
+                "parallel.filip_step", "parallel.filip_finetune_step", "parallel.engine"):
         assert f"protein_clip_tpu_torch.{mod}" in names
