@@ -354,6 +354,28 @@ and a nonzero exit code, and no result line:
                 leaves); both ranks' launches returned. (c)
                 cli.main_2protein --dp 2 exits nonzero before anything
                 loads, naming the one visible card.
+7f. tp          tensor parallelism, the 'model' mesh axis (run_tp_phase).
+                Two gloo ranks spawned on the one card, a (1, 2) mesh of
+                t30_150M: (a) the forward of TP_FWD_SEQS fixture receptors
+                on a rank's Megatron slices (K1 on its 10 of 20 heads, 30
+                launches a forward; the row linears' bf16 partials through
+                P1, 60) against the one-device forward: bf16 and gated K6
+                within TP_BF16_TOL (rms of the hidden states' error over
+                theirs) and pooled cosines >= TP_COS_MIN, f32 within
+                TP_F32_TOL, int8 to the bit; the planted fault (the
+                all-reduce after o skipped) past TP_FAULT_MARGIN x
+                TP_BF16_TOL; (d) a rank's bytes of the sharded backbone
+                beside the whole one's. (b) One f32 step each of
+                TP_STEPS (CLIP frozen and finetune, FILIP frozen, MLM head
+                and finetune; TP_PAIRS pairs) against the one-device step
+                on the same batch (DP_GLOO_TOL; F32_FT_TOL for the
+                finetuned backbone), both ranks equal to the bit (split
+                leaves gathered). (c) The MLM head step at dp = 2 on the
+                same ranks, then MLM's mesh in an NCCL world of one rank
+                (head, packed head, finetune; bf16) equal to the
+                one-device steps to the bit, with the same launches. (e)
+                cli.main_2protein --tp 2 exits nonzero before anything
+                loads, naming the one visible card.
 8. step check   one default train step with K2 and one with the plain loss
                 from the same heads and batch (dropout 0, Adam lr 1e-3), at
                 256 and, with K3, at 1024, and one packed step with K2 at
@@ -6839,6 +6861,466 @@ def run_dp_phase() -> dict:
     return {"world1": world1, "gloo": gloo, "refusal": refusal}
 
 
+# ---------------------------------------------------------------------------
+# Phase 7f: tensor parallelism, the 'model' mesh axis (protein_clip_tpu_torch/
+# parallel/sharding.py, the sharded forward of models/esm2.py)
+# ---------------------------------------------------------------------------
+
+# (a) the forward at tp = 2 against one device: TP_FWD_SEQS receptors of the
+# fixture, t30_150M. Each hidden state's error is read as rms(tp - one) /
+# rms(one) over the valid tokens; the pooled embeddings (masked means) by
+# their cosine. bf16 (and gated K6, bf16): the row linears' partial products
+# go through P1 and are summed in f32 and rounded once, where one device's
+# bf16 matmul rounds its own f32 sum once: bf16 roundings that flip, carried
+# through 30 layers. The first reading, 0.0135 (2^-7 was predicted, from
+# the tiny backbone's 4.9e-4 on the CPU), is the order of those sums: one
+# device whose o and wo go through P1 whole reads 0 (the same roundings),
+# one whose o and wo sum two halves through P1 in f32 (the bf16 witness,
+# printed) reads the split's own distance. TP_BF16_TOL is 2^-5, which the
+# planted fault (both ranks skip the all-reduce after o, each keeping its
+# partial; 1.04) must exceed TP_FAULT_MARGIN times; pooled cosines >=
+# TP_COS_MIN. f32: the row
+# partials summed in another order: TP_F32_TOL. int8: exact s32 sums, to
+# the bit.
+TP_FWD_SEQS = 16
+TP_BF16_TOL = 2 ** -5
+TP_F32_TOL = 1e-5
+TP_COS_MIN = 0.9999
+TP_FAULT_MARGIN = 10
+# (b) one step each at tp = 2 on two gloo ranks sharing the card, f32,
+# TP_PAIRS pairs (MLM: TP_PAIRS receptors), against the one-device step on
+# the same batch: the loss within DP_GLOO_TOL relative, every gradient within
+# DP_GLOO_TOL of its leaf's largest (F32_FT_TOL for the finetuned backbone's
+# leaves, as phase 7e holds them); both ranks' losses and gradients equal to
+# the bit (the split leaves gathered over the model group). FILIP's heads
+# are held within TP_FILIP_TOL of the step's largest gradient entry, a limit
+# set after the first reading: the backbone's f32 hidden states at tp = 2
+# sit ~1e-6 from one device's (the row sums' order), which flips near-tied
+# max-sim tokens, whose cotangent then lands on another token's row (2.39e-4
+# of rec/aa_ffn/out/b's largest entry on the card, 2.0e-5 of the step's on
+# the tiny CPU backbone; the loss equal). The planted fault (both ranks skip
+# the all-reduce after o) must exceed TP_FAULT_MARGIN times it.
+TP_PAIRS = 16
+TP_FILIP_TOL = 2 ** -10
+TP_STEPS = (("clip", "frozen"), ("clip", "finetune"), ("filip", "frozen"),
+            ("mlm", "head"), ("mlm", "finetune"))
+TP_KERNELS = {("clip", "frozen"): ("attention_fwd_f32", "infonce"),
+              ("clip", "finetune"): ("attention_fwd_f32", "attention_bwd_f32", "infonce"),
+              ("filip", "frozen"): ("attention_fwd_f32", "filip_maxsim"),
+              ("mlm", "head"): ("attention_fwd_f32",),
+              ("mlm", "finetune"): ("attention_fwd_f32", "attention_bwd_f32")}
+# (c) MLM's mesh in an NCCL world of one rank (bf16, equal to the one-device
+# steps to the bit) and its head step on two gloo ranks at dp = 2 (f32)
+TP_MLM_WORLD1 = (("head", False), ("head", True), ("finetune", False))
+
+
+def tp_fwd_batch() -> tuple:
+    """(ids, mask) of TP_FWD_SEQS fixture receptors, on the card."""
+    _, recs = fixture_pairs(16)
+    enc = common.make_tokenizer()(recs[:TP_FWD_SEQS])
+    return (torch.from_numpy(enc["input_ids"]).cuda(),
+            torch.from_numpy(enc["attention_mask"]).cuda())
+
+
+def tp_backbone(kind: str) -> tuple:
+    """(config, params) of a forward check: t30_150M from the train runs'
+    seed, bf16, f32, int8 (w8a8 over the bf16 tree) or bf16 under the K6
+    gate."""
+    dtype = "float32" if kind == "f32" else "bfloat16"
+    cfg = common.esm_config("t30_150M", "int8" if kind == "int8" else dtype)
+    params = esm2.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                              dtype=cfg.compute_dtype, device="cuda")
+    return cfg, (esm2.quantize_params(params) if kind == "int8" else params)
+
+
+def pooled(hidden: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    m = mask[..., None].float()
+    return (hidden.float() * m).sum(1) / m.sum(1)
+
+
+@contextlib.contextmanager
+def skip_o_reduce():
+    """The planted fault: every rank skips the all-reduce after the
+    attention's o (the row linears alternate o, wo in each layer), each
+    keeping its own partial product; wo's stay, so the ranks' collectives
+    still pair."""
+    from protein_clip_tpu_torch.parallel import distributed as dist_mod
+
+    plain, calls = dist_mod.reduce_from_model, [0]
+
+    def faulty(x, axis):
+        calls[0] += 1
+        return x if calls[0] % 2 == 1 else plain(x, axis)
+
+    dist_mod.reduce_from_model = faulty
+    try:
+        yield
+    finally:
+        dist_mod.reduce_from_model = plain
+
+
+def tp_forward_rank(mesh) -> dict:
+    """A rank's forwards of (a) on its slices: the hidden states (valid
+    tokens' rows, f32 on the host), each path's launches, and the bytes of
+    its sharded backbone against the whole one."""
+    from protein_clip_tpu_torch.parallel import sharding
+    from protein_clip_tpu_torch.parallel.step import tp_model_config
+
+    ids, mask = tp_fwd_batch()
+    out = {}
+    for kind in ("bf16", "f32", "int8", "k6", "fault"):
+        cfg, full = tp_backbone("bf16" if kind in ("k6", "fault") else kind)
+        shards = sharding.shard_params(mesh, full)
+        nbytes = (sharding.nbytes(shards), sharding.nbytes(full))
+        del full
+        gate = ffn_gate() if kind == "k6" else contextlib.nullcontext()
+        fault = skip_o_reduce() if kind == "fault" else contextlib.nullcontext()
+        reset_counts()
+        with gate, fault, torch.no_grad():
+            hidden = esm2.forward(shards, ids, mask, tp_model_config(cfg, mesh))
+        torch.cuda.synchronize()
+        out[kind] = {"hidden": hidden.float().cpu(), "launches": kernel_counts(counts()),
+                     "bytes": nbytes[0], "full_bytes": nbytes[1],
+                     "heads": shards["layers"]["attn"]["q"]["w" if kind != "int8" else "w_q"]
+                     .shape[-1] // cfg.head_dim}
+        del shards, hidden
+    return out
+
+
+def tp_mlm_setup(mode: str, n: int, dtype_name: str = "float32") -> tuple:
+    """(config, trainable, esm slot, view, host arrays, masks) of an MLM
+    check: t30_150M (seed 0) with the run's head (seed 42), the receptors of
+    the first n fixture pairs, masks at 0.15 from a seeded CPU generator
+    (the same in every process)."""
+    cfg = common.esm_config("t30_150M", dtype_name)
+    esm_params = esm2.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                                  dtype=cfg.compute_dtype, device="cuda")
+    head = esm2.init_lm_head(cfg, torch.Generator().manual_seed(42), device="cuda")
+    _, recs = fixture_pairs(16)
+    enc = common.make_tokenizer()(recs[:n])
+    arrs = (torch.from_numpy(enc["input_ids"]), torch.from_numpy(enc["attention_mask"]))
+    host = mlm_train.batch_inputs(arrs, False)
+    masks = mlm_train.draw_masks(torch.Generator().manual_seed(SEED), host, 0.15)
+    return cfg, head, esm_params, arrs, masks
+
+
+def tp_mlm_trainable(mode: str, cfg, head: dict, esm_params: dict) -> tuple:
+    args = argparse.Namespace(seed=42, lora_rank=0, lora_ffn=False)
+    trainable, view, _ = mlm_train.trainable_tree(args, mode, head, esm_params, cfg, "cuda")
+    return trainable, ({} if mode == "finetune" else esm_params), view
+
+
+def tp_mlm_step(mode: str, mesh, rows: slice | None = None, dtype_name: str = "float32") -> dict:
+    """One MLM step of ``mode`` (Adam lr TRAIN_LR) on ``mesh``'s rank (None:
+    one device): the rank's rows of the batch (``rows`` of its masks), its
+    loss, gradients (split leaves gathered), launches."""
+    from protein_clip_tpu_torch.parallel import mlm_step as mesh_mlm, sharding
+    from protein_clip_tpu_torch.parallel.step import tp_model_config
+    from protein_clip_tpu_torch.train.mlm_engine import make_steps
+
+    cfg, head, esm_params, arrs, masks = tp_mlm_setup(mode, TP_PAIRS, dtype_name)
+    step_cfg = cfg if mesh is None else tp_model_config(cfg, mesh)
+    trainable, esm_slot, view = tp_mlm_trainable(mode, step_cfg, head, esm_params)
+    if mesh is not None:
+        trainable = sharding.shard_params(mesh, trainable)
+        esm_slot = sharding.shard_params(mesh, esm_slot)
+        arrs = mesh_mlm.rank_rows(arrs, mesh)
+        masks = tuple(m[rows] for m in masks) if rows is not None else masks
+        step, _ = mesh_mlm.make_sharded_mlm_steps(cfg, mesh, mode, view)
+    else:
+        step, _ = make_steps(cfg, mode, view)
+    inputs = mlm_train.batch_inputs(to_device(arrs, "cuda"), False)
+    state = capturing(optimizer.adam(TRAIN_LR).init(trainable), trainable)
+    reset_counts()
+    _, _, loss = step(trainable, state, esm_slot, inputs, to_device(masks, "cuda"))
+    torch.cuda.synchronize()
+    grads = state.grads
+    if mesh is not None and mesh.model > 1:
+        grads = sharding.gather_params(mesh, grads)
+    return {"loss": float(loss), "grads": {k: g.cpu() for k, g in grads.items()},
+            "launches": kernel_counts(counts())}
+
+
+def tp_clip_step(arch: str, mode: str, mesh) -> dict:
+    """One CLIP or FILIP step of ``mode`` (f32, Adam lr TRAIN_LR) through the
+    MeshEngine on ``mesh`` (None: the single-device engine) over TP_PAIRS
+    pairs: loss, gradients in the one-device layout, launches."""
+    from protein_clip_tpu_torch.parallel import sharding
+    from protein_clip_tpu_torch.parallel.engine import MeshEngine
+
+    cfg, params, esm, peps, recs = dp_gloo_inputs(arch, mode, False, 1)
+    tok = common.make_tokenizer()
+    if mesh is None:
+        step = DP_ENGINES[arch, mode].make_train_step(cfg)
+        batch = clip_engine.tokenize_pair_batch(tok, peps, recs)
+    else:
+        engine = MeshEngine(data=mesh.data, model=mesh.model, arch=arch, mode=mode,
+                            esm=cfg.model.esm)
+        params, esm = engine.prepare_params(params), engine.prepare_esm(esm)
+        step = engine.make_train_step(cfg)
+        batch = engine.make_prepare(cfg, tok)(peps, recs)
+    r = dp_step(step, params, esm, to_device(batch, "cuda"))
+    grads = r["grads"]
+    if mesh is not None and mesh.model > 1:
+        grads = sharding.gather_params(mesh, grads)
+    return {"loss": r["loss"], "grads": {k: g.cpu() for k, g in grads.items()},
+            "launches": kernel_counts(r["launches"]), "seconds": r["seconds"]}
+
+
+def tp_gloo_rank(local_rank: int, out_path: str) -> None:
+    """A rank of the two-rank world: (a) the forwards and (b) the steps on
+    a (1, 2) mesh, (c) the MLM head step on a (2, 1) one; writes rank
+    <r>.pt."""
+    from protein_clip_tpu_torch.parallel import distributed
+    from protein_clip_tpu_torch.parallel.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tp = make_mesh(data=1, model=2, esm_cfg=esm2.ESM2Config.t30_150M())
+    out = {"forwards": tp_forward_rank(tp), "steps": {}}
+    for arch, mode in TP_STEPS:
+        t0 = time.perf_counter()
+        out["steps"][f"{arch}_{mode}"] = (tp_mlm_step(mode, tp) if arch == "mlm"
+                                          else tp_clip_step(arch, mode, tp))
+        out["steps"][f"{arch}_{mode}"]["rank_seconds"] = time.perf_counter() - t0
+    with skip_o_reduce():
+        out["filip_fault"] = tp_clip_step("filip", "frozen", tp)
+    dp2 = make_mesh(data=2, model=1)
+    b = TP_PAIRS // 2
+    out["mlm_dp2"] = tp_mlm_step("head", dp2, slice(dp2.index * b, (dp2.index + 1) * b))
+    torch.save(out, Path(out_path) / f"rank{distributed.rank()}.pt")
+
+
+@contextlib.contextmanager
+def split_row_linears(cfg):
+    """One device's forward with its o and wo summed from two halves of
+    their input through P1 in f32, rounded once: the arithmetic of the
+    row linears at tp = 2 with no ranks, the bf16 witness of (a). Yields
+    the config to run."""
+    from protein_clip_tpu_torch.parallel import distributed as dist_mod
+
+    def split(x, w):
+        k = x.shape[1] // 2
+        return sum(dense_mm.mm(x[:, i:i + k].contiguous(), w[i:i + k].contiguous(),
+                               torch.float32) for i in (0, k))
+
+    plain, partial = dist_mod.reduce_from_model, esm2._PartialMM.apply
+    dist_mod.reduce_from_model, esm2._PartialMM.apply = (lambda x, axis: x), split
+    try:
+        yield dataclasses.replace(cfg, model_axis=dist_mod.ModelAxis(1, 0))
+    finally:
+        dist_mod.reduce_from_model, esm2._PartialMM.apply = plain, partial
+
+
+def rel_rms(got: torch.Tensor, want: torch.Tensor, mask: torch.Tensor) -> float:
+    valid = mask.bool().cpu()
+    d = (got - want)[valid]
+    return float(d.square().mean().sqrt() / want[valid].square().mean().sqrt())
+
+
+def tp_forward_checks(ranks: list[dict]) -> dict:
+    """(a) against the one-device forwards of this process."""
+    ids, mask = tp_fwd_batch()
+    out = {}
+    for kind in ("bf16", "f32", "int8", "k6"):
+        cfg, full = tp_backbone(kind)
+        gate = ffn_gate() if kind == "k6" else contextlib.nullcontext()
+        with gate, torch.no_grad():
+            one = esm2.forward(full, ids, mask, cfg).float().cpu()
+        if kind == "bf16":
+            with split_row_linears(cfg) as wcfg, torch.no_grad():
+                witness = esm2.forward(full, ids, mask, wcfg).float().cpu()
+            out["bf16_witness_rel_rms"] = rel_rms(witness, one, mask)
+            del witness
+        r0, r1 = ranks[0]["forwards"][kind], ranks[1]["forwards"][kind]
+        same = torch.equal(r0["hidden"], r1["hidden"])
+        err = rel_rms(r0["hidden"], one, mask)
+        cos = float(torch.nn.functional.cosine_similarity(
+            pooled(r0["hidden"], mask.cpu()), pooled(one, mask.cpu()), dim=-1).min())
+        out[kind] = {"rel_rms": err, "cos_min": cos, "ranks_equal": same,
+                     "launches": r0["launches"], "heads": r0["heads"],
+                     "rank_bytes": r0["bytes"], "one_device_bytes": r0["full_bytes"]}
+        if kind == "bf16":
+            out["fault_rel_rms"] = rel_rms(ranks[0]["forwards"]["fault"]["hidden"], one, mask)
+        del full
+    tol = {"bf16": TP_BF16_TOL, "k6": TP_BF16_TOL, "f32": TP_F32_TOL, "int8": 0.0}
+    want = {"bf16": {"attention_fwd": 30, "dense_mm": 60}, "f32": {"attention_fwd_f32": 30},
+            "int8": {"attention_fwd": 30, "dense_mm": 180},
+            "k6": {"attention_fwd": 30, "ffn_gelu": 30, "dense_mm": 60}}
+    ok = out["fault_rel_rms"] > TP_FAULT_MARGIN * TP_BF16_TOL
+    for kind, row in out.items():
+        if not isinstance(row, dict):
+            continue
+        good = (row["ranks_equal"] and row["rel_rms"] <= tol[kind] and row["launches"] == want[kind]
+                and row["heads"] == 10 and (kind == "int8" and row["rel_rms"] == 0.0
+                                            or kind != "int8" and row["cos_min"] >= TP_COS_MIN))
+        ok = ok and good
+        log(f"[tp] forward at tp = 2 vs one device, {kind}, {tuple(ids.shape)}: rms(tp - one) / "
+            f"rms(one) {row['rel_rms']:.3g} (tolerance {tol[kind]:g}{', to the bit' if kind == 'int8' else ''}), "
+            f"pooled cosine min {row['cos_min']:.7f} (>= {TP_COS_MIN}); ranks equal {row['ranks_equal']}; "
+            f"a rank's launches {row['launches']} on {row['heads']} heads (want {want[kind]}); "
+            f"its backbone {row['rank_bytes'] / 1e6:.1f} MB of the one device's "
+            f"{row['one_device_bytes'] / 1e6:.1f} MB {'ok' if good else 'FAIL'}")
+    log(f"[tp] bf16 witness (one device, o and wo summed from two halves through P1 in f32): "
+        f"rms(witness - "
+        f"one) / rms(one) {out['bf16_witness_rel_rms']:.3g}; planted fault (the all-reduce after "
+        f"o skipped): {out['fault_rel_rms']:.3g}, must pass {TP_FAULT_MARGIN} x "
+        f"{TP_BF16_TOL:g}")
+    if not ok:
+        raise AssertionError("the forward at tp = 2 disagrees with one device")
+    return out
+
+
+def tp_step_gaps(got: dict, one: dict, finetune: bool, filip: bool) -> tuple[float, dict]:
+    """(loss gap, each leaf's gradient gap over its scale, each leaf's
+    tolerance): the scale is the leaf's largest entry, FILIP's the step's."""
+    loss_rel = abs(got["loss"] - one["loss"]) / abs(one["loss"])
+    step_max = max(float(g.abs().max()) for g in one["grads"].values())
+    worst = {k: float((got["grads"][k] - g).abs().max())
+             / max(step_max if filip else float(g.abs().max()), 1e-30)
+             for k, g in one["grads"].items()}
+    tol = {k: F32_FT_TOL if finetune and k.startswith("esm/") else
+           TP_FILIP_TOL if filip else DP_GLOO_TOL for k in worst}
+    return loss_rel, worst, tol
+
+
+def tp_step_checks(ranks: list[dict]) -> dict:
+    """(b) and the gloo part of (c) against this process's one-device steps."""
+    out, launches = {}, {}
+    for arch, mode in TP_STEPS + (("mlm_dp2", "head"),):
+        name = f"{arch}_{mode}" if arch != "mlm_dp2" else "mlm_dp2"
+        r0, r1 = (r["steps"].get(name) or r[name] for r in ranks)
+        same = r0["loss"] == r1["loss"] and all(torch.equal(g, r1["grads"][k])
+                                                for k, g in r0["grads"].items())
+        if arch in ("mlm", "mlm_dp2"):
+            one = tp_mlm_step(mode, None)
+        else:
+            one = tp_clip_step(arch, mode, None)
+        loss_rel, worst, tol = tp_step_gaps(r0, one, mode == "finetune", arch == "filip")
+        fault = ""
+        if arch == "filip":
+            read = max(tp_step_gaps(ranks[0]["filip_fault"], one, False, True)[1].values())
+            fault = f"; the planted fault {read:.3g}"
+            ok_fault = read > TP_FAULT_MARGIN * TP_FILIP_TOL
+        top = max(worst, key=worst.get)
+        kernels = TP_KERNELS.get((arch if arch != "mlm_dp2" else "mlm", mode), ())
+        ran = all(r0["launches"].get(k) for k in kernels)
+        ok = same and ran and loss_rel <= DP_GLOO_TOL and all(worst[k] <= tol[k] for k in worst) \
+            and r0["grads"].keys() == one["grads"].keys() and (arch != "filip" or ok_fault)
+        for k, v in r0["launches"].items():
+            launches[k] = launches.get(k, 0) + v + r1["launches"].get(k, 0)
+        log(f"[tp] {name} f32 at {'dp = 2' if arch == 'mlm_dp2' else 'tp = 2'} on two gloo ranks, "
+            f"{TP_PAIRS} {'receptors' if arch.startswith('mlm') else 'pairs'}: loss "
+            f"{r0['loss']:.7f} vs one device {one['loss']:.7f} (relative {loss_rel:.3g}, "
+            f"tolerance {DP_GLOO_TOL:g}); worst gradient {top} {worst[top]:.3g} of "
+            f"{'the step' if arch == 'filip' else 'its leaf'}'s largest (tolerance "
+            f"{tol[top]:.3g}{fault}); ranks equal to the bit {same}; a rank's "
+            f"launches {r0['launches']} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name} on the mesh disagrees with the one-device step")
+        out[name] = {"loss_rel": loss_rel, "grad_rel": worst[top], "launches": r0["launches"]}
+    return {"steps": out, "launches": launches}
+
+
+def tp_gloo() -> dict:
+    """(a), (b) and (c)'s two-rank part: two gloo ranks spawned on the one
+    card (they load this process's builds), checked here against one
+    device. gloo's all-reduce MAX (f32) and SUM (int32) on CUDA tensors
+    carry the int8 row linears: if gloo refuses them the phase fails."""
+    from protein_clip_tpu_torch.parallel import distributed
+
+    fixture_pairs(16)     # written here, before the ranks read it
+    work = WORK / "tp_gloo"
+    work.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    distributed.spawn(tp_gloo_rank, (str(work),), 2, world=2,
+                      init_method=f"tcp://127.0.0.1:{distributed.free_port()}", backend="gloo",
+                      device_type="cuda", cards=[0, 0])
+    log(f"[timing] tp two gloo ranks, spawn and rank work: {time.perf_counter() - t0:.1f} s")
+    ranks = [torch.load(work / f"rank{r}.pt") for r in range(2)]
+    forwards = timed("tp forward checks", tp_forward_checks, ranks)
+    steps = timed("tp step checks", tp_step_checks, ranks)
+    return {"forwards": forwards, **steps}
+
+
+def tp_mlm_world1() -> dict:
+    """(c): MLM's mesh steps in an NCCL world of one rank (bf16 t30_150M,
+    TP_PAIRS receptors, fixed masks) against the one-device steps, equal to
+    the bit (loss and every gradient), with the same launches."""
+    from protein_clip_tpu_torch.parallel import distributed, mlm_step as mesh_mlm
+    from protein_clip_tpu_torch.parallel.mesh import make_mesh
+    from protein_clip_tpu_torch.train.mlm_engine import make_steps
+
+    distributed.initialize(0, 1, f"tcp://127.0.0.1:{distributed.free_port()}", "nccl",
+                           torch.device("cuda", 0))
+    out = {}
+    try:
+        mesh = make_mesh()
+        for mode, packed in TP_MLM_WORLD1:
+            name = f"mlm_{mode}{'_packed' if packed else ''}"
+            cfg, head, esm_params, arrs, _ = tp_mlm_setup(mode, TP_PAIRS, "bfloat16")
+            if packed:
+                _, recs = fixture_pairs(16)
+                arrs = (packed_engine.tokenize_packed_rows_sharded(
+                    common.make_tokenizer(), recs[:TP_PAIRS], 1),)
+            inputs = mlm_train.batch_inputs(to_device(arrs, "cuda"), packed)
+            masks = mlm_train.draw_masks(torch.Generator(device="cuda").manual_seed(SEED), inputs,
+                                         0.15)
+            got = {}
+            for which, steps in (("mesh", mesh_mlm.make_sharded_mlm_steps), ("one", None)):
+                trainable, esm_slot, view = tp_mlm_trainable(mode, cfg, clone_tree(head),
+                                                             esm_params)
+                step = (steps(cfg, mesh, mode, view)[0] if steps else
+                        make_steps(cfg, mode, view)[0])
+                state = capturing(optimizer.adam(TRAIN_LR).init(trainable), trainable)
+                reset_counts()
+                _, _, loss = step(trainable, state, esm_slot, inputs, masks)
+                torch.cuda.synchronize()
+                got[which] = {"loss": float(loss), "grads": state.grads,
+                              "launches": kernel_counts(counts())}
+            m, o = got["mesh"], got["one"]
+            ok = (m["loss"] == o["loss"] and m["launches"] == o["launches"]
+                  and m["launches"].get("attention_fwd")
+                  and all(torch.equal(m["grads"][k], g) for k, g in o["grads"].items()))
+            log(f"[tp] MLM mesh at world size 1 (NCCL) {name}, bf16, {TP_PAIRS} receptors: loss "
+                f"{m['loss']:.6f} vs one device {o['loss']:.6f}; launches {m['launches']} vs "
+                f"{o['launches']}; equal to the bit {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"the MLM mesh step {name} at world size 1 disagrees")
+            out[name] = {"loss": m["loss"], "launches": m["launches"]}
+            del got, m, o
+    finally:
+        distributed.shutdown()
+    return out
+
+
+def tp_refusal() -> dict:
+    """(e): cli.main_2protein --tp 2 on this one-card machine exits nonzero
+    before anything loads, naming the card count."""
+    data, runs = WORK / "tp_refusal_data", WORK / "tp_refusal_runs"
+    proc = subprocess.run(
+        [sys.executable, "-m", "protein_clip_tpu_torch.cli.main_2protein", "--esm-config",
+         "tiny", "--synthetic-fixture", "--data-dir", str(data), "--fixture-families", "40",
+         "--batch-size", "4", "--accumulated-batches", "2", "--epochs", "1", "--runs-dir",
+         str(runs), "--tp", "2"], capture_output=True, text=True, cwd=ROOT, timeout=300)
+    visible = torch.cuda.device_count()
+    if proc.returncode == 0 or f"{visible} visible" not in proc.stderr or runs.exists():
+        raise AssertionError(f"cli.main_2protein --tp 2 on {visible} card(s): exit "
+                             f"{proc.returncode}, {proc.stderr[-2000:]}")
+    message = proc.stderr.strip().splitlines()[-1]
+    log(f"[tp] cli.main_2protein --tp 2 on {visible} card: exit {proc.returncode}: {message}")
+    return {"exit": proc.returncode, "message": message}
+
+
+def run_tp_phase() -> dict:
+    """Phase 7f: the forward and the steps at tp = 2 on two gloo ranks (a,
+    b, d), MLM's mesh (c), the one-card refusal (e)."""
+    gloo = timed("tp two gloo ranks", tp_gloo)
+    world1 = timed("tp MLM world 1 (NCCL)", tp_mlm_world1)
+    refusal = timed("tp refusal", tp_refusal)
+    return {"gloo": gloo, "mlm_world1": world1, "refusal": refusal}
+
+
 def stop(server_ctx: dict) -> None:
     server_ctx["server"].shutdown()
     server_ctx["server"].server_close()
@@ -6961,6 +7443,8 @@ def main() -> int:
             phase_done("step checks")
             dpctx = timed("run_dp_phase", run_dp_phase)
             phase_done("dp")
+            tpctx = timed("run_tp_phase", run_tp_phase)
+            phase_done("tp")
             ictx = run_int8_serve_phase(ctx)
             try:
                 i8train = run_int8_train()
@@ -7064,7 +7548,12 @@ def main() -> int:
              **{name: kernel_counts(run["launches"]) for name, run in ectx.items()},
              "figures": kernel_counts(FIGURES["launches"]),
              "train_dp_world1": kernel_counts(dpctx["world1"]["launches"]),
-             "train_dp_gloo2": kernel_counts(dpctx["gloo"]["launches"])}
+             "train_dp_gloo2": kernel_counts(dpctx["gloo"]["launches"]),
+             "train_tp2_gloo": tpctx["gloo"]["launches"],
+             **{f"forward_tp2_{kind}": row["launches"]
+                for kind, row in tpctx["gloo"]["forwards"].items() if isinstance(row, dict)},
+             **{f"train_{name}_world1": row["launches"]
+                for name, row in tpctx["mlm_world1"].items()}}
     by_path = {name: {path: counts.get(name, 0) for path, counts in paths.items()}
                for name in ("attention_fwd", "attention_bwd", *F32_KERNELS, "filip_maxsim",
                             "infonce", "infonce_tiled", "dense_mm", "ffn_gelu", "ffn_gelu_f32")}
@@ -7107,6 +7596,9 @@ def main() -> int:
         "families": families,
         "train_dp": {"world1_nccl": dpctx["world1"]["steps"], "gloo2_one_card":
                      dpctx["gloo"]["steps"], "refusal": dpctx["refusal"]},
+        "tp": {"forwards": tpctx["gloo"]["forwards"], "steps_gloo2_one_card":
+               tpctx["gloo"]["steps"], "mlm_world1_nccl": tpctx["mlm_world1"],
+               "refusal": tpctx["refusal"]},
     }, {
         "name": "attention_bwd", "phase": "train_finetune", "route": "cuda",
         "source": "protein_clip_tpu_torch/csrc/attention_bwd.cu",

@@ -6,7 +6,8 @@ data, and the tokenizer.
 
 Entry points run on ``cuda`` unless ``--device cpu`` is given; asking for
 CUDA where there is none raises, and nothing falls back to the CPU. A mesh
-(``--dp`` > 1) runs one rank a device (``launch``), never two on a card.
+(``--dp`` or ``--tp`` > 1) runs one rank a device (``launch``), never two on
+a card.
 """
 
 from __future__ import annotations
@@ -128,9 +129,10 @@ def add_train_args(p: argparse.ArgumentParser) -> None:
 
 def add_mesh_args(p: argparse.ArgumentParser) -> None:
     """The mesh flags of the CLIP and FILIP training entry points (the TPU
-    package's): the data axis trains on ``--dp`` ranks, one a device, and
-    ``--dp 1`` (the default) is the single-device path unchanged. --tp, --pp
-    and --pp-microbatches other than 1 raise (``check_single_device``)."""
+    package's): the data axis trains on ``--dp`` ranks and the model axis
+    shards the backbone over ``--tp``, one rank a device; ``--dp 1 --tp 1``
+    (the default) is the single-device path unchanged. --pp and
+    --pp-microbatches other than 1 raise (``check_single_device``)."""
     p.add_argument("--dp", type=int, default=1,
                    help="data-parallel ranks, one a device (parallel/engine.py): each encodes "
                         "its rows, the embeddings (FILIP: the receptor tokens) are gathered so "
@@ -140,10 +142,23 @@ def add_mesh_args(p: argparse.ArgumentParser) -> None:
                         "a rank); under torchrun it joins that world. 0 = the ranks the launch "
                         "provides (WORLD_SIZE, else the visible cards, else 1 on the CPU) over "
                         "--tp x --pp")
-    p.add_argument("--tp", type=int, default=1, help="tensor-parallel axis (1 only: not ported)")
+    add_tp_arg(p)
     p.add_argument("--pp", type=int, default=1, help="pipeline stages (1 only: not ported)")
     p.add_argument("--pp-microbatches", type=int, default=None,
                    help="with --pp: microbatches a step (not ported)")
+    add_launch_args(p)
+
+
+def add_tp_arg(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel ranks, one a device (parallel/sharding.py): the backbone's "
+                        "heads and FFN columns split the Megatron way over the 'model' axis, "
+                        "each rank holding its slices (the finetune f32 masters too); composes "
+                        "with --dp (--dp x --tp ranks) and with every unpacked mode")
+
+
+def add_launch_args(p: argparse.ArgumentParser) -> None:
+    """The flags that join ranks across processes or hosts."""
     p.add_argument("--coordinator", default=None,
                    help="host:port of the rendezvous when the ranks span several processes or "
                         "hosts: every process runs the same command with --num-processes and "
@@ -153,8 +168,8 @@ def add_mesh_args(p: argparse.ArgumentParser) -> None:
 
 
 def check_train_args(args) -> None:
-    """Raise on the training options this port does not run yet (a mesh
-    beyond the data axis), on --finetune with --lora-rank and on either of
+    """Raise on the training options this port does not run yet (pipeline
+    stages), on --finetune with --lora-rank and on either of
     them with --packed --pack-tiers (as the TPU package does), and on either
     of them with --esm-dtype int8, before anything is loaded."""
     if args.finetune and args.lora_rank:
@@ -173,20 +188,21 @@ def check_train_args(args) -> None:
 
 
 def check_single_device(args) -> None:
-    """Raise on the mesh axes this port does not run yet: --tp, --pp and
-    --pp-microbatches other than 1 (the data axis, --dp, runs)."""
-    if ((getattr(args, "tp", 1), getattr(args, "pp", 1)) != (1, 1)
+    """Raise on the mesh axis this port does not run yet: --pp and
+    --pp-microbatches other than 1 (the data and model axes, --dp and
+    --tp, run)."""
+    if (getattr(args, "pp", 1) != 1
             or getattr(args, "pp_microbatches", None) not in (None, 1)):
-        raise NotImplementedError("not ported yet: --tp/--pp/--pp-microbatches other than 1: "
-                                  "multi-device training beyond the data axis (ROADMAP queue "
-                                  "1: multi-device)")
+        raise NotImplementedError("not ported yet: --pp/--pp-microbatches other than 1: "
+                                  "pipeline stages, multi-device training beyond the data and "
+                                  "model axes (ROADMAP queue 1: multi-device, PP)")
 
 
 def resolve_mesh_shape(args) -> tuple[int, int, int]:
     """(dp, tp, pp), --dp 0 resolved to the ranks the launch provides
     (WORLD_SIZE, else the visible cards on CUDA, else 1 on the CPU) over
     tp x pp."""
-    dp, tp, pp = args.dp, args.tp, args.pp
+    dp, tp, pp = args.dp, args.tp, getattr(args, "pp", 1)
     if dp == 0:
         if "WORLD_SIZE" in os.environ:
             ranks = int(os.environ["WORLD_SIZE"])
@@ -210,7 +226,7 @@ def _check_cards(device: torch.device, n_local: int, n: int) -> None:
     if device.type == "cuda" and visible < n_local:
         raise RuntimeError(f"a mesh of {n} ranks needs {n_local} CUDA cards on this host, one "
                            f"rank a card; {visible} visible (pass --device cpu for gloo ranks "
-                           "on the CPU, or --dp 1)")
+                           "on the CPU, or --dp 1 --tp 1)")
 
 
 def maybe_init_distributed(args) -> None:

@@ -35,10 +35,13 @@ direction-averaged FILIP similarity as the heatmaps. Runs on cuda unless
 With --dp N > 1 every mode trains on N ranks (``parallel/engine.py``:
 each rank scores its rows against the gathered receptor tokens), one pad
 bucket or flat-packed; --scatter-tiers and --length-groups are ignored
-there, and a --batch-size the data axis does not divide exits.
+there, and a --batch-size the data axis does not divide exits. --tp N
+shards the backbone over N ranks the Megatron way (every unpacked mode,
+alone or with --dp; K4 scores the tokens, which the model ranks share);
+--packed with --tp raises, as in the TPU package.
 
 Not ported yet, raising ``NotImplementedError`` before anything loads:
---tp, --pp. Refused as in the TPU package: --finetune or --lora-rank with
+--pp. Refused as in the TPU package: --finetune or --lora-rank with
 --packed --pack-tiers, or with --length-groups; and, where the TPU package
 fails, --esm-dtype int8 with an unfrozen mode.
 """
@@ -50,7 +53,8 @@ import argparse
 import torch
 
 from . import common
-from ._clip_runner import check_mesh, eval_view, figure_hooks, mesh_engine_of, run_dir_of
+from ._clip_runner import (check_mesh, eval_view, figure_hooks, full_backbone, mesh_engine_of,
+                           run_dir_of)
 from ..data.dataset import PairLoader, generate_datasets
 from ..data.prefetch import to_device
 from ..models import filip
@@ -96,8 +100,8 @@ def filip_similarity_viz(params, esm_params, mcfg, tokenizer, device):
 def check_filip_args(args) -> None:
     """The TPU package's mutual exclusions (SystemExit), then the options
     this port does not run yet or refuses (``common.check_train_args``:
-    NotImplementedError for --tp and --pp, and int8 with an unfrozen
-    mode), before anything is loaded."""
+    NotImplementedError for --pp, and int8 with an unfrozen mode), before
+    anything is loaded."""
     if args.finetune and args.lora_rank:
         raise SystemExit("--finetune and --lora-rank are mutually exclusive "
                          "(full vs parameter-efficient)")
@@ -122,16 +126,16 @@ def run_filip_training(args) -> int:
     launched = common.launch(args, run_filip_training)
     if launched is not None:
         return launched
+    esm_cfg = common.esm_config(args.esm_config, args.esm_dtype, fast_gelu=args.fast_gelu,
+                                exact_gelu=args.exact_gelu)
     mesh_engine = mesh_engine_of(args, arch="filip", packed=args.packed, ignored={
         "--length-groups": args.length_groups,
-        "--scatter-tiers": args.scatter_tiers if args.packed else 1})
+        "--scatter-tiers": args.scatter_tiers if args.packed else 1}, esm=esm_cfg)
     packed_engine.clear_tier_width_cache()      # a run packs from its own first batch
     device = resolve_device(args.device)
     generator = prng.set_seed(args.seed)
     run_dir = run_dir_of(args)
 
-    esm_cfg = common.esm_config(args.esm_config, args.esm_dtype, fast_gelu=args.fast_gelu,
-                                exact_gelu=args.exact_gelu)
     esm_params = common.load_esm(args, esm_cfg, device)
     tokenizer = common.make_tokenizer()
     mcfg = filip.FILIPConfig(input_dim=esm_cfg.hidden_size, embedding_dim=args.embedding_dim,
@@ -141,10 +145,11 @@ def run_filip_training(args) -> int:
     params, esm_params, engine = common.unfrozen_params(
         args, params, esm_params, device, finetune_engine=filip_finetune,
         lora_engine=filip_lora, frozen_engine=filip_engine)
-    view = eval_view(args, mcfg, esm_params)
+    view = eval_view(args, mcfg)
 
-    def similarity(p):
-        return filip_similarity_viz(*view(p), mcfg, tokenizer, device)
+    def similarity(p, esm=None):
+        esm = full_backbone(mesh_engine, esm_params) if esm is None else esm
+        return filip_similarity_viz(*view(p, esm), mcfg, tokenizer, device)
 
     data_dir = common.primary_first(common.ensure_data, args, "protein1", "protein2")
     train_ds, val_ds, test_ds = common.primary_first(
@@ -160,7 +165,11 @@ def run_filip_training(args) -> int:
         plots.plot_clustering(run_dir, data_dir, prefix="protein2")
         plots.plot_protein_lengths(run_dir, data_dir)
         plots.plot_embedding_cosine_similarities(run_dir, "Raw Embedding Cosine Similarities",
-                                                 train_loader, tokenizer, similarity(params))
+                                                 train_loader, tokenizer,
+                                                 similarity(params, esm_params))
+    if mesh_engine:
+        # a rank keeps only its slices of the backbone from here on
+        params, esm_params = mesh_engine.prepare_params(params), mesh_engine.prepare_esm(esm_params)
 
     cfg = clip_engine.EngineConfig(
         model=mcfg, batch_size=args.batch_size, accumulated_batches=1, learning_rate=args.lr,

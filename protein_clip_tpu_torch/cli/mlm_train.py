@@ -1,9 +1,10 @@
 """MLM training (the port of ``protein_clip_tpu.cli.mlm_train``): the
-masked-token objective over the shared ESM-2 stack, on one device.
+masked-token objective over the shared ESM-2 stack, on one device or a
+(data, model) mesh.
 
     python -m protein_clip_tpu_torch.cli.mlm_train --synthetic-fixture --data-dir d \\
         --epochs 1 [--side a|b|both] [--mask-prob 0.15] [--packed]
-        [--finetune | --lora-rank 8 [--lora-ffn]] [--device cpu]
+        [--finetune | --lora-rank 8 [--lora-ffn]] [--dp N] [--tp N] [--device cpu]
 
 Trains the LM head (dense, gelu, LayerNorm, the decoder tied to the token
 embedding; ``esm2.init_lm_head``) on token-level masking at --mask-prob
@@ -21,30 +22,47 @@ Loss,Validation Loss``) and, at each better validation loss,
 ``best_model.npz``: the head, or {esm, head} / {lora, head}, the flat npz
 both packages read.
 
-Not ported yet: --dp/--tp other than 1 (multi-device, raising
-``NotImplementedError``). Refused, where the TPU package fails or ignores
-the flag: --esm-dtype int8 with --finetune or --lora-rank (the int8 tree
-has no weights to train); --resume-dir (the TPU package's MLM run keeps no
-train state) and --pack-tiers > 1 (MLM packs one width, as the TPU
-package's does).
+--dp N and --tp N (and both: a (data, model) mesh of --dp x --tp ranks,
+one a device, started by ``common.launch`` as the CLIP CLIs' ranks are, or
+joined with --coordinator/--num-processes/--process-id or under torchrun)
+run ``parallel/mlm_step.py``: each data index trains on its rows of the
+batch (packed: its shard of ``tokenize_packed_rows_sharded``), with masks
+from the step's generator and the data index, the loss the mean over every
+shard's masked positions and the gradients averaged over the data axis;
+the model axis shards the backbone (and the --finetune masters) the
+Megatron way. Every mode composes with the mesh; int8 trains the head only,
+as on one device. Rank 0 writes the run, ``best_model.npz`` in the
+one-device layout.
+
+Refused, where the TPU package fails or ignores the flag: --esm-dtype int8
+with --finetune or --lora-rank (the int8 tree has no weights to train);
+--resume-dir (the TPU package's MLM run keeps no train state) and
+--pack-tiers > 1 (MLM packs one width, as the TPU package's does).
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
-from typing import Callable
 
 import torch
 
 from . import common
+from ._clip_runner import run_dir_of
 from ..data.dataset import PairLoader, generate_datasets
 from ..data.prefetch import prefetch_to_device
 from ..models import esm2, mlm
+from ..parallel import distributed, mlm_step, sharding
+from ..parallel.mesh import check_model_axis, make_mesh
+from ..parallel.step import tp_model_config
 from ..train import checkpoint, finetune, lora, optimizer as opt_mod
-from ..train.packed_engine import derive_segments, tokenize_packed_rows
-from ..utils import prng, rundir
+from ..train.mlm_engine import make_steps
+from ..train.packed_engine import (derive_segments, tokenize_packed_rows,
+                                   tokenize_packed_rows_sharded)
+from ..utils import prng
 from ..utils.device import resolve_device
+
 
 def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__,
@@ -57,8 +75,13 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--prefix-b", default="receptor")
     p.add_argument("--side", default="b", choices=["a", "b", "both"],
                    help="which side's sequences to train on")
-    p.add_argument("--dp", type=int, default=1, help="data-parallel devices (1 only)")
-    p.add_argument("--tp", type=int, default=1, help="tensor-parallel devices (1 only)")
+    p.add_argument("--dp", type=int, default=1,
+                   help="data-parallel ranks, one a device (parallel/mlm_step.py): the batch "
+                        "shards over the 'data' axis, the loss is the mean over every shard's "
+                        "masked positions and the gradients are averaged; composes with "
+                        "--packed (rows dealt per shard), --finetune, --lora-rank and --tp")
+    common.add_tp_arg(p)
+    common.add_launch_args(p)
     return p
 
 
@@ -78,10 +101,13 @@ def check_mlm_args(args) -> None:
     if args.pack_tiers > 1:
         raise SystemExit("cli.mlm_train packs its rows at one width (tokenize_packed_rows); "
                          "drop --pack-tiers")
-    if (args.dp, args.tp) != (1, 1):
-        raise NotImplementedError("not ported yet: --dp/--tp other than 1 in cli.mlm_train: "
-                                  "multi-device MLM training (ROADMAP queue 1: multi-device, "
-                                  "MLM's mesh)")
+    if args.dp < 1:
+        raise SystemExit(f"--dp {args.dp}: cli.mlm_train takes a positive data axis")
+    seqs = args.batch_size * (2 if args.side == "both" else 1)
+    if not args.packed and seqs % args.dp:
+        raise SystemExit(f"the {seqs} sequences a batch holds must be divisible by --dp "
+                         f"{args.dp} (batches shard over the data axis)")
+    check_model_axis(common.esm_config(args.esm_config, args.esm_dtype), args.tp)
 
 
 def batch_inputs(arrs: tuple, packed: bool) -> dict:
@@ -99,43 +125,13 @@ def draw_masks(generator: torch.Generator, inputs: dict, p: float) -> tuple:
     return mlm.mask_tokens(generator, inputs["ids"], inputs["mask"], p)
 
 
-def make_steps(cfg: esm2.ESM2Config, mode: str,
-               view: Callable[[dict, dict], dict] | None = None) -> tuple[Callable, Callable]:
-    """(train_step, eval_step) of a mode. ``train_step(trainable, opt_state,
-    esm_params, inputs, masks) -> (trainable, opt_state, loss)`` with
-    ``inputs`` from ``batch_inputs`` and ``masks`` from ``draw_masks``;
-    ``eval_step(trainable, esm_params, inputs, masks) -> loss``. In mode
-    "head" the trainable tree is the LM head over ``esm_params``; otherwise
-    {esm or lora, head}, ``view(trainable, esm_params)`` giving the
-    compute-dtype backbone, run with remat."""
-    remat = mode != "head"
-
-    def loss_of(trainable, esm_params, inputs, masks, remat_now):
-        esm_p = view(trainable, esm_params) if mode != "head" else esm_params
-        head = trainable if mode == "head" else trainable["head"]
-        masked, labels = masks
-        return mlm.mlm_loss(esm_p, head, masked, inputs["mask"], labels, cfg, remat=remat_now,
-                            segment_ids=inputs["seg"], positions=inputs["pos"])
-
-    def train_step(trainable, opt_state, esm_params, inputs, masks):
-        loss = loss_of(trainable, esm_params, inputs, masks, remat)
-        loss.backward()
-        opt_state.apply()
-        return trainable, opt_state, loss.detach()
-
-    @torch.no_grad()
-    def eval_step(trainable, esm_params, inputs, masks):
-        return loss_of(trainable, esm_params, inputs, masks, False)
-
-    return train_step, eval_step
-
-
 def trainable_tree(args, mode: str, lm_head: dict, esm_params: dict,
                    cfg: esm2.ESM2Config, device) -> tuple:
     """(trainable tree, view, the optimizer groups' tree name): the head
     alone; an f32 master copy of the backbone beside it (cast to the
     compute dtype inside the graph); or LoRA adapters (from a generator
-    seeded --seed + 1) merged into the frozen base."""
+    seeded --seed + 1) merged into the frozen base (a rank's slices of it
+    where ``cfg`` has a model axis)."""
     if mode == "finetune":
         return ({"esm": finetune.init_params(esm_params, {})["esm"], "head": lm_head},
                 lambda t, _: finetune._cast_esm(t["esm"], cfg.compute_dtype), "esm")
@@ -145,7 +141,7 @@ def trainable_tree(args, mode: str, lm_head: dict, esm_params: dict,
         alpha = lora.default_alpha(args.lora_rank)
         return ({"lora": lora.init_lora(gen, esm_params, args.lora_rank, targets),
                  "head": lm_head},
-                lambda t, e: lora.merge_lora(e, t["lora"], alpha), "lora")
+                lambda t, e: lora.merge_lora(e, t["lora"], alpha, cfg.model_axis), "lora")
     return lm_head, None, None
 
 
@@ -166,45 +162,73 @@ def make_optimizer(args, mode: str, group: str | None, total_steps: int):
 
 def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
+    common.maybe_init_distributed(args)
+    return run_mlm_training(args)
+
+
+def run_mlm_training(args) -> int:
     check_mlm_args(args)
+    launched = common.launch(args, run_mlm_training)
+    if launched is not None:
+        return launched
     device = resolve_device(args.device)
     generator = prng.set_seed(args.seed)
-    run_dir = rundir.make_run_dir(args.runs_dir)
-    print(f"All run info will be saved to {run_dir}")
+    run_dir = run_dir_of(args)
+    primary = distributed.is_primary()
 
     esm_cfg = common.esm_config(args.esm_config, args.esm_dtype, fast_gelu=args.fast_gelu,
                                 exact_gelu=args.exact_gelu)
+    mesh = (make_mesh(data=args.dp, model=args.tp, esm_cfg=esm_cfg)
+            if common.mesh_size(args) > 1 else None)
     esm_params = common.load_esm(args, esm_cfg, device)
     tokenizer = common.make_tokenizer()
     lm_head = esm2.init_lm_head(esm_cfg, generator, device=device)
 
-    data_dir = common.ensure_data(args, args.prefix_a, args.prefix_b)
-    train_ds, val_ds, _ = generate_datasets(data_dir, args.prefix_a, args.prefix_b,
-                                            seed=args.seed)
+    data_dir = common.primary_first(common.ensure_data, args, args.prefix_a, args.prefix_b)
+    train_ds, val_ds, _ = common.primary_first(generate_datasets, data_dir, args.prefix_a,
+                                               args.prefix_b, seed=args.seed)
     train_loader = PairLoader(train_ds, args.batch_size, shuffle=True, drop_last=True,
                               seed=args.seed)
     val_loader = PairLoader(val_ds, args.batch_size, shuffle=False, drop_last=True,
                             seed=args.seed)
 
     mode = "finetune" if args.finetune else "lora" if args.lora_rank else "head"
-    trainable, view, group = trainable_tree(args, mode, lm_head, esm_params, esm_cfg, device)
+    step_cfg = esm_cfg if mesh is None else tp_model_config(esm_cfg, mesh)
+    trainable, view, group = trainable_tree(args, mode, lm_head, esm_params, step_cfg, device)
     if mode == "finetune":
         esm_params = {}      # the masters carry the backbone
+    if mesh is not None:
+        # a rank keeps only its slices of the backbone (or the masters)
+        trainable = sharding.shard_params(mesh, trainable)
+        esm_params = sharding.shard_params(mesh, esm_params)
+        if primary:
+            print(f"[mesh] MLM training over {mesh.shape} on "
+                  f"{distributed.backend_for(args.device)} ranks")
     opt_state = make_optimizer(args, mode, group, len(train_loader) * args.epochs).init(trainable)
-    train_step, eval_step = make_steps(esm_cfg, mode, view)
+    if mesh is None:
+        train_step, eval_step = make_steps(esm_cfg, mode, view)
+        masks_of = draw_masks
+        export = lambda tree: tree  # noqa: E731
+    else:
+        train_step, eval_step = mlm_step.make_sharded_mlm_steps(esm_cfg, mesh, mode, view)
+        masks_of = lambda gen, inputs, p: mlm_step.rank_masks(gen, inputs, p, mesh)  # noqa
+        export = lambda tree: sharding.gather_params(mesh, tree)  # noqa: E731
     mask_gen = torch.Generator(device=device).manual_seed(args.seed + 2)
 
     def prepare(batch):
         a, b = batch
         seqs = {"a": list(a), "b": list(b), "both": list(a) + list(b)}[args.side]
         if args.packed:
-            return (tokenize_packed_rows(tokenizer, seqs),)
-        enc = tokenizer(seqs)
-        return (torch.from_numpy(enc["input_ids"]), torch.from_numpy(enc["attention_mask"]))
+            arrs = ((tokenize_packed_rows(tokenizer, seqs),) if mesh is None else
+                    (tokenize_packed_rows_sharded(tokenizer, seqs, mesh.data),))
+        else:
+            enc = tokenizer(seqs)
+            arrs = (torch.from_numpy(enc["input_ids"]), torch.from_numpy(enc["attention_mask"]))
+        return arrs if mesh is None else mlm_step.rank_rows(arrs, mesh)
 
     losses_path = run_dir / "losses_per_epoch.txt"
     best_val = float("inf")
-    with open(losses_path, "w") as f:
+    with open(losses_path if primary else os.devnull, "w") as f:
         f.write("Epoch,Train Loss,Validation Loss\n")
         for epoch in range(args.epochs):
             t0 = time.perf_counter()
@@ -213,13 +237,13 @@ def main(argv=None) -> int:
                 inputs = batch_inputs(arrs, args.packed)
                 trainable, opt_state, loss = train_step(
                     trainable, opt_state, esm_params, inputs,
-                    draw_masks(mask_gen, inputs, args.mask_prob))
+                    masks_of(mask_gen, inputs, args.mask_prob))
                 train.append(loss)
             val = []
             for arrs in prefetch_to_device(val_loader, prepare, device):
                 inputs = batch_inputs(arrs, args.packed)
                 val.append(eval_step(trainable, esm_params, inputs,
-                                     draw_masks(mask_gen, inputs, args.mask_prob)))
+                                     masks_of(mask_gen, inputs, args.mask_prob)))
             # the losses stay on the device until the epoch's end
             tl = sum(map(float, train)) / max(len(train), 1)
             vl = sum(map(float, val)) / len(val) if val else float("nan")
@@ -227,9 +251,13 @@ def main(argv=None) -> int:
             f.flush()
             if vl < best_val:
                 best_val = vl
-                checkpoint.export_npz(run_dir / "best_model.npz", trainable)
-            print(f"Epoch {epoch + 1}/{args.epochs} - Train Loss: {tl:.4f}, "
-                  f"Val Loss: {vl:.4f} ({time.perf_counter() - t0:.1f}s)")
+                full = export(trainable)
+                if primary:
+                    checkpoint.export_npz(run_dir / "best_model.npz", full)
+                del full
+            if primary:
+                print(f"Epoch {epoch + 1}/{args.epochs} - Train Loss: {tl:.4f}, "
+                      f"Val Loss: {vl:.4f} ({time.perf_counter() - t0:.1f}s)")
     return 0
 
 

@@ -16,6 +16,20 @@ int8``) run w8a8 through the s8 tensor-core kernel P1 (``ops/dense_mm``).
 Under ``PCT_FFN_PALLAS=1`` the FFN's wi + gelu runs as the fused kernel K6
 (``ops/ffn``), in bf16 or f32.
 
+Tensor parallelism (``parallel/sharding.py``): with ``cfg.model_axis`` set
+the layer weights are this rank's Megatron slices, and the forward reads
+its head count from q's width. The LayerNorm's output enters the
+column-parallel q, k, v and wi through ``copy_to_model`` (its cotangent
+summed over the model group), K1 and K5 (and K6 under the gate) run on the
+rank's heads and FFN columns, and the row-parallel o and wo form f32
+partial products (bf16 operands through P1's bf16 -> f32 entry point; f32
+operands in f32), summed over the model group in f32 and rounded once,
+then the bias: the TPU package's ``_dense`` contract under GSPMD. An int8
+row-parallel linear takes its per-token scale from the whole row (an
+all-reduce MAX), sums its s32 partials exactly (an int32 all-reduce) and
+dequantises after, so it equals the one-device int8 forward to the bit.
+Without ``model_axis`` the forward is the one-device one.
+
 Attention: with ``attention_impl="fused"`` on CUDA tensors each layer calls
 the hand-written kernels (``ops/attention.fused_attention``: K1 forward, K5
 backward), for every sequence length; the kernels take bf16 and f32 at
@@ -40,6 +54,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from ..ops import attention, dense_mm, ffn
+from ..parallel import distributed
 from ..utils.device import resolve_device
 
 Params = dict
@@ -66,6 +81,10 @@ class ESM2Config:
     # The PCT_GELU A/B knob is read once, here at construction, as in the
     # TPU package: an explicit gelu= wins over a stale PCT_GELU.
     gelu: str = dataclasses.field(default_factory=lambda: os.environ.get("PCT_GELU", "erf"))
+    # tensor parallelism: the mesh's 'model' axis (``parallel.distributed.
+    # ModelAxis``) when the layer weights are this rank's Megatron slices
+    # (``parallel/sharding.py``), None for the one-device forward
+    model_axis: object = dataclasses.field(default=None, compare=False, repr=False)
 
     @property
     def head_dim(self) -> int:
@@ -391,14 +410,74 @@ def _dense(x, lp):
     return torch.matmul(x, lp["w"]) + lp["b"]
 
 
+class _PartialMM(torch.autograd.Function):
+    """(N, K) x (K, M) bf16 -> f32 through P1 (``dense_mm.mm``); its
+    backward takes the cotangent in bf16 (it is the f32 cast of one) into
+    bf16 products, the arithmetic of the one-device bf16 linear's."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return dense_mm.mm(x, w, torch.float32)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, w = ctx.saved_tensors
+        g = grad.to(x.dtype)
+        dx = g @ w.t() if ctx.needs_input_grad[0] else None
+        dw = x.t() @ g if ctx.needs_input_grad[1] else None
+        return dx, dw
+
+
+def _row_dense(x, lp, axis):
+    """A row-parallel linear (o, wo) on this rank's slice of its input: the
+    partial product summed over the model group, then the bias.
+    ``{"w", "b"}``: f32 partials (bf16 operands through P1), summed in f32
+    and rounded to x's dtype once. ``{"w_q", "w_s", "b"}``: the whole row's
+    per-token scale (all-reduce MAX), s8 x s8 -> s32 partials through P1
+    summed in int32, then ``_dense``'s dequant: exact."""
+    if "w_q" in lp:
+        x32 = x.float()
+        xs = distributed.all_max(x32.abs().amax(-1, keepdim=True), axis)
+        xs = xs.clamp(min=1e-6) * (1.0 / 127.0)
+        xq = torch.round(x32 / xs).to(torch.int8)
+        w_q = lp["w_q"]
+        y = distributed.all_sum(dense_mm.mm(xq.reshape(-1, w_q.shape[0]), w_q, torch.int32), axis)
+        y = y.view(*x.shape[:-1], w_q.shape[1])
+        return (y.float() * xs * lp["w_s"]).to(x.dtype) + lp["b"]
+    w = lp["w"]
+    x2 = x.reshape(-1, w.shape[0]).contiguous()
+    part = (_PartialMM.apply(x2, w) if x.dtype == torch.bfloat16
+            else torch.matmul(x2.float(), w.float()))
+    y = distributed.reduce_from_model(part, axis)
+    return y.view(*x.shape[:-1], w.shape[1]).to(x.dtype) + lp["b"]
+
+
+def _out_dense(x, lp, axis):
+    """o and wo: the one-device linear, or the row-parallel one on a mesh."""
+    return _dense(x, lp) if axis is None else _row_dense(x, lp, axis)
+
+
+def _into_columns(h, axis):
+    """A replicated activation entering the column-parallel linears."""
+    return h if axis is None else distributed.copy_to_model(h, axis)
+
+
+def _out_width(lp) -> int:
+    return (lp["w"] if "w" in lp else lp["w_q"]).shape[-1]
+
+
 def _attention_block(x, p, mask_bias, segments, cos, sin, cfg: ESM2Config):
-    """Pre-LN attention residual block in the (B, T, heads, dh) layout.
-    ``segments`` is (B, T) int32: the 0/1 mask of padded rows, or the
-    segment ids of packed rows; ``mask_bias`` its additive f32 form for the
-    eager path, None where K1 runs."""
-    B, T, H = x.shape
-    nh, dh = cfg.num_heads, cfg.head_dim
-    h = _layer_norm(x, p["ln"]["w"], p["ln"]["b"], cfg.layer_norm_eps)
+    """Pre-LN attention residual block in the (B, T, heads, dh) layout, on
+    the heads q's width holds (all, or a rank's share under tensor
+    parallelism). ``segments`` is (B, T) int32: the 0/1 mask of padded
+    rows, or the segment ids of packed rows; ``mask_bias`` its additive f32
+    form for the eager path, None where K1 runs."""
+    B, T, _ = x.shape
+    dh = cfg.head_dim
+    nh = _out_width(p["q"]) // dh
+    h = _into_columns(_layer_norm(x, p["ln"]["w"], p["ln"]["b"], cfg.layer_norm_eps),
+                      cfg.model_axis)
     q = _dense(h, p["q"]).view(B, T, nh, dh) * (dh ** -0.5)  # ESM scales q before RoPE
     k = _dense(h, p["k"]).view(B, T, nh, dh)
     v = _dense(h, p["v"]).view(B, T, nh, dh)
@@ -406,7 +485,7 @@ def _attention_block(x, p, mask_bias, segments, cos, sin, cfg: ESM2Config):
     k = _apply_rope(k, cos, sin)
 
     ctx = _attend(q, k, v, mask_bias, segments, cfg)
-    return x + _dense(ctx.reshape(B, T, H), p["o"])
+    return x + _out_dense(ctx.reshape(B, T, nh * dh), p["o"], cfg.model_axis)
 
 
 def _uses_kernel(x, cfg: ESM2Config) -> bool:
@@ -429,9 +508,10 @@ def _attend(q, k, v, mask_bias, segments, cfg: ESM2Config):
 
 
 def _ffn_block(x, p, cfg: ESM2Config):
-    h = _layer_norm(x, p["ln"]["w"], p["ln"]["b"], cfg.layer_norm_eps)
+    h = _into_columns(_layer_norm(x, p["ln"]["w"], p["ln"]["b"], cfg.layer_norm_eps),
+                      cfg.model_axis)
     h = _wi_gelu(h, p["wi"], cfg)
-    return x + _dense(h, p["wo"])
+    return x + _out_dense(h, p["wo"], cfg.model_axis)
 
 
 def _wi_gelu(h, wi, cfg: ESM2Config):
@@ -487,6 +567,19 @@ def _layer_block(x, lp, mask_bias, segments, cos, sin, cfg: ESM2Config):
     return _ffn_block(x, lp["ffn"], cfg)
 
 
+def _check_shards(params: Params, cfg: ESM2Config) -> None:
+    """q's width is the hidden size over the model axis: a rank's slices
+    need the axis the partial products are summed over, and the axis needs
+    slices."""
+    width = _out_width(params["layers"]["attn"]["q"])
+    parts = 1 if cfg.model_axis is None else cfg.model_axis.size
+    if width * parts != cfg.hidden_size:
+        raise ValueError(f"q is {width} wide, the hidden size {cfg.hidden_size} over a 'model' "
+                         f"axis of {parts}: the weights and the config's model_axis disagree "
+                         "(parallel/sharding.shard_params cuts the slices of "
+                         "parallel.mesh.Mesh.model_axis)")
+
+
 def forward(params: Params, input_ids: torch.Tensor, attention_mask: torch.Tensor,
             cfg: ESM2Config, remat: bool = False, segment_ids: torch.Tensor | None = None,
             positions: torch.Tensor | None = None) -> torch.Tensor:
@@ -499,6 +592,7 @@ def forward(params: Params, input_ids: torch.Tensor, attention_mask: torch.Tenso
     ``jax.checkpoint`` of the layer): the backward recomputes the layer from
     its input, so a layer keeps only that input alive."""
     B, T = input_ids.shape
+    _check_shards(params, cfg)
     x = embed(params, input_ids, attention_mask, cfg, segment_ids=segment_ids)
     if _uses_kernel(x, cfg):
         attention.check_config(cfg.compute_dtype, cfg.head_dim)

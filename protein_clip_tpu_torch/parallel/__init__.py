@@ -1,4 +1,5 @@
-"""Data parallelism over ``torch.distributed``: the port of the data axis of
-``protein_clip_tpu/parallel`` (one rank a device, the global batch's
-embeddings or tokens gathered so the negatives span it, gradients averaged
-over the ranks). Tensor and pipeline parallelism are not ported yet."""
+"""The (data, model) mesh over ``torch.distributed``: the port of
+``protein_clip_tpu/parallel`` (one rank a device; the data axis gathers the
+global batch's embeddings or tokens so the negatives span it and averages
+the gradients, the model axis shards the backbone the Megatron way).
+Pipeline stages are not ported yet."""

@@ -19,7 +19,10 @@ Each rank runs the single-device token-level two-pass step on its own rows
 The gradients are averaged over the ranks (``step.on_rank``): every rank
 differentiates its own copy of the global loss, whose sum's backward sums
 the ranks' seeds, so the mean is the gradient of the one loss. LoRA runs
-the same steps with the adapter merge as the backbone.
+the same steps with the adapter merge as the backbone. With a 'model' axis
+(one bucket only: the packed step refuses it, as the TPU package's does)
+the backbone runs on the rank's Megatron slices and K4 keeps scoring the
+replicated tokens.
 """
 
 from __future__ import annotations
@@ -31,9 +34,9 @@ from ..train import filip_finetune, finetune, lora
 from ..train import packed_engine as pe
 from ..train.clip_engine import EngineConfig
 from ..train.filip_packed import _scatter_side
-from .filip_step import gathered_similarity, row_loss
+from .filip_step import gathered_similarity, mesh_row_loss
 from .mesh import Mesh, local_batch_size
-from .step import check_flat, local_cfg, on_rank
+from .step import check_flat, local_cfg, on_rank, tp_config
 
 Params = dict
 
@@ -41,8 +44,10 @@ Params = dict
 def make_sharded_filip_finetune_step(cfg: EngineConfig, mesh: Mesh, *, packed: bool = False,
                                      lora_view: bool = False):
     """The dispatcher: one bucket or packed, the f32 master backbone or the
-    adapter merge as the backbone view."""
-    view = lora.esm_view(cfg) if lora_view else finetune.esm_view(cfg)
+    adapter merge (into a rank's slices on a model axis) as the backbone
+    view."""
+    tp = tp_config(cfg, mesh)
+    view = lora.esm_view(tp) if lora_view else finetune.esm_view(tp)
     if packed:
         return make_sharded_packed_filip_finetune_step(cfg, mesh, view)
     return make_sharded_plain_filip_finetune_step(cfg, mesh, view)
@@ -52,14 +57,15 @@ def make_sharded_plain_filip_finetune_step(cfg: EngineConfig, mesh: Mesh,
                                            view: Callable[[Params, Params], Params]):
     """The unfrozen FILIP step over a rank's rows of ``tokenize_pair_batch``
     batches of ``cfg.batch_size`` pairs, in ``step.local_chunks``."""
-    sim = gathered_similarity(filip_similarity_fused)
+    sim = gathered_similarity(filip_similarity_fused, mesh.data_group)
+    loss = mesh_row_loss(mesh, cfg.filip_use_dcl)
     b_local = local_batch_size(cfg.batch_size, mesh)
     encode_chunk, prepare, _ = filip_finetune._token_machinery(
         local_cfg(cfg, b_local, mesh), sim, cfg.filip_use_dcl, view)
 
     def tail(params, HA, HB, batch):
-        return row_loss(*sim(HA, HB, batch["pep_mask"], batch["rec_mask"],
-                             params["heads"]["temperature"]), mesh.index, cfg.filip_use_dcl)
+        return loss(*sim(HA, HB, batch["pep_mask"], batch["rec_mask"],
+                         params["heads"]["temperature"]))
 
     def step(params, opt_state, esm_params, batch, generator):
         batch, chunks = prepare(batch, generator)
@@ -77,7 +83,11 @@ def make_sharded_packed_filip_finetune_step(cfg: EngineConfig, mesh: Mesh,
     packing, no scatter tiers): the chunks take the same tokens on both
     sides, as on one device."""
     check_flat(cfg.packed_tiers)
-    sim = gathered_similarity(filip_similarity_fused)
+    if mesh.model > 1:
+        raise ValueError("packed sharding is DP-only; compose TP via the plain "
+                         "make_sharded_plain_filip_finetune_step")
+    sim = gathered_similarity(filip_similarity_fused, mesh.data_group)
+    loss = mesh_row_loss(mesh, cfg.filip_use_dcl)
     b_local = local_batch_size(cfg.batch_size, mesh)
     chunk_tokens, prepare, _ = filip_finetune._packed_token_machinery(
         local_cfg(cfg, b_local, mesh), sim, cfg.filip_use_dcl, pe._default_rows_per_chunk(None),
@@ -86,8 +96,7 @@ def make_sharded_packed_filip_finetune_step(cfg: EngineConfig, mesh: Mesh,
     def tail(params, X, sides):
         (ha, ma, _), = _scatter_side(X["pep"], sides["pep"][2], None, b_local)
         (hb, mb, _), = _scatter_side(X["rec"], sides["rec"][2], None, b_local)
-        return row_loss(*sim(ha, hb, ma, mb, params["heads"]["temperature"]), mesh.index,
-                        cfg.filip_use_dcl)
+        return loss(*sim(ha, hb, ma, mb, params["heads"]["temperature"]))
 
     def step(params, opt_state, esm_params, batch, generator):
         sides = prepare(batch, generator)

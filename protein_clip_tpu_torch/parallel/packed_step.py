@@ -38,7 +38,7 @@ from ..ops.filip import filip_similarity_fused
 from ..train import packed_engine as pe
 from ..train.clip_engine import EngineConfig, _update
 from ..train.filip_packed import filip_sim_packed
-from .filip_step import gathered_similarity, row_loss
+from .filip_step import gathered_similarity, mesh_row_loss
 from .mesh import Mesh, local_batch_size
 from .step import check_flat, check_shard, on_rank
 
@@ -133,7 +133,8 @@ def make_sharded_packed_filip_step(cfg: EngineConfig, mesh: Mesh):
     tokens scattered into one (b_local, L, D) buffer a side (no scatter
     tiers), the receptor side's gathered, its rows of both directions."""
     check_flat(cfg.packed_tiers)
-    sim = gathered_similarity(filip_similarity_fused)
+    sim = gathered_similarity(filip_similarity_fused, mesh.data_group)
+    loss = mesh_row_loss(mesh, cfg.filip_use_dcl)
     rows_per_chunk = pe._default_rows_per_chunk(None)
     b_local = local_batch_size(cfg.batch_size, mesh)
 
@@ -141,8 +142,7 @@ def make_sharded_packed_filip_step(cfg: EngineConfig, mesh: Mesh):
         sim_a, sim_b = filip_sim_packed(params, esm_params, batch, cfg.model, b_local,
                                         rows_per_chunk=rows_per_chunk, train=True,
                                         generator=generator, similarity_fn=sim)
-        return _update(row_loss(sim_a, sim_b, mesh.index, cfg.filip_use_dcl), params,
-                       opt_state)
+        return _update(loss(sim_a, sim_b), params, opt_state)
 
     return on_rank(step, mesh, b_local, packed=True)
 
@@ -150,7 +150,8 @@ def make_sharded_packed_filip_step(cfg: EngineConfig, mesh: Mesh):
 def make_sharded_packed_filip_eval_step(cfg: EngineConfig, mesh: Mesh, view: Callable):
     """The packed FILIP eval step over a rank's shard, in eval mode, on the
     (heads, backbone) ``view`` gives."""
-    sim = gathered_similarity(filip_similarity_fused)
+    sim = gathered_similarity(filip_similarity_fused, mesh.data_group)
+    loss = mesh_row_loss(mesh, cfg.filip_use_dcl)
     rows_per_chunk = pe._default_rows_per_chunk(None)
 
     @torch.inference_mode()
@@ -158,8 +159,7 @@ def make_sharded_packed_filip_eval_step(cfg: EngineConfig, mesh: Mesh, view: Cal
         check_shard(batch, None)
         heads, esm = view(params, esm_params)
         b_local = batch["pep_operm"].shape[0]
-        return row_loss(*filip_sim_packed(heads, esm, batch, cfg.model, b_local,
-                                          rows_per_chunk=rows_per_chunk, similarity_fn=sim),
-                        mesh.index, cfg.filip_use_dcl)
+        return loss(*filip_sim_packed(heads, esm, batch, cfg.model, b_local,
+                                      rows_per_chunk=rows_per_chunk, similarity_fn=sim))
 
     return step

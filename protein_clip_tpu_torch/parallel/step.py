@@ -17,12 +17,27 @@ A mesh step is the single-device step of its mode (``train/clip_engine``,
             ranks' cotangents of a rank's rows.
 
 Every rank differentiates its own copy of the loss, so its gradients are
-``world_size`` times its share; ``on_rank`` averages them over the ranks
+``data`` times its share; ``on_rank`` averages them over the data group
 before the optimizer applies them (the TPU package's pmean): the update is
 the gradient of the global loss. Dropout draws from a generator of the
-rank's own (``mesh.rank_generator``). FILIP's steps (``filip_step.py``,
-``packed_step.py``, ``filip_finetune_step.py``) have row-loss tails of their
-own and run through ``on_rank`` too.
+rank's data index (``mesh.rank_generator``), the same on its model ranks.
+FILIP's steps (``filip_step.py``, ``packed_step.py``,
+``filip_finetune_step.py``) have row-loss tails of their own and run
+through ``on_rank`` too.
+
+With a 'model' axis (tensor parallelism, unpacked steps only) the config's
+backbone carries the mesh's model axis (``tp_model_config``, the role of
+the TPU package's ``tp_safe_model_config``, which there also switches to
+eager attention: here the heads are split by hand and K1/K5 run on a
+rank's heads), the backbone (or the finetune engine's f32 masters) holds
+the rank's Megatron slices (``engine.MeshEngine.prepare_esm``,
+``prepare_params``), and the model ranks of a data index run the same rows:
+the loss and the replicated leaves' gradients are the same on each. The
+LoRA adapters are replicated but used only inside the sharded region, so
+each model rank's gradient of them is its slices' share: ``on_rank`` sums
+it over the model group before the mean over the data group. The clip's
+global norm sums the split leaves' squares over the model group
+(``sharding.sharded_sq_sum``).
 
 A step has the single-device engines' signature, ``(params, opt_state,
 esm_params, batch, generator) -> (params, opt_state, loss)``, over this
@@ -38,15 +53,33 @@ from ..train import clip_engine, finetune, lora
 from ..train import packed_engine as pe
 from ..train.clip_engine import EngineConfig, default_loss_fn
 from ..train.filip_engine import _snap_chunks
-from .distributed import gather_rows, pmean_grads
+from ..train.optimizer import tree_leaves
+from . import sharding
+from .distributed import gather_rows, pmean_grads, psum_grads
 from .mesh import Mesh, local_batch_size, rank_generator
 
 ENGINES = {"frozen": clip_engine, "finetune": finetune, "lora": lora}
 
 
-def gathered_loss(loss_fn: Callable) -> Callable:
-    """loss(pep_local, rec_local): ``loss_fn`` over every rank's rows."""
-    return lambda pep, rec: loss_fn(gather_rows(pep), gather_rows(rec))
+def tp_model_config(model_cfg, mesh: Mesh):
+    """A CLIP or FILIP model config (or an ESM-2 one) whose backbone runs on
+    the mesh's model axis; the config itself at model 1."""
+    if mesh.model == 1:
+        return model_cfg
+    if hasattr(model_cfg, "esm"):
+        return dataclasses.replace(model_cfg, esm=tp_model_config(model_cfg.esm, mesh))
+    return dataclasses.replace(model_cfg, model_axis=mesh.model_axis)
+
+
+def tp_config(cfg: EngineConfig, mesh: Mesh) -> EngineConfig:
+    """``cfg`` with its model on the mesh's model axis."""
+    return dataclasses.replace(cfg, model=tp_model_config(cfg.model, mesh))
+
+
+def gathered_loss(loss_fn: Callable, group=None) -> Callable:
+    """loss(pep_local, rec_local): ``loss_fn`` over every rank's rows of the
+    data ``group``."""
+    return lambda pep, rec: loss_fn(gather_rows(pep, group), gather_rows(rec, group))
 
 
 def local_chunks(num_chunks: int, b_local: int, mesh: Mesh) -> int:
@@ -57,11 +90,11 @@ def local_chunks(num_chunks: int, b_local: int, mesh: Mesh) -> int:
 
 def local_cfg(cfg: EngineConfig, b_local: int, mesh: Mesh, **changes) -> EngineConfig:
     """``cfg`` for the single-device machinery on one rank's rows: one
-    bucket (or flat packs) of b_local pairs in ``local_chunks`` (and
-    ``changes``)."""
-    return dataclasses.replace(cfg, batch_size=b_local, accumulated_batches=1, length_groups=1,
-                               num_chunks=local_chunks(cfg.num_chunks, b_local, mesh),
-                               **changes)
+    bucket (or flat packs) of b_local pairs in ``local_chunks``, the
+    backbone on the mesh's model axis (and ``changes``)."""
+    return dataclasses.replace(tp_config(cfg, mesh), batch_size=b_local, accumulated_batches=1,
+                               length_groups=1,
+                               num_chunks=local_chunks(cfg.num_chunks, b_local, mesh), **changes)
 
 
 def check_rows(batch: dict, b_local: int) -> None:
@@ -94,28 +127,38 @@ def check_flat(tiers: int) -> None:
 
 
 class _Averaged:
-    """An optimizer state whose ``apply`` first averages the gradients of
-    its leaves over the ranks."""
+    """An optimizer state whose ``apply`` first sums the model-partial
+    gradients over the model group, then averages every gradient of its
+    leaves over the data group; the state's clip reads the sharded tree's
+    norm."""
 
-    def __init__(self, state):
-        self.state = state
+    def __init__(self, state, mesh: Mesh, params):
+        self.state, self.mesh = state, mesh
         self.leaves = state.leaves
+        self.partial = []
+        if mesh.model > 1:
+            self.partial = tree_leaves(params["lora"]) if "lora" in params else []
+            if hasattr(state, "sq_sum"):
+                state.sq_sum = sharding.sharded_sq_sum(sharding.split_leaves(params), mesh)
 
     def apply(self) -> None:
-        pmean_grads(self.leaves)
+        if self.partial:
+            psum_grads(self.partial, self.mesh.model_group)
+        pmean_grads(self.leaves, self.mesh.data_group)
         self.state.apply()
 
 
 def on_rank(step: Callable, mesh: Mesh, b_local: int, packed: bool) -> Callable:
     """``step``, a single-device step over a rank's rows, on the mesh: the
     rank's batch checked (its rows, or its shard of the packed wire), its
-    dropout from the rank's generator, its gradients averaged over the
-    ranks before the optimizer applies them."""
+    dropout from the generator of its data index, its gradients summed over
+    the model group where they are partial and averaged over the data group
+    before the optimizer applies them."""
     check = check_shard if packed else check_rows
 
     def mesh_step(params, opt_state, esm_params, batch, generator):
         check(batch, b_local)
-        params, _, loss = step(params, _Averaged(opt_state), esm_params, batch,
+        params, _, loss = step(params, _Averaged(opt_state, mesh, params), esm_params, batch,
                                rank_generator(generator, mesh.index))
         return params, opt_state, loss
 
@@ -131,7 +174,7 @@ def make_sharded_train_step(cfg: EngineConfig, mesh: Mesh, mode: str = "frozen",
         check_flat(cfg.packed_tiers)
     b_local = local_batch_size(cfg.global_batch, mesh)
     step = ENGINES[mode].make_train_step(local_cfg(cfg, b_local, mesh, packed=packed),
-                                         gathered_loss(default_loss_fn()))
+                                         gathered_loss(default_loss_fn(), mesh.data_group))
     return on_rank(step, mesh, b_local, packed)
 
 
@@ -141,7 +184,7 @@ def make_sharded_eval_step(cfg: EngineConfig, mesh: Mesh, mode: str = "frozen",
     or its shard of a packed one (any batch the data axis divides)."""
     b_local = local_batch_size(cfg.global_batch, mesh)
     step = ENGINES[mode].make_eval_step(local_cfg(cfg, b_local, mesh, packed=packed),
-                                        gathered_loss(default_loss_fn()))
+                                        gathered_loss(default_loss_fn(), mesh.data_group))
     if not packed:
         return step
 

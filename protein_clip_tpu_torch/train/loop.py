@@ -24,7 +24,13 @@ On a mesh (``parallel/engine.MeshEngine``: its ``make_prepare`` gives each
 rank its part of every batch) every rank runs the loop, and only rank 0
 writes: the CSV, ``metrics.jsonl``, ``best_model.npz``, the snapshots and
 ``epoch_hook``'s figures, as the TPU package's process 0 does; on resume
-every rank restores the same snapshot.
+every rank restores the same snapshot. Under tensor parallelism the params
+and optimizer state a rank holds are its slices: ``best_model.npz``, the
+snapshots, ``epoch_hook``'s params and the ``FitResult`` take the
+one-device layout (the engine's ``export_view`` and ``export_opt_state``,
+collective, so every rank calls them and ``epoch_hook``), and a restored
+snapshot is cut to the rank's slices again (``prepare_params``,
+``shard_opt_state``).
 """
 
 from __future__ import annotations
@@ -102,9 +108,11 @@ def fit(run_dir: str | Path, cfg: clip_engine.EngineConfig, params: Any, esm_par
     fresh start when there is none), appending to the CSV and
     ``metrics.jsonl``; a snapshot of another tree layout (another mode)
     raises ValueError. ``epoch_hook(epoch, best_params)`` runs after each
-    epoch's snapshot (the runners' ``--epoch-figures``). An engine with
-    ``make_prepare(cfg, tokenizer)`` tokenizes every batch with it (the
-    mesh's part of a batch per rank); then only rank 0 writes and logs."""
+    epoch's snapshot (the runners' ``--epoch-figures``), on every rank. An
+    engine with ``make_prepare(cfg, tokenizer)`` tokenizes every batch with
+    it (the mesh's part of a batch per rank); then only rank 0 writes and
+    logs. A mesh engine's params and ``esm_params`` come in already placed
+    (``prepare_params``, ``prepare_esm``)."""
     device = torch.device(device)
     run_dir = Path(run_dir)
     primary = distributed.is_primary()
@@ -120,6 +128,11 @@ def fit(run_dir: str | Path, cfg: clip_engine.EngineConfig, params: Any, esm_par
     eval_step = engine.make_eval_step(cfg)
     prepare = (engine.make_prepare(cfg, tokenizer) if hasattr(engine, "make_prepare")
                else None)
+    same = lambda tree: tree  # noqa: E731
+    export = getattr(engine, "export_view", same)
+    export_opt = getattr(engine, "export_opt_state", same)
+    # the snapshot's gathers are collective: every rank of a model axis joins
+    sharded = getattr(getattr(engine, "mesh", None), "model", 1) > 1
 
     losses_path = run_dir / "losses_per_epoch.txt"
     metrics_path = run_dir / "metrics.jsonl"
@@ -137,9 +150,11 @@ def fit(run_dir: str | Path, cfg: clip_engine.EngineConfig, params: Any, esm_par
         restored = _restore_latest_state(state_dir, device)
         if restored is not None:
             state, start_epoch = restored
-            ckpt.load_into(params, state["params"])
-            opt_state.load_state_dict(state["opt_state"])
-            best_params = ckpt.tree_like(params, state["best_params"])
+            shard = getattr(engine, "prepare_params", same)
+            ckpt.load_into(params, shard(state["params"]))
+            opt_state.load_state_dict(getattr(engine, "shard_opt_state", same)(
+                state["opt_state"]))
+            best_params = ckpt.tree_like(params, shard(state["best_params"]))
             best_val = state["best_val"]
             train_losses, val_losses = list(state["train_losses"]), list(state["val_losses"])
             if "tiers" in state:
@@ -173,8 +188,9 @@ def fit(run_dir: str | Path, cfg: clip_engine.EngineConfig, params: Any, esm_par
             if val_loss < best_val:
                 best_val = val_loss
                 best_params = _snapshot(params)
+                best_full = export(best_params)
                 if primary:
-                    ckpt.export_npz(model_path, best_params)
+                    ckpt.export_npz(model_path, best_full)
 
             dt = time.perf_counter() - t0
             if primary:
@@ -183,18 +199,21 @@ def fit(run_dir: str | Path, cfg: clip_engine.EngineConfig, params: Any, esm_par
                                          "val_loss": val_loss, "seconds": dt}) + "\n")
             log(f"Epoch {epoch + 1}/{num_epochs} - Train Loss: {train_loss:.4f}, "
                 f"Val Loss: {val_loss:.4f} ({dt:.1f}s)")
-            if (epoch + 1) % save_state_every == 0 and primary:
-                _save_state(state_dir, epoch + 1, {
-                    "params": params, "opt_state": opt_state.state_dict(),
-                    "best_params": best_params, "best_val": best_val,
-                    "train_losses": train_losses, "val_losses": val_losses,
-                    "tiers": packed_engine.tier_state()})
-            if epoch_hook is not None and primary:
-                epoch_hook(epoch, best_params)
+            if (epoch + 1) % save_state_every == 0 and (primary or sharded):
+                state = {"params": export(params), "opt_state": export_opt(opt_state.state_dict()),
+                         "best_params": export(best_params), "best_val": best_val,
+                         "train_losses": train_losses, "val_losses": val_losses,
+                         "tiers": packed_engine.tier_state()}
+                if primary:
+                    _save_state(state_dir, epoch + 1, state)
+                del state
+            if epoch_hook is not None:
+                epoch_hook(epoch, export(best_params))
 
     test_loss = None
     if test_loader is not None:
         test_loss = clip_engine.evaluate(best_params, esm_params, test_loader, tokenizer,
                                          eval_step, device, cfg, prepare)
         log(f"Test Loss: {test_loss:.4f}")
-    return FitResult(train_losses, val_losses, best_val, best_params, params, test_loss)
+    return FitResult(train_losses, val_losses, best_val, export(best_params), export(params),
+                     test_loss)

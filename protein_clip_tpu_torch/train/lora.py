@@ -64,16 +64,38 @@ def init_lora(generator: torch.Generator, esm_params: Params, rank: int = 8,
     return out
 
 
-def merge_lora(esm_params: Params, lora: Params, alpha: float) -> Params:
+def _rank_slice(ab: Params, w: torch.Tensor, model_axis) -> tuple[torch.Tensor, torch.Tensor]:
+    """(A, B) of the delta of this rank's slice of W under tensor
+    parallelism: a column-parallel W (q, k, v, wi: its out axis split)
+    takes B's columns of the rank, a row-parallel one (o, wo) A's rows; the
+    adapters themselves stay whole (replicated), so their gradient on each
+    model rank is its slice's share (summed over the model group by the
+    mesh step)."""
+    a, b = ab["a"], ab["b"]
+    if model_axis is not None:
+        i = model_axis.index
+        if b.shape[-1] != w.shape[-1]:
+            n = w.shape[-1]
+            b = b[..., i * n:(i + 1) * n]
+        if a.shape[-2] != w.shape[-2]:
+            n = w.shape[-2]
+            a = a[:, i * n:(i + 1) * n]
+    return a, b
+
+
+def merge_lora(esm_params: Params, lora: Params, alpha: float, model_axis=None) -> Params:
     """Effective weights W + (alpha / r) A.B, batched over the layer axis
     with f32 accumulation and cast to W's dtype; the other leaves are the
-    base's own tensors."""
+    base's own tensors. With ``model_axis`` (``parallel.mesh.Mesh.
+    model_axis``) the base holds this rank's Megatron slices, and only
+    their part of each delta is formed."""
     layers = {k: dict(v) for k, v in esm_params["layers"].items()}
     for name, ab in lora.items():
         group, t = name.split("/")
         w = layers[group][t]["w"]
         r = ab["a"].shape[-1]
-        delta = torch.einsum("lhr,lro->lho", ab["a"].float(), ab["b"].float())
+        a, b = _rank_slice(ab, w, model_axis)
+        delta = torch.einsum("lhr,lro->lho", a.float(), b.float())
         layers[group][t] = {**layers[group][t], "w": w + (alpha / r * delta).to(w.dtype)}
     return {**esm_params, "layers": layers}
 
@@ -103,10 +125,12 @@ def default_alpha(rank: int) -> float:
 def esm_view(cfg: EngineConfig) -> Callable[[Params, Params], Params]:
     """(params, esm_params) -> the backbone a chunk runs on: the adapters
     merged into the frozen base inside the graph, at ``default_alpha`` of
-    their rank."""
+    their rank (into a rank's slices where the config's backbone has a
+    model axis)."""
     def view(params, esm_params):
         rank = next(iter(params["lora"].values()))["a"].shape[-1]
-        return merge_lora(esm_params, params["lora"], default_alpha(rank))
+        return merge_lora(esm_params, params["lora"], default_alpha(rank),
+                          cfg.model.esm.model_axis)
 
     return view
 

@@ -111,6 +111,7 @@ class OptState:
         self.torch_opt = (torch.optim.AdamW(self.leaves, weight_decay=opt.weight_decay, **kw)
                           if opt.weight_decay else torch.optim.Adam(self.leaves, **kw))
         self.count = 0
+        self.sq_sum = None     # the clip's squared norm on a sharded tree (mesh steps set it)
 
     def _shapes(self) -> dict[str, list[int]]:
         return {name: list(t.shape) for name, t in zip(self.names, self.leaves)}
@@ -142,7 +143,7 @@ class OptState:
 
     def apply(self) -> None:
         """Clip, step at the scheduled lr, and clear the gradients."""
-        clip_by_global_norm(self.leaves, self.opt.grad_clip)
+        clip_by_global_norm(self.leaves, self.opt.grad_clip, self.sq_sum)
         for group in self.torch_opt.param_groups:
             group["lr"] = self.opt.learning_rate(self.count)
         self.torch_opt.step()
@@ -150,12 +151,16 @@ class OptState:
         self.count += 1
 
 
-def clip_by_global_norm(leaves: list[torch.Tensor], max_norm: float) -> None:
+def clip_by_global_norm(leaves: list[torch.Tensor], max_norm: float, sq_sum=None) -> None:
     """Scale the leaves' gradients in place by max_norm / norm when their
-    global L2 norm reaches max_norm (optax: no epsilon); 0 turns it off."""
+    global L2 norm reaches max_norm (optax: no epsilon); 0 turns it off.
+    ``sq_sum(leaves)``, where given, is the squared norm (a tree sharded
+    over a mesh's model axis: ``parallel/sharding.sharded_sq_sum``)."""
     grads = [t.grad for t in leaves if t.grad is not None]
     if max_norm and grads:
-        norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+        total = (sq_sum(leaves) if sq_sum is not None
+                 else sum(g.float().square().sum() for g in grads))
+        norm = torch.sqrt(total)
         scale = torch.where(norm < max_norm, 1.0, max_norm / norm)
         for g in grads:
             g.mul_(scale.to(g.dtype))
@@ -183,6 +188,7 @@ class MultiOptState:
         self.opt = opt
         self.states = {k: o.init(params[k]) for k, o in opt.groups.items()}
         self.leaves = [t for s in self.states.values() for t in s.leaves]
+        self.sq_sum = None
 
     def state_dict(self) -> dict:
         """One ``OptState.state_dict()`` per group."""
@@ -201,7 +207,7 @@ class MultiOptState:
 
     def apply(self) -> None:
         """Clip the whole tree, then step each group and clear its gradients."""
-        clip_by_global_norm(self.leaves, self.opt.grad_clip)
+        clip_by_global_norm(self.leaves, self.opt.grad_clip, self.sq_sum)
         for state in self.states.values():
             state.apply()
 

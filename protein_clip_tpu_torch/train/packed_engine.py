@@ -415,6 +415,43 @@ def tokenize_packed_rows(tokenizer: EsmTokenizer, seqs: list[str],
     return torch.from_numpy(packed.ids.astype(np.int8))
 
 
+def tokenize_packed_rows_sharded(tokenizer: EsmTokenizer, seqs: list[str], n_shards: int,
+                                 row_len: int | None = None) -> torch.Tensor:
+    """The single-side packed wire dealt over a data mesh: int8 (n_shards *
+    r_max, L) rows, shard-major (the TPU package's
+    ``tokenize_packed_rows_sharded``). The loss is per token, so the shards
+    need neither equal sequence counts nor owner maps: the sequences go
+    longest first to the shard with the fewest tokens, each shard packs its
+    own, and a short shard fills up to r_max (a multiple of 8) with
+    all-<pad> rows, whose segment is 0 everywhere (no attention, nothing to
+    mask, no loss). Rank i of the data axis takes rows [i * r_max, (i + 1)
+    * r_max). ``tokenize_packed_rows``' row-length and truncation rule."""
+    encs = [tokenizer.encode(s) for s in seqs]
+    rl = _row_len_for(max(len(e) for e in encs), row_len)
+    clamped = 0
+    for j, e in enumerate(encs):
+        if len(e) > rl:
+            encs[j] = np.concatenate((e[: rl - 1], [EOS_ID]))
+            clamped += 1
+    if clamped:
+        warnings.warn(f"tokenize_packed_rows_sharded: {clamped} sequence(s) longer than "
+                      f"row_len={rl} were truncated (eos kept)", stacklevel=2)
+    order = sorted(range(len(encs)), key=lambda i: -len(encs[i]))
+    members: list[list[int]] = [[] for _ in range(n_shards)]
+    load = [0] * n_shards
+    for i in order:
+        s = int(np.argmin(load))
+        members[s].append(i)
+        load[s] += len(encs[i])
+    packs = [pack_sequences([encs[i] for i in m], rl, row_multiple=1).ids
+             if m else np.full((0, rl), PAD_ID) for m in members]
+    r_max = -(-max(max(p.shape[0] for p in packs), 1) // 8) * 8
+    ids = np.full((n_shards, r_max, rl), PAD_ID, np.int8)
+    for s, p in enumerate(packs):
+        ids[s, : p.shape[0]] = p.astype(np.int8)
+    return torch.from_numpy(ids.reshape(n_shards * r_max, rl))
+
+
 def _expand_pack(ids8: torch.Tensor, operm: torch.Tensor, dump: int) -> dict[str, torch.Tensor]:
     """int32 ids, segment ids, positions and each token's owner for one pack.
     ``dump`` (the side's sequence count) owns the gap and pad tokens.

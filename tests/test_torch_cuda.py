@@ -2113,3 +2113,56 @@ def test_mesh_step_at_world_size_one_equals_one_device(dev, arch, mode, packed):
     assert l1 == l2 and n1 == n2 and n2, (l1, l2, n1, n2)
     assert all((a is None and b is None) or torch.equal(a, b) for a, b in zip(g1, g2))
     assert all(torch.equal(a, b) for a, b in zip(p1, p2))
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism: the kernels at a rank's shapes under --tp 2
+# ---------------------------------------------------------------------------
+
+# t30_150M at tp = 2: a rank's 10 of 20 heads (head dim 32), and the
+# row-parallel partials' (K, M): o (320, 640) and wo (1280, 640).
+TP2_HEADS = 10
+TP2_ROW_LAYERS = ((320, 640), (1280, 640))
+
+
+@pytest.mark.parametrize("kind", ["padded", "packed"])
+@pytest.mark.parametrize("B,T", [(16, 300), (4, 1000)])
+def test_k1_and_k5_at_a_tp2_ranks_heads_match_plain(dev, B, T, kind):
+    """K1 and K5 on a tp = 2 rank's NH 10 heads against their plain
+    versions (K1's tolerance form); each head's rows equal the same head's
+    rows of the 20-head call, to the bit (the kernels run a head per
+    block)."""
+    q, k, v = _inputs(B, T, 2 * TP2_HEADS, dev)
+    do = _inputs(B, T, 2 * TP2_HEADS, dev, seed=1)[2]
+    seg = _segments(B, T, kind, dev)
+    half = [t[:, :, TP2_HEADS:].contiguous() for t in (q, k, v, do)]
+    got = attention.fused_attention(*half[:3], seg)
+    full = attention.fused_attention(q, k, v, seg)
+    torch.cuda.synchronize()
+    ref = attention.attention_reference(*half[:3], seg).float()
+    err = (got.float() - ref).abs()
+    assert (err <= ATOL_RMS * float(ref.square().mean().sqrt()) + RTOL * ref.abs()).all()
+    assert torch.equal(got, full[:, :, TP2_HEADS:])
+    grads = _k5(*half[:3], seg, half[3])
+    torch.cuda.synchronize()
+    _assert_bwd_close(grads, attention.attention_reference_bwd(*half[:3], seg, half[3]))
+
+
+@pytest.mark.parametrize("N", [1, 37, 4800])
+@pytest.mark.parametrize("K,M", TP2_ROW_LAYERS)
+def test_dense_mm_bf16_at_a_tp2_row_partial_within_bound(dev, N, K, M):
+    """The row-parallel bf16 partial through P1 (bf16 -> f32) at a tp = 2
+    rank's o and wo shapes against its plain version (MM_BF16_TOL of |x| @
+    |w|), past it when the main loop drops its last k-tile; two ranks'
+    partials summed in f32 hold the whole product within the same bound."""
+    g = torch.Generator(device=dev).manual_seed(N + K)
+    x = torch.randn(N, 2 * K, generator=g, device=dev).bfloat16()
+    w = (0.05 * torch.randn(2 * K, M, generator=g, device=dev)).bfloat16()
+    parts = [dense_mm.mm(x[:, r * K:(r + 1) * K].contiguous(), w[r * K:(r + 1) * K].contiguous(),
+                         torch.float32) for r in range(2)]
+    torch.cuda.synchronize()
+    xs, ws = x[:, :K].contiguous(), w[:K].contiguous()
+    assert _mm_bf16_gap(xs, ws, parts[0]) <= MM_BF16_TOL
+    assert _mm_bf16_gap(xs, ws, dense_mm.mm(_drop_last_k_tile(xs, BF16_TILE), ws,
+                                            torch.float32)) > MM_BF16_TOL
+    assert _mm_bf16_gap(x, w, parts[0] + parts[1]) <= MM_BF16_TOL

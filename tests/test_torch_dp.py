@@ -150,15 +150,17 @@ def test_packed_sharded_wire_equals_jax(n_shards):
 
 
 def test_mesh_guards():
-    """Outside a process group the mesh is one rank; a 'model' axis or
-    pipeline stages are not ported; a shard dealt for another data axis, or
-    a batch of another wire, is refused before it misroutes tokens."""
+    """Outside a process group the mesh is one rank, and a 'model' axis
+    needs its ranks too (tests/test_torch_tp.py runs it); pipeline stages
+    are not ported; a shard dealt for another data axis, or a batch of
+    another wire, is refused before it misroutes tokens."""
     assert mesh.make_mesh().shape == {"data": 1, "model": 1}
     with pytest.raises(ValueError, match="needs 2 ranks"):
         mesh.make_mesh(data=2)
-    for kwargs in ({"model": 2}, {"stages": 2}):
-        with pytest.raises(NotImplementedError, match="multi-device"):
-            engine.MeshEngine(**kwargs)
+    with pytest.raises(ValueError, match="needs 2 ranks"):
+        engine.MeshEngine(model=2)
+    with pytest.raises(NotImplementedError, match="multi-device"):
+        engine.MeshEngine(stages=2)
     rng = np.random.default_rng(0)
     peps, recs = dp.seqs(rng, 8, 5, 15), dp.seqs(rng, 8, 10, 40)
     mcfg = clip.CLIPConfig(input_dim=64, embedding_dim=16, esm=esm2.ESM2Config.tiny())

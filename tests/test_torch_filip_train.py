@@ -464,7 +464,7 @@ def test_cli_checkpoint_loads_in_jax_with_the_same_scores(cli_run):
 
 
 @pytest.mark.parametrize("extra,error,match", [
-    (["--packed", "--pack-tiers", "2", "--tp", "2"], NotImplementedError, "multi-device"),
+    (["--packed", "--tp", "2"], ValueError, "DP-only"),
     (["--finetune", "--esm-dtype", "int8"], NotImplementedError, "int8"),
     (["--lora-rank", "4", "--length-groups", "2"], SystemExit, "length-groups"),
     (["--dp", "3"], SystemExit, "divisible by --dp 3"),

@@ -467,8 +467,8 @@ def test_cli_mlm_sweep_matches_jax_sweep(tmp_path, capsys):
     (["--finetune", "--lora-rank", "4"], SystemExit, "mutually exclusive"),
     (["--finetune", "--esm-dtype", "int8"], NotImplementedError, "int8"),
     (["--lora-rank", "4", "--esm-dtype", "int8"], NotImplementedError, "int8"),
-    (["--dp", "2"], NotImplementedError, "multi-device"),
-    (["--tp", "2"], NotImplementedError, "multi-device"),
+    (["--dp", "3"], SystemExit, "divisible by --dp 3"),
+    (["--tp", "3"], ValueError, "--tp.*num_heads, 4"),
     (["--resume-dir", "r"], SystemExit, "resume"),
     (["--packed", "--pack-tiers", "4"], SystemExit, "one width")])
 def test_cli_mlm_train_refusals(tmp_path, extra, error, match):

@@ -342,7 +342,8 @@ def test_port_and_chip_smoke_import_no_jax():
                 "cli.topk", "cli.cosine_similarity", "models.mlm", "cli.mlm_train",
                 "cli.mlm_sweep", "eval.mlm_sweep", "parallel.distributed", "parallel.mesh",
                 "parallel.step", "parallel.packed_step", "parallel.filip_step",
-                "parallel.filip_finetune_step", "parallel.engine"):
+                "parallel.filip_finetune_step", "parallel.engine", "parallel.sharding",
+                "parallel.mlm_step", "train.mlm_engine"):
         assert f"protein_clip_tpu_torch.{mod}" in names
 
 

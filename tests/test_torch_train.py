@@ -401,15 +401,16 @@ def test_cli_main_2protein_packed(tmp_path):
     (["--packed", "--pack-tiers", "2", "--dp", "2"], "flat packing only"),
     (["--finetune", "--packed", "--pack-tiers", "2"], "flat packing only"),
     (["--dp", "2", "--no-gradcache"], "gradcache"),
-    (["--tp", "2"], "multi-device"), (["--pp", "2"], "multi-device"),
+    (["--packed", "--tp", "2"], "DP-only"), (["--pp", "2"], "multi-device"),
     (["--lora-rank", "4", "--packed", "--pack-tiers", "2"], "flat packing only")])
 def test_cli_refuses_what_is_not_ported(tmp_path, extra, match):
-    """Tensor and pipeline parallelism are not ported; a mesh (--dp) exits
-    with --pack-tiers or --no-gradcache, and --finetune and --lora-rank
-    with --packed --pack-tiers, as the TPU package's CLI does, before
-    anything loads. Width tiers themselves run (tests/test_torch_tiers.py),
-    and --dp trains (tests/test_torch_dp.py)."""
-    error = NotImplementedError if match == "multi-device" else SystemExit
+    """Pipeline parallelism is not ported; a mesh (--dp) exits with
+    --pack-tiers or --no-gradcache, --packed with --tp raises the TPU
+    package's reason, and --finetune and --lora-rank exit with --packed
+    --pack-tiers, as the TPU package's CLI does, before anything loads.
+    Width tiers themselves run (tests/test_torch_tiers.py), --dp trains
+    (tests/test_torch_dp.py) and --tp trains (tests/test_torch_tp.py)."""
+    error = {"multi-device": NotImplementedError, "DP-only": ValueError}.get(match, SystemExit)
     with pytest.raises(error, match=match):
         main.main(TINY + ["--runs-dir", str(tmp_path / "runs")] + extra)
     assert not (tmp_path / "runs").exists()
@@ -491,5 +492,6 @@ print(" ".join(names))
                 "cli._clip_runner", "utils.rundir", "train.filip_engine",
                 "cli.main_2protein_filip", "models.mlm", "cli.mlm_train",
                 "parallel.distributed", "parallel.mesh", "parallel.step", "parallel.packed_step",
-                "parallel.filip_step", "parallel.filip_finetune_step", "parallel.engine"):
+                "parallel.filip_step", "parallel.filip_finetune_step", "parallel.engine",
+                "parallel.sharding", "parallel.mlm_step", "train.mlm_engine"):
         assert f"protein_clip_tpu_torch.{mod}" in names

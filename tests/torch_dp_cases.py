@@ -7,8 +7,14 @@ A case is a dict of plain values: ``arch`` ("clip" | "filip"), ``mode``
 ("frozen" | "finetune" | "lora"), ``packed``, ``cfg`` (``EngineConfig``
 keywords beside the model), ``use_dcl``, the trainable tree ``params`` and
 the frozen backbone ``esm`` as numpy trees, and the global batch's
-``peps``, ``recs``. Each case runs one step of the ``MeshEngine`` with SGD
-and, from the same start, one with Adam, and its eval step on the batch.
+``peps``, ``recs``; optionally ``tp`` (the mesh's model axis; the data
+axis is the world over it) and ``clip`` (Adam's global-norm clip). Each
+case runs one step of the ``MeshEngine`` with SGD and, from the same
+start, one with Adam, and its eval step on the batch; a rank reports its
+params and gradients in the one-device layout (its slices gathered over
+the model group). An MLM case (``arch`` "mlm") runs
+``parallel/mlm_step.py``'s step of ``mode`` ("head" | "finetune" |
+"lora") on the global batch ``arrs`` with each data shard's ``masks``.
 """
 
 from __future__ import annotations
@@ -21,12 +27,16 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from protein_clip_tpu_torch.cli import mlm_train
 from protein_clip_tpu_torch.data.tokenizer import EsmTokenizer
 from protein_clip_tpu_torch.models import clip, esm2, filip
-from protein_clip_tpu_torch.parallel import distributed
+from protein_clip_tpu_torch.parallel import distributed, mlm_step, sharding
 from protein_clip_tpu_torch.parallel.engine import MeshEngine
+from protein_clip_tpu_torch.parallel.mesh import make_mesh
+from protein_clip_tpu_torch.parallel.step import tp_model_config
 from protein_clip_tpu_torch.train import (checkpoint, clip_engine, filip_engine, filip_finetune,
-                                          filip_lora, finetune, lora, optimizer, packed_engine)
+                                          filip_lora, finetune, lora, mlm_engine, optimizer,
+                                          packed_engine)
 
 SGD_LR = 5e-2
 ADAM_LR = 1e-3
@@ -105,34 +115,150 @@ def single_batch(case: dict) -> dict:
     return clip_engine.tokenize_pair_batch(tok, case["peps"], case["recs"])
 
 
-def make_optimizer(name: str, params):
+def make_optimizer(name: str, params, clip: float = 0.0):
     if name == "grad":
         return Capture(params)
-    return SGD(params) if name == "sgd" else optimizer.adam(ADAM_LR).init(params)
+    if name == "sgd":
+        return SGD(params)
+    return optimizer.build(ADAM_LR, grad_clip=clip).init(params)
 
 
-def outcome(params, opt_state) -> dict:
+def outcome(params, opt_state, mesh=None) -> dict:
     """What a step left: the gradients it applied (``Capture``), else the
-    params."""
-    return opt_state.grads if isinstance(opt_state, Capture) else to_numpy(params)
+    params, in the one-device layout (gathered over ``mesh``'s model
+    group)."""
+    if isinstance(opt_state, Capture):
+        grads = opt_state.grads
+        if mesh is not None and mesh.model > 1:
+            grads = to_numpy(sharding.gather_params(
+                mesh, {k: torch.from_numpy(v) for k, v in grads.items()}))
+        return grads
+    if mesh is not None and mesh.model > 1:
+        params = sharding.gather_params(mesh, params)
+    return to_numpy(params)
 
 
 def run_case(case: dict) -> dict:
     """{"sgd": (loss, params), "adam": (loss, params), "grad": (loss,
     averaged gradients), "eval": loss} of this rank's run of the case."""
+    if case["arch"] == "mlm":
+        return run_mlm_case(case)
     cfg = engine_config(case)
-    engine = MeshEngine(data=distributed.world_size(), arch=case["arch"], mode=case["mode"],
-                        packed=case["packed"])
+    tp = case.get("tp", 1)
+    engine = MeshEngine(data=distributed.world_size() // tp, model=tp, arch=case["arch"],
+                        mode=case["mode"], packed=case["packed"], esm=cfg.model.esm)
     batch = engine.make_prepare(cfg, EsmTokenizer())(case["peps"], case["recs"])
-    esm = tensors(case["esm"])
+    esm = engine.prepare_esm(tensors(case["esm"]))
     out = {}
     for name in ("sgd", "adam", "grad"):
-        params = tensors(case["params"])
+        params = engine.prepare_params(tensors(case["params"]))
         params, state, loss = engine.make_train_step(cfg)(
-            params, make_optimizer(name, params), esm, batch, torch.Generator().manual_seed(0))
-        out[name] = (float(loss), outcome(params, state))
-    out["eval"] = float(engine.make_eval_step(cfg)(tensors(case["params"]), esm, batch))
+            params, make_optimizer(name, params, case.get("clip", 0.0)), esm, batch,
+            torch.Generator().manual_seed(0))
+        out[name] = (float(loss), outcome(params, state, engine.mesh))
+    out["eval"] = float(engine.make_eval_step(cfg)(engine.prepare_params(tensors(case["params"])),
+                                                   esm, batch))
     return out
+
+
+def mlm_view(mode: str, cfg):
+    """The MLM step's backbone view of a mode (``cli.mlm_train``'s)."""
+    if mode == "finetune":
+        return lambda t, _: finetune._cast_esm(t["esm"], cfg.compute_dtype)
+    if mode == "lora":
+        return lambda t, e: lora.merge_lora(
+            e, t["lora"], lora.default_alpha(next(iter(t["lora"].values()))["a"].shape[-1]),
+            cfg.model_axis)
+    return None
+
+
+def run_mlm_case(case: dict) -> dict:
+    """An MLM case on this rank's mesh: the rank's rows of ``arrs`` and its
+    data index's masks through ``mlm_step.make_sharded_mlm_steps``."""
+    tp = case.get("tp", 1)
+    cfg = esm2.ESM2Config.tiny()
+    mesh = make_mesh(data=distributed.world_size() // tp, model=tp, esm_cfg=cfg)
+    arrs = tuple(torch.from_numpy(a) for a in case["arrs"])
+    inputs = mlm_train.batch_inputs(mlm_step.rank_rows(arrs, mesh), case["packed"])
+    masks = tuple(torch.from_numpy(a) for a in case["masks"][mesh.index])
+    view = mlm_view(case["mode"], tp_model_config(cfg, mesh))
+    train, evaluate = mlm_step.make_sharded_mlm_steps(cfg, mesh, case["mode"], view)
+    esm = sharding.shard_params(mesh, tensors(case["esm"]))
+    out = {}
+    for name in ("sgd", "adam", "grad"):
+        trainable = sharding.shard_params(mesh, tensors(case["params"]))
+        trainable, state, loss = train(trainable, make_optimizer(name, trainable), esm, inputs,
+                                       masks)
+        out[name] = (float(loss), outcome(trainable, state, mesh))
+    out["eval"] = float(evaluate(sharding.shard_params(mesh, tensors(case["params"])), esm,
+                                 inputs, masks))
+    return out
+
+
+def single_device_mlm(case: dict, opt_name: str) -> tuple[float, dict]:
+    """The single-device MLM step over the whole batch (the shards' rows
+    and masks joined): (loss, ``outcome``)."""
+    cfg = esm2.ESM2Config.tiny()
+    inputs = mlm_train.batch_inputs(tuple(torch.from_numpy(a) for a in case["arrs"]),
+                                    case["packed"])
+    masks = tuple(torch.from_numpy(np.concatenate([m[i] for m in case["masks"]]))
+                  for i in range(2))
+    train, evaluate = mlm_engine.make_steps(cfg, case["mode"], mlm_view(case["mode"], cfg))
+    if opt_name == "eval":
+        return float(evaluate(tensors(case["params"]), tensors(case["esm"]), inputs, masks))
+    trainable = tensors(case["params"])
+    trainable, state, loss = train(trainable, make_optimizer(opt_name, trainable),
+                                   tensors(case["esm"]), inputs, masks)
+    return float(loss), outcome(trainable, state)
+
+
+def tp_forwards() -> dict:
+    """On a mesh of model axis 2 (data the world over it): the tiny
+    backbone's slices gathered back (to the bit), and the backbone's
+    forward on the rank's slices against the one-device forward on the
+    same batch: f32, bf16 and int8 (w8a8 over the bf16 tree: to the bit),
+    with each rank's bytes of the sharded tree beside the whole tree's."""
+    cfg32 = esm2.ESM2Config.tiny()
+    mesh = make_mesh(data=distributed.world_size() // 2, model=2, esm_cfg=cfg32)
+    full = esm2.init_params(cfg32, torch.Generator().manual_seed(3), device="cpu")
+    back = sharding.gather_params(mesh, sharding.shard_params(mesh, full))
+    round_trip = all(torch.equal(a, b) for a, b in zip(optimizer.tree_leaves(full),
+                                                       optimizer.tree_leaves(back)))
+    rng = np.random.default_rng(4)
+    ids = torch.from_numpy(rng.integers(4, 24, (3, 20)).astype(np.int32))
+    ids[:, 0] = 0
+    mask = torch.ones_like(ids)
+    mask[1, 14:] = 0
+    ids[1, 13] = 2
+    out = {"round_trip": round_trip}
+    for name, dtype, tree in (("f32", torch.float32, full),
+                              ("bf16", torch.bfloat16, esm2.cast_params(full, torch.bfloat16)),
+                              ("int8", torch.bfloat16,
+                               esm2.quantize_params(esm2.cast_params(full, torch.bfloat16)))):
+        cfg = esm2.ESM2Config.tiny(compute_dtype=dtype)
+        with torch.no_grad():
+            one = esm2.forward(tree, ids, mask, cfg)
+            shards = sharding.shard_params(mesh, tree)
+            got = esm2.forward(shards, ids, mask, tp_model_config(cfg, mesh))
+        out[name] = {"one": one.float().numpy(), "tp": got.float().numpy(),
+                     "bytes": sharding.nbytes(shards), "full_bytes": sharding.nbytes(tree)}
+    return out
+
+
+def cli_resume(argv: list[str], runs: str) -> None:
+    """A CLI training run of this world (``cli.main``, whose ranks are this
+    world's) for two epochs under ``runs``/full, and for one under
+    ``runs``/cut resumed to two from its snapshot: rank 0 writes both."""
+    from protein_clip_tpu_torch.cli import main
+
+    assert main.main(argv + ["--epochs", "2", "--runs-dir", f"{runs}/full"]) == 0
+    assert main.main(argv + ["--epochs", "1", "--runs-dir", f"{runs}/cut"]) == 0
+    cut = distributed.broadcast_object(
+        str(next(Path(f"{runs}/cut").iterdir())) if distributed.is_primary() else None)
+    assert main.main(argv + ["--epochs", "2", "--runs-dir", f"{runs}/cut",
+                             "--resume-dir", cut]) == 0
+
+
 
 
 # pmean_grads' leaves: (shape, dtype, gradient stored transposed); the last
@@ -171,15 +297,22 @@ def pmean_buckets() -> list[np.ndarray | None]:
     return [None if t.grad is None else t.grad.numpy() for t in leaves]
 
 
+EXTRAS = {"pmean": pmean_buckets, "tp_forwards": tp_forwards, "cli_resume": cli_resume}
+
+
 def run_world(local_rank: int, case_file: str, out_dir: str) -> None:
     """A rank's entry (``distributed.spawn``): every case of the file, then
-    ``pmean_buckets`` (under "pmean")."""
+    its ``__extras__`` ({``EXTRAS`` name: keywords}; ``pmean_buckets`` by
+    default)."""
     os.environ["PCT_ROWS_PER_CHUNK"] = ROWS_PER_CHUNK
     torch.use_deterministic_algorithms(True)
     with open(case_file, "rb") as f:
         cases = pickle.load(f)
+    extras = cases.pop("__extras__", {"pmean": {}})
     results = {name: run_case(case) for name, case in cases.items()}
-    results["pmean"] = pmean_buckets()
+    for name, kwargs in extras.items():
+        results[name] = EXTRAS[name](**kwargs)
+    results["__work__"] = out_dir
     with open(Path(out_dir) / f"rank{distributed.rank()}.pkl", "wb") as f:
         pickle.dump(results, f)
 
@@ -208,8 +341,8 @@ def single_device(case: dict, opt_name: str) -> tuple[float, dict]:
     try:
         params = tensors(case["params"])
         params, state, loss = single_engine(case).make_train_step(engine_config(case))(
-            params, make_optimizer(opt_name, params), tensors(case["esm"]), single_batch(case),
-            torch.Generator().manual_seed(0))
+            params, make_optimizer(opt_name, params, case.get("clip", 0.0)),
+            tensors(case["esm"]), single_batch(case), torch.Generator().manual_seed(0))
         return float(loss), outcome(params, state)
     finally:
         del os.environ["PCT_ROWS_PER_CHUNK"]

@@ -54,8 +54,26 @@ def noisy_adapters(adapters, rng):
                         adapters)
 
 
-def jax_mesh():
-    return make_mesh(data=2, model=1, devices=jax.devices()[:2])
+def jax_mesh(data: int = 2, model: int = 1):
+    return make_mesh(data=data, model=model, devices=jax.devices()[:data * model])
+
+
+def tp_place(mesh):
+    """(params, esm) -> both on JAX's Megatron shardings over ``mesh``'s
+    'model' axis (``sharding.shard_params``: the backbone, and a finetune
+    tree's f32 masters), as its ``MeshEngine.prepare_esm`` and
+    ``prepare_params`` place them."""
+    from protein_clip_tpu.parallel import sharding as jsharding
+
+    def shard(tree):
+        return jsharding.shard_params(mesh, tree, jsharding.esm_param_specs(tree))
+
+    def place(params, esm):
+        if "esm" in params:
+            params = {**params, "esm": shard(params["esm"])}
+        return params, (shard(esm) if esm else esm)
+
+    return place
 
 
 def capture():
@@ -76,14 +94,27 @@ def build(factory, *args, **kwargs):
         del os.environ["PCT_ROWS_PER_CHUNK"]
 
 
-def run_jax(step, tx, case: dict, batch) -> list:
-    """[loss, averaged gradients, params after SGD, after Adam] of one JAX
-    step over the case (flat trees)."""
+def jax_adam(clip: float = 0.0):
+    adam = optax.adam(cases_mod.ADAM_LR)
+    return optax.chain(optax.clip_by_global_norm(clip), adam) if clip else adam
+
+
+def run_jax(step, tx, case: dict, batch, place=None, *extra) -> list:
+    """[loss, averaged gradients, params after SGD, after Adam (with the
+    case's clip)] of one JAX step over the case (flat trees); ``place``
+    puts the params and backbone on the mesh's shardings, ``extra`` are
+    arguments after the batch."""
     params = jax.tree.map(jnp.asarray, case["params"])
     esm = jax.tree.map(jnp.asarray, case["esm"])
-    _, grads, loss = step(params, tx.init(params), esm, batch, jax.random.key(0))
+    if place is not None:
+        params, esm = place(params, esm)
+    _, grads, loss = step(params, tx.init(params), esm, batch, *extra, jax.random.key(0))
+    # the updates on one device, from the gradients as numpy (sharded ones
+    # gathered)
+    grads = jax.tree.map(jnp.asarray, np_tree(grads))
+    params = jax.tree.map(jnp.asarray, case["params"])
     out = [float(loss), cases_mod.flat(np_tree(grads))]
-    for opt in (optax.sgd(cases_mod.SGD_LR), optax.adam(cases_mod.ADAM_LR)):
+    for opt in (optax.sgd(cases_mod.SGD_LR), jax_adam(case.get("clip", 0.0))):
         updates, _ = opt.update(grads, opt.init(params), params)
         out.append(cases_mod.flat(np_tree(optax.apply_updates(params, updates))))
     return out
@@ -111,31 +142,41 @@ def assert_step_close(got: dict, want: dict, grads: dict, wgrads: dict, what: st
 
 
 def check_case(case: dict, ranks: list[dict], jax_out: list) -> None:
-    """A case's checks: both ranks equal to the bit; rank 0 against JAX's
-    step and against the port's single-device step at the same global
-    batch; the sharded eval against the single-device eval."""
+    """A case's checks: every rank equal to the bit (their params and
+    gradients in the one-device layout: the model ranks' slices gathered);
+    rank 0 against JAX's step and against the port's single-device step at
+    the same global batch; the sharded eval against the single-device
+    eval."""
     for opt in ("sgd", "adam", "grad"):
-        assert ranks[0][opt][0] == ranks[1][opt][0]
-        other = cases_mod.flat(ranks[1][opt][1])
-        for k, v in cases_mod.flat(ranks[0][opt][1]).items():
-            np.testing.assert_array_equal(v, other[k], err_msg=f"{opt}: {k}")
+        for rank in ranks[1:]:
+            assert ranks[0][opt][0] == rank[opt][0]
+            other = cases_mod.flat(rank[opt][1])
+            for k, v in cases_mod.flat(ranks[0][opt][1]).items():
+                np.testing.assert_array_equal(v, other[k], err_msg=f"{opt}: {k}")
+    for rank in ranks[1:]:
+        assert ranks[0]["eval"] == rank["eval"]
     got = ranks[0]
     loss, jgrads, p_sgd, p_adam = jax_out
     assert_step_close(got, {"loss": loss, "sgd": p_sgd, "adam": p_adam}, got["grad"][1], jgrads,
                       "against JAX")
-    one = {opt: cases_mod.single_device(case, opt) for opt in ("sgd", "adam", "grad")}
+    if case["arch"] == "mlm":
+        one = {opt: cases_mod.single_device_mlm(case, opt) for opt in ("sgd", "adam", "grad")}
+        one_eval = cases_mod.single_device_mlm(case, "eval")
+    else:
+        one = {opt: cases_mod.single_device(case, opt) for opt in ("sgd", "adam", "grad")}
+        one_eval = cases_mod.single_device_eval(case)
     assert_step_close(got, {"loss": one["sgd"][0], "sgd": cases_mod.flat(one["sgd"][1]),
                             "adam": cases_mod.flat(one["adam"][1])},
                       got["grad"][1], one["grad"][1], "against one device")
-    np.testing.assert_allclose(got["eval"], cases_mod.single_device_eval(case), rtol=TOL)
+    np.testing.assert_allclose(got["eval"], one_eval, rtol=TOL)
 
 
-def world_future(cases: dict, work: Path):
-    """The port's two-rank run of every case, started in the background so
-    it runs beside JAX's compiles: (a future of [rank 0's, rank 1's], the
-    pool to shut down)."""
+def world_future(cases: dict, work: Path, n: int = 2):
+    """The port's run of every case on ``n`` ranks, started in the
+    background so it runs beside JAX's compiles: (a future of the ranks'
+    results by rank, the pool to shut down)."""
     pool = concurrent.futures.ThreadPoolExecutor(1)
-    return pool.submit(cases_mod.spawn_world, cases, work), pool
+    return pool.submit(cases_mod.spawn_world, cases, work, n), pool
 
 
 # -- the CLIs ------------------------------------------------------------------
